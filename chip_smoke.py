@@ -13,23 +13,40 @@ if any phase fails:
 3. kernels — each kernel against its plain PyTorch version on the card
    at the serving path's shapes, fp32 (tolerance 1e-4) and bf16 (2e-2),
    with its time, the plain version's time, one PyTorch library call's
-   time (SDPA) and the least time the card could take;
+   time (SDPA) and the least time the card could take: K1 (decode
+   read), K3 (flash forward) and K2 (chunk-after-prefix read) at a
+   256-row prefill chunk behind 768 cached positions, a 64-row prefix-hit
+   suffix behind 512, and an 8-slot verify of 5 rows with per-slot
+   prefixes;
 4. engine — the bench-LM flagship (vocab 32768, d_model 1024, 12
    layers, GQA 8:2, bf16, random weights from a seed) served by the
    port's ``GenerationEngine``: 12 concurrent requests over 8 slots,
    each to its full token budget, plus one full-width
-   ``transformer.apply``; then the fp32 engine against the port's
-   cache-free oracle (dense attention): tokens identical, logits within
-   1e-3 (TF32 off), and the bf16 engine's logits within 0.2 / 0.1 of
-   that fp32 oracle;
-5. the ``kernels`` line — every ported kernel with its launches on the
-   engine path (counts zeroed just before it, read just after), its
+   ``transformer.apply``;
+5. prefix — the same flagship with the prefix cache and 256-token
+   prefill chunks: 3 cohorts x 4 requests sharing a 512-token prefix
+   (one lead each first, then the rest beside two cold 900-token
+   prompts), every request to its full budget, >= 9 prefix hits, more
+   prefill chunks than prefills;
+6. speculative — the flagship (upper layers dampened) verifying the
+   proposals of its own first 2 layers, ``spec_k=4``, 8 requests;
+7. conformance — the fp32 engine against the port's cache-free oracle
+   (dense attention): tokens identical, logits within 1e-3 (TF32 off),
+   and the bf16 engine's logits within 0.2 / 0.1 of that fp32 oracle;
+8. identity — fp32 tokens of the prefix/chunked engine and of the
+   speculative engine equal the plain engine's (``prefix_cache=False``,
+   monolithic prefill) on 4 short requests each, apart from steps where
+   the plain engine's top-2 logit gap is below 1e-3; the bf16 agreement
+   is printed, not asserted;
+9. the ``kernels`` line — every ported kernel with its launches on each
+   engine path (counts zeroed just before a path, read just after), its
    max |Δ| and its times.
 
-One JSON object per phase, then the card line, the ``kernels`` line and
-the last line ``{"ok": true, "device": {...}}``.
+One JSON object per phase, then the run's total seconds, the card line,
+the ``kernels`` line and the last line ``{"ok": true, "device": {...}}``.
 """
 
+import dataclasses
 import json
 import statistics
 import sys
@@ -218,6 +235,74 @@ def check_flash(dtype_name, S, flush):
     return row
 
 
+VERIFY_PREFIXES = [0, 1, 17, 100, 333, 512, 777, 1019]
+# K2 at the engine's shapes: (call site, slots, chunk rows, prefixes)
+CHUNK_CASES = (("prefill_chunk", 1, 256, [768]),
+               ("prefix_hit", 1, 64, [512]),
+               ("verify", 8, 5, VERIFY_PREFIXES))
+
+
+def check_chunk(dtype_name, case, flush):
+    import torch
+    import torch.nn.functional as F
+    from kubeflow_tpu_torch.compute.ops import paged_attention as ops
+    site, B, S, prefixes = case
+    dtype = getattr(torch, dtype_name)
+    kv, n_rep, D, bs, bps = 2, 4, 128, 16, 64
+    H = kv * n_rep
+    g = torch.Generator().manual_seed(S)
+    N = B * bps
+    kc, vc = (torch.randn((N, bs, kv, D), generator=g).to("cuda", dtype)
+              for _ in range(2))
+    q = torch.randn((B, S, H, D), generator=g).to("cuda", dtype)
+    kch, vch = (torch.randn((B, S, kv, D), generator=g).to("cuda", dtype)
+                for _ in range(2))
+    tables = torch.randperm(N, generator=g).reshape(B, bps).to(
+        "cuda", torch.int32)
+    plen = torch.tensor(prefixes, dtype=torch.int32, device="cuda")
+    args = (q, (kc, vc), tables, plen, kch, vch)
+    kw = dict(block_size=bs, n_rep=n_rep)
+    got = ops.paged_chunk_attention(*args, **kw)
+    want = ops.paged_chunk_reference(*args, **kw)
+    torch.cuda.synchronize()
+    err = float((got.float() - want.float()).abs().max())
+    ok = bool(torch.isfinite(got.float()).all()) and err <= TOL[dtype_name]
+    ms = time_ms(lambda: ops.paged_chunk_attention(*args, **kw),
+                 flush=flush)
+    plain_ms = time_ms(lambda: ops.paged_chunk_reference(*args, **kw),
+                       flush=flush)
+    # library yardstick: SDPA over the gathered prefix followed by the
+    # chunk, under the two-part boolean mask (prefix columns below each
+    # slot's prefix length, chunk columns causal); the gather is set-up
+    P = bps * bs
+    k_all, v_all = (torch.cat([p[tables.long()].reshape(B, P, kv, D), c],
+                              dim=1).repeat_interleave(n_rep, dim=2)
+                    .transpose(1, 2) for p, c in ((kc, kch), (vc, vch)))
+    rows = torch.arange(S, device="cuda")[:, None]
+    cols = torch.arange(P + S, device="cuda")[None, :]
+    mask = torch.where(cols[None] < P, cols[None] < plen[:, None, None],
+                       (cols - P <= rows)[None])[:, None]
+    qt = q.transpose(1, 2)
+    library_ms = time_ms(lambda: F.scaled_dot_product_attention(
+        qt, k_all, v_all, attn_mask=mask), flush=flush)
+    itemsize = q.element_size()
+    n_prefix = int(plen.sum())
+    bytes_moved = ((2 * q.numel() + kch.numel() + vch.numel()) * itemsize
+                   + 2 * n_prefix * kv * D * itemsize
+                   + tables.numel() * 4 + plen.numel() * 4)
+    flops = 4 * H * D * S * (n_prefix + B * (S + 1) / 2)
+    bound_ms, bound_by = bound(bytes_moved, flops, dtype_name)
+    row = {"phase": "kernels", "kernel": "paged_chunk", "dtype": dtype_name,
+           "shape": {"site": site, "batch": B, "chunk": S, "heads": H,
+                     "kv_heads": kv, "head_dim": D, "block_size": bs,
+                     "blocks_per_slot": bps, "prefix": prefixes},
+           "max_abs_err": err, "tol": TOL[dtype_name], "ok": ok,
+           "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+           "bound_ms": bound_ms, "bound_by": bound_by}
+    emit(row)
+    return row
+
+
 def phase_kernels():
     import torch
     flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
@@ -226,6 +311,8 @@ def phase_kernels():
         rows.append(check_paged(dtype_name, flush))
         for S in (8, 256, 300, 1024):
             rows.append(check_flash(dtype_name, S, flush))
+        for case in CHUNK_CASES:
+            rows.append(check_chunk(dtype_name, case, flush))
     bad = [r for r in rows if not r["ok"]]
     if bad:
         raise AssertionError(f"kernel disagrees with its plain version: "
@@ -280,12 +367,7 @@ def phase_engine(params, kernel_fns):
         launches = {name: fn.launches for name, fn in kernel_fns.items()}
     finally:
         eng.close()
-    for (prompt, m), (out, reason) in zip(reqs, outs):
-        if reason != "length" or len(out) != m \
-                or not all(0 <= t < cfg.vocab_size for t in out):
-            raise AssertionError(f"request of {len(prompt)} prompt tokens "
-                                 f"ended {reason!r} with {len(out)} of "
-                                 f"{m} tokens")
+    _check_served(reqs, outs, cfg.vocab_size)
     if logits.shape != (1, cfg.max_seq, cfg.vocab_size) \
             or not bool(torch.isfinite(logits).all()):
         raise AssertionError(f"apply gave {tuple(logits.shape)} logits "
@@ -316,17 +398,162 @@ def phase_engine(params, kernel_fns):
            "apply_vs_fp32_max_abs": apply_err,
            "launches": launches}
     emit(row)
-    missing = [n for n, c in launches.items() if c == 0]
+    _require(launches, ("paged_decode", "flash_fwd"), "plain engine")
+    return row
+
+
+def _require(launches, names, path):
+    missing = [n for n in names if launches[n] == 0]
     if missing:
-        raise AssertionError(f"kernels never launched on the main path: "
+        raise AssertionError(f"kernels never launched on the {path} path: "
                              f"{missing}")
+
+
+def _check_served(reqs, outs, vocab):
+    for (prompt, m), (out, reason) in zip(reqs, outs):
+        if reason != "length" or len(out) != m \
+                or not all(0 <= t < vocab for t in out):
+            raise AssertionError(f"request of {len(prompt)} prompt tokens "
+                                 f"ended {reason!r} with {len(out)} of "
+                                 f"{m} tokens")
+
+
+COHORT_PREFIX = 512
+COHORT_SUFFIXES = (16, 40, 100, 200)     # the first is each cohort's lead
+
+
+def cohort_requests(vocab, budget=32, seed=3):
+    """3 cohorts x 4 prompts sharing a 512-token prefix, and two cold
+    900-token prompts → (leads, rest, cold), each a list of
+    ``(prompt, max_tokens)``."""
+    rng = np.random.default_rng(seed)
+    cohorts = []
+    for _ in range(3):
+        prefix = rng.integers(0, vocab, COHORT_PREFIX).tolist()
+        cohorts.append([(prefix + rng.integers(0, vocab, n).tolist(), budget)
+                        for n in COHORT_SUFFIXES])
+    leads = [c[0] for c in cohorts]
+    rest = [r for c in cohorts for r in c[1:]]
+    cold = [(rng.integers(0, vocab, 900).tolist(), 64) for _ in range(2)]
+    return leads, rest, cold
+
+
+def phase_prefix(params, kernel_fns):
+    """The prefix + chunked path: bf16 flagship, ``prefix_cache=True``,
+    ``prefill_chunk=256``. Each cohort's lead runs first (its prompt
+    enters the trie only at its last chunk), then the other 9 cohort
+    requests beside two cold 900-token prompts."""
+    from kubeflow_tpu_torch.compute import generate as gen_lib
+    cfg = flagship_config()
+    eng = gen_lib.GenerationEngine(params, cfg, max_slots=8, block_size=16,
+                                   max_context=1024, prefill_chunk=256,
+                                   name="prefix")
+    leads, rest, cold = cohort_requests(cfg.vocab_size)
+    try:
+        eng.generate([1, 2, 3], max_tokens=2)        # warm-up
+        for fn in kernel_fns.values():
+            fn.launches = 0
+        s0 = dict(eng.stats)
+        t0 = time.perf_counter()
+        lead_handles = [eng.submit(p, max_tokens=m) for p, m in leads]
+        outs = [h.result(timeout=600) for h in lead_handles]
+        handles = [eng.submit(p, max_tokens=m) for p, m in rest + cold]
+        outs += [h.result(timeout=600) for h in handles]
+        wall = time.perf_counter() - t0
+        d = {k: eng.stats[k] - s0[k] for k in s0}
+        launches = {name: fn.launches for name, fn in kernel_fns.items()}
+        snap = eng.snapshot()
+    finally:
+        eng.close()
+    reqs = leads + rest + cold
+    _check_served(reqs, outs, cfg.vocab_size)
+    handles = lead_handles + handles
+    ttft = sorted(h.ttft_s for h in handles)
+    n_tokens = sum(len(o) for o, _ in outs)
+    prefills = d["prefills"]
+    row = {"phase": "prefix", "dtype": "bfloat16", "requests": len(reqs),
+           "slots": 8, "prefill_chunk": 256, "tokens": n_tokens,
+           "wall_s": wall, "tokens_per_s": n_tokens / wall,
+           "ttft_p50_ms": 1e3 * statistics.median(ttft),
+           "ttft_max_ms": 1e3 * ttft[-1],
+           "prefills": prefills,
+           "prefill_chunks": d["prefill_chunks"],
+           "prefill_ms_mean": 1e3 * d["prefill_seconds_total"]
+                              / prefills,
+           "prefix_hits": d["prefix_hits"],
+           "prefix_misses": d["prefix_misses"],
+           "prefix_tokens_skipped": d["prefix_tokens_skipped"],
+           "decode_steps": d["decode_steps"],
+           "decode_step_ms": 1e3 * d["decode_seconds_total"]
+                             / d["decode_steps"],
+           "cached_blocks": snap["prefix_cache"]["cached_blocks"],
+           "launches": launches}
+    emit(row)
+    if row["prefix_hits"] < 9:
+        raise AssertionError(f"{row['prefix_hits']} prefix hits, want >= 9")
+    if row["prefill_chunks"] <= prefills:
+        raise AssertionError(f"{row['prefill_chunks']} prefill chunks for "
+                             f"{prefills} prefills: nothing was chunked")
+    _require(launches, ("paged_chunk", "paged_decode"), "prefix + chunked")
+    return row
+
+
+def spec_pair(params, cfg):
+    """The flagship with layers 2.. dampened by 0.02, and its first 2
+    layers as the draft → (target, draft, draft config)."""
+    from kubeflow_tpu_torch.compute import generate as gen_lib
+    return gen_lib.truncated_draft(params, cfg, 2, dampen=0.02)
+
+
+def phase_spec(target, draft, dcfg, kernel_fns):
+    """The speculative path: ``spec_k=4`` over the ``requests(8)`` mix."""
+    from kubeflow_tpu_torch.compute import generate as gen_lib
+    cfg = flagship_config()
+    eng = gen_lib.GenerationEngine(target, cfg, max_slots=8, block_size=16,
+                                   max_context=1024, draft_params=draft,
+                                   draft_config=dcfg, spec_k=4,
+                                   name="speculative")
+    reqs = requests(8, cfg.vocab_size)
+    try:
+        eng.generate([1, 2, 3], max_tokens=6)        # warm-up
+        for fn in kernel_fns.values():
+            fn.launches = 0
+        s0 = dict(eng.stats)
+        t0 = time.perf_counter()
+        handles = [eng.submit(p, max_tokens=m) for p, m in reqs]
+        outs = [h.result(timeout=600) for h in handles]
+        wall = time.perf_counter() - t0
+        d = {k: eng.stats[k] - s0[k] for k in s0}
+        launches = {name: fn.launches for name, fn in kernel_fns.items()}
+    finally:
+        eng.close()
+    _check_served(reqs, outs, cfg.vocab_size)
+    n_tokens = sum(len(o) for o, _ in outs)
+    proposed = d["spec_proposed"]
+    rounds = d["spec_rounds"]
+    ttft = sorted(h.ttft_s for h in handles)
+    row = {"phase": "speculative", "dtype": "bfloat16", "requests": len(reqs),
+           "slots": 8, "spec_k": 4, "draft_layers": dcfg.n_layers,
+           "tokens": n_tokens, "wall_s": wall,
+           "tokens_per_s": n_tokens / wall,
+           "ttft_p50_ms": 1e3 * statistics.median(ttft),
+           "rounds": rounds, "proposed": proposed,
+           "accepted": d["spec_accepted"],
+           "acceptance": d["spec_accepted"] / proposed
+           if proposed else None,
+           "round_ms": 1e3 * d["decode_seconds_total"]
+                       / max(1, d["decode_steps"]),
+           "launches": launches}
+    emit(row)
+    _require(launches, ("paged_chunk", "flash_fwd"), "speculative")
     return row
 
 
 def _engine_logits(params, cfg, reqs):
     from kubeflow_tpu_torch.compute import generate as gen_lib
     eng = gen_lib.GenerationEngine(params, cfg, max_slots=8, block_size=16,
-                                   max_context=1024, debug_logits=True,
+                                   max_context=1024, prefix_cache=False,
+                                   debug_logits=True,
                                    name=f"conformance-{cfg.dtype}")
     try:
         handles = [eng.submit(p, max_tokens=m) for p, m in reqs]
@@ -377,20 +604,107 @@ def phase_conformance(params):
     return report
 
 
+def _served(eng, batches):
+    """Submit each batch of ``(prompt, max_tokens)`` together, the next
+    after the last finished → the generated tokens, in order."""
+    out = []
+    for batch in batches:
+        handles = [eng.submit(p, max_tokens=m) for p, m in batch]
+        out += [h.result(timeout=600)[0] for h in handles]
+    return out
+
+
+def _agreement(got, want, rows=None, tol=1e-3):
+    """Per request: the first step where ``got`` leaves ``want``, and the
+    plain engine's top-2 logit gap there (``rows`` given). A mismatch
+    at a gap of ``tol`` or more raises."""
+    report = []
+    for i, (a, b) in enumerate(zip(got, want)):
+        n = next((j for j, (x, y) in enumerate(zip(a, b)) if x != y),
+                 None if len(a) == len(b) else min(len(a), len(b)))
+        entry = {"steps": len(b), "first_mismatch": n}
+        if n is not None and rows is not None:
+            top2 = np.sort(rows[i][n])[-2:]
+            entry["plain_top2_gap"] = gap = float(top2[1] - top2[0])
+            if gap >= tol:
+                raise AssertionError(f"request {i}: token {n} differs from "
+                                     f"the plain engine's, whose top-2 gap "
+                                     f"there is {gap}")
+        report.append(entry)
+    return report
+
+
+def phase_identity(params, target, draft, dcfg):
+    """fp32 tokens of the prefix/chunked engine and of the speculative
+    engine against the plain engine (``prefix_cache=False``, monolithic
+    prefill, ``debug_logits`` for the top-2 gaps), 4 short requests each
+    at full width; bf16 agreement printed only."""
+    from kubeflow_tpu_torch.compute import generate as gen_lib
+    kw = dict(max_slots=8, block_size=16, max_context=1024)
+    leads, rest, cold = cohort_requests(32768, budget=8)
+    prefix_batches = [[leads[0]], [rest[0], rest[1], (cold[0][0], 8)]]
+    spec_reqs = [(p, min(m, 16)) for p, m in requests(4, 32768)]
+    report = {"phase": "identity"}
+    for dtype in ("float32", "bfloat16"):
+        cfg = flagship_config(dtype)
+        for path, model, batches, extra in (
+                ("prefix", params, prefix_batches,
+                 dict(prefill_chunk=256)),
+                ("speculative", target, [spec_reqs],
+                 dict(draft_params=draft, spec_k=4,
+                      draft_config=dataclasses.replace(dcfg,
+                                                       dtype=dtype)))):
+            flat = [r for b in batches for r in b]
+            eng = gen_lib.GenerationEngine(model, cfg, name=f"{path}-{dtype}",
+                                           **kw, **extra)
+            try:
+                got = _served(eng, batches)
+                hits = eng.stats["prefix_hits"]
+            finally:
+                eng.close()
+            plain = gen_lib.GenerationEngine(
+                model, cfg, prefix_cache=False, name=f"plain-{dtype}",
+                debug_logits=dtype == "float32", **kw)
+            try:
+                handles = [plain.submit(p, max_tokens=m) for p, m in flat]
+                want = [h.result(timeout=600)[0] for h in handles]
+                rows = [h.logits for h in handles] \
+                    if dtype == "float32" else None
+            finally:
+                plain.close()
+            entries = _agreement(got, want, rows)
+            same = sum(x == y for a, b in zip(got, want)
+                       for x, y in zip(a, b))
+            report[f"{path}_{dtype}"] = {
+                "requests": len(flat), "tokens_equal": same,
+                "tokens": sum(len(b) for b in want),
+                "prefix_hits": hits, "per_request": entries}
+    emit(report)
+    if report["prefix_float32"]["prefix_hits"] < 2:
+        raise AssertionError("the fp32 prefix identity run had no hits")
+    return report
+
+
 def main():
     import torch
     from kubeflow_tpu_torch.compute.models import transformer
     from kubeflow_tpu_torch.compute.ops import flash_attention as flash_ops
     from kubeflow_tpu_torch.compute.ops import paged_attention as paged_ops
+    t_start = time.perf_counter()
     info = phase_device()
     phase_build()
     rows = phase_kernels()
     params = transformer.init_params(
         flagship_config(), torch.Generator().manual_seed(0), device="cuda")
     kernel_fns = {"paged_decode": paged_ops.paged_decode_attention,
+                  "paged_chunk": paged_ops.paged_chunk_attention,
                   "flash_fwd": flash_ops.flash_attention}
-    engine = phase_engine(params, kernel_fns)
+    paths = {"engine": phase_engine(params, kernel_fns),
+             "prefix": phase_prefix(params, kernel_fns)}
+    target, draft, dcfg = spec_pair(params, flagship_config())
+    paths["speculative"] = phase_spec(target, draft, dcfg, kernel_fns)
     phase_conformance(params)
+    phase_identity(params, target, draft, dcfg)
     meta = {
         "paged_decode": (
             "kubeflow_tpu_torch/compute/ops/csrc/paged_decode.cu",
@@ -398,17 +712,25 @@ def main():
         "flash_fwd": (
             "kubeflow_tpu_torch/compute/ops/csrc/flash_fwd.cu",
             "kubeflow_tpu/compute/ops/flash_attention.py:36"),
+        "paged_chunk": (
+            "kubeflow_tpu_torch/compute/ops/csrc/paged_chunk.cu",
+            "kubeflow_tpu/compute/ops/paged_attention.py:190"),
     }
     main_shape = {"paged_decode": lambda r: r["dtype"] == "bfloat16",
                   "flash_fwd": lambda r: (r["dtype"] == "bfloat16"
-                                          and r["shape"]["seq"] == 1024)}
+                                          and r["shape"]["seq"] == 1024),
+                  "paged_chunk": lambda r: (
+                      r["dtype"] == "bfloat16"
+                      and r["shape"]["site"] == "prefill_chunk")}
     kernels = []
     for name, (source, replaces) in meta.items():
         r = next(r for r in rows
                  if r["kernel"] == name and main_shape[name](r))
+        by_path = {p: row["launches"][name] for p, row in paths.items()}
         kernels.append({
             "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": engine["launches"][name],
+            "replaces": replaces, "launches": sum(by_path.values()),
+            "launches_by_path": by_path,
             "max_abs_err": max(x["max_abs_err"] for x in rows
                                if x["kernel"] == name
                                and x["dtype"] == "bfloat16"),
@@ -416,6 +738,7 @@ def main():
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"], "dtype": r["dtype"],
             "shape": r["shape"]})
+    emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     print(info["card"], flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": info["kind"],

@@ -3,12 +3,19 @@
     python3 hack/port_decode_profile.py [--context 512] [--steps 20]
 
 Builds the bench-LM flagship engine of ``chip_smoke.py`` (bf16, 8
-slots, block 16, random weights from a seed) and drives its device
-steps directly from this thread:
+slots, block 16, random weights from a seed; layers 2.. dampened and
+the first 2 as the speculative draft, ``spec_k=4``, as in its
+speculative phase) and drives its device steps directly from this
+thread:
 
 - the decode step with all 8 slots active at ``--context`` cached
   positions each;
-- the prefill step of one 300-token prompt.
+- the prefill step of one 300-token prompt;
+- one 256-token prefill chunk behind 768 cached positions (the chunk
+  read, K2, with a scalar prefix);
+- the draft's proposal of 4 tokens for 8 slots, then the target's
+  verify of 5 positions per slot at ``--context`` (K2 with per-slot
+  prefixes).
 
 For each it prints one JSON line: the host wall time per step (each
 step ends in a device sync), the device time per step (the sum of the
@@ -29,7 +36,7 @@ from torch.autograd import DeviceType
 
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
 
-from chip_smoke import flagship_config  # noqa: E402
+from chip_smoke import flagship_config, spec_pair  # noqa: E402
 from kubeflow_tpu_torch.compute import device as device_lib  # noqa: E402
 from kubeflow_tpu_torch.compute import generate as gen_lib  # noqa: E402
 from kubeflow_tpu_torch.compute.models import transformer  # noqa: E402
@@ -97,13 +104,17 @@ def main(argv=None):
     cfg = flagship_config()
     params = transformer.init_params(
         cfg, torch.Generator().manual_seed(args.seed), device="cuda")
-    eng = gen_lib.GenerationEngine(params, cfg, max_slots=8, block_size=16,
-                                   max_context=1024, name="profile")
+    target, draft, dcfg = spec_pair(params, cfg)
+    K = 4
+    eng = gen_lib.GenerationEngine(target, cfg, max_slots=8, block_size=16,
+                                   max_context=1024, draft_params=draft,
+                                   draft_config=dcfg, spec_k=K,
+                                   name="profile")
     try:
         rng = np.random.default_rng(args.seed)
         S, bs, bps = eng.max_slots, eng.block_size, eng.blocks_per_slot
         ctx = args.context
-        per_slot = -(-(ctx + 1) // bs)
+        per_slot = -(-(ctx + K + 1) // bs)
         blocks = rng.permutation(eng.num_blocks)[:S * per_slot].reshape(
             S, per_slot)
         tables = np.zeros((S, bps), np.int32)
@@ -120,12 +131,37 @@ def main(argv=None):
             fresh = list(range(-(-300 // bs)))
             prefill = profile(lambda: eng._prefill_step(prompt, 300, fresh),
                               max(3, args.steps // 4))
+            order = rng.permutation(eng.num_blocks).tolist()
+            chunk_toks = rng.integers(0, cfg.vocab_size, 256).astype(np.int64)
+            chunk = profile(lambda: eng._prefill_cached_step(
+                chunk_toks, 256, 768, order[:48], order[48:64]),
+                max(3, args.steps // 4))
+            limits = (lengths + K).astype(np.int64)
+            propose = profile(lambda: eng._propose_step(tokens, lengths,
+                                                        limits), args.steps)
+            vtokens = np.concatenate(
+                [tokens[:, None],
+                 rng.integers(0, cfg.vocab_size, (S, K))], axis=1)
+            pos = ctx + np.arange(K + 1)
+            vwrites = np.stack([
+                np.repeat(np.arange(S), K + 1), np.tile(np.arange(K + 1), S),
+                blocks[:, pos // bs].reshape(-1),
+                np.tile(pos % bs, S)]).astype(np.int64)
+            verify = profile(lambda: eng._verify_step(tables, lengths,
+                                                      vtokens, vwrites),
+                             args.steps)
     finally:
         eng.close()
     print(json.dumps({"step": "decode", "slots": S, "context": ctx,
                       **decode}), flush=True)
     print(json.dumps({"step": "prefill", "prompt": 300, **prefill}),
           flush=True)
+    print(json.dumps({"step": "prefill_chunk", "chunk": 256, "prefix": 768,
+                      **chunk}), flush=True)
+    print(json.dumps({"step": "propose", "slots": S, "spec_k": K,
+                      "draft_layers": dcfg.n_layers, **propose}), flush=True)
+    print(json.dumps({"step": "verify", "slots": S, "rows": K + 1,
+                      "context": ctx, **verify}), flush=True)
 
 
 if __name__ == "__main__":

@@ -1,7 +1,8 @@
-"""Plain attention reads: the dense reference, the decode read over a
-gathered cache, and the block-streamed read over the paged KV pool.
+"""Plain attention reads: the dense reference, the decode and chunk
+reads over a gathered cache, and their block-streamed twins over the
+paged KV pool.
 
-Torch twins of ``kubeflow_tpu/compute/attention.py`` (lines 24-249),
+Torch twins of ``kubeflow_tpu/compute/attention.py`` (lines 24-310),
 op for op: the same contractions, fp32 logits from operands in the
 input dtype (JAX's ``preferred_element_type=float32`` — here the
 operands are widened to fp32, which multiplies them exactly and sums in
@@ -64,6 +65,32 @@ def decode_attention(q, k, v, lengths, scale=None):
     return torch.einsum("bhqk,bkhd->bqhd", probs, v)
 
 
+def chunk_attention(q, k, v, prefix_len, scale=None):
+    """Attention for a contiguous chunk of new rows appended after a
+    cached prefix (``attention.py:82-127``) — the read of the engine's
+    cached partial prefill and, with a per-slot ``[B]`` prefix, of its
+    speculative verify.
+
+    ``q`` ``[B, S, H, D]`` are the chunk rows at positions
+    ``prefix_len + arange(S)``; ``k``/``v`` ``[B, P+S, H, D]`` are the
+    gathered prefix pages padded to a static ``P`` followed by the
+    chunk's own K/V. Two-part mask: prefix columns are valid iff
+    ``col < prefix_len`` (an int, a 0-d tensor, or a ``[B]`` tensor);
+    chunk columns are causal within the chunk. Mirrors
+    :func:`dense_attention` op for op."""
+    q = _scale(q, scale)
+    logits = _logits(q, k)
+    S = q.shape[1]
+    P = k.shape[1] - S
+    rows = torch.arange(S, device=q.device)[:, None]
+    cols = torch.arange(k.shape[1], device=q.device)[None, :]
+    plen = torch.as_tensor(prefix_len, device=q.device).reshape(-1, 1, 1)
+    valid = torch.where(cols < P, cols < plen, cols - P <= rows)  # [B|1,S,T]
+    logits = torch.where(valid[:, None], logits, NEG_INF)
+    probs = torch.softmax(logits, dim=-1).to(v.dtype)
+    return torch.einsum("bhqk,bkhd->bqhd", probs, v)
+
+
 def _stream_fold(carry, k, v, valid, q):
     """One masked online-softmax step over one block of keys: fp32
     ``(o, m, l)`` state, ``p`` zeroed by the mask explicitly so a fold
@@ -120,4 +147,42 @@ def paged_decode_attention(q, pages, tables, lengths, *, block_size,
         v = repeat_kv(vc[ids], n_rep)
         valid = (j * bs + offs[None, :] < lengths[:, None])[:, None, :]
         o, m, l = _stream_fold((o, m, l), k, v, valid, q)
+    return _stream_finish(o, l, q.dtype)
+
+
+def paged_chunk_attention(q, pages, tables, prefix_len, k_chunk, v_chunk,
+                          *, block_size, n_rep=1, scale=None):
+    """Chunk-after-cached-prefix attention computed directly over the
+    paged pool (``attention.py:252-310``), the block-streamed twin of
+    :func:`chunk_attention`.
+
+    ``q`` ``[B, S, H, D]``; ``pages``/``tables`` map the cached prefix
+    as in :func:`paged_decode_attention`; ``prefix_len`` is an int or a
+    ``[B]`` tensor; ``k_chunk``/``v_chunk`` ``[B, S, kv_heads, D]`` are
+    the chunk's own (not repeated) K/V. The prefix streams one block
+    per step for ``ceil(max(prefix_len) / block_size)`` steps, then the
+    chunk folds in last under the causal within-chunk mask."""
+    q = _scale(q, scale)
+    bs = int(block_size)
+    bps = tables.shape[1]
+    B, S, H, D = q.shape
+    plen = torch.as_tensor(prefix_len, device=q.device).expand(B)
+    n_max = min(bps, -(-int(plen.max()) // bs)) if B else 0
+    o = torch.zeros((B, S, H, D), dtype=torch.float32, device=q.device)
+    m = torch.full((B, H, S), NEG_INF, dtype=torch.float32,
+                   device=q.device)
+    l = torch.zeros((B, H, S), dtype=torch.float32, device=q.device)
+    kc, vc = pages
+    offs = torch.arange(bs, device=q.device)
+    for j in range(n_max):
+        ids = tables[:, j].long()
+        k = repeat_kv(kc[ids], n_rep)
+        v = repeat_kv(vc[ids], n_rep)
+        valid = (j * bs + offs[None, :] < plen[:, None])[:, None, :]
+        o, m, l = _stream_fold((o, m, l), k, v, valid.expand(B, S, bs), q)
+    rows = torch.arange(S, device=q.device)[:, None]
+    cols = torch.arange(S, device=q.device)[None, :]
+    valid = (cols <= rows)[None].expand(B, S, S)
+    o, m, l = _stream_fold((o, m, l), repeat_kv(k_chunk, n_rep),
+                           repeat_kv(v_chunk, n_rep), valid, q)
     return _stream_finish(o, l, q.dtype)

@@ -1,30 +1,48 @@
 """KV-cache generation engine: greedy autoregressive serving of the
-TransformerLM with a paged KV pool and token-level continuous batching.
+TransformerLM with a paged KV pool, prefix-cache reuse, chunked prefill,
+speculative decoding and token-level continuous batching.
 
-Port of the plain path of ``kubeflow_tpu/compute/generate.py`` (the
-engine at :595): no prefix cache, monolithic prefill, float pool, no
-speculation, no mesh, no QoS — those come with later slices.
+Port of ``kubeflow_tpu/compute/generate.py`` (the engine at :595) on a
+float pool, without a mesh, QoS/preemption, KV migration or the
+``admission="drain"`` baseline — those come with later slices.
 
 - **Paged KV pool**: one pool of ``num_blocks`` blocks of ``block_size``
   positions per layer, shared by all sequences; a sequence holds a block
-  table (logical block → physical block), blocks are allocated as it
-  grows and freed on eviction. Admission reserves the worst-case block
-  count, so a running sequence never meets an allocation failure.
-- **Prefill**: the prompt padded to its ``serving.bucket_for`` bucket
-  goes through one causal forward (attention on the K3 kernel,
-  ``ops/flash_attention.py``), writes every layer's K/V into fresh
-  pages and emits the first token from row ``prompt_len - 1``.
-- **Decode**: one step advances every occupied slot by one token —
+  table (logical block → physical block). Blocks are refcounted.
+  Admission reserves the worst-case block count, so a running sequence
+  never meets an allocation failure.
+- **Prefix cache** (``prefix_cache=True``, the default as in JAX): a
+  radix trie over FULL prompt blocks maps every seen block-aligned
+  prefix to the page holding its K/V. Admission pins the matched pages
+  into the new table and prefills only the unshared suffix; eviction
+  keeps indexed pages cached at refcount 0, reclaimed LRU leaf-first
+  when the pool runs short.
+- **Prefill**: a cold prompt padded to its ``serving.bucket_for``
+  bucket goes through one causal forward (attention on the K3 kernel,
+  ``ops/flash_attention.py``); a suffix after a prefix hit, and every
+  chunk of a chunked prefill (``prefill_chunk``), reads the cached
+  prefix through the K2 kernel (``ops/paged_attention.py``). Each
+  writes its K/V into fresh pages; the last real row gives the first
+  token.
+- **Decode**: one step advances every decoding slot by one token —
   write the new token's K/V into its page, then read the pool through
-  the K1 kernel (``ops/paged_attention.py``) over ``length + 1``
-  positions.
+  the K1 kernel over ``length + 1`` positions. With a draft model
+  (``spec_k > 0``) a round instead lets the draft propose up to
+  ``spec_k`` tokens per slot, verifies them all in one target forward
+  whose pool read is K2 with per-slot prefix lengths, and emits the
+  accepted prefix plus the target's own next token.
 - **Continuous batching**: finished sequences leave mid-batch and
-  queued prompts (FIFO) take their slots before the next step.
+  queued prompts (FIFO) take their slots; one engine-loop iteration is
+  admit → advance one prefill chunk → one decode (or speculative)
+  step.
 
 Where JAX donates the cache to its jitted programs
 (``generate.py:828-838``), this engine updates the pool tensors in
-place: a prefill or decode step writes its K/V rows straight into
-``self._cache``.
+place: a step writes its K/V rows straight into ``self._cache``. A
+page a slot shares through the trie is never written again: every
+write goes to a fresh page (an unindexed partial tail or a page past
+the prompt), and after an exception mid-step ``_fail_everything``
+drops the trie, since pages may hold partial writes.
 
 Threading: one engine thread owns every device call (all kernel
 launches happen there, on its current stream) and all slot state;
@@ -32,6 +50,7 @@ launches happen there, on its current stream) and all slot state;
 """
 
 import collections
+import dataclasses
 import logging
 import threading
 import time
@@ -63,7 +82,8 @@ class GenerationHandle:
     __slots__ = ("prompt", "max_tokens", "eos_id", "on_token", "on_done",
                  "out_tokens", "reason", "error", "cancelled",
                  "cancel_reason", "prefill_seconds", "logits", "ttft_s",
-                 "enqueued", "_engine", "_done")
+                 "enqueued", "prefix_tokens_skipped", "spec_rounds",
+                 "spec_proposed", "spec_accepted", "_engine", "_done")
 
     def __init__(self, prompt, max_tokens, eos_id, on_token, on_done):
         self.prompt = prompt
@@ -81,6 +101,10 @@ class GenerationHandle:
         #                           only on a debug_logits engine
         self.ttft_s = None        # submit -> first token, seconds
         self.enqueued = time.perf_counter()
+        self.prefix_tokens_skipped = 0
+        self.spec_rounds = 0      # verify rounds this request rode
+        self.spec_proposed = 0    # draft tokens proposed for it
+        self.spec_accepted = 0    # ... and accepted
         self._engine = None
         self._done = threading.Event()
 
@@ -106,9 +130,14 @@ class GenerationHandle:
 
 
 class _Slot:
-    """One occupied decode slot (engine-thread-only state)."""
+    """One occupied decode slot (engine-thread-only state). A slot
+    admitted under chunked prefill starts with ``prefilling=True``: it
+    holds its slot and reservation but stays out of decode and verify
+    batches until ``_advance_prefills`` has written its whole prompt."""
 
-    __slots__ = ("handle", "blocks", "length", "last_token", "reserve")
+    __slots__ = ("handle", "blocks", "length", "last_token", "reserve",
+                 "prefilling", "pf_written", "pf_matched", "pf_chunks",
+                 "pf_t0")
 
     def __init__(self, handle, blocks, length, last_token, reserve):
         self.handle = handle
@@ -116,6 +145,27 @@ class _Slot:
         self.length = length          # positions whose K/V are cached
         self.last_token = last_token  # next decode step's input
         self.reserve = reserve        # worst-case blocks held at admit
+        self.prefilling = False       # chunked prefill in progress
+        self.pf_written = 0           # prompt tokens whose K/V are cached
+        self.pf_matched = ()          # trie nodes pinned at admission
+        self.pf_chunks = 0            # prefill chunks run so far
+        self.pf_t0 = 0.0              # perf_counter at admission
+
+
+class _PrefixNode:
+    """One edge of the prefix trie: ``key`` is the full block of prompt
+    token ids whose K/V page ``block`` holds, given the path from the
+    root. Position ``i``'s K/V depends only on tokens ``0..i``, so every
+    prompt walking the same path reads the same pages."""
+
+    __slots__ = ("key", "block", "parent", "children", "last_used")
+
+    def __init__(self, key, block, parent):
+        self.key = key             # tuple of block_size token ids
+        self.block = block         # physical page holding the K/V
+        self.parent = parent
+        self.children = {}
+        self.last_used = time.monotonic()
 
 
 class GenerationEngine:
@@ -130,35 +180,69 @@ class GenerationEngine:
       every slot at full ``max_context``),
     - ``max_context``: prompt + generated ceiling per sequence,
     - ``eos_id``: default stop token (per-request override),
+    - ``prefix_cache``: radix-trie prefix KV reuse (default on, as in
+      JAX); ``False`` frees pages at eviction and prefills every prompt
+      whole,
+    - ``prefill_chunk``: cap every prefill call at this many prompt
+      tokens (rounded up to a block multiple) and interleave the chunks
+      with decode steps; ``None``/0 = monolithic prefill,
+    - ``draft_params``/``draft_config``/``spec_k``: speculative
+      decoding — the draft proposes up to ``spec_k`` tokens per slot per
+      round and one target forward verifies them; ``spec_k=0`` (the
+      default) or no draft is the plain engine. The draft shares the
+      target's vocab,
     - ``debug_logits``: handles collect each emitted token's fp32
-      logits (``compute/conformance.py``),
-    - ``attn_backend``: the decode read — ``"paged"`` (default) and
-      ``"paged-kernel"`` both read the pool through
-      ``ops.paged_attention.paged_decode_attention`` (the K1 kernel on
-      the card, its plain version on the CPU); ``"gather"``
-      materializes the ``[S, T]`` context and runs
-      ``attention.decode_attention``, the conformance read,
+      logits (``compute/conformance.py``); needs ``prefix_cache=False``,
+      no draft and monolithic prefill,
+    - ``attn_backend``: the pool reads — ``"paged"`` (default) and
+      ``"paged-kernel"`` both read through ``ops.paged_attention``
+      (kernels K1 and K2 on the card, their plain versions on the CPU);
+      ``"gather"`` materializes the ``[S, T]`` context and runs
+      ``attention.decode_attention`` / ``chunk_attention``, the
+      conformance reads,
     - ``device``: None → the card (raises without CUDA); ``"cpu"`` runs
       the plain versions of the kernels.
     """
 
     def __init__(self, params, config, *, max_slots=4, block_size=16,
                  max_context=None, num_blocks=None, name="model",
-                 eos_id=None, default_max_tokens=64, debug_logits=False,
-                 attn_backend="paged", device=None):
+                 eos_id=None, default_max_tokens=64, prefix_cache=True,
+                 draft_params=None, draft_config=None, spec_k=0,
+                 debug_logits=False, attn_backend="paged",
+                 prefill_chunk=None, device=None):
         if attn_backend not in ATTN_BACKENDS:
             raise ValueError(
                 f"attn_backend must be 'gather', 'paged' or "
                 f"'paged-kernel', got {attn_backend!r}")
+        self.spec_k = int(spec_k)
+        if self.spec_k < 0:
+            raise ValueError(f"spec_k must be >= 0, got {spec_k}")
+        if self.spec_k > 0 and draft_params is None:
+            raise ValueError(
+                "spec_k > 0 needs a draft model (draft_params + "
+                "draft_config); spec_k=0 disables speculation")
+        if draft_params is not None and draft_config is None:
+            raise ValueError("draft_params needs its draft_config")
+        # speculation is on only with both a draft and k > 0; otherwise
+        # none of the draft/verify machinery is built
+        self._spec_on = draft_params is not None and self.spec_k > 0
+        if self._spec_on and draft_config.vocab_size != config.vocab_size:
+            raise ValueError(
+                f"draft vocab_size {draft_config.vocab_size} must equal "
+                f"the target's {config.vocab_size}: accepted tokens are "
+                f"compared by id")
         self.device = device_lib.resolve(device)
         self.config = config
         self.name = name
         self.attn_backend = attn_backend
         self.eos_id = eos_id
         self.default_max_tokens = int(default_max_tokens)
-        self.debug_logits = bool(debug_logits)
         self.max_slots = int(max_slots)
         self.block_size = int(block_size)
+        # rounded up to a block multiple: chunks fill whole fresh
+        # blocks, so every chunk starts block-aligned
+        self.prefill_chunk = (-(-int(prefill_chunk) // self.block_size)
+                              * self.block_size) if prefill_chunk else 0
         self.max_context = int(max_context or config.max_seq)
         self.blocks_per_slot = -(-self.max_context // self.block_size)
         self.num_blocks = int(num_blocks
@@ -166,23 +250,30 @@ class GenerationEngine:
         if self.num_blocks < 1:
             raise ValueError(
                 f"num_blocks must be >= 1, got {self.num_blocks}")
-        layers = params["layers"]
-        if isinstance(layers, (list, tuple)):
-            params = {**params, "layers": {
-                k: torch.stack([lp[k] for lp in layers])
-                for k in layers[0]}}
-        dt = config.compute_dtype
-        self.params = transformer.cast_params(params, dt, self.device)
-        # the LM head widened to fp32 once: exact, so logits are the
-        # fp32 sums of compute-dtype products (JAX's
-        # preferred_element_type); a no-op view for an fp32 model
-        self._head = self.params["head"].float()
-        self._layers = [transformer.layer_params(self.params, i)
-                        for i in range(config.n_layers)]
+        self.prefix_cache = bool(prefix_cache)
+        self.debug_logits = bool(debug_logits)
+        if self.debug_logits and (self.prefix_cache or self._spec_on
+                                  or self.prefill_chunk):
+            raise ValueError(
+                "debug_logits is the plain-path tolerance-conformance "
+                "probe (compute/conformance.py): it requires "
+                "prefix_cache=False, no draft model and monolithic "
+                "prefill")
+        self.params, self._head, self._layers = self._load(params, config)
         self._cache = self._make_cache()
+        self.draft_config = draft_config if self._spec_on else None
+        if self._spec_on:
+            (self.draft_params, self._draft_head,
+             self._draft_layers) = self._load(draft_params, draft_config)
+            # the draft's dense per-slot cache spans the same per-slot
+            # capacity as the paged target pool
+            self._draft_ctx = self.blocks_per_slot * self.block_size
+            self._draft_cache = self._make_draft_cache()
+        else:
+            self.draft_params = None
         # analytic bytes per cache block touched by one layer's read
         # (k + v) × layers — what stats["attn_bytes_read"] accumulates
-        itemsize = torch.empty((), dtype=dt).element_size()
+        itemsize = torch.empty((), dtype=config.compute_dtype).element_size()
         self._block_read_bytes = (self.block_size * config.kv_heads
                                   * config.head_dim * itemsize * 2
                                   * config.n_layers)
@@ -190,16 +281,52 @@ class GenerationEngine:
         self._slots = [None] * self.max_slots
         self._queue = collections.deque()
         self._cond = threading.Condition()
+        # prefix trie state, every mutation under self._cond:
+        # - _ref[b]: block-table memberships plus in-flight prefill
+        #   holds; an indexed block at ref 0 is cached (reclaimable),
+        #   an unindexed one at ref 0 is on the free list
+        # - _root/_node_by_block: the trie over full prompt blocks;
+        #   _inflight: blocks held by the prefill in progress
+        # - _reclaimable: zero-ref LEAF nodes in became-reclaimable
+        #   (LRU) order; _n_reclaimable counts every zero-ref cached
+        #   block, leaves and interior nodes
+        self._ref = [0] * self.num_blocks
+        self._root = _PrefixNode(None, None, None)
+        self._node_by_block = {}
+        self._inflight = []
+        self._reclaimable = {}
+        self._n_reclaimable = 0
         self._draining = False
         self._stop = False
         self.stats = {"prefills": 0, "prefill_chunks": 0,
                       "decode_steps": 0, "decode_token_slots": 0,
                       "tokens": 0, "peak_occupancy": 0,
                       "prefill_seconds_total": 0.0,
-                      "decode_seconds_total": 0.0, "attn_bytes_read": 0}
+                      "decode_seconds_total": 0.0, "attn_bytes_read": 0,
+                      "prefix_hits": 0, "prefix_misses": 0,
+                      "prefix_tokens_skipped": 0, "prefix_reclaims": 0,
+                      "spec_rounds": 0, "spec_proposed": 0,
+                      "spec_accepted": 0}
         self.thread = threading.Thread(target=self._loop, daemon=True,
                                        name=f"generate-{name}")
         self.thread.start()
+
+    def _load(self, params, config):
+        """Model params → (compute-dtype params on the device, the fp32
+        LM head, per-layer views). The head is widened to fp32 once:
+        exact, so logits are the fp32 sums of compute-dtype products
+        (JAX's ``preferred_element_type``); a no-op view for an fp32
+        model."""
+        layers = params["layers"]
+        if isinstance(layers, (list, tuple)):
+            params = {**params, "layers": {
+                k: torch.stack([lp[k] for lp in layers])
+                for k in layers[0]}}
+        p = transformer.cast_params(params, config.compute_dtype,
+                                    self.device)
+        return (p, p["head"].float(),
+                [transformer.layer_params(p, i)
+                 for i in range(config.n_layers)])
 
     def _make_cache(self):
         """A zeroed ``(k, v)`` pool, each ``[layers, num_blocks,
@@ -207,6 +334,17 @@ class GenerationEngine:
         c = self.config
         shape = (c.n_layers, self.num_blocks, self.block_size,
                  c.kv_heads, c.head_dim)
+        return tuple(torch.zeros(shape, dtype=c.compute_dtype,
+                                 device=self.device) for _ in range(2))
+
+    def _make_draft_cache(self):
+        """The draft's dense per-slot cache ``(k, v)``, each ``[layers,
+        slot, position, kv_heads, head_dim]`` (``generate.py:1022``).
+        Pure scratch: rollback after a verify is a host-side length
+        truncation, and nothing in it is shared."""
+        c = self.draft_config
+        shape = (c.n_layers, self.max_slots, self._draft_ctx, c.kv_heads,
+                 c.head_dim)
         return tuple(torch.zeros(shape, dtype=c.compute_dtype,
                                  device=self.device) for _ in range(2))
 
@@ -282,15 +420,45 @@ class GenerationEngine:
             self._cond.notify()
         self.thread.join(timeout=10)
 
+    def spec_view(self, handle=None):
+        """Speculative-decoding economics (``generate.py:1254``); None
+        when speculation is off. With a ``handle``, adds the request's
+        own view — ``accepted_per_step`` is the mean draft tokens kept
+        per verify round (each round emits that + 1)."""
+        if not self._spec_on:
+            return None
+        proposed = self.stats["spec_proposed"]
+        accepted = self.stats["spec_accepted"]
+        view = {"k": self.spec_k,
+                "draft_layers": self.draft_config.n_layers,
+                "proposed": proposed, "accepted": accepted,
+                "acceptance_ratio": round(accepted / proposed, 4)
+                if proposed else None}
+        if handle is not None:
+            view.update({
+                "steps": handle.spec_rounds,
+                "request_proposed": handle.spec_proposed,
+                "request_accepted": handle.spec_accepted,
+                "accepted_per_step": round(
+                    handle.spec_accepted / handle.spec_rounds, 3)
+                if handle.spec_rounds else 0.0})
+        return view
+
     def snapshot(self):
-        """Operator view: slots, blocks and the aggregate stats."""
+        """Operator view: slots, blocks, the prefix cache and the
+        aggregate stats. ``free_blocks`` counts what is allocatable now:
+        the free list plus the cached zero-ref blocks the LRU reclaimer
+        hands out on demand (``generate.py:1702-1808``)."""
         with self._cond:
+            reclaimable = self._n_reclaimable
+            hits = self.stats["prefix_hits"]
+            misses = self.stats["prefix_misses"]
             return {
                 "slots": self.max_slots,
                 "occupied": sum(1 for s in self._slots if s is not None),
                 "queued": len(self._queue),
                 "blocks": self.num_blocks,
-                "free_blocks": len(self._free),
+                "free_blocks": len(self._free) + reclaimable,
                 "block_size": self.block_size,
                 "max_context": self.max_context,
                 "kv_dtype": str(self.config.compute_dtype).replace(
@@ -298,7 +466,44 @@ class GenerationEngine:
                 "attn_backend": self.attn_backend,
                 "device": str(self.device),
                 "draining": self._draining,
+                "prefill_chunk": self.prefill_chunk or None,
+                "prefill_chunks": self.stats["prefill_chunks"],
+                "speculative": self.spec_view(),
+                "prefix_cache": {
+                    "enabled": self.prefix_cache,
+                    "cached_blocks": len(self._node_by_block),
+                    "reclaimable_blocks": reclaimable,
+                    "pinned_blocks": len(self._node_by_block) - reclaimable,
+                    "hits": hits,
+                    "misses": misses,
+                    "hit_ratio": round(hits / (hits + misses), 4)
+                    if hits + misses else None,
+                    "tokens_skipped": self.stats["prefix_tokens_skipped"],
+                    "reclaims": self.stats["prefix_reclaims"],
+                },
                 "stats": dict(self.stats),
+            }
+
+    def blocks_view(self):
+        """One consistent snapshot of the pool partition
+        (``generate.py:1810``): every block is in exactly one of ``free``,
+        ``cached`` (indexed, refcount 0) or ``referenced`` (refcount > 0),
+        and ``refcounts[b]`` equals b's table/in-flight membership
+        count (``table_refs``)."""
+        with self._cond:
+            table_refs = collections.Counter(self._inflight)
+            for s in self._slots:
+                if s is not None:
+                    table_refs.update(s.blocks)
+            return {
+                "free": sorted(self._free),
+                "cached": sorted(b for b in self._node_by_block
+                                 if self._ref[b] == 0),
+                "referenced": sorted(b for b in range(self.num_blocks)
+                                     if self._ref[b] > 0),
+                "refcounts": list(self._ref),
+                "table_refs": dict(table_refs),
+                "reclaimable_count": self._n_reclaimable,
             }
 
     # ---------------------------------------------------- engine loop
@@ -324,8 +529,15 @@ class GenerationEngine:
                         continue
                     self._sweep_cancelled()
                     self._admit()
-                    if any(s is not None for s in self._slots):
-                        self._decode_once()
+                    # one bounded prefill chunk, then one step over the
+                    # slots past prefill (generate.py:1859-1872)
+                    self._advance_prefills()
+                    if any(s is not None and not s.prefilling
+                           for s in self._slots):
+                        if self._spec_on:
+                            self._spec_decode_once()
+                        else:
+                            self._decode_once()
                 except Exception as e:  # noqa: BLE001 — no caller may hang
                     log.exception("generation engine %s loop iteration "
                                   "crashed; failing in-flight work",
@@ -344,10 +556,6 @@ class GenerationEngine:
                 self._evict(i, "draining")
 
     def _fail_everything(self, error):
-        # no rebuild of the pool is needed (JAX rebuilds its donated
-        # buffers here): the pool is updated in place, every slot is
-        # evicted and every block returns to the free list, so no
-        # stale K/V can be read again
         with self._cond:
             queued = list(self._queue)
             self._queue.clear()
@@ -356,6 +564,20 @@ class GenerationEngine:
         for i, slot in enumerate(self._slots):
             if slot is not None:
                 self._evict(i, "error", error)
+        # the pool is updated in place (JAX rebuilds its donated buffers
+        # here): a step that raised may have written part of its pages,
+        # so the trie — which would advertise them — is dropped and the
+        # bookkeeping reset wholesale (generate.py:1922-1932). Every slot
+        # is evicted and the queue is empty, so nothing references a
+        # page; the draft cache is scratch and needs no reset.
+        with self._cond:
+            self._free = list(range(self.num_blocks))
+            self._ref = [0] * self.num_blocks
+            self._root = _PrefixNode(None, None, None)
+            self._node_by_block = {}
+            self._inflight = []
+            self._reclaimable = {}
+            self._n_reclaimable = 0
 
     def _sweep_cancelled(self):
         """Drop cancelled requests: queued ones before a prefill is
@@ -372,13 +594,24 @@ class GenerationEngine:
 
     # ------------------------------------------------------- admission
 
-    def _worst_case_blocks(self, prompt_len, max_tokens):
-        """Worst-case blocks a sequence holds over its life: the padded
-        prefill write, or every prompt and decode position, whichever
-        is larger."""
-        padded = self._suffix_padded(prompt_len, 0)
-        total = max(padded, prompt_len + max_tokens)
-        return -(-total // self.block_size)
+    def _worst_case_blocks(self, prompt_len, max_tokens, matched_blocks=0):
+        """Worst-case blocks a sequence owns or shares over its life —
+        the padded (partial) prefill write, or every prompt and decode
+        position, whichever is larger — minus the ``matched_blocks``
+        already resident in the prefix cache (``generate.py:1980``).
+        Under chunked prefill only the last chunk is bucket-padded."""
+        offset = matched_blocks * self.block_size
+        C = self.prefill_chunk
+        if C and prompt_len - offset > C:
+            k = (prompt_len - offset - 1) // C
+            rem = prompt_len - offset - k * C
+            cap = self.blocks_per_slot * self.block_size
+            padded_suffix = k * C + min(serving_lib.bucket_for(rem), C,
+                                        cap - offset - k * C)
+        else:
+            padded_suffix = self._suffix_padded(prompt_len, offset)
+        total = max(offset + padded_suffix, prompt_len + max_tokens)
+        return -(-total // self.block_size) - matched_blocks
 
     def _suffix_padded(self, prompt_len, offset):
         """Padded prefill length from ``offset``: the bucket, clamped
@@ -387,23 +620,126 @@ class GenerationEngine:
         return min(serving_lib.bucket_for(prompt_len - offset),
                    cap - offset)
 
+    def _match_prefix_locked(self, prompt):
+        """Walk the trie over the full blocks of ``prompt`` → the
+        matched node path (lock held). Capped one token short of the
+        prompt, so at least one token always goes through prefill and
+        the first generated token comes from a real forward."""
+        nodes = []
+        if not self.prefix_cache:
+            return nodes
+        bs = self.block_size
+        node = self._root
+        for j in range((len(prompt) - 1) // bs):
+            child = node.children.get(tuple(prompt[j * bs:(j + 1) * bs]))
+            if child is None:
+                break
+            nodes.append(child)
+            node = child
+        return nodes
+
     def _available_blocks(self):
-        """Free blocks minus the lazy allocations already promised to
-        running slots."""
+        """Allocatable blocks (free list + cached zero-ref) minus the
+        lazy allocations already promised to running slots."""
         reserved = sum(s.reserve - len(s.blocks)
                        for s in self._slots if s is not None)
-        return len(self._free) - reserved
+        return len(self._free) + self._n_reclaimable - reserved
 
     def _alloc_block_locked(self):
-        if not self._free:
-            raise RuntimeError("block pool exhausted despite admission "
-                               "reservation — accounting bug")
-        return self._free.pop()
+        """One writable block, referenced (lock held): the free list,
+        else the least recently used cached zero-ref leaf of the trie
+        (leaf-first keeps every cached path rooted). The admission
+        reservation guarantees this cannot fail for a running
+        sequence."""
+        if self._free:
+            block = self._free.pop()
+        else:
+            if not self._reclaimable:
+                raise RuntimeError("block pool exhausted despite admission "
+                                   "reservation — accounting bug")
+            victim = next(iter(self._reclaimable))     # LRU = oldest
+            self._detach_node_locked(victim)
+            self.stats["prefix_reclaims"] += 1
+            block = victim.block
+        self._ref[block] += 1
+        return block
+
+    def _detach_node_locked(self, node):
+        """Drop a zero-ref leaf from the trie (reclaim only); its parent
+        may become a reclaim candidate itself."""
+        self._reclaimable.pop(node, None)
+        self._n_reclaimable -= 1
+        parent = node.parent
+        del parent.children[node.key]
+        del self._node_by_block[node.block]
+        if parent.block is not None and not parent.children \
+                and self._ref[parent.block] == 0:
+            self._reclaimable[parent] = None
+
+    def _release_blocks_locked(self, blocks):
+        """Drop one reference from each block: a zero-ref block stays
+        cached if the trie indexes it, else returns to the free list."""
+        now = time.monotonic()
+        for b in blocks:
+            self._ref[b] -= 1
+            if self._ref[b] == 0:
+                node = self._node_by_block.get(b)
+                if node is None:
+                    self._free.append(b)
+                else:
+                    node.last_used = now
+                    self._n_reclaimable += 1
+                    if not node.children:
+                        # re-append at the tail: the order stays LRU
+                        self._reclaimable.pop(node, None)
+                        self._reclaimable[node] = None
+
+    def _pin_locked(self, matched):
+        """Reference the matched prefix pages (lock held) → their ids."""
+        now = time.monotonic()
+        for node in matched:
+            if self._ref[node.block] == 0:        # leaves the
+                self._n_reclaimable -= 1          # reclaimable pool
+                self._reclaimable.pop(node, None)
+            self._ref[node.block] += 1
+            node.last_used = now
+        return [n.block for n in matched]
+
+    def _index_prompt_locked(self, prompt, blocks, matched):
+        """Index the prompt's full blocks (only those: a partial tail is
+        written during decode and is never shared) under the matched
+        path. An existing key means the match was capped at the
+        prompt's last full block; the duplicate fresh page stays
+        unindexed and frees on eviction."""
+        bs = self.block_size
+        node = matched[-1] if matched else self._root
+        for j in range(len(matched), len(prompt) // bs):
+            key = tuple(prompt[j * bs:(j + 1) * bs])
+            child = node.children.get(key)
+            if child is None:
+                child = _PrefixNode(key, blocks[j], node)
+                node.children[key] = child
+                self._node_by_block[blocks[j]] = child
+            node = child
+
+    def _book_match(self, handle, matched):
+        offset = len(matched) * self.block_size
+        handle.prefix_tokens_skipped = offset
+        if not self.prefix_cache:
+            return
+        if matched:
+            self.stats["prefix_hits"] += 1
+            self.stats["prefix_tokens_skipped"] += offset
+        else:
+            self.stats["prefix_misses"] += 1
 
     def _admit(self):
-        """Move queued prompts into free slots, FIFO, while the pool
-        can hold their worst case; a head too big for the free pool
-        waits for evictions (no overtaking)."""
+        """Move queued prompts into free slots, FIFO, while the pool can
+        hold their worst case; a head too big for the pool waits for
+        evictions (no overtaking). The head's trie match is taken here,
+        so the reservation charges only its unshared blocks; matched
+        zero-ref pages leave the reclaimable pool when pinned, so they
+        are debited (``generate.py:2213-2244``)."""
         while True:
             with self._cond:
                 if not self._queue:
@@ -411,30 +747,55 @@ class GenerationEngine:
                 handle = self._queue[0]
                 free_slot = next((i for i, s in enumerate(self._slots)
                                   if s is None), None)
-                needed = self._worst_case_blocks(len(handle.prompt),
-                                                 handle.max_tokens)
-                if free_slot is None or self._available_blocks() < needed:
+                matched = self._match_prefix_locked(handle.prompt)
+                needed = self._worst_case_blocks(
+                    len(handle.prompt), handle.max_tokens, len(matched))
+                pinning = sum(1 for n in matched if self._ref[n.block] == 0)
+                if free_slot is None \
+                        or self._available_blocks() - pinning < needed:
                     return
                 self._queue.popleft()
-            self._prefill(free_slot, handle)
+            self._prefill(free_slot, handle, matched)
 
-    def _prefill(self, slot_idx, handle):
+    def _prefill(self, slot_idx, handle, matched=()):
+        """Prefill ``handle`` into ``slot_idx``. With a trie match the
+        matched pages are pinned into the table and only the unshared
+        suffix runs, at positional offset ``len(matched)·block_size``,
+        reading the prefix through the chunk read (``generate.py:2503``).
+        A suffix longer than ``prefill_chunk`` goes the chunked way."""
         prompt = handle.prompt
         prompt_len = len(prompt)
-        padded = self._suffix_padded(prompt_len, 0)
+        offset = len(matched) * self.block_size
+        suffix_len = prompt_len - offset
+        if self.prefill_chunk and suffix_len > self.prefill_chunk:
+            self._begin_chunked_prefill(slot_idx, handle, matched)
+            return
+        padded = self._suffix_padded(prompt_len, offset)
         n_blocks = -(-padded // self.block_size)
         with self._cond:
+            prefix_blocks = self._pin_locked(matched)
             fresh = [self._alloc_block_locked() for _ in range(n_blocks)]
+            self._inflight = prefix_blocks + fresh
+        self._book_match(handle, matched)
         tokens = np.zeros((padded,), np.int64)
-        tokens[:prompt_len] = prompt
+        tokens[:suffix_len] = prompt[offset:]
         t0 = time.perf_counter()
         try:
-            first, dbg = self._prefill_step(tokens, prompt_len, fresh)
+            if matched:
+                first = self._prefill_cached_step(
+                    tokens, suffix_len, offset, prefix_blocks, fresh)
+                dbg = None
+            else:
+                first, dbg = self._prefill_step(tokens, prompt_len, fresh)
+            if self._spec_on:
+                self._draft_prefill_step(prompt, slot_idx)
         except Exception as e:  # noqa: BLE001 — fail THIS request: it is
             # in neither the queue nor a slot, so nothing else resolves
-            # it, and its blocks must go back to the pool
+            # it; its pinned pages go back to the cache, its fresh pages
+            # (possibly part-written, never indexed) to the free list
             with self._cond:
-                self._free.extend(fresh)
+                self._release_blocks_locked(prefix_blocks + fresh)
+                self._inflight = []
                 self._cond.notify()
             log.exception("prefill failed for a %d-token prompt on "
                           "engine %s", prompt_len, self.name)
@@ -447,11 +808,20 @@ class GenerationEngine:
         self.stats["prefills"] += 1
         self.stats["prefill_chunks"] += 1
         self.stats["prefill_seconds_total"] += elapsed
-        slot = _Slot(handle, fresh, prompt_len, first,
-                     self._worst_case_blocks(prompt_len,
-                                             handle.max_tokens))
+        if matched:
+            # the partial prefill read the shared prefix pages
+            self._account_attn_read(self._blocks_touched(1, [offset]))
+        slot = _Slot(handle, prefix_blocks + fresh, prompt_len, first,
+                     len(matched) + self._worst_case_blocks(
+                         prompt_len, handle.max_tokens, len(matched)))
         with self._cond:
+            self._inflight = []
             self._slots[slot_idx] = slot
+            if self.prefix_cache:
+                self._index_prompt_locked(prompt, slot.blocks, matched)
+        self._first_token(slot_idx, handle, first)
+
+    def _first_token(self, slot_idx, handle, first):
         handle.ttft_s = time.perf_counter() - handle.enqueued
         self._emit(handle, first)
         if handle.eos_id is not None and first == handle.eos_id:
@@ -459,9 +829,103 @@ class GenerationEngine:
         elif len(handle.out_tokens) >= handle.max_tokens:
             self._evict(slot_idx, "length")
 
+    # ------------------------------------------------- chunked prefill
+
+    def _begin_chunked_prefill(self, slot_idx, handle, matched):
+        """Admission half of a chunked prefill (``generate.py:2699``):
+        pin the match and install the slot with ``prefilling=True``. Its
+        table starts as the pinned prefix and grows one chunk of fresh
+        blocks per ``_advance_prefills``; the whole reservation is
+        debited here, so no later chunk can fail to allocate."""
+        offset = len(matched) * self.block_size
+        with self._cond:
+            prefix_blocks = self._pin_locked(matched)
+        self._book_match(handle, matched)
+        slot = _Slot(handle, prefix_blocks, offset, None,
+                     len(matched) + self._worst_case_blocks(
+                         len(handle.prompt), handle.max_tokens,
+                         len(matched)))
+        slot.prefilling = True
+        slot.pf_written = offset
+        slot.pf_matched = list(matched)
+        slot.pf_t0 = time.perf_counter()
+        with self._cond:
+            self._slots[slot_idx] = slot
+            self._cond.notify()
+
+    def _advance_prefills(self):
+        """Advance at most one prefilling slot by one chunk
+        (``generate.py:2759``). Every chunk reads the slot's own table
+        through the chunk read: full chunks run at exactly
+        ``prefill_chunk`` tokens, the last one is bucket-padded and
+        gives the first token, at which point the slot decodes."""
+        idx = next((i for i, s in enumerate(self._slots)
+                    if s is not None and s.prefilling), None)
+        if idx is None:
+            return
+        slot = self._slots[idx]
+        handle = slot.handle
+        prompt = handle.prompt
+        prompt_len = len(prompt)
+        C = self.prefill_chunk
+        written = slot.pf_written
+        rem = prompt_len - written
+        cap = self.blocks_per_slot * self.block_size
+        is_final = rem <= C
+        chunk_len = rem if is_final else C
+        padded = min(serving_lib.bucket_for(rem), C,
+                     cap - written) if is_final else C
+        n_blocks = -(-padded // self.block_size)
+        prefix_blocks = list(slot.blocks)
+        with self._cond:
+            # guaranteed by the admission-time reservation
+            fresh = [self._alloc_block_locked() for _ in range(n_blocks)]
+            slot.blocks.extend(fresh)
+        tokens = np.zeros((padded,), np.int64)
+        tokens[:chunk_len] = prompt[written:written + chunk_len]
+        t0 = time.perf_counter()
+        try:
+            first = self._prefill_cached_step(tokens, chunk_len, written,
+                                              prefix_blocks, fresh)
+            if is_final and self._spec_on:
+                self._draft_prefill_step(prompt, idx)
+        except Exception as e:  # noqa: BLE001 — the slot is installed:
+            # evicting it releases every block it holds and finishes it
+            log.exception("chunked prefill failed at offset %d of a "
+                          "%d-token prompt on engine %s", written,
+                          prompt_len, self.name)
+            self._evict(idx, "error", e)
+            return
+        elapsed = time.perf_counter() - t0
+        slot.pf_chunks += 1
+        self.stats["prefill_chunks"] += 1
+        self.stats["prefill_seconds_total"] += elapsed
+        if written:
+            # this chunk's attention read the whole written prefix
+            self._account_attn_read(self._blocks_touched(1, [written]))
+        slot.pf_written = written + chunk_len
+        slot.length = slot.pf_written
+        if not is_final:
+            return
+        slot.prefilling = False
+        slot.last_token = first
+        handle.prefill_seconds = time.perf_counter() - slot.pf_t0
+        self.stats["prefills"] += 1
+        with self._cond:
+            # the prompt's blocks enter the trie only now, at its last
+            # chunk (generate.py:2883-2886)
+            if self.prefix_cache:
+                self._index_prompt_locked(prompt, slot.blocks,
+                                          slot.pf_matched)
+        self._first_token(idx, handle, first)
+
+    # ------------------------------------------------------ decode step
+
     def _decode_once(self):
+        # prefilling slots hold a slot and blocks but have no decode
+        # state yet: they ride as inactive rows (generate.py:2913-2916)
         active = [(i, s) for i, s in enumerate(self._slots)
-                  if s is not None]
+                  if s is not None and not s.prefilling]
         S, bps, bs = self.max_slots, self.blocks_per_slot, \
             self.block_size
         tables = np.zeros((S, bps), np.int32)
@@ -473,6 +937,7 @@ class GenerationEngine:
             block_idx = pos // bs
             if block_idx >= len(slot.blocks):
                 # lazy page allocation, guaranteed by the reservation
+                # (it may LRU-reclaim a cached zero-ref page)
                 with self._cond:
                     slot.blocks.append(self._alloc_block_locked())
             tables[i, :len(slot.blocks)] = slot.blocks
@@ -502,6 +967,134 @@ class GenerationEngine:
             elif len(handle.out_tokens) >= handle.max_tokens:
                 self._evict(i, "length")
 
+    # ------------------------------------------------ speculative step
+
+    def _spec_decode_once(self):
+        """One speculative round (``generate.py:2983``): the draft
+        proposes up to ``spec_k`` tokens per decoding slot, one target
+        forward scores all ``k + 1`` positions of every slot against the
+        pool, and each slot emits its longest draft == target-argmax
+        prefix plus the target's next token, then rolls its block table
+        back to the first rejection. Every emitted token is the target's
+        own argmax given the verified prefix, so the output is the plain
+        engine's for any draft."""
+        active = [(i, s) for i, s in enumerate(self._slots)
+                  if s is not None and not s.prefilling]
+        S, bps, bs = self.max_slots, self.blocks_per_slot, \
+            self.block_size
+        k = self.spec_k
+        k_eff = {}
+        last_token_round = True     # every slot on its last token
+        with self._cond:
+            free_budget = len(self._free)
+        for i, slot in active:
+            L = slot.length
+            # clamp the depth so the verify writes (and the emitted
+            # tokens) never run past max_tokens or the slot's
+            # reservation: positions L..L+ke are written
+            remaining = slot.handle.max_tokens - len(slot.handle.out_tokens)
+            last_token_round &= remaining == 1
+            ke = max(0, min(k, remaining - 1, self.max_context - 1 - L))
+            # ...and so speculative allocation never reclaims a cached
+            # prefix page for proposals that may be rejected: blocks
+            # past the guaranteed next write come from the slot's own
+            # table or the free list, drawn down slot by slot
+            held = len(slot.blocks)
+            base_need = L // bs + 1
+            free_budget -= max(0, base_need - held)
+            avail = max(held, base_need) + max(0, free_budget)
+            ke = max(0, min(ke, avail * bs - 1 - L))
+            free_budget -= max(0, (L + ke) // bs + 1
+                               - max(held, base_need))
+            k_eff[i] = ke
+        if active and last_token_round:
+            # every slot emits its final token and leaves this round:
+            # the plain step does that without the draft; it still
+            # counts as a round with no proposals
+            self.stats["spec_rounds"] += 1
+            for _, slot in active:
+                slot.handle.spec_rounds += 1
+            self._decode_once()
+            return
+        tables = np.zeros((S, bps), np.int32)
+        lengths = np.zeros((S,), np.int32)
+        tokens = np.zeros((S,), np.int64)
+        # the last position each row may write; -1 for inactive rows.
+        # JAX sends the rest to out-of-bounds sentinels that its
+        # scatters drop (mode="drop"); here they are filtered out
+        limits = np.full((S,), -1, np.int64)
+        writes = []                              # (row, j, block, off)
+        for i, slot in active:
+            L = slot.length
+            ke = k_eff[i]
+            need = (L + ke) // bs + 1
+            with self._cond:
+                while len(slot.blocks) < need:
+                    slot.blocks.append(self._alloc_block_locked())
+            tables[i, :len(slot.blocks)] = slot.blocks
+            lengths[i] = L
+            tokens[i] = slot.last_token
+            limits[i] = L + ke
+            for j in range(ke + 1):
+                p = L + j
+                writes.append((i, j, slot.blocks[p // bs], p % bs))
+        writes = np.asarray(writes, np.int64).T.reshape(4, -1)
+        t0 = time.perf_counter()
+        props = self._propose_step(tokens, lengths, limits)     # [S, k]
+        vtokens = np.concatenate([tokens[:, None], props], axis=1)
+        target = self._verify_step(tables, lengths, vtokens, writes)
+        elapsed = time.perf_counter() - t0
+        self.stats["decode_steps"] += 1
+        self.stats["decode_token_slots"] += len(active)
+        self.stats["decode_seconds_total"] += elapsed
+        # the verify read every active slot's cached prefix (depth L)
+        self._account_attn_read(self._blocks_touched(
+            S, [s.length for _, s in active]))
+        self.stats["spec_rounds"] += 1
+        self.stats["peak_occupancy"] = max(self.stats["peak_occupancy"],
+                                           len(active))
+        accepts = {}
+        for i, slot in active:
+            ke = k_eff[i]
+            a = 0
+            while a < ke and props[i, a] == target[i, a]:
+                a += 1
+            accepts[i] = a
+            handle = slot.handle
+            handle.spec_rounds += 1
+            handle.spec_proposed += ke
+            handle.spec_accepted += a
+            # booked before the emissions: an eviction below resolves
+            # the handle, and its reader must see this round counted
+            self.stats["spec_proposed"] += ke
+            self.stats["spec_accepted"] += a
+        for i, slot in active:
+            a = accepts[i]
+            handle = slot.handle
+            L = slot.length
+            # rollback: positions L..L+a stay, everything past the first
+            # rejection is dead — truncate the table to the last valid
+            # position and return the over-allocated fresh pages
+            slot.length = L + a + 1
+            slot.last_token = int(target[i, a])
+            keep = (slot.length - 1) // bs + 1
+            if len(slot.blocks) > keep:
+                with self._cond:
+                    extra = slot.blocks[keep:]
+                    del slot.blocks[keep:]
+                    self._release_blocks_locked(extra)
+            for j in range(a + 1):
+                token = int(target[i, j])
+                self._emit(handle, token)
+                if handle.eos_id is not None and token == handle.eos_id:
+                    # nothing past the eos reaches the stream or the
+                    # retained cache (eviction frees decode pages)
+                    self._evict(i, "eos")
+                    break
+                if len(handle.out_tokens) >= handle.max_tokens:
+                    self._evict(i, "length")
+                    break
+
     def _emit(self, handle, token):
         handle.out_tokens.append(token)
         self.stats["tokens"] += 1
@@ -515,7 +1108,9 @@ class GenerationEngine:
         slot = self._slots[slot_idx]
         with self._cond:
             self._slots[slot_idx] = None
-            self._free.extend(slot.blocks)
+            # cache-retain eviction: indexed pages stay cached at
+            # refcount 0, everything else frees (generate.py:3191-3198)
+            self._release_blocks_locked(slot.blocks)
             self._cond.notify()
         self._finish(slot.handle, reason, error)
 
@@ -597,14 +1192,52 @@ class GenerationEngine:
         dbg = logits.cpu().numpy() if self.debug_logits else None
         return first, dbg
 
+    def _prefill_cached_step(self, tokens, true_len, offset, prefix_blocks,
+                             block_ids):
+        """Partial prefill (``generate.py:3365``): ``tokens [padded]``
+        sit at positions ``offset + arange``, after ``offset`` cached
+        positions held by ``prefix_blocks``; their K/V go to the fresh
+        ``block_ids``. The rows read the prefix pages plus themselves
+        causally (the chunk read, K2 on the card), so the K/V written and
+        the token from the last real row are the cold prefill's.
+        → the first generated token."""
+        c = self.config
+        dev = self.device
+        n_rep = c.n_heads // c.kv_heads
+        toks = torch.from_numpy(tokens).to(dev)
+        ids = torch.tensor(block_ids, dtype=torch.long, device=dev)
+        tables = np.zeros((1, self.blocks_per_slot), np.int32)
+        tables[0, :len(prefix_blocks)] = prefix_blocks
+        tables = torch.from_numpy(tables).to(dev)
+        x = self.params["embed"][toks][None]
+        cos, sin = transformer.rope_tables(
+            c, offset + torch.arange(toks.shape[0], device=dev))
+        for layer, lp in enumerate(self._layers):
+            def attend(q, k, v):
+                q = transformer.apply_rope(q, cos, sin)
+                k = transformer.apply_rope(k, cos, sin)
+                pages = (self._cache[0][layer], self._cache[1][layer])
+                o = self._attn_chunk_read(q, pages, tables, offset, k, v,
+                                          n_rep)
+                self._write_pages(layer, ids, k[0], v[0])
+                return o, None
+
+            x, _ = self._layer_core(x, lp, attend)
+        logits = self._head_logits(x[:, true_len - 1])[0]
+        return int(torch.argmax(logits))
+
     @staticmethod
     def _rope_rows_fn(cos, sin, dtype):
         """``transformer.apply_rope`` at per-row positions
         (``generate.py:3530-3549``): ``cos``/``sin`` ``[S, D/2]`` for
-        ``[S, 1, H, D]`` rows — the same pair rotation and stacking
-        order, the tables cast to the compute dtype once per step."""
-        c = cos[:, None, None, :].to(dtype)
-        s = sin[:, None, None, :].to(dtype)
+        ``[S, 1, H, D]`` rows (decode, the draft's micro-steps) or
+        ``[S, K1, D/2]`` for the verify's ``[S, K1, H, D]`` — the same
+        pair rotation and stacking order, the tables cast to the compute
+        dtype once per step."""
+        c = cos.unsqueeze(-2).to(dtype)
+        s = sin.unsqueeze(-2).to(dtype)
+        if cos.dim() == 2:
+            c, s = c[:, None], s[:, None]
 
         def rope_rows(t):
             x1, x2 = t[..., 0::2], t[..., 1::2]
@@ -613,13 +1246,14 @@ class GenerationEngine:
 
         return rope_rows
 
-    def _write_kv(self, layer, rows, phys, off, k, v):
-        """Decode write, in place: the ACTIVE rows' new K/V into their
-        pages at ``(phys, off)``. Inactive rows are filtered out here —
-        JAX drops their out-of-bounds sentinel writes
-        (``mode="drop"``), which torch indexing would not."""
+    def _write_kv(self, layer, phys, off, k, v):
+        """Decode and verify write, in place: K/V rows ``[n, kv, D]``
+        into their pages at ``(phys, off)``. The callers pass only the
+        rows to write — JAX drops its inactive and clamped rows'
+        out-of-bounds sentinel writes (``mode="drop"``), which torch
+        indexing would not."""
         for pool, t in zip(self._cache, (k, v)):
-            pool[layer].index_put_((phys, off), t[rows, 0])
+            pool[layer].index_put_((phys, off), t)
 
     def _gather_kv(self, pages, tables):
         """One layer's pool + tables → K/V in logical order
@@ -639,6 +1273,22 @@ class GenerationEngine:
         return paged_ops.paged_decode_attention(
             q, pages, tables, lengths, block_size=self.block_size,
             n_rep=n_rep)
+
+    def _attn_chunk_read(self, q, pages, tables, prefix_len, k, v, n_rep):
+        """Backend dispatch for the multi-token chunk-after-prefix reads
+        (``generate.py:3452``): the partial prefill's scalar offset and
+        the verify's per-slot depths. ``gather`` materializes the prefix
+        and runs ``attention.chunk_attention``; the paged backends run
+        ``ops.paged_attention.paged_chunk_attention`` (K2)."""
+        if self.attn_backend == "gather":
+            pk, pv = self._gather_kv(pages, tables)
+            return attn_lib.chunk_attention(
+                q, attn_lib.repeat_kv(torch.cat([pk, k], dim=1), n_rep),
+                attn_lib.repeat_kv(torch.cat([pv, v], dim=1), n_rep),
+                prefix_len)
+        return paged_ops.paged_chunk_attention(
+            q, pages, tables, prefix_len, k, v,
+            block_size=self.block_size, n_rep=n_rep)
 
     def _decode_step(self, tables, lengths, tokens, writes):
         """One token for every slot → (next tokens [S] numpy, fp32
@@ -661,7 +1311,7 @@ class GenerationEngine:
         for layer, lp in enumerate(self._layers):
             def attend(q, k, v):
                 q, k = rope_rows(q), rope_rows(k)
-                self._write_kv(layer, rows, phys, off, k, v)
+                self._write_kv(layer, phys, off, k[rows, 0], v[rows, 0])
                 pages = (self._cache[0][layer], self._cache[1][layer])
                 o = self._attn_decode_read(q, pages, tables_t,
                                            read_lengths, n_rep)
@@ -672,6 +1322,154 @@ class GenerationEngine:
         nxt = torch.argmax(logits, dim=-1).cpu().numpy()
         dbg = logits.cpu().numpy() if self.debug_logits else None
         return nxt, dbg
+
+    def _draft_prefill_step(self, prompt, slot_idx):
+        """Fill the draft's dense cache row of ``slot_idx`` from the
+        bucket-padded full prompt (``generate.py:3590``): one causal
+        forward through the draft (plain ``attention.dense_attention``,
+        as JAX runs it with XLA), K/V written at positions
+        ``0..padded-1``. The padded
+        tail's K/V sits past the prompt, where every read is
+        length-masked until the proposals overwrite it. Emits nothing:
+        the first token is the target's."""
+        c = self.draft_config
+        dev = self.device
+        n_rep = c.n_heads // c.kv_heads
+        padded = self._suffix_padded(len(prompt), 0)
+        tokens = np.zeros((padded,), np.int64)
+        tokens[:len(prompt)] = prompt
+        x = self.draft_params["embed"][torch.from_numpy(tokens).to(dev)][None]
+        cos, sin = transformer.rope_tables(
+            c, torch.arange(padded, device=dev))
+        dk, dv = self._draft_cache
+        for layer, lp in enumerate(self._draft_layers):
+            def attend(q, k, v):
+                q = transformer.apply_rope(q, cos, sin)
+                k = transformer.apply_rope(k, cos, sin)
+                o = attn_lib.dense_attention(
+                    q, attn_lib.repeat_kv(k, n_rep),
+                    attn_lib.repeat_kv(v, n_rep), causal=True)
+                dk[layer, slot_idx, :padded] = k[0]
+                dv[layer, slot_idx, :padded] = v[0]
+                return o, None
+
+            x, _ = transformer.layer_core(x, lp, attend, c)
+
+    def _propose_step(self, tokens, lengths, limits):
+        """Draft proposal (``generate.py:3626``): ``spec_k`` greedy
+        tokens per slot from ``spec_k + 1`` autoregressive micro-steps
+        over the draft's dense cache, read with the plain
+        ``attention.decode_attention``. The extra micro-step only writes
+        the last proposal's K/V, so after any acceptance the draft cache
+        is valid through the target's new length. Row ``i`` writes
+        positions up to ``limits[i]``; later writes and every inactive
+        row's are filtered out (JAX drops them out of bounds).
+        → proposals ``[S, spec_k]`` numpy."""
+        c = self.draft_config
+        dev = self.device
+        n_rep = c.n_heads // c.kv_heads
+        dk, dv = self._draft_cache
+        tok = torch.from_numpy(tokens).to(dev)
+        pos = torch.from_numpy(lengths).to(dev).long()
+        props = []
+        for step in range(self.spec_k + 1):
+            rows = torch.from_numpy(
+                np.flatnonzero(lengths + step <= limits)).to(dev)
+            wpos = pos[rows]
+            x = self.draft_params["embed"][tok][:, None]
+            rope_rows = self._rope_rows_fn(
+                *transformer.rope_tables(c, pos), c.compute_dtype)
+            for layer, lp in enumerate(self._draft_layers):
+                def attend(q, k, v):
+                    q, k = rope_rows(q), rope_rows(k)
+                    dk[layer].index_put_((rows, wpos), k[rows, 0])
+                    dv[layer].index_put_((rows, wpos), v[rows, 0])
+                    o = attn_lib.decode_attention(
+                        q, attn_lib.repeat_kv(dk[layer], n_rep),
+                        attn_lib.repeat_kv(dv[layer], n_rep), pos + 1)
+                    return o, None
+
+                x, _ = transformer.layer_core(x, lp, attend, c)
+            if step == self.spec_k:
+                break              # this step ran for its cache write
+            x = transformer._rmsnorm(x[:, 0],
+                                     self.draft_params["final_norm"])
+            tok = torch.argmax(transformer._logits(x, self._draft_head),
+                               dim=-1)
+            props.append(tok)
+            pos = pos + 1
+        return torch.stack(props, dim=1).cpu().numpy()
+
+    def _verify_step(self, tables, lengths, tokens, writes):
+        """Score all ``k + 1`` candidate positions of every slot in one
+        target forward (``generate.py:3681``): ``tokens[i]`` =
+        ``[last_token, d_1..d_k]`` at positions ``lengths[i] + arange``;
+        their K/V go to the pool at ``writes`` (row, column, block,
+        offset — clamped positions are left out), and the read is the
+        chunk read with the per-slot prefix depth ``lengths`` (K2).
+        → the target's argmax per position ``[S, k+1]`` numpy."""
+        c = self.config
+        dev = self.device
+        n_rep = c.n_heads // c.kv_heads
+        tables_t = torch.from_numpy(tables).to(dev)
+        lengths_t = torch.from_numpy(lengths).to(dev)
+        rows, cols, phys, off = torch.from_numpy(writes).to(dev)
+        K1 = tokens.shape[1]
+        x = self.params["embed"][torch.from_numpy(tokens).to(dev)]
+        positions = lengths_t[:, None].long() + torch.arange(K1, device=dev)
+        rope_rows = self._rope_rows_fn(
+            *transformer.rope_tables(c, positions), c.compute_dtype)
+        for layer, lp in enumerate(self._layers):
+            def attend(q, k, v):
+                q, k = rope_rows(q), rope_rows(k)
+                self._write_kv(layer, phys, off, k[rows, cols],
+                               v[rows, cols])
+                pages = (self._cache[0][layer], self._cache[1][layer])
+                o = self._attn_chunk_read(q, pages, tables_t, lengths_t, k,
+                                          v, n_rep)
+                return o, None
+
+            x, _ = self._layer_core(x, lp, attend)
+        logits = self._head_logits(x)
+        return torch.argmax(logits, dim=-1).cpu().numpy()
+
+
+def truncated_draft(params, config, draft_layers, dampen=None):
+    """Self-speculative draft pair (``generate.py:3735``): the draft is
+    the target's first ``draft_layers`` layers sharing its embed, final
+    norm and LM head. ``dampen`` also returns a modified target whose
+    layers ``>= draft_layers`` have ``wo`` and ``w_down`` scaled by that
+    factor, so the draft's argmax usually survives the upper layers and
+    acceptance is measurable without a training run.
+
+    → ``(target_params, draft_params, draft_config)``; the target is
+    ``params`` itself when ``dampen`` is None. The tensors stay on
+    their device; ``config`` is the port's frozen ``Config``."""
+    layers = params["layers"]
+    if isinstance(layers, (list, tuple)):
+        layers = {k: torch.stack([lp[k] for lp in layers])
+                  for k in layers[0]}
+        params = {**params, "layers": layers}
+    if not 1 <= int(draft_layers) < config.n_layers:
+        raise ValueError(
+            f"draft_layers must be in [1, {config.n_layers - 1}] (a "
+            f"strict prefix of the target's {config.n_layers} layers), "
+            f"got {draft_layers}")
+    draft_layers = int(draft_layers)
+    draft_config = dataclasses.replace(config, n_layers=draft_layers)
+    draft_params = {k: v for k, v in params.items() if k != "layers"}
+    draft_params["layers"] = {k: a[:draft_layers] for k, a in layers.items()}
+    if dampen is not None:
+        damped = dict(layers)
+        for key in ("wo", "w_down"):
+            a = layers[key]
+            mult = torch.ones((config.n_layers,), dtype=torch.float32,
+                              device=a.device)
+            mult[draft_layers:] = float(dampen)
+            damped[key] = a * mult.reshape(
+                (-1,) + (1,) * (a.dim() - 1)).to(a.dtype)
+        params = {**params, "layers": damped}
+    return params, draft_params, draft_config
 
 
 def reference_greedy_decode(params, config, prompt, max_tokens,

@@ -10,7 +10,12 @@ Same inputs (numpy, from a seed) through both frameworks:
   the CPU as the JAX package's own tests run it;
 - the K3 plain version's ``out`` and ``lse`` against the JAX flash
   forward — the Pallas ``_fwd`` where the sequence tiles, ``_flash_fwd``
-  (XLA dense fallback) where it does not.
+  (XLA dense fallback) where it does not;
+- the chunk-after-prefix reads — ``chunk_attention``, the streamed
+  ``paged_chunk_attention`` and the K2 plain version with its CPU
+  wrapper — against their JAX twins and the Pallas chunk kernel
+  (interpreted), at an empty, a mid-block, a block-aligned and a
+  per-slot ``[B]`` prefix.
 
 Tolerances: fp32 1e-5 (reduction order only); bf16 0.02, the paged-read
 tolerance of ``tests/test_paged_attention.py`` (bf16 rounds at other
@@ -182,3 +187,107 @@ def test_k3_plain_full_attention_matches_dense():
     want = t_attn.dense_attention(tq, t_attn.repeat_kv(tk, 2),
                                   t_attn.repeat_kv(tv, 2), causal=False)
     torch.testing.assert_close(out, want, atol=1e-5, rtol=1e-5)
+
+
+# the chunk reads: empty, mid-block, block-aligned and per-slot prefixes
+PREFIXES = [0, 9, 2 * BS, [0, 9, 25]]
+SQ = 5         # chunk rows
+
+
+def _chunk_inputs(dtype, n_rep, prefix, seed=4):
+    """A pool, tables, a prefix length and a chunk's q/K/V in both
+    frameworks, plus the JAX gathered ``[B, P+S]`` K/V (prefix pages
+    then the chunk) that ``chunk_attention`` reads."""
+    rng = np.random.default_rng(seed)
+    B, kv, N = 3, H // n_rep, 12
+    kc = rng.normal(size=(N, BS, kv, D)).astype(np.float32)
+    vc = rng.normal(size=(N, BS, kv, D)).astype(np.float32)
+    q = rng.normal(size=(B, SQ, H, D)).astype(np.float32)
+    kch = rng.normal(size=(B, SQ, kv, D)).astype(np.float32)
+    vch = rng.normal(size=(B, SQ, kv, D)).astype(np.float32)
+    tables = rng.integers(0, N, size=(B, BPS)).astype(np.int32)
+    j, t = zip(*(_both(x, dtype) for x in (q, kc, vc, kch, vch)))
+    if isinstance(prefix, list):
+        j_plen = jnp.asarray(prefix, jnp.int32)
+        t_plen = torch.tensor(prefix, dtype=torch.int32)
+    else:
+        j_plen = t_plen = prefix
+    jtab, ttab = jnp.asarray(tables), torch.from_numpy(tables)
+    return (j, jtab, j_plen), (t, ttab, t_plen)
+
+
+def _gathered(pool, tables, chunk, xp_cat):
+    B = tables.shape[0]
+    return xp_cat([pool[tables].reshape(B, BPS * BS, -1, D), chunk])
+
+
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+@pytest.mark.parametrize("n_rep", [1, 4])
+@pytest.mark.parametrize("prefix", PREFIXES)
+def test_chunk_attention_matches_jax(dtype, tol, n_rep, prefix):
+    """The gather-semantics chunk read, two-part mask included."""
+    ((jq, jkc, jvc, jkch, jvch), jt, jp), \
+        ((tq, tkc, tvc, tkch, tvch), tt, tp) = _chunk_inputs(dtype, n_rep,
+                                                             prefix)
+    jcat = functools.partial(jnp.concatenate, axis=1)
+    tcat = functools.partial(torch.cat, dim=1)
+    want = j_attn.chunk_attention(
+        jq, j_attn.repeat_kv(_gathered(jkc, jt, jkch, jcat), n_rep),
+        j_attn.repeat_kv(_gathered(jvc, jt, jvch, jcat), n_rep), jp)
+    tt = tt.long()
+    got = t_attn.chunk_attention(
+        tq, t_attn.repeat_kv(_gathered(tkc, tt, tkch, tcat), n_rep),
+        t_attn.repeat_kv(_gathered(tvc, tt, tvch, tcat), n_rep), tp)
+    _close(got, want, tol)
+
+
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+@pytest.mark.parametrize("n_rep", [1, 4])
+@pytest.mark.parametrize("prefix", PREFIXES)
+def test_paged_chunk_stream_matches_jax(dtype, tol, n_rep, prefix):
+    ((jq, jkc, jvc, jkch, jvch), jt, jp), \
+        ((tq, tkc, tvc, tkch, tvch), tt, tp) = _chunk_inputs(dtype, n_rep,
+                                                             prefix)
+    want = j_attn.paged_chunk_attention(jq, (jkc, jvc), jt, jp, jkch, jvch,
+                                        block_size=BS, n_rep=n_rep)
+    got = t_attn.paged_chunk_attention(tq, (tkc, tvc), tt, tp, tkch, tvch,
+                                       block_size=BS, n_rep=n_rep)
+    _close(got, want, tol)
+
+
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+@pytest.mark.parametrize("n_rep", [1, 4])
+@pytest.mark.parametrize("prefix", PREFIXES)
+def test_k2_plain_matches_jax_kernel(dtype, tol, n_rep, prefix):
+    """The K2 plain version, and the wrapper on CPU tensors (which takes
+    it and counts no launch), against the Pallas chunk kernel in
+    interpret mode."""
+    ((jq, jkc, jvc, jkch, jvch), jt, jp), \
+        ((tq, tkc, tvc, tkch, tvch), tt, tp) = _chunk_inputs(dtype, n_rep,
+                                                             prefix)
+    want = j_paged.paged_chunk_attention(jq, (jkc, jvc), jt, jp, jkch,
+                                         jvch, block_size=BS, n_rep=n_rep)
+    kw = dict(block_size=BS, n_rep=n_rep)
+    plain = t_paged.paged_chunk_reference(tq, (tkc, tvc), tt, tp, tkch,
+                                          tvch, **kw)
+    before = t_paged.paged_chunk_attention.launches
+    got = t_paged.paged_chunk_attention(tq, (tkc, tvc), tt, tp, tkch, tvch,
+                                        **kw)
+    assert t_paged.paged_chunk_attention.launches == before
+    assert torch.isfinite(got.float()).all()
+    torch.testing.assert_close(got, plain, atol=0, rtol=0)
+    _close(got, want, tol)
+
+
+def test_k2_plain_with_an_empty_prefix_ignores_the_table():
+    """Prefix 0 reads no page: a table of out-of-range ids changes
+    nothing (the first chunk of every chunked prefill)."""
+    (_, _, _), ((tq, tkc, tvc, tkch, tvch), tt, _) = _chunk_inputs(
+        "float32", 2, 0)
+    kw = dict(block_size=BS, n_rep=2)
+    junk = torch.full_like(tt, 10 ** 6)
+    got = t_paged.paged_chunk_reference(tq, (tkc, tvc), junk, 0, tkch,
+                                        tvch, **kw)
+    want = t_attn.dense_attention(tq, t_attn.repeat_kv(tkch, 2),
+                                  t_attn.repeat_kv(tvch, 2))
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)

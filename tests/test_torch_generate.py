@@ -80,7 +80,8 @@ def jax_engine_out(jparams):
 def _port_churn(tparams, backend):
     eng = t_gen.GenerationEngine(
         tparams, _tcfg(), max_slots=2, block_size=8, max_context=64,
-        debug_logits=True, attn_backend=backend, device="cpu")
+        prefix_cache=False, debug_logits=True, attn_backend=backend,
+        device="cpu")
     try:
         handles = [eng.submit(p, max_tokens=m) for p, m in PROMPTS]
         outs = [(h.result(timeout=300)[0], h.logits) for h in handles]

@@ -10,7 +10,10 @@ inside the fixture, never at import). On a GPU host run
 need not have). Covers what ``chip_smoke.py`` does not: every head_dim
 template, GQA groups 1/2/4, block sizes that do not divide the kernel's
 32-position tile, ragged and causal/full flash shapes, the launch
-counters and the wrappers' refusals. Tolerances: fp32 1e-4, bf16 2e-2
+counters and the wrappers' refusals; for K2 (the chunk read) its three
+serving shapes (a 256-row chunk behind a long prefix, a prefix hit's
+suffix, an 8-slot verify with per-slot prefixes), prefix 0 and a
+ragged last row tile. Tolerances: fp32 1e-4, bf16 2e-2
 (the kernels sum in another order than the plain versions; bf16
 outputs may round one unit apart).
 """
@@ -82,6 +85,67 @@ def test_flash_fwd_matches_plain(dev, dtype, D, n_rep, S, causal):
     torch.testing.assert_close(lse, want_lse, atol=1e-4, rtol=1e-5)
 
 
+def _chunk_case(dev, dtype, B, S, prefix, n_rep=4, D=128, bs=16, bps=64,
+                kv=2, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    N = B * bps
+    kc = torch.randn((N, bs, kv, D), generator=g).to(dev, dtype)
+    vc = torch.randn((N, bs, kv, D), generator=g).to(dev, dtype)
+    q = torch.randn((B, S, kv * n_rep, D), generator=g).to(dev, dtype)
+    kch = torch.randn((B, S, kv, D), generator=g).to(dev, dtype)
+    vch = torch.randn((B, S, kv, D), generator=g).to(dev, dtype)
+    tables = torch.randperm(N, generator=g).reshape(B, bps).to(
+        dev, torch.int32)
+    if not isinstance(prefix, int):
+        prefix = torch.tensor(prefix, dtype=torch.int32, device=dev)
+    return q, (kc, vc), tables, prefix, kch, vch
+
+
+VERIFY_PREFIX = [0, 1, 17, 100, 333, 512, 777, 1019]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,prefix", [
+    (1, 256, 768),            # a chunk behind a long prefix
+    (1, 256, 0),              # a chunked prefill's first chunk
+    (1, 40, 512),             # a prefix hit's suffix
+    (1, 13, 32),              # a ragged last row tile
+    (8, 5, VERIFY_PREFIX)])   # the verify, per-slot prefixes
+def test_paged_chunk_matches_plain(dev, dtype, B, S, prefix):
+    q, pages, tables, plen, kch, vch = _chunk_case(dev, dtype, B, S, prefix)
+    kw = dict(block_size=16, n_rep=4)
+    before = paged_ops.paged_chunk_attention.launches
+    got = paged_ops.paged_chunk_attention(q, pages, tables, plen, kch, vch,
+                                          **kw)
+    want = paged_ops.paged_chunk_reference(q, pages, tables, plen, kch, vch,
+                                           **kw)
+    torch.cuda.synchronize()
+    assert paged_ops.paged_chunk_attention.launches == before + 1
+    assert torch.isfinite(got.float()).all()
+    torch.testing.assert_close(got.float(), want.float(), atol=TOL[dtype],
+                               rtol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [32, 64, 128])
+@pytest.mark.parametrize("n_rep", [1, 2, 4, 3])
+@pytest.mark.parametrize("bs", [8, 12])
+def test_paged_chunk_matrix(dev, dtype, D, n_rep, bs):
+    """Every head_dim template, GQA groups that do and do not divide the
+    64-row tile, block sizes that do not divide the 32-key tile."""
+    q, pages, tables, plen, kch, vch = _chunk_case(
+        dev, dtype, 3, 23, [0, 9, 5 * bs + 3], n_rep=n_rep, D=D, bs=bs,
+        bps=6, seed=D + n_rep)
+    kw = dict(block_size=bs, n_rep=n_rep)
+    got = paged_ops.paged_chunk_attention(q, pages, tables, plen, kch, vch,
+                                          **kw)
+    want = paged_ops.paged_chunk_reference(q, pages, tables, plen, kch, vch,
+                                           **kw)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want.float(), atol=TOL[dtype],
+                               rtol=0)
+
+
 def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
     q = torch.zeros((1, 4, 2, 48), device=dev)
     with pytest.raises(ValueError, match="head_dim"):
@@ -96,3 +160,9 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
             torch.zeros((1, 2), dtype=torch.int32, device=dev),
             torch.ones((1,), dtype=torch.int32, device=dev),
             block_size=8, n_rep=2)
+    with pytest.raises(NotImplementedError, match="int8"):
+        paged_ops.paged_chunk_attention(
+            torch.zeros((1, 3, 2, 64), device=dev), (pages,) * 4,
+            torch.zeros((1, 2), dtype=torch.int32, device=dev), 0,
+            torch.zeros((1, 3, 1, 64), device=dev),
+            torch.zeros((1, 3, 1, 64), device=dev), block_size=8, n_rep=2)
