@@ -38,15 +38,43 @@ if any phase fails:
    monolithic prefill) on 4 short requests each, apart from steps where
    the plain engine's top-2 logit gap is below 1e-3; the bf16 agreement
    is printed, not asserted;
-9. the ``kernels`` line — every ported kernel with its launches on each
-   engine path (counts zeroed just before a path, read just after), its
-   max |Δ| and its times.
+9. train — the flagship at full width and depth (bf16, ``remat=False``)
+   trained by the port's ``compute.train``: ``init_state`` →
+   ``make_train_step(plain_loss(transformer.loss_fn))`` → ``fit`` over
+   one repeated ``synthetic_lm`` batch of 16 x 1024 tokens, 2 warm
+   steps then 5 timed (lr 1e-3, warmup 1): step ms, tokens/s, MFU
+   (``flops_per_token`` x tokens / step s / the card's bf16 peak), peak
+   memory and the loss per step; the loss must be finite and fall, and
+   every step launch K3, K4 and K5 exactly 12 times each; then one step
+   profiled through the port's ``profiler`` (device ms by kernel
+   group, the device's idle share);
+10. train conformance — fp32, TF32 off, flagship width, 2 layers, batch
+   2 x 1024: the loss and every gradient leaf through K3/K4/K5 against
+   ``attention="dense"`` (plain PyTorch autograd) on the card, loss
+   within 1e-5 relative, each leaf's max |Δg| within 1e-3 of that
+   leaf's max |g|; and at full depth (12 layers, fp32) ``remat=True``
+   against ``remat=False``: gradients within 1e-5 of each leaf's max
+   |g| (the embedding's scatter-add sums in another order each run),
+   24 K3 launches against 12, 12 of K4 and K5 in both;
+11. the ``kernels`` line — every ported kernel with its launches on each
+   path (counts zeroed just before a path, read just after), its max
+   |Δ| and its times.
+
+Kernel phase, the backward: K4 (dq) and K5 (dk, dv) against the plain
+backward at the train step's shape (B 16, S 1024, 8 q / 2 kv heads, D
+128, causal), fp32 and bf16, within 1e-4 / 2e-2 of the plain version's
+max |value|; K3 is also measured at B 16 beside them. The library
+yardstick of the backward is SDPA's backward over repeated
+K/V (one ``autograd.grad`` over a retained forward): it covers dq,
+dk and dv together.
 
 One JSON object per phase, then the run's total seconds, the card line,
 the ``kernels`` line and the last line ``{"ok": true, "device": {...}}``.
 """
 
 import dataclasses
+import functools
+import itertools
 import json
 import statistics
 import sys
@@ -194,12 +222,12 @@ def check_paged(dtype_name, flush):
     return row
 
 
-def check_flash(dtype_name, S, flush):
+def check_flash(dtype_name, S, flush, B=1):
     import torch
     import torch.nn.functional as F
     from kubeflow_tpu_torch.compute.ops import flash_attention as ops
     dtype = getattr(torch, dtype_name)
-    B, H, kv, D = 1, 8, 2, 128
+    H, kv, D = 8, 2, 128
     g = torch.Generator().manual_seed(S)
     q, k, v = (torch.randn((B, S, h, D), generator=g).to("cuda", dtype)
                for h in (H, kv, kv))
@@ -233,6 +261,80 @@ def check_flash(dtype_name, S, flush):
            "bound_ms": bound_ms, "bound_by": bound_by}
     emit(row)
     return row
+
+
+TRAIN_ATTN = dict(B=16, S=1024, H=8, kv=2, D=128)   # the train step's
+
+
+def check_flash_bwd(dtype_name, flush):
+    """K4 and K5 against the plain backward at the train step's shape →
+    one row per kernel. Errors and the tolerance are relative to the
+    plain gradient's max |value|."""
+    import torch
+    import torch.nn.functional as F
+    from kubeflow_tpu_torch.compute.ops import flash_attention as ops
+    dtype = getattr(torch, dtype_name)
+    B, S, H, kv, D = (TRAIN_ATTN[k] for k in ("B", "S", "H", "kv", "D"))
+    g = torch.Generator().manual_seed(11)
+    q, do = (torch.randn((B, S, H, D), generator=g).to("cuda", dtype)
+             for _ in range(2))
+    k, v = (torch.randn((B, S, kv, D), generator=g).to("cuda", dtype)
+            for _ in range(2))
+    out, lse = ops.flash_attention(q, k, v, causal=True)
+    delta = ops.attention_delta(out, do)
+    args = (q, k, v, do, lse, delta)
+    dq = ops.flash_attention_bwd_dq(*args)
+    dk, dv = ops.flash_attention_bwd_dkv(*args)
+    want = ops._bwd_reference(*args, True, None)
+    torch.cuda.synchronize()
+    errs = {}
+    for name, got, ref in zip(("dq", "dk", "dv"), (dq, dk, dv), want):
+        diff = float((got.float() - ref.float()).abs().max())
+        scale = float(ref.float().abs().max())
+        errs[name] = {"max_abs_err": diff, "rel": diff / scale,
+                      "finite": bool(torch.isfinite(got.float()).all())}
+    dq_ms = time_ms(lambda: ops.flash_attention_bwd_dq(*args), flush=flush)
+    dkv_ms = time_ms(lambda: ops.flash_attention_bwd_dkv(*args),
+                     flush=flush)
+    plain_ms = time_ms(lambda: ops._bwd_reference(*args, True, None),
+                       flush=flush)
+    # library yardstick: SDPA's backward over repeated K/V — dq, dk and
+    # dv together — as one autograd.grad over a retained forward graph
+    n_rep = H // kv
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
+                  for t in (q, k.repeat_interleave(n_rep, dim=2),
+                            v.repeat_interleave(n_rep, dim=2)))
+    out_t = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+    library_ms = time_ms(lambda: torch.autograd.grad(
+        out_t, (qt, kt, vt), do.transpose(1, 2), retain_graph=True),
+        flush=flush)
+    itemsize = q.element_size()
+    q_bytes, kv_bytes = q.numel() * itemsize, k.numel() * itemsize
+    stats = 2 * lse.numel() * 4
+    pairs = B * H * S * (S + 1) // 2
+    rows = []
+    for name, ms, outs, n_products, bytes_moved in (
+            ("flash_bwd_dq", dq_ms, ("dq",), 3,
+             3 * q_bytes + 2 * kv_bytes + stats),       # q, dO, dq; k, v
+            ("flash_bwd_dkv", dkv_ms, ("dk", "dv"), 4,
+             2 * q_bytes + 4 * kv_bytes + stats)):      # q, dO; k, v, dk, dv
+        bound_ms, bound_by = bound(bytes_moved, 2 * n_products * D * pairs,
+                                   dtype_name)
+        err = max(errs[o]["rel"] for o in outs)
+        ok = all(errs[o]["finite"] for o in outs) and err <= TOL[dtype_name]
+        row = {"phase": "kernels", "kernel": name, "dtype": dtype_name,
+               "shape": {"batch": B, "seq": S, "heads": H, "kv_heads": kv,
+                         "head_dim": D, "causal": True},
+               "max_abs_err": max(errs[o]["max_abs_err"] for o in outs),
+               "max_rel_err": err, "tol_rel": TOL[dtype_name], "ok": ok,
+               "errors": {o: errs[o] for o in outs},
+               "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+               "plain_covers": "dq+dk+dv", "library_covers": "dq+dk+dv",
+               "k4_plus_k5_ms": dq_ms + dkv_ms,
+               "bound_ms": bound_ms, "bound_by": bound_by}
+        emit(row)
+        rows.append(row)
+    return rows
 
 
 VERIFY_PREFIXES = [0, 1, 17, 100, 333, 512, 777, 1019]
@@ -311,6 +413,9 @@ def phase_kernels():
         rows.append(check_paged(dtype_name, flush))
         for S in (8, 256, 300, 1024):
             rows.append(check_flash(dtype_name, S, flush))
+        rows.append(check_flash(dtype_name, TRAIN_ATTN["S"], flush,
+                                B=TRAIN_ATTN["B"]))
+        rows += check_flash_bwd(dtype_name, flush)
         for case in CHUNK_CASES:
             rows.append(check_chunk(dtype_name, case, flush))
     bad = [r for r in rows if not r["ok"]]
@@ -320,12 +425,13 @@ def phase_kernels():
     return rows
 
 
-def flagship_config(dtype="bfloat16", attention="flash"):
+def flagship_config(dtype="bfloat16", attention="flash", **kw):
     """The bench-LM flagship at full width (bench.py's LM config)."""
     from kubeflow_tpu_torch.compute.models import transformer
-    return transformer.Config(
-        vocab_size=32768, d_model=1024, n_layers=12, n_heads=8,
-        n_kv_heads=2, max_seq=1024, dtype=dtype, attention=attention)
+    fields = dict(vocab_size=32768, d_model=1024, n_layers=12, n_heads=8,
+                  n_kv_heads=2, max_seq=1024)
+    return transformer.Config(**{**fields, **kw}, dtype=dtype,
+                              attention=attention)
 
 
 PROMPT_LENS = (7, 64, 200, 300, 700)
@@ -685,6 +791,163 @@ def phase_identity(params, target, draft, dcfg):
     return report
 
 
+TRAIN_BATCH = (16, 1024)
+TRAIN_WARM, TRAIN_TIMED = 2, 5
+def phase_train(kernel_fns):
+    """The train path: the flagship at full width and depth, bf16,
+    ``remat=False``, through ``init_state`` → ``make_train_step`` →
+    ``fit`` over one repeated 16 x 1024 batch. Launch counts are zeroed
+    just before ``fit`` and read just after; the step waits for the card
+    so the telemetry and the step times are device-complete."""
+    import torch
+    from kubeflow_tpu_torch.compute import data, profiler, telemetry, train
+    from kubeflow_tpu_torch.compute.models import transformer
+    cfg = flagship_config(remat=False)
+    opt = train.make_optimizer(learning_rate=1e-3, warmup_steps=1,
+                               total_steps=100)
+    state = train.init_state(functools.partial(transformer.init_params, cfg),
+                             opt, device="cuda",
+                             generator=torch.Generator().manual_seed(0))
+    step = train.make_train_step(train.plain_loss(transformer.loss_fn, cfg),
+                                 opt)
+
+    def synced(state, batch):
+        out = step(state, batch)
+        torch.cuda.synchronize()
+        return out
+
+    B, S = TRAIN_BATCH
+    batch = next(data.synthetic_lm(B, S, cfg.vocab_size, seed=4))
+    tokens = B * S
+    flops_per_step = transformer.flops_per_token(cfg) * tokens
+    peak = telemetry.peak_flops()
+    tel = telemetry.TrainTelemetry("flagship-train",
+                                   flops_per_step=flops_per_step, peak=peak)
+    n_steps = TRAIN_WARM + TRAIN_TIMED
+    marks, losses = [], []
+
+    def on_step(n, metrics):
+        marks.append(time.perf_counter())
+        losses.append(metrics["loss"])
+
+    for fn in kernel_fns.values():
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state, metrics = train.fit(state, synced, itertools.repeat(batch, n_steps),
+                               on_step=on_step, telemetry=tel)
+    launches = {name: fn.launches for name, fn in kernel_fns.items()}
+    peak_mem = torch.cuda.max_memory_allocated()
+    losses = [float(x) for x in losses]
+    step_s = [b - a for a, b in zip(marks[TRAIN_WARM - 1:],
+                                    marks[TRAIN_WARM:])]
+    step_ms = 1e3 * statistics.mean(step_s)
+    # one more step, profiled (its launches are not the path's count)
+    with profiler.trace("build/profile") as cap:
+        w0 = time.perf_counter()
+        state, _ = synced(state, data.to_device(batch, "cuda"))
+        wall_ms = 1e3 * (time.perf_counter() - w0)
+    prof = profiler.device_summary(cap.profile, wall_ms)
+    row = {"phase": "train", "dtype": "bfloat16", "batch": B, "seq": S,
+           "layers": cfg.n_layers, "remat": cfg.remat, "steps": n_steps,
+           "timed_steps": TRAIN_TIMED, "first_step_s": marks[0] - t0,
+           "step_ms": step_ms, "step_ms_each": [1e3 * x for x in step_s],
+           "tokens_per_s": tokens / (step_ms / 1e3),
+           "flops_per_token": transformer.flops_per_token(cfg),
+           "peak_flops": peak,
+           "mfu": flops_per_step / (step_ms / 1e3) / peak,
+           "telemetry_mfu": tel.live_mfu(),
+           "peak_memory_bytes": peak_mem, "losses": losses,
+           "grad_norm": float(metrics["grad_norm"]),
+           "launches": launches,
+           "launches_per_step": {k: v / n_steps for k, v in launches.items()}}
+    emit(row)
+    emit({"phase": "train_profile", "trace": cap.path, **prof})
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"train loss did not fall: {losses}")
+    for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+        if launches[name] != cfg.n_layers * n_steps:
+            raise AssertionError(
+                f"{name} launched {launches[name]} times in {n_steps} "
+                f"steps, want {cfg.n_layers} a step")
+    return row
+
+
+def _grads(params, cfg, batch):
+    """(loss, fp32 gradient of every leaf) of ``transformer.loss_fn``."""
+    import torch
+    from kubeflow_tpu_torch.compute import train
+    from kubeflow_tpu_torch.compute.models import transformer
+    tree = train.tree_map(lambda t: t.detach().clone().requires_grad_(),
+                          params)
+    leaves = train.tree_leaves(tree)
+    loss, _ = transformer.loss_fn(tree, batch, cfg)
+    return float(loss.detach()), torch.autograd.grad(loss, leaves)
+
+
+def _leaf_errors(got, want):
+    """Per leaf: max |Δg| over that leaf's max |g|."""
+    return [float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+            for a, b in zip(got, want)]
+
+
+def phase_train_conformance(kernel_fns):
+    """fp32 (TF32 off) gradients through K3/K4/K5 against plain PyTorch
+    autograd through dense attention (flagship width, 2 layers, batch
+    2 x 1024), then remat against no remat at full depth."""
+    import torch
+    from kubeflow_tpu_torch.compute import data
+    from kubeflow_tpu_torch.compute.models import transformer
+    batch = data.to_device(next(data.synthetic_lm(2, 1024, 32768, seed=5)),
+                           "cuda")
+    cfg2 = flagship_config("float32", n_layers=2, remat=False)
+    params = transformer.init_params(cfg2, torch.Generator().manual_seed(1),
+                                     device="cuda")
+    flash_loss, flash_g = _grads(params, cfg2, batch)
+    dense_loss, dense_g = _grads(
+        params, dataclasses.replace(cfg2, attention="dense"), batch)
+    errs = _leaf_errors(flash_g, dense_g)
+    loss_rel = abs(flash_loss - dense_loss) / abs(dense_loss)
+    report = {"phase": "train_conformance",
+              "flash_vs_dense": {"layers": 2, "batch": [2, 1024],
+                                 "loss": [flash_loss, dense_loss],
+                                 "loss_rel": loss_rel, "tol_loss": 1e-5,
+                                 "leaf_rel_max": max(errs),
+                                 "tol_leaf": 1e-3}}
+    cfg12 = flagship_config("float32")
+    params = transformer.init_params(cfg12, torch.Generator().manual_seed(2),
+                                     device="cuda")
+    runs = {}
+    for remat in (False, True):
+        for fn in kernel_fns.values():
+            fn.launches = 0
+        loss, g = _grads(params, dataclasses.replace(cfg12, remat=remat),
+                         batch)
+        torch.cuda.synchronize()
+        runs[remat] = (loss, g, {n: kernel_fns[n].launches for n in
+                                 ("flash_fwd", "flash_bwd_dq",
+                                  "flash_bwd_dkv")})
+    remat_errs = _leaf_errors(runs[True][1], runs[False][1])
+    report["remat"] = {"layers": 12, "loss": [runs[True][0], runs[False][0]],
+                       "leaf_rel_max": max(remat_errs), "tol_leaf": 1e-5,
+                       "launches": {"remat": runs[True][2],
+                                    "no_remat": runs[False][2]}}
+    emit(report)
+    if loss_rel > 1e-5 or max(errs) > 1e-3:
+        raise AssertionError(f"flash gradients leave the dense ones: loss "
+                             f"{loss_rel}, leaves {errs}")
+    if max(remat_errs) > 1e-5:
+        raise AssertionError(f"remat changes the gradients: {remat_errs}")
+    want = {True: {"flash_fwd": 24, "flash_bwd_dq": 12, "flash_bwd_dkv": 12},
+            False: {"flash_fwd": 12, "flash_bwd_dq": 12,
+                    "flash_bwd_dkv": 12}}
+    for remat in (False, True):
+        if runs[remat][2] != want[remat]:
+            raise AssertionError(f"remat={remat} launches {runs[remat][2]}, "
+                                 f"want {want[remat]}")
+    return report
+
+
 def main():
     import torch
     from kubeflow_tpu_torch.compute.models import transformer
@@ -698,13 +961,19 @@ def main():
         flagship_config(), torch.Generator().manual_seed(0), device="cuda")
     kernel_fns = {"paged_decode": paged_ops.paged_decode_attention,
                   "paged_chunk": paged_ops.paged_chunk_attention,
-                  "flash_fwd": flash_ops.flash_attention}
+                  "flash_fwd": flash_ops.flash_attention,
+                  "flash_bwd_dq": flash_ops.flash_attention_bwd_dq,
+                  "flash_bwd_dkv": flash_ops.flash_attention_bwd_dkv}
     paths = {"engine": phase_engine(params, kernel_fns),
              "prefix": phase_prefix(params, kernel_fns)}
     target, draft, dcfg = spec_pair(params, flagship_config())
     paths["speculative"] = phase_spec(target, draft, dcfg, kernel_fns)
     phase_conformance(params)
     phase_identity(params, target, draft, dcfg)
+    del params, target, draft
+    torch.cuda.empty_cache()
+    paths["train"] = phase_train(kernel_fns)
+    phase_train_conformance(kernel_fns)
     meta = {
         "paged_decode": (
             "kubeflow_tpu_torch/compute/ops/csrc/paged_decode.cu",
@@ -715,19 +984,34 @@ def main():
         "paged_chunk": (
             "kubeflow_tpu_torch/compute/ops/csrc/paged_chunk.cu",
             "kubeflow_tpu/compute/ops/paged_attention.py:190"),
+        "flash_bwd_dq": (
+            "kubeflow_tpu_torch/compute/ops/csrc/flash_bwd.cu",
+            "kubeflow_tpu/compute/ops/flash_attention.py:83"),
+        "flash_bwd_dkv": (
+            "kubeflow_tpu_torch/compute/ops/csrc/flash_bwd.cu",
+            "kubeflow_tpu/compute/ops/flash_attention.py:127"),
     }
+
+    def serving_flash(r):
+        return r["shape"]["seq"] == 1024 and r["shape"]["batch"] == 1
+
+    def train_flash(r):
+        return r["shape"]["seq"] == 1024 and r["shape"]["batch"] == 16
+
     main_shape = {"paged_decode": lambda r: r["dtype"] == "bfloat16",
                   "flash_fwd": lambda r: (r["dtype"] == "bfloat16"
-                                          and r["shape"]["seq"] == 1024),
+                                          and serving_flash(r)),
                   "paged_chunk": lambda r: (
                       r["dtype"] == "bfloat16"
-                      and r["shape"]["site"] == "prefill_chunk")}
+                      and r["shape"]["site"] == "prefill_chunk"),
+                  "flash_bwd_dq": lambda r: r["dtype"] == "bfloat16",
+                  "flash_bwd_dkv": lambda r: r["dtype"] == "bfloat16"}
     kernels = []
     for name, (source, replaces) in meta.items():
         r = next(r for r in rows
                  if r["kernel"] == name and main_shape[name](r))
         by_path = {p: row["launches"][name] for p, row in paths.items()}
-        kernels.append({
+        entry = {
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": sum(by_path.values()),
             "launches_by_path": by_path,
@@ -737,7 +1021,17 @@ def main():
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"], "dtype": r["dtype"],
-            "shape": r["shape"]})
+            "shape": r["shape"]}
+        if name == "flash_fwd":      # also at the train step's shape
+            t = next(x for x in rows if x["kernel"] == name
+                     and x["dtype"] == "bfloat16" and train_flash(x))
+            entry["at_train_shape"] = {
+                k: t[k] for k in ("ms", "plain_ms", "library_ms",
+                                  "bound_ms", "bound_by", "shape")}
+        if name.startswith("flash_bwd"):
+            entry["library_covers"] = r["library_covers"]
+            entry["plain_covers"] = r["plain_covers"]
+        kernels.append(entry)
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     print(info["card"], flush=True)
     emit({"kernels": kernels})

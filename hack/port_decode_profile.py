@@ -20,8 +20,9 @@ thread:
 For each it prints one JSON line: the host wall time per step (each
 step ends in a device sync), the device time per step (the sum of the
 CUDA kernels torch.profiler saw) and the share of the wall the device
-sat idle, then the kernels and the CPU-side ops that take the most
-time. The card's name and power limit come first. Needs a CUDA device.
+sat idle, then the device time by kernel group
+(``profiler.KERNEL_GROUPS``), the kernels and the CPU-side ops that
+take the most time. The card's name and power limit come first. Needs a CUDA device.
 """
 
 import argparse
@@ -39,13 +40,8 @@ sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
 from chip_smoke import flagship_config, spec_pair  # noqa: E402
 from kubeflow_tpu_torch.compute import device as device_lib  # noqa: E402
 from kubeflow_tpu_torch.compute import generate as gen_lib  # noqa: E402
+from kubeflow_tpu_torch.compute import profiler  # noqa: E402
 from kubeflow_tpu_torch.compute.models import transformer  # noqa: E402
-
-
-def _stat(e, name):
-    # FunctionEventAvg renamed cuda_* to device_* over torch releases
-    return getattr(e, name, None) or getattr(
-        e, name.replace("device", "cuda"), 0.0)
 
 
 def profile(step, n, top=12):
@@ -66,25 +62,10 @@ def profile(step, n, top=12):
         for _ in range(n):
             step()
         torch.cuda.synchronize()
-    events = prof.key_averages()
-    # kernels only: a CPU op's entry also carries the device time of
-    # the kernels it launched, which would count them twice
-    kernels = [e for e in events if e.device_type == DeviceType.CUDA]
-    if not kernels:
-        raise RuntimeError("the profiler saw no CUDA kernels")
-    cpu = [e for e in events if e.device_type == DeviceType.CPU]
-    device_ms = sum(_stat(e, "self_device_time_total")
-                    for e in kernels) / 1e3 / n
-    kernels.sort(key=lambda e: -_stat(e, "self_device_time_total"))
+    cpu = [e for e in prof.key_averages() if e.device_type == DeviceType.CPU]
     cpu.sort(key=lambda e: -e.self_cpu_time_total)
     return {
-        "host_wall_ms": wall_ms,
-        "device_ms": device_ms,
-        "device_idle_share": max(0.0, 1 - device_ms / wall_ms),
-        "top_kernels": [
-            {"name": e.key[:90], "calls": e.count / n,
-             "ms": _stat(e, "self_device_time_total") / 1e3 / n}
-            for e in kernels[:top]],
+        **profiler.device_summary(prof, wall_ms, steps=n, top=top),
         "top_cpu_ops": [
             {"name": e.key[:90], "calls": e.count / n,
              "self_ms": e.self_cpu_time_total / 1e3 / n}

@@ -1,0 +1,139 @@
+"""Data pipeline: host numpy batches → tensors on the device.
+
+Port of ``kubeflow_tpu/compute/data.py``. A background thread keeps
+``depth`` batches ahead, so the host→device copy overlaps the step:
+batches for the card go through pinned host memory with
+``non_blocking`` copies on the current stream, which orders them before
+the step that reads them. ``to_device`` takes the place of
+``shard_batch`` (one device; the mesh waits for the multi-device
+slice). The synthetic sources stay numpy, from a seed, so the port and
+the JAX package read the same batches.
+"""
+
+import queue
+import threading
+import time
+
+import numpy as np
+import torch
+
+
+def to_device(batch, device):
+    """A dict of numpy arrays (or tensors) → the same dict of tensors on
+    ``device``; host memory is pinned for a card so the copy can run
+    asynchronously."""
+    device = torch.device(device)
+    out = {}
+    for name, x in batch.items():
+        t = torch.as_tensor(np.asarray(x)) if not torch.is_tensor(x) else x
+        if device.type == "cuda" and t.device.type == "cpu":
+            t = t.pin_memory()
+        out[name] = t.to(device, non_blocking=True)
+    return out
+
+
+class Prefetcher:
+    """Wrap a host-batch iterator; overlap host→device transfer with
+    compute by staying ``depth`` batches ahead.
+
+    Supports the context-manager protocol: an abandoned iterator (early
+    ``break``, an exception in the training loop) would otherwise leak
+    the pump thread blocked forever on its full queue — ``with`` (or an
+    explicit :meth:`close`) unblocks and joins it."""
+
+    _DONE = object()
+
+    def __init__(self, iterator, device, depth=2):
+        self._q = queue.Queue(maxsize=depth)
+        self._err = None
+        self._closed = False
+
+        def pump():
+            try:
+                for item in iterator:
+                    if self._closed:
+                        return
+                    self._q.put(to_device(item, device))
+                    # re-check AFTER the (blocking) put: close() is what
+                    # unblocked it, and pulling one more item would
+                    # consume a batch from the source
+                    if self._closed:
+                        return
+            except Exception as e:  # surfaced on next()
+                self._err = e
+            finally:
+                # close() keeps draining until this thread exits, so
+                # this put cannot wedge even on a full queue
+                self._q.put(self._DONE)
+
+        self._thread = threading.Thread(target=pump, daemon=True)
+        self._thread.start()
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        if self._closed:
+            raise StopIteration
+        item = self._q.get()
+        if item is self._DONE:
+            if self._err is not None:
+                raise self._err
+            raise StopIteration
+        return item
+
+    def close(self, timeout=5.0):
+        """Stop the pump thread: drain the queue to unblock a put on a
+        full queue, and join. Idempotent; safe after exhaustion. Don't
+        call concurrently with ``next()``.
+
+        ``timeout`` bounds the join: a pump wedged INSIDE the source
+        iterator cannot be interrupted, and close() must not hang the
+        caller's exit path on it — the daemon thread is abandoned after
+        the deadline (it dies with the process)."""
+        self._closed = True
+        deadline = time.monotonic() + timeout
+        while self._thread.is_alive():
+            try:
+                self._q.get_nowait()
+            except queue.Empty:
+                pass
+            self._thread.join(timeout=0.05)
+            if time.monotonic() > deadline:
+                break
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+        return False
+
+
+# ----------------------------------------------------- synthetic sources
+
+def synthetic_lm(batch_size, seq_len, vocab_size, seed=0, steps=None):
+    """Deterministic random token stream (bench + tests); the same
+    numbers as the JAX package's for one seed."""
+    rng = np.random.default_rng(seed)
+    i = 0
+    while steps is None or i < steps:
+        toks = rng.integers(0, vocab_size, (batch_size, seq_len),
+                            dtype=np.int32)
+        yield {"tokens": toks, "targets": np.roll(toks, -1, axis=1)}
+        i += 1
+
+
+def synthetic_images(batch_size, image_size, n_classes, seed=0,
+                     steps=None, channels=3):
+    rng = np.random.default_rng(seed)
+    i = 0
+    while steps is None or i < steps:
+        yield {
+            "image": rng.standard_normal(
+                (batch_size, image_size, image_size, channels),
+                dtype=np.float32),
+            "label": rng.integers(0, n_classes, (batch_size,),
+                                  dtype=np.int32),
+        }
+        i += 1

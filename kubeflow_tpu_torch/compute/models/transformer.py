@@ -2,8 +2,9 @@
 plain PyTorch functions over a parameter dict.
 
 Port of ``kubeflow_tpu/compute/models/transformer.py`` (``Config``
-:32-121, ``init_params`` :178, the forward :215-586), dense inference
-only. The parameter layout is the JAX one — a dict with ``embed``,
+:32-121, ``init_params`` :178, the forward :215-586, ``loss_fn`` :589,
+``flops_per_token`` :624, ``param_count`` :638), dense layers. The
+parameter layout is the JAX one — a dict with ``embed``,
 ``final_norm``, ``head`` and a stacked ``layers`` dict whose leaves
 carry a leading layer dim — so weights cross between the two packages
 through numpy unchanged (``compute/params.py``). ``lax.scan`` over the
@@ -13,13 +14,17 @@ Numerics mirrored on purpose (the token-identity contract rests on
 them): RoPE rotates interleaved (even, odd) pairs and restacks them
 (not ``rotate_half``); RMSNorm takes its variance in fp32, casts the
 rsqrt to x's dtype and multiplies in x's dtype; logits are fp32 from
-operands in the compute dtype.
+operands in the compute dtype. The fp32 masters are cast to the
+compute dtype inside the autograd graph (:func:`cast_params`), so a
+backward lands its gradients on the masters, as JAX's ``.astype`` does.
 """
 
 import dataclasses
+import math
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from .. import attention as attn_lib
 from .. import device as device_lib
@@ -31,10 +36,11 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
 
 @dataclasses.dataclass(frozen=True)
 class Config:
-    """The JAX ``Config``'s fields. MoE, pipeline stages, ring attention
-    and remat are refused (``NotImplementedError``) until their slice
-    of the port; ``remat`` therefore defaults to False here (the JAX
-    default is True — recomputation only matters for a backward)."""
+    """The JAX ``Config``'s fields. MoE, pipeline stages and ring
+    attention are refused (``NotImplementedError``) until their slice of
+    the port. ``remat`` (default True, as in JAX) recomputes each
+    layer's activations in the backward
+    (``torch.utils.checkpoint``); it changes nothing without one."""
     vocab_size: int = 32000
     d_model: int = 512
     n_layers: int = 4
@@ -45,7 +51,7 @@ class Config:
     rope_theta: float = 10000.0
     dtype: str = "bfloat16"
     attention: str = "flash"     # dense | flash
-    remat: bool = False
+    remat: bool = True
     scan_layers: bool = True
     chunked_ce: bool = False
     ce_chunk: int = 2048
@@ -65,10 +71,6 @@ class Config:
         if self.pipeline_stages > 1:
             raise NotImplementedError(
                 "pipeline parallelism is not ported yet")
-        if self.remat:
-            raise NotImplementedError(
-                "remat (activation recomputation) belongs to the "
-                "training slice, which is not ported yet")
         if self.attention not in ("dense", "flash"):
             raise NotImplementedError(
                 f"attention={self.attention!r} is not ported yet "
@@ -246,13 +248,21 @@ def _layer(lp, x, rope, config):
 
 
 def backbone(params, tokens, config):
-    """tokens [B, S] int → final-norm hidden states [B, S, D]."""
+    """tokens [B, S] int → final-norm hidden states [B, S, D]. With
+    ``config.remat`` and autograd recording, each layer is a
+    non-reentrant checkpoint (``jax.checkpoint``, :545): its activations
+    are recomputed in the backward instead of kept."""
     p = cast_params(params, config.compute_dtype)
     x = p["embed"][tokens.long()]
     positions = torch.arange(tokens.shape[1], device=x.device)
     rope = rope_tables(config, positions)
+    remat = config.remat and torch.is_grad_enabled()
     for i in range(config.n_layers):
-        x = _layer(layer_params(p, i), x, rope, config)
+        lp = layer_params(p, i)
+        if remat:
+            x = checkpoint(_layer, lp, x, rope, config, use_reentrant=False)
+        else:
+            x = _layer(lp, x, rope, config)
     return _rmsnorm(x, p["final_norm"])
 
 
@@ -268,3 +278,63 @@ def apply(params, tokens, config):
     x = backbone(params, tokens, config)
     return _logits(x, params["head"].to(config.compute_dtype))
 
+
+def loss_fn(params, batch, config):
+    """batch: ``{tokens [B, S], targets [B, S], mask [B, S] optional}``
+    (tensors on the params' device) → ``(loss, metrics)``.
+
+    Cross entropy in fp32 with z-loss ``1e-4·logz²`` against logit
+    drift, over the masked positions (``transformer.py:589-621``). With
+    ``config.chunked_ce`` the fp32 ``[B, S, V]`` logits are never formed
+    (``ops/cross_entropy.py``). ``metrics`` (``loss``, ``accuracy``,
+    ``perplexity``) are detached 0-d tensors: reading one waits for the
+    device."""
+    targets = batch["targets"].long()
+    mask = batch.get("mask")
+    mask = (torch.ones(targets.shape, dtype=torch.float32,
+                       device=targets.device)
+            if mask is None else mask.float())
+    x = backbone(params, batch["tokens"], config)
+    head = params["head"].to(config.compute_dtype)
+    if config.chunked_ce:
+        from ..ops.cross_entropy import chunked_softmax_xent
+        nll, logz, pred = chunked_softmax_xent(x, head, targets,
+                                               config.ce_chunk)
+    else:
+        logits = _logits(x, head)
+        logz = torch.logsumexp(logits, dim=-1)
+        label = torch.gather(logits, -1, targets[..., None])[..., 0]
+        nll = logz - label
+        pred = logits.argmax(-1)
+    z_loss = 1e-4 * logz.square()
+    denom = mask.sum().clamp_min(1.0)
+    loss = ((nll + z_loss) * mask).sum() / denom
+    with torch.no_grad():
+        metrics = {
+            "loss": loss.detach(),
+            "accuracy": ((pred == targets) * mask).sum() / denom,
+            "perplexity": torch.exp((nll * mask).sum() / denom)}
+    return loss, metrics
+
+
+def flops_per_token(config):
+    """Analytic 6ND forward+backward FLOPs per token (MFU accounting),
+    the JAX package's formula (``transformer.py:624-635``)."""
+    c = config
+    n_params = (
+        c.vocab_size * c.d_model * 2
+        + c.n_layers * (
+            c.d_model * (c.n_heads + 2 * c.kv_heads) * c.head_dim
+            + c.n_heads * c.head_dim * c.d_model
+            + 3 * c.d_model * c.ff_dim
+            + 2 * c.d_model))
+    attn = 12 * c.n_layers * c.d_model * c.max_seq  # per-token attn matmuls
+    return 6 * n_params + attn
+
+
+def param_count(config):
+    """Number of parameters (``transformer.py:638``)."""
+    c = config
+    return (2 * c.vocab_size * c.d_model + c.d_model     # embed, head, norm
+            + c.n_layers * sum(math.prod(s)
+                               for s in _layer_shapes(c).values()))

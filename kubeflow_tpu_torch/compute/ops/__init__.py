@@ -1,4 +1,6 @@
 """Hand-written Hopper kernels of the port, each beside its plain
 PyTorch version: ``paged_attention`` (K1, the decode read over the
-paged KV pool) and ``flash_attention`` (K3, the tiled attention
-forward). ``_build`` compiles ``csrc/*.cu`` at first use."""
+paged KV pool; K2, the chunk read after a cached prefix),
+``flash_attention`` (K3, the tiled attention forward; K4 and K5, its
+backward) and ``cross_entropy`` (the chunked LM loss, plain PyTorch).
+``_build`` compiles ``csrc/*.cu`` at first use."""

@@ -1,0 +1,548 @@
+// K4 and K5 — the tiled attention backward (causal or full), for Hopper
+// (sm_90a).
+//
+// Replace the Pallas TPU kernels
+//   kubeflow_tpu/compute/ops/flash_attention.py::_bwd_dq_kernel   (K4)
+//   kubeflow_tpu/compute/ops/flash_attention.py::_bwd_dkv_kernel  (K5)
+// (launched from _bwd under the custom_vjp, same file). Wrappers, plain
+// PyTorch version and launch counters: ../flash_attention.py.
+//
+// What they compute, per batch row b and query head h (kv head h / n_rep):
+//   p  = exp(qs k^T - lse)      recomputed from the forward's lse (K3)
+//   dp = dO v^T,  ds = p (dp - delta), rounded ONCE to the input dtype
+//   K4: dq = scale * sum over keys of ds k
+//   K5: dv = sum over the group's heads and queries of p^T dO (p rounded)
+//       dk = scale * sum over the group's heads and queries of ds^T q
+// qs = q * scale in fp32 rounded once to the input dtype — the forward's
+// rounding exactly, or exp(s - lse) would not renormalise; dk takes the
+// RAW q (flash_attention.py:163-165). delta = rowsum(dO * O) in fp32 from
+// the rounded O comes from the wrapper. Masked and ragged entries get an
+// explicit p = 0, as the TPU kernel's NEG_INF scores give exp() = 0.
+//
+// GQA: K3 reads kv head h / n_rep without repeating K/V, so K5 sums the
+// n_rep query heads of one kv head itself, in fp32 with one rounding and
+// no atomics (each block owns its dK/dV rows): deterministic. The JAX
+// package repeats K/V before its kernels and sums the rounded per-head
+// dK/dV in repeat's VJP.
+//
+// Bound on this card (bf16, the train step's B 16, S 1024, 8 q / 2 kv
+// heads, D 128, causal, S(S+1)/2 live pairs per (b, h)): operations. K4
+// does 3 products (s, dp, dq) — 51.6 GFLOP, 0.052 ms at 989 TFLOP/s; its
+// ~117 MB of bytes take 0.035 ms. K5 does 4 (s, dp, dv, dk) — 68.8 GFLOP,
+// 0.070 ms.
+//
+// Design, right and simple first: every product on the CUDA cores in
+// fp32 (exact products of bf16 operands, fp32 sums), tiles in shared
+// memory as fp32 rows padded by one word against bank conflicts; the
+// whole path is therefore far from the tensor-core roof. Warpgroup MMA
+// (wgmma) on bf16 tiles fed by TMA is the later change.
+// K4: one block per (64-row query tile, b x h), as K3: K/V tiles of 32
+//   keys stream through shared memory up to the query tile's causal
+//   limit (tiles past it are never loaded); each thread holds a 4 x 4
+//   tile of s and dp and a 4 x D/8 slice of the dq accumulator.
+// K5: one block per (64-row key tile, b x kv head). K/V stay in shared
+//   memory while the block walks the n_rep heads of its group and, for
+//   each, the 32-row query tiles from the one holding its first key to
+//   the end (causal); dK and dV (4 x D/16 each per thread) accumulate in
+//   registers across all of them and are rounded once. At the train
+//   step's shape that is 512 blocks; at B = 1, 32 blocks on 132 SMs —
+//   an under-fill left for later, as is the causal imbalance (the first
+//   key tile walks 32 query tiles per head, the last 2).
+
+#include "common.cuh"
+
+namespace {
+
+using namespace kubeflow;
+
+constexpr int kRows = 4;   // score-tile rows per thread (both kernels)
+
+// ------------------------------------------------------------------ K4
+
+constexpr int kThreadsQ = 128;  // 16 row groups x 8 column groups
+constexpr int kBqQ = 64;        // query rows per block
+constexpr int kBkQ = 32;        // key rows per streamed tile
+constexpr int kColsQ = kBkQ / 8;
+
+template <int D>
+constexpr size_t dq_smem_floats() {
+  return 2 * static_cast<size_t>(kBqQ) * (D + 1) +   // qs, dO
+         2 * static_cast<size_t>(kBkQ) * (D + 1) +   // K, V
+         static_cast<size_t>(kBqQ) * (kBkQ + 1);     // ds
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreadsQ)
+flash_bwd_dq_kernel(const T* __restrict__ q,      // [B, S, H, D], raw
+                    const T* __restrict__ k,      // [B, Sk, kv_heads, D]
+                    const T* __restrict__ v,      // [B, Sk, kv_heads, D]
+                    const T* __restrict__ dout,   // [B, S, H, D]
+                    const float* __restrict__ lse,    // [B, H, S]
+                    const float* __restrict__ delta,  // [B, H, S]
+                    T* __restrict__ dq,           // [B, S, H, D]
+                    int S, int Sk, int H, int kv_heads, int causal,
+                    float scale) {
+  constexpr int kVec = vec_width<T>();
+  constexpr int kRowUnits = D / kVec;   // 16-byte words a row
+
+  extern __shared__ float smem[];
+  float* q_s = smem;                    // [kBqQ][D + 1], pre-scaled
+  float* do_s = q_s + kBqQ * (D + 1);   // [kBqQ][D + 1]
+  float* k_s = do_s + kBqQ * (D + 1);   // [kBkQ][D + 1]
+  float* v_s = k_s + kBkQ * (D + 1);    // [kBkQ][D + 1]
+  float* ds_s = v_s + kBkQ * (D + 1);   // [kBqQ][kBkQ + 1]
+
+  const int bh = blockIdx.y;
+  const int b = bh / H;
+  const int h = bh % H;
+  const int kvh = h / (H / kv_heads);
+  const int q0 = blockIdx.x * kBqQ;
+  const int tid = threadIdx.x;
+  const int ty = tid / 8;   // rows ty*4 .. ty*4+3 of the query tile
+  const int tx = tid % 8;   // key columns tx + 8j, dq columns tx + 8j
+
+  for (int u = tid; u < kBqQ * kRowUnits; u += kThreadsQ) {
+    const int r = u / kRowUnits;
+    const int c = (u % kRowUnits) * kVec;
+    const int s = q0 + r;
+    float x[kVec], g[kVec];
+    if (s < S) {
+      const size_t off = ((static_cast<size_t>(b) * S + s) * H + h) * D + c;
+      unpack16<T>(load16(q + off), x);
+      unpack16<T>(load16(dout + off), g);
+#pragma unroll
+      for (int i = 0; i < kVec; ++i) x[i] = round_to<T>(x[i] * scale);
+    } else {
+#pragma unroll
+      for (int i = 0; i < kVec; ++i) x[i] = g[i] = 0.f;
+    }
+#pragma unroll
+    for (int i = 0; i < kVec; ++i) {
+      q_s[r * (D + 1) + c + i] = x[i];
+      do_s[r * (D + 1) + c + i] = g[i];
+    }
+  }
+
+  float lse_r[kRows], delta_r[kRows];
+  const size_t stat = (static_cast<size_t>(b) * H + h) * S;
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) {
+    const int qpos = q0 + ty * kRows + r;
+    lse_r[r] = qpos < S ? lse[stat + qpos] : 0.f;
+    delta_r[r] = qpos < S ? delta[stat + qpos] : 0.f;
+  }
+
+  float acc[kRows][D / 8];
+#pragma unroll
+  for (int r = 0; r < kRows; ++r)
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) acc[r][j] = 0.f;
+
+  // causal: keys past the tile's last row are masked for every row
+  const int k_end = causal ? min(Sk, q0 + kBqQ) : Sk;
+  for (int k0 = 0; k0 < k_end; k0 += kBkQ) {
+    __syncthreads();   // q/dO are stored; the last tile's readers are done
+    for (int u = tid; u < kBkQ * kRowUnits; u += kThreadsQ) {
+      const int c = u / kRowUnits;
+      const int d = (u % kRowUnits) * kVec;
+      const int s = k0 + c;
+      float kx[kVec], vx[kVec];
+      if (s < Sk) {
+        const size_t off = ((static_cast<size_t>(b) * Sk + s) * kv_heads + kvh)
+                           * D + d;
+        unpack16<T>(load16(k + off), kx);
+        unpack16<T>(load16(v + off), vx);
+      } else {
+#pragma unroll
+        for (int i = 0; i < kVec; ++i) kx[i] = vx[i] = 0.f;
+      }
+#pragma unroll
+      for (int i = 0; i < kVec; ++i) {
+        k_s[c * (D + 1) + d + i] = kx[i];
+        v_s[c * (D + 1) + d + i] = vx[i];
+      }
+    }
+    __syncthreads();
+
+    float sc[kRows][kColsQ], dp[kRows][kColsQ];
+#pragma unroll
+    for (int r = 0; r < kRows; ++r)
+#pragma unroll
+      for (int j = 0; j < kColsQ; ++j) sc[r][j] = dp[r][j] = 0.f;
+#pragma unroll 4
+    for (int d = 0; d < D; ++d) {
+      float qa[kRows], ga[kRows], ka[kColsQ], va[kColsQ];
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) {
+        qa[r] = q_s[(ty * kRows + r) * (D + 1) + d];
+        ga[r] = do_s[(ty * kRows + r) * (D + 1) + d];
+      }
+#pragma unroll
+      for (int j = 0; j < kColsQ; ++j) {
+        ka[j] = k_s[(tx + 8 * j) * (D + 1) + d];
+        va[j] = v_s[(tx + 8 * j) * (D + 1) + d];
+      }
+#pragma unroll
+      for (int r = 0; r < kRows; ++r)
+#pragma unroll
+        for (int j = 0; j < kColsQ; ++j) {
+          sc[r][j] += qa[r] * ka[j];
+          dp[r][j] += ga[r] * va[j];
+        }
+    }
+
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) {
+      const int qpos = q0 + ty * kRows + r;
+#pragma unroll
+      for (int j = 0; j < kColsQ; ++j) {
+        const int kpos = k0 + tx + 8 * j;
+        const bool valid = qpos < S && kpos < Sk && (!causal || kpos <= qpos);
+        const float p = valid ? expf(sc[r][j] - lse_r[r]) : 0.f;
+        ds_s[(ty * kRows + r) * (kBkQ + 1) + tx + 8 * j] =
+            round_to<T>(p * (dp[r][j] - delta_r[r]));
+      }
+    }
+    __syncthreads();
+
+    const int n_c = min(kBkQ, k_end - k0);
+    for (int c = 0; c < n_c; ++c) {
+      float ka[D / 8];
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) ka[j] = k_s[c * (D + 1) + tx + 8 * j];
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) {
+        const float dsv = ds_s[(ty * kRows + r) * (kBkQ + 1) + c];
+#pragma unroll
+        for (int j = 0; j < D / 8; ++j) acc[r][j] += dsv * ka[j];
+      }
+    }
+  }
+
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) {
+    const int qpos = q0 + ty * kRows + r;
+    if (qpos < S) {
+      const size_t base = ((static_cast<size_t>(b) * S + qpos) * H + h) * D;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j)
+        dq[base + tx + 8 * j] = from_f32<T>(scale * acc[r][j]);
+    }
+  }
+}
+
+// ------------------------------------------------------------------ K5
+
+constexpr int kThreadsKV = 256;  // 8 warps
+constexpr int kBkKV = 64;        // key rows per block
+constexpr int kBqKV = 32;        // query rows per walked tile
+
+template <int D>
+constexpr size_t dkv_smem_floats() {
+  return 2 * static_cast<size_t>(kBkKV) * (D + 1) +     // K, V
+         3 * static_cast<size_t>(kBqKV) * (D + 1) +     // qs, q, dO
+         2 * static_cast<size_t>(kBqKV) * (kBkKV + 1) + // p, ds
+         2 * kBqKV;                                     // lse, delta
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreadsKV)
+flash_bwd_dkv_kernel(const T* __restrict__ q,      // [B, S, H, D], raw
+                     const T* __restrict__ k,      // [B, Sk, kv_heads, D]
+                     const T* __restrict__ v,      // [B, Sk, kv_heads, D]
+                     const T* __restrict__ dout,   // [B, S, H, D]
+                     const float* __restrict__ lse,    // [B, H, S]
+                     const float* __restrict__ delta,  // [B, H, S]
+                     T* __restrict__ dk,           // [B, Sk, kv_heads, D]
+                     T* __restrict__ dv,           // [B, Sk, kv_heads, D]
+                     int S, int Sk, int H, int kv_heads, int causal,
+                     float scale) {
+  constexpr int kVec = vec_width<T>();
+  constexpr int kRowUnits = D / kVec;
+  constexpr int kDc = D / 16;   // dK/dV columns per thread
+
+  extern __shared__ float smem[];
+  float* k_s = smem;                        // [kBkKV][D + 1]
+  float* v_s = k_s + kBkKV * (D + 1);       // [kBkKV][D + 1]
+  float* qs_s = v_s + kBkKV * (D + 1);      // [kBqKV][D + 1], pre-scaled
+  float* q_s = qs_s + kBqKV * (D + 1);      // [kBqKV][D + 1], raw
+  float* do_s = q_s + kBqKV * (D + 1);      // [kBqKV][D + 1]
+  float* p_s = do_s + kBqKV * (D + 1);      // [kBqKV][kBkKV + 1], rounded
+  float* ds_s = p_s + kBqKV * (kBkKV + 1);  // [kBqKV][kBkKV + 1], rounded
+  float* lse_s = ds_s + kBqKV * (kBkKV + 1);
+  float* delta_s = lse_s + kBqKV;
+
+  const int bk = blockIdx.y;
+  const int b = bk / kv_heads;
+  const int kvh = bk % kv_heads;
+  const int n_rep = H / kv_heads;
+  const int k0 = blockIdx.x * kBkKV;
+  const int tid = threadIdx.x;
+  // score tile [kBqKV x kBkKV]: warp sr owns query rows sr*4 .. sr*4+3,
+  // lane sl key columns sl and sl + 32
+  const int sr = tid / 32;
+  const int sl = tid % 32;
+  // dK/dV tile [kBkKV x D]: key rows ar*4 .. ar*4+3, columns ac + 16j
+  const int ar = tid / 16;
+  const int ac = tid % 16;
+
+  for (int u = tid; u < kBkKV * kRowUnits; u += kThreadsKV) {
+    const int r = u / kRowUnits;
+    const int c = (u % kRowUnits) * kVec;
+    const int s = k0 + r;
+    float kx[kVec], vx[kVec];
+    if (s < Sk) {
+      const size_t off = ((static_cast<size_t>(b) * Sk + s) * kv_heads + kvh)
+                         * D + c;
+      unpack16<T>(load16(k + off), kx);
+      unpack16<T>(load16(v + off), vx);
+    } else {
+#pragma unroll
+      for (int i = 0; i < kVec; ++i) kx[i] = vx[i] = 0.f;
+    }
+#pragma unroll
+    for (int i = 0; i < kVec; ++i) {
+      k_s[r * (D + 1) + c + i] = kx[i];
+      v_s[r * (D + 1) + c + i] = vx[i];
+    }
+  }
+
+  float dk_acc[kRows][kDc], dv_acc[kRows][kDc];
+#pragma unroll
+  for (int i = 0; i < kRows; ++i)
+#pragma unroll
+    for (int j = 0; j < kDc; ++j) dk_acc[i][j] = dv_acc[i][j] = 0.f;
+
+  // causal: query tiles wholly before the first key are masked
+  const int q_begin = causal ? (k0 / kBqKV) * kBqKV : 0;
+  for (int hh = 0; hh < n_rep; ++hh) {
+    const int h = kvh * n_rep + hh;
+    const size_t stat = (static_cast<size_t>(b) * H + h) * S;
+    for (int q0 = q_begin; q0 < S; q0 += kBqKV) {
+      __syncthreads();   // K/V are stored; the last tile's readers are done
+      for (int u = tid; u < kBqKV * kRowUnits; u += kThreadsKV) {
+        const int r = u / kRowUnits;
+        const int c = (u % kRowUnits) * kVec;
+        const int s = q0 + r;
+        float x[kVec], g[kVec];
+        if (s < S) {
+          const size_t off = ((static_cast<size_t>(b) * S + s) * H + h) * D
+                             + c;
+          unpack16<T>(load16(q + off), x);
+          unpack16<T>(load16(dout + off), g);
+        } else {
+#pragma unroll
+          for (int i = 0; i < kVec; ++i) x[i] = g[i] = 0.f;
+        }
+#pragma unroll
+        for (int i = 0; i < kVec; ++i) {
+          q_s[r * (D + 1) + c + i] = x[i];
+          qs_s[r * (D + 1) + c + i] = round_to<T>(x[i] * scale);
+          do_s[r * (D + 1) + c + i] = g[i];
+        }
+      }
+      if (tid < kBqKV) {
+        const int s = q0 + tid;
+        lse_s[tid] = s < S ? lse[stat + s] : 0.f;
+        delta_s[tid] = s < S ? delta[stat + s] : 0.f;
+      }
+      __syncthreads();
+
+      float st[kRows][2], dp[kRows][2];
+#pragma unroll
+      for (int r = 0; r < kRows; ++r)
+#pragma unroll
+        for (int j = 0; j < 2; ++j) st[r][j] = dp[r][j] = 0.f;
+#pragma unroll 4
+      for (int d = 0; d < D; ++d) {
+        float qa[kRows], ga[kRows], ka[2], va[2];
+#pragma unroll
+        for (int r = 0; r < kRows; ++r) {
+          qa[r] = qs_s[(sr * kRows + r) * (D + 1) + d];
+          ga[r] = do_s[(sr * kRows + r) * (D + 1) + d];
+        }
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          ka[j] = k_s[(sl + 32 * j) * (D + 1) + d];
+          va[j] = v_s[(sl + 32 * j) * (D + 1) + d];
+        }
+#pragma unroll
+        for (int r = 0; r < kRows; ++r)
+#pragma unroll
+          for (int j = 0; j < 2; ++j) {
+            st[r][j] += qa[r] * ka[j];
+            dp[r][j] += ga[r] * va[j];
+          }
+      }
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) {
+        const int row = sr * kRows + r;
+        const int qpos = q0 + row;
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const int col = sl + 32 * j;
+          const int kpos = k0 + col;
+          const bool valid =
+              qpos < S && kpos < Sk && (!causal || kpos <= qpos);
+          const float p = valid ? expf(st[r][j] - lse_s[row]) : 0.f;
+          p_s[row * (kBkKV + 1) + col] = round_to<T>(p);
+          ds_s[row * (kBkKV + 1) + col] =
+              round_to<T>(p * (dp[r][j] - delta_s[row]));
+        }
+      }
+      __syncthreads();
+
+      const int n_r = min(kBqKV, S - q0);
+      for (int r = 0; r < n_r; ++r) {
+        float pa[kRows], sa[kRows], ga[kDc], qa[kDc];
+#pragma unroll
+        for (int i = 0; i < kRows; ++i) {
+          pa[i] = p_s[r * (kBkKV + 1) + ar * kRows + i];
+          sa[i] = ds_s[r * (kBkKV + 1) + ar * kRows + i];
+        }
+#pragma unroll
+        for (int j = 0; j < kDc; ++j) {
+          ga[j] = do_s[r * (D + 1) + ac + 16 * j];
+          qa[j] = q_s[r * (D + 1) + ac + 16 * j];
+        }
+#pragma unroll
+        for (int i = 0; i < kRows; ++i)
+#pragma unroll
+          for (int j = 0; j < kDc; ++j) {
+            dv_acc[i][j] += pa[i] * ga[j];
+            dk_acc[i][j] += sa[i] * qa[j];
+          }
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < kRows; ++i) {
+    const int kpos = k0 + ar * kRows + i;
+    if (kpos < Sk) {
+      const size_t base = ((static_cast<size_t>(b) * Sk + kpos) * kv_heads
+                           + kvh) * D;
+#pragma unroll
+      for (int j = 0; j < kDc; ++j) {
+        dk[base + ac + 16 * j] = from_f32<T>(scale * dk_acc[i][j]);
+        dv[base + ac + 16 * j] = from_f32<T>(dv_acc[i][j]);
+      }
+    }
+  }
+}
+
+// ------------------------------------------------------------ launches
+
+struct Args {
+  const void* q;
+  const void* k;
+  const void* v;
+  const void* dout;
+  const void* lse;
+  const void* delta;
+  void* out0;   // dq (K4) or dk (K5)
+  void* out1;   // dv (K5)
+  int B, S, Sk, H, kv_heads, causal;
+  float scale;
+  cudaStream_t stream;
+};
+
+template <typename Kernel>
+int set_smem(Kernel kernel, size_t smem, bool* done) {
+  if (*done) return 0;   // once per instantiation
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  *done = true;
+  return 0;
+}
+
+template <typename T, int D>
+int launch_dq(const Args& a) {
+  const size_t smem = dq_smem_floats<D>() * sizeof(float);
+  static bool attribute_set = false;
+  if (int err = set_smem(flash_bwd_dq_kernel<T, D>, smem, &attribute_set))
+    return err;
+  const dim3 grid((a.S + kBqQ - 1) / kBqQ, a.B * a.H);
+  flash_bwd_dq_kernel<T, D><<<grid, kThreadsQ, smem, a.stream>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+      static_cast<const T*>(a.v), static_cast<const T*>(a.dout),
+      static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
+      static_cast<T*>(a.out0), a.S, a.Sk, a.H, a.kv_heads, a.causal,
+      a.scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, int D>
+int launch_dkv(const Args& a) {
+  const size_t smem = dkv_smem_floats<D>() * sizeof(float);
+  static bool attribute_set = false;
+  if (int err = set_smem(flash_bwd_dkv_kernel<T, D>, smem, &attribute_set))
+    return err;
+  const dim3 grid((a.Sk + kBkKV - 1) / kBkKV, a.B * a.kv_heads);
+  flash_bwd_dkv_kernel<T, D><<<grid, kThreadsKV, smem, a.stream>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+      static_cast<const T*>(a.v), static_cast<const T*>(a.dout),
+      static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
+      static_cast<T*>(a.out0), static_cast<T*>(a.out1), a.S, a.Sk, a.H,
+      a.kv_heads, a.causal, a.scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <bool kDq, typename T>
+int dispatch_dim(int head_dim, const Args& a) {
+  switch (head_dim) {
+    case 32:
+      return kDq ? launch_dq<T, 32>(a) : launch_dkv<T, 32>(a);
+    case 64:
+      return kDq ? launch_dq<T, 64>(a) : launch_dkv<T, 64>(a);
+    case 128:
+      return kDq ? launch_dq<T, 128>(a) : launch_dkv<T, 128>(a);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+template <bool kDq>
+int run(const Args& a, int head_dim, int dtype) {
+  if (a.B < 0 || a.S < 0 || a.Sk < 1 || a.H < 1 || a.kv_heads < 1 ||
+      a.H % a.kv_heads != 0 || (a.causal && a.S != a.Sk))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (a.B == 0 || a.S == 0) return 0;
+  if (dtype == 0) return dispatch_dim<kDq, float>(head_dim, a);
+  if (dtype == 1) return dispatch_dim<kDq, __nv_bfloat16>(head_dim, a);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+}  // namespace
+
+// dtype: 0 = float32, 1 = bfloat16. q/dout/dq are [B, S, H, D]; k/v/dk/dv
+// [B, Sk, kv_heads, D]; lse/delta fp32 [B, H, S]. Pointers must be 16-byte
+// aligned. Each returns a cudaError_t (0 = launched). With S == 0, K5
+// launches nothing and leaves dk/dv as they are: the caller zeroes them.
+extern "C" int kubeflow_flash_bwd_dq(const void* q, const void* k,
+                                     const void* v, const void* dout,
+                                     const void* lse, const void* delta,
+                                     void* dq, int batch, int seq_q,
+                                     int seq_k, int heads, int kv_heads,
+                                     int head_dim, int causal, int dtype,
+                                     float scale, void* stream) {
+  const Args a{q, k, v, dout, lse, delta, dq, nullptr, batch, seq_q, seq_k,
+               heads, kv_heads, causal, scale,
+               static_cast<cudaStream_t>(stream)};
+  return run<true>(a, head_dim, dtype);
+}
+
+extern "C" int kubeflow_flash_bwd_dkv(const void* q, const void* k,
+                                      const void* v, const void* dout,
+                                      const void* lse, const void* delta,
+                                      void* dk, void* dv, int batch,
+                                      int seq_q, int seq_k, int heads,
+                                      int kv_heads, int head_dim, int causal,
+                                      int dtype, float scale, void* stream) {
+  const Args a{q, k, v, dout, lse, delta, dk, dv, batch, seq_q, seq_k,
+               heads, kv_heads, causal, scale,
+               static_cast<cudaStream_t>(stream)};
+  return run<false>(a, head_dim, dtype);
+}

@@ -1,5 +1,6 @@
 """Weights across the framework boundary: the JAX package's parameter
-pytree, as numpy arrays, into the port's dict of tensors.
+pytree, as numpy arrays, into the port's dict of tensors
+(:func:`params_from_jax`) and back (:func:`params_to_numpy`).
 
 No weights are downloaded anywhere in the repo; a test that holds the
 port to the JAX reference initialises once in JAX, converts each leaf
@@ -42,3 +43,16 @@ def params_from_jax(tree, dtype=None, device=None):
            if k != "layers"}
     out["layers"] = {k: _tensor(v, dtype, dev) for k, v in layers.items()}
     return out
+
+
+def params_to_numpy(params):
+    """The port's params dict → the JAX layout as numpy arrays (the
+    reverse of :func:`params_from_jax`, stacked layers): copies on the
+    host, float leaves as fp32 (numpy has no bfloat16), so the tree can
+    go to ``jnp.asarray`` or a checkpoint."""
+    def leaf(t):
+        t = t.detach().cpu()
+        return (t.float() if t.is_floating_point() else t).numpy().copy()
+    return {k: ({n: leaf(t) for n, t in v.items()}
+                if isinstance(v, dict) else leaf(v))
+            for k, v in params.items()}

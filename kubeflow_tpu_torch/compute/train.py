@@ -1,0 +1,251 @@
+"""Training engine: init → train step → metrics, on one device.
+
+Port of ``kubeflow_tpu/compute/train.py``. PyTorch runs eagerly, so the
+step is a plain function: the loss and its gradients through autograd
+(the attention backward through kernels K4 and K5), then the
+optimizer's update applied to the parameters in place (JAX donates the
+old state instead; updating in place keeps one copy of the masters and
+the moments on the card). The mesh and logical axes wait for the
+multi-device slice.
+
+Mixed precision: fp32 master weights (``state.params``), the compute
+dtype cast inside the model's graph, fp32 gradients summed over
+microbatches.
+
+The optimizer is optax's ``chain(clip_by_global_norm(c), adamw(...))``
+of ``make_optimizer`` (train.py:53-65) step for step, written out here
+as a small functional AdamW over the parameter tree: the clip by
+optax's formula (``g`` when ``‖g‖ < c``, else ``g / ‖g‖ · c``, not
+``clip_grad_norm_``'s ``+1e-6``), decay on every leaf, and the learning
+rate of update ``t`` taken from the schedule at the count BEFORE the
+update, so with warmup the first update has rate 0.
+"""
+
+import dataclasses
+import math
+
+import torch
+
+from . import data as data_lib
+from . import device as device_lib
+
+
+@dataclasses.dataclass
+class TrainState:
+    step: int
+    params: dict
+    opt_state: dict
+    extra: dict  # mutable model state (e.g. BN batch_stats); {} if none
+
+
+# --------------------------------------------------------------- trees
+
+def tree_leaves(tree):
+    """The leaves of a tree of nested dicts, keys sorted (JAX's pytree
+    order)."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in tree_leaves(tree[k])]
+    return [tree]
+
+
+def tree_map(fn, tree):
+    """``fn`` on every leaf of a tree of nested dicts."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+# ----------------------------------------------------------- optimizer
+
+def warmup_cosine(peak, warmup_steps, total_steps):
+    """``optax.warmup_cosine_decay_schedule(0, peak, …, end_value=0)`` as
+    JAX's ``warmup_cosine`` builds it (train.py:39-50): a linear warmup
+    from 0 joined to a cosine decay with alpha 0 → ``count ↦ rate``."""
+    decay = max(total_steps, warmup_steps + 1) - warmup_steps
+
+    def schedule(count):
+        if count < warmup_steps:
+            frac = 1 - max(count, 0) / warmup_steps
+            return -peak * frac + peak
+        c = min(count - warmup_steps, decay)
+        return peak * (0.5 * (1 + math.cos(math.pi * c / decay)))
+
+    return schedule
+
+
+def global_norm(tensors):
+    """``optax.global_norm``: the square root of the summed squares,
+    fp32, on the device (no host sync)."""
+    return torch.sqrt(sum(t.float().square().sum() for t in tensors))
+
+
+def clip_by_global_norm(grads, max_norm):
+    """``optax.clip_by_global_norm``'s update on a list of tensors →
+    ``(clipped, norm)``: each ``g`` kept when ``‖g‖ < max_norm``, else
+    ``(g / ‖g‖) · max_norm``, chosen on the device."""
+    norm = global_norm(grads)
+    keep = norm < max_norm
+    return [torch.where(keep, g, (g / norm) * max_norm)
+            for g in grads], norm
+
+
+class AdamW:
+    """Global-norm clip + AdamW + a schedule, the update of
+    ``optax.chain(clip_by_global_norm(clip_norm), adamw(schedule, b1,
+    b2, eps, weight_decay=…))`` applied in place.
+
+    State: ``{"count": int, "mu": tree, "nu": tree}`` (fp32 moments in
+    the params' layout)."""
+
+    def __init__(self, schedule, b1, b2, eps, weight_decay, clip_norm):
+        self.schedule = schedule
+        self.b1, self.b2, self.eps = b1, b2, eps
+        self.weight_decay = weight_decay
+        self.clip_norm = clip_norm
+
+    def init(self, params):
+        def zeros(p):
+            return torch.zeros(p.shape, dtype=torch.float32,
+                               device=p.device)
+        return {"count": 0, "mu": tree_map(zeros, params),
+                "nu": tree_map(zeros, params)}
+
+    @torch.no_grad()
+    def update(self, params, grads, opt_state):
+        """One update of the ``params`` leaves (in place) from ``grads``
+        (matching list of fp32 tensors) → the pre-clip global norm."""
+        b1, b2 = self.b1, self.b2
+        grads, norm = clip_by_global_norm(grads, self.clip_norm)
+        count = opt_state["count"]
+        lr = self.schedule(count)            # pre-increment count
+        bc1 = 1 - b1 ** (count + 1)
+        bc2 = 1 - b2 ** (count + 1)
+        for p, g, mu, nu in zip(params, grads,
+                                tree_leaves(opt_state["mu"]),
+                                tree_leaves(opt_state["nu"])):
+            mu.copy_((1 - b1) * g + b1 * mu)
+            nu.copy_((1 - b2) * g.square() + b2 * nu)
+            u = (mu / bc1) / (torch.sqrt(nu / bc2) + self.eps)
+            u = u + self.weight_decay * p
+            p.add_((-lr * u).to(p.dtype))
+        opt_state["count"] = count + 1
+        return norm
+
+
+def make_optimizer(learning_rate=3e-4, warmup_steps=100,
+                   total_steps=100_000, weight_decay=0.01, b1=0.9,
+                   b2=0.95, clip_norm=1.0):
+    """AdamW + global-norm clip + warmup-cosine — the standard recipe,
+    with the JAX package's defaults."""
+    return AdamW(warmup_cosine(learning_rate, warmup_steps, total_steps),
+                 b1=b1, b2=b2, eps=1e-8, weight_decay=weight_decay,
+                 clip_norm=clip_norm)
+
+
+# ---------------------------------------------------------------- state
+
+def init_state(init_params_fn, optimizer, *, device=None, generator=None):
+    """A fresh TrainState on ``device`` (None → the card; raises on a
+    host without CUDA). ``init_params_fn(generator, device=...)`` builds
+    the fp32 masters (``functools.partial(transformer.init_params,
+    config)`` fits); they become leaves that require grad."""
+    dev = device_lib.resolve(device)
+    params = init_params_fn(generator, device=dev)
+
+    def leaf(t):
+        t = t.detach().to(dev)
+        return t.requires_grad_(True) if t.is_floating_point() else t
+
+    params = tree_map(leaf, params)
+    return TrainState(step=0, params=params,
+                      opt_state=optimizer.init(params), extra={})
+
+
+def make_train_step(loss_fn, optimizer, accum_steps=1):
+    """The train step ``run(state, batch) → (state, metrics)``.
+
+    ``loss_fn(params, extra, batch) -> (loss, (metrics, new_extra))``.
+    With ``accum_steps > 1`` every batch leaf has a leading
+    ``[accum_steps, ...]`` dim: the microbatches run in turn (activation
+    memory of one), their gradients summed in fp32 and divided by the
+    count; loss and metrics are the microbatch means.
+    ``metrics["grad_norm"]`` is the pre-clip global norm. The params are
+    updated in place and the returned state shares them."""
+
+    def run(state, batch):
+        leaves = tree_leaves(state.params)
+        if accum_steps == 1:
+            loss, (metrics, new_extra) = loss_fn(state.params, state.extra,
+                                                 batch)
+            grads = list(torch.autograd.grad(loss, leaves))
+        else:
+            grads = [torch.zeros(p.shape, dtype=torch.float32,
+                                 device=p.device) for p in leaves]
+            new_extra = state.extra
+            history = []
+            for i in range(accum_steps):
+                micro = {k: v[i] for k, v in batch.items()}
+                loss, (metrics, new_extra) = loss_fn(state.params,
+                                                     new_extra, micro)
+                for acc, g in zip(grads, torch.autograd.grad(loss, leaves)):
+                    acc.add_(g)
+                history.append(metrics)
+            grads = [g / accum_steps for g in grads]
+            metrics = {k: torch.stack([m[k] for m in history]).mean()
+                       for k in history[0]}
+        metrics = dict(metrics)
+        metrics["grad_norm"] = optimizer.update(leaves, grads,
+                                                state.opt_state)
+        return TrainState(step=state.step + 1, params=state.params,
+                          opt_state=state.opt_state,
+                          extra=new_extra), metrics
+
+    return run
+
+
+def fit(state, step_fn, batches, steps=None, prefetch_depth=2,
+        on_step=None, telemetry=None):
+    """Run a training loop over host batches with prefetch overlap.
+
+    ``batches`` is a host-batch iterator; it is wrapped in a
+    ``data.Prefetcher`` (host→device copy overlaps compute) on the
+    params' device, under its context manager, so the pump thread is
+    released on every exit path — exhaustion, the ``steps`` cap, an
+    ``on_step`` early stop, or an exception.
+
+    ``on_step(step_count, metrics)`` runs after every step; returning
+    False stops the loop. ``telemetry`` (a ``telemetry.TrainTelemetry``)
+    gets one ``step()`` per iteration. Returns ``(state,
+    last_metrics)``."""
+    device = tree_leaves(state.params)[0].device
+    metrics = None
+    done = 0
+    with data_lib.Prefetcher(batches, device, depth=prefetch_depth) as pf:
+        for batch in pf:
+            state, metrics = step_fn(state, batch)
+            done += 1
+            if telemetry is not None:
+                telemetry.step()
+            if on_step is not None and on_step(done, metrics) is False:
+                break
+            if steps is not None and done >= steps:
+                break
+    return state, metrics
+
+
+def make_eval_step(loss_fn):
+    """``run(state, batch) → metrics`` without gradients."""
+    def run(state, batch):
+        with torch.no_grad():
+            return loss_fn(state.params, state.extra, batch)[1][0]
+    return run
+
+
+# Adapter: models expose loss(params, batch, config).
+
+def plain_loss(model_loss, config):
+    """For stateless models (transformer)."""
+    def loss(params, extra, batch):
+        value, metrics = model_loss(params, batch, config)
+        return value, (metrics, extra)
+    return loss

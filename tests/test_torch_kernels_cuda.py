@@ -13,9 +13,15 @@ template, GQA groups 1/2/4, block sizes that do not divide the kernel's
 counters and the wrappers' refusals; for K2 (the chunk read) its three
 serving shapes (a 256-row chunk behind a long prefix, a prefix hit's
 suffix, an 8-slot verify with per-slot prefixes), prefix 0 and a
-ragged last row tile. Tolerances: fp32 1e-4, bf16 2e-2
-(the kernels sum in another order than the plain versions; bf16
-outputs may round one unit apart).
+ragged last row tile; for K4 and K5 (the flash backward) every head_dim
+template, GQA groups 1/2/4, ragged, causal and full shapes and the
+train step's shape, each against the plain backward, plus the
+autograd path (K3 forward, K4 + K5 backward, their launch counts)
+against autograd through the plain dense attention. Tolerances: fp32
+1e-4, bf16 2e-2 (the kernels sum in another order than the plain
+versions; bf16 outputs may round one unit apart); the backward's
+relative to the plain gradient's max |value|, with an absolute floor
+of the same size where the gradient itself is rounding noise (S = 1).
 """
 
 import pytest
@@ -166,3 +172,89 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
             torch.zeros((1, 2), dtype=torch.int32, device=dev), 0,
             torch.zeros((1, 3, 1, 64), device=dev),
             torch.zeros((1, 3, 1, 64), device=dev), block_size=8, n_rep=2)
+
+
+def _bwd_case(dev, dtype, B, S, H, kv, D, causal, seed):
+    g = torch.Generator().manual_seed(seed)
+    q, do = (torch.randn((B, S, H, D), generator=g).to(dev, dtype)
+             for _ in range(2))
+    k, v = (torch.randn((B, S, kv, D), generator=g).to(dev, dtype)
+            for _ in range(2))
+    out, lse = flash_ops.flash_attention(q, k, v, causal=causal)
+    return q, k, v, do, lse, flash_ops.attention_delta(out, do)
+
+
+def _assert_rel(got, want, tol):
+    scale = max(float(want.float().abs().max()), 1.0)
+    assert float((got.float() - want.float()).abs().max()) <= tol * scale
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [32, 64, 128])
+@pytest.mark.parametrize("n_rep", [1, 2, 4])
+@pytest.mark.parametrize("S,causal", [(1, True), (77, True), (64, True),
+                                      (100, False), (53, False)])
+def test_flash_bwd_matches_plain(dev, dtype, D, n_rep, S, causal):
+    kv = 2
+    q, k, v, do, lse, delta = _bwd_case(dev, dtype, 2, S, kv * n_rep, kv,
+                                        D, causal, S * 3 + D + n_rep)
+    n_dq = flash_ops.flash_attention_bwd_dq.launches
+    n_dkv = flash_ops.flash_attention_bwd_dkv.launches
+    dq = flash_ops.flash_attention_bwd_dq(q, k, v, do, lse, delta, causal)
+    dk, dv = flash_ops.flash_attention_bwd_dkv(q, k, v, do, lse, delta,
+                                               causal)
+    want = flash_ops._bwd_reference(q, k, v, do, lse, delta, causal, None)
+    torch.cuda.synchronize()
+    assert flash_ops.flash_attention_bwd_dq.launches == n_dq + 1
+    assert flash_ops.flash_attention_bwd_dkv.launches == n_dkv + 1
+    for got, ref in zip((dq, dk, dv), want):
+        assert got.dtype == dtype and torch.isfinite(got.float()).all()
+        _assert_rel(got, ref, TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_bwd_at_the_train_shape(dev, dtype):
+    q, k, v, do, lse, delta = _bwd_case(dev, dtype, 16, 1024, 8, 2, 128,
+                                        True, 0)
+    dq = flash_ops.flash_attention_bwd_dq(q, k, v, do, lse, delta)
+    dk, dv = flash_ops.flash_attention_bwd_dkv(q, k, v, do, lse, delta)
+    want = flash_ops._bwd_reference(q, k, v, do, lse, delta, True, None)
+    torch.cuda.synchronize()
+    for got, ref in zip((dq, dk, dv), want):
+        _assert_rel(got, ref, TOL[dtype])
+
+
+def test_flash_autograd_launches_k3_k4_k5(dev):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from kubeflow_tpu_torch.compute import attention as attn
+    g = torch.Generator().manual_seed(9)
+    q = torch.randn((2, 96, 8, 64), generator=g).to(dev)
+    k, v = (torch.randn((2, 96, 2, 64), generator=g).to(dev)
+            for _ in range(2))
+    do = torch.randn((2, 96, 8, 64), generator=g).to(dev)
+    a = [t.clone().requires_grad_() for t in (q, k, v)]
+    b = [t.clone().requires_grad_() for t in (q, k, v)]
+    counts = [fn.launches for fn in (flash_ops.flash_attention,
+                                     flash_ops.flash_attention_bwd_dq,
+                                     flash_ops.flash_attention_bwd_dkv)]
+    flash_ops.flash_attention(*a, causal=True)[0].backward(do)
+    attn.dense_attention(b[0], attn.repeat_kv(b[1], 4),
+                         attn.repeat_kv(b[2], 4)).backward(do)
+    torch.cuda.synchronize()
+    assert [fn.launches for fn in (flash_ops.flash_attention,
+                                   flash_ops.flash_attention_bwd_dq,
+                                   flash_ops.flash_attention_bwd_dkv)] == [
+        c + 1 for c in counts]
+    for x, y in zip(a, b):
+        _assert_rel(x.grad, y.grad, 1e-4)
+
+
+def test_flash_bwd_refuses_what_the_kernels_do_not_take(dev):
+    q, k, v, do, lse, delta = _bwd_case(dev, torch.float32, 1, 8, 4, 2,
+                                        64, True, 1)
+    with pytest.raises(ValueError, match="lse/delta"):
+        flash_ops.flash_attention_bwd_dq(q, k, v, do, lse[:, :, :4], delta)
+    with pytest.raises(ValueError, match="output gradient"):
+        flash_ops.flash_attention_bwd_dkv(q, k, v, do.bfloat16(), lse,
+                                          delta)
+

@@ -156,7 +156,8 @@ def test_init_params_layout_and_seed():
 @pytest.mark.parametrize("kw", [dict(moe_experts=4),
                                 dict(pipeline_stages=2, n_layers=2),
                                 dict(attention="ring"),
-                                dict(remat=True)])
+                                dict(moe_experts=8, moe_top_k=2,
+                                     moe_dropless=True)])
 def test_config_refuses_unported_features(kw):
     with pytest.raises(NotImplementedError):
         tt.Config(**kw)
