@@ -56,7 +56,22 @@ if any phase fails:
    against ``remat=False``: gradients within 1e-5 of each leaf's max
    |g| (the embedding's scatter-add sums in another order each run),
    24 K3 launches against 12, 12 of K4 and K5 in both;
-11. the ``kernels`` line — every ported kernel with its launches on each
+11. moe_apply — the MoE flagship (``moe_config``: vocab 32000, d_model
+   1024, 8 layers, 8 heads MHA, ff 2816, 8 experts top-2, dropless on
+   the grouped matmul, bf16, random weights from a seed):
+   ``transformer.apply`` on 1 x 1024 tokens, finite logits, exactly 16
+   K6 and 8 K3 launches;
+12. moe_train — the same model trained (``remat=False``, one repeated
+   8 x 1024 batch, 2 warm + 3 timed steps): step ms, tokens/s, MFU by
+   JAX's ``flops_per_token`` (which counts the dense MLP once), peak
+   memory, losses, ``moe_aux`` and the padded-row share; the loss falls
+   and every step launches K6 32, K7 16 and K3/K4/K5 8 times each; then
+   one step profiled (``moe_train_profile``);
+13. moe_conformance — fp32, TF32 off, MoE width, 2 layers, batch 2 x
+   1024: the loss and every gradient leaf through K6/K7 against the
+   plain ragged engine (``moe_gmm=False``), loss within 1e-5 relative,
+   each leaf within 1e-3 of its max |g|, ``apply`` logits within 1e-3;
+14. the ``kernels`` line — every ported kernel with its launches on each
    path (counts zeroed just before a path, read just after), its max
    |Δ| and its times.
 
@@ -66,7 +81,17 @@ backward at the train step's shape (B 16, S 1024, 8 q / 2 kv heads, D
 max |value|; K3 is also measured at B 16 beside them. The library
 yardstick of the backward is SDPA's backward over repeated
 K/V (one ``autograd.grad`` over a retained forward): it covers dq,
-dk and dv together.
+dk and dv together. K3-K5 again at the MoE step's MHA shape (B 8, 8 q /
+8 kv heads).
+
+Kernel phase, MoE: K6 at the MoE step's four call sites (gate|up
+``[17408, 1024] x [8, 1024, 5632]``, down ``[17408, 2816] x [8, 2816,
+1024]`` and their dx with the weights read transposed) and K7 at both dw
+sites, routing from a seeded uniform draw, fp32 and bf16, within 1e-4 /
+2e-2 of the plain version's max |value|. The yardstick is one
+``torch._grouped_mm`` call with the layout's group offsets where the
+card's torch takes the dtype, else a dense ``torch.matmul`` of the same
+FLOPs; each row names which.
 
 One JSON object per phase, then the run's total seconds, the card line,
 the ``kernels`` line and the last line ``{"ok": true, "device": {...}}``.
@@ -222,12 +247,12 @@ def check_paged(dtype_name, flush):
     return row
 
 
-def check_flash(dtype_name, S, flush, B=1):
+def check_flash(dtype_name, S, flush, B=1, kv=2):
     import torch
     import torch.nn.functional as F
     from kubeflow_tpu_torch.compute.ops import flash_attention as ops
     dtype = getattr(torch, dtype_name)
-    H, kv, D = 8, 2, 128
+    H, D = 8, 128
     g = torch.Generator().manual_seed(S)
     q, k, v = (torch.randn((B, S, h, D), generator=g).to("cuda", dtype)
                for h in (H, kv, kv))
@@ -264,17 +289,18 @@ def check_flash(dtype_name, S, flush, B=1):
 
 
 TRAIN_ATTN = dict(B=16, S=1024, H=8, kv=2, D=128)   # the train step's
+MOE_ATTN = dict(B=8, S=1024, H=8, kv=8, D=128)      # the MoE step's (MHA)
 
 
-def check_flash_bwd(dtype_name, flush):
-    """K4 and K5 against the plain backward at the train step's shape →
+def check_flash_bwd(dtype_name, flush, shape=TRAIN_ATTN):
+    """K4 and K5 against the plain backward at a train step's shape →
     one row per kernel. Errors and the tolerance are relative to the
     plain gradient's max |value|."""
     import torch
     import torch.nn.functional as F
     from kubeflow_tpu_torch.compute.ops import flash_attention as ops
     dtype = getattr(torch, dtype_name)
-    B, S, H, kv, D = (TRAIN_ATTN[k] for k in ("B", "S", "H", "kv", "D"))
+    B, S, H, kv, D = (shape[k] for k in ("B", "S", "H", "kv", "D"))
     g = torch.Generator().manual_seed(11)
     q, do = (torch.randn((B, S, H, D), generator=g).to("cuda", dtype)
              for _ in range(2))
@@ -405,6 +431,129 @@ def check_chunk(dtype_name, case, flush):
     return row
 
 
+MOE_SHAPE = dict(tokens=8 * 1024, top_k=2, experts=8, d=1024, ff=2816,
+                 block_m=128)
+# K6 at the MoE step's call sites: (site, k, n, weights read transposed)
+GMM_CASES = (("gate_up", 1024, 2 * 2816, False), ("down", 2816, 1024, False),
+             ("dx_gate_up", 2 * 2816, 1024, True),
+             ("dx_down", 1024, 2816, True))
+# K7: (site, k, n) of dw [e, k, n]
+DW_CASES = (("dw_gate_up", 1024, 2 * 2816), ("dw_down", 2816, 1024))
+
+
+def moe_layout(seed=0):
+    """The MoE step's routing (8 x 1024 tokens, top-2 of 8 experts) as a
+    seeded uniform draw → ``padded_group_layout`` on the card."""
+    import torch
+    from kubeflow_tpu_torch.compute.ops import grouped_matmul as ops
+    m = MOE_SHAPE
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    key = torch.randint(0, m["experts"], (m["tokens"] * m["top_k"],),
+                        generator=g, device="cuda")
+    return ops.padded_group_layout(key, m["experts"], m["block_m"])
+
+
+def _randn(shape, g, dtype, scale=1.0):
+    import torch
+    return (torch.randn(shape, generator=g, device="cuda") * scale).to(dtype)
+
+
+def _grouped_library(fn_grouped, fn_dense, flush):
+    """The yardstick: one ``torch._grouped_mm`` call with the layout's
+    group offsets where the card's torch takes it for this dtype, else a
+    dense ``torch.matmul`` of the same FLOPs → (ms, which)."""
+    try:
+        fn_grouped()
+        return time_ms(fn_grouped, flush=flush, iters=10), \
+            "torch._grouped_mm"
+    except (RuntimeError, TypeError, AttributeError, NotImplementedError):
+        return time_ms(fn_dense, flush=flush, iters=10), \
+            "torch.matmul (dense, same FLOPs)"
+
+
+def _gmm_row(kernel, dtype_name, shape, got, want, ms, plain_ms, lib,
+             bytes_moved, flops):
+    diff = float((got.float() - want.float()).abs().max())
+    rel = diff / max(float(want.float().abs().max()), 1e-30)
+    bound_ms, bound_by = bound(bytes_moved, flops, dtype_name)
+    import torch
+    row = {"phase": "kernels", "kernel": kernel, "dtype": dtype_name,
+           "shape": shape, "max_abs_err": diff, "max_rel_err": rel,
+           "tol_rel": TOL[dtype_name],
+           "ok": bool(torch.isfinite(got.float()).all())
+           and rel <= TOL[dtype_name],
+           "ms": ms, "plain_ms": plain_ms, "library_ms": lib[0],
+           "library": lib[1], "bound_ms": bound_ms, "bound_by": bound_by,
+           "tflops": flops / ms / 1e9}
+    emit(row)
+    return row
+
+
+def check_gmm(dtype_name, case, layout, flush):
+    """K6 against its plain version at one call site of the MoE step."""
+    import torch
+    from kubeflow_tpu_torch.compute.ops import grouped_matmul as ops
+    site, k, n, trans = case
+    _, be, fst, lst, m_pad = layout
+    e, bm = MOE_SHAPE["experts"], MOE_SHAPE["block_m"]
+    dtype = getattr(torch, dtype_name)
+    g = torch.Generator(device="cuda").manual_seed(k + n)
+    x = _randn((m_pad, k), g, dtype)
+    if trans:           # dx: the forward's [e, n, k] weights read as w^T
+        w = _randn((e, n, k), g, dtype, k ** -0.5).transpose(1, 2)
+    else:
+        w = _randn((e, k, n), g, dtype, k ** -0.5)
+    got = ops.grouped_matmul(x, w, be, bm)
+    want = ops.grouped_matmul_reference(x, w, be, bm)
+    torch.cuda.synchronize()
+    ms = time_ms(lambda: ops.grouped_matmul(x, w, be, bm), flush=flush,
+                 iters=10)
+    plain_ms = time_ms(lambda: ops.grouped_matmul_reference(x, w, be, bm),
+                       flush=flush, iters=3)
+    offs = (ops.expert_tiles(be, fst, lst, e)[:, 1] * bm).to(torch.int32)
+    lib = _grouped_library(lambda: torch._grouped_mm(x, w, offs=offs),
+                           lambda: torch.matmul(x, w[0]), flush)
+    itemsize = x.element_size()
+    bytes_moved = (m_pad * k + e * k * n + m_pad * n) * itemsize \
+        + be.numel() * 4
+    shape = {"site": site, "rows": m_pad, "k": k, "n": n, "experts": e,
+             "block_m": bm, "weights_transposed": trans}
+    return _gmm_row("grouped_matmul", dtype_name, shape, got, want, ms,
+                    plain_ms, lib, bytes_moved, 2 * m_pad * k * n)
+
+
+def check_gmm_dw(dtype_name, case, layout, flush):
+    """K7 against its plain version at one dw site of the MoE step; the
+    work counted is the rows inside the experts' tile ranges."""
+    import torch
+    from kubeflow_tpu_torch.compute.ops import grouped_matmul as ops
+    site, k, n = case
+    _, be, fst, lst, m_pad = layout
+    e, bm = MOE_SHAPE["experts"], MOE_SHAPE["block_m"]
+    dtype = getattr(torch, dtype_name)
+    g = torch.Generator(device="cuda").manual_seed(3 * k + n)
+    x = _randn((m_pad, k), g, dtype)
+    dy = _randn((m_pad, n), g, dtype)
+    args = (x, dy, be, fst, lst, e, bm)
+    got = ops.grouped_matmul_dw(*args)
+    want = ops.grouped_matmul_dw_reference(*args)
+    torch.cuda.synchronize()
+    ms = time_ms(lambda: ops.grouped_matmul_dw(*args), flush=flush, iters=10)
+    plain_ms = time_ms(lambda: ops.grouped_matmul_dw_reference(*args),
+                       flush=flush, iters=3)
+    tiles = ops.expert_tiles(be, fst, lst, e)
+    offs = (tiles[:, 1] * bm).to(torch.int32)
+    lib = _grouped_library(lambda: torch._grouped_mm(x.t(), dy, offs=offs),
+                           lambda: torch.matmul(x.t(), dy), flush)
+    rows = int((tiles[:, 1] - tiles[:, 0]).sum()) * bm
+    bytes_moved = rows * (k + n) * x.element_size() + e * k * n * 4 \
+        + 3 * be.numel() * 4
+    shape = {"site": site, "rows": m_pad, "rows_walked": rows, "k": k,
+             "n": n, "experts": e, "block_m": bm}
+    return _gmm_row("grouped_matmul_dw", dtype_name, shape, got, want, ms,
+                    plain_ms, lib, bytes_moved, 2 * rows * k * n)
+
+
 def phase_kernels():
     import torch
     flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
@@ -418,6 +567,18 @@ def phase_kernels():
         rows += check_flash_bwd(dtype_name, flush)
         for case in CHUNK_CASES:
             rows.append(check_chunk(dtype_name, case, flush))
+    # the MoE step: K3-K5 at n_rep 1, K6 at its four sites, K7 at two
+    layout = moe_layout()
+    for dtype_name in ("float32", "bfloat16"):
+        rows.append(check_flash(dtype_name, MOE_ATTN["S"], flush,
+                                B=MOE_ATTN["B"], kv=MOE_ATTN["kv"]))
+        rows += check_flash_bwd(dtype_name, flush, MOE_ATTN)
+        for case in GMM_CASES:
+            rows.append(check_gmm(dtype_name, case, layout, flush))
+        for case in DW_CASES:
+            rows.append(check_gmm_dw(dtype_name, case, layout, flush))
+    del layout, flush
+    torch.cuda.empty_cache()
     bad = [r for r in rows if not r["ok"]]
     if bad:
         raise AssertionError(f"kernel disagrees with its plain version: "
@@ -948,10 +1109,209 @@ def phase_train_conformance(kernel_fns):
     return report
 
 
+def moe_config(dtype="bfloat16", **kw):
+    """The MoE flagship the JAX package measured (``hack/moe_lab.py``):
+    vocab 32000, d_model 1024, 8 layers, 8 heads (MHA, head_dim 128), ff
+    2816, 8 experts top-2, dropless on the grouped matmul (block_m 128),
+    flash attention, per-layer weights, no remat."""
+    from kubeflow_tpu_torch.compute.models import transformer
+    fields = dict(vocab_size=32000, d_model=1024, n_layers=8, n_heads=8,
+                  max_seq=1024, moe_experts=8, moe_top_k=2,
+                  moe_dropless=True, moe_gmm="auto", moe_gmm_block_m=128,
+                  scan_layers=False, remat=False, attention="flash")
+    return transformer.Config(**{**fields, **kw}, dtype=dtype)
+
+
+MOE_KERNELS = ("grouped_matmul", "grouped_matmul_dw", "flash_fwd",
+               "flash_bwd_dq", "flash_bwd_dkv")
+
+
+def phase_moe_apply(params, kernel_fns):
+    """The MoE forward: ``transformer.apply`` of the MoE flagship (bf16)
+    on 1 x 1024 tokens, counts zeroed just before and read just after:
+    2 K6 and 1 K3 launch a layer, logits finite."""
+    import torch
+    from kubeflow_tpu_torch.compute.models import transformer
+    cfg = moe_config()
+    toks = torch.randint(0, cfg.vocab_size, (1, cfg.max_seq),
+                         generator=torch.Generator().manual_seed(6)).cuda()
+    with torch.no_grad():
+        transformer.apply(params, toks, cfg)             # warm-up
+        torch.cuda.synchronize()
+        for fn in kernel_fns.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        logits = transformer.apply(params, toks, cfg)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in kernel_fns.items()}
+    row = {"phase": "moe_apply", "dtype": "bfloat16",
+           "tokens": [1, cfg.max_seq],
+           "layers": cfg.n_layers, "experts": cfg.moe_experts,
+           "top_k": cfg.moe_top_k, "wall_ms": 1e3 * wall,
+           "logits_shape": list(logits.shape),
+           "finite": bool(torch.isfinite(logits).all()),
+           "launches": launches}
+    emit(row)
+    if not row["finite"] or tuple(logits.shape) != (1, cfg.max_seq,
+                                                    cfg.vocab_size):
+        raise AssertionError("MoE apply gave non-finite or misshapen logits")
+    want = {"grouped_matmul": 2 * cfg.n_layers, "flash_fwd": cfg.n_layers}
+    for name, n in want.items():
+        if launches[name] != n:
+            raise AssertionError(f"MoE apply launched {name} "
+                                 f"{launches[name]} times, want {n}")
+    return row
+
+
+MOE_BATCH = (8, 1024)
+MOE_WARM, MOE_TIMED = 2, 3
+
+
+def phase_moe(kernel_fns):
+    """The MoE paths: the forward (:func:`phase_moe_apply`) on the fresh
+    weights, then training — the MoE flagship, bf16, ``remat=False``,
+    ``init_state`` → ``make_train_step`` → ``fit`` over one repeated 8 x
+    1024 ``synthetic_lm`` batch, 2 warm + 3 timed steps (lr 1e-3, warmup
+    1); counts zeroed just before ``fit`` and read just after. Then one
+    step profiled. → ``(apply row, train row)``."""
+    import torch
+    from kubeflow_tpu_torch.compute import data, profiler, telemetry, train
+    from kubeflow_tpu_torch.compute.models import transformer
+    cfg = moe_config()
+    opt = train.make_optimizer(learning_rate=1e-3, warmup_steps=1,
+                               total_steps=100)
+    state = train.init_state(functools.partial(transformer.init_params, cfg),
+                             opt, device="cuda",
+                             generator=torch.Generator().manual_seed(0))
+    apply_row = phase_moe_apply(state.params, kernel_fns)
+    step = train.make_train_step(train.plain_loss(transformer.loss_fn, cfg),
+                                 opt)
+
+    def synced(state, batch):
+        out = step(state, batch)
+        torch.cuda.synchronize()
+        return out
+
+    B, S = MOE_BATCH
+    batch = next(data.synthetic_lm(B, S, cfg.vocab_size, seed=7))
+    tokens = B * S
+    assignments = tokens * cfg.moe_top_k
+    bm = cfg.moe_gmm_block_m
+    m_pad = (-(-assignments // bm) + cfg.moe_experts) * bm
+    flops_per_step = transformer.flops_per_token(cfg) * tokens
+    peak = telemetry.peak_flops()
+    tel = telemetry.TrainTelemetry("moe-train", flops_per_step=flops_per_step,
+                                   peak=peak)
+    n_steps = MOE_WARM + MOE_TIMED
+    marks, losses, auxs = [], [], []
+
+    def on_step(n, metrics):
+        marks.append(time.perf_counter())
+        losses.append(metrics["loss"])
+        auxs.append(metrics["moe_aux"])
+
+    for fn in kernel_fns.values():
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state, metrics = train.fit(state, synced, itertools.repeat(batch, n_steps),
+                               on_step=on_step, telemetry=tel)
+    launches = {name: fn.launches for name, fn in kernel_fns.items()}
+    peak_mem = torch.cuda.max_memory_allocated()
+    losses = [float(x) for x in losses]
+    auxs = [float(x) for x in auxs]
+    step_s = [b - a for a, b in zip(marks[MOE_WARM - 1:], marks[MOE_WARM:])]
+    step_ms = 1e3 * statistics.mean(step_s)
+    with profiler.trace("build/profile") as cap:
+        w0 = time.perf_counter()
+        state, _ = synced(state, data.to_device(batch, "cuda"))
+        wall_ms = 1e3 * (time.perf_counter() - w0)
+    prof = profiler.device_summary(cap.profile, wall_ms)
+    row = {"phase": "moe_train", "dtype": "bfloat16", "batch": B, "seq": S,
+           "layers": cfg.n_layers, "experts": cfg.moe_experts,
+           "top_k": cfg.moe_top_k, "block_m": bm, "remat": cfg.remat,
+           "params": transformer.param_count(cfg), "steps": n_steps,
+           "timed_steps": MOE_TIMED, "first_step_s": marks[0] - t0,
+           "step_ms": step_ms, "step_ms_each": [1e3 * x for x in step_s],
+           "tokens_per_s": tokens / (step_ms / 1e3),
+           "flops_per_token": transformer.flops_per_token(cfg),
+           "mfu_formula": "JAX flops_per_token (dense MLP counted once)",
+           "peak_flops": peak,
+           "mfu": flops_per_step / (step_ms / 1e3) / peak,
+           "telemetry_mfu": tel.live_mfu(),
+           "peak_memory_bytes": peak_mem, "losses": losses,
+           "moe_aux": auxs, "rows_padded": m_pad,
+           "padded_row_share": (m_pad - assignments) / m_pad,
+           "grad_norm": float(metrics["grad_norm"]),
+           "launches": launches,
+           "launches_per_step": {k: v / n_steps for k, v in launches.items()}}
+    emit(row)
+    emit({"phase": "moe_train_profile", "trace": cap.path, **prof})
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"MoE train loss did not fall: {losses}")
+    want = {"grouped_matmul": 4 * cfg.n_layers,
+            "grouped_matmul_dw": 2 * cfg.n_layers,
+            "flash_fwd": cfg.n_layers, "flash_bwd_dq": cfg.n_layers,
+            "flash_bwd_dkv": cfg.n_layers}
+    for name, n in want.items():
+        if launches[name] != n * n_steps:
+            raise AssertionError(f"{name} launched {launches[name]} times "
+                                 f"in {n_steps} MoE steps, want {n} a step")
+    return apply_row, row
+
+
+def phase_moe_conformance(kernel_fns):
+    """fp32 (TF32 off), MoE flagship width, 2 layers, batch 2 x 1024: the
+    loss and every gradient leaf through K6/K7 (``moe_gmm="auto"``)
+    against the plain ragged engine (``moe_gmm=False``: one product per
+    expert, plain autograd) on the card, loss within 1e-5 relative, each
+    leaf within 1e-3 of its max |g|; the ``apply`` logits within 1e-3."""
+    import torch
+    from kubeflow_tpu_torch.compute import data
+    from kubeflow_tpu_torch.compute.models import transformer
+    batch = data.to_device(next(data.synthetic_lm(2, 1024, 32000, seed=8)),
+                           "cuda")
+    cfg = moe_config("float32", n_layers=2)
+    plain = dataclasses.replace(cfg, moe_gmm=False)
+    params = transformer.init_params(cfg, torch.Generator().manual_seed(3),
+                                     device="cuda")
+    for fn in kernel_fns.values():
+        fn.launches = 0
+    gmm_loss, gmm_g = _grads(params, cfg, batch)
+    torch.cuda.synchronize()
+    launches = {n: kernel_fns[n].launches for n in ("grouped_matmul",
+                                                    "grouped_matmul_dw")}
+    plain_loss, plain_g = _grads(params, plain, batch)
+    errs = _leaf_errors(gmm_g, plain_g)
+    loss_rel = abs(gmm_loss - plain_loss) / abs(plain_loss)
+    with torch.no_grad():
+        a = transformer.apply(params, batch["tokens"], cfg)
+        b = transformer.apply(params, batch["tokens"], plain)
+        logits_err = float((a - b).abs().max())
+    del a, b
+    report = {"phase": "moe_conformance", "dtype": "float32", "layers": 2,
+              "batch": [2, 1024], "loss": [gmm_loss, plain_loss],
+              "loss_rel": loss_rel, "tol_loss": 1e-5,
+              "leaf_rel_max": max(errs), "tol_leaf": 1e-3,
+              "apply_logits_max_abs": logits_err, "tol_logits": 1e-3,
+              "launches_kernel_engine": launches}
+    emit(report)
+    if loss_rel > 1e-5 or max(errs) > 1e-3 or logits_err > 1e-3:
+        raise AssertionError(f"the grouped-matmul engine leaves the plain "
+                             f"ragged engine: loss {loss_rel}, leaves "
+                             f"{errs}, logits {logits_err}")
+    if launches != {"grouped_matmul": 8, "grouped_matmul_dw": 4}:
+        raise AssertionError(f"K6/K7 launches {launches} for 2 layers, "
+                             f"want 8 and 4")
+    return report
+
+
 def main():
     import torch
     from kubeflow_tpu_torch.compute.models import transformer
     from kubeflow_tpu_torch.compute.ops import flash_attention as flash_ops
+    from kubeflow_tpu_torch.compute.ops import grouped_matmul as gmm_ops
     from kubeflow_tpu_torch.compute.ops import paged_attention as paged_ops
     t_start = time.perf_counter()
     info = phase_device()
@@ -963,7 +1323,9 @@ def main():
                   "paged_chunk": paged_ops.paged_chunk_attention,
                   "flash_fwd": flash_ops.flash_attention,
                   "flash_bwd_dq": flash_ops.flash_attention_bwd_dq,
-                  "flash_bwd_dkv": flash_ops.flash_attention_bwd_dkv}
+                  "flash_bwd_dkv": flash_ops.flash_attention_bwd_dkv,
+                  "grouped_matmul": gmm_ops.grouped_matmul,
+                  "grouped_matmul_dw": gmm_ops.grouped_matmul_dw}
     paths = {"engine": phase_engine(params, kernel_fns),
              "prefix": phase_prefix(params, kernel_fns)}
     target, draft, dcfg = spec_pair(params, flagship_config())
@@ -974,6 +1336,10 @@ def main():
     torch.cuda.empty_cache()
     paths["train"] = phase_train(kernel_fns)
     phase_train_conformance(kernel_fns)
+    torch.cuda.empty_cache()
+    paths["moe_apply"], paths["moe_train"] = phase_moe(kernel_fns)
+    torch.cuda.empty_cache()
+    phase_moe_conformance(kernel_fns)
     meta = {
         "paged_decode": (
             "kubeflow_tpu_torch/compute/ops/csrc/paged_decode.cu",
@@ -990,22 +1356,36 @@ def main():
         "flash_bwd_dkv": (
             "kubeflow_tpu_torch/compute/ops/csrc/flash_bwd.cu",
             "kubeflow_tpu/compute/ops/flash_attention.py:127"),
+        "grouped_matmul": (
+            "kubeflow_tpu_torch/compute/ops/csrc/grouped_matmul.cu",
+            "kubeflow_tpu/compute/ops/grouped_matmul.py:44"),
+        "grouped_matmul_dw": (
+            "kubeflow_tpu_torch/compute/ops/csrc/grouped_matmul.cu",
+            "kubeflow_tpu/compute/ops/grouped_matmul.py:116"),
     }
 
-    def serving_flash(r):
-        return r["shape"]["seq"] == 1024 and r["shape"]["batch"] == 1
+    def attn_at(r, shape):
+        return (r["shape"]["seq"] == shape["S"]
+                and r["shape"]["batch"] == shape["B"]
+                and r["shape"]["kv_heads"] == shape["kv"])
 
-    def train_flash(r):
-        return r["shape"]["seq"] == 1024 and r["shape"]["batch"] == 16
+    def bf16(r):
+        return r["dtype"] == "bfloat16"
 
-    main_shape = {"paged_decode": lambda r: r["dtype"] == "bfloat16",
-                  "flash_fwd": lambda r: (r["dtype"] == "bfloat16"
-                                          and serving_flash(r)),
-                  "paged_chunk": lambda r: (
-                      r["dtype"] == "bfloat16"
-                      and r["shape"]["site"] == "prefill_chunk"),
-                  "flash_bwd_dq": lambda r: r["dtype"] == "bfloat16",
-                  "flash_bwd_dkv": lambda r: r["dtype"] == "bfloat16"}
+    serving_attn = dict(S=1024, B=1, kv=2)
+    main_shape = {
+        "paged_decode": bf16,
+        "flash_fwd": lambda r: bf16(r) and attn_at(r, serving_attn),
+        "paged_chunk": lambda r: (bf16(r)
+                                  and r["shape"]["site"] == "prefill_chunk"),
+        "flash_bwd_dq": lambda r: bf16(r) and attn_at(r, TRAIN_ATTN),
+        "flash_bwd_dkv": lambda r: bf16(r) and attn_at(r, TRAIN_ATTN),
+        "grouped_matmul": lambda r: bf16(r) and r["shape"]["site"]
+        == "gate_up",
+        "grouped_matmul_dw": lambda r: bf16(r) and r["shape"]["site"]
+        == "dw_gate_up"}
+    timing_keys = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+                   "shape")
     kernels = []
     for name, (source, replaces) in meta.items():
         r = next(r for r in rows
@@ -1024,13 +1404,20 @@ def main():
             "shape": r["shape"]}
         if name == "flash_fwd":      # also at the train step's shape
             t = next(x for x in rows if x["kernel"] == name
-                     and x["dtype"] == "bfloat16" and train_flash(x))
-            entry["at_train_shape"] = {
-                k: t[k] for k in ("ms", "plain_ms", "library_ms",
-                                  "bound_ms", "bound_by", "shape")}
+                     and bf16(x) and attn_at(x, TRAIN_ATTN))
+            entry["at_train_shape"] = {k: t[k] for k in timing_keys}
+        if name.startswith("flash"):  # and at the MoE step's (MHA)
+            t = next(x for x in rows if x["kernel"] == name
+                     and bf16(x) and attn_at(x, MOE_ATTN))
+            entry["at_moe_shape"] = {k: t[k] for k in timing_keys}
         if name.startswith("flash_bwd"):
             entry["library_covers"] = r["library_covers"]
             entry["plain_covers"] = r["plain_covers"]
+        if name.startswith("grouped"):
+            entry["library"] = r["library"]
+            entry["sites"] = {x["shape"]["site"]: {
+                k: x[k] for k in timing_keys + ("library", "tflops")}
+                for x in rows if x["kernel"] == name and bf16(x)}
         kernels.append(entry)
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     print(info["card"], flush=True)

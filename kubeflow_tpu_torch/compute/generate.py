@@ -210,6 +210,10 @@ class GenerationEngine:
                  draft_params=None, draft_config=None, spec_k=0,
                  debug_logits=False, attn_backend="paged",
                  prefill_chunk=None, device=None):
+        if config.moe_experts:
+            raise ValueError(
+                "GenerationEngine supports dense TransformerLM configs "
+                "(no MoE, no pipeline parallelism)")
         if attn_backend not in ATTN_BACKENDS:
             raise ValueError(
                 f"attn_backend must be 'gather', 'paged' or "
@@ -231,6 +235,10 @@ class GenerationEngine:
                 f"draft vocab_size {draft_config.vocab_size} must equal "
                 f"the target's {config.vocab_size}: accepted tokens are "
                 f"compared by id")
+        if self._spec_on and draft_config.moe_experts:
+            raise ValueError(
+                "the draft must be a dense TransformerLM (no MoE, no "
+                "pipeline parallelism)")
         self.device = device_lib.resolve(device)
         self.config = config
         self.name = name
@@ -1145,7 +1153,7 @@ class GenerationEngine:
         """The transformer layer with attention abstracted — the model's
         own ``transformer.layer_core``, so the cached paths stay
         op-identical to ``transformer.apply``."""
-        return transformer.layer_core(x, lp, attend, self.config)
+        return transformer.layer_core(x, lp, attend, self.config)[:2]
 
     def _head_logits(self, x):
         """Final-norm hidden → fp32 logits (``transformer._logits``)."""
@@ -1353,7 +1361,7 @@ class GenerationEngine:
                 dv[layer, slot_idx, :padded] = v[0]
                 return o, None
 
-            x, _ = transformer.layer_core(x, lp, attend, c)
+            x, _, _ = transformer.layer_core(x, lp, attend, c)
 
     def _propose_step(self, tokens, lengths, limits):
         """Draft proposal (``generate.py:3626``): ``spec_k`` greedy
@@ -1389,7 +1397,7 @@ class GenerationEngine:
                         attn_lib.repeat_kv(dv[layer], n_rep), pos + 1)
                     return o, None
 
-                x, _ = transformer.layer_core(x, lp, attend, c)
+                x, _, _ = transformer.layer_core(x, lp, attend, c)
             if step == self.spec_k:
                 break              # this step ran for its cache write
             x = transformer._rmsnorm(x[:, 0],
@@ -1490,7 +1498,7 @@ def reference_greedy_decode(params, config, prompt, max_tokens,
     with torch.no_grad():
         for _ in range(max_tokens):
             buf[0, :len(tokens)] = torch.tensor(tokens, device=dev)
-            x = transformer.backbone(p, buf, config)
+            x, _ = transformer.backbone(p, buf, config)
             row = transformer._logits(x[0, len(tokens) - 1], head)
             row = row.cpu().numpy()
             nxt = int(row.argmax())

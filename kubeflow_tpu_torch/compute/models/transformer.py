@@ -3,12 +3,14 @@ plain PyTorch functions over a parameter dict.
 
 Port of ``kubeflow_tpu/compute/models/transformer.py`` (``Config``
 :32-121, ``init_params`` :178, the forward :215-586, ``loss_fn`` :589,
-``flops_per_token`` :624, ``param_count`` :638), dense layers. The
-parameter layout is the JAX one — a dict with ``embed``,
-``final_norm``, ``head`` and a stacked ``layers`` dict whose leaves
-carry a leading layer dim — so weights cross between the two packages
-through numpy unchanged (``compute/params.py``). ``lax.scan`` over the
-stacked layers becomes a Python loop.
+``flops_per_token`` :624, ``param_count`` :638): dense layers and the
+mixture-of-experts MLP (capacity dispatch ``_switch_moe`` and dropless
+``_dropless_moe``, the latter on the grouped-matmul kernels K6/K7 of
+``ops/grouped_matmul.py``). The parameter layout is the JAX one — a dict
+with ``embed``, ``final_norm``, ``head`` and a stacked ``layers`` dict
+whose leaves carry a leading layer dim — so weights cross between the
+two packages through numpy unchanged (``compute/params.py``).
+``lax.scan`` over the stacked layers becomes a Python loop.
 
 Numerics mirrored on purpose (the token-identity contract rests on
 them): RoPE rotates interleaved (even, odd) pairs and restacks them
@@ -28,6 +30,7 @@ from torch.utils.checkpoint import checkpoint
 
 from .. import attention as attn_lib
 from .. import device as device_lib
+from ..ops import grouped_matmul as gmm_lib
 from ..ops.flash_attention import flash_attention
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
@@ -36,11 +39,21 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
 
 @dataclasses.dataclass(frozen=True)
 class Config:
-    """The JAX ``Config``'s fields. MoE, pipeline stages and ring
-    attention are refused (``NotImplementedError``) until their slice of
-    the port. ``remat`` (default True, as in JAX) recomputes each
-    layer's activations in the backward
-    (``torch.utils.checkpoint``); it changes nothing without one."""
+    """The JAX ``Config``'s fields. Pipeline stages and ring attention
+    are refused (``NotImplementedError``) until their slice of the port.
+    ``remat`` (default True, as in JAX) recomputes each layer's
+    activations in the backward (``torch.utils.checkpoint``); it changes
+    nothing without one.
+
+    MoE (``moe_experts`` > 0): ``moe_top_k`` 1 is Switch, 2 GShard-style
+    with renormalized gates; ``moe_dropless`` picks dropless dispatch
+    over capacity buffers (``moe_capacity_factor``). ``moe_gmm`` picks
+    the dropless engine: True or "auto" the grouped matmul (kernels K6
+    and K7 on the card — where JAX's "auto" takes ``lax.ragged_dot`` off
+    the TPU), False the plain ragged engine (a product per expert),
+    which is the reference the card holds the kernels' path against.
+    On the card ``moe_gmm_block_m`` must be a multiple of 64 (the
+    kernels' row tile)."""
     vocab_size: int = 32000
     d_model: int = 512
     n_layers: int = 4
@@ -65,9 +78,10 @@ class Config:
     pipeline_microbatches: int = 0
 
     def __post_init__(self):
-        if self.moe_experts:
-            raise NotImplementedError(
-                "mixture-of-experts layers are not ported yet")
+        if self.moe_gmm not in (True, False, "auto"):
+            raise ValueError(
+                f"moe_gmm must be True, False or 'auto', got "
+                f"{self.moe_gmm!r}")
         if self.pipeline_stages > 1:
             raise NotImplementedError(
                 "pipeline parallelism is not ported yet")
@@ -111,17 +125,21 @@ class Config:
 def _layer_shapes(c):
     h, kv, d, f, hd = (c.n_heads, c.kv_heads, c.d_model, c.ff_dim,
                        c.head_dim)
-    return {
+    shapes = {
         "attn_norm": (d,),
         "wq": (d, h, hd),
         "wk": (d, kv, hd),
         "wv": (d, kv, hd),
         "wo": (h, hd, d),
         "mlp_norm": (d,),
-        "w_gate": (d, f),
-        "w_up": (d, f),
-        "w_down": (f, d),
     }
+    if c.moe_experts:
+        e = c.moe_experts
+        shapes.update({"router": (d, e), "we_gate": (e, d, f),
+                       "we_up": (e, d, f), "we_down": (e, f, d)})
+    else:
+        shapes.update({"w_gate": (d, f), "w_up": (d, f), "w_down": (f, d)})
+    return shapes
 
 
 def init_params(config, generator=None, *, device=None):
@@ -153,7 +171,9 @@ def init_params(config, generator=None, *, device=None):
         if len(shape) == 1:
             layers[name] = torch.ones(full, dtype=torch.float32)
         else:
-            layers[name] = normal(full, shape[0] ** -0.5)
+            # expert weights [E, in, out]: fan-in is the middle dim (:197)
+            fan_in = shape[1] if name.startswith("we_") else shape[0]
+            layers[name] = normal(full, fan_in ** -0.5)
     params["layers"] = layers
     return {k: ({n: t.to(dev) for n, t in v.items()}
                 if isinstance(v, dict) else v.to(dev))
@@ -162,10 +182,13 @@ def init_params(config, generator=None, *, device=None):
 
 def cast_params(params, dtype, device=None):
     """fp32 masters → compute dtype, once. JAX casts at every use
-    (``.astype(dt)``); casting once at load gives the same values."""
-    def cast(t):
-        return t.to(device=device or t.device, dtype=dtype)
-    return {k: ({n: cast(t) for n, t in v.items()}
+    (``.astype(dt)``); casting once at load gives the same values. The
+    MoE ``router`` stays fp32: JAX widens the master for the routing
+    logits (``_router``, :305-307), never rounding it."""
+    def cast(t, to=dtype):
+        return t.to(device=device or t.device, dtype=to)
+    return {k: ({n: cast(t, torch.float32 if n == "router" else dtype)
+                 for n, t in v.items()}
                 if isinstance(v, dict) else cast(v))
             for k, v in params.items()}
 
@@ -218,11 +241,147 @@ def _attention(q, k, v, config):
         causal=True)
 
 
+# ------------------------------------------------------------------ MoE
+
+def _router(h, lp, config):
+    """The routing head (``transformer.py:299-312``): fp32 logits from
+    the fp32 router, softmax, the top-k (sorted, as ``lax.top_k``) and
+    the gates renormalized over the chosen experts → ``(probs [b, s,
+    e], gate_vals [b, s, k], expert_idx [b, s, k])``."""
+    k = min(config.moe_top_k, config.moe_experts)
+    logits = torch.einsum("bsd,de->bse", h.float(), lp["router"].float())
+    probs = torch.softmax(logits, dim=-1)
+    gate_vals, expert_idx = torch.topk(probs, k, dim=-1)
+    gate_vals = gate_vals / gate_vals.sum(-1, keepdim=True).clamp_min(1e-9)
+    return probs, gate_vals, expert_idx
+
+
+def _moe_aux(probs, expert_idx, e):
+    """Switch/GShard load-balancing aux loss from the first choice
+    (:315-320)."""
+    first = F.one_hot(expert_idx[..., 0], e).float()
+    return e * (first.mean(dim=(0, 1)) * probs.mean(dim=(0, 1))).sum()
+
+
+def _switch_moe(h, lp, config):
+    """Top-k MoE with capacity dispatch (``_switch_moe`` :249-296): each
+    of the k choices is a dispatch slot, positions within an expert's
+    capacity ``int(k·s/e·capacity_factor)`` are taken in (s, k) order per
+    batch row, slots over capacity are dropped; one-hot einsums route
+    and combine. No kernel. → ``(out [b, s, d], aux)``."""
+    dt = config.compute_dtype
+    b, s, d = h.shape
+    e = config.moe_experts
+    k = min(config.moe_top_k, e)
+    capacity = max(1, int(k * s / e * config.moe_capacity_factor))
+    probs, gate_vals, expert_idx = _router(h, lp, config)
+    assign = F.one_hot(expert_idx, e).float()                # [b,s,k,e]
+    flat = assign.reshape(b, s * k, e)
+    pos = (torch.cumsum(flat, dim=1) * flat - 1.0).reshape(b, s, k, e)
+    within = (pos >= 0) & (pos < capacity)
+    dispatch = (F.one_hot(pos.clamp(0, capacity - 1).long(), capacity)
+                .to(dt) * within.to(dt)[..., None])           # [b,s,k,e,c]
+    xin = torch.einsum("bskec,bsd->ebcd", dispatch, h)
+    gate_h = torch.einsum("ebcd,edf->ebcf", xin, lp["we_gate"])
+    up = torch.einsum("ebcd,edf->ebcf", xin, lp["we_up"])
+    out_e = torch.einsum("ebcf,efd->ebcd", F.silu(gate_h) * up,
+                         lp["we_down"])
+    combine = dispatch * gate_vals.to(dt)[..., None, None]
+    out = torch.einsum("bskec,ebcd->bsd", combine, out_e)
+    return out, _moe_aux(probs, expert_idx, e)
+
+
+def _ragged_dot(x, w, counts):
+    """``lax.ragged_dot``: the rows of x in runs of ``counts`` (host
+    ints), run ``i`` times ``w[i]``."""
+    return torch.cat([torch.matmul(xs, w[i])
+                      for i, xs in enumerate(torch.split(x, counts))])
+
+
+def _ragged_engine(wg, wu, wd, hf, idx, gates, k):
+    """The plain dropless engine (``_ragged_core`` :352-377, no expert
+    parallelism): a stable sort by expert, the fused gate|up product and
+    the down product per expert over its contiguous rows, the gate
+    scaling and a scatter-add combine. Reads the counts on the host."""
+    f = wg.shape[-1]
+    key = idx.reshape(-1)
+    order = torch.argsort(key, stable=True)
+    counts = torch.bincount(key, minlength=wg.shape[0]).tolist()
+    tok = order // k
+    gu = _ragged_dot(hf[tok], torch.cat([wg, wu], dim=-1), counts)
+    rows = _ragged_dot(F.silu(gu[:, :f]) * gu[:, f:], wd, counts)
+    rows = rows * gates.reshape(-1)[order][:, None]
+    return torch.zeros_like(hf).index_add(0, tok, rows)
+
+
+def _gmm_engine(wg, wu, wd, hf, idx, gates, k, block_m):
+    """The grouped-matmul engine (``gmm_inline`` :392-420): rows laid out
+    by :func:`padded_group_layout`, one int scatter for the dest→source
+    map (padding rows point at a trailing zero row), a gather into
+    ``x_pad``, the fused gate|up grouped matmul, SiLU·up, the down
+    grouped matmul (K6 each; K6 + K7 in the backward), then the rows
+    back in source order, where a token's k choices are adjacent: the
+    combine is a reshape-sum."""
+    e, _, f = wg.shape
+    flat = idx.reshape(-1)
+    n_rows = flat.shape[0]
+    pos, be, fst, lst, m_pad = gmm_lib.padded_group_layout(flat, e, block_m)
+    inv = torch.full((m_pad,), n_rows // k, dtype=torch.long,
+                     device=hf.device)
+    inv[pos.long()] = torch.arange(n_rows, device=hf.device) // k
+    hf_aug = torch.cat([hf, hf.new_zeros((1, hf.shape[1]))])
+    x_pad = hf_aug[inv]
+    gu = gmm_lib.gmm(x_pad, torch.cat([wg, wu], dim=-1), be, fst, lst,
+                     block_m)
+    act = F.silu(gu[:, :f]) * gu[:, f:]
+    rows_pad = gmm_lib.gmm(act, wd, be, fst, lst, block_m)
+    rows = rows_pad[pos.long()] * gates.reshape(-1)[:, None]
+    return rows.reshape(n_rows // k, k, -1).sum(dim=1)
+
+
+def _dropless_moe(h, lp, config):
+    """Dropless MoE (``_dropless_moe`` :323-493) on one device: every
+    (token, choice) assignment is computed, no capacity buffers. The
+    grouped-matmul engine for ``moe_gmm`` True or "auto", the plain
+    ragged engine for False; expert parallelism waits for the
+    multi-device slice. → ``(out [b, s, d], aux)``."""
+    dt = config.compute_dtype
+    b, s, d = h.shape
+    e = config.moe_experts
+    k = min(config.moe_top_k, e)
+    probs, gate_vals, expert_idx = _router(h, lp, config)
+    hf = h.reshape(b * s, d)
+    idx = expert_idx.reshape(b * s, k)
+    gates = gate_vals.reshape(b * s, k).to(dt)
+    weights = (lp["we_gate"], lp["we_up"], lp["we_down"])
+    if config.moe_gmm is False:
+        out = _ragged_engine(*weights, hf, idx, gates, k)
+    else:
+        out = _gmm_engine(*weights, hf, idx, gates, k,
+                          config.moe_gmm_block_m)
+    return out.reshape(b, s, d), _moe_aux(probs, expert_idx, e)
+
+
+# ---------------------------------------------------------------- layers
+
+def _mlp(h, lp, config):
+    """The layer's MLP → ``(down [B, S, D], aux)``: MoE (dropless or
+    capacity) with its aux loss, or the dense SwiGLU with aux None."""
+    if config.moe_experts and config.moe_dropless:
+        return _dropless_moe(h, lp, config)
+    if config.moe_experts:
+        return _switch_moe(h, lp, config)
+    gate = torch.matmul(h, lp["w_gate"])
+    up = torch.matmul(h, lp["w_up"])
+    return torch.matmul(F.silu(gate) * up, lp["w_down"]), None
+
+
 def layer_core(x, lp, attend, config):
     """The transformer layer with attention abstracted — ``attend(q, k,
-    v) → (o, extra)`` gets the projected (pre-RoPE) heads. Shared by
-    :func:`apply` and the generation engine's prefill and decode, so the
-    cached paths cannot drift from the model."""
+    v) → (o, extra)`` gets the projected (pre-RoPE) heads → ``(x, extra,
+    aux)``, aux the MoE load-balancing loss (None for a dense MLP).
+    Shared by :func:`apply` and the generation engine's prefill and
+    decode, so the cached paths cannot drift from the model."""
     B, S, d = x.shape
     hd = config.head_dim
     h = _rmsnorm(x, lp["attn_norm"])
@@ -231,10 +390,8 @@ def layer_core(x, lp, attend, config):
     v = torch.matmul(h, lp["wv"]).view(B, S, config.kv_heads, hd)
     o, extra = attend(q, k, v)
     x = x + torch.matmul(o.reshape(B, S, -1), lp["wo"])
-    h = _rmsnorm(x, lp["mlp_norm"])
-    gate = torch.matmul(h, lp["w_gate"])
-    up = torch.matmul(h, lp["w_up"])
-    return x + torch.matmul(F.silu(gate) * up, lp["w_down"]), extra
+    down, aux = _mlp(_rmsnorm(x, lp["mlp_norm"]), lp, config)
+    return x + down, extra, aux
 
 
 def _layer(lp, x, rope, config):
@@ -244,26 +401,33 @@ def _layer(lp, x, rope, config):
         return _attention(apply_rope(q, cos, sin), apply_rope(k, cos, sin),
                           v, config), None
 
-    return layer_core(x, lp, attend, config)[0]
+    x, _, aux = layer_core(x, lp, attend, config)
+    return x, aux
 
 
 def backbone(params, tokens, config):
-    """tokens [B, S] int → final-norm hidden states [B, S, D]. With
-    ``config.remat`` and autograd recording, each layer is a
-    non-reentrant checkpoint (``jax.checkpoint``, :545): its activations
-    are recomputed in the backward instead of kept."""
+    """tokens [B, S] int → ``(final-norm hidden states [B, S, D], aux)``,
+    aux the MoE load-balancing loss averaged over layers (fp32; 0 for a
+    dense MLP), as JAX's ``backbone`` (:536-573). With ``config.remat``
+    and autograd recording, each layer is a non-reentrant checkpoint
+    (``jax.checkpoint``, :545): its activations are recomputed in the
+    backward instead of kept."""
     p = cast_params(params, config.compute_dtype)
     x = p["embed"][tokens.long()]
     positions = torch.arange(tokens.shape[1], device=x.device)
     rope = rope_tables(config, positions)
     remat = config.remat and torch.is_grad_enabled()
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(config.n_layers):
         lp = layer_params(p, i)
         if remat:
-            x = checkpoint(_layer, lp, x, rope, config, use_reentrant=False)
+            x, a = checkpoint(_layer, lp, x, rope, config,
+                              use_reentrant=False)
         else:
-            x = _layer(lp, x, rope, config)
-    return _rmsnorm(x, p["final_norm"])
+            x, a = _layer(lp, x, rope, config)
+        if a is not None:
+            aux = aux + a / config.n_layers
+    return _rmsnorm(x, p["final_norm"]), aux
 
 
 def _logits(x, head):
@@ -274,8 +438,9 @@ def _logits(x, head):
 
 
 def apply(params, tokens, config):
-    """tokens [B, S] int → logits [B, S, vocab] fp32."""
-    x = backbone(params, tokens, config)
+    """tokens [B, S] int → logits [B, S, vocab] fp32 (the MoE aux loss
+    is dropped here; :func:`loss_fn` carries it)."""
+    x, _ = backbone(params, tokens, config)
     return _logits(x, params["head"].to(config.compute_dtype))
 
 
@@ -286,15 +451,16 @@ def loss_fn(params, batch, config):
     Cross entropy in fp32 with z-loss ``1e-4·logz²`` against logit
     drift, over the masked positions (``transformer.py:589-621``). With
     ``config.chunked_ce`` the fp32 ``[B, S, V]`` logits are never formed
-    (``ops/cross_entropy.py``). ``metrics`` (``loss``, ``accuracy``,
-    ``perplexity``) are detached 0-d tensors: reading one waits for the
-    device."""
+    (``ops/cross_entropy.py``). An MoE model adds ``0.01·aux`` (the
+    Switch load-balancing loss) and reports it as ``moe_aux``.
+    ``metrics`` (``loss``, ``accuracy``, ``perplexity``) are detached
+    0-d tensors: reading one waits for the device."""
     targets = batch["targets"].long()
     mask = batch.get("mask")
     mask = (torch.ones(targets.shape, dtype=torch.float32,
                        device=targets.device)
             if mask is None else mask.float())
-    x = backbone(params, batch["tokens"], config)
+    x, aux = backbone(params, batch["tokens"], config)
     head = params["head"].to(config.compute_dtype)
     if config.chunked_ce:
         from ..ops.cross_entropy import chunked_softmax_xent
@@ -309,17 +475,23 @@ def loss_fn(params, batch, config):
     z_loss = 1e-4 * logz.square()
     denom = mask.sum().clamp_min(1.0)
     loss = ((nll + z_loss) * mask).sum() / denom
+    if config.moe_experts:
+        loss = loss + 0.01 * aux
     with torch.no_grad():
         metrics = {
             "loss": loss.detach(),
             "accuracy": ((pred == targets) * mask).sum() / denom,
             "perplexity": torch.exp((nll * mask).sum() / denom)}
+        if config.moe_experts:
+            metrics["moe_aux"] = aux.detach()
     return loss, metrics
 
 
 def flops_per_token(config):
     """Analytic 6ND forward+backward FLOPs per token (MFU accounting),
-    the JAX package's formula (``transformer.py:624-635``)."""
+    the JAX package's formula (``transformer.py:624-635``). It counts
+    the dense MLP once whatever ``moe_experts`` and ``moe_top_k`` are, so
+    an MoE model's MFU by it is JAX's reading, not the work done."""
     c = config
     n_params = (
         c.vocab_size * c.d_model * 2

@@ -102,6 +102,8 @@ KERNEL_GROUPS = (
     ("K3 flash_fwd", ("flash_fwd_kernel",)),
     ("K4 flash_bwd_dq", ("flash_bwd_dq_kernel",)),
     ("K5 flash_bwd_dkv", ("flash_bwd_dkv_kernel",)),
+    ("K6 grouped_matmul", ("gmm_fwd_kernel",)),
+    ("K7 grouped_matmul_dw", ("gmm_dw_kernel",)),
     ("matmul", ("gemm", "gemv", "cutlass", "xmma", "nvjet", "cublas")),
     ("reduction", ("reduce_kernel", "softmax", "norm_kernel")),
     ("index/scatter", ("index", "scatter", "gather", "embedding")),

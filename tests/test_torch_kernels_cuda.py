@@ -17,7 +17,13 @@ ragged last row tile; for K4 and K5 (the flash backward) every head_dim
 template, GQA groups 1/2/4, ragged, causal and full shapes and the
 train step's shape, each against the plain backward, plus the
 autograd path (K3 forward, K4 + K5 backward, their launch counts)
-against autograd through the plain dense attention. Tolerances: fp32
+against autograd through the plain dense attention; for K6 and K7 (the
+grouped matmul of dropless MoE and its weight gradient) ragged k and n
+(not multiples of the tiles, and not of the 16-byte copy width), weights
+read transposed (the backward's dx), uniform routing, all rows on one
+expert and an empty expert, ``block_m`` 64 and 128, the launch counters,
+the autograd path (K6 forward, K6 + K7 backward) and the refusal of a
+``block_m`` the kernels do not take. Tolerances: fp32
 1e-4, bf16 2e-2 (the kernels sum in another order than the plain
 versions; bf16 outputs may round one unit apart); the backward's
 relative to the plain gradient's max |value|, with an absolute floor
@@ -28,6 +34,7 @@ import pytest
 import torch
 
 from kubeflow_tpu_torch.compute.ops import flash_attention as flash_ops
+from kubeflow_tpu_torch.compute.ops import grouped_matmul as gmm_ops
 from kubeflow_tpu_torch.compute.ops import paged_attention as paged_ops
 
 pytestmark = pytest.mark.cuda
@@ -258,3 +265,116 @@ def test_flash_bwd_refuses_what_the_kernels_do_not_take(dev):
         flash_ops.flash_attention_bwd_dkv(q, k, v, do.bfloat16(), lse,
                                           delta)
 
+
+
+def _gmm_layout(dev, rows, e, block_m, routing, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    if routing == "one_expert":
+        key = torch.full((rows,), e - 1, dtype=torch.int32)
+    elif routing == "empty_expert":        # expert 1 gets no row
+        key = torch.randint(0, e - 1, (rows,), generator=g, dtype=torch.int32)
+        key = torch.where(key >= 1, key + 1, key)
+    else:
+        key = torch.randint(0, e, (rows,), generator=g, dtype=torch.int32)
+    return gmm_ops.padded_group_layout(key.to(dev), e, block_m)
+
+
+GMM_WIDTHS = [(128, 256), (100, 72), (33, 130)]   # k, n; ragged ones too
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("block_m", [64, 128])
+@pytest.mark.parametrize("routing", ["uniform", "one_expert",
+                                     "empty_expert"])
+@pytest.mark.parametrize("k,n", GMM_WIDTHS)
+@pytest.mark.parametrize("trans", [False, True])
+def test_grouped_matmul_matches_plain(dev, dtype, block_m, routing, k, n,
+                                      trans):
+    e = 4
+    _, be, _, _, m_pad = _gmm_layout(dev, 300, e, block_m, routing, k + n)
+    g = torch.Generator().manual_seed(k * n)
+    x = torch.randn((m_pad, k), generator=g).to(dev, dtype)
+    if trans:     # the backward's dx: w^T read through its strides
+        w = torch.randn((e, n, k), generator=g).to(dev, dtype).transpose(1, 2)
+    else:
+        w = torch.randn((e, k, n), generator=g).to(dev, dtype)
+    before = gmm_ops.grouped_matmul.launches
+    got = gmm_ops.grouped_matmul(x, w, be, block_m)
+    want = gmm_ops.grouped_matmul_reference(x, w, be, block_m)
+    torch.cuda.synchronize()
+    assert gmm_ops.grouped_matmul.launches == before + 1
+    assert got.dtype == dtype and got.shape == (m_pad, n)
+    assert torch.isfinite(got.float()).all()
+    _assert_rel(got, want, TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("block_m", [64, 128])
+@pytest.mark.parametrize("routing", ["uniform", "one_expert",
+                                     "empty_expert"])
+@pytest.mark.parametrize("k,n", GMM_WIDTHS)
+def test_grouped_matmul_dw_matches_plain(dev, dtype, block_m, routing, k,
+                                         n):
+    e = 4
+    _, be, fst, lst, m_pad = _gmm_layout(dev, 300, e, block_m, routing,
+                                         k * 3 + n)
+    g = torch.Generator().manual_seed(k + 7 * n)
+    # every row nonzero, padding and trailing tiles too: the kernel must
+    # stay inside each expert's first..last tiles, as the plain version
+    x = torch.randn((m_pad, k), generator=g).to(dev, dtype)
+    dy = torch.randn((m_pad, n), generator=g).to(dev, dtype)
+    before = gmm_ops.grouped_matmul_dw.launches
+    got = gmm_ops.grouped_matmul_dw(x, dy, be, fst, lst, e, block_m)
+    want = gmm_ops.grouped_matmul_dw_reference(x, dy, be, fst, lst, e,
+                                               block_m)
+    torch.cuda.synchronize()
+    assert gmm_ops.grouped_matmul_dw.launches == before + 1
+    assert got.dtype == torch.float32 and got.shape == (e, k, n)
+    _assert_rel(got, want, TOL[dtype])
+    if routing == "empty_expert":
+        ranges = gmm_ops.expert_tiles(be, fst, lst, e)
+        assert int(ranges[1, 1] - ranges[1, 0]) == 1   # its one padding tile
+        x[ranges[1, 0] * block_m:ranges[1, 1] * block_m] = 0
+        dw = gmm_ops.grouped_matmul_dw(x, dy, be, fst, lst, e, block_m)
+        assert float(dw[1].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gmm_autograd_launches_k6_and_k7(dev, dtype):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    e, k, n, bm = 4, 96, 160, 64
+    pos, be, fst, lst, m_pad = _gmm_layout(dev, 500, e, bm, "uniform")
+    g = torch.Generator().manual_seed(3)
+    x = torch.randn((m_pad, k), generator=g).to(dev, dtype).requires_grad_()
+    w = torch.randn((e, k, n), generator=g).to(dev, dtype).requires_grad_()
+    dout = torch.randn((m_pad, n), generator=g).to(dev, dtype)
+    counts = (gmm_ops.grouped_matmul.launches,
+              gmm_ops.grouped_matmul_dw.launches)
+    gmm_ops.gmm(x, w, be, fst, lst, bm).backward(dout)
+    torch.cuda.synchronize()
+    assert (gmm_ops.grouped_matmul.launches,
+            gmm_ops.grouped_matmul_dw.launches) == (counts[0] + 2,
+                                                    counts[1] + 1)
+    want_dx = gmm_ops.grouped_matmul_reference(dout, w.detach().transpose(
+        1, 2), be, bm)
+    want_dw = gmm_ops.grouped_matmul_dw_reference(x.detach(), dout, be, fst,
+                                                  lst, e, bm).to(dtype)
+    assert x.grad.dtype == dtype and w.grad.dtype == dtype
+    _assert_rel(x.grad, want_dx, TOL[dtype])
+    _assert_rel(w.grad, want_dw, TOL[dtype])
+
+
+def test_gmm_wrappers_refuse_what_the_kernels_do_not_take(dev):
+    _, be, fst, lst, m_pad = _gmm_layout(dev, 40, 2, 32, "uniform")
+    x = torch.zeros((m_pad, 16), device=dev)
+    w = torch.zeros((2, 16, 8), device=dev)
+    with pytest.raises(ValueError, match="moe_gmm_block_m"):
+        gmm_ops.grouped_matmul(x, w, be, 32)
+    with pytest.raises(ValueError, match="moe_gmm_block_m"):
+        gmm_ops.grouped_matmul_dw(x, x, be, fst, lst, 2, 32)
+    _, be, _, _, m_pad = _gmm_layout(dev, 40, 2, 64, "uniform")
+    x = torch.zeros((m_pad, 16), device=dev)
+    with pytest.raises(TypeError, match="dtypes"):
+        gmm_ops.grouped_matmul(x, w.bfloat16(), be, 64)
+    with pytest.raises(ValueError, match="w must be"):
+        gmm_ops.grouped_matmul(x, torch.zeros((2, 8, 8), device=dev), be, 64)

@@ -153,11 +153,27 @@ def test_init_params_layout_and_seed():
         assert torch.equal(a[k], b[k]) and a[k].dtype == torch.float32
 
 
-@pytest.mark.parametrize("kw", [dict(moe_experts=4),
-                                dict(pipeline_stages=2, n_layers=2),
-                                dict(attention="ring"),
-                                dict(moe_experts=8, moe_top_k=2,
-                                     moe_dropless=True)])
+@pytest.mark.parametrize("kw", [dict(pipeline_stages=2, n_layers=2),
+                                dict(attention="ring")])
 def test_config_refuses_unported_features(kw):
     with pytest.raises(NotImplementedError):
         tt.Config(**kw)
+
+
+@pytest.mark.parametrize("role", ["target", "draft"])
+def test_engine_refuses_moe_configs(role):
+    """MoE is trained and applied, not served: the engine refuses an MoE
+    target or draft, as JAX's does (``generate.py:653-656``,
+    ``:705-708``)."""
+    from kubeflow_tpu_torch.compute.generate import GenerationEngine
+    dense = _tcfg(_jcfg())
+    moe = _tcfg(_jcfg(), moe_experts=4, moe_top_k=2, moe_dropless=True)
+    params = tt.init_params(dense, torch.Generator().manual_seed(0),
+                            device="cpu")
+    if role == "target":
+        kw = dict(config=moe)
+    else:
+        kw = dict(config=dense, draft_params=params, draft_config=moe,
+                  spec_k=2)
+    with pytest.raises(ValueError, match="MoE"):
+        GenerationEngine(params, device="cpu", **kw)
