@@ -71,7 +71,32 @@ if any phase fails:
    1024: the loss and every gradient leaf through K6/K7 against the
    plain ragged engine (``moe_gmm=False``), loss within 1e-5 relative,
    each leaf within 1e-3 of its max |g|, ``apply`` logits within 1e-3;
-14. the ``kernels`` line — every ported kernel with its launches on each
+14. resnet_eval — ResNet-50 (bf16, random weights and randomised BN from
+   a seed) at batch 256, 224 px in eval mode: every identity block's
+   input through both ``resnet._block`` and K8
+   (``fused_bottleneck_eval``), agreeing within 3e-2 of the block
+   output's max |value| in bf16 (the roundings differ) and 1e-4 in fp32
+   (batch 8); then one forward with the 12 identity blocks through K8
+   (exactly 12 launches, finite logits within 5e-2 of the unfused
+   forward's, statistics untouched) and samples/s of the unfused and the
+   K8 forward;
+15. resnet_train — ResNet-50 trained (bf16, ``init_state(extra=stats)``
+   → ``make_train_step(stateful_loss(resnet.loss_fn))`` → ``fit`` over
+   one repeated 256 x 224 x 224 x 3 batch, 2 warm + 3 timed steps): step
+   ms, samples/s, MFU by ``flops_per_sample``, peak memory; the loss
+   falls and the running means move; then one step profiled
+   (``resnet_train_profile``);
+16. bert_train — bert-base (bf16, ``remat=False``, per-layer weights) on
+   one repeated 16 x 512 ``mlm_batch``, 2 warm + 3 timed steps: step ms,
+   tokens/s, MFU; the loss falls and every step launches K3, K4 and K5
+   12 times each; then one step profiled; and bert_conformance — fp32, 2
+   layers, 2 x 512: loss and every gradient leaf through K3-K5 (no
+   causal mask, head_dim 64) against ``attention="dense"``, 1e-5 / 1e-3
+   of each leaf's max |g|;
+17. sweep — ``run_mnist_sweep`` of 8 trials in 2 shape buckets, 30
+   steps, equal within 1e-5 to 8 calls of ``run_mnist_trial``; wall
+   seconds of both;
+18. the ``kernels`` line — every ported kernel with its launches on each
    path (counts zeroed just before a path, read just after), its max
    |Δ| and its times.
 
@@ -93,8 +118,23 @@ sites, routing from a seeded uniform draw, fp32 and bf16, within 1e-4 /
 card's torch takes the dtype, else a dense ``torch.matmul`` of the same
 FLOPs; each row names which.
 
+Kernel phase, BERT and ResNet: K3-K5 at the BERT step's shape (B 16, S
+512, 12 heads of 64, no causal mask), and K8 at the identity block of
+each ResNet-50 stage (batch 256: 56x56x256, 28x28x512, 14x14x1024,
+7x7x2048, bottleneck C/4) with BN scale, bias, mean and variance
+randomised, fp32 and bf16, within 1e-4 / 2e-2 of the plain version's max
+|value|. K8's yardstick is the port's unfused ``resnet._block`` in eval
+mode: three cuDNN convolutions with the BN multiply-adds between them.
+
 One JSON object per phase, then the run's total seconds, the card line,
 the ``kernels`` line and the last line ``{"ok": true, "device": {...}}``.
+
+    python3 chip_smoke.py --k8-bands 2,3,4,5,6,7,8,10,14
+
+is a side measurement, not the smoke run: after device and build it
+times K8 in bf16 at each ResNet-50 stage over those band heights (the
+output rows one thread block computes) beside the one its plan chooses,
+and prints the card line last.
 """
 
 import dataclasses
@@ -138,7 +178,7 @@ def time_ms(fn, flush, iters=20):
         return start.elapsed_time(end) / iters
 
     fn()
-    torch.cuda.synchronize()
+    loop(flush.zero_)      # untimed: the clocks are up before the baseline
     flush_only = loop(flush.zero_)
     return loop(lambda: (flush.zero_(), fn())) - flush_only
 
@@ -247,40 +287,41 @@ def check_paged(dtype_name, flush):
     return row
 
 
-def check_flash(dtype_name, S, flush, B=1, kv=2):
+def check_flash(dtype_name, S, flush, B=1, kv=2, H=8, D=128, causal=True):
     import torch
     import torch.nn.functional as F
     from kubeflow_tpu_torch.compute.ops import flash_attention as ops
     dtype = getattr(torch, dtype_name)
-    H, D = 8, 128
     g = torch.Generator().manual_seed(S)
     q, k, v = (torch.randn((B, S, h, D), generator=g).to("cuda", dtype)
                for h in (H, kv, kv))
-    out, lse = ops.flash_attention(q, k, v, causal=True)
-    want_out, want_lse = ops.flash_attention_reference(q, k, v, causal=True)
+    out, lse = ops.flash_attention(q, k, v, causal=causal)
+    want_out, want_lse = ops.flash_attention_reference(q, k, v,
+                                                       causal=causal)
     torch.cuda.synchronize()
     err = max(float((out.float() - want_out.float()).abs().max()),
               float((lse - want_lse).abs().max()))
     ok = (bool(torch.isfinite(out.float()).all())
           and bool(torch.isfinite(lse).all()) and err <= TOL[dtype_name])
-    ms = time_ms(lambda: ops.flash_attention(q, k, v, causal=True),
+    ms = time_ms(lambda: ops.flash_attention(q, k, v, causal=causal),
                  flush=flush)
     plain_ms = time_ms(lambda: ops.flash_attention_reference(
-        q, k, v, causal=True), flush=flush)
+        q, k, v, causal=causal), flush=flush)
     n_rep = H // kv
     qt = q.transpose(1, 2)
     kt, vt = (t.repeat_interleave(n_rep, dim=2).transpose(1, 2)
               for t in (k, v))
     library_ms = time_ms(lambda: F.scaled_dot_product_attention(
-        qt, kt, vt, is_causal=True), flush=flush)
+        qt, kt, vt, is_causal=causal), flush=flush)
     itemsize = q.element_size()
     bytes_moved = ((2 * q.numel() + k.numel() + v.numel()) * itemsize
                    + lse.numel() * 4)
-    flops = 4 * B * H * D * S * (S + 1) // 2
+    pairs = B * H * (S * (S + 1) // 2 if causal else S * S)
+    flops = 4 * D * pairs
     bound_ms, bound_by = bound(bytes_moved, flops, dtype_name)
     row = {"phase": "kernels", "kernel": "flash_fwd", "dtype": dtype_name,
            "shape": {"batch": B, "seq": S, "heads": H, "kv_heads": kv,
-                     "head_dim": D, "causal": True},
+                     "head_dim": D, "causal": causal},
            "max_abs_err": err, "tol": TOL[dtype_name], "ok": ok,
            "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
            "bound_ms": bound_ms, "bound_by": bound_by}
@@ -290,6 +331,8 @@ def check_flash(dtype_name, S, flush, B=1, kv=2):
 
 TRAIN_ATTN = dict(B=16, S=1024, H=8, kv=2, D=128)   # the train step's
 MOE_ATTN = dict(B=8, S=1024, H=8, kv=8, D=128)      # the MoE step's (MHA)
+# the BERT-base step's: MHA, head_dim 64, no causal mask
+BERT_ATTN = dict(B=16, S=512, H=12, kv=12, D=64, causal=False)
 
 
 def check_flash_bwd(dtype_name, flush, shape=TRAIN_ATTN):
@@ -301,17 +344,18 @@ def check_flash_bwd(dtype_name, flush, shape=TRAIN_ATTN):
     from kubeflow_tpu_torch.compute.ops import flash_attention as ops
     dtype = getattr(torch, dtype_name)
     B, S, H, kv, D = (shape[k] for k in ("B", "S", "H", "kv", "D"))
+    causal = shape.get("causal", True)
     g = torch.Generator().manual_seed(11)
     q, do = (torch.randn((B, S, H, D), generator=g).to("cuda", dtype)
              for _ in range(2))
     k, v = (torch.randn((B, S, kv, D), generator=g).to("cuda", dtype)
             for _ in range(2))
-    out, lse = ops.flash_attention(q, k, v, causal=True)
+    out, lse = ops.flash_attention(q, k, v, causal=causal)
     delta = ops.attention_delta(out, do)
-    args = (q, k, v, do, lse, delta)
+    args = (q, k, v, do, lse, delta, causal)
     dq = ops.flash_attention_bwd_dq(*args)
     dk, dv = ops.flash_attention_bwd_dkv(*args)
-    want = ops._bwd_reference(*args, True, None)
+    want = ops._bwd_reference(*args, None)
     torch.cuda.synchronize()
     errs = {}
     for name, got, ref in zip(("dq", "dk", "dv"), (dq, dk, dv), want):
@@ -322,7 +366,7 @@ def check_flash_bwd(dtype_name, flush, shape=TRAIN_ATTN):
     dq_ms = time_ms(lambda: ops.flash_attention_bwd_dq(*args), flush=flush)
     dkv_ms = time_ms(lambda: ops.flash_attention_bwd_dkv(*args),
                      flush=flush)
-    plain_ms = time_ms(lambda: ops._bwd_reference(*args, True, None),
+    plain_ms = time_ms(lambda: ops._bwd_reference(*args, None),
                        flush=flush)
     # library yardstick: SDPA's backward over repeated K/V — dq, dk and
     # dv together — as one autograd.grad over a retained forward graph
@@ -330,14 +374,14 @@ def check_flash_bwd(dtype_name, flush, shape=TRAIN_ATTN):
     qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
                   for t in (q, k.repeat_interleave(n_rep, dim=2),
                             v.repeat_interleave(n_rep, dim=2)))
-    out_t = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+    out_t = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal)
     library_ms = time_ms(lambda: torch.autograd.grad(
         out_t, (qt, kt, vt), do.transpose(1, 2), retain_graph=True),
         flush=flush)
     itemsize = q.element_size()
     q_bytes, kv_bytes = q.numel() * itemsize, k.numel() * itemsize
     stats = 2 * lse.numel() * 4
-    pairs = B * H * S * (S + 1) // 2
+    pairs = B * H * (S * (S + 1) // 2 if causal else S * S)
     rows = []
     for name, ms, outs, n_products, bytes_moved in (
             ("flash_bwd_dq", dq_ms, ("dq",), 3,
@@ -350,7 +394,7 @@ def check_flash_bwd(dtype_name, flush, shape=TRAIN_ATTN):
         ok = all(errs[o]["finite"] for o in outs) and err <= TOL[dtype_name]
         row = {"phase": "kernels", "kernel": name, "dtype": dtype_name,
                "shape": {"batch": B, "seq": S, "heads": H, "kv_heads": kv,
-                         "head_dim": D, "causal": True},
+                         "head_dim": D, "causal": causal},
                "max_abs_err": max(errs[o]["max_abs_err"] for o in outs),
                "max_rel_err": err, "tol_rel": TOL[dtype_name], "ok": ok,
                "errors": {o: errs[o] for o in outs},
@@ -554,6 +598,132 @@ def check_gmm_dw(dtype_name, case, layout, flush):
                     plain_ms, lib, bytes_moved, 2 * rows * k * n)
 
 
+# K8 at ResNet-50's four identity-block shapes, batch 256: (H = W, C); M = C/4
+BLOCK_BATCH = 256
+BLOCK_SHAPES = ((56, 256), (28, 512), (14, 1024), (7, 2048))
+
+
+def random_bn(ch, g, device="cuda"):
+    """One BN's ``(params, stats)`` with scale, bias, mean and variance
+    randomised (at init the last BN scale of a block is 0, its third
+    product folds to nothing and a check would see only ``relu(x)``)."""
+    import torch
+
+    def n(scale):
+        return (scale * torch.randn((ch,), generator=g)).to(device)
+
+    return ({"scale": 1 + n(0.1), "bias": n(0.1)},
+            {"mean": n(0.1), "var": 0.5 + n(1.0).abs()})
+
+
+def random_block(c, m, g):
+    """An identity bottleneck's ``(params, stats)`` on the card: He-normal
+    convs (HWIO), every BN quantity randomised."""
+    import torch
+    bp, bs = {}, {}
+    for i, shape in enumerate(((1, 1, c, m), (3, 3, m, m), (1, 1, m, c))):
+        fan_in = shape[0] * shape[1] * shape[2]
+        bp[f"conv{i}"] = (torch.randn(shape, generator=g)
+                          * (2 / fan_in) ** 0.5).to("cuda")
+        bp[f"bn{i}"], bs[f"bn{i}"] = random_bn(shape[-1], g)
+    return bp, bs
+
+
+def check_fused_block(dtype_name, shape, flush):
+    """K8 against its plain version at one ResNet-50 stage's identity
+    block, batch 256; errors and the tolerance relative to the plain
+    result's max |value|. The library yardstick is the port's unfused
+    ``resnet._block(train=False)``: three cuDNN convolutions with the BN
+    multiply-adds between them."""
+    import torch
+    from kubeflow_tpu_torch.compute.models import resnet
+    from kubeflow_tpu_torch.compute.ops import fused_block as ops
+    hw, c = shape
+    m = c // 4
+    n = BLOCK_BATCH
+    dtype = getattr(torch, dtype_name)
+    g = torch.Generator().manual_seed(hw * 7 + c)
+    bp, bs = random_block(c, m, g)
+    x = torch.randn((n, hw, hw, c), generator=g).to("cuda", dtype)
+    cfg = resnet.Config(depth=50, dtype=dtype_name)
+    got = ops.fused_bottleneck_eval(x, bp, bs, cfg.bn_eps)
+    torch.cuda.synchronize()
+    want = ops.fused_bottleneck_reference(x, bp, bs, cfg.bn_eps)
+    diff = float((got.float() - want.float()).abs().max())
+    scale = float(want.float().abs().max())
+    rel = diff / scale
+    del want
+    with torch.no_grad():
+        lib, _ = resnet._block(x, bp, bs, cfg, 1, False)
+        lib_rel = float((got.float() - lib.float()).abs().max()) / scale
+        del lib
+        ms = time_ms(lambda: ops.fused_bottleneck_eval(x, bp, bs, cfg.bn_eps),
+                     flush=flush, iters=10)
+        plain_ms = time_ms(lambda: ops.fused_bottleneck_reference(
+            x, bp, bs, cfg.bn_eps), flush=flush, iters=3)
+        library_ms = time_ms(lambda: resnet._block(x, bp, bs, cfg, 1, False),
+                             flush=flush, iters=10)
+    band_rows, smem, threads = ops.launch_plan(hw, hw, c, m, dtype)
+    itemsize = x.element_size()
+    pixels = n * hw * hw
+    bytes_moved = (2 * pixels * c + 2 * c * m + 9 * m * m) * itemsize \
+        + (2 * m + c) * 4
+    flops = 2 * pixels * (2 * c * m + 9 * m * m)
+    bound_ms, bound_by = bound(bytes_moved, flops, dtype_name)
+    row = {"phase": "kernels", "kernel": "fused_block", "dtype": dtype_name,
+           "shape": {"batch": n, "height": hw, "width": hw, "channels": c,
+                     "bottleneck": m, "band_rows": band_rows,
+                     "shared_memory_bytes": smem,
+                     "block_threads": threads},
+           "max_abs_err": diff, "max_rel_err": rel,
+           "tol_rel": TOL[dtype_name],
+           "ok": bool(torch.isfinite(got.float()).all())
+           and rel <= TOL[dtype_name],
+           "vs_unfused_block_rel": lib_rel,
+           "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+           "library": "resnet._block(train=False): 3 cuDNN convs + BN",
+           "bound_ms": bound_ms, "bound_by": bound_by,
+           "tflops": flops / ms / 1e9}
+    emit(row)
+    return row
+
+
+def k8_band_sweep(bands):
+    """``--k8-bands``: K8's time in bf16 at every ResNet-50 stage over the
+    band heights given (those that fit a block's shared memory) beside
+    the height its plan chooses, each first held against the plain
+    version; one JSON line a reading."""
+    import torch
+    from kubeflow_tpu_torch.compute.ops import fused_block as ops
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    for hw, c in BLOCK_SHAPES:
+        m = c // 4
+        g = torch.Generator().manual_seed(hw * 7 + c)
+        bp, bs = random_block(c, m, g)
+        x = torch.randn((BLOCK_BATCH, hw, hw, c), generator=g).to(
+            "cuda", torch.bfloat16)
+        want = ops.fused_bottleneck_reference(x, bp, bs).float()
+        auto = ops.launch_plan(hw, hw, c, m, x.dtype)[0]
+        for band in sorted({auto} | {b for b in bands if b <= hw}):
+            try:
+                _, smem, threads = ops.launch_plan(hw, hw, c, m, x.dtype, band)
+            except ValueError:
+                continue                                 # does not fit
+            got = ops.fused_bottleneck_eval(x, bp, bs, band_rows=band)
+            rel = float((got.float() - want).abs().max() / want.abs().max())
+            ms = time_ms(lambda: ops.fused_bottleneck_eval(
+                x, bp, bs, band_rows=band), flush, iters=10)
+            emit({"phase": "k8_bands", "height": hw, "channels": c,
+                  "batch": BLOCK_BATCH, "dtype": "bfloat16",
+                  "band_rows": band, "auto": band == auto,
+                  "block_threads": threads, "shared_memory_bytes": smem,
+                  "ms": ms, "max_rel_err": rel})
+            if not rel <= TOL["bfloat16"]:
+                raise AssertionError(f"K8 disagrees at band {band}: {rel}")
+        del x, want
+        torch.cuda.empty_cache()
+
+
 def phase_kernels():
     import torch
     flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
@@ -577,7 +747,20 @@ def phase_kernels():
             rows.append(check_gmm(dtype_name, case, layout, flush))
         for case in DW_CASES:
             rows.append(check_gmm_dw(dtype_name, case, layout, flush))
-    del layout, flush
+    del layout
+    torch.cuda.empty_cache()
+    # the BERT step: K3-K5 without a causal mask at head_dim 64; the
+    # ResNet-50 eval path: K8 at its four stages
+    for dtype_name in ("float32", "bfloat16"):
+        rows.append(check_flash(dtype_name, BERT_ATTN["S"], flush,
+                                B=BERT_ATTN["B"], kv=BERT_ATTN["kv"],
+                                H=BERT_ATTN["H"], D=BERT_ATTN["D"],
+                                causal=False))
+        rows += check_flash_bwd(dtype_name, flush, BERT_ATTN)
+        for shape in BLOCK_SHAPES:
+            rows.append(check_fused_block(dtype_name, shape, flush))
+            torch.cuda.empty_cache()
+    del flush
     torch.cuda.empty_cache()
     bad = [r for r in rows if not r["ok"]]
     if bad:
@@ -1307,15 +1490,439 @@ def phase_moe_conformance(kernel_fns):
     return report
 
 
+RESNET_BATCH, RESNET_IMAGE = 256, 224
+# K8 against the unfused block, of the block output's max |value|: fp32
+# differs by summation order only; in bf16 the roundings differ (weights
+# folded with BN and rounded once, against a bf16 multiply-add after each
+# conv) — 1.3e-2 measured on an H100, held to 3e-2
+EVAL_TOL = {"bfloat16": 3e-2, "float32": 1e-4}
+# the K8 forward's logits against the unfused forward's, of their max
+# |value| (5.7e-3 measured on an H100)
+EVAL_LOGITS_TOL = 5e-2
+
+
+def resnet_weights(cfg, seed):
+    """ResNet weights from a seed with every BN quantity randomised →
+    ``(params, stats)`` on the card."""
+    import torch
+    from kubeflow_tpu_torch.compute.models import resnet
+    g = torch.Generator().manual_seed(seed)
+    params, stats = resnet.init_params(cfg, g, device="cuda")
+
+    def visit(p, st):
+        for key in list(p):
+            if isinstance(p[key], dict) and "scale" in p[key]:
+                p[key], st[key] = random_bn(p[key]["scale"].shape[0], g)
+            elif isinstance(p[key], dict):
+                visit(p[key], st.get(key, {}))
+            elif isinstance(p[key], list):
+                for sub_p, sub_s in zip(p[key], st[key]):
+                    for bp, bs in zip(sub_p, sub_s):
+                        visit(bp, bs)
+
+    visit(params, stats)
+    return params, stats
+
+
+def eval_forward(params, stats, x, cfg, fused, compare=None):
+    """``resnet.apply(train=False)`` walked block by block → logits. With
+    ``fused`` every identity block goes through K8
+    (``fused_bottleneck_eval``), the others through ``resnet._block``.
+    With ``compare`` (a list) every identity block's input goes through
+    BOTH and the list takes max |Δ| over the unfused output's max
+    |value|; the walk goes on from the unfused output."""
+    from kubeflow_tpu_torch.compute.models import resnet
+    from kubeflow_tpu_torch.compute.ops import fused_block
+    h, _ = resnet._trunk_in(params, stats, x, cfg, False)
+    for stage, blocks in enumerate(params["stages"]):
+        for b, bp in enumerate(blocks):
+            bs = stats["stages"][stage][b]
+            identity = "proj" not in bp
+            if identity and fused:
+                h = fused_block.fused_bottleneck_eval(h, bp, bs, cfg.bn_eps)
+                continue
+            out, _ = resnet._block(h, bp, bs, cfg,
+                                   resnet.block_stride(stage, b), False)
+            if identity and compare is not None:
+                k8 = fused_block.fused_bottleneck_eval(h, bp, bs, cfg.bn_eps)
+                compare.append(
+                    float((k8.float() - out.float()).abs().max())
+                    / float(out.float().abs().max()))
+            h = out
+    return resnet._head(params, h)
+
+
+def phase_resnet_eval(kernel_fns):
+    """The ResNet-50 eval path: bf16, batch 256 at 224 px, random
+    weights and randomised BN from a seed. First every identity block's
+    input through both ``resnet._block`` and K8 (bf16 at batch 256, fp32
+    at batch 8); then, counts zeroed just before and read just after,
+    one forward with the 12 identity blocks through K8; then samples/s
+    of the unfused forward (``resnet.apply``) and of the K8 forward."""
+    import torch
+    from kubeflow_tpu_torch.compute import data, train
+    from kubeflow_tpu_torch.compute.models import resnet
+    cfg = resnet.Config(depth=50, n_classes=1000, dtype="bfloat16")
+    params, stats = resnet_weights(cfg, seed=10)
+    before = [t.clone() for t in train.tree_leaves(stats)]
+    batch = data.to_device(next(data.synthetic_images(
+        RESNET_BATCH, RESNET_IMAGE, cfg.n_classes, seed=11)), "cuda")
+    x = batch["image"]
+    agreement = {}
+    with torch.no_grad():
+        for dtype_name, images in (("bfloat16", x), ("float32", x[:8])):
+            errs = []
+            eval_forward(params, stats, images,
+                         dataclasses.replace(cfg, dtype=dtype_name), False,
+                         compare=errs)
+            agreement[dtype_name] = {"blocks": len(errs), "max_rel": max(errs),
+                                     "tol": EVAL_TOL[dtype_name],
+                                     "per_block": errs}
+        plain_logits, new_stats = resnet.apply(params, stats, x, cfg,
+                                               train=False)
+        torch.cuda.synchronize()
+        for fn in kernel_fns.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        logits = eval_forward(params, stats, x, cfg, True)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        launches = {name: fn.launches for name, fn in kernel_fns.items()}
+
+        def timed(fn, runs=3):
+            fn()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            for _ in range(runs):
+                fn()
+            torch.cuda.synchronize()
+            return (time.perf_counter() - t) / runs
+
+        plain_s = timed(lambda: resnet.apply(params, stats, x, cfg,
+                                             train=False))
+        fused_s = timed(lambda: eval_forward(params, stats, x, cfg, True))
+    logits_rel = float((logits - plain_logits).abs().max()) \
+        / float(plain_logits.abs().max())
+    untouched = all(torch.equal(a, b) for a, b in
+                    zip(before, train.tree_leaves(new_stats)))
+    row = {"phase": "resnet_eval", "dtype": "bfloat16",
+           "batch": RESNET_BATCH, "image": RESNET_IMAGE, "depth": cfg.depth,
+           "k8_vs_unfused_block": agreement,
+           "logits_shape": list(logits.shape),
+           "finite": bool(torch.isfinite(logits).all()),
+           "logits_vs_unfused_max_rel": logits_rel,
+           "tol_logits": EVAL_LOGITS_TOL,
+           "stats_untouched": untouched,
+           "first_fused_forward_s": first_s,
+           "unfused_forward_ms": 1e3 * plain_s,
+           "unfused_samples_per_s": RESNET_BATCH / plain_s,
+           "k8_forward_ms": 1e3 * fused_s,
+           "k8_samples_per_s": RESNET_BATCH / fused_s,
+           "launches": launches}
+    emit(row)
+    for dtype_name, a in agreement.items():
+        if a["blocks"] != 12 or not a["max_rel"] <= a["tol"]:
+            raise AssertionError(f"K8 leaves resnet._block in {dtype_name}: "
+                                 f"{a}")
+    if launches["fused_block"] != 12:
+        raise AssertionError(f"the eval forward launched K8 "
+                             f"{launches['fused_block']} times, want 12")
+    if not row["finite"] or tuple(logits.shape) != (RESNET_BATCH,
+                                                    cfg.n_classes):
+        raise AssertionError("ResNet eval gave non-finite or misshapen "
+                             "logits")
+    if not untouched:
+        raise AssertionError("eval mode changed the batch statistics")
+    if not logits_rel <= EVAL_LOGITS_TOL:
+        raise AssertionError(f"the K8 forward's logits leave the unfused "
+                             f"forward's by {logits_rel} of their max")
+    return row
+
+
+RESNET_WARM, RESNET_TIMED = 2, 3
+
+
+def phase_resnet_train(kernel_fns):
+    """The ResNet-50 train path: bf16, ``init_state(extra=stats)`` →
+    ``make_train_step(stateful_loss(resnet.loss_fn))`` → ``fit`` over one
+    repeated 256 x 224 x 224 x 3 ``synthetic_images`` batch, 2 warm + 3
+    timed steps (lr 1e-3, warmup 1), then one step profiled. The
+    convolutions are cuDNN's (XLA's in JAX): no hand-written kernel is
+    on this path."""
+    import torch
+    from kubeflow_tpu_torch.compute import data, profiler, telemetry, train
+    from kubeflow_tpu_torch.compute.models import resnet
+    cfg = resnet.Config(depth=50, n_classes=1000, dtype="bfloat16")
+    params, stats = resnet.init_params(
+        cfg, torch.Generator().manual_seed(0), device="cuda")
+    opt = train.make_optimizer(learning_rate=1e-3, warmup_steps=1,
+                               total_steps=100)
+    state = train.init_state(lambda g, device: params, opt, device="cuda",
+                             extra=stats)
+    mean_before = state.extra["stages"][3][2]["bn2"]["mean"].clone()
+    step = train.make_train_step(train.stateful_loss(resnet.loss_fn, cfg),
+                                 opt)
+
+    def synced(state, batch):
+        out = step(state, batch)
+        torch.cuda.synchronize()
+        return out
+
+    batch = next(data.synthetic_images(RESNET_BATCH, RESNET_IMAGE,
+                                       cfg.n_classes, seed=12))
+    flops_per_step = resnet.flops_per_sample(cfg.depth) * RESNET_BATCH
+    peak = telemetry.peak_flops()
+    tel = telemetry.TrainTelemetry("resnet50-train",
+                                   flops_per_step=flops_per_step, peak=peak)
+    n_steps = RESNET_WARM + RESNET_TIMED
+    marks, losses = [], []
+
+    def on_step(n, metrics):
+        marks.append(time.perf_counter())
+        losses.append(metrics["loss"])
+
+    for fn in kernel_fns.values():
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state, metrics = train.fit(state, synced, itertools.repeat(batch, n_steps),
+                               on_step=on_step, telemetry=tel)
+    launches = {name: fn.launches for name, fn in kernel_fns.items()}
+    peak_mem = torch.cuda.max_memory_allocated()
+    losses = [float(x) for x in losses]
+    step_s = [b - a for a, b in zip(marks[RESNET_WARM - 1:],
+                                    marks[RESNET_WARM:])]
+    step_ms = 1e3 * statistics.mean(step_s)
+    with profiler.trace("build/profile") as cap:
+        w0 = time.perf_counter()
+        state, _ = synced(state, data.to_device(batch, "cuda"))
+        wall_ms = 1e3 * (time.perf_counter() - w0)
+    prof = profiler.device_summary(cap.profile, wall_ms)
+    moved = float((state.extra["stages"][3][2]["bn2"]["mean"]
+                   - mean_before).abs().max())
+    row = {"phase": "resnet_train", "dtype": "bfloat16",
+           "batch": RESNET_BATCH, "image": RESNET_IMAGE, "depth": cfg.depth,
+           "steps": n_steps, "timed_steps": RESNET_TIMED,
+           "first_step_s": marks[0] - t0, "step_ms": step_ms,
+           "step_ms_each": [1e3 * x for x in step_s],
+           "samples_per_s": RESNET_BATCH / (step_ms / 1e3),
+           "flops_per_sample": resnet.flops_per_sample(cfg.depth),
+           "peak_flops": peak,
+           "mfu": flops_per_step / (step_ms / 1e3) / peak,
+           "telemetry_mfu": tel.live_mfu(),
+           "peak_memory_bytes": peak_mem, "losses": losses,
+           "accuracy": float(metrics["accuracy"]),
+           "grad_norm": float(metrics["grad_norm"]),
+           "running_mean_moved_max": moved, "launches": launches}
+    emit(row)
+    emit({"phase": "resnet_train_profile", "trace": cap.path, **prof})
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"ResNet train loss did not fall: {losses}")
+    if not moved > 0:
+        raise AssertionError("the running means did not move")
+    return row
+
+
+BERT_BATCH = 16
+BERT_WARM, BERT_TIMED = 2, 3
+BERT_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+
+
+def phase_bert_train(kernel_fns):
+    """The BERT path: bert-base (12 layers, d_model 768, 12 heads of 64,
+    ff 3072, S 512, bf16, ``remat=False``, per-layer weights) trained on
+    one repeated 16 x 512 ``mlm_batch``, 2 warm + 3 timed steps (lr
+    1e-4, warmup 1); every step launches K3, K4 and K5 12 times each.
+    Then one step profiled."""
+    import torch
+    from kubeflow_tpu_torch.compute import data, profiler, telemetry, train
+    from kubeflow_tpu_torch.compute.models import bert
+    cfg = bert.Config(remat=False, scan_layers=False)
+    opt = train.make_optimizer(learning_rate=1e-4, warmup_steps=1,
+                               total_steps=100)
+    state = train.init_state(functools.partial(bert.init_params, cfg), opt,
+                             device="cuda",
+                             generator=torch.Generator().manual_seed(0))
+    step = train.make_train_step(train.plain_loss(bert.loss_fn, cfg), opt)
+
+    def synced(state, batch):
+        out = step(state, batch)
+        torch.cuda.synchronize()
+        return out
+
+    batch = bert.mlm_batch(np.random.default_rng(13), BERT_BATCH, cfg)
+    tokens = BERT_BATCH * cfg.max_seq
+    flops_per_step = bert.flops_per_token(cfg) * tokens
+    peak = telemetry.peak_flops()
+    tel = telemetry.TrainTelemetry("bert-base-train",
+                                   flops_per_step=flops_per_step, peak=peak)
+    n_steps = BERT_WARM + BERT_TIMED
+    marks, losses = [], []
+
+    def on_step(n, metrics):
+        marks.append(time.perf_counter())
+        losses.append(metrics["loss"])
+
+    for fn in kernel_fns.values():
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state, metrics = train.fit(state, synced, itertools.repeat(batch, n_steps),
+                               on_step=on_step, telemetry=tel)
+    launches = {name: fn.launches for name, fn in kernel_fns.items()}
+    peak_mem = torch.cuda.max_memory_allocated()
+    losses = [float(x) for x in losses]
+    step_s = [b - a for a, b in zip(marks[BERT_WARM - 1:], marks[BERT_WARM:])]
+    step_ms = 1e3 * statistics.mean(step_s)
+    with profiler.trace("build/profile") as cap:
+        w0 = time.perf_counter()
+        state, _ = synced(state, data.to_device(batch, "cuda"))
+        wall_ms = 1e3 * (time.perf_counter() - w0)
+    prof = profiler.device_summary(cap.profile, wall_ms)
+    row = {"phase": "bert_train", "dtype": "bfloat16", "batch": BERT_BATCH,
+           "seq": cfg.max_seq, "layers": cfg.n_layers,
+           "params": bert.param_count(cfg), "steps": n_steps,
+           "timed_steps": BERT_TIMED, "first_step_s": marks[0] - t0,
+           "step_ms": step_ms, "step_ms_each": [1e3 * x for x in step_s],
+           "tokens_per_s": tokens / (step_ms / 1e3),
+           "flops_per_token": bert.flops_per_token(cfg), "peak_flops": peak,
+           "mfu": flops_per_step / (step_ms / 1e3) / peak,
+           "telemetry_mfu": tel.live_mfu(),
+           "peak_memory_bytes": peak_mem, "losses": losses,
+           "mlm_accuracy": float(metrics["mlm_accuracy"]),
+           "grad_norm": float(metrics["grad_norm"]), "launches": launches,
+           "launches_per_step": {k: v / n_steps for k, v in launches.items()}}
+    emit(row)
+    emit({"phase": "bert_train_profile", "trace": cap.path, **prof})
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"BERT train loss did not fall: {losses}")
+    for name in BERT_KERNELS:
+        if launches[name] != cfg.n_layers * n_steps:
+            raise AssertionError(
+                f"{name} launched {launches[name]} times in {n_steps} BERT "
+                f"steps, want {cfg.n_layers} a step")
+    return row
+
+
+def phase_bert_conformance(kernel_fns):
+    """fp32 (TF32 off), bert-base width, 2 layers, batch 2 x 512: the loss
+    and every gradient leaf through K3/K4/K5 (no causal mask, head_dim
+    64) against ``attention="dense"`` (plain PyTorch autograd) on the
+    card, loss within 1e-5 relative, each leaf within 1e-3 of its max
+    |g| (a leaf whose gradient is zero analytically, the key bias, within
+    1e-7 absolute)."""
+    import torch
+    from kubeflow_tpu_torch.compute import data, train
+    from kubeflow_tpu_torch.compute.models import bert
+    cfg = bert.Config(n_layers=2, dtype="float32", remat=False,
+                      scan_layers=False)
+    params = bert.init_params(cfg, torch.Generator().manual_seed(4),
+                              device="cuda")
+    batch = data.to_device(
+        bert.mlm_batch(np.random.default_rng(14), 2, cfg), "cuda")
+
+    def grads(config):
+        tree = train.tree_map(lambda t: t.detach().clone().requires_grad_(),
+                              params)
+        leaves = train.tree_leaves(tree)
+        loss, _ = bert.loss_fn(tree, batch, config)
+        got = torch.autograd.grad(loss, leaves, allow_unused=True)
+        return float(loss.detach()), [
+            torch.zeros_like(p) if g is None else g
+            for p, g in zip(leaves, got)]
+
+    for fn in kernel_fns.values():
+        fn.launches = 0
+    flash_loss, flash_g = grads(cfg)
+    torch.cuda.synchronize()
+    launches = {n: kernel_fns[n].launches for n in BERT_KERNELS}
+    dense_loss, dense_g = grads(dataclasses.replace(cfg, attention="dense"))
+    loss_rel = abs(flash_loss - dense_loss) / abs(dense_loss)
+    worst = 0.0
+    for a, b in zip(flash_g, dense_g):
+        diff = float((a - b).abs().max())
+        scale = float(b.abs().max())
+        if diff > 1e-7:
+            worst = max(worst, diff / max(scale, 1e-30))
+    report = {"phase": "bert_conformance", "dtype": "float32", "layers": 2,
+              "batch": [2, cfg.max_seq], "head_dim": cfg.head_dim,
+              "causal": False, "loss": [flash_loss, dense_loss],
+              "loss_rel": loss_rel, "tol_loss": 1e-5,
+              "leaf_rel_max": worst, "tol_leaf": 1e-3,
+              "launches": launches}
+    emit(report)
+    if loss_rel > 1e-5 or worst > 1e-3:
+        raise AssertionError(f"BERT's flash gradients leave the dense ones: "
+                             f"loss {loss_rel}, leaves {worst}")
+    if launches != {n: 2 for n in BERT_KERNELS}:
+        raise AssertionError(f"K3/K4/K5 launches {launches} for 2 layers, "
+                             f"want 2 each")
+    return report
+
+
+SWEEP_TRIALS = [{"lr": lr, "hidden": hidden}
+                for hidden in (64, 128) for lr in (1e-2, 3e-3, 1e-3, 3e-4)]
+
+
+def phase_sweep():
+    """The vectorized sweep on the card: 8 mnist trials in 2 shape
+    buckets (hidden 64 and 128, four learning rates each), 30 steps,
+    against 8 calls of ``run_mnist_trial``: objectives equal within
+    1e-5; wall seconds of both."""
+    import contextlib
+    import io
+    import os
+    import torch
+    from kubeflow_tpu_torch.compute import sweep, trial
+    from kubeflow_tpu_torch.compute.ops import _build
+    # a lone trial's final report also writes this file: keep it in build/
+    os.environ["METRICS_PATH"] = str(_build.BUILD_DIR / "trial-metrics.json")
+    sweep.run_mnist_sweep(SWEEP_TRIALS[:1], steps=2)      # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    results = sweep.run_mnist_sweep(SWEEP_TRIALS, steps=30)
+    sweep_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    lone = []
+    with contextlib.redirect_stdout(io.StringIO()) as lines:
+        for hp in SWEEP_TRIALS:
+            lone.append(trial.run_mnist_trial(hp, steps=30))
+    trials_s = time.perf_counter() - t0
+    reported = [trial.parse_metric_line(ln)
+                for ln in lines.getvalue().splitlines()]
+    errs = [abs(r["objective"] - ref) for r, ref in zip(results, lone)]
+    row = {"phase": "sweep", "trials": len(SWEEP_TRIALS), "buckets": 2,
+           "steps": 30, "objectives": [r["objective"] for r in results],
+           "lone_trials": lone, "max_abs_diff": max(errs), "tol": 1e-5,
+           "sweep_s": sweep_s, "lone_trials_s": trials_s,
+           "trials_per_hour_sweep": 3600 * len(SWEEP_TRIALS) / sweep_s,
+           "trials_per_hour_lone": 3600 * len(SWEEP_TRIALS) / trials_s}
+    emit(row)
+    if [r["index"] for r in results] != list(range(len(SWEEP_TRIALS))):
+        raise AssertionError("the sweep's results are out of order")
+    if not all(np.isfinite(lone)) or max(errs) > 1e-5:
+        raise AssertionError(f"the vectorized sweep leaves the lone trials: "
+                             f"{errs}")
+    if [p and p["value"] for p in reported] != lone:
+        raise AssertionError("a lone trial's metric line does not carry its "
+                             "objective")
+    return row
+
+
 def main():
     import torch
     from kubeflow_tpu_torch.compute.models import transformer
     from kubeflow_tpu_torch.compute.ops import flash_attention as flash_ops
+    from kubeflow_tpu_torch.compute.ops import fused_block as block_ops
     from kubeflow_tpu_torch.compute.ops import grouped_matmul as gmm_ops
     from kubeflow_tpu_torch.compute.ops import paged_attention as paged_ops
     t_start = time.perf_counter()
     info = phase_device()
     phase_build()
+    if sys.argv[1:2] == ["--k8-bands"]:        # the side measurement only
+        k8_band_sweep([int(b) for b in sys.argv[2].split(",")])
+        print(info["card"], flush=True)
+        return
     rows = phase_kernels()
     params = transformer.init_params(
         flagship_config(), torch.Generator().manual_seed(0), device="cuda")
@@ -1325,7 +1932,8 @@ def main():
                   "flash_bwd_dq": flash_ops.flash_attention_bwd_dq,
                   "flash_bwd_dkv": flash_ops.flash_attention_bwd_dkv,
                   "grouped_matmul": gmm_ops.grouped_matmul,
-                  "grouped_matmul_dw": gmm_ops.grouped_matmul_dw}
+                  "grouped_matmul_dw": gmm_ops.grouped_matmul_dw,
+                  "fused_block": block_ops.fused_bottleneck_eval}
     paths = {"engine": phase_engine(params, kernel_fns),
              "prefix": phase_prefix(params, kernel_fns)}
     target, draft, dcfg = spec_pair(params, flagship_config())
@@ -1340,6 +1948,15 @@ def main():
     paths["moe_apply"], paths["moe_train"] = phase_moe(kernel_fns)
     torch.cuda.empty_cache()
     phase_moe_conformance(kernel_fns)
+    torch.cuda.empty_cache()
+    paths["resnet_eval"] = phase_resnet_eval(kernel_fns)
+    torch.cuda.empty_cache()
+    paths["resnet_train"] = phase_resnet_train(kernel_fns)
+    torch.cuda.empty_cache()
+    paths["bert_train"] = phase_bert_train(kernel_fns)
+    torch.cuda.empty_cache()
+    phase_bert_conformance(kernel_fns)
+    phase_sweep()
     meta = {
         "paged_decode": (
             "kubeflow_tpu_torch/compute/ops/csrc/paged_decode.cu",
@@ -1362,6 +1979,9 @@ def main():
         "grouped_matmul_dw": (
             "kubeflow_tpu_torch/compute/ops/csrc/grouped_matmul.cu",
             "kubeflow_tpu/compute/ops/grouped_matmul.py:116"),
+        "fused_block": (
+            "kubeflow_tpu_torch/compute/ops/csrc/fused_block.cu",
+            "kubeflow_tpu/compute/ops/fused_block.py:68"),
     }
 
     def attn_at(r, shape):
@@ -1383,7 +2003,8 @@ def main():
         "grouped_matmul": lambda r: bf16(r) and r["shape"]["site"]
         == "gate_up",
         "grouped_matmul_dw": lambda r: bf16(r) and r["shape"]["site"]
-        == "dw_gate_up"}
+        == "dw_gate_up",
+        "fused_block": lambda r: bf16(r) and r["shape"]["height"] == 56}
     timing_keys = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
                    "shape")
     kernels = []
@@ -1406,10 +2027,19 @@ def main():
             t = next(x for x in rows if x["kernel"] == name
                      and bf16(x) and attn_at(x, TRAIN_ATTN))
             entry["at_train_shape"] = {k: t[k] for k in timing_keys}
-        if name.startswith("flash"):  # and at the MoE step's (MHA)
-            t = next(x for x in rows if x["kernel"] == name
-                     and bf16(x) and attn_at(x, MOE_ATTN))
-            entry["at_moe_shape"] = {k: t[k] for k in timing_keys}
+        if name.startswith("flash"):  # at the MoE step's (MHA), BERT's
+            for key, shape in (("at_moe_shape", MOE_ATTN),
+                               ("at_bert_shape", BERT_ATTN)):
+                t = next(x for x in rows if x["kernel"] == name
+                         and bf16(x) and attn_at(x, shape))
+                entry[key] = {k: t[k] for k in timing_keys}
+        if name == "fused_block":     # every ResNet-50 stage
+            entry["library"] = r["library"]
+            entry["stages"] = {
+                f"{x['shape']['height']}x{x['shape']['width']}x"
+                f"{x['shape']['channels']}": {
+                    k: x[k] for k in timing_keys + ("library", "tflops")}
+                for x in rows if x["kernel"] == name and bf16(x)}
         if name.startswith("flash_bwd"):
             entry["library_covers"] = r["library_covers"]
             entry["plain_covers"] = r["plain_covers"]

@@ -1,0 +1,260 @@
+"""BERT — bidirectional encoder with MLM pretraining loss.
+
+Port of ``kubeflow_tpu/compute/models/bert.py``. Same functional
+conventions as ``transformer.py``; differences: bidirectional
+(non-causal) flash attention — K3 forward with K4/K5 behind it, at
+head_dim 64 for bert-base —, learned position embeddings, GELU MLP (the
+tanh approximation, ``jax.nn.gelu``'s default), LayerNorm (not RMS),
+tied MLM head over the embedding table. The params keep JAX's layout;
+``layers`` may be the stacked dict (leading layer dim, JAX's
+``scan_layers=True``) or the per-layer list.
+
+bert-base = Config(vocab_size=30522, d_model=768, n_layers=12,
+n_heads=12, d_ff=3072, max_seq=512).
+"""
+
+import dataclasses
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
+
+from .. import attention as attn_lib
+from .. import device as device_lib
+from ..ops.flash_attention import flash_attention
+
+
+@dataclasses.dataclass(frozen=True)
+class Config:
+    vocab_size: int = 30522
+    d_model: int = 768
+    n_layers: int = 12
+    n_heads: int = 12
+    d_ff: int = 3072
+    max_seq: int = 512
+    type_vocab: int = 2
+    dtype: str = "bfloat16"
+    attention: str = "flash"    # dense | flash | ring
+    remat: bool = True
+    scan_layers: bool = True
+    ln_eps: float = 1e-12
+    #: MLM head evaluated only at up to this many masked positions per
+    #: sequence (standard max_predictions_per_seq) — the [B,S,vocab]
+    #: logits tensor never materializes
+    max_predictions: int = 80
+
+    @property
+    def head_dim(self):
+        return self.d_model // self.n_heads
+
+    @property
+    def compute_dtype(self):
+        return getattr(torch, self.dtype)
+
+
+def _layer_shapes(c):
+    d, h, hd, f = c.d_model, c.n_heads, c.head_dim, c.d_ff
+    return {
+        "ln1_scale": (d,), "ln1_bias": (d,),
+        "wq": (d, h, hd), "wk": (d, h, hd), "wv": (d, h, hd),
+        "bq": (h, hd), "bk": (h, hd), "bv": (h, hd),
+        "wo": (h, hd, d), "bo": (d,),
+        "ln2_scale": (d,), "ln2_bias": (d,),
+        "w_up": (d, f), "b_up": (f,),
+        "w_down": (f, d), "b_down": (d,),
+    }
+
+
+def init_params(config, generator=None, *, device=None):
+    """Random fp32 masters in the JAX layout, drawn on the CPU from
+    ``generator`` (a fresh one seeded 0 when None), on ``device`` (None →
+    the card): embeddings N(0, 0.02²), matrices N(0, 1) · fan-in^-1/2,
+    ones for the norm scales, zeros for every bias. JAX's scheme, not
+    its numbers. ``scan_layers`` picks the stacked or the per-layer
+    layout of ``layers``."""
+    dev = device_lib.resolve(device)
+    if generator is None:
+        generator = torch.Generator().manual_seed(0)
+    c = config
+
+    def normal(shape, std):
+        return (torch.randn(shape, generator=generator,
+                            dtype=torch.float32) * std).to(dev)
+
+    params = {
+        "embed": normal((c.vocab_size, c.d_model), 0.02),
+        "pos_embed": normal((c.max_seq, c.d_model), 0.02),
+        "type_embed": normal((c.type_vocab, c.d_model), 0.02),
+        "embed_ln_scale": torch.ones((c.d_model,), device=dev),
+        "embed_ln_bias": torch.zeros((c.d_model,), device=dev),
+        "mlm_ln_scale": torch.ones((c.d_model,), device=dev),
+        "mlm_ln_bias": torch.zeros((c.d_model,), device=dev),
+        "mlm_dense": normal((c.d_model, c.d_model), c.d_model ** -0.5),
+        "mlm_bias": torch.zeros((c.vocab_size,), device=dev),
+    }
+
+    def layer_params():
+        out = {}
+        for name, shape in _layer_shapes(c).items():
+            if name.startswith(("ln", "b")) or len(shape) == 1:
+                init = torch.ones if "scale" in name else torch.zeros
+                out[name] = init(shape, dtype=torch.float32, device=dev)
+            else:
+                out[name] = normal(shape, shape[0] ** -0.5)
+        return out
+
+    layers = [layer_params() for _ in range(c.n_layers)]
+    if c.scan_layers:
+        layers = {k: torch.stack([lp[k] for lp in layers])
+                  for k in layers[0]}
+    params["layers"] = layers
+    return params
+
+
+def _ln(x, scale, bias, eps):
+    xf = x.float()
+    mu = xf.mean(-1, keepdim=True)
+    var = xf.var(-1, keepdim=True, unbiased=False)
+    out = (xf - mu) * torch.rsqrt(var + eps)
+    return (out * scale + bias).to(x.dtype)
+
+
+def _gelu(x):
+    return F.gelu(x, approximate="tanh")
+
+
+def _attention(q, k, v, config):
+    if config.attention == "ring":
+        raise NotImplementedError(
+            "attention='ring' needs a device mesh: it comes with the "
+            "multi-device slice of the port")
+    if config.attention == "flash":
+        return flash_attention(q, k, v, causal=False)[0]
+    return attn_lib.dense_attention(q, k, v, causal=False)
+
+
+def _layer(lp, x, config):
+    dt = config.compute_dtype
+    h = x
+    q = torch.einsum("bsd,dhk->bshk", h, lp["wq"].to(dt)) + lp["bq"].to(dt)
+    k = torch.einsum("bsd,dhk->bshk", h, lp["wk"].to(dt)) + lp["bk"].to(dt)
+    v = torch.einsum("bsd,dhk->bshk", h, lp["wv"].to(dt)) + lp["bv"].to(dt)
+    o = _attention(q, k, v, config)
+    o = torch.einsum("bshk,hkd->bsd", o, lp["wo"].to(dt)) + lp["bo"].to(dt)
+    x = _ln(x + o, lp["ln1_scale"].to(dt), lp["ln1_bias"].to(dt),
+            config.ln_eps)
+
+    up = torch.einsum("bsd,df->bsf", x, lp["w_up"].to(dt)) \
+        + lp["b_up"].to(dt)
+    down = torch.einsum("bsf,fd->bsd", _gelu(up), lp["w_down"].to(dt)) \
+        + lp["b_down"].to(dt)
+    return _ln(x + down, lp["ln2_scale"].to(dt), lp["ln2_bias"].to(dt),
+               config.ln_eps)
+
+
+def _layers(params):
+    """The per-layer dicts of either layout of ``params["layers"]``."""
+    layers = params["layers"]
+    if isinstance(layers, dict):
+        n = next(iter(layers.values())).shape[0]
+        return [{k: v[i] for k, v in layers.items()} for i in range(n)]
+    return layers
+
+
+def encode(params, tokens, config, token_types=None):
+    """tokens [B,S] → hidden states [B,S,D]. With ``remat`` and autograd
+    recording, each layer is a non-reentrant checkpoint
+    (``jax.checkpoint``): its activations are recomputed in the
+    backward."""
+    dt = config.compute_dtype
+    tokens = tokens.long()
+    x = params["embed"].to(dt)[tokens]
+    x = x + params["pos_embed"][: tokens.shape[1]].to(dt)
+    if token_types is not None:
+        x = x + params["type_embed"].to(dt)[token_types.long()]
+    x = _ln(x, params["embed_ln_scale"].to(dt),
+            params["embed_ln_bias"].to(dt), config.ln_eps)
+    remat = config.remat and torch.is_grad_enabled()
+    for lp in _layers(params):
+        if remat:
+            x = checkpoint(_layer, lp, x, config, use_reentrant=False)
+        else:
+            x = _layer(lp, x, config)
+    return x
+
+
+def mlm_head(params, x, config):
+    """Vocab logits for selected hidden states [B,P,d] → [B,P,vocab]
+    fp32 (tied to the embedding table; fp32 sums of compute-dtype
+    operands)."""
+    dt = config.compute_dtype
+    x = _gelu(torch.einsum("bsd,de->bse", x, params["mlm_dense"].to(dt)))
+    x = _ln(x, params["mlm_ln_scale"].to(dt), params["mlm_ln_bias"].to(dt),
+            config.ln_eps)
+    # both operands widened exactly, so the product sums in fp32 like
+    # JAX's preferred_element_type (TF32 off, PyTorch's matmul default)
+    logits = torch.einsum("bsd,vd->bsv", x.float(),
+                          params["embed"].to(dt).float())
+    return logits + params["mlm_bias"]
+
+
+def apply(params, tokens, config, token_types=None):
+    """Full-sequence MLM logits [B,S,vocab] fp32 (inference surface;
+    training gathers masked positions first — see loss_fn)."""
+    return mlm_head(params, encode(params, tokens, config, token_types),
+                    config)
+
+
+def loss_fn(params, batch, config):
+    """batch: tokens (with [MASK] substitutions applied), targets
+    (original ids), mask (1.0 where a token was masked-out for MLM).
+
+    The MLM head runs only on the (up to max_predictions) masked
+    positions per sequence — the [B,S,vocab] tensor never exists (the
+    published recipe's max_predictions_per_seq). The masked positions
+    come first under a STABLE descending sort of the mask, as in JAX, so
+    both pick the same weight-0 positions as padding."""
+    x = encode(params, batch["tokens"], config, batch.get("token_types"))
+    weights = batch["mask"].float()
+    p = min(config.max_predictions, config.max_seq)
+    idx = torch.argsort(-weights, dim=1, stable=True)[:, :p]    # [B,P]
+    x = torch.gather(x, 1, idx[..., None].expand(-1, -1, x.shape[-1]))
+    targets = torch.gather(batch["targets"].long(), 1, idx)     # [B,P]
+    weights = torch.gather(weights, 1, idx)                     # [B,P]
+    logits = mlm_head(params, x, config)                        # [B,P,V]
+    logz = torch.logsumexp(logits, dim=-1)
+    label_logits = torch.gather(logits, 2, targets[..., None])[..., 0]
+    nll = logz - label_logits
+    denom = torch.clamp_min(weights.sum(), 1.0)
+    loss = (nll * weights).sum() / denom
+    acc = ((logits.argmax(-1) == targets) * weights).sum() / denom
+    return loss, {"loss": loss, "mlm_accuracy": acc}
+
+
+def param_count(config):
+    c = config
+    per_layer = sum(int(np.prod(s)) for s in _layer_shapes(c).values())
+    return (c.vocab_size * c.d_model + c.max_seq * c.d_model
+            + c.type_vocab * c.d_model + 4 * c.d_model
+            + c.d_model * c.d_model + c.vocab_size
+            + c.n_layers * per_layer)
+
+
+def flops_per_token(config):
+    """6ND + attention matmul fwd+bwd FLOPs/token."""
+    n = param_count(config)
+    attn = 12 * config.n_layers * config.d_model * config.max_seq
+    return 6 * n + attn
+
+
+def mlm_batch(rng, batch_size, config, mask_prob=0.15, mask_id=103):
+    """Synthetic MLM batch (benchmark/data-pipeline contract); numpy,
+    the same numbers as the JAX package's for one ``rng``."""
+    low = min(1000, config.vocab_size // 2)  # skip special-token range
+    toks = rng.integers(low, config.vocab_size,
+                        (batch_size, config.max_seq), dtype=np.int32)
+    mask = rng.random((batch_size, config.max_seq)) < mask_prob
+    inputs = np.where(mask, mask_id, toks).astype(np.int32)
+    return {"tokens": inputs, "targets": toks,
+            "mask": mask.astype(np.float32)}

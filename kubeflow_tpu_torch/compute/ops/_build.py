@@ -23,7 +23,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = (Path(__file__).resolve().parents[3] / "build"
              / "kubeflow_tpu_torch")
 SOURCES = ("paged_decode", "paged_chunk", "flash_fwd", "flash_bwd",
-           "grouped_matmul")
+           "grouped_matmul", "fused_block")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

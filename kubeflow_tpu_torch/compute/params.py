@@ -1,6 +1,7 @@
 """Weights across the framework boundary: the JAX package's parameter
-pytree, as numpy arrays, into the port's dict of tensors
-(:func:`params_from_jax`) and back (:func:`params_to_numpy`).
+pytree, as numpy arrays, into the port's tensors
+(:func:`params_from_jax` for the transformer, :func:`tree_from_jax` for
+any tree) and back (:func:`params_to_numpy`).
 
 No weights are downloaded anywhere in the repo; a test that holds the
 port to the JAX reference initialises once in JAX, converts each leaf
@@ -45,14 +46,28 @@ def params_from_jax(tree, dtype=None, device=None):
     return out
 
 
+def tree_from_jax(tree, dtype=None, device=None):
+    """Any nested dict / list / tuple of numpy leaves → the same
+    structure of tensors: ResNet's ``(params, stats)``, BERT's and the
+    MLP's trees, which keep JAX's layout as they are. ``dtype``
+    optionally casts the float leaves; ``device`` None → the card."""
+    dev = device_lib.resolve(device)
+    if isinstance(tree, dict):
+        return {k: tree_from_jax(v, dtype, dev) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_from_jax(v, dtype, dev) for v in tree)
+    return _tensor(tree, dtype, dev)
+
+
 def params_to_numpy(params):
-    """The port's params dict → the JAX layout as numpy arrays (the
-    reverse of :func:`params_from_jax`, stacked layers): copies on the
-    host, float leaves as fp32 (numpy has no bfloat16), so the tree can
-    go to ``jnp.asarray`` or a checkpoint."""
-    def leaf(t):
-        t = t.detach().cpu()
-        return (t.float() if t.is_floating_point() else t).numpy().copy()
-    return {k: ({n: leaf(t) for n, t in v.items()}
-                if isinstance(v, dict) else leaf(v))
-            for k, v in params.items()}
+    """A tree of tensors (nested dicts, lists, tuples) → the same
+    structure of numpy arrays (the reverse of :func:`params_from_jax`,
+    stacked layers, and of :func:`tree_from_jax`): copies on the host,
+    float leaves as fp32 (numpy has no bfloat16), so the tree can go to
+    ``jnp.asarray`` or a checkpoint."""
+    if isinstance(params, dict):
+        return {k: params_to_numpy(v) for k, v in params.items()}
+    if isinstance(params, (list, tuple)):
+        return type(params)(params_to_numpy(v) for v in params)
+    t = params.detach().cpu()
+    return (t.float() if t.is_floating_point() else t).numpy().copy()

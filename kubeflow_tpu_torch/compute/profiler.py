@@ -104,6 +104,10 @@ KERNEL_GROUPS = (
     ("K5 flash_bwd_dkv", ("flash_bwd_dkv_kernel",)),
     ("K6 grouped_matmul", ("gmm_fwd_kernel",)),
     ("K7 grouped_matmul_dw", ("gmm_dw_kernel",)),
+    ("K8 fused_block", ("fused_block_kernel",)),
+    ("convolution", ("fprop", "dgrad", "wgrad", "cudnn", "conv2d",
+                     "implicit_gemm", "convolve")),
+    ("pooling", ("pool",)),
     ("matmul", ("gemm", "gemv", "cutlass", "xmma", "nvjet", "cublas")),
     ("reduction", ("reduce_kernel", "softmax", "norm_kernel")),
     ("index/scatter", ("index", "scatter", "gather", "embedding")),

@@ -89,7 +89,13 @@ class TrainTelemetry:
             self._mark = time.time()
 
     def _peak_flops(self):
+        """The MFU denominator: ``peak`` as given, else the card's; None
+        on a host without CUDA (a CPU run has no MFU, so the gauge stays
+        unset rather than show a number that is no device metric)."""
         if self._peak is None:
+            import torch
+            if not torch.cuda.is_available():
+                return None
             self._peak = peak_flops()
         return self._peak
 
@@ -114,9 +120,28 @@ class TrainTelemetry:
         self.ema_step = (elapsed if self.ema_step is None
                          else self._ema * self.ema_step
                          + (1 - self._ema) * elapsed)
-        if self.flops_per_step:
+        self._set_mfu()
+
+    def _set_mfu(self):
+        peak = self._peak_flops() if self.flops_per_step else None
+        if peak and self.ema_step:
             MFU_GAUGE.labels(self.model).set(
-                self.flops_per_step / self.ema_step / self._peak_flops())
+                self.flops_per_step / self.ema_step / peak)
+
+    def observe_steps(self, n, total_seconds):
+        """Bulk-feed ``n`` equal steps (a loop that only waits for the
+        card at its end has one real wall time, the total). Does not
+        touch the first-step start-up classification."""
+        if n <= 0:
+            return
+        per = float(total_seconds) / n
+        for _ in range(int(n)):
+            STEP_SECONDS.labels(self.model).observe(per)
+            self.ema_step = (per if self.ema_step is None
+                             else self._ema * self.ema_step
+                             + (1 - self._ema) * per)
+        record_goodput(self.gang, "compute", float(total_seconds))
+        self._set_mfu()
 
     def live_mfu(self):
         return MFU_GAUGE.value(self.model)

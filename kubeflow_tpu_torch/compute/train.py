@@ -41,18 +41,26 @@ class TrainState:
 # --------------------------------------------------------------- trees
 
 def tree_leaves(tree):
-    """The leaves of a tree of nested dicts, keys sorted (JAX's pytree
-    order)."""
+    """The leaves of a tree of nested dicts, lists and tuples in JAX's
+    pytree order: dict keys sorted, sequences by index."""
     if isinstance(tree, dict):
         return [x for k in sorted(tree) for x in tree_leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in tree_leaves(v)]
     return [tree]
 
 
-def tree_map(fn, tree):
-    """``fn`` on every leaf of a tree of nested dicts."""
+def tree_map(fn, tree, *rest):
+    """``fn`` on every leaf of a tree of nested dicts, lists and tuples
+    (and on the matching leaves of ``rest``, trees of the same
+    structure) → a tree of that structure."""
     if isinstance(tree, dict):
-        return {k: tree_map(fn, v) for k, v in tree.items()}
-    return fn(tree)
+        return {k: tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map(fn, v, *(r[i] for r in rest))
+                          for i, v in enumerate(tree))
+    return fn(tree, *rest)
 
 
 # ----------------------------------------------------------- optimizer
@@ -92,7 +100,10 @@ def clip_by_global_norm(grads, max_norm):
 class AdamW:
     """Global-norm clip + AdamW + a schedule, the update of
     ``optax.chain(clip_by_global_norm(clip_norm), adamw(schedule, b1,
-    b2, eps, weight_decay=…))`` applied in place.
+    b2, eps, weight_decay=…))``: in place (:meth:`update`, the train
+    step's) or as a pure function of trees (:meth:`update_fn`, which the
+    vectorized sweep maps over trials). The schedule's peak,
+    ``weight_decay`` and ``clip_norm`` may be 0-d tensors.
 
     State: ``{"count": int, "mu": tree, "nu": tree}`` (fp32 moments in
     the params' layout)."""
@@ -110,33 +121,60 @@ class AdamW:
         return {"count": 0, "mu": tree_map(zeros, params),
                 "nu": tree_map(zeros, params)}
 
+    def _leaf(self, p, g, mu, nu, count):
+        """One leaf's AdamW arithmetic at the pre-increment ``count`` →
+        ``(the step to add to p, new mu, new nu)``."""
+        b1, b2 = self.b1, self.b2
+        mu = (1 - b1) * g + b1 * mu
+        nu = (1 - b2) * g.square() + b2 * nu
+        u = (mu / (1 - b1 ** (count + 1))) / (
+            torch.sqrt(nu / (1 - b2 ** (count + 1))) + self.eps)
+        u = u + self.weight_decay * p
+        return (-self.schedule(count) * u).to(p.dtype), mu, nu
+
     @torch.no_grad()
     def update(self, params, grads, opt_state):
         """One update of the ``params`` leaves (in place) from ``grads``
         (matching list of fp32 tensors) → the pre-clip global norm."""
-        b1, b2 = self.b1, self.b2
         grads, norm = clip_by_global_norm(grads, self.clip_norm)
         count = opt_state["count"]
-        lr = self.schedule(count)            # pre-increment count
-        bc1 = 1 - b1 ** (count + 1)
-        bc2 = 1 - b2 ** (count + 1)
         for p, g, mu, nu in zip(params, grads,
                                 tree_leaves(opt_state["mu"]),
                                 tree_leaves(opt_state["nu"])):
-            mu.copy_((1 - b1) * g + b1 * mu)
-            nu.copy_((1 - b2) * g.square() + b2 * nu)
-            u = (mu / bc1) / (torch.sqrt(nu / bc2) + self.eps)
-            u = u + self.weight_decay * p
-            p.add_((-lr * u).to(p.dtype))
+            step, new_mu, new_nu = self._leaf(p, g, mu, nu, count)
+            mu.copy_(new_mu)
+            nu.copy_(new_nu)
+            p.add_(step)
         opt_state["count"] = count + 1
         return norm
+
+    def update_fn(self, params, grads, opt_state):
+        """The same update as a pure function of trees: ``(params,
+        grads, opt_state) → (new params, new opt_state, the pre-clip
+        global norm)``; nothing is written in place, so it runs under
+        ``torch.func.vmap``."""
+        norm = global_norm(tree_leaves(grads))
+        keep = norm < self.clip_norm
+        count = opt_state["count"]
+        stepped = tree_map(
+            lambda p, g, mu, nu: self._leaf(
+                p, torch.where(keep, g, (g / norm) * self.clip_norm), mu,
+                nu, count),
+            params, grads, opt_state["mu"], opt_state["nu"])
+        new_params = tree_map(lambda p, s: p + s[0], params, stepped)
+        return new_params, {
+            "count": count + 1,
+            "mu": tree_map(lambda p, s: s[1], params, stepped),
+            "nu": tree_map(lambda p, s: s[2], params, stepped)}, norm
 
 
 def make_optimizer(learning_rate=3e-4, warmup_steps=100,
                    total_steps=100_000, weight_decay=0.01, b1=0.9,
                    b2=0.95, clip_norm=1.0):
     """AdamW + global-norm clip + warmup-cosine — the standard recipe,
-    with the JAX package's defaults."""
+    with the JAX package's defaults. ``learning_rate``, ``weight_decay``
+    and ``clip_norm`` may be 0-d tensors (the vectorized sweep's
+    per-trial knobs)."""
     return AdamW(warmup_cosine(learning_rate, warmup_steps, total_steps),
                  b1=b1, b2=b2, eps=1e-8, weight_decay=weight_decay,
                  clip_norm=clip_norm)
@@ -144,11 +182,14 @@ def make_optimizer(learning_rate=3e-4, warmup_steps=100,
 
 # ---------------------------------------------------------------- state
 
-def init_state(init_params_fn, optimizer, *, device=None, generator=None):
+def init_state(init_params_fn, optimizer, *, device=None, generator=None,
+               extra=None):
     """A fresh TrainState on ``device`` (None → the card; raises on a
     host without CUDA). ``init_params_fn(generator, device=...)`` builds
     the fp32 masters (``functools.partial(transformer.init_params,
-    config)`` fits); they become leaves that require grad."""
+    config)`` fits); they become leaves that require grad. ``extra`` is
+    the model's mutable state (ResNet's batch statistics; None → ``{}``):
+    its leaves go to the device and take no gradient."""
     dev = device_lib.resolve(device)
     params = init_params_fn(generator, device=dev)
 
@@ -157,8 +198,19 @@ def init_state(init_params_fn, optimizer, *, device=None, generator=None):
         return t.requires_grad_(True) if t.is_floating_point() else t
 
     params = tree_map(leaf, params)
+    extra = tree_map(lambda t: t.detach().to(dev),
+                     extra if extra is not None else {})
     return TrainState(step=0, params=params,
-                      opt_state=optimizer.init(params), extra={})
+                      opt_state=optimizer.init(params), extra=extra)
+
+
+def _grads(loss, leaves):
+    """The loss's gradient for every leaf; zeros for a leaf the loss
+    does not reach (BERT's ``type_embed`` without token types), as
+    ``jax.grad`` gives."""
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    return [torch.zeros_like(p) if g is None else g
+            for p, g in zip(leaves, grads)]
 
 
 def make_train_step(loss_fn, optimizer, accum_steps=1):
@@ -170,14 +222,16 @@ def make_train_step(loss_fn, optimizer, accum_steps=1):
     memory of one), their gradients summed in fp32 and divided by the
     count; loss and metrics are the microbatch means.
     ``metrics["grad_norm"]`` is the pre-clip global norm. The params are
-    updated in place and the returned state shares them."""
+    updated in place and the returned state shares them. ``new_extra``
+    passes from one microbatch to the next (JAX's ``micro`` carry) and
+    is returned detached from the graph."""
 
     def run(state, batch):
         leaves = tree_leaves(state.params)
         if accum_steps == 1:
             loss, (metrics, new_extra) = loss_fn(state.params, state.extra,
                                                  batch)
-            grads = list(torch.autograd.grad(loss, leaves))
+            grads = _grads(loss, leaves)
         else:
             grads = [torch.zeros(p.shape, dtype=torch.float32,
                                  device=p.device) for p in leaves]
@@ -187,15 +241,18 @@ def make_train_step(loss_fn, optimizer, accum_steps=1):
                 micro = {k: v[i] for k, v in batch.items()}
                 loss, (metrics, new_extra) = loss_fn(state.params,
                                                      new_extra, micro)
-                for acc, g in zip(grads, torch.autograd.grad(loss, leaves)):
+                new_extra = tree_map(torch.Tensor.detach, new_extra)
+                for acc, g in zip(grads, _grads(loss, leaves)):
                     acc.add_(g)
                 history.append(metrics)
             grads = [g / accum_steps for g in grads]
             metrics = {k: torch.stack([m[k] for m in history]).mean()
                        for k in history[0]}
-        metrics = dict(metrics)
+        metrics = {k: v.detach() if torch.is_tensor(v) else v
+                   for k, v in metrics.items()}
         metrics["grad_norm"] = optimizer.update(leaves, grads,
                                                 state.opt_state)
+        new_extra = tree_map(torch.Tensor.detach, new_extra)
         return TrainState(step=state.step + 1, params=state.params,
                           opt_state=state.opt_state,
                           extra=new_extra), metrics
@@ -241,11 +298,20 @@ def make_eval_step(loss_fn):
     return run
 
 
-# Adapter: models expose loss(params, batch, config).
+# Adapters: models expose loss(params, batch, config) or
+# loss(params, stats, batch, config, train).
 
 def plain_loss(model_loss, config):
-    """For stateless models (transformer)."""
+    """For stateless models (transformer, bert, mlp)."""
     def loss(params, extra, batch):
         value, metrics = model_loss(params, batch, config)
         return value, (metrics, extra)
+    return loss
+
+
+def stateful_loss(model_loss, config, train=True):
+    """For models with mutable state (resnet's batch statistics in
+    ``extra``)."""
+    def loss(params, extra, batch):
+        return model_loss(params, extra, batch, config, train)
     return loss

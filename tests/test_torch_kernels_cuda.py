@@ -23,7 +23,14 @@ grouped matmul of dropless MoE and its weight gradient) ragged k and n
 read transposed (the backward's dx), uniform routing, all rows on one
 expert and an empty expert, ``block_m`` 64 and 128, the launch counters,
 the autograd path (K6 forward, K6 + K7 backward) and the refusal of a
-``block_m`` the kernels do not take. Tolerances: fp32
+``block_m`` the kernels do not take; K3-K5 at the BERT step's shape
+(16 x 512, 12 heads of 64, no causal mask); for K8 (the fused identity
+bottleneck of ResNet's eval forward) the four ResNet-50 stage shapes at
+a small batch, planes narrower than a 16-row fragment and odd ones,
+widths with C other than 4 M, every band height from one row to the
+whole image (the halo rows, the last ragged band), randomised BN, the
+unfused ``resnet._block`` as a second reference, the launch counter and
+the refusals. Tolerances: fp32
 1e-4, bf16 2e-2 (the kernels sum in another order than the plain
 versions; bf16 outputs may round one unit apart); the backward's
 relative to the plain gradient's max |value|, with an absolute floor
@@ -33,7 +40,9 @@ of the same size where the gradient itself is rounding noise (S = 1).
 import pytest
 import torch
 
+from kubeflow_tpu_torch.compute.models import resnet
 from kubeflow_tpu_torch.compute.ops import flash_attention as flash_ops
+from kubeflow_tpu_torch.compute.ops import fused_block as block_ops
 from kubeflow_tpu_torch.compute.ops import grouped_matmul as gmm_ops
 from kubeflow_tpu_torch.compute.ops import paged_attention as paged_ops
 
@@ -231,6 +240,27 @@ def test_flash_bwd_at_the_train_shape(dev, dtype):
         _assert_rel(got, ref, TOL[dtype])
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_at_the_bert_shape(dev, dtype):
+    """K3, K4 and K5 without a causal mask at head_dim 64: bert-base's
+    16 x 512 step."""
+    q, k, v, do, lse, delta = _bwd_case(dev, dtype, 16, 512, 12, 12, 64,
+                                        False, 5)
+    out, got_lse = flash_ops.flash_attention(q, k, v, causal=False)
+    want_out, want_lse = flash_ops.flash_attention_reference(q, k, v,
+                                                             causal=False)
+    dq = flash_ops.flash_attention_bwd_dq(q, k, v, do, lse, delta, False)
+    dk, dv = flash_ops.flash_attention_bwd_dkv(q, k, v, do, lse, delta,
+                                               False)
+    want = flash_ops._bwd_reference(q, k, v, do, lse, delta, False, None)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out.float(), want_out.float(),
+                               atol=TOL[dtype], rtol=0)
+    torch.testing.assert_close(got_lse, want_lse, atol=1e-4, rtol=1e-5)
+    for got, ref in zip((dq, dk, dv), want):
+        _assert_rel(got, ref, TOL[dtype])
+
+
 def test_flash_autograd_launches_k3_k4_k5(dev):
     torch.backends.cuda.matmul.allow_tf32 = False
     from kubeflow_tpu_torch.compute import attention as attn
@@ -378,3 +408,101 @@ def test_gmm_wrappers_refuse_what_the_kernels_do_not_take(dev):
         gmm_ops.grouped_matmul(x, w.bfloat16(), be, 64)
     with pytest.raises(ValueError, match="w must be"):
         gmm_ops.grouped_matmul(x, torch.zeros((2, 8, 8), device=dev), be, 64)
+
+
+def _random_block(dev, c, m, seed):
+    """An identity bottleneck's params and stats with every BN leaf
+    random (at init the last BN scale is 0 and the block is relu(x))."""
+    g = torch.Generator().manual_seed(seed)
+
+    def conv(kh, kw, i, o):
+        return (torch.randn((kh, kw, i, o), generator=g)
+                * (2 / (kh * kw * i)) ** 0.5).to(dev)
+
+    def bn(ch):
+        r = [torch.rand((ch,), generator=g) for _ in range(4)]
+        return ({"scale": (0.5 + r[0]).to(dev), "bias": (r[1] - 0.5).to(dev)},
+                {"mean": (r[2] - 0.5).to(dev), "var": (0.5 + r[3]).to(dev)})
+
+    params, stats = {}, {}
+    for i, shape in enumerate([(1, 1, c, m), (3, 3, m, m), (1, 1, m, c)]):
+        params[f"conv{i}"] = conv(*shape)
+        params[f"bn{i}"], stats[f"bn{i}"] = bn(shape[-1])
+    return params, stats
+
+
+def _check_fused_block(dev, dtype, n, h, w, c, m, band_rows=None):
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    params, stats = _random_block(dev, c, m, h * 31 + w + c)
+    g = torch.Generator().manual_seed(n + h + w)
+    x = torch.randn((n, h, w, c), generator=g).to(dev, dtype)
+    before = block_ops.fused_bottleneck_eval.launches
+    got = block_ops.fused_bottleneck_eval(x, params, stats,
+                                          band_rows=band_rows)
+    want = block_ops.fused_bottleneck_reference(x, params, stats)
+    torch.cuda.synchronize()
+    assert block_ops.fused_bottleneck_eval.launches == before + 1
+    assert got.dtype == dtype and got.shape == x.shape
+    assert torch.isfinite(got.float()).all()
+    assert float(want.float().abs().max()) > 1.0     # not just relu(0)
+    _assert_rel(got, want, TOL[dtype])
+    return x, params, stats, got
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h,c,m", [(56, 256, 64), (28, 512, 128),
+                                   (14, 1024, 256), (7, 2048, 512)])
+def test_fused_block_at_the_resnet50_stages(dev, dtype, h, c, m):
+    x, params, stats, got = _check_fused_block(dev, dtype, 3, h, h, c, m)
+    if dtype == torch.float32:     # and the unfused block it stands for
+        cfg = resnet.Config(depth=50, dtype="float32")
+        want, _ = resnet._block(x, params, stats, cfg, 1, False)
+        _assert_rel(got, want, 1e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,h,w,c,m", [
+    (1, 1, 1, 32, 32),        # one pixel: every tap but the centre is halo
+    (2, 5, 9, 128, 32),       # odd plane, C = 4 M
+    (2, 9, 5, 64, 64),        # C = M
+    (1, 3, 17, 96, 160),      # C < M, widths not multiples of 64
+    (5, 7, 7, 256, 64)])
+def test_fused_block_odd_planes_and_widths(dev, dtype, n, h, w, c, m):
+    _check_fused_block(dev, dtype, n, h, w, c, m)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("band_rows", [1, 2, 3, 5, 11])
+def test_fused_block_every_band_height(dev, dtype, band_rows):
+    """The halo rows between bands and the ragged last band: 11 rows in
+    bands of 1, 2, 3 (ragged), 5 (ragged) and the whole image."""
+    _check_fused_block(dev, dtype, 2, 11, 6, 64, 32, band_rows=band_rows)
+    rows, smem, threads = block_ops.launch_plan(11, 6, 64, 32, dtype,
+                                                band_rows)
+    assert rows == band_rows and 0 < smem <= 227 * 1024
+    assert threads in (256, 512)
+
+
+def test_fused_block_refuses_what_the_kernel_does_not_take(dev):
+    params, stats = _random_block(dev, 64, 32, 0)
+    x = torch.zeros((1, 4, 4, 64), device=dev)
+    with pytest.raises(ValueError, match="stride"):
+        block_ops.fused_bottleneck_eval(x, params, stats, stride=2)
+    with pytest.raises(ValueError, match="projection"):
+        block_ops.fused_bottleneck_eval(
+            x, dict(params, proj=params["conv0"]), stats)
+    with pytest.raises(ValueError, match="channels"):
+        block_ops.fused_bottleneck_eval(x[..., :32], params, stats)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        block_ops.fused_bottleneck_eval(x.half(), params, stats)
+    narrow, nstats = _random_block(dev, 48, 24, 1)
+    with pytest.raises(ValueError, match="multiples of 32"):
+        block_ops.fused_bottleneck_eval(x[..., :48], narrow, nstats)
+    wide = torch.zeros((1, 56, 56, 64), device=dev)
+    with pytest.raises(ValueError, match="shared memory"):
+        block_ops.fused_bottleneck_eval(wide, params, stats, band_rows=56)
+    before = block_ops.fused_bottleneck_eval.launches
+    with pytest.raises(ValueError):
+        block_ops.fused_bottleneck_eval(wide, params, stats, band_rows=57)
+    assert block_ops.fused_bottleneck_eval.launches == before
