@@ -17,27 +17,36 @@ if any phase fails:
    read), K3 (flash forward) and K2 (chunk-after-prefix read) at a
    256-row prefill chunk behind 768 cached positions, a 64-row prefix-hit
    suffix behind 512, and an 8-slot verify of 5 rows with per-slot
-   prefixes;
+   prefixes; K1-i8 and K2-i8 (the int8-page reads) at the same shapes,
+   the pages quantized from the same draw, each beside the float
+   kernel's time;
 4. engine — the bench-LM flagship (vocab 32768, d_model 1024, 12
    layers, GQA 8:2, bf16, random weights from a seed) served by the
    port's ``GenerationEngine``: 12 concurrent requests over 8 slots,
    each to its full token budget, plus one full-width
-   ``transformer.apply``;
+   ``transformer.apply``; engine_i8 — the same 12 requests on an int8
+   pool (``kv_dtype="int8"``): decode reads on K1-i8 and never on K1,
+   page bytes exactly half the bf16 pool's, tokens/s and decode-step ms
+   beside the bf16 engine's;
 5. prefix — the same flagship with the prefix cache and 256-token
    prefill chunks: 3 cohorts x 4 requests sharing a 512-token prefix
    (one lead each first, then the rest beside two cold 900-token
    prompts), every request to its full budget, >= 9 prefix hits, more
-   prefill chunks than prefills;
+   prefill chunks than prefills; prefix_i8 — the same on an int8 pool,
+   read by K2-i8 and K1-i8 and never by K2 or K1;
 6. speculative — the flagship (upper layers dampened) verifying the
    proposals of its own first 2 layers, ``spec_k=4``, 8 requests;
 7. conformance — the fp32 engine against the port's cache-free oracle
    (dense attention): tokens identical, logits within 1e-3 (TF32 off),
-   and the bf16 engine's logits within 0.2 / 0.1 of that fp32 oracle;
+   the bf16 engine's logits within 0.2 / 0.1 of that fp32 oracle, and
+   the fp32 engine on an int8 pool within 0.08 / 0.05 of it and more
+   than 1e-5 away;
 8. identity — fp32 tokens of the prefix/chunked engine and of the
    speculative engine equal the plain engine's (``prefix_cache=False``,
-   monolithic prefill) on 4 short requests each, apart from steps where
-   the plain engine's top-2 logit gap is below 1e-3; the bf16 agreement
-   is printed, not asserted;
+   monolithic prefill) on 4 short requests each, and the speculative
+   engine's on an int8 pool the plain int8 engine's, apart from steps
+   where the plain engine's top-2 logit gap is below 1e-3; the bf16
+   agreement is printed, not asserted;
 9. train — the flagship at full width and depth (bf16, ``remat=False``)
    trained by the port's ``compute.train``: ``init_state`` →
    ``make_train_step(plain_loss(transformer.loss_fn))`` → ``fit`` over
@@ -240,12 +249,35 @@ def _paged_case(dtype, seed=0):
     return q, (kc, vc), tables, lengths, n_rep, bs
 
 
-def check_paged(dtype_name, flush):
+def _int8_pool(pages):
+    """A float ``(k, v)`` pool → the engine's int8 quadruple
+    (``quantize.kv_quantize``), quantized from the same draw."""
+    from kubeflow_tpu_torch.compute import quantize
+    (kq, ks), (vq, vs) = (quantize.kv_quantize(p) for p in pages)
+    return kq, vq, ks, vs
+
+
+def _pool_bytes(pages, n_pos):
+    """Bytes of the K and V rows of ``n_pos`` positions, every kv head,
+    read once: the pages, plus the fp32 scales of an int8 pool."""
+    kv, D = pages[0].shape[2:]
+    per_pos = 2 * kv * D * pages[0].element_size()
+    if len(pages) == 4:
+        per_pos += 2 * kv * 4
+    return n_pos * per_pos
+
+
+def check_paged(dtype_name, flush, int8=False):
+    """K1 (or, ``int8``, K1-i8 on the same draw quantized, beside the
+    float K1's time at the same shape) against its plain version."""
     import torch
     import torch.nn.functional as F
     from kubeflow_tpu_torch.compute.ops import paged_attention as ops
     dtype = getattr(torch, dtype_name)
     q, pages, tables, lengths, n_rep, bs = _paged_case(dtype)
+    float_pages = pages
+    if int8:
+        pages = _int8_pool(pages)
     kw = dict(block_size=bs, n_rep=n_rep)
     got = ops.paged_decode_attention(q, pages, tables, lengths, **kw)
     want = ops.paged_decode_reference(q, pages, tables, lengths, **kw)
@@ -257,12 +289,12 @@ def check_paged(dtype_name, flush):
     plain_ms = time_ms(lambda: ops.paged_decode_reference(
         q, pages, tables, lengths, **kw), flush=flush)
     # library yardstick: SDPA over the gathered, masked context (the
-    # gather itself is set-up and not timed)
+    # gather, and an int8 pool's dequant, are set-up and not timed)
     S, _, H, D = q.shape
     T = tables.shape[1] * bs
     k_all, v_all = (p[tables.long()].reshape(S, T, -1, D)
                     .repeat_interleave(n_rep, dim=2).transpose(1, 2)
-                    for p in pages)
+                    for p in ops._dequant_kernel(pages, dtype))
     mask = (torch.arange(T, device="cuda")[None, :]
             < lengths[:, None])[:, None, None, :]
     qt = q.transpose(1, 2)
@@ -270,12 +302,13 @@ def check_paged(dtype_name, flush):
         qt, k_all, v_all, attn_mask=mask), flush=flush)
     n_tok = int(lengths.sum())
     itemsize = q.element_size()
-    bytes_moved = (2 * q.numel() * itemsize
-                   + 2 * n_tok * pages[0].shape[2] * D * itemsize
+    bytes_moved = (2 * q.numel() * itemsize + _pool_bytes(pages, n_tok)
                    + tables.numel() * 4 + lengths.numel() * 4)
     flops = 4 * n_tok * H * D
     bound_ms, bound_by = bound(bytes_moved, flops, dtype_name)
-    row = {"phase": "kernels", "kernel": "paged_decode", "dtype": dtype_name,
+    row = {"phase": "kernels",
+           "kernel": "paged_decode_i8" if int8 else "paged_decode",
+           "dtype": dtype_name,
            "shape": {"slots": S, "heads": H, "kv_heads": H // n_rep,
                      "head_dim": D, "block_size": bs,
                      "blocks_per_slot": tables.shape[1],
@@ -283,6 +316,9 @@ def check_paged(dtype_name, flush):
            "max_abs_err": err, "tol": TOL[dtype_name], "ok": ok,
            "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
            "bound_ms": bound_ms, "bound_by": bound_by}
+    if int8:
+        row["float_kernel_ms"] = time_ms(lambda: ops.paged_decode_attention(
+            q, float_pages, tables, lengths, **kw), flush=flush)
     emit(row)
     return row
 
@@ -414,7 +450,10 @@ CHUNK_CASES = (("prefill_chunk", 1, 256, [768]),
                ("verify", 8, 5, VERIFY_PREFIXES))
 
 
-def check_chunk(dtype_name, case, flush):
+def check_chunk(dtype_name, case, flush, int8=False):
+    """K2 (or, ``int8``, K2-i8: the prefix pages quantized from the same
+    draw, the chunk's K/V in q's dtype, beside the float K2's time at the
+    same shape) against its plain version at one call site."""
     import torch
     import torch.nn.functional as F
     from kubeflow_tpu_torch.compute.ops import paged_attention as ops
@@ -432,7 +471,8 @@ def check_chunk(dtype_name, case, flush):
     tables = torch.randperm(N, generator=g).reshape(B, bps).to(
         "cuda", torch.int32)
     plen = torch.tensor(prefixes, dtype=torch.int32, device="cuda")
-    args = (q, (kc, vc), tables, plen, kch, vch)
+    pages = _int8_pool((kc, vc)) if int8 else (kc, vc)
+    args = (q, pages, tables, plen, kch, vch)
     kw = dict(block_size=bs, n_rep=n_rep)
     got = ops.paged_chunk_attention(*args, **kw)
     want = ops.paged_chunk_reference(*args, **kw)
@@ -445,11 +485,13 @@ def check_chunk(dtype_name, case, flush):
                        flush=flush)
     # library yardstick: SDPA over the gathered prefix followed by the
     # chunk, under the two-part boolean mask (prefix columns below each
-    # slot's prefix length, chunk columns causal); the gather is set-up
+    # slot's prefix length, chunk columns causal); the gather, and an
+    # int8 pool's dequant, are set-up
     P = bps * bs
     k_all, v_all = (torch.cat([p[tables.long()].reshape(B, P, kv, D), c],
                               dim=1).repeat_interleave(n_rep, dim=2)
-                    .transpose(1, 2) for p, c in ((kc, kch), (vc, vch)))
+                    .transpose(1, 2) for p, c in zip(
+                        ops._dequant_kernel(pages, dtype), (kch, vch)))
     rows = torch.arange(S, device="cuda")[:, None]
     cols = torch.arange(P + S, device="cuda")[None, :]
     mask = torch.where(cols[None] < P, cols[None] < plen[:, None, None],
@@ -460,17 +502,23 @@ def check_chunk(dtype_name, case, flush):
     itemsize = q.element_size()
     n_prefix = int(plen.sum())
     bytes_moved = ((2 * q.numel() + kch.numel() + vch.numel()) * itemsize
-                   + 2 * n_prefix * kv * D * itemsize
+                   + _pool_bytes(pages, n_prefix)
                    + tables.numel() * 4 + plen.numel() * 4)
     flops = 4 * H * D * S * (n_prefix + B * (S + 1) / 2)
     bound_ms, bound_by = bound(bytes_moved, flops, dtype_name)
-    row = {"phase": "kernels", "kernel": "paged_chunk", "dtype": dtype_name,
+    row = {"phase": "kernels",
+           "kernel": "paged_chunk_i8" if int8 else "paged_chunk",
+           "dtype": dtype_name,
            "shape": {"site": site, "batch": B, "chunk": S, "heads": H,
                      "kv_heads": kv, "head_dim": D, "block_size": bs,
                      "blocks_per_slot": bps, "prefix": prefixes},
            "max_abs_err": err, "tol": TOL[dtype_name], "ok": ok,
            "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
            "bound_ms": bound_ms, "bound_by": bound_by}
+    if int8:
+        float_args = (q, (kc, vc)) + args[2:]
+        row["float_kernel_ms"] = time_ms(lambda: ops.paged_chunk_attention(
+            *float_args, **kw), flush=flush)
     emit(row)
     return row
 
@@ -737,6 +785,10 @@ def phase_kernels():
         rows += check_flash_bwd(dtype_name, flush)
         for case in CHUNK_CASES:
             rows.append(check_chunk(dtype_name, case, flush))
+        # K1-i8 and K2-i8: the same shapes over int8 pages
+        rows.append(check_paged(dtype_name, flush, int8=True))
+        for case in CHUNK_CASES:
+            rows.append(check_chunk(dtype_name, case, flush, int8=True))
     # the MoE step: K3-K5 at n_rep 1, K6 at its four sites, K7 at two
     layout = moe_layout()
     for dtype_name in ("float32", "bfloat16"):
@@ -788,6 +840,47 @@ def requests(n, vocab, seed=1):
              MAX_TOKENS[i % 3]) for i in range(n)]
 
 
+def _serve(eng, reqs, kernel_fns):
+    """Warm ``eng`` up, set every launch count to 0, submit ``reqs``
+    together and wait for all → (outs, handles, wall s, stats before,
+    stats after)."""
+    eng.generate([1, 2, 3], max_tokens=2)        # warm-up
+    for fn in kernel_fns.values():
+        fn.launches = 0
+    s0 = dict(eng.stats)
+    t0 = time.perf_counter()
+    handles = [eng.submit(p, max_tokens=m) for p, m in reqs]
+    outs = [h.result(timeout=600) for h in handles]
+    return outs, handles, time.perf_counter() - t0, s0, dict(eng.stats)
+
+
+def _serving_row(phase, reqs, outs, handles, wall, s0, s1):
+    """The serving numbers of one run of ``_serve``."""
+    steps = s1["decode_steps"] - s0["decode_steps"]
+    n_tokens = sum(len(o) for o, _ in outs)
+    ttft = sorted(h.ttft_s for h in handles)
+    return {"phase": phase, "dtype": "bfloat16", "requests": len(reqs),
+            "slots": 8, "tokens": n_tokens, "wall_s": wall,
+            "tokens_per_s": n_tokens / wall,
+            "ttft_p50_ms": 1e3 * statistics.median(ttft),
+            "ttft_max_ms": 1e3 * ttft[-1],
+            "decode_steps": steps,
+            "decode_step_ms": 1e3 * (s1["decode_seconds_total"]
+                                     - s0["decode_seconds_total"]) / steps,
+            "prefills": s1["prefills"] - s0["prefills"],
+            "prefill_ms_mean": 1e3 * (s1["prefill_seconds_total"]
+                                      - s0["prefill_seconds_total"])
+                               / (s1["prefills"] - s0["prefills"]),
+            "peak_occupancy": s1["peak_occupancy"]}
+
+
+def _pool_split(eng):
+    """(page bytes, scale bytes) of an engine's KV pool."""
+    pool = eng._cache
+    return (sum(p.numel() * p.element_size() for p in pool[:2]),
+            sum(p.numel() * p.element_size() for p in pool[2:]))
+
+
 def phase_engine(params, kernel_fns):
     """The main path: bf16 flagship engine serving 12 concurrent
     requests plus one full-width ``transformer.apply``. Launch counts
@@ -798,23 +891,16 @@ def phase_engine(params, kernel_fns):
     cfg = flagship_config()
     eng = gen_lib.GenerationEngine(params, cfg, max_slots=8, block_size=16,
                                    max_context=1024, name="flagship")
+    reqs = requests(12, cfg.vocab_size)
     try:
-        eng.generate([1, 2, 3], max_tokens=2)        # warm-up
-        reqs = requests(12, cfg.vocab_size)
-        for fn in kernel_fns.values():
-            fn.launches = 0
-        s0 = dict(eng.stats)
-        t0 = time.perf_counter()
-        handles = [eng.submit(p, max_tokens=m) for p, m in reqs]
-        outs = [h.result(timeout=600) for h in handles]
-        wall = time.perf_counter() - t0
-        s1 = dict(eng.stats)
+        outs, handles, wall, s0, s1 = _serve(eng, reqs, kernel_fns)
         toks = torch.randint(0, cfg.vocab_size, (1, cfg.max_seq),
                              generator=torch.Generator().manual_seed(2))
         with torch.no_grad():
             logits = transformer.apply(params, toks.cuda(), cfg)
         torch.cuda.synchronize()
         launches = {name: fn.launches for name, fn in kernel_fns.items()}
+        pool_bytes = _pool_split(eng)[0]
     finally:
         eng.close()
     _check_served(reqs, outs, cfg.vocab_size)
@@ -829,26 +915,48 @@ def phase_engine(params, kernel_fns):
     if not torch.allclose(logits, logits32, atol=0.2, rtol=0.1):
         raise AssertionError(f"bf16 flash apply vs fp32 dense apply: max "
                              f"|d| {apply_err} outside atol 0.2 rtol 0.1")
-    steps = s1["decode_steps"] - s0["decode_steps"]
-    n_tokens = sum(len(o) for o, _ in outs)
-    ttft = sorted(h.ttft_s for h in handles)
-    row = {"phase": "engine", "dtype": "bfloat16", "requests": len(reqs),
-           "slots": 8, "tokens": n_tokens, "wall_s": wall,
-           "tokens_per_s": n_tokens / wall,
-           "ttft_p50_ms": 1e3 * statistics.median(ttft),
-           "ttft_max_ms": 1e3 * ttft[-1],
-           "decode_steps": steps,
-           "decode_step_ms": 1e3 * (s1["decode_seconds_total"]
-                                    - s0["decode_seconds_total"]) / steps,
-           "prefills": s1["prefills"] - s0["prefills"],
-           "prefill_ms_mean": 1e3 * (s1["prefill_seconds_total"]
-                                     - s0["prefill_seconds_total"])
-                              / (s1["prefills"] - s0["prefills"]),
-           "peak_occupancy": s1["peak_occupancy"],
-           "apply_vs_fp32_max_abs": apply_err,
+    row = {**_serving_row("engine", reqs, outs, handles, wall, s0, s1),
+           "apply_vs_fp32_max_abs": apply_err, "pool_page_bytes": pool_bytes,
            "launches": launches}
     emit(row)
     _require(launches, ("paged_decode", "flash_fwd"), "plain engine")
+    return row
+
+
+def phase_engine_i8(params, kernel_fns, float_row):
+    """The int8 pool on the main path: ``phase_engine``'s 12 requests
+    over 8 slots on a ``kv_dtype="int8"`` engine, beside the bf16
+    engine's tokens/s and decode-step ms from this run. Its decode reads
+    go through K1-i8, never K1; its page bytes are half the bf16 pool's."""
+    from kubeflow_tpu_torch.compute import generate as gen_lib
+    cfg = flagship_config()
+    eng = gen_lib.GenerationEngine(params, cfg, max_slots=8, block_size=16,
+                                   max_context=1024, kv_dtype="int8",
+                                   name="flagship-int8")
+    reqs = requests(12, cfg.vocab_size)
+    try:
+        outs, handles, wall, s0, s1 = _serve(eng, reqs, kernel_fns)
+        launches = {name: fn.launches for name, fn in kernel_fns.items()}
+        page_bytes, scale_bytes = _pool_split(eng)
+        snap = eng.snapshot()
+    finally:
+        eng.close()
+    _check_served(reqs, outs, cfg.vocab_size)
+    row = {**_serving_row("engine_i8", reqs, outs, handles, wall, s0, s1),
+           "kv_dtype": snap["kv_dtype"], "pool_page_bytes": page_bytes,
+           "pool_scale_bytes": scale_bytes,
+           "bf16_pool_page_bytes": float_row["pool_page_bytes"],
+           "attn_bytes_read": s1["attn_bytes_read"] - s0["attn_bytes_read"],
+           "bf16_tokens_per_s": float_row["tokens_per_s"],
+           "bf16_decode_step_ms": float_row["decode_step_ms"],
+           "launches": launches}
+    emit(row)
+    if snap["kv_dtype"] != "int8" or 2 * page_bytes \
+            != float_row["pool_page_bytes"]:
+        raise AssertionError(f"int8 pool page bytes {page_bytes} are not "
+                             f"half of bf16's {float_row['pool_page_bytes']}")
+    _require(launches, ("paged_decode_i8", "flash_fwd"), "int8 engine")
+    _refuse(launches, ("paged_decode", "paged_chunk"), "int8 engine")
     return row
 
 
@@ -857,6 +965,14 @@ def _require(launches, names, path):
     if missing:
         raise AssertionError(f"kernels never launched on the {path} path: "
                              f"{missing}")
+
+
+def _refuse(launches, names, path):
+    """The float pool reads must not run on an int8 path."""
+    ran = [n for n in names if launches[n] != 0]
+    if ran:
+        raise AssertionError(f"float pool kernels launched on the {path} "
+                             f"path: {ran}")
 
 
 def _check_served(reqs, outs, vocab):
@@ -888,16 +1004,19 @@ def cohort_requests(vocab, budget=32, seed=3):
     return leads, rest, cold
 
 
-def phase_prefix(params, kernel_fns):
+def phase_prefix(params, kernel_fns, kv_dtype=None):
     """The prefix + chunked path: bf16 flagship, ``prefix_cache=True``,
     ``prefill_chunk=256``. Each cohort's lead runs first (its prompt
     enters the trie only at its last chunk), then the other 9 cohort
-    requests beside two cold 900-token prompts."""
+    requests beside two cold 900-token prompts. ``kv_dtype="int8"``
+    (phase ``prefix_i8``): the same traffic on an int8 pool, read by
+    K2-i8 and K1-i8 and never by the float K1/K2."""
     from kubeflow_tpu_torch.compute import generate as gen_lib
     cfg = flagship_config()
+    phase = "prefix_i8" if kv_dtype else "prefix"
     eng = gen_lib.GenerationEngine(params, cfg, max_slots=8, block_size=16,
                                    max_context=1024, prefill_chunk=256,
-                                   name="prefix")
+                                   kv_dtype=kv_dtype, name=phase)
     leads, rest, cold = cohort_requests(cfg.vocab_size)
     try:
         eng.generate([1, 2, 3], max_tokens=2)        # warm-up
@@ -921,7 +1040,8 @@ def phase_prefix(params, kernel_fns):
     ttft = sorted(h.ttft_s for h in handles)
     n_tokens = sum(len(o) for o, _ in outs)
     prefills = d["prefills"]
-    row = {"phase": "prefix", "dtype": "bfloat16", "requests": len(reqs),
+    row = {"phase": phase, "dtype": "bfloat16", "requests": len(reqs),
+           "kv_dtype": snap["kv_dtype"],
            "slots": 8, "prefill_chunk": 256, "tokens": n_tokens,
            "wall_s": wall, "tokens_per_s": n_tokens / wall,
            "ttft_p50_ms": 1e3 * statistics.median(ttft),
@@ -944,7 +1064,14 @@ def phase_prefix(params, kernel_fns):
     if row["prefill_chunks"] <= prefills:
         raise AssertionError(f"{row['prefill_chunks']} prefill chunks for "
                              f"{prefills} prefills: nothing was chunked")
-    _require(launches, ("paged_chunk", "paged_decode"), "prefix + chunked")
+    if kv_dtype:
+        _require(launches, ("paged_chunk_i8", "paged_decode_i8"),
+                 "int8 prefix + chunked")
+        _refuse(launches, ("paged_chunk", "paged_decode"),
+                "int8 prefix + chunked")
+    else:
+        _require(launches, ("paged_chunk", "paged_decode"),
+                 "prefix + chunked")
     return row
 
 
@@ -999,11 +1126,11 @@ def phase_spec(target, draft, dcfg, kernel_fns):
     return row
 
 
-def _engine_logits(params, cfg, reqs):
+def _engine_logits(params, cfg, reqs, kv_dtype=None):
     from kubeflow_tpu_torch.compute import generate as gen_lib
     eng = gen_lib.GenerationEngine(params, cfg, max_slots=8, block_size=16,
                                    max_context=1024, prefix_cache=False,
-                                   debug_logits=True,
+                                   debug_logits=True, kv_dtype=kv_dtype,
                                    name=f"conformance-{cfg.dtype}")
     try:
         handles = [eng.submit(p, max_tokens=m) for p, m in reqs]
@@ -1018,7 +1145,10 @@ def phase_conformance(params):
     logits within atol 1e-3 / rtol 1e-3; a token mismatch passes only
     where the oracle's top-2 gap at that step is below 1e-3. bf16
     engine logits within 0.2 / 0.1 of the same oracle, up to the first
-    step where its tokens leave the oracle's."""
+    step where its tokens leave the oracle's; so the fp32 engine on an
+    int8 pool within 0.08 / 0.05 (JAX's int8 envelope,
+    ``tests/test_compute_generate.py:1090``), and off the oracle by more
+    than fp32 noise (max |Δ| > 1e-5)."""
     from kubeflow_tpu_torch.compute import conformance
     from kubeflow_tpu_torch.compute import generate as gen_lib
     cfg32 = flagship_config("float32")
@@ -1028,10 +1158,12 @@ def phase_conformance(params):
                                               collect_logits=True)
               for p, m in reqs]
     report = {"phase": "conformance", "requests": len(reqs),
-              "fp32": [], "bf16": []}
-    for dtype, atol, rtol in (("float32", 1e-3, 1e-3),
-                              ("bfloat16", 0.2, 0.1)):
-        got = _engine_logits(params, flagship_config(dtype), reqs)
+              "fp32": [], "bf16": [], "int8_fp32": []}
+    for key, dtype, kv_dtype, atol, rtol in (
+            ("fp32", "float32", None, 1e-3, 1e-3),
+            ("bf16", "bfloat16", None, 0.2, 0.1),
+            ("int8_fp32", "float32", "int8", 0.08, 0.05)):
+        got = _engine_logits(params, flagship_config(dtype), reqs, kv_dtype)
         for (toks, logits), (want, rows) in zip(got, oracle):
             n = next((i for i, (a, b) in enumerate(zip(toks, want))
                       if a != b), len(want))
@@ -1040,7 +1172,7 @@ def phase_conformance(params):
                 top2 = np.sort(rows[n])[-2:]
                 gap = float(top2[1] - top2[0])
                 entry["first_mismatch"] = {"step": n, "oracle_top2_gap": gap}
-                if dtype == "float32" and gap >= atol:
+                if key == "fp32" and gap >= atol:
                     raise AssertionError(
                         f"fp32 engine token {n} differs from the oracle "
                         f"where the oracle's top-2 gap is {gap}")
@@ -1049,8 +1181,12 @@ def phase_conformance(params):
                 what=f"{dtype} engine vs fp32 oracle")
             entry.update(max_abs=div["atol"], max_rel=div["rtol"],
                          compared=div["steps"])
-            report["fp32" if dtype == "float32" else "bf16"].append(entry)
+            report[key].append(entry)
     emit(report)
+    lossy = max(e["max_abs"] for e in report["int8_fp32"])
+    if not lossy > 1e-5:
+        raise AssertionError(f"the int8 pool's logits sit {lossy} from the "
+                             f"fp32 oracle: the int8 path was not taken")
     return report
 
 
@@ -1088,7 +1224,8 @@ def phase_identity(params, target, draft, dcfg):
     """fp32 tokens of the prefix/chunked engine and of the speculative
     engine against the plain engine (``prefix_cache=False``, monolithic
     prefill, ``debug_logits`` for the top-2 gaps), 4 short requests each
-    at full width; bf16 agreement printed only."""
+    at full width, and of the speculative engine on an int8 pool against
+    the plain engine on an int8 pool; bf16 agreement printed only."""
     from kubeflow_tpu_torch.compute import generate as gen_lib
     kw = dict(max_slots=8, block_size=16, max_context=1024)
     leads, rest, cold = cohort_requests(32768, budget=8)
@@ -1097,16 +1234,16 @@ def phase_identity(params, target, draft, dcfg):
     report = {"phase": "identity"}
     for dtype in ("float32", "bfloat16"):
         cfg = flagship_config(dtype)
-        for path, model, batches, extra in (
-                ("prefix", params, prefix_batches,
+        spec = dict(draft_params=draft, spec_k=4,
+                    draft_config=dataclasses.replace(dcfg, dtype=dtype))
+        for path, model, batches, kv_dtype, extra in (
+                ("prefix", params, prefix_batches, None,
                  dict(prefill_chunk=256)),
-                ("speculative", target, [spec_reqs],
-                 dict(draft_params=draft, spec_k=4,
-                      draft_config=dataclasses.replace(dcfg,
-                                                       dtype=dtype)))):
+                ("speculative", target, [spec_reqs], None, spec),
+                ("speculative_int8", target, [spec_reqs], "int8", spec)):
             flat = [r for b in batches for r in b]
             eng = gen_lib.GenerationEngine(model, cfg, name=f"{path}-{dtype}",
-                                           **kw, **extra)
+                                           kv_dtype=kv_dtype, **kw, **extra)
             try:
                 got = _served(eng, batches)
                 hits = eng.stats["prefix_hits"]
@@ -1114,7 +1251,7 @@ def phase_identity(params, target, draft, dcfg):
                 eng.close()
             plain = gen_lib.GenerationEngine(
                 model, cfg, prefix_cache=False, name=f"plain-{dtype}",
-                debug_logits=dtype == "float32", **kw)
+                debug_logits=dtype == "float32", kv_dtype=kv_dtype, **kw)
             try:
                 handles = [plain.submit(p, max_tokens=m) for p, m in flat]
                 want = [h.result(timeout=600)[0] for h in handles]
@@ -1909,6 +2046,22 @@ def phase_sweep():
     return row
 
 
+class Int8Launches:
+    """A pool read's int8 launch count (``fn.launches_i8``) as the
+    ``.launches`` every entry of ``kernel_fns`` has."""
+
+    def __init__(self, fn):
+        self.fn = fn
+
+    @property
+    def launches(self):
+        return self.fn.launches_i8
+
+    @launches.setter
+    def launches(self, n):
+        self.fn.launches_i8 = n
+
+
 def main():
     import torch
     from kubeflow_tpu_torch.compute.models import transformer
@@ -1928,14 +2081,20 @@ def main():
         flagship_config(), torch.Generator().manual_seed(0), device="cuda")
     kernel_fns = {"paged_decode": paged_ops.paged_decode_attention,
                   "paged_chunk": paged_ops.paged_chunk_attention,
+                  "paged_decode_i8": Int8Launches(
+                      paged_ops.paged_decode_attention),
+                  "paged_chunk_i8": Int8Launches(
+                      paged_ops.paged_chunk_attention),
                   "flash_fwd": flash_ops.flash_attention,
                   "flash_bwd_dq": flash_ops.flash_attention_bwd_dq,
                   "flash_bwd_dkv": flash_ops.flash_attention_bwd_dkv,
                   "grouped_matmul": gmm_ops.grouped_matmul,
                   "grouped_matmul_dw": gmm_ops.grouped_matmul_dw,
                   "fused_block": block_ops.fused_bottleneck_eval}
-    paths = {"engine": phase_engine(params, kernel_fns),
-             "prefix": phase_prefix(params, kernel_fns)}
+    paths = {"engine": phase_engine(params, kernel_fns)}
+    paths["engine_i8"] = phase_engine_i8(params, kernel_fns, paths["engine"])
+    paths["prefix"] = phase_prefix(params, kernel_fns)
+    paths["prefix_i8"] = phase_prefix(params, kernel_fns, kv_dtype="int8")
     target, draft, dcfg = spec_pair(params, flagship_config())
     paths["speculative"] = phase_spec(target, draft, dcfg, kernel_fns)
     phase_conformance(params)
@@ -1967,6 +2126,12 @@ def main():
         "paged_chunk": (
             "kubeflow_tpu_torch/compute/ops/csrc/paged_chunk.cu",
             "kubeflow_tpu/compute/ops/paged_attention.py:190"),
+        "paged_decode_i8": (     # the int8_pages branch of _decode_kernel
+            "kubeflow_tpu_torch/compute/ops/csrc/paged_decode.cu",
+            "kubeflow_tpu/compute/ops/paged_attention.py:75"),
+        "paged_chunk_i8": (      # the int8_pages branch of _chunk_kernel
+            "kubeflow_tpu_torch/compute/ops/csrc/paged_chunk.cu",
+            "kubeflow_tpu/compute/ops/paged_attention.py:236"),
         "flash_bwd_dq": (
             "kubeflow_tpu_torch/compute/ops/csrc/flash_bwd.cu",
             "kubeflow_tpu/compute/ops/flash_attention.py:83"),
@@ -1998,6 +2163,9 @@ def main():
         "flash_fwd": lambda r: bf16(r) and attn_at(r, serving_attn),
         "paged_chunk": lambda r: (bf16(r)
                                   and r["shape"]["site"] == "prefill_chunk"),
+        "paged_decode_i8": bf16,
+        "paged_chunk_i8": lambda r: (bf16(r) and r["shape"]["site"]
+                                     == "prefill_chunk"),
         "flash_bwd_dq": lambda r: bf16(r) and attn_at(r, TRAIN_ATTN),
         "flash_bwd_dkv": lambda r: bf16(r) and attn_at(r, TRAIN_ATTN),
         "grouped_matmul": lambda r: bf16(r) and r["shape"]["site"]
@@ -2043,6 +2211,13 @@ def main():
         if name.startswith("flash_bwd"):
             entry["library_covers"] = r["library_covers"]
             entry["plain_covers"] = r["plain_covers"]
+        if name.endswith("_i8"):      # beside the float kernel's time
+            entry["float_kernel_ms"] = r["float_kernel_ms"]
+        if name.startswith("paged_chunk"):   # every call site
+            entry["sites"] = {x["shape"]["site"]: {
+                k: x[k] for k in timing_keys + ("float_kernel_ms",)
+                if k in x}
+                for x in rows if x["kernel"] == name and bf16(x)}
         if name.startswith("grouped"):
             entry["library"] = r["library"]
             entry["sites"] = {x["shape"]["site"]: {

@@ -1,11 +1,13 @@
 """Where the PyTorch port's serving steps spend their time on one GPU.
 
     python3 hack/port_decode_profile.py [--context 512] [--steps 20]
+                                        [--kv-dtype int8]
 
 Builds the bench-LM flagship engine of ``chip_smoke.py`` (bf16, 8
 slots, block 16, random weights from a seed; layers 2.. dampened and
 the first 2 as the speculative draft, ``spec_k=4``, as in its
-speculative phase) and drives its device steps directly from this
+speculative phase; ``--kv-dtype int8``: on an int8 KV pool, read by
+K1-i8 and K2-i8) and drives its device steps directly from this
 thread:
 
 - the decode step with all 8 slots active at ``--context`` cached
@@ -78,6 +80,7 @@ def main(argv=None):
     ap.add_argument("--context", type=int, default=512)
     ap.add_argument("--steps", type=int, default=20)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--kv-dtype", choices=("int8",), default=None)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA device")
@@ -90,7 +93,7 @@ def main(argv=None):
     eng = gen_lib.GenerationEngine(target, cfg, max_slots=8, block_size=16,
                                    max_context=1024, draft_params=draft,
                                    draft_config=dcfg, spec_k=K,
-                                   name="profile")
+                                   kv_dtype=args.kv_dtype, name="profile")
     try:
         rng = np.random.default_rng(args.seed)
         S, bs, bps = eng.max_slots, eng.block_size, eng.blocks_per_slot
@@ -133,16 +136,18 @@ def main(argv=None):
                              args.steps)
     finally:
         eng.close()
-    print(json.dumps({"step": "decode", "slots": S, "context": ctx,
+    pool = {"kv_dtype": eng.snapshot()["kv_dtype"]}
+    print(json.dumps({"step": "decode", "slots": S, "context": ctx, **pool,
                       **decode}), flush=True)
-    print(json.dumps({"step": "prefill", "prompt": 300, **prefill}),
+    print(json.dumps({"step": "prefill", "prompt": 300, **pool, **prefill}),
           flush=True)
     print(json.dumps({"step": "prefill_chunk", "chunk": 256, "prefix": 768,
-                      **chunk}), flush=True)
+                      **pool, **chunk}), flush=True)
     print(json.dumps({"step": "propose", "slots": S, "spec_k": K,
-                      "draft_layers": dcfg.n_layers, **propose}), flush=True)
+                      "draft_layers": dcfg.n_layers, **pool, **propose}),
+          flush=True)
     print(json.dumps({"step": "verify", "slots": S, "rows": K + 1,
-                      "context": ctx, **verify}), flush=True)
+                      "context": ctx, **pool, **verify}), flush=True)
 
 
 if __name__ == "__main__":

@@ -15,6 +15,8 @@ All functions take q, k, v as ``[batch, seq, heads, head_dim]``.
 
 import torch
 
+from .quantize import kv_dequantize
+
 NEG_INF = -1e30
 
 
@@ -91,6 +93,19 @@ def chunk_attention(q, k, v, prefix_len, scale=None):
     return torch.einsum("bhqk,bkhd->bqhd", probs, v)
 
 
+def _dequant_block(pages, dtype):
+    """One block of the pool at the paged read (``attention.py:130``):
+    a float ``(k, v)`` pair as it is, or an int8 ``(k, v, k_scale,
+    v_scale)`` quadruple (``quantize.kv_quantize``'s layout, one fp32
+    scale per (position, head)) widened by ``quantize.kv_dequantize``, so
+    the streamed read sees exactly the values of the gather path's
+    whole-table dequant."""
+    if len(pages) == 2:
+        return pages
+    k, v, ks, vs = pages
+    return kv_dequantize(k, ks, dtype), kv_dequantize(v, vs, dtype)
+
+
 def _stream_fold(carry, k, v, valid, q):
     """One masked online-softmax step over one block of keys: fp32
     ``(o, m, l)`` state, ``p`` zeroed by the mask explicitly so a fold
@@ -119,16 +134,19 @@ def _stream_finish(o, l, dtype):
 
 
 def paged_decode_attention(q, pages, tables, lengths, *, block_size,
-                           n_rep=1, scale=None):
+                           n_rep=1, scale=None, dequant=_dequant_block):
     """Single-position attention computed directly over the paged KV
     pool, one block-table column at a time, without materializing the
     gathered ``[S, T, heads, head_dim]`` context.
 
     ``q`` ``[S, 1, H, D]``; ``pages`` is one layer's ``(k, v)`` pool
-    slice, each ``[num_blocks, block_size, kv_heads, D]``; ``tables``
-    ``[S, bps]`` maps logical block j of slot i to its physical page;
-    ``lengths`` ``[S]`` counts valid positions. The loop runs
-    ``ceil(max(lengths) / block_size)`` steps; shallower rows ride
+    slice, each ``[num_blocks, block_size, kv_heads, D]``, or the int8
+    quadruple ``(k, v, k_scale, v_scale)`` with scales ``[num_blocks,
+    block_size, kv_heads, 1]``, widened block by block by ``dequant``
+    (``(pages, dtype) → (k, v)``; :func:`_dequant_block` by default);
+    ``tables`` ``[S, bps]`` maps logical block j of slot i to its
+    physical page; ``lengths`` ``[S]`` counts valid positions. The loop
+    runs ``ceil(max(lengths) / block_size)`` steps; shallower rows ride
     along as masked zero-mass folds."""
     q = _scale(q, scale)
     bs = int(block_size)
@@ -139,25 +157,27 @@ def paged_decode_attention(q, pages, tables, lengths, *, block_size,
     m = torch.full((S, H, 1), NEG_INF, dtype=torch.float32,
                    device=q.device)
     l = torch.zeros((S, H, 1), dtype=torch.float32, device=q.device)
-    kc, vc = pages
     offs = torch.arange(bs, device=q.device)
     for j in range(n_max):
         ids = tables[:, j].long()
-        k = repeat_kv(kc[ids], n_rep)
-        v = repeat_kv(vc[ids], n_rep)
+        k, v = dequant(tuple(p[ids] for p in pages), q.dtype)
+        k = repeat_kv(k, n_rep)
+        v = repeat_kv(v, n_rep)
         valid = (j * bs + offs[None, :] < lengths[:, None])[:, None, :]
         o, m, l = _stream_fold((o, m, l), k, v, valid, q)
     return _stream_finish(o, l, q.dtype)
 
 
 def paged_chunk_attention(q, pages, tables, prefix_len, k_chunk, v_chunk,
-                          *, block_size, n_rep=1, scale=None):
+                          *, block_size, n_rep=1, scale=None,
+                          dequant=_dequant_block):
     """Chunk-after-cached-prefix attention computed directly over the
     paged pool (``attention.py:252-310``), the block-streamed twin of
     :func:`chunk_attention`.
 
     ``q`` ``[B, S, H, D]``; ``pages``/``tables`` map the cached prefix
-    as in :func:`paged_decode_attention`; ``prefix_len`` is an int or a
+    as in :func:`paged_decode_attention` (int8 pages widened block by
+    block by ``dequant``); ``prefix_len`` is an int or a
     ``[B]`` tensor; ``k_chunk``/``v_chunk`` ``[B, S, kv_heads, D]`` are
     the chunk's own (not repeated) K/V. The prefix streams one block
     per step for ``ceil(max(prefix_len) / block_size)`` steps, then the
@@ -172,12 +192,12 @@ def paged_chunk_attention(q, pages, tables, prefix_len, k_chunk, v_chunk,
     m = torch.full((B, H, S), NEG_INF, dtype=torch.float32,
                    device=q.device)
     l = torch.zeros((B, H, S), dtype=torch.float32, device=q.device)
-    kc, vc = pages
     offs = torch.arange(bs, device=q.device)
     for j in range(n_max):
         ids = tables[:, j].long()
-        k = repeat_kv(kc[ids], n_rep)
-        v = repeat_kv(vc[ids], n_rep)
+        k, v = dequant(tuple(p[ids] for p in pages), q.dtype)
+        k = repeat_kv(k, n_rep)
+        v = repeat_kv(v, n_rep)
         valid = (j * bs + offs[None, :] < plen[:, None])[:, None, :]
         o, m, l = _stream_fold((o, m, l), k, v, valid.expand(B, S, bs), q)
     rows = torch.arange(S, device=q.device)[:, None]

@@ -3,7 +3,7 @@ TransformerLM with a paged KV pool, prefix-cache reuse, chunked prefill,
 speculative decoding and token-level continuous batching.
 
 Port of ``kubeflow_tpu/compute/generate.py`` (the engine at :595) on a
-float pool, without a mesh, QoS/preemption, KV migration or the
+float or int8 pool, without a mesh, QoS/preemption, KV migration or the
 ``admission="drain"`` baseline — those come with later slices.
 
 - **Paged KV pool**: one pool of ``num_blocks`` blocks of ``block_size``
@@ -17,6 +17,11 @@ float pool, without a mesh, QoS/preemption, KV migration or the
   into the new table and prefills only the unshared suffix; eviction
   keeps indexed pages cached at refcount 0, reclaimed LRU leaf-first
   when the pool runs short.
+- **int8 KV** (``kv_dtype="int8"``): the pool holds int8 pages plus one
+  fp32 scale per (position, head) (``quantize.kv_quantize``), written
+  quantized and widened inside the pool reads (K1-i8 and K2-i8 on the
+  card), half the page bytes of bf16. The draft's dense cache stays
+  float.
 - **Prefill**: a cold prompt padded to its ``serving.bucket_for``
   bucket goes through one causal forward (attention on the K3 kernel,
   ``ops/flash_attention.py``); a suffix after a prefix hit, and every
@@ -60,6 +65,7 @@ import torch
 
 from . import attention as attn_lib
 from . import device as device_lib
+from . import quantize as quantize_lib
 from . import serving as serving_lib
 from .models import transformer
 from .ops import flash_attention as flash_ops
@@ -194,6 +200,9 @@ class GenerationEngine:
     - ``debug_logits``: handles collect each emitted token's fp32
       logits (``compute/conformance.py``); needs ``prefix_cache=False``,
       no draft and monolithic prefill,
+    - ``kv_dtype``: ``None`` (the pool in the compute dtype) or
+      ``"int8"`` (int8 pages with fp32 per-(position, head) scales;
+      ``generate.py:606``),
     - ``attn_backend``: the pool reads — ``"paged"`` (default) and
       ``"paged-kernel"`` both read through ``ops.paged_attention``
       (kernels K1 and K2 on the card, their plain versions on the CPU);
@@ -209,7 +218,7 @@ class GenerationEngine:
                  eos_id=None, default_max_tokens=64, prefix_cache=True,
                  draft_params=None, draft_config=None, spec_k=0,
                  debug_logits=False, attn_backend="paged",
-                 prefill_chunk=None, device=None):
+                 prefill_chunk=None, kv_dtype=None, device=None):
         if config.moe_experts:
             raise ValueError(
                 "GenerationEngine supports dense TransformerLM configs "
@@ -218,6 +227,10 @@ class GenerationEngine:
             raise ValueError(
                 f"attn_backend must be 'gather', 'paged' or "
                 f"'paged-kernel', got {attn_backend!r}")
+        if kv_dtype not in (None, "int8"):
+            raise ValueError(
+                f"kv_dtype must be None or 'int8', got {kv_dtype!r}")
+        self.kv_dtype = kv_dtype
         self.spec_k = int(spec_k)
         if self.spec_k < 0:
             raise ValueError(f"spec_k must be >= 0, got {spec_k}")
@@ -280,11 +293,15 @@ class GenerationEngine:
         else:
             self.draft_params = None
         # analytic bytes per cache block touched by one layer's read
-        # (k + v) × layers — what stats["attn_bytes_read"] accumulates
-        itemsize = torch.empty((), dtype=config.compute_dtype).element_size()
-        self._block_read_bytes = (self.block_size * config.kv_heads
-                                  * config.head_dim * itemsize * 2
-                                  * config.n_layers)
+        # (k + v, plus the int8 scales) × layers — what
+        # stats["attn_bytes_read"] accumulates (generate.py:891-899)
+        itemsize = 1 if kv_dtype == "int8" else torch.empty(
+            (), dtype=config.compute_dtype).element_size()
+        per_block = (self.block_size * config.kv_heads * config.head_dim
+                     * itemsize * 2)
+        if kv_dtype == "int8":
+            per_block += self.block_size * config.kv_heads * 4 * 2
+        self._block_read_bytes = per_block * config.n_layers
         self._free = list(range(self.num_blocks))
         self._slots = [None] * self.max_slots
         self._queue = collections.deque()
@@ -338,12 +355,22 @@ class GenerationEngine:
 
     def _make_cache(self):
         """A zeroed ``(k, v)`` pool, each ``[layers, num_blocks,
-        block_size, kv_heads, head_dim]`` in the compute dtype."""
+        block_size, kv_heads, head_dim]`` in the compute dtype; int8:
+        ``(k, v, k_scale, v_scale)`` with int8 zeros and fp32 ones
+        ``[..., kv_heads, 1]`` (``generate.py:1008-1012``)."""
         c = self.config
         shape = (c.n_layers, self.num_blocks, self.block_size,
                  c.kv_heads, c.head_dim)
-        return tuple(torch.zeros(shape, dtype=c.compute_dtype,
-                                 device=self.device) for _ in range(2))
+        dev = self.device
+        if self.kv_dtype == "int8":
+            return (torch.zeros(shape, dtype=torch.int8, device=dev),
+                    torch.zeros(shape, dtype=torch.int8, device=dev),
+                    torch.ones(shape[:-1] + (1,), dtype=torch.float32,
+                               device=dev),
+                    torch.ones(shape[:-1] + (1,), dtype=torch.float32,
+                               device=dev))
+        return tuple(torch.zeros(shape, dtype=c.compute_dtype, device=dev)
+                     for _ in range(2))
 
     def _make_draft_cache(self):
         """The draft's dense per-slot cache ``(k, v)``, each ``[layers,
@@ -469,8 +496,8 @@ class GenerationEngine:
                 "free_blocks": len(self._free) + reclaimable,
                 "block_size": self.block_size,
                 "max_context": self.max_context,
-                "kv_dtype": str(self.config.compute_dtype).replace(
-                    "torch.", ""),
+                "kv_dtype": self.kv_dtype or str(
+                    self.config.compute_dtype).replace("torch.", ""),
                 "attn_backend": self.attn_backend,
                 "device": str(self.device),
                 "draining": self._draining,
@@ -1163,17 +1190,35 @@ class GenerationEngine:
     def _write_pages(self, layer, block_ids, k, v):
         """Prefill cache fill, in place: ``k``/``v`` ``[P, kv, D]`` padded
         with zeros to whole blocks and copied into this layer's pool
-        pages ``block_ids``. The padded tail's K/V is masked by length
-        at every later read."""
+        pages ``block_ids``, quantized when the pool is int8
+        (``generate.py:3315-3323``: the zero-padded pages go through
+        ``kv_quantize``). The padded tail's K/V is masked by length at
+        every later read."""
         n = block_ids.shape[0]
         rows = n * self.block_size
-        for pool, t in zip(self._cache, (k, v)):
+        pages = []
+        for t in (k, v):
             page = torch.zeros((rows,) + tuple(t.shape[1:]),
                                dtype=t.dtype, device=t.device)
             page[:t.shape[0]] = t
-            pool[layer].index_copy_(
-                0, block_ids, page.view(n, self.block_size,
-                                        *t.shape[1:]))
+            pages.append(page.view(n, self.block_size, *t.shape[1:]))
+        for pool, page in zip(self._cache, self._pool_rows(*pages)):
+            pool[layer].index_copy_(0, block_ids, page)
+
+    def _pool_rows(self, k, v):
+        """K/V rows as the pool stores them: ``(k, v)``, or for an int8
+        pool ``(k codes, v codes, k scales, v scales)``. k and v are
+        quantized as one stacked tensor: the codes are row by row, so
+        equal to two calls', in half the launches."""
+        if self.kv_dtype != "int8":
+            return k, v
+        codes, scales = quantize_lib.kv_quantize(torch.stack((k, v)))
+        return codes[0], codes[1], scales[0], scales[1]
+
+    def _layer_pages(self, layer):
+        """One layer's slice of every pool component (``(k, v)`` or the
+        int8 quadruple), the pool reads' ``pages``."""
+        return tuple(pool[layer] for pool in self._cache)
 
     def _prefill_step(self, tokens, true_len, block_ids):
         """tokens [padded] → (first token, its fp32 logits or None).
@@ -1224,9 +1269,8 @@ class GenerationEngine:
             def attend(q, k, v):
                 q = transformer.apply_rope(q, cos, sin)
                 k = transformer.apply_rope(k, cos, sin)
-                pages = (self._cache[0][layer], self._cache[1][layer])
-                o = self._attn_chunk_read(q, pages, tables, offset, k, v,
-                                          n_rep)
+                o = self._attn_chunk_read(q, self._layer_pages(layer),
+                                          tables, offset, k, v, n_rep)
                 self._write_pages(layer, ids, k[0], v[0])
                 return o, None
 
@@ -1256,20 +1300,27 @@ class GenerationEngine:
 
     def _write_kv(self, layer, phys, off, k, v):
         """Decode and verify write, in place: K/V rows ``[n, kv, D]``
-        into their pages at ``(phys, off)``. The callers pass only the
-        rows to write — JAX drops its inactive and clamped rows'
+        into their pages at ``(phys, off)``, quantized when the pool is
+        int8 (``generate.py:3517-3524``). The callers pass only the rows
+        to write — JAX drops its inactive and clamped rows'
         out-of-bounds sentinel writes (``mode="drop"``), which torch
         indexing would not."""
-        for pool, t in zip(self._cache, (k, v)):
+        for pool, t in zip(self._cache, self._pool_rows(k, v)):
             pool[layer].index_put_((phys, off), t)
 
     def _gather_kv(self, pages, tables):
         """One layer's pool + tables → K/V in logical order
-        ``[S, bps·block_size, kv_heads, head_dim]``."""
+        ``[S, bps·block_size, kv_heads, head_dim]``; an int8 pool is
+        widened by ``kv_dequantize`` (``generate.py:3419-3424``)."""
         S = tables.shape[0]
         T = self.blocks_per_slot * self.block_size
         idx = tables.long()
-        return tuple(p[idx].reshape(S, T, *p.shape[2:]) for p in pages)
+        kv = tuple(p[idx] for p in pages)
+        if len(kv) == 4:
+            dt = self.config.compute_dtype
+            kv = (quantize_lib.kv_dequantize(kv[0], kv[2], dt),
+                  quantize_lib.kv_dequantize(kv[1], kv[3], dt))
+        return tuple(p.reshape(S, T, *p.shape[3:]) for p in kv)
 
     def _attn_decode_read(self, q, pages, tables, lengths, n_rep):
         """Backend dispatch for the decode read (``generate.py:3429``)."""
@@ -1320,9 +1371,8 @@ class GenerationEngine:
             def attend(q, k, v):
                 q, k = rope_rows(q), rope_rows(k)
                 self._write_kv(layer, phys, off, k[rows, 0], v[rows, 0])
-                pages = (self._cache[0][layer], self._cache[1][layer])
-                o = self._attn_decode_read(q, pages, tables_t,
-                                           read_lengths, n_rep)
+                o = self._attn_decode_read(q, self._layer_pages(layer),
+                                           tables_t, read_lengths, n_rep)
                 return o, None
 
             x, _ = self._layer_core(x, lp, attend)
@@ -1432,9 +1482,17 @@ class GenerationEngine:
                 q, k = rope_rows(q), rope_rows(k)
                 self._write_kv(layer, phys, off, k[rows, cols],
                                v[rows, cols])
-                pages = (self._cache[0][layer], self._cache[1][layer])
-                o = self._attn_chunk_read(q, pages, tables_t, lengths_t, k,
-                                          v, n_rep)
+                if self.kv_dtype == "int8":
+                    # plain decode reads every position, its own token
+                    # included, back through the int8 pool: the verify
+                    # attends over the same round-tripped chunk values
+                    # (generate.py:3711-3721), or speculative int8
+                    # output leaves plain int8 output
+                    k, v = quantize_lib.kv_dequantize(
+                        *quantize_lib.kv_quantize(torch.stack((k, v))),
+                        c.compute_dtype)
+                o = self._attn_chunk_read(q, self._layer_pages(layer),
+                                          tables_t, lengths_t, k, v, n_rep)
                 return o, None
 
             x, _ = self._layer_core(x, lp, attend)

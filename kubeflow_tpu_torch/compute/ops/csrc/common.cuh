@@ -1,6 +1,8 @@
 // Shared helpers of the port's kernels: dtype conversion and 16-byte
-// vector loads (4 floats or 8 bfloat16 values per load).
+// vector loads (4 floats, 8 bfloat16 values or 16 int8 codes per load).
 #pragma once
+
+#include <cstdint>
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -12,6 +14,9 @@ constexpr float kNegInf = -1e30f;   // the JAX package's NEG_INF
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
   return __bfloat162float(x);
+}
+__device__ __forceinline__ float to_f32(int8_t x) {   // exact
+  return static_cast<float>(x);
 }
 
 template <typename T> __device__ __forceinline__ T from_f32(float x);

@@ -2,8 +2,11 @@
 //
 // Replaces the Pallas TPU kernel
 //   kubeflow_tpu/compute/ops/paged_attention.py::_chunk_kernel
-// (called through paged_chunk_attention, same file). Wrapper, plain
-// PyTorch version and launch counter: ../paged_attention.py.
+// (called through paged_chunk_attention, same file), both its float
+// pages and its int8_pages branch (:236-240): kubeflow_paged_chunk takes
+// pages in q's dtype, kubeflow_paged_chunk_i8 (K2-i8) int8 pages with one
+// fp32 scale per (position, kv head). Wrapper, plain PyTorch version and
+// launch counters: ../paged_attention.py.
 //
 // What it computes: for every batch row b, chunk position s and query
 // head h (kv head h / n_rep), over the key sequence
@@ -42,9 +45,19 @@
 //   4 x 4 score tile and a 4 x D/8 slice of the accumulator. The products
 //   run on the CUDA cores in fp32. Every row tile of a slot reads the
 //   slot's whole prefix (from L2 after the first); tensor cores and
-//   sharing the prefix across row tiles are later changes.
+//   sharing the prefix across row tiles are later changes;
+// - int8 pages (one kernel template, the page type a parameter): a key's
+//   columns move in units of 16, one 16-byte load of int8 codes for a
+//   prefix key, 2 (bf16) or 4 (fp32) loads of the chunk's own K/V, which
+//   stay in q's dtype (the TPU kernel's :249-254). A prefix code is
+//   widened on its way into the fp32 shared tile as the TPU kernel
+//   does, code x scale in fp32 rounded once to q's dtype; the thread
+//   that loads a word loads its position's two fp32 scales with it.
+//   The shared layout and everything after it are the float kernel's.
 
 #include "common.cuh"
+
+#include <type_traits>
 
 namespace {
 
@@ -63,21 +76,29 @@ constexpr size_t smem_floats() {
          kBr * (kBk + 1);
 }
 
-template <typename T, int D>
+// T: q, the chunk's K/V and out (float or bf16); P: the pages (T, or
+// int8_t with scales)
+template <typename T, typename P, int D>
 __global__ void __launch_bounds__(kThreads)
 paged_chunk_kernel(const T* __restrict__ q,        // [B, S, H, D], pre-scaled
-                   const T* __restrict__ k_pages,  // [N, bs, kv_heads, D]
-                   const T* __restrict__ v_pages,  // [N, bs, kv_heads, D]
+                   const P* __restrict__ k_pages,  // [N, bs, kv_heads, D]
+                   const P* __restrict__ v_pages,  // [N, bs, kv_heads, D]
+                   const float* __restrict__ k_scales,  // [N, bs, kv_heads]
+                   const float* __restrict__ v_scales,  // (int8 pages only)
                    const int* __restrict__ tables, // [B, bps]
                    const int* __restrict__ plens,  // [B]
                    const T* __restrict__ k_chunk,  // [B, S, kv_heads, D]
                    const T* __restrict__ v_chunk,  // [B, S, kv_heads, D]
                    T* __restrict__ out,            // [B, S, H, D]
                    int S, int kv_heads, int n_rep, int bs, int bps) {
+  constexpr bool kInt8 = std::is_same<P, int8_t>::value;
   constexpr int kVec = vec_width<T>();
-  constexpr int kRowUnits = D / kVec;                  // 16-byte words a row
-  constexpr int kLoads = kBk * kRowUnits / kThreads;   // per thread, per tile
-  static_assert(kBk * kRowUnits % kThreads == 0, "tile splits over threads");
+  constexpr int kUnitCols = vec_width<P>();            // columns a unit
+  constexpr int kWords = kUnitCols / kVec;             // chunk loads a unit
+  constexpr int kRowUnits = D / kUnitCols;             // units a key row
+  constexpr int kUnits = kBk * kRowUnits;              // units a tile
+  constexpr int kLoads = (kUnits + kThreads - 1) / kThreads;  // per thread
+  constexpr bool kEven = kUnits % kThreads == 0;
 
   extern __shared__ float smem[];
   float* q_s = smem;                   // [kBr][D + 1]
@@ -101,9 +122,10 @@ paged_chunk_kernel(const T* __restrict__ q,        // [B, S, H, D], pre-scaled
   const int n_keys = plen + min(S, s0 + per_tile);
 
   // row f of the tile is position s0 + f / n_rep, head kvh*n_rep + f % n_rep
-  for (int u = tid; u < kBr * kRowUnits; u += kThreads) {
-    const int f = u / kRowUnits;
-    const int c = (u % kRowUnits) * kVec;
+  constexpr int kQUnits = D / kVec;
+  for (int u = tid; u < kBr * kQUnits; u += kThreads) {
+    const int f = u / kQUnits;
+    const int c = (u % kQUnits) * kVec;
     const int s = s0 + f / n_rep;
     float x[kVec];
     if (f < live && s < S) {
@@ -118,28 +140,41 @@ paged_chunk_kernel(const T* __restrict__ q,        // [B, S, H, D], pre-scaled
     for (int i = 0; i < kVec; ++i) q_s[f * (D + 1) + c + i] = x[i];
   }
 
-  // one tile's K/V words in registers: keys past n_keys are 0
-  uint4 kr[kLoads], vr[kLoads];
+  // one tile's K/V units in registers (a prefix unit in word 0, with its
+  // position's scales for int8 pages): keys past n_keys are 0
+  uint4 kr[kLoads][kWords], vr[kLoads][kWords];
+  float ksr[kLoads], vsr[kLoads];
   auto load_tile = [&](int k0) {
 #pragma unroll
     for (int j = 0; j < kLoads; ++j) {
       const int u = tid + j * kThreads;
       const int t = k0 + u / kRowUnits;
-      const int c = (u % kRowUnits) * kVec;
+      const int c = (u % kRowUnits) * kUnitCols;
+      if (!kEven && u >= kUnits) continue;
       if (t < plen) {
         const size_t page = static_cast<size_t>(table[t / bs]);
-        const size_t off = ((page * bs + t % bs) * kv_heads + kvh) * D + c;
-        kr[j] = load16(k_pages + off);
-        vr[j] = load16(v_pages + off);
+        const size_t row = (page * bs + t % bs) * kv_heads + kvh;
+        kr[j][0] = load16(k_pages + row * D + c);
+        vr[j][0] = load16(v_pages + row * D + c);
+        if constexpr (kInt8) {
+          ksr[j] = k_scales[row];
+          vsr[j] = v_scales[row];
+        }
       } else if (t < n_keys) {
         const size_t off =
             ((static_cast<size_t>(b) * S + (t - plen)) * kv_heads + kvh) * D +
             c;
-        kr[j] = load16(k_chunk + off);
-        vr[j] = load16(v_chunk + off);
+#pragma unroll
+        for (int w = 0; w < kWords; ++w) {
+          kr[j][w] = load16(k_chunk + off + w * kVec);
+          vr[j][w] = load16(v_chunk + off + w * kVec);
+        }
       } else {
-        kr[j] = make_uint4(0u, 0u, 0u, 0u);
-        vr[j] = kr[j];
+#pragma unroll
+        for (int w = 0; w < kWords; ++w) {
+          kr[j][w] = make_uint4(0u, 0u, 0u, 0u);
+          vr[j][w] = kr[j][w];
+        }
       }
     }
   };
@@ -161,13 +196,33 @@ paged_chunk_kernel(const T* __restrict__ q,        // [B, S, H, D], pre-scaled
 #pragma unroll
     for (int j = 0; j < kLoads; ++j) {
       const int u = tid + j * kThreads;
+      if (!kEven && u >= kUnits) continue;
       const int c = u / kRowUnits;
-      const int d = (u % kRowUnits) * kVec;
-      float kx[kVec], vx[kVec];
-      unpack16<T>(kr[j], kx);
-      unpack16<T>(vr[j], vx);
+      const int d = (u % kRowUnits) * kUnitCols;
+      float kx[kUnitCols], vx[kUnitCols];
+      if constexpr (kInt8) {
+        if (k0 + c < plen) {
+          // the TPU kernel's (k.astype(f32) * ks).astype(q.dtype)
+          unpack16<P>(kr[j][0], kx);
+          unpack16<P>(vr[j][0], vx);
 #pragma unroll
-      for (int i = 0; i < kVec; ++i) {
+          for (int i = 0; i < kUnitCols; ++i) {
+            kx[i] = round_to<T>(kx[i] * ksr[j]);
+            vx[i] = round_to<T>(vx[i] * vsr[j]);
+          }
+        } else {   // the chunk's own keys, in q's dtype
+#pragma unroll
+          for (int w = 0; w < kWords; ++w) {
+            unpack16<T>(kr[j][w], kx + w * kVec);
+            unpack16<T>(vr[j][w], vx + w * kVec);
+          }
+        }
+      } else {
+        unpack16<T>(kr[j][0], kx);
+        unpack16<T>(vr[j][0], vx);
+      }
+#pragma unroll
+      for (int i = 0; i < kUnitCols; ++i) {
         k_s[c * (D + 1) + d + i] = kx[i];
         v_s[c * D + d + i] = vx[i];
       }
@@ -255,55 +310,70 @@ paged_chunk_kernel(const T* __restrict__ q,        // [B, S, H, D], pre-scaled
   }
 }
 
-template <typename T, int D>
-int launch(const void* q, const void* k, const void* v, const void* tables,
-           const void* plens, const void* kch, const void* vch, void* out,
-           int B, int S, int kv_heads, int n_rep, int bs, int bps,
-           cudaStream_t stream) {
+struct Args {
+  const void *q, *k, *v, *ks, *vs, *tables, *plens, *kch, *vch;
+  void* out;
+  int B, S, kv_heads, n_rep, bs, bps;
+};
+
+template <typename T, typename P, int D>
+int launch(const Args& a, cudaStream_t stream) {
   const size_t smem = smem_floats<D>() * sizeof(float);
   static bool attribute_set = false;   // once per instantiation
   if (!attribute_set) {
     cudaError_t err = cudaFuncSetAttribute(
-        paged_chunk_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
+        paged_chunk_kernel<T, P, D>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
     attribute_set = true;
   }
-  const int per_tile = kBr / n_rep;
-  const dim3 grid((S + per_tile - 1) / per_tile, kv_heads, B);
-  paged_chunk_kernel<T, D><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const int*>(tables),
-      static_cast<const int*>(plens), static_cast<const T*>(kch),
-      static_cast<const T*>(vch), static_cast<T*>(out), S, kv_heads, n_rep,
-      bs, bps);
+  const int per_tile = kBr / a.n_rep;
+  const dim3 grid((a.S + per_tile - 1) / per_tile, a.kv_heads, a.B);
+  paged_chunk_kernel<T, P, D><<<grid, kThreads, smem, stream>>>(
+      static_cast<const T*>(a.q), static_cast<const P*>(a.k),
+      static_cast<const P*>(a.v), static_cast<const float*>(a.ks),
+      static_cast<const float*>(a.vs), static_cast<const int*>(a.tables),
+      static_cast<const int*>(a.plens), static_cast<const T*>(a.kch),
+      static_cast<const T*>(a.vch), static_cast<T*>(a.out), a.S, a.kv_heads,
+      a.n_rep, a.bs, a.bps);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-int dispatch_dim(int head_dim, const void* q, const void* k, const void* v,
-                 const void* tables, const void* plens, const void* kch,
-                 const void* vch, void* out, int B, int S, int kv_heads,
-                 int n_rep, int bs, int bps, cudaStream_t stream) {
+template <typename T, typename P>
+int dispatch_dim(int head_dim, const Args& a, cudaStream_t stream) {
   switch (head_dim) {
     case 32:
-      return launch<T, 32>(q, k, v, tables, plens, kch, vch, out, B, S,
-                           kv_heads, n_rep, bs, bps, stream);
+      return launch<T, P, 32>(a, stream);
     case 64:
-      return launch<T, 64>(q, k, v, tables, plens, kch, vch, out, B, S,
-                           kv_heads, n_rep, bs, bps, stream);
+      return launch<T, P, 64>(a, stream);
     case 128:
-      return launch<T, 128>(q, k, v, tables, plens, kch, vch, out, B, S,
-                            kv_heads, n_rep, bs, bps, stream);
+      return launch<T, P, 128>(a, stream);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
+// int8 = false: pages in q's dtype; true: int8 pages with fp32 scales
+int run(bool int8, const Args& a, int head_dim, int dtype, void* stream) {
+  if (a.n_rep < 1 || a.n_rep > kMaxRep || a.kv_heads < 1 || a.bs < 1 ||
+      a.bps < 1 || a.B < 0 || a.S < 0 || a.B > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (a.B == 0 || a.S == 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return int8 ? dispatch_dim<float, int8_t>(head_dim, a, s)
+                : dispatch_dim<float, float>(head_dim, a, s);
+  if (dtype == 1)
+    return int8 ? dispatch_dim<__nv_bfloat16, int8_t>(head_dim, a, s)
+                : dispatch_dim<__nv_bfloat16, __nv_bfloat16>(head_dim, a, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. Pointers must be 16-byte aligned.
-// Returns a cudaError_t (0 = launched).
+// dtype (of q, the chunk K/V and out): 0 = float32, 1 = bfloat16. q,
+// the pages, the chunk K/V and out must be 16-byte aligned. Returns a
+// cudaError_t (0 = launched).
 extern "C" int kubeflow_paged_chunk(const void* q, const void* k_pages,
                                     const void* v_pages, const void* tables,
                                     const void* plens, const void* k_chunk,
@@ -311,19 +381,23 @@ extern "C" int kubeflow_paged_chunk(const void* q, const void* k_pages,
                                     int seq, int kv_heads, int n_rep,
                                     int head_dim, int block_size, int bps,
                                     int dtype, void* stream) {
-  if (n_rep < 1 || n_rep > kMaxRep || kv_heads < 1 || block_size < 1 ||
-      bps < 1 || batch < 0 || seq < 0 || batch > 65535)
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (batch == 0 || seq == 0) return 0;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return dispatch_dim<float>(head_dim, q, k_pages, v_pages, tables, plens,
-                               k_chunk, v_chunk, out, batch, seq, kv_heads,
-                               n_rep, block_size, bps, s);
-  if (dtype == 1)
-    return dispatch_dim<__nv_bfloat16>(head_dim, q, k_pages, v_pages, tables,
-                                       plens, k_chunk, v_chunk, out, batch,
-                                       seq, kv_heads, n_rep, block_size, bps,
-                                       s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  const Args a{q, k_pages, v_pages, nullptr, nullptr, tables, plens,
+               k_chunk, v_chunk, out, batch, seq, kv_heads, n_rep,
+               block_size, bps};
+  return run(false, a, head_dim, dtype, stream);
+}
+
+// K2-i8: int8 prefix pages [N, bs, kv_heads, D] with fp32 scales
+// [N, bs, kv_heads, 1]; the chunk's K/V in q's dtype; otherwise as
+// kubeflow_paged_chunk.
+extern "C" int kubeflow_paged_chunk_i8(
+    const void* q, const void* k_pages, const void* v_pages,
+    const void* k_scales, const void* v_scales, const void* tables,
+    const void* plens, const void* k_chunk, const void* v_chunk, void* out,
+    int batch, int seq, int kv_heads, int n_rep, int head_dim, int block_size,
+    int bps, int dtype, void* stream) {
+  const Args a{q, k_pages, v_pages, k_scales, v_scales, tables, plens,
+               k_chunk, v_chunk, out, batch, seq, kv_heads, n_rep,
+               block_size, bps};
+  return run(true, a, head_dim, dtype, stream);
 }

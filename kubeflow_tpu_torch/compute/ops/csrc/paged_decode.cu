@@ -2,8 +2,11 @@
 //
 // Replaces the Pallas TPU kernel
 //   kubeflow_tpu/compute/ops/paged_attention.py::_decode_kernel
-// (called through paged_decode_attention, same file). Wrapper, plain
-// PyTorch version and launch counter: ../paged_attention.py.
+// (called through paged_decode_attention, same file), both its float
+// pages and its int8_pages branch (:75-81): kubeflow_paged_decode takes
+// pages in q's dtype, kubeflow_paged_decode_i8 (K1-i8) int8 pages with
+// one fp32 scale per (position, kv head). Wrapper, plain PyTorch version
+// and launch counters: ../paged_attention.py.
 //
 // What it computes: for every slot i and query head h,
 //   out[i, h] = softmax(q[i, h] . K[i, :len_i, h / n_rep]^T) V[i, :len_i, h / n_rep]
@@ -34,7 +37,16 @@
 //   into registers before the current tile is computed, so device
 //   memory latency overlaps the arithmetic;
 // - one warp per query row scores the tile (lane = position) and folds
-//   it into the online softmax with warp shuffles.
+//   it into the online softmax with warp shuffles;
+// - int8 pages (one kernel template, the page type a parameter): a
+//   16-byte load carries 16 int8 codes, so a D-128 row is 8 loads where
+//   bf16 takes 16 and the page bytes halve; the thread that loads a
+//   word also loads its position's two fp32 scales (the threads of one
+//   position, 8 at D 128, read the same word: one transaction). Each
+//   code is widened as the TPU kernel does, code x scale in fp32 rounded
+//   once to q's dtype, then to fp32 for the dot and for p.V, on its way
+//   into the fp32 shared tiles, so the shared layout and everything
+//   after it are the float kernel's.
 // Known limit, left for a later change: a decode batch has only
 // slots * kv_heads blocks (16 for 8 slots x 2 kv heads), far fewer
 // than the 132 SMs, and a long slot's tiles run in sequence in one
@@ -43,6 +55,8 @@
 // (flash-decoding) is the fix.
 
 #include "common.cuh"
+
+#include <type_traits>
 
 namespace {
 
@@ -53,19 +67,23 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kTile = 32;      // positions per tile: one per lane
 constexpr int kMaxRep = 16;    // largest GQA group (query heads per kv head)
 
-template <typename T, int D>
+// T: q and out (float or bf16); P: the pages (T, or int8_t with scales)
+template <typename T, typename P, int D>
 __global__ void __launch_bounds__(kThreads)
 paged_decode_kernel(const T* __restrict__ q,        // [S, H, D], pre-scaled
-                    const T* __restrict__ k_pages,  // [N, bs, kv_heads, D]
-                    const T* __restrict__ v_pages,  // [N, bs, kv_heads, D]
+                    const P* __restrict__ k_pages,  // [N, bs, kv_heads, D]
+                    const P* __restrict__ v_pages,  // [N, bs, kv_heads, D]
+                    const float* __restrict__ k_scales,  // [N, bs, kv_heads]
+                    const float* __restrict__ v_scales,  // (int8 pages only)
                     const int* __restrict__ tables, // [S, bps]
                     const int* __restrict__ lengths,// [S]
                     T* __restrict__ out,            // [S, H, D]
                     int kv_heads, int n_rep, int bs, int bps) {
-  constexpr int kVec = vec_width<T>();
+  constexpr bool kInt8 = std::is_same<P, int8_t>::value;
+  constexpr int kVec = vec_width<P>();          // page values a 16-byte load
   constexpr int kUnits = kTile * D / kVec;      // 16-byte loads per tile
-  constexpr int kLoads = kUnits / kThreads;     // per thread, per tensor
-  static_assert(kUnits % kThreads == 0, "tile must split over threads");
+  constexpr int kLoads = (kUnits + kThreads - 1) / kThreads;  // per thread
+  constexpr bool kEven = kUnits % kThreads == 0;
   static_assert(kThreads % D == 0, "a thread keeps one output column");
   constexpr int kKs = D + 1;                    // padded k_s row stride
 
@@ -95,8 +113,10 @@ paged_decode_kernel(const T* __restrict__ q,        // [S, H, D], pre-scaled
     l_s[r] = 0.f;
   }
 
-  // this tile's K/V words in registers: positions past the length are 0
+  // this tile's K/V words in registers (int8: with their positions'
+  // scales): positions past the length are 0
   uint4 kr[kLoads], vr[kLoads];
+  float ksr[kLoads], vsr[kLoads];
   auto load_tile = [&](int base) {
 #pragma unroll
     for (int j = 0; j < kLoads; ++j) {
@@ -104,14 +124,22 @@ paged_decode_kernel(const T* __restrict__ q,        // [S, H, D], pre-scaled
       const int t = u / (D / kVec);
       const int c = (u % (D / kVec)) * kVec;
       const int pos = base + t;
-      if (pos < length) {
+      if ((kEven || u < kUnits) && pos < length) {
         const size_t page = static_cast<size_t>(table[pos / bs]);
-        const size_t off = ((page * bs + pos % bs) * kv_heads + kvh) * D + c;
-        kr[j] = load16(k_pages + off);
-        vr[j] = load16(v_pages + off);
+        const size_t row = (page * bs + pos % bs) * kv_heads + kvh;
+        kr[j] = load16(k_pages + row * D + c);
+        vr[j] = load16(v_pages + row * D + c);
+        if constexpr (kInt8) {
+          ksr[j] = k_scales[row];
+          vsr[j] = v_scales[row];
+        }
       } else {
         kr[j] = make_uint4(0u, 0u, 0u, 0u);
         vr[j] = kr[j];
+        if constexpr (kInt8) {
+          ksr[j] = 0.f;
+          vsr[j] = 0.f;
+        }
       }
     }
   };
@@ -131,11 +159,20 @@ paged_decode_kernel(const T* __restrict__ q,        // [S, H, D], pre-scaled
 #pragma unroll
     for (int j = 0; j < kLoads; ++j) {
       const int u = tid + j * kThreads;
+      if (!kEven && u >= kUnits) continue;
       const int t = u / (D / kVec);
       const int c = (u % (D / kVec)) * kVec;
       float kx[kVec], vx[kVec];
-      unpack16<T>(kr[j], kx);
-      unpack16<T>(vr[j], vx);
+      unpack16<P>(kr[j], kx);
+      unpack16<P>(vr[j], vx);
+      if constexpr (kInt8) {
+        // the TPU kernel's (k.astype(f32) * ks).astype(q.dtype)
+#pragma unroll
+        for (int i = 0; i < kVec; ++i) {
+          kx[i] = round_to<T>(kx[i] * ksr[j]);
+          vx[i] = round_to<T>(vx[i] * vsr[j]);
+        }
+      }
 #pragma unroll
       for (int i = 0; i < kVec; ++i) {
         k_s[t * kKs + c + i] = kx[i];
@@ -208,63 +245,81 @@ paged_decode_kernel(const T* __restrict__ q,        // [S, H, D], pre-scaled
   }
 }
 
-template <typename T, int D>
-int launch(const void* q, const void* k, const void* v, const void* tables,
-           const void* lengths, void* out, int slots, int kv_heads,
-           int n_rep, int bs, int bps, cudaStream_t stream) {
-  const size_t floats = static_cast<size_t>(n_rep) * D + kTile * (D + 1) +
-                        kTile * D + static_cast<size_t>(n_rep) * kTile +
-                        3 * n_rep;
+struct Args {
+  const void *q, *k, *v, *ks, *vs, *tables, *lengths;
+  void* out;
+  int slots, kv_heads, n_rep, bs, bps;
+};
+
+template <typename T, typename P, int D>
+int launch(const Args& a, cudaStream_t stream) {
+  const size_t floats = static_cast<size_t>(a.n_rep) * D + kTile * (D + 1) +
+                        kTile * D + static_cast<size_t>(a.n_rep) * kTile +
+                        3 * a.n_rep;
   const size_t smem = floats * sizeof(float);
-  paged_decode_kernel<T, D><<<dim3(slots, kv_heads), kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const int*>(tables),
-      static_cast<const int*>(lengths), static_cast<T*>(out), kv_heads, n_rep,
-      bs, bps);
+  paged_decode_kernel<T, P, D>
+      <<<dim3(a.slots, a.kv_heads), kThreads, smem, stream>>>(
+          static_cast<const T*>(a.q), static_cast<const P*>(a.k),
+          static_cast<const P*>(a.v), static_cast<const float*>(a.ks),
+          static_cast<const float*>(a.vs), static_cast<const int*>(a.tables),
+          static_cast<const int*>(a.lengths), static_cast<T*>(a.out),
+          a.kv_heads, a.n_rep, a.bs, a.bps);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-int dispatch_dim(int head_dim, const void* q, const void* k, const void* v,
-                 const void* tables, const void* lengths, void* out, int slots,
-                 int kv_heads, int n_rep, int bs, int bps,
-                 cudaStream_t stream) {
+template <typename T, typename P>
+int dispatch_dim(int head_dim, const Args& a, cudaStream_t stream) {
   switch (head_dim) {
     case 32:
-      return launch<T, 32>(q, k, v, tables, lengths, out, slots, kv_heads,
-                           n_rep, bs, bps, stream);
+      return launch<T, P, 32>(a, stream);
     case 64:
-      return launch<T, 64>(q, k, v, tables, lengths, out, slots, kv_heads,
-                           n_rep, bs, bps, stream);
+      return launch<T, P, 64>(a, stream);
     case 128:
-      return launch<T, 128>(q, k, v, tables, lengths, out, slots, kv_heads,
-                            n_rep, bs, bps, stream);
+      return launch<T, P, 128>(a, stream);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
+// int8 = false: pages in q's dtype; true: int8 pages with fp32 scales
+int run(bool int8, const Args& a, int head_dim, int dtype, void* stream) {
+  if (a.n_rep < 1 || a.n_rep > kMaxRep || a.kv_heads < 1 || a.bs < 1 ||
+      a.bps < 1 || a.slots < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (a.slots == 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return int8 ? dispatch_dim<float, int8_t>(head_dim, a, s)
+                : dispatch_dim<float, float>(head_dim, a, s);
+  if (dtype == 1)
+    return int8 ? dispatch_dim<__nv_bfloat16, int8_t>(head_dim, a, s)
+                : dispatch_dim<__nv_bfloat16, __nv_bfloat16>(head_dim, a, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. Pointers must be 16-byte aligned.
-// Returns a cudaError_t (0 = launched).
+// dtype (of q and out): 0 = float32, 1 = bfloat16. q, the pages and out
+// must be 16-byte aligned. Returns a cudaError_t (0 = launched).
 extern "C" int kubeflow_paged_decode(const void* q, const void* k_pages,
                                      const void* v_pages, const void* tables,
                                      const void* lengths, void* out, int slots,
                                      int kv_heads, int n_rep, int head_dim,
                                      int block_size, int bps, int dtype,
                                      void* stream) {
-  if (n_rep < 1 || n_rep > kMaxRep || kv_heads < 1 || block_size < 1 ||
-      bps < 1 || slots < 0)
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (slots == 0) return 0;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return dispatch_dim<float>(head_dim, q, k_pages, v_pages, tables, lengths,
-                               out, slots, kv_heads, n_rep, block_size, bps, s);
-  if (dtype == 1)
-    return dispatch_dim<__nv_bfloat16>(head_dim, q, k_pages, v_pages, tables,
-                                       lengths, out, slots, kv_heads, n_rep,
-                                       block_size, bps, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  const Args a{q, k_pages, v_pages, nullptr, nullptr, tables, lengths, out,
+               slots, kv_heads, n_rep, block_size, bps};
+  return run(false, a, head_dim, dtype, stream);
+}
+
+// K1-i8: int8 k/v pages [N, bs, kv_heads, D] with fp32 scales
+// [N, bs, kv_heads, 1]; otherwise as kubeflow_paged_decode.
+extern "C" int kubeflow_paged_decode_i8(
+    const void* q, const void* k_pages, const void* v_pages,
+    const void* k_scales, const void* v_scales, const void* tables,
+    const void* lengths, void* out, int slots, int kv_heads, int n_rep,
+    int head_dim, int block_size, int bps, int dtype, void* stream) {
+  const Args a{q, k_pages, v_pages, k_scales, v_scales, tables, lengths, out,
+               slots, kv_heads, n_rep, block_size, bps};
+  return run(true, a, head_dim, dtype, stream);
 }

@@ -10,7 +10,18 @@ their plain PyTorch versions:
   ``paged_chunk_attention``) — the read of the cached partial prefill,
   of every prefill chunk and of the speculative verify.
 
-Float pages only; the int8-page variants come with the int8 pool.
+Both take one layer's pool as a float ``(k, v)`` pair in q's dtype or as
+the int8 quadruple ``(k, v, k_scale, v_scale)`` of the engine's
+``kv_dtype="int8"`` pool (int8 pages, fp32 scales ``[N, bs, kv, 1]``).
+An int8 pool goes to its own entry point of the same source (K1-i8,
+K2-i8: the ``int8_pages`` branches of the TPU kernels, :75-81 and
+:236-240), which dequantizes each page in registers with the TPU
+kernels' rounding: the int8 code times the fp32 scale in fp32, rounded
+once to q's dtype. K2-i8 dequantizes the prefix pages only; the chunk's
+own K/V stay in q's dtype. Launches are counted per entry point:
+``paged_decode_attention.launches`` / ``.launches_i8`` and
+``paged_chunk_attention.launches`` / ``.launches_i8``.
+
 Each wrapper launches its kernel for CUDA tensors and takes its plain
 version only for CPU tensors; on a CUDA tensor it launches or raises,
 never falls back.
@@ -30,31 +41,48 @@ MAX_REP = 16
 _libs = {}
 
 
+def _dequant_kernel(pages, dtype):
+    """One block of the pool as the kernels widen it: a float pair as it
+    is; int8 pages as ``(int8 → fp32) × fp32 scale``, rounded once to
+    ``dtype`` (``paged_attention.py:80-81``). In bf16 this differs from
+    ``quantize.kv_dequantize`` (scale rounded to bf16, product in bf16)
+    by up to one unit in the last place; in fp32 the two are equal."""
+    if len(pages) == 2:
+        return pages
+    k, v, ks, vs = pages
+    return (k.float() * ks).to(dtype), (v.float() * vs).to(dtype)
+
+
 def paged_decode_reference(q, pages, tables, lengths, *, block_size,
                            n_rep=1, scale=None):
     """Plain version of the kernel, on any device: q ``[S, 1, H, D]``,
-    ``pages`` one layer's ``(k, v)`` pool slice ``[N, bs, kv, D]``,
-    ``tables`` ``[S, bps]``, ``lengths`` ``[S]`` → ``[S, 1, H, D]``.
-    The kernel's numerics: the scale folded into q in fp32 and rounded
-    once, then the masked fp32 online softmax over the table's blocks
+    ``pages`` one layer's ``(k, v)`` pool slice ``[N, bs, kv, D]`` or its
+    int8 quadruple, ``tables`` ``[S, bps]``, ``lengths`` ``[S]`` →
+    ``[S, 1, H, D]``. The kernel's numerics: the scale folded into q in
+    fp32 and rounded once, int8 pages widened as :func:`_dequant_kernel`
+    does, then the masked fp32 online softmax over the table's blocks
     (``attention.paged_decode_attention``'s fold, whose per-page math is
     the TPU kernel's)."""
     return attn_lib.paged_decode_attention(
         _prescale(q, scale), pages, tables, lengths,
-        block_size=block_size, n_rep=n_rep, scale=1.0)
+        block_size=block_size, n_rep=n_rep, scale=1.0,
+        dequant=_dequant_kernel)
 
 
-# per source: (C entry point, pointer args, int args)
-_SIGNATURES = {"paged_decode": ("kubeflow_paged_decode", 6, 7),
-               "paged_chunk": ("kubeflow_paged_chunk", 8, 8)}
+# per entry point: (source, C symbol, pointer args, int args)
+_SIGNATURES = {
+    "paged_decode": ("paged_decode", "kubeflow_paged_decode", 6, 7),
+    "paged_decode_i8": ("paged_decode", "kubeflow_paged_decode_i8", 8, 7),
+    "paged_chunk": ("paged_chunk", "kubeflow_paged_chunk", 8, 8),
+    "paged_chunk_i8": ("paged_chunk", "kubeflow_paged_chunk_i8", 10, 8)}
 
 
 def _entry(name):
-    """The bound C entry point of ``csrc/<name>.cu``, built if stale."""
+    """The bound C entry point ``name``, its source built if stale."""
     fn = _libs.get(name)
     if fn is None:
-        symbol, n_ptr, n_int = _SIGNATURES[name]
-        fn = getattr(_build.load(name), symbol)
+        source, symbol, n_ptr, n_int = _SIGNATURES[name]
+        fn = getattr(_build.load(source), symbol)
         fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int \
             + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
@@ -62,18 +90,41 @@ def _entry(name):
     return fn
 
 
+def _check_int8_pages(kc, vc, ks, vs):
+    if kc.dtype != torch.int8 or vc.dtype != torch.int8:
+        raise TypeError(f"int8 pages: k and v must be int8, got "
+                        f"{kc.dtype} and {vc.dtype}")
+    if ks.dtype != torch.float32 or vs.dtype != torch.float32:
+        raise TypeError(f"int8 pages: the scales must be float32, got "
+                        f"{ks.dtype} and {vs.dtype}")
+    want = tuple(kc.shape[:3]) + (1,)
+    if tuple(ks.shape) != want or tuple(vs.shape) != want:
+        raise ValueError(f"int8 pages: the scales must be {want}, got "
+                         f"{tuple(ks.shape)} and {tuple(vs.shape)}")
+
+
 def _check_pool(q, pages, block_size, n_rep):
-    """Shared checks of the pool reads → ``(kc, vc, kv_heads)``."""
+    """Shared checks of the pool reads → ``(pages, kv_heads)``: a float
+    ``(k, v)`` pair in q's dtype or an int8 ``(k, v, k_scale, v_scale)``
+    quadruple, all contiguous on q's device."""
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
-    if len(pages) != 2:
-        raise NotImplementedError(
-            "int8 pages are not ported yet (float (k, v) pages only)")
-    kc, vc = pages
+    if q.dtype not in _DTYPE_CODES:
+        raise TypeError(f"q must be float32 or bfloat16, got {q.dtype}")
+    if len(pages) not in (2, 4):
+        raise ValueError(f"pages must be a (k, v) pair or a (k, v, "
+                         f"k_scale, v_scale) quadruple, got {len(pages)} "
+                         f"tensors")
+    kc, vc = pages[:2]
     H, D = q.shape[-2:]
     if kc.dim() != 4 or kc.shape != vc.shape:
         raise ValueError(f"pages must be two [N, bs, kv, D] tensors, got "
                          f"{tuple(kc.shape)} and {tuple(vc.shape)}")
+    if len(pages) == 4:
+        _check_int8_pages(*pages)
+    elif kc.dtype != q.dtype or vc.dtype != q.dtype:
+        raise TypeError(f"float pages must be q's dtype {q.dtype}, got "
+                        f"{kc.dtype} and {vc.dtype}")
     N, bs, kv_heads, Dk = kc.shape
     if bs != int(block_size) or Dk != D or kv_heads * n_rep != H:
         raise ValueError(
@@ -83,15 +134,11 @@ def _check_pool(q, pages, block_size, n_rep):
         raise ValueError(f"n_rep {n_rep} outside [1, {MAX_REP}]")
     if D not in _HEAD_DIMS:
         raise ValueError(f"head_dim {D} not in {_HEAD_DIMS}")
-    if q.dtype not in _DTYPE_CODES or kc.dtype != q.dtype \
-            or vc.dtype != q.dtype:
-        raise TypeError(f"dtypes must be one of float32/bfloat16 and "
-                        f"equal, got {q.dtype}, {kc.dtype}, {vc.dtype}")
-    if not (kc.device == vc.device == q.device):
+    if not all(p.device == q.device for p in pages):
         raise ValueError("q and the pool pages must be on one device")
-    if not (kc.is_contiguous() and vc.is_contiguous()):
+    if not all(p.is_contiguous() for p in pages):
         raise ValueError("pool pages must be contiguous")
-    return kc, vc, kv_heads
+    return tuple(pages), kv_heads
 
 
 def paged_decode_attention(q, pages, tables, lengths, *, block_size,
@@ -107,7 +154,7 @@ def paged_decode_attention(q, pages, tables, lengths, *, block_size,
         return paged_decode_reference(q, pages, tables, lengths,
                                       block_size=block_size, n_rep=n_rep,
                                       scale=scale)
-    kc, vc, kv_heads = _check_pool(q, pages, block_size, n_rep)
+    pages, kv_heads = _check_pool(q, pages, block_size, n_rep)
     S, one, H, D = q.shape
     if one != 1:
         raise ValueError(f"q must be [S, 1, H, D], got {tuple(q.shape)}")
@@ -122,38 +169,45 @@ def paged_decode_attention(q, pages, tables, lengths, *, block_size,
     qs = _prescale(q, scale).contiguous()
     tables = tables.to(torch.int32).contiguous()
     lengths = lengths.to(torch.int32).contiguous()
-    _build.check_aligned(qs, kc, vc)
+    # 16-byte words move q and the pages; the scales are read as scalars
+    _build.check_aligned(qs, *pages[:2])
     out = torch.empty_like(qs)
+    name = "paged_decode_i8" if len(pages) == 4 else "paged_decode"
+    ptrs = [t.data_ptr() for t in (qs, *pages, tables, lengths, out)]
     # the launch goes to the runtime's current device: make it q's
     with torch.cuda.device(q.device):
-        err = _entry("paged_decode")(
-            qs.data_ptr(), kc.data_ptr(), vc.data_ptr(), tables.data_ptr(),
-            lengths.data_ptr(), out.data_ptr(), S, kv_heads, n_rep, D,
-            kc.shape[1], tables.shape[1], _DTYPE_CODES[q.dtype],
+        err = _entry(name)(
+            *ptrs, S, kv_heads, n_rep, D, pages[0].shape[1],
+            tables.shape[1], _DTYPE_CODES[q.dtype],
             torch.cuda.current_stream(q.device).cuda_stream)
     if err:
-        raise RuntimeError(f"paged_decode kernel launch failed: CUDA "
-                           f"error {err}")
-    paged_decode_attention.launches += 1
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+    if len(pages) == 4:
+        paged_decode_attention.launches_i8 += 1
+    else:
+        paged_decode_attention.launches += 1
     return out
 
 
 paged_decode_attention.launches = 0
+paged_decode_attention.launches_i8 = 0
 
 
 def paged_chunk_reference(q, pages, tables, prefix_len, k_chunk, v_chunk,
                           *, block_size, n_rep=1, scale=None):
     """Plain version of K2, on any device: q ``[B, S, H, D]``, ``pages``
-    one layer's ``(k, v)`` pool slice ``[N, bs, kv, D]``, ``tables``
-    ``[B, bps]``, ``prefix_len`` an int or ``[B]``, ``k_chunk``/
-    ``v_chunk`` ``[B, S, kv, D]`` → ``[B, S, H, D]``. The kernel's
-    numerics: the scale folded into q in fp32 and rounded once
-    (``paged_attention.py:284``), then ``attention.paged_chunk_attention``
-    (masked fp32 online softmax, p kept in fp32 for p·V, the
-    ``l == 0 → 1`` guard)."""
+    one layer's ``(k, v)`` pool slice ``[N, bs, kv, D]`` or its int8
+    quadruple, ``tables`` ``[B, bps]``, ``prefix_len`` an int or
+    ``[B]``, ``k_chunk``/``v_chunk`` ``[B, S, kv, D]`` in q's dtype →
+    ``[B, S, H, D]``. The kernel's numerics: the scale folded into q in
+    fp32 and rounded once (``paged_attention.py:284``), int8 prefix
+    pages widened as :func:`_dequant_kernel` does, then
+    ``attention.paged_chunk_attention`` (masked fp32 online softmax, p
+    kept in fp32 for p·V, the ``l == 0 → 1`` guard)."""
     return attn_lib.paged_chunk_attention(
         _prescale(q, scale), pages, tables, prefix_len, k_chunk, v_chunk,
-        block_size=block_size, n_rep=n_rep, scale=1.0)
+        block_size=block_size, n_rep=n_rep, scale=1.0,
+        dequant=_dequant_kernel)
 
 
 def paged_chunk_attention(q, pages, tables, prefix_len, k_chunk, v_chunk,
@@ -168,7 +222,7 @@ def paged_chunk_attention(q, pages, tables, prefix_len, k_chunk, v_chunk,
         return paged_chunk_reference(q, pages, tables, prefix_len, k_chunk,
                                      v_chunk, block_size=block_size,
                                      n_rep=n_rep, scale=scale)
-    kc, vc, kv_heads = _check_pool(q, pages, block_size, n_rep)
+    pages, kv_heads = _check_pool(q, pages, block_size, n_rep)
     B, S, H, D = q.shape
     if k_chunk.shape != (B, S, kv_heads, D) \
             or v_chunk.shape != k_chunk.shape:
@@ -194,20 +248,24 @@ def paged_chunk_attention(q, pages, tables, prefix_len, k_chunk, v_chunk,
     v_chunk = v_chunk.contiguous()
     tables = tables.to(torch.int32).contiguous()
     plens = plens.contiguous()
-    _build.check_aligned(qs, kc, vc, k_chunk, v_chunk)
+    _build.check_aligned(qs, *pages[:2], k_chunk, v_chunk)
     out = torch.empty_like(qs)
+    name = "paged_chunk_i8" if len(pages) == 4 else "paged_chunk"
+    ptrs = [t.data_ptr() for t in (qs, *pages, tables, plens, k_chunk,
+                                   v_chunk, out)]
     with torch.cuda.device(q.device):
-        err = _entry("paged_chunk")(
-            qs.data_ptr(), kc.data_ptr(), vc.data_ptr(), tables.data_ptr(),
-            plens.data_ptr(), k_chunk.data_ptr(), v_chunk.data_ptr(),
-            out.data_ptr(), B, S, kv_heads, n_rep, D, kc.shape[1],
+        err = _entry(name)(
+            *ptrs, B, S, kv_heads, n_rep, D, pages[0].shape[1],
             tables.shape[1], _DTYPE_CODES[q.dtype],
             torch.cuda.current_stream(q.device).cuda_stream)
     if err:
-        raise RuntimeError(f"paged_chunk kernel launch failed: CUDA error "
-                           f"{err}")
-    paged_chunk_attention.launches += 1
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+    if len(pages) == 4:
+        paged_chunk_attention.launches_i8 += 1
+    else:
+        paged_chunk_attention.launches += 1
     return out
 
 
 paged_chunk_attention.launches = 0
+paged_chunk_attention.launches_i8 = 0

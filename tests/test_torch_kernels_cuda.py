@@ -10,7 +10,9 @@ inside the fixture, never at import). On a GPU host run
 need not have). Covers what ``chip_smoke.py`` does not: every head_dim
 template, GQA groups 1/2/4, block sizes that do not divide the kernel's
 32-position tile, ragged and causal/full flash shapes, the launch
-counters and the wrappers' refusals; for K2 (the chunk read) its three
+counters and the wrappers' refusals; K1-i8 and K2-i8 (int8 pages with
+fp32 scales) over the same matrices and serving shapes, and the refusal
+of malformed int8 quadruples; for K2 (the chunk read) its three
 serving shapes (a 256-row chunk behind a long prefix, a prefix hit's
 suffix, an 8-slot verify with per-slot prefixes), prefix 0 and a
 ragged last row tile; for K4 and K5 (the flash backward) every head_dim
@@ -40,6 +42,7 @@ of the same size where the gradient itself is rounding noise (S = 1).
 import pytest
 import torch
 
+from kubeflow_tpu_torch.compute import quantize
 from kubeflow_tpu_torch.compute.models import resnet
 from kubeflow_tpu_torch.compute.ops import flash_attention as flash_ops
 from kubeflow_tpu_torch.compute.ops import fused_block as block_ops
@@ -168,6 +171,84 @@ def test_paged_chunk_matrix(dev, dtype, D, n_rep, bs):
                                rtol=0)
 
 
+def _quantized(pages):
+    """A float ``(k, v)`` pool → its int8 quadruple (kv_quantize)."""
+    (kq, ks), (vq, vs) = (quantize.kv_quantize(p) for p in pages)
+    return kq, vq, ks, vs
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [32, 64, 128])
+@pytest.mark.parametrize("n_rep", [1, 2, 4])
+@pytest.mark.parametrize("bs", [8, 16, 12])
+def test_paged_decode_i8_matches_plain(dev, dtype, D, n_rep, bs):
+    """K1-i8: int8 pages (16 codes a load; D 32 leaves half the threads
+    of a tile without a word) with their fp32 scales, widened with the
+    TPU kernel's rounding, against the plain version."""
+    g = torch.Generator().manual_seed(D * 10 + n_rep + 1)
+    S, kv, bps, N = 5, 2, 6, 40
+    kc, vc = (torch.randn((N, bs, kv, D), generator=g).to(dev, dtype)
+              for _ in range(2))
+    pages = _quantized((kc, vc))
+    q = torch.randn((S, 1, kv * n_rep, D), generator=g).to(dev, dtype)
+    tables = torch.randint(0, N, (S, bps), generator=g).to(dev, torch.int32)
+    lengths = torch.tensor([0, 1, bs, 33, bps * bs], dtype=torch.int32,
+                           device=dev)
+    kw = dict(block_size=bs, n_rep=n_rep)
+    fn = paged_ops.paged_decode_attention
+    before = (fn.launches, fn.launches_i8)
+    got = fn(q, pages, tables, lengths, **kw)
+    want = paged_ops.paged_decode_reference(q, pages, tables, lengths, **kw)
+    torch.cuda.synchronize()
+    assert (fn.launches, fn.launches_i8) == (before[0], before[1] + 1)
+    assert got.dtype == dtype and torch.isfinite(got.float()).all()
+    torch.testing.assert_close(got.float(), want.float(), atol=TOL[dtype],
+                               rtol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,prefix", [
+    (1, 256, 768), (1, 256, 0), (1, 40, 512), (1, 13, 32),
+    (8, 5, VERIFY_PREFIX)])
+def test_paged_chunk_i8_matches_plain(dev, dtype, B, S, prefix):
+    """K2-i8 at the serving shapes: int8 prefix pages, the chunk's own
+    K/V in q's dtype (a tile that straddles the prefix's end holds
+    both)."""
+    q, pages, tables, plen, kch, vch = _chunk_case(dev, dtype, B, S, prefix,
+                                                   seed=1)
+    pages = _quantized(pages)
+    kw = dict(block_size=16, n_rep=4)
+    fn = paged_ops.paged_chunk_attention
+    before = (fn.launches, fn.launches_i8)
+    got = fn(q, pages, tables, plen, kch, vch, **kw)
+    want = paged_ops.paged_chunk_reference(q, pages, tables, plen, kch, vch,
+                                           **kw)
+    torch.cuda.synchronize()
+    assert (fn.launches, fn.launches_i8) == (before[0], before[1] + 1)
+    assert torch.isfinite(got.float()).all()
+    torch.testing.assert_close(got.float(), want.float(), atol=TOL[dtype],
+                               rtol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [32, 64, 128])
+@pytest.mark.parametrize("n_rep", [1, 2, 4, 3])
+@pytest.mark.parametrize("bs", [8, 12])
+def test_paged_chunk_i8_matrix(dev, dtype, D, n_rep, bs):
+    q, pages, tables, plen, kch, vch = _chunk_case(
+        dev, dtype, 3, 23, [0, 9, 5 * bs + 3], n_rep=n_rep, D=D, bs=bs,
+        bps=6, seed=D + n_rep + 1)
+    pages = _quantized(pages)
+    kw = dict(block_size=bs, n_rep=n_rep)
+    got = paged_ops.paged_chunk_attention(q, pages, tables, plen, kch, vch,
+                                          **kw)
+    want = paged_ops.paged_chunk_reference(q, pages, tables, plen, kch, vch,
+                                           **kw)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want.float(), atol=TOL[dtype],
+                               rtol=0)
+
+
 def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
     q = torch.zeros((1, 4, 2, 48), device=dev)
     with pytest.raises(ValueError, match="head_dim"):
@@ -176,18 +257,56 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
     with pytest.raises(ValueError, match="Sq == Sk"):
         flash_ops.flash_attention(q, q[:, :2], q[:, :2], causal=True)
     pages = torch.zeros((4, 8, 1, 64), device=dev)
-    with pytest.raises(NotImplementedError, match="int8"):
+    with pytest.raises(ValueError, match="pair or"):
         paged_ops.paged_decode_attention(
-            torch.zeros((1, 1, 2, 64), device=dev), (pages,) * 4,
+            torch.zeros((1, 1, 2, 64), device=dev), (pages,) * 3,
             torch.zeros((1, 2), dtype=torch.int32, device=dev),
             torch.ones((1,), dtype=torch.int32, device=dev),
             block_size=8, n_rep=2)
-    with pytest.raises(NotImplementedError, match="int8"):
+
+
+def _malformed_int8_pools(dev):
+    """(what is wrong, the quadruple) for one [4, 8, 1, 64] pool."""
+    codes = torch.zeros((4, 8, 1, 64), dtype=torch.int8, device=dev)
+    scales = torch.ones((4, 8, 1, 1), device=dev)
+    return [
+        ("scale shape", ValueError, "scales must be",
+         (codes, codes, scales[..., 0], scales)),
+        ("scale per element", ValueError, "scales must be",
+         (codes, codes, scales.expand(4, 8, 1, 64).contiguous(), scales)),
+        ("bf16 scales", TypeError, "float32",
+         (codes, codes, scales, scales.bfloat16())),
+        ("float k, int8 v", TypeError, "int8",
+         (codes.float(), codes, scales, scales)),
+        ("int8 pair", TypeError, "dtype", (codes, codes)),
+        ("float pair with scales", TypeError, "int8",
+         (codes.float(), codes.float(), scales, scales)),
+        ("strided scales", ValueError, "contiguous",
+         (codes, codes, torch.ones((4, 8, 2, 1), device=dev)[:, :, :1],
+          scales))]
+
+
+@pytest.mark.parametrize("case", range(7))
+def test_int8_wrappers_refuse_malformed_quadruples(dev, case):
+    """A malformed int8 pool raises on the card and launches nothing,
+    through both reads."""
+    what, exc, match, pages = _malformed_int8_pools(dev)[case]
+    tables = torch.zeros((1, 2), dtype=torch.int32, device=dev)
+    before = [(fn.launches, fn.launches_i8) for fn in (
+        paged_ops.paged_decode_attention, paged_ops.paged_chunk_attention)]
+    with pytest.raises(exc, match=match):
+        paged_ops.paged_decode_attention(
+            torch.zeros((1, 1, 2, 64), device=dev), pages, tables,
+            torch.ones((1,), dtype=torch.int32, device=dev),
+            block_size=8, n_rep=2)
+    with pytest.raises(exc, match=match):
         paged_ops.paged_chunk_attention(
-            torch.zeros((1, 3, 2, 64), device=dev), (pages,) * 4,
-            torch.zeros((1, 2), dtype=torch.int32, device=dev), 0,
+            torch.zeros((1, 3, 2, 64), device=dev), pages, tables, 0,
             torch.zeros((1, 3, 1, 64), device=dev),
             torch.zeros((1, 3, 1, 64), device=dev), block_size=8, n_rep=2)
+    assert [(fn.launches, fn.launches_i8) for fn in (
+        paged_ops.paged_decode_attention,
+        paged_ops.paged_chunk_attention)] == before, what
 
 
 def _bwd_case(dev, dtype, B, S, H, kv, D, causal, seed):
