@@ -150,6 +150,7 @@ import dataclasses
 import functools
 import itertools
 import json
+import re
 import statistics
 import sys
 import time
@@ -219,14 +220,67 @@ def phase_device():
     return info
 
 
+def ptxas_entries(log):
+    """``nvcc -Xptxas -v`` output → ``{kernel: {"registers", "spill_stores",
+    "spill_loads", "lines"}}``, the kernel named as ``name<args>`` from
+    its mangled symbol (``float``/``bf16``, head_dim)."""
+    entries, name = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", ln)
+        if m:
+            name = _demangle(m.group(1))
+            entries[name] = {"registers": None, "spill_stores": None,
+                             "spill_loads": None, "lines": []}
+            continue
+        if name is None or not ("registers" in ln or "spill" in ln):
+            continue
+        e = entries[name]
+        e["lines"].append(ln.strip())
+        if m := re.search(r"Used (\d+) registers", ln):
+            e["registers"] = int(m.group(1))
+        if m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", ln):
+            e["spill_stores"], e["spill_loads"] = map(int, m.groups())
+    return entries
+
+
+def _demangle(symbol):
+    """``_ZN<len><namespace><len><name>I<args>E...`` → ``name<args>``
+    (``float``/``bf16``/``int8`` and integers); any other symbol as it
+    is."""
+    parts, rest = [], symbol[3:] if symbol.startswith("_ZN") else ""
+    while m := re.match(r"(\d+)", rest):
+        n = int(m.group(1))
+        parts.append(rest[m.end():m.end() + n])
+        rest = rest[m.end() + n:]
+    if not parts:
+        return symbol
+    if not rest.startswith("I"):
+        return parts[-1]
+    args, rest = [], rest[1:]
+    tokens = ((r"Li(\d+)E", None), (r"13__nv_bfloat16", "bf16"),
+              (r"a", "int8"), (r"f", "float"))
+    while rest and not rest.startswith("E"):
+        for pattern, shown in tokens:
+            if t := re.match(pattern, rest):
+                args.append(shown or t.group(1))
+                rest = rest[t.end():]
+                break
+        else:
+            return symbol      # an argument kind not listed: keep it whole
+    return f"{parts[-1]}<{', '.join(args)}>"
+
+
 def phase_build():
+    """Build every kernel; the row lists each kernel's registers and
+    spills a thread as ptxas reported them (``name<args>: lines``)."""
     from kubeflow_tpu_torch.compute.ops import _build
     seconds = _build.build()
     report = {}
     for name in _build.SOURCES:
-        log = _build.ptxas_report(name) or ""
-        report[name] = [ln.strip() for ln in log.splitlines()
-                        if "registers" in ln or "spill" in ln]
+        entries = ptxas_entries(_build.ptxas_report(name) or "")
+        report[name] = [f"{k}: {' | '.join(e['lines'])}"
+                        for k, e in entries.items()]
         _build.load(name)
     emit({"phase": "build", "seconds": seconds, "ptxas": report})
     return seconds
@@ -360,7 +414,8 @@ def check_flash(dtype_name, S, flush, B=1, kv=2, H=8, D=128, causal=True):
                      "head_dim": D, "causal": causal},
            "max_abs_err": err, "tol": TOL[dtype_name], "ok": ok,
            "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-           "bound_ms": bound_ms, "bound_by": bound_by}
+           "bound_ms": bound_ms, "bound_by": bound_by,
+           "tflops": flops / ms / 1e9}
     emit(row)
     return row
 
@@ -424,8 +479,8 @@ def check_flash_bwd(dtype_name, flush, shape=TRAIN_ATTN):
              3 * q_bytes + 2 * kv_bytes + stats),       # q, dO, dq; k, v
             ("flash_bwd_dkv", dkv_ms, ("dk", "dv"), 4,
              2 * q_bytes + 4 * kv_bytes + stats)):      # q, dO; k, v, dk, dv
-        bound_ms, bound_by = bound(bytes_moved, 2 * n_products * D * pairs,
-                                   dtype_name)
+        flops = 2 * n_products * D * pairs
+        bound_ms, bound_by = bound(bytes_moved, flops, dtype_name)
         err = max(errs[o]["rel"] for o in outs)
         ok = all(errs[o]["finite"] for o in outs) and err <= TOL[dtype_name]
         row = {"phase": "kernels", "kernel": name, "dtype": dtype_name,
@@ -437,7 +492,8 @@ def check_flash_bwd(dtype_name, flush, shape=TRAIN_ATTN):
                "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
                "plain_covers": "dq+dk+dv", "library_covers": "dq+dk+dv",
                "k4_plus_k5_ms": dq_ms + dkv_ms,
-               "bound_ms": bound_ms, "bound_by": bound_by}
+               "bound_ms": bound_ms, "bound_by": bound_by,
+               "tflops": flops / ms / 1e9}
         emit(row)
         rows.append(row)
     return rows
@@ -2191,16 +2247,18 @@ def main():
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"], "dtype": r["dtype"],
             "shape": r["shape"]}
+        flash_keys = timing_keys + ("tflops",)
         if name == "flash_fwd":      # also at the train step's shape
             t = next(x for x in rows if x["kernel"] == name
                      and bf16(x) and attn_at(x, TRAIN_ATTN))
-            entry["at_train_shape"] = {k: t[k] for k in timing_keys}
+            entry["at_train_shape"] = {k: t[k] for k in flash_keys}
         if name.startswith("flash"):  # at the MoE step's (MHA), BERT's
+            entry["tflops"] = r["tflops"]
             for key, shape in (("at_moe_shape", MOE_ATTN),
                                ("at_bert_shape", BERT_ATTN)):
                 t = next(x for x in rows if x["kernel"] == name
                          and bf16(x) and attn_at(x, shape))
-                entry[key] = {k: t[k] for k in timing_keys}
+                entry[key] = {k: t[k] for k in flash_keys}
         if name == "fused_block":     # every ResNet-50 stage
             entry["library"] = r["library"]
             entry["stages"] = {

@@ -31,25 +31,43 @@
 // ~117 MB of bytes take 0.035 ms. K5 does 4 (s, dp, dv, dk) — 68.8 GFLOP,
 // 0.070 ms.
 //
-// Design, right and simple first: every product on the CUDA cores in
-// fp32 (exact products of bf16 operands, fp32 sums), tiles in shared
-// memory as fp32 rows padded by one word against bank conflicts; the
-// whole path is therefore far from the tensor-core roof. Warpgroup MMA
-// (wgmma) on bf16 tiles fed by TMA is the later change.
-// K4: one block per (64-row query tile, b x h), as K3: K/V tiles of 32
+// K4 (both dtypes) and K5 in fp32: every product on the CUDA cores in
+// fp32 (exact products, fp32 sums; the port runs with TF32 off and the
+// fp32 tolerance of 1e-4 needs them), tiles in shared memory as fp32
+// rows padded by one word against bank conflicts. Bound by the issue of
+// shared-memory loads (two for every two FMAs), far from the tensor
+// cores; K4 in bf16 moves onto them next, on mma.cuh as K5 does.
+//   K4: one block per (64-row query tile, b x h), as K3: K/V tiles of 32
 //   keys stream through shared memory up to the query tile's causal
 //   limit (tiles past it are never loaded); each thread holds a 4 x 4
 //   tile of s and dp and a 4 x D/8 slice of the dq accumulator.
-// K5: one block per (64-row key tile, b x kv head). K/V stay in shared
-//   memory while the block walks the n_rep heads of its group and, for
-//   each, the 32-row query tiles from the one holding its first key to
-//   the end (causal); dK and dV (4 x D/16 each per thread) accumulate in
-//   registers across all of them and are rounded once. At the train
-//   step's shape that is 512 blocks; at B = 1, 32 blocks on 132 SMs —
-//   an under-fill left for later, as is the causal imbalance (the first
-//   key tile walks 32 query tiles per head, the last 2).
+//   K5 (fp32): one block per (64-row key tile, b x kv head). K/V stay in
+//   shared memory while the block walks the n_rep heads of its group
+//   and, for each, the 32-row query tiles from the one holding its first
+//   key to the end (causal); dK and dV (4 x D/16 each per thread)
+//   accumulate in registers across all of them and are rounded once.
+// K5 in bf16 (flash_bwd_dkv_tc_kernel) — the FlashAttention-2 backward,
+//   computed transposed on the tensor cores (mma.sync m16n8k16, bf16
+//   operands, fp32 accumulators; mma.cuh). The same grid — one block
+//   per (64-key tile, b x kv head), the key tiles with the longest
+//   causal walk first — of 4 warps, each owning 16 keys. K and V stay in
+//   bf16 shared memory; the q and dO tiles of the walk (32 rows at D
+//   128, 64 below) and their lse/delta come in by cp.async, double-
+//   buffered, and one pass over the q tile makes qs = round(q * scale).
+//   Per tile and warp: S^T = K qs^T, P^T = exp(S^T - lse) (0 where
+//   masked), dV += round(P^T) dO, dP^T = V dO^T, dS^T = round(P^T (dP^T
+//   - delta)), dK += dS^T q; P^T and dS^T go from the accumulators into
+//   A fragments in registers, dO and q enter the last two products
+//   through ldmatrix.trans. dK and dV stay in fp32 registers across all
+//   heads and tiles (2 x 16 x D / 32 a thread) and are rounded once.
+//   Bound now by the issue of mma.sync and ldmatrix (every warp reads
+//   the whole q/dO tile four times), and at B = 1 by the fill: 32
+//   blocks for 132 SMs.
+
+#include <type_traits>
 
 #include "common.cuh"
+#include "mma.cuh"
 
 namespace {
 
@@ -431,6 +449,243 @@ flash_bwd_dkv_kernel(const T* __restrict__ q,      // [B, S, H, D], raw
   }
 }
 
+// ------------------------------------------------ K5, bf16, tensor cores
+
+using bf16 = __nv_bfloat16;
+
+constexpr int kTcThreads = 128;   // 4 warps x 16 keys
+constexpr int kTcBk = 64;         // keys per block
+constexpr float kLog2e = 1.4426950408889634f;
+
+// query rows per walked tile: 32 at D 128 keeps the dK/dV accumulators
+// (2 x 16 x D / 32 fp32 a thread) and the two 16 x Bq score tiles in
+// registers; 64 where D is smaller
+template <int D>
+__host__ __device__ constexpr int tc_bq() { return D == 128 ? 32 : 64; }
+
+template <int D>
+__host__ __device__ constexpr int tc_stride() {   // bf16 elements a row
+  return D + 8;
+}
+
+template <int D>
+constexpr size_t dkv_tc_smem_bytes() {
+  // K, V; q and dO in 2 stages; qs; lse and delta in 2 stages
+  return static_cast<size_t>(2 * kTcBk + 5 * tc_bq<D>()) * tc_stride<D>() *
+             sizeof(bf16) +
+         4 * static_cast<size_t>(tc_bq<D>()) * sizeof(float);
+}
+
+template <int D>
+__global__ void __launch_bounds__(kTcThreads)
+flash_bwd_dkv_tc_kernel(const bf16* __restrict__ q,      // [B, S, H, D], raw
+                        const bf16* __restrict__ k,      // [B, Sk, kv_heads, D]
+                        const bf16* __restrict__ v,      // [B, Sk, kv_heads, D]
+                        const bf16* __restrict__ dout,   // [B, S, H, D]
+                        const float* __restrict__ lse,    // [B, H, S]
+                        const float* __restrict__ delta,  // [B, H, S]
+                        bf16* __restrict__ dk,           // [B, Sk, kv_heads, D]
+                        bf16* __restrict__ dv,           // [B, Sk, kv_heads, D]
+                        int B, int S, int Sk, int H, int kv_heads,
+                        int causal, float scale) {
+  constexpr int kBq = tc_bq<D>();
+  constexpr int kStride = tc_stride<D>();
+  constexpr int kChunks = D / 8;    // 16-byte chunks a row
+  constexpr int kKs = D / 16;       // k-slices of K.qs^T and V.dO^T
+  constexpr int kNb = kBq / 8;      // n-blocks of S^T and dP^T
+  constexpr int kDb = D / 8;        // n-blocks of dK and dV
+
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* k_s = reinterpret_cast<bf16*>(smem_raw);   // [kTcBk][kStride]
+  bf16* v_s = k_s + kTcBk * kStride;               // [kTcBk][kStride]
+  bf16* q_s = v_s + kTcBk * kStride;               // [2][kBq][kStride], raw
+  bf16* do_s = q_s + 2 * kBq * kStride;            // [2][kBq][kStride]
+  bf16* qs_s = do_s + 2 * kBq * kStride;           // [kBq][kStride], scaled
+  float* lse_s = reinterpret_cast<float*>(qs_s + kBq * kStride);  // [2][kBq]
+  float* delta_s = lse_s + 2 * kBq;                               // [2][kBq]
+
+  // the key tiles with the most query tiles (causal: the first) first
+  const int BK = B * kv_heads;
+  const int k0 = static_cast<int>(blockIdx.x) / BK * kTcBk;
+  const int bk = static_cast<int>(blockIdx.x) % BK;
+  const int b = bk / kv_heads;
+  const int kvh = bk % kv_heads;
+  const int n_rep = H / kv_heads;
+  const int tid = threadIdx.x;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const int g = lane / 4;   // accumulator rows (keys) g and g + 8
+  const int t = lane % 4;   // accumulator columns 2t, 2t + 1
+
+  for (int c = tid; c < kTcBk * kChunks; c += kTcThreads) {
+    const int r = c / kChunks;
+    const int col = (c % kChunks) * 8;
+    const int s = k0 + r;
+    const size_t off =
+        ((static_cast<size_t>(b) * Sk + min(s, Sk - 1)) * kv_heads + kvh) * D +
+        col;
+    cp_async16(smem_u32(k_s + r * kStride + col), k + off, s < Sk);
+    cp_async16(smem_u32(v_s + r * kStride + col), v + off, s < Sk);
+  }
+
+  // the walk: the group's n_rep heads, each over its query tiles from
+  // the one holding the block's first key (causal) to the end
+  const int q_begin = causal ? k0 / kBq * kBq : 0;
+  const int n_qt = (S - q_begin + kBq - 1) / kBq;
+  const int n_steps = n_rep * n_qt;
+  auto load_q = [&](int step, int stage) {
+    const int h = kvh * n_rep + step / n_qt;
+    const int q0 = q_begin + step % n_qt * kBq;
+    bf16* qd = q_s + stage * kBq * kStride;
+    bf16* gd = do_s + stage * kBq * kStride;
+    for (int c = tid; c < kBq * kChunks; c += kTcThreads) {
+      const int r = c / kChunks;
+      const int col = (c % kChunks) * 8;
+      const int s = q0 + r;
+      const size_t off =
+          ((static_cast<size_t>(b) * S + min(s, S - 1)) * H + h) * D + col;
+      cp_async16(smem_u32(qd + r * kStride + col), q + off, s < S);
+      cp_async16(smem_u32(gd + r * kStride + col), dout + off, s < S);
+    }
+    if (tid < kBq) {
+      const int s = q0 + tid;
+      const size_t off = (static_cast<size_t>(b) * H + h) * S + min(s, S - 1);
+      cp_async4(smem_u32(lse_s + stage * kBq + tid), lse + off, s < S);
+      cp_async4(smem_u32(delta_s + stage * kBq + tid), delta + off, s < S);
+    }
+  };
+  load_q(0, 0);        // S >= 1 (the entry returns at S == 0): a step
+  cp_async_commit();   // group 0: K, V and the first q / dO tile
+
+  // ldmatrix row addresses of this lane (see mma.cuh): A from K/V rows;
+  // B (non-transposed) from qs / dO rows; B (transposed) from dO / q rows
+  const int a_off = (warp * 16 + lane % 16) * kStride + (lane / 16) * 8;
+  const int nb_off = ((lane % 8) + (lane / 16) * 8) * kStride +
+                     ((lane / 8) % 2) * 8;
+  const int tb_off = ((lane % 8) + ((lane / 8) % 2) * 8) * kStride +
+                     (lane / 16) * 8;
+  const int key0 = k0 + warp * 16 + g;   // this lane's keys: key0, key0 + 8
+
+  float dk_acc[kDb][4], dv_acc[kDb][4];
+#pragma unroll
+  for (int j = 0; j < kDb; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) dk_acc[j][i] = dv_acc[j][i] = 0.f;
+
+  for (int step = 0; step < n_steps; ++step) {
+    const int stage = step % 2;
+    const int q0 = q_begin + step % n_qt * kBq;
+    // tile `step` has landed for every thread, and every warp is done
+    // with step - 1: its q/dO buffer and qs may be rewritten
+    cp_async_wait<0>();
+    __syncthreads();
+    if (step + 1 < n_steps) {
+      load_q(step + 1, stage ^ 1);
+      cp_async_commit();
+    }
+    const bf16* qst = q_s + stage * kBq * kStride;
+    const bf16* dost = do_s + stage * kBq * kStride;
+    const float* lse_t = lse_s + stage * kBq;
+    const float* delta_t = delta_s + stage * kBq;
+
+    // qs = q * scale in fp32, rounded once to bf16: the forward's q
+    for (int c = tid; c < kBq * kChunks; c += kTcThreads) {
+      const int off = c / kChunks * kStride + (c % kChunks) * 8;
+      uint4 w = *reinterpret_cast<const uint4*>(qst + off);
+      __nv_bfloat162* x = reinterpret_cast<__nv_bfloat162*>(&w);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float2 f = __bfloat1622float2(x[i]);
+        x[i] = __floats2bfloat162_rn(f.x * scale, f.y * scale);
+      }
+      *reinterpret_cast<uint4*>(qs_s + off) = w;
+    }
+    __syncthreads();
+
+    // S^T = K qs^T and dP^T = V dO^T: 16 keys x kBq queries a warp
+    float st[kNb][4], dpt[kNb][4];
+#pragma unroll
+    for (int j = 0; j < kNb; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) st[j][i] = dpt[j][i] = 0.f;
+#pragma unroll
+    for (int ks = 0; ks < kKs; ++ks) {
+      uint32_t ka[4], va[4];
+      ldmatrix_x4(ka, smem_u32(k_s + a_off + ks * 16));
+      ldmatrix_x4(va, smem_u32(v_s + a_off + ks * 16));
+#pragma unroll
+      for (int nb = 0; nb < kNb / 2; ++nb) {
+        uint32_t qb[4], gb[4];
+        ldmatrix_x4(qb, smem_u32(qs_s + nb * 16 * kStride + nb_off + ks * 16));
+        ldmatrix_x4(gb, smem_u32(dost + nb * 16 * kStride + nb_off + ks * 16));
+        mma_bf16(st[2 * nb], ka, qb[0], qb[1]);
+        mma_bf16(st[2 * nb + 1], ka, qb[2], qb[3]);
+        mma_bf16(dpt[2 * nb], va, gb[0], gb[1]);
+        mma_bf16(dpt[2 * nb + 1], va, gb[2], gb[3]);
+      }
+    }
+
+    // P^T = exp(S^T - lse), 0 where masked; dS^T = P^T (dP^T - delta)
+#pragma unroll
+    for (int j = 0; j < kNb; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = j * 8 + 2 * t + e;
+        const int qpos = q0 + col;
+        const float lse_q = lse_t[col];
+        const float delta_q = delta_t[col];
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int i = half * 2 + e;
+          const int kpos = key0 + half * 8;
+          const bool valid =
+              qpos < S && kpos < Sk && (!causal || kpos <= qpos);
+          const float p =
+              valid ? exp2f((st[j][i] - lse_q) * kLog2e) : 0.f;
+          dpt[j][i] = p * (dpt[j][i] - delta_q);
+          st[j][i] = p;
+        }
+      }
+
+    // dV += round(P^T) dO and dK += round(dS^T) q, the A fragments
+    // straight from the accumulators
+#pragma unroll
+    for (int kk = 0; kk < kNb / 2; ++kk) {
+      uint32_t pa[4], sa[4];
+      pack_a(pa, st[2 * kk], st[2 * kk + 1]);
+      pack_a(sa, dpt[2 * kk], dpt[2 * kk + 1]);
+#pragma unroll
+      for (int db = 0; db < kDb / 2; ++db) {
+        uint32_t gb[4], qb[4];
+        const int off = kk * 16 * kStride + tb_off + db * 16;
+        ldmatrix_x4_trans(gb, smem_u32(dost + off));
+        ldmatrix_x4_trans(qb, smem_u32(qst + off));
+        mma_bf16(dv_acc[2 * db], pa, gb[0], gb[1]);
+        mma_bf16(dv_acc[2 * db + 1], pa, gb[2], gb[3]);
+        mma_bf16(dk_acc[2 * db], sa, qb[0], qb[1]);
+        mma_bf16(dk_acc[2 * db + 1], sa, qb[2], qb[3]);
+      }
+    }
+  }
+
+  // one rounding each, deterministic: this block owns these rows
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int kpos = key0 + half * 8;
+    if (kpos >= Sk) continue;
+    const size_t base =
+        ((static_cast<size_t>(b) * Sk + kpos) * kv_heads + kvh) * D + 2 * t;
+#pragma unroll
+    for (int j = 0; j < kDb; ++j) {
+      *reinterpret_cast<__nv_bfloat162*>(dk + base + j * 8) =
+          __floats2bfloat162_rn(scale * dk_acc[j][2 * half],
+                                scale * dk_acc[j][2 * half + 1]);
+      *reinterpret_cast<__nv_bfloat162*>(dv + base + j * 8) =
+          __floats2bfloat162_rn(dv_acc[j][2 * half], dv_acc[j][2 * half + 1]);
+    }
+  }
+}
+
 // ------------------------------------------------------------ launches
 
 struct Args {
@@ -490,15 +745,41 @@ int launch_dkv(const Args& a) {
   return static_cast<int>(cudaGetLastError());
 }
 
+template <int D>
+int launch_dkv_tc(const Args& a) {
+  const size_t smem = dkv_tc_smem_bytes<D>();
+  static bool attribute_set = false;
+  if (int err = set_smem(flash_bwd_dkv_tc_kernel<D>, smem, &attribute_set))
+    return err;
+  const int blocks = (a.Sk + kTcBk - 1) / kTcBk * a.B * a.kv_heads;
+  flash_bwd_dkv_tc_kernel<D><<<blocks, kTcThreads, smem, a.stream>>>(
+      static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
+      static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.dout),
+      static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
+      static_cast<bf16*>(a.out0), static_cast<bf16*>(a.out1), a.B, a.S, a.Sk,
+      a.H, a.kv_heads, a.causal, a.scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K5: fp32 on the CUDA cores, bf16 on the tensor cores
+template <typename T, int D>
+int launch_k5(const Args& a) {
+  if constexpr (std::is_same_v<T, float>) {
+    return launch_dkv<float, D>(a);
+  } else {
+    return launch_dkv_tc<D>(a);
+  }
+}
+
 template <bool kDq, typename T>
 int dispatch_dim(int head_dim, const Args& a) {
   switch (head_dim) {
     case 32:
-      return kDq ? launch_dq<T, 32>(a) : launch_dkv<T, 32>(a);
+      return kDq ? launch_dq<T, 32>(a) : launch_k5<T, 32>(a);
     case 64:
-      return kDq ? launch_dq<T, 64>(a) : launch_dkv<T, 64>(a);
+      return kDq ? launch_dq<T, 64>(a) : launch_k5<T, 64>(a);
     case 128:
-      return kDq ? launch_dq<T, 128>(a) : launch_dkv<T, 128>(a);
+      return kDq ? launch_dq<T, 128>(a) : launch_k5<T, 128>(a);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

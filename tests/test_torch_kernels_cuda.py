@@ -32,7 +32,13 @@ a small batch, planes narrower than a 16-row fragment and odd ones,
 widths with C other than 4 M, every band height from one row to the
 whole image (the halo rows, the last ragged band), randomised BN, the
 unfused ``resnet._block`` as a second reference, the launch counter and
-the refusals. Tolerances: fp32
+the refusals; for the bf16 K3 and K5, which run on the tensor cores
+(``mma.sync``) while fp32 stays on the CUDA cores, head_dim 32/64/128 x
+GQA groups 1/2/4/8 x causal, full and full with Sk != S x S in {1, 7,
+63, 64, 65, 300, 1000} (one tile, ragged tiles on either side of the
+64-row tile), the train, MoE and BERT step shapes, K5 bit-identical on
+two calls, and the bf16 autograd path (one launch each of K3, K4, K5)
+against the plain backward. Tolerances: fp32
 1e-4, bf16 2e-2 (the kernels sum in another order than the plain
 versions; bf16 outputs may round one unit apart); the backward's
 relative to the plain gradient's max |value|, with an absolute floor
@@ -403,6 +409,126 @@ def test_flash_autograd_launches_k3_k4_k5(dev):
         c + 1 for c in counts]
     for x, y in zip(a, b):
         _assert_rel(x.grad, y.grad, 1e-4)
+
+
+BF16_SEQS = (1, 7, 63, 64, 65, 300, 1000)
+
+
+def _attn_case(dev, B, S, Sk, H, kv, D, seed, dtype=torch.bfloat16):
+    g = torch.Generator().manual_seed(seed)
+    q, do = (torch.randn((B, S, H, D), generator=g).to(dev, dtype)
+             for _ in range(2))
+    k, v = (torch.randn((B, Sk, kv, D), generator=g).to(dev, dtype)
+            for _ in range(2))
+    return q, k, v, do
+
+
+def _seq_k(S, mask):
+    """Sk for a mask case: S, or (``full_sk``) another length."""
+    return S * 2 // 3 + 9 if mask == "full_sk" else S
+
+
+@pytest.mark.parametrize("D", [32, 64, 128])
+@pytest.mark.parametrize("n_rep", [1, 2, 4, 8])
+@pytest.mark.parametrize("mask", ["causal", "full", "full_sk"])
+@pytest.mark.parametrize("S", BF16_SEQS)
+def test_flash_fwd_bf16_tensor_cores_match_plain(dev, D, n_rep, mask, S):
+    causal = mask == "causal"
+    q, k, v, _ = _attn_case(dev, 2, S, _seq_k(S, mask), 2 * n_rep, 2, D,
+                            S * 5 + D + n_rep)
+    before = flash_ops.flash_attention.launches
+    out, lse = flash_ops.flash_attention(q, k, v, causal=causal)
+    want, want_lse = flash_ops.flash_attention_reference(q, k, v,
+                                                         causal=causal)
+    torch.cuda.synchronize()
+    assert flash_ops.flash_attention.launches == before + 1
+    assert out.dtype == torch.bfloat16 and torch.isfinite(out.float()).all()
+    torch.testing.assert_close(out.float(), want.float(),
+                               atol=TOL[torch.bfloat16], rtol=0)
+    torch.testing.assert_close(lse, want_lse, atol=1e-4, rtol=1e-5)
+
+
+@pytest.mark.parametrize("D", [32, 64, 128])
+@pytest.mark.parametrize("n_rep", [1, 2, 4, 8])
+@pytest.mark.parametrize("mask", ["causal", "full", "full_sk"])
+@pytest.mark.parametrize("S", BF16_SEQS)
+def test_flash_dkv_bf16_tensor_cores_match_plain(dev, D, n_rep, mask, S):
+    causal = mask == "causal"
+    q, k, v, do = _attn_case(dev, 2, S, _seq_k(S, mask), 2 * n_rep, 2, D,
+                             S * 3 + D + n_rep)
+    out, lse = flash_ops.flash_attention_reference(q, k, v, causal=causal)
+    delta = flash_ops.attention_delta(out, do)
+    before = flash_ops.flash_attention_bwd_dkv.launches
+    dk, dv = flash_ops.flash_attention_bwd_dkv(q, k, v, do, lse, delta,
+                                               causal)
+    _, want_dk, want_dv = flash_ops._bwd_reference(q, k, v, do, lse, delta,
+                                                   causal, None)
+    torch.cuda.synchronize()
+    assert flash_ops.flash_attention_bwd_dkv.launches == before + 1
+    for got, ref in ((dk, want_dk), (dv, want_dv)):
+        assert got.dtype == torch.bfloat16
+        assert torch.isfinite(got.float()).all()
+        _assert_rel(got, ref, TOL[torch.bfloat16])
+
+
+STEP_ATTN = {"train": (16, 1024, 8, 2, 128, True),
+             "moe": (8, 1024, 8, 8, 128, True),
+             "bert": (16, 512, 12, 12, 64, False)}
+
+
+@pytest.mark.parametrize("step", sorted(STEP_ATTN))
+def test_flash_bf16_tensor_cores_at_the_step_shapes(dev, step):
+    """K3 and K5 in bf16 at the train, MoE and BERT steps' shapes."""
+    B, S, H, kv, D, causal = STEP_ATTN[step]
+    q, k, v, do = _attn_case(dev, B, S, S, H, kv, D, 21)
+    out, lse = flash_ops.flash_attention(q, k, v, causal=causal)
+    want, want_lse = flash_ops.flash_attention_reference(q, k, v,
+                                                         causal=causal)
+    delta = flash_ops.attention_delta(want, do)
+    dk, dv = flash_ops.flash_attention_bwd_dkv(q, k, v, do, want_lse, delta,
+                                               causal)
+    _, want_dk, want_dv = flash_ops._bwd_reference(
+        q, k, v, do, want_lse, delta, causal, None)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out.float(), want.float(),
+                               atol=TOL[torch.bfloat16], rtol=0)
+    torch.testing.assert_close(lse, want_lse, atol=1e-4, rtol=1e-5)
+    _assert_rel(dk, want_dk, TOL[torch.bfloat16])
+    _assert_rel(dv, want_dv, TOL[torch.bfloat16])
+
+
+def test_flash_dkv_bf16_is_deterministic(dev):
+    """No atomics: two calls give the same bits."""
+    q, k, v, do = _attn_case(dev, 16, 1024, 1024, 8, 2, 128, 4)
+    out, lse = flash_ops.flash_attention(q, k, v)
+    delta = flash_ops.attention_delta(out, do)
+    first = flash_ops.flash_attention_bwd_dkv(q, k, v, do, lse, delta)
+    second = flash_ops.flash_attention_bwd_dkv(q, k, v, do, lse, delta)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+def test_flash_autograd_bf16_launches_k3_k4_k5(dev):
+    """The bf16 autograd path: one launch each of K3 (tensor cores), K4
+    and K5 (tensor cores), gradients as the plain backward's."""
+    q, k, v, do = _attn_case(dev, 2, 200, 200, 8, 2, 128, 13)
+    x = [t.clone().requires_grad_() for t in (q, k, v)]
+    counts = [fn.launches for fn in (flash_ops.flash_attention,
+                                     flash_ops.flash_attention_bwd_dq,
+                                     flash_ops.flash_attention_bwd_dkv)]
+    out, lse = flash_ops.flash_attention(*x, causal=True)
+    out.backward(do)
+    want = flash_ops.flash_attention_bwd_reference(
+        q, k, v, out.detach(), lse, do, causal=True)
+    torch.cuda.synchronize()
+    assert [fn.launches for fn in (flash_ops.flash_attention,
+                                   flash_ops.flash_attention_bwd_dq,
+                                   flash_ops.flash_attention_bwd_dkv)] == [
+        c + 1 for c in counts]
+    for t, ref in zip(x, want):
+        assert t.grad.dtype == torch.bfloat16
+        _assert_rel(t.grad, ref, TOL[torch.bfloat16])
 
 
 def test_flash_bwd_refuses_what_the_kernels_do_not_take(dev):

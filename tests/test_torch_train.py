@@ -475,6 +475,10 @@ def test_profiler_refuses_nesting_and_stops_on_a_crash(tmp_path):
     for name, group in (
             ("void (anonymous namespace)::flash_bwd_dkv_kernel<float, 64>",
              "K5 flash_bwd_dkv"),
+            ("void (anonymous namespace)::flash_bwd_dkv_tc_kernel<128>",
+             "K5 flash_bwd_dkv"),
+            ("void (anonymous namespace)::flash_fwd_tc_kernel<64>",
+             "K3 flash_fwd"),
             ("void (anonymous namespace)::paged_decode_kernel<float>",
              "K1 paged_decode"),
             ("sm80_xmma_gemm_f32f32_f32f32_f32_tn_n", "matmul"),
