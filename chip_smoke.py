@@ -9,7 +9,9 @@ if any phase fails:
    ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader``
    gives them, and the torch and CUDA versions;
 2. build — compiles every hand-written kernel from ``csrc/`` (one
-   ``nvcc`` per source, all at once) into ``build/``;
+   ``nvcc`` per source, all at once) into ``build/``; the row lists
+   every kernel's registers and spills as ptxas printed them (the
+   tensor-core K3/K4/K5 and the wgmma K7 beside the CUDA-core ones);
 3. kernels — each kernel against its plain PyTorch version on the card
    at the serving path's shapes, fp32 (tolerance 1e-4) and bf16 (2e-2),
    with its time, the plain version's time, one PyTorch library call's
@@ -122,7 +124,10 @@ Kernel phase, MoE: K6 at the MoE step's four call sites (gate|up
 ``[17408, 1024] x [8, 1024, 5632]``, down ``[17408, 2816] x [8, 2816,
 1024]`` and their dx with the weights read transposed) and K7 at both dw
 sites, routing from a seeded uniform draw, fp32 and bf16, within 1e-4 /
-2e-2 of the plain version's max |value|. The yardstick is one
+2e-2 of the plain version's max |value|; and K7 in bf16 once more at dw
+gate|up under a skewed routing (expert 0 takes half the rows), held to
+the same tolerance, a side row kept out of the ``kernels`` line. The
+yardstick is one
 ``torch._grouped_mm`` call with the layout's group offsets where the
 card's torch takes the dtype, else a dense ``torch.matmul`` of the same
 FLOPs; each row names which.
@@ -246,8 +251,8 @@ def ptxas_entries(log):
 
 def _demangle(symbol):
     """``_ZN<len><namespace><len><name>I<args>E...`` → ``name<args>``
-    (``float``/``bf16``/``int8`` and integers); any other symbol as it
-    is."""
+    (``float``/``bf16``/``int8``, integers and booleans); any other
+    symbol as it is."""
     parts, rest = [], symbol[3:] if symbol.startswith("_ZN") else ""
     while m := re.match(r"(\d+)", rest):
         n = int(m.group(1))
@@ -258,8 +263,8 @@ def _demangle(symbol):
     if not rest.startswith("I"):
         return parts[-1]
     args, rest = [], rest[1:]
-    tokens = ((r"Li(\d+)E", None), (r"13__nv_bfloat16", "bf16"),
-              (r"a", "int8"), (r"f", "float"))
+    tokens = ((r"Li(\d+)E", None), (r"Lb0E", "false"), (r"Lb1E", "true"),
+              (r"13__nv_bfloat16", "bf16"), (r"a", "int8"), (r"f", "float"))
     while rest and not rest.startswith("E"):
         for pattern, shown in tokens:
             if t := re.match(pattern, rest):
@@ -589,15 +594,21 @@ GMM_CASES = (("gate_up", 1024, 2 * 2816, False), ("down", 2816, 1024, False),
 DW_CASES = (("dw_gate_up", 1024, 2 * 2816), ("dw_down", 2816, 1024))
 
 
-def moe_layout(seed=0):
+def moe_layout(seed=0, skewed=False):
     """The MoE step's routing (8 x 1024 tokens, top-2 of 8 experts) as a
-    seeded uniform draw → ``padded_group_layout`` on the card."""
+    seeded uniform draw → ``padded_group_layout`` on the card; ``skewed``:
+    expert 0 takes every other row, half of them, the rest go uniformly
+    to the other experts."""
     import torch
     from kubeflow_tpu_torch.compute.ops import grouped_matmul as ops
     m = MOE_SHAPE
+    n = m["tokens"] * m["top_k"]
     g = torch.Generator(device="cuda").manual_seed(seed)
-    key = torch.randint(0, m["experts"], (m["tokens"] * m["top_k"],),
-                        generator=g, device="cuda")
+    if skewed:
+        key = torch.randint(1, m["experts"], (n,), generator=g, device="cuda")
+        key = torch.where(torch.arange(n, device="cuda") % 2 == 0, 0, key)
+    else:
+        key = torch.randint(0, m["experts"], (n,), generator=g, device="cuda")
     return ops.padded_group_layout(key, m["experts"], m["block_m"])
 
 
@@ -855,6 +866,10 @@ def phase_kernels():
             rows.append(check_gmm(dtype_name, case, layout, flush))
         for case in DW_CASES:
             rows.append(check_gmm_dw(dtype_name, case, layout, flush))
+    # K7 under routing skew, a side row kept out of the kernels line
+    skewed = check_gmm_dw("bfloat16", ("dw_gate_up_skewed", 1024, 2 * 2816),
+                          moe_layout(skewed=True), flush)
+    rows.append(dict(skewed, side_row=True))
     del layout
     torch.cuda.empty_cache()
     # the BERT step: K3-K5 without a causal mask at head_dim 64; the
@@ -2231,6 +2246,7 @@ def main():
         "fused_block": lambda r: bf16(r) and r["shape"]["height"] == 56}
     timing_keys = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
                    "shape")
+    rows = [r for r in rows if not r.get("side_row")]
     kernels = []
     for name, (source, replaces) in meta.items():
         r = next(r for r in rows

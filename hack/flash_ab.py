@@ -1,4 +1,4 @@
-"""K3 and K5 in bf16 from several source trees, timed in one process.
+"""K3, K4 and K5 in bf16 from several source trees, timed in one process.
 
     python3 hack/flash_ab.py parent=build/parent change=.
 
@@ -6,9 +6,9 @@ Each ``label=path`` names a checkout of this repository (for a parent
 commit: ``git archive <commit> | tar -x -C build/parent``, a git-ignored
 directory). Its ``csrc/flash_fwd.cu`` and ``csrc/flash_bwd.cu`` are
 compiled with the port's ``nvcc`` flags into ``build/flash_ab/<label>/``,
-and the C entry points ``kubeflow_flash_fwd`` (K3) and
-``kubeflow_flash_bwd_dkv`` (K5) are called directly on one set of
-tensors: no wrapper, so no ``_prescale`` pass and no host-side checks
+and the C entry points ``kubeflow_flash_fwd`` (K3),
+``kubeflow_flash_bwd_dq`` (K4) and ``kubeflow_flash_bwd_dkv`` (K5) are
+called directly on one set of tensors: no wrapper, so no ``_prescale`` pass and no host-side checks
 in the time. At each of the main path's attention shapes (serving
 prefill B 1, the dense train step, the MoE step, the BERT step) every
 tree runs in turns, first to last then last to first, each call timed
@@ -17,8 +17,8 @@ by ``chip_smoke.time_ms`` (L2 flushed before every call).
 Prints the card's name and power limit, each build's registers and
 spills per bf16 flash kernel (from ``nvcc -Xptxas -v``), then one JSON
 line per shape: ms per tree and turn, and each output's largest error
-against the plain PyTorch version (K3: |out| and |lse|; K5: dk and dv
-relative to the plain gradient's max |value|). Needs a CUDA device.
+against the plain PyTorch version (K3: |out| and |lse|; K4: dq, K5: dk
+and dv, relative to the plain gradient's max |value|). Needs a CUDA device.
 """
 
 import ctypes
@@ -42,11 +42,12 @@ SHAPES = {"serving": (1, 1024, 8, 2, 128, True),
           "train": (16, 1024, 8, 2, 128, True),
           "moe": (8, 1024, 8, 8, 128, True),
           "bert": (16, 512, 12, 12, 64, False)}
+KERNEL_IDS = {"fwd": "K3", "dq": "K4", "dkv": "K5"}
 
 
 def build(label, tree):
     """Compile the tree's two flash sources at once → their ctypes entry
-    points ``{"fwd": K3, "dkv": K5}``."""
+    points ``{"fwd": K3, "dq": K4, "dkv": K5}``."""
     out_dir = ROOT / "build" / "flash_ab" / label
     out_dir.mkdir(parents=True, exist_ok=True)
     procs = {}
@@ -71,12 +72,15 @@ def build(label, tree):
             fn = ctypes.CDLL(str(lib)).kubeflow_flash_fwd
             fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [
                 ctypes.c_void_p]
-        else:
-            fn = ctypes.CDLL(str(lib)).kubeflow_flash_bwd_dkv
-            fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [
+            fn.restype = ctypes.c_int
+            fns[kind] = fn
+            continue
+        for name, n_ptr in (("dq", 7), ("dkv", 8)):
+            fn = getattr(ctypes.CDLL(str(lib)), f"kubeflow_flash_bwd_{name}")
+            fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 8 + [
                 ctypes.c_float, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        fns[kind] = fn
+            fn.restype = ctypes.c_int
+            fns[name] = fn
     return fns
 
 
@@ -95,9 +99,10 @@ def measure(trees, flush, shape):
     qs = ops._prescale(q, None).contiguous()
     want, want_lse = ops.flash_attention_reference(q, k, v, causal)
     delta = ops.attention_delta(want, do)
-    _, want_dk, want_dv = ops._bwd_reference(q, k, v, do, want_lse, delta,
-                                             causal, None)
-    out, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    want_dq, want_dk, want_dv = ops._bwd_reference(q, k, v, do, want_lse,
+                                                   delta, causal, None)
+    out, dq = torch.empty_like(q), torch.empty_like(q)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
     lse = torch.empty((B, H, S), device="cuda")
     stream = torch.cuda.current_stream().cuda_stream
     dims = (B, S, S, H, kv, D, int(causal), 1)
@@ -106,14 +111,15 @@ def measure(trees, flush, shape):
         if kind == "fwd":
             args = (qs, k, v, out, lse)
             return fns["fwd"](*(t.data_ptr() for t in args), *dims, stream)
-        args = (q, k, v, do, want_lse, delta, dk, dv)
-        return fns["dkv"](*(t.data_ptr() for t in args), *dims, D ** -0.5,
-                          stream)
+        outs = (dq,) if kind == "dq" else (dk, dv)
+        args = (q, k, v, do, want_lse, delta, *outs)
+        return fns[kind](*(t.data_ptr() for t in args), *dims, D ** -0.5,
+                         stream)
 
     row = {"shape": shape, "B": B, "S": S, "H": H, "kv_heads": kv, "D": D,
            "causal": causal}
     labels = list(trees)
-    for kind in ("fwd", "dkv"):
+    for kind in ("fwd", "dq", "dkv"):
         for label in labels + labels[::-1]:
             fn = lambda: call(trees[label], kind)  # noqa: E731
             if fn():
@@ -122,9 +128,11 @@ def measure(trees, flush, shape):
             if kind == "fwd":
                 err = {"out": float((out.float() - want.float()).abs().max()),
                        "lse": float((lse - want_lse).abs().max())}
+            elif kind == "dq":
+                err = {"dq": _rel(dq, want_dq)}
             else:
                 err = {"dk": _rel(dk, want_dk), "dv": _rel(dv, want_dv)}
-            key = f"{'K3' if kind == 'fwd' else 'K5'} {label}"
+            key = f"{KERNEL_IDS[kind]} {label}"
             row.setdefault(f"{key} ms", []).append(
                 chip_smoke.time_ms(fn, flush))
             row[f"{key} err"] = err

@@ -31,37 +31,53 @@
 // ~117 MB of bytes take 0.035 ms. K5 does 4 (s, dp, dv, dk) — 68.8 GFLOP,
 // 0.070 ms.
 //
-// K4 (both dtypes) and K5 in fp32: every product on the CUDA cores in
-// fp32 (exact products, fp32 sums; the port runs with TF32 off and the
-// fp32 tolerance of 1e-4 needs them), tiles in shared memory as fp32
-// rows padded by one word against bank conflicts. Bound by the issue of
-// shared-memory loads (two for every two FMAs), far from the tensor
-// cores; K4 in bf16 moves onto them next, on mma.cuh as K5 does.
-//   K4: one block per (64-row query tile, b x h), as K3: K/V tiles of 32
-//   keys stream through shared memory up to the query tile's causal
-//   limit (tiles past it are never loaded); each thread holds a 4 x 4
-//   tile of s and dp and a 4 x D/8 slice of the dq accumulator.
-//   K5 (fp32): one block per (64-row key tile, b x kv head). K/V stay in
-//   shared memory while the block walks the n_rep heads of its group
-//   and, for each, the 32-row query tiles from the one holding its first
-//   key to the end (causal); dK and dV (4 x D/16 each per thread)
-//   accumulate in registers across all of them and are rounded once.
-// K5 in bf16 (flash_bwd_dkv_tc_kernel) — the FlashAttention-2 backward,
-//   computed transposed on the tensor cores (mma.sync m16n8k16, bf16
-//   operands, fp32 accumulators; mma.cuh). The same grid — one block
-//   per (64-key tile, b x kv head), the key tiles with the longest
-//   causal walk first — of 4 warps, each owning 16 keys. K and V stay in
-//   bf16 shared memory; the q and dO tiles of the walk (32 rows at D
-//   128, 64 below) and their lse/delta come in by cp.async, double-
-//   buffered, and one pass over the q tile makes qs = round(q * scale).
-//   Per tile and warp: S^T = K qs^T, P^T = exp(S^T - lse) (0 where
-//   masked), dV += round(P^T) dO, dP^T = V dO^T, dS^T = round(P^T (dP^T
-//   - delta)), dK += dS^T q; P^T and dS^T go from the accumulators into
-//   A fragments in registers, dO and q enter the last two products
-//   through ldmatrix.trans. dK and dV stay in fp32 registers across all
-//   heads and tiles (2 x 16 x D / 32 a thread) and are rounded once.
-//   Bound now by the issue of mma.sync and ldmatrix (every warp reads
-//   the whole q/dO tile four times), and at B = 1 by the fill: 32
+// Two designs, chosen by dtype.
+// fp32 (flash_bwd_dq_kernel, flash_bwd_dkv_kernel): every product on the
+//   CUDA cores in fp32 (exact products, fp32 sums; the port runs with
+//   TF32 off and the fp32 tolerance of 1e-4 needs them), tiles in shared
+//   memory as fp32 rows padded by one word against bank conflicts. Bound
+//   by the issue of shared-memory loads (two for every two FMAs).
+//   K4: one block per (64-row query tile, b x h): K/V tiles of 32 keys
+//   stream through shared memory up to the query tile's causal limit
+//   (tiles past it are never loaded); each thread holds a 4 x 4 tile of
+//   s and dp and a 4 x D/8 slice of the dq accumulator.
+//   K5: one block per (64-row key tile, b x kv head). K/V stay in shared
+//   memory while the block walks the n_rep heads of its group and, for
+//   each, the 32-row query tiles from the one holding its first key to
+//   the end (causal); dK and dV (4 x D/16 each per thread) accumulate in
+//   registers across all of them and are rounded once.
+// bf16: the FlashAttention-2 backward on the tensor cores (mma.sync
+//   m16n8k16, bf16 operands, fp32 accumulators; mma.cuh), 4 warps a
+//   block, tiles in bf16 shared memory with rows padded to D + 8 elements
+//   (free of ldmatrix bank conflicts) and filled by cp.async.
+//   K4 (flash_bwd_dq_tc_kernel) — K3's form: one block per (64-row query
+//   tile, b x h), the query tiles with the longest causal walk first,
+//   each warp owning 16 query rows. qs = round(q * scale) is made once in
+//   shared memory and held in A fragments for the whole walk; K/V tiles
+//   of 64 keys stream in double-buffered, one barrier a tile, tiles past
+//   the causal limit never loaded. Per tile and warp: S = qs K^T and
+//   dP = dO V^T (K and V as B through ldmatrix; dO's A fragments read
+//   again from shared memory each tile, so that the dq accumulators (16
+//   x D / 32 fp32 a thread), qs and the two 16 x 64 score tiles stay in
+//   registers), P = exp(S - lse) with an explicit 0 where masked, dS =
+//   round(P (dP - delta)) repacked from the accumulators into A
+//   fragments, dq += dS K with K through ldmatrix.trans. dq is scaled and
+//   rounded once; no atomics.
+//   K5 (flash_bwd_dkv_tc_kernel) — the same backward computed transposed.
+//   The same grid as the fp32 K5 — one block per (64-key tile, b x kv
+//   head), the key tiles with the longest causal walk first — each warp
+//   owning 16 keys. K and V stay in shared memory; the q and dO tiles of
+//   the walk (32 rows at D 128, 64 below) and their lse/delta come in
+//   double-buffered, and one pass over the q tile makes qs. Per tile and
+//   warp: S^T = K qs^T, P^T = exp(S^T - lse) (0 where masked), dV +=
+//   round(P^T) dO, dP^T = V dO^T, dS^T = round(P^T (dP^T - delta)), dK +=
+//   dS^T q; P^T and dS^T go from the accumulators into A fragments, dO
+//   and q enter the last two products through ldmatrix.trans. dK and dV
+//   stay in fp32 registers across all heads and tiles (2 x 16 x D / 32 a
+//   thread) and are rounded once.
+//   Both are bound now by the issue rate of mma.sync and ldmatrix from
+//   4-warp blocks (no wgmma, no TMA, no warp specialisation; every warp
+//   reads each K/V or q/dO tile whole), and K5 at B = 1 by the fill: 32
 //   blocks for 132 SMs.
 
 #include <type_traits>
@@ -686,6 +702,218 @@ flash_bwd_dkv_tc_kernel(const bf16* __restrict__ q,      // [B, S, H, D], raw
   }
 }
 
+// ------------------------------------------------ K4, bf16, tensor cores
+
+constexpr int kDqBq = 64;   // query rows per block: 4 warps x 16
+constexpr int kDqBk = 64;   // keys per streamed tile
+
+template <int D>
+constexpr size_t dq_tc_smem_bytes() {   // qs, dO, 2 stages of K and of V
+  return static_cast<size_t>(2 * kDqBq + 4 * kDqBk) * tc_stride<D>() *
+         sizeof(bf16);
+}
+
+template <int D>
+__global__ void __launch_bounds__(kTcThreads)
+flash_bwd_dq_tc_kernel(const bf16* __restrict__ q,      // [B, S, H, D], raw
+                       const bf16* __restrict__ k,      // [B, Sk, kv_heads, D]
+                       const bf16* __restrict__ v,      // [B, Sk, kv_heads, D]
+                       const bf16* __restrict__ dout,   // [B, S, H, D]
+                       const float* __restrict__ lse,    // [B, H, S]
+                       const float* __restrict__ delta,  // [B, H, S]
+                       bf16* __restrict__ dq,           // [B, S, H, D]
+                       int B, int S, int Sk, int H, int kv_heads, int causal,
+                       float scale) {
+  constexpr int kStride = tc_stride<D>();
+  constexpr int kChunks = D / 8;    // 16-byte chunks a row
+  constexpr int kKs = D / 16;       // k-slices of qs.K^T and dO.V^T
+  constexpr int kNb = kDqBk / 8;    // n-blocks of S and dP (8 keys each)
+  constexpr int kDb = D / 8;        // n-blocks of dq
+
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* q_s = reinterpret_cast<bf16*>(smem_raw);   // [kDqBq][kStride]
+  bf16* do_s = q_s + kDqBq * kStride;              // [kDqBq][kStride]
+  bf16* k_s = do_s + kDqBq * kStride;              // [2][kDqBk][kStride]
+  bf16* v_s = k_s + 2 * kDqBk * kStride;           // [2][kDqBk][kStride]
+
+  // the query tiles with the most key tiles (causal: the last) first
+  const int BH = B * H;
+  const int n_qt = (S + kDqBq - 1) / kDqBq;
+  const int q0 = (n_qt - 1 - static_cast<int>(blockIdx.x) / BH) * kDqBq;
+  const int bh = static_cast<int>(blockIdx.x) % BH;
+  const int b = bh / H;
+  const int h = bh % H;
+  const int kvh = h / (H / kv_heads);
+  const int tid = threadIdx.x;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const int g = lane / 4;   // accumulator rows g and g + 8
+  const int t = lane % 4;   // accumulator columns 2t, 2t + 1
+
+  for (int c = tid; c < kDqBq * kChunks; c += kTcThreads) {
+    const int r = c / kChunks;
+    const int col = (c % kChunks) * 8;
+    const int s = q0 + r;
+    const size_t off =
+        ((static_cast<size_t>(b) * S + min(s, S - 1)) * H + h) * D + col;
+    cp_async16(smem_u32(q_s + r * kStride + col), q + off, s < S);
+    cp_async16(smem_u32(do_s + r * kStride + col), dout + off, s < S);
+  }
+  // this thread's 16-byte chunks of a K/V tile, as K3's
+  constexpr int kRowStep = kTcThreads / kChunks;
+  constexpr int kLoads = kDqBk / kRowStep;
+  const int r0 = tid / kChunks;
+  const int col0 = (tid % kChunks) * 8;
+  const size_t kv_row = static_cast<size_t>(kv_heads) * D;   // between keys
+  const size_t kv_base =
+      (static_cast<size_t>(b) * Sk * kv_heads + kvh) * D + col0;
+  const uint32_t k_dst = smem_u32(k_s + r0 * kStride + col0);
+  const uint32_t v_dst = smem_u32(v_s + r0 * kStride + col0);
+  auto load_kv = [&](int k0, int stage) {
+    const uint32_t dst0 = stage * kDqBk * kStride * sizeof(bf16);
+#pragma unroll
+    for (int i = 0; i < kLoads; ++i) {
+      const int s = k0 + r0 + i * kRowStep;
+      const size_t off = kv_base + min(s, Sk - 1) * kv_row;
+      const uint32_t dst = dst0 + i * kRowStep * kStride * sizeof(bf16);
+      cp_async16(k_dst + dst, k + off, s < Sk);
+      cp_async16(v_dst + dst, v + off, s < Sk);
+    }
+  };
+  load_kv(0, 0);
+  cp_async_commit();   // group 0: the q and dO tiles and the first K/V tile
+
+  // causal: keys past the tile's last row are masked for every row
+  const int k_end = causal ? min(Sk, q0 + kDqBq) : Sk;
+  const int n_kt = (k_end + kDqBk - 1) / kDqBk;
+  const int row0 = q0 + warp * 16 + g;   // this lane's rows: row0, row0 + 8
+  float lse_r[2], delta_r[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qpos = row0 + r * 8;
+    const size_t off = (static_cast<size_t>(b) * H + h) * S + min(qpos, S - 1);
+    lse_r[r] = qpos < S ? lse[off] * kLog2e : 0.f;
+    delta_r[r] = qpos < S ? delta[off] : 0.f;
+  }
+
+  // ldmatrix row addresses of this lane (see mma.cuh): A from qs / dO
+  // rows, B (non-transposed) from K / V rows, B (transposed) from K rows
+  const int a_off = (warp * 16 + lane % 16) * kStride + (lane / 16) * 8;
+  const int nb_off = ((lane % 8) + (lane / 16) * 8) * kStride +
+                     ((lane / 8) % 2) * 8;
+  const int tb_off = ((lane % 8) + ((lane / 8) % 2) * 8) * kStride +
+                     (lane / 16) * 8;
+
+  uint32_t qf[kKs][4];
+  float acc[kDb][4];
+#pragma unroll
+  for (int j = 0; j < kDb; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[j][i] = 0.f;
+
+  for (int kt = 0; kt < n_kt; ++kt) {
+    const int stage = kt % 2;
+    // one barrier a tile: tile kt has landed for every thread, and every
+    // warp is done with tile kt - 1, whose buffer the next load reuses
+    cp_async_wait<0>();
+    __syncthreads();
+    if (kt + 1 < n_kt) {
+      load_kv((kt + 1) * kDqBk, stage ^ 1);
+      cp_async_commit();
+    }
+    if (kt == 0) {
+      // qs = q * scale in fp32, rounded once to bf16 (the forward's q),
+      // in place: each warp its own 16 rows, then into A fragments
+      for (int c = lane; c < 16 * kChunks; c += 32) {
+        const int off = (warp * 16 + c / kChunks) * kStride + (c % kChunks) * 8;
+        uint4 w = *reinterpret_cast<const uint4*>(q_s + off);
+        __nv_bfloat162* x = reinterpret_cast<__nv_bfloat162*>(&w);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float2 f = __bfloat1622float2(x[i]);
+          x[i] = __floats2bfloat162_rn(f.x * scale, f.y * scale);
+        }
+        *reinterpret_cast<uint4*>(q_s + off) = w;
+      }
+      __syncwarp();
+#pragma unroll
+      for (int ks = 0; ks < kKs; ++ks)
+        ldmatrix_x4(qf[ks], smem_u32(q_s + a_off + ks * 16));
+    }
+    const bf16* kst = k_s + stage * kDqBk * kStride;
+    const bf16* vst = v_s + stage * kDqBk * kStride;
+
+    // S = qs K^T and dP = dO V^T: 16 queries x kDqBk keys a warp; dO's A
+    // fragments are read again each tile (registers go to dq and S/dP)
+    float sc[kNb][4], dp[kNb][4];
+#pragma unroll
+    for (int j = 0; j < kNb; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) sc[j][i] = dp[j][i] = 0.f;
+#pragma unroll
+    for (int ks = 0; ks < kKs; ++ks) {
+      uint32_t ga[4];
+      ldmatrix_x4(ga, smem_u32(do_s + a_off + ks * 16));
+#pragma unroll
+      for (int nb = 0; nb < kNb / 2; ++nb) {
+        uint32_t kb[4], vb[4];
+        const int off = nb * 16 * kStride + nb_off + ks * 16;
+        ldmatrix_x4(kb, smem_u32(kst + off));
+        ldmatrix_x4(vb, smem_u32(vst + off));
+        mma_bf16(sc[2 * nb], qf[ks], kb[0], kb[1]);
+        mma_bf16(sc[2 * nb + 1], qf[ks], kb[2], kb[3]);
+        mma_bf16(dp[2 * nb], ga, vb[0], vb[1]);
+        mma_bf16(dp[2 * nb + 1], ga, vb[2], vb[3]);
+      }
+    }
+
+    // P = exp(S - lse), an explicit 0 where masked (only the diagonal
+    // tile and a ragged last one have masked entries); dS = P (dP - delta)
+    const int k0 = kt * kDqBk;
+    const bool masked = k0 + kDqBk > Sk || (causal && k0 + kDqBk - 1 > q0);
+#pragma unroll
+    for (int j = 0; j < kNb; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int kpos = k0 + j * 8 + 2 * t + (i % 2);
+        const int qpos = row0 + (i / 2) * 8;
+        const bool valid =
+            !masked || (kpos < Sk && (!causal || kpos <= qpos));
+        const float p =
+            valid ? exp2f(fmaf(sc[j][i], kLog2e, -lse_r[i / 2])) : 0.f;
+        dp[j][i] = p * (dp[j][i] - delta_r[i / 2]);
+      }
+
+    // dq += round(dS) K: dS straight from the accumulators, K through
+    // ldmatrix.trans
+#pragma unroll
+    for (int kk = 0; kk < kDqBk / 16; ++kk) {
+      uint32_t sa[4];
+      pack_a(sa, dp[2 * kk], dp[2 * kk + 1]);
+#pragma unroll
+      for (int db = 0; db < kDb / 2; ++db) {
+        uint32_t kb[4];
+        ldmatrix_x4_trans(kb, smem_u32(kst + kk * 16 * kStride + tb_off +
+                                       db * 16));
+        mma_bf16(acc[2 * db], sa, kb[0], kb[1]);
+        mma_bf16(acc[2 * db + 1], sa, kb[2], kb[3]);
+      }
+    }
+  }
+
+  // one rounding, no atomics: this block owns these rows
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qpos = row0 + r * 8;
+    if (qpos >= S) continue;
+    bf16* dst = dq + ((static_cast<size_t>(b) * S + qpos) * H + h) * D + 2 * t;
+#pragma unroll
+    for (int j = 0; j < kDb; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(dst + j * 8) =
+          __floats2bfloat162_rn(scale * acc[j][2 * r], scale * acc[j][2 * r + 1]);
+  }
+}
+
 // ------------------------------------------------------------ launches
 
 struct Args {
@@ -761,7 +989,32 @@ int launch_dkv_tc(const Args& a) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// K5: fp32 on the CUDA cores, bf16 on the tensor cores
+template <int D>
+int launch_dq_tc(const Args& a) {
+  const size_t smem = dq_tc_smem_bytes<D>();
+  static bool attribute_set = false;
+  if (int err = set_smem(flash_bwd_dq_tc_kernel<D>, smem, &attribute_set))
+    return err;
+  const int blocks = (a.S + kDqBq - 1) / kDqBq * a.B * a.H;
+  flash_bwd_dq_tc_kernel<D><<<blocks, kTcThreads, smem, a.stream>>>(
+      static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
+      static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.dout),
+      static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
+      static_cast<bf16*>(a.out0), a.B, a.S, a.Sk, a.H, a.kv_heads, a.causal,
+      a.scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K4 and K5: fp32 on the CUDA cores, bf16 on the tensor cores
+template <typename T, int D>
+int launch_k4(const Args& a) {
+  if constexpr (std::is_same_v<T, float>) {
+    return launch_dq<float, D>(a);
+  } else {
+    return launch_dq_tc<D>(a);
+  }
+}
+
 template <typename T, int D>
 int launch_k5(const Args& a) {
   if constexpr (std::is_same_v<T, float>) {
@@ -775,11 +1028,11 @@ template <bool kDq, typename T>
 int dispatch_dim(int head_dim, const Args& a) {
   switch (head_dim) {
     case 32:
-      return kDq ? launch_dq<T, 32>(a) : launch_k5<T, 32>(a);
+      return kDq ? launch_k4<T, 32>(a) : launch_k5<T, 32>(a);
     case 64:
-      return kDq ? launch_dq<T, 64>(a) : launch_k5<T, 64>(a);
+      return kDq ? launch_k4<T, 64>(a) : launch_k5<T, 64>(a);
     case 128:
-      return kDq ? launch_dq<T, 128>(a) : launch_k5<T, 128>(a);
+      return kDq ? launch_k4<T, 128>(a) : launch_k5<T, 128>(a);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

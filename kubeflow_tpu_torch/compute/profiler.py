@@ -100,11 +100,11 @@ KERNEL_GROUPS = (
     ("K1 paged_decode", ("paged_decode_kernel",)),
     ("K2 paged_chunk", ("paged_chunk_kernel",)),
     ("K3 flash_fwd", ("flash_fwd_kernel", "flash_fwd_tc_kernel")),
-    ("K4 flash_bwd_dq", ("flash_bwd_dq_kernel",)),
+    ("K4 flash_bwd_dq", ("flash_bwd_dq_kernel", "flash_bwd_dq_tc_kernel")),
     ("K5 flash_bwd_dkv", ("flash_bwd_dkv_kernel",
                           "flash_bwd_dkv_tc_kernel")),
     ("K6 grouped_matmul", ("gmm_fwd_kernel",)),
-    ("K7 grouped_matmul_dw", ("gmm_dw_kernel",)),
+    ("K7 grouped_matmul_dw", ("gmm_dw_kernel", "gmm_dw_wgmma_kernel")),
     ("K8 fused_block", ("fused_block_kernel",)),
     ("convolution", ("fprop", "dgrad", "wgrad", "cudnn", "conv2d",
                      "implicit_gemm", "convolve")),

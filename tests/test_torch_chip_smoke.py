@@ -19,7 +19,9 @@ NS = "_ZN45_GLOBAL__N__5e7a0f37_12_flash_bwd_cu_3e1c50db"
     ("_ZN12_GLOBAL__N_113decode_kernelI13__nv_bfloat16aLi128EEEvv",
      "decode_kernel<bf16, int8, 128>"),
     ("_ZN12_GLOBAL__N_16kernelEv", "kernel"),
-    ("_ZN12_GLOBAL__N_16kernelILb1EEEvv", "_ZN12_GLOBAL__N_16kernelILb1EEEvv"),
+    ("_ZN12_GLOBAL__N_16kernelILb1EEEvv", "kernel<true>"),
+    ("_ZN12_GLOBAL__N_16kernelILb0ELi64EEEvv", "kernel<false, 64>"),
+    ("_ZN12_GLOBAL__N_16kernelILl1EEEvv", "_ZN12_GLOBAL__N_16kernelILl1EEEvv"),
     ("kubeflow_flash_fwd", "kubeflow_flash_fwd"),
 ])
 def test_demangle_names_the_kernel_and_its_template_arguments(symbol, name):

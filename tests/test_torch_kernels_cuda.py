@@ -17,13 +17,16 @@ serving shapes (a 256-row chunk behind a long prefix, a prefix hit's
 suffix, an 8-slot verify with per-slot prefixes), prefix 0 and a
 ragged last row tile; for K4 and K5 (the flash backward) every head_dim
 template, GQA groups 1/2/4, ragged, causal and full shapes and the
-train step's shape, each against the plain backward, plus the
+train step's shape, each against the plain backward (K4 over GQA
+groups 1/2/4/8, S in {1, 53, 63, 64, 65, 77, 100, 300, 1000}, causal,
+full and full with Sk != S), plus the
 autograd path (K3 forward, K4 + K5 backward, their launch counts)
 against autograd through the plain dense attention; for K6 and K7 (the
 grouped matmul of dropless MoE and its weight gradient) ragged k and n
 (not multiples of the tiles, and not of the 16-byte copy width), weights
 read transposed (the backward's dx), uniform routing, all rows on one
-expert and an empty expert, ``block_m`` 64 and 128, the launch counters,
+expert, an empty expert and (K7) a skewed routing, K7 also at the MoE
+step's dw gate|up widths, ``block_m`` 64 and 128, the launch counters,
 the autograd path (K6 forward, K6 + K7 backward) and the refusal of a
 ``block_m`` the kernels do not take; K3-K5 at the BERT step's shape
 (16 x 512, 12 heads of 64, no causal mask); for K8 (the fused identity
@@ -32,13 +35,15 @@ a small batch, planes narrower than a 16-row fragment and odd ones,
 widths with C other than 4 M, every band height from one row to the
 whole image (the halo rows, the last ragged band), randomised BN, the
 unfused ``resnet._block`` as a second reference, the launch counter and
-the refusals; for the bf16 K3 and K5, which run on the tensor cores
+the refusals; for the bf16 K3, K4 and K5, which run on the tensor cores
 (``mma.sync``) while fp32 stays on the CUDA cores, head_dim 32/64/128 x
 GQA groups 1/2/4/8 x causal, full and full with Sk != S x S in {1, 7,
 63, 64, 65, 300, 1000} (one tile, ragged tiles on either side of the
-64-row tile), the train, MoE and BERT step shapes, K5 bit-identical on
-two calls, and the bf16 autograd path (one launch each of K3, K4, K5)
-against the plain backward. Tolerances: fp32
+64-row tile), the train, MoE and BERT step shapes, K4 and K5
+bit-identical on two calls, and the bf16 autograd path (one launch each
+of K3, K4, K5) against the plain backward; the bf16 K7 (``wgmma``)
+bit-identical on two calls at the dw gate|up widths under a skewed
+routing. Tolerances: fp32
 1e-4, bf16 2e-2 (the kernels sum in another order than the plain
 versions; bf16 outputs may round one unit apart); the backward's
 relative to the plain gradient's max |value|, with an absolute floor
@@ -315,12 +320,12 @@ def test_int8_wrappers_refuse_malformed_quadruples(dev, case):
         paged_ops.paged_chunk_attention)] == before, what
 
 
-def _bwd_case(dev, dtype, B, S, H, kv, D, causal, seed):
+def _bwd_case(dev, dtype, B, S, H, kv, D, causal, seed, Sk=None):
     g = torch.Generator().manual_seed(seed)
     q, do = (torch.randn((B, S, H, D), generator=g).to(dev, dtype)
              for _ in range(2))
-    k, v = (torch.randn((B, S, kv, D), generator=g).to(dev, dtype)
-            for _ in range(2))
+    k, v = (torch.randn((B, S if Sk is None else Sk, kv, D),
+                        generator=g).to(dev, dtype) for _ in range(2))
     out, lse = flash_ops.flash_attention(q, k, v, causal=causal)
     return q, k, v, do, lse, flash_ops.attention_delta(out, do)
 
@@ -330,15 +335,23 @@ def _assert_rel(got, want, tol):
     assert float((got.float() - want.float()).abs().max()) <= tol * scale
 
 
+# (S, mask): one tile, ragged tiles on either side of the 64-row tile,
+# long walks; "full_sk" is the full mask with Sk != S
+BWD_CASES = [(1, "causal"), (77, "causal"), (64, "causal"), (100, "full"),
+             (53, "full")] + [(S, mask) for S in (63, 65, 300, 1000)
+                              for mask in ("causal", "full", "full_sk")]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("D", [32, 64, 128])
-@pytest.mark.parametrize("n_rep", [1, 2, 4])
-@pytest.mark.parametrize("S,causal", [(1, True), (77, True), (64, True),
-                                      (100, False), (53, False)])
-def test_flash_bwd_matches_plain(dev, dtype, D, n_rep, S, causal):
+@pytest.mark.parametrize("n_rep", [1, 2, 4, 8])
+@pytest.mark.parametrize("S,mask", BWD_CASES)
+def test_flash_bwd_matches_plain(dev, dtype, D, n_rep, S, mask):
     kv = 2
+    causal = mask == "causal"
     q, k, v, do, lse, delta = _bwd_case(dev, dtype, 2, S, kv * n_rep, kv,
-                                        D, causal, S * 3 + D + n_rep)
+                                        D, causal, S * 3 + D + n_rep,
+                                        _seq_k(S, mask))
     n_dq = flash_ops.flash_attention_bwd_dq.launches
     n_dkv = flash_ops.flash_attention_bwd_dkv.launches
     dq = flash_ops.flash_attention_bwd_dq(q, k, v, do, lse, delta, causal)
@@ -478,21 +491,24 @@ STEP_ATTN = {"train": (16, 1024, 8, 2, 128, True),
 
 @pytest.mark.parametrize("step", sorted(STEP_ATTN))
 def test_flash_bf16_tensor_cores_at_the_step_shapes(dev, step):
-    """K3 and K5 in bf16 at the train, MoE and BERT steps' shapes."""
+    """K3, K4 and K5 in bf16 at the train, MoE and BERT steps' shapes."""
     B, S, H, kv, D, causal = STEP_ATTN[step]
     q, k, v, do = _attn_case(dev, B, S, S, H, kv, D, 21)
     out, lse = flash_ops.flash_attention(q, k, v, causal=causal)
     want, want_lse = flash_ops.flash_attention_reference(q, k, v,
                                                          causal=causal)
     delta = flash_ops.attention_delta(want, do)
+    dq = flash_ops.flash_attention_bwd_dq(q, k, v, do, want_lse, delta,
+                                          causal)
     dk, dv = flash_ops.flash_attention_bwd_dkv(q, k, v, do, want_lse, delta,
                                                causal)
-    _, want_dk, want_dv = flash_ops._bwd_reference(
+    want_dq, want_dk, want_dv = flash_ops._bwd_reference(
         q, k, v, do, want_lse, delta, causal, None)
     torch.cuda.synchronize()
     torch.testing.assert_close(out.float(), want.float(),
                                atol=TOL[torch.bfloat16], rtol=0)
     torch.testing.assert_close(lse, want_lse, atol=1e-4, rtol=1e-5)
+    _assert_rel(dq, want_dq, TOL[torch.bfloat16])
     _assert_rel(dk, want_dk, TOL[torch.bfloat16])
     _assert_rel(dv, want_dv, TOL[torch.bfloat16])
 
@@ -509,9 +525,20 @@ def test_flash_dkv_bf16_is_deterministic(dev):
         assert torch.equal(a, b)
 
 
+def test_flash_dq_bf16_is_deterministic(dev):
+    """K4 in bf16: no atomics, two calls give the same bits."""
+    q, k, v, do = _attn_case(dev, 16, 1024, 1024, 8, 2, 128, 6)
+    out, lse = flash_ops.flash_attention(q, k, v)
+    delta = flash_ops.attention_delta(out, do)
+    first = flash_ops.flash_attention_bwd_dq(q, k, v, do, lse, delta)
+    second = flash_ops.flash_attention_bwd_dq(q, k, v, do, lse, delta)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
 def test_flash_autograd_bf16_launches_k3_k4_k5(dev):
-    """The bf16 autograd path: one launch each of K3 (tensor cores), K4
-    and K5 (tensor cores), gradients as the plain backward's."""
+    """The bf16 autograd path: one launch each of K3, K4 and K5 (all on
+    the tensor cores), gradients as the plain backward's."""
     q, k, v, do = _attn_case(dev, 2, 200, 200, 8, 2, 128, 13)
     x = [t.clone().requires_grad_() for t in (q, k, v)]
     counts = [fn.launches for fn in (flash_ops.flash_attention,
@@ -546,6 +573,9 @@ def _gmm_layout(dev, rows, e, block_m, routing, seed=0):
     g = torch.Generator().manual_seed(seed)
     if routing == "one_expert":
         key = torch.full((rows,), e - 1, dtype=torch.int32)
+    elif routing == "skewed":              # expert 0 gets most rows
+        key = torch.randint(0, e, (rows,), generator=g, dtype=torch.int32)
+        key = torch.where(torch.rand((rows,), generator=g) < 0.8, 0, key)
     elif routing == "empty_expert":        # expert 1 gets no row
         key = torch.randint(0, e - 1, (rows,), generator=g, dtype=torch.int32)
         key = torch.where(key >= 1, key + 1, key)
@@ -586,8 +616,8 @@ def test_grouped_matmul_matches_plain(dev, dtype, block_m, routing, k, n,
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("block_m", [64, 128])
 @pytest.mark.parametrize("routing", ["uniform", "one_expert",
-                                     "empty_expert"])
-@pytest.mark.parametrize("k,n", GMM_WIDTHS)
+                                     "empty_expert", "skewed"])
+@pytest.mark.parametrize("k,n", GMM_WIDTHS + [(1024, 5632)])  # + gate|up
 def test_grouped_matmul_dw_matches_plain(dev, dtype, block_m, routing, k,
                                          n):
     e = 4
@@ -612,6 +642,19 @@ def test_grouped_matmul_dw_matches_plain(dev, dtype, block_m, routing, k,
         x[ranges[1, 0] * block_m:ranges[1, 1] * block_m] = 0
         dw = gmm_ops.grouped_matmul_dw(x, dy, be, fst, lst, e, block_m)
         assert float(dw[1].abs().max()) == 0.0
+
+
+def test_gmm_dw_bf16_is_deterministic(dev):
+    """K7 in bf16 at the MoE step's dw gate|up widths under a skewed
+    routing: no atomics, two calls give the same bits."""
+    _, be, fst, lst, m_pad = _gmm_layout(dev, 2048, 8, 256, "skewed", 5)
+    g = torch.Generator().manual_seed(8)
+    x = torch.randn((m_pad, 1024), generator=g).to(dev, torch.bfloat16)
+    dy = torch.randn((m_pad, 5632), generator=g).to(dev, torch.bfloat16)
+    first = gmm_ops.grouped_matmul_dw(x, dy, be, fst, lst, 8, 256)
+    second = gmm_ops.grouped_matmul_dw(x, dy, be, fst, lst, 8, 256)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -479,6 +479,10 @@ def test_profiler_refuses_nesting_and_stops_on_a_crash(tmp_path):
              "K5 flash_bwd_dkv"),
             ("void (anonymous namespace)::flash_fwd_tc_kernel<64>",
              "K3 flash_fwd"),
+            ("void (anonymous namespace)::flash_bwd_dq_tc_kernel<128>",
+             "K4 flash_bwd_dq"),
+            ("void (anonymous namespace)::gmm_dw_wgmma_kernel<true>",
+             "K7 grouped_matmul_dw"),
             ("void (anonymous namespace)::paged_decode_kernel<float>",
              "K1 paged_decode"),
             ("sm80_xmma_gemm_f32f32_f32f32_f32_tn_n", "matmul"),
