@@ -11,7 +11,8 @@ if any phase fails:
 2. build — compiles every hand-written kernel from ``csrc/`` (one
    ``nvcc`` per source, all at once) into ``build/``; the row lists
    every kernel's registers and spills as ptxas printed them (the
-   tensor-core K3/K4/K5 and the wgmma K7 beside the CUDA-core ones);
+   tensor-core K2/K3/K4/K5 and the wgmma K6/K7 beside the CUDA-core
+   ones); fails when ptxas serialized any kernel's wgmma (C7515);
 3. kernels — each kernel against its plain PyTorch version on the card
    at the serving path's shapes, fp32 (tolerance 1e-4) and bf16 (2e-2),
    with its time, the plain version's time, one PyTorch library call's
@@ -19,8 +20,9 @@ if any phase fails:
    read), K3 (flash forward) and K2 (chunk-after-prefix read) at a
    256-row prefill chunk behind 768 cached positions, a 64-row prefix-hit
    suffix behind 512, and an 8-slot verify of 5 rows with per-slot
-   prefixes; K1-i8 and K2-i8 (the int8-page reads) at the same shapes,
-   the pages quantized from the same draw, each beside the float
+   prefixes (each K2 row names the bf16 key walk's splits and the
+   grid's blocks); K1-i8 and K2-i8 (the int8-page reads) at the same
+   shapes, the pages quantized from the same draw, each beside the float
    kernel's time;
 4. engine — the bench-LM flagship (vocab 32768, d_model 1024, 12
    layers, GQA 8:2, bf16, random weights from a seed) served by the
@@ -124,9 +126,10 @@ Kernel phase, MoE: K6 at the MoE step's four call sites (gate|up
 ``[17408, 1024] x [8, 1024, 5632]``, down ``[17408, 2816] x [8, 2816,
 1024]`` and their dx with the weights read transposed) and K7 at both dw
 sites, routing from a seeded uniform draw, fp32 and bf16, within 1e-4 /
-2e-2 of the plain version's max |value|; and K7 in bf16 once more at dw
-gate|up under a skewed routing (expert 0 takes half the rows), held to
-the same tolerance, a side row kept out of the ``kernels`` line. The
+2e-2 of the plain version's max |value|; and K6 at gate|up and K7 at dw
+gate|up in bf16 once more under a skewed routing (expert 0 takes half
+the rows), held to the same tolerance, side rows kept out of the
+``kernels`` line. The
 yardstick is one
 ``torch._grouped_mm`` call with the layout's group offsets where the
 card's torch takes the dtype, else a dense ``torch.matmul`` of the same
@@ -276,18 +279,32 @@ def _demangle(symbol):
     return f"{parts[-1]}<{', '.join(args)}>"
 
 
+def serialized_wgmma(log):
+    """The lines of an ``nvcc -Xptxas -v`` log in which ptxas reports
+    warning C7515: the wgmma of a kernel serialized (an accumulator
+    touched by another instruction inside the pipeline), every product
+    waiting for the one before."""
+    return [ln.strip() for ln in log.splitlines() if "C7515" in ln]
+
+
 def phase_build():
     """Build every kernel; the row lists each kernel's registers and
-    spills a thread as ptxas reported them (``name<args>: lines``)."""
+    spills a thread as ptxas reported them (``name<args>: lines``). Fails
+    when ptxas serialized the wgmma of any kernel (C7515)."""
     from kubeflow_tpu_torch.compute.ops import _build
     seconds = _build.build()
-    report = {}
+    report, serialized = {}, []
     for name in _build.SOURCES:
-        entries = ptxas_entries(_build.ptxas_report(name) or "")
+        log = _build.ptxas_report(name) or ""
+        entries = ptxas_entries(log)
         report[name] = [f"{k}: {' | '.join(e['lines'])}"
                         for k, e in entries.items()]
+        serialized += serialized_wgmma(log)
         _build.load(name)
-    emit({"phase": "build", "seconds": seconds, "ptxas": report})
+    emit({"phase": "build", "seconds": seconds, "ptxas": report,
+          "serialized_wgmma": serialized})
+    if serialized:
+        raise RuntimeError(f"ptxas serialized wgmma (C7515): {serialized}")
     return seconds
 
 
@@ -567,12 +584,19 @@ def check_chunk(dtype_name, case, flush, int8=False):
                    + tables.numel() * 4 + plen.numel() * 4)
     flops = 4 * H * D * S * (n_prefix + B * (S + 1) / 2)
     bound_ms, bound_by = bound(bytes_moved, flops, dtype_name)
+    # the grid: row tiles x kv heads x slots, times the key walk's splits
+    # (bf16; fp32 walks whole)
+    splits = 1 if dtype_name == "float32" else ops.chunk_splits(
+        B, S, kv, n_rep, bs, bps, torch.cuda.get_device_properties(
+            0).multi_processor_count)
+    blocks = -(-S // (ops.CHUNK_ROW_TILE // n_rep)) * kv * B * splits
     row = {"phase": "kernels",
            "kernel": "paged_chunk_i8" if int8 else "paged_chunk",
            "dtype": dtype_name,
            "shape": {"site": site, "batch": B, "chunk": S, "heads": H,
                      "kv_heads": kv, "head_dim": D, "block_size": bs,
-                     "blocks_per_slot": bps, "prefix": prefixes},
+                     "blocks_per_slot": bps, "prefix": prefixes,
+                     "splits": splits, "blocks": blocks},
            "max_abs_err": err, "tol": TOL[dtype_name], "ok": ok,
            "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
            "bound_ms": bound_ms, "bound_by": bound_by}
@@ -866,11 +890,14 @@ def phase_kernels():
             rows.append(check_gmm(dtype_name, case, layout, flush))
         for case in DW_CASES:
             rows.append(check_gmm_dw(dtype_name, case, layout, flush))
-    # K7 under routing skew, a side row kept out of the kernels line
-    skewed = check_gmm_dw("bfloat16", ("dw_gate_up_skewed", 1024, 2 * 2816),
-                          moe_layout(skewed=True), flush)
-    rows.append(dict(skewed, side_row=True))
-    del layout
+    # K6 and K7 under routing skew, side rows kept out of the kernels line
+    skewed_layout = moe_layout(skewed=True)
+    skewed = [check_gmm("bfloat16", ("gate_up_skewed", 1024, 2 * 2816,
+                                     False), skewed_layout, flush),
+              check_gmm_dw("bfloat16", ("dw_gate_up_skewed", 1024, 2 * 2816),
+                           skewed_layout, flush)]
+    rows += [dict(r, side_row=True) for r in skewed]
+    del layout, skewed_layout
     torch.cuda.empty_cache()
     # the BERT step: K3-K5 without a causal mask at head_dim 64; the
     # ResNet-50 eval path: K8 at its four stages

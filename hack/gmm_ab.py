@@ -10,8 +10,9 @@ directory). Its ``csrc/grouped_matmul.cu`` is compiled with the port's
 on one set of tensors: no wrapper, so the time leaves out
 ``expert_tiles`` and the output's allocation. At each call site of the
 MoE flagship's step (``chip_smoke.GMM_CASES`` and ``DW_CASES``, routing
-from ``chip_smoke.moe_layout``), and for K7 at dw gate|up under the
-skewed routing as well, every tree runs in turns, first to last then
+from ``chip_smoke.moe_layout``), and for K6 at gate|up and K7 at dw
+gate|up under the skewed routing as well, every tree runs in turns,
+first to last then
 last to first, each call timed by ``chip_smoke.time_ms`` (L2 flushed
 before every call).
 
@@ -136,9 +137,11 @@ def main():
         measure(built, flush, layout, site, k, n, trans)
     for site, k, n in chip_smoke.DW_CASES:
         measure(built, flush, layout, site, k, n)
+    skewed = chip_smoke.moe_layout(skewed=True)
+    site, k, n, trans = chip_smoke.GMM_CASES[0]
+    measure(built, flush, skewed, f"{site}_skewed", k, n, trans)
     site, k, n = chip_smoke.DW_CASES[0]
-    measure(built, flush, chip_smoke.moe_layout(skewed=True),
-            f"{site}_skewed", k, n)
+    measure(built, flush, skewed, f"{site}_skewed", k, n)
 
 
 if __name__ == "__main__":

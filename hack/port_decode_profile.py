@@ -15,6 +15,7 @@ thread:
 - the prefill step of one 300-token prompt;
 - one 256-token prefill chunk behind 768 cached positions (the chunk
   read, K2, with a scalar prefix);
+- a prefix hit's 64-token suffix behind 512 cached positions (K2);
 - the draft's proposal of 4 tokens for 8 slots, then the target's
   verify of 5 positions per slot at ``--context`` (K2 with per-slot
   prefixes).
@@ -120,6 +121,9 @@ def main(argv=None):
             chunk = profile(lambda: eng._prefill_cached_step(
                 chunk_toks, 256, 768, order[:48], order[48:64]),
                 max(3, args.steps // 4))
+            hit = profile(lambda: eng._prefill_cached_step(
+                chunk_toks[:64], 64, 512, order[:32], order[64:68]),
+                max(3, args.steps // 4))
             limits = (lengths + K).astype(np.int64)
             propose = profile(lambda: eng._propose_step(tokens, lengths,
                                                         limits), args.steps)
@@ -143,6 +147,8 @@ def main(argv=None):
           flush=True)
     print(json.dumps({"step": "prefill_chunk", "chunk": 256, "prefix": 768,
                       **pool, **chunk}), flush=True)
+    print(json.dumps({"step": "prefix_hit", "suffix": 64, "prefix": 512,
+                      **pool, **hit}), flush=True)
     print(json.dumps({"step": "propose", "slots": S, "spec_k": K,
                       "draft_layers": dcfg.n_layers, **pool, **propose}),
           flush=True)

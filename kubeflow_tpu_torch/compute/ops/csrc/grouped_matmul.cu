@@ -25,37 +25,52 @@
 // ~295 where an H100 leaves the memory roof: the least time is 0.203 ms at
 // 989 TFLOP/s (bf16); a down call is half of that.
 //
-// K6, and K7 in fp32. One block of 256 threads owns a 64 x 128 output
-// tile and walks the reduction in steps of 32 (bf16) or 16 (fp32) through
-// two shared-memory stages filled by cp.async (16-byte copies when every
-// row starts on 16 bytes, element copies otherwise), so the next step's
-// copy is in flight while this one is multiplied. K6 in bf16 runs on the
-// tensor cores through wmma (mma.sync 16x16x16, fp32 accumulators; each
-// of the 8 warps holds 32 x 32 of the tile); fp32 runs on the CUDA cores
-// (the conformance path; TF32 off, exact products), 4 x 8 outputs a
-// thread. Bound by the issue of wmma fragment loads, which take as many
-// slots as the products, and of the staging tile's 4-byte stores.
-// K7 in bf16 (gmm_dw_wgmma_kernel): Hopper's warpgroup MMA (wgmma.cuh).
-// dw = x^T dy reduces over the rows of both operands, so both enter
-// MN-major: each 64-row step of x (256 k columns) and dy (128 n
-// columns) lands as it sits in memory, in atoms of 64 columns x 64 rows
-// with the 128-byte swizzle, through a 4-stage cp.async ring (loads two
-// steps ahead, one wgmma group in flight, one barrier a step, the proxy
-// fence between). Two warpgroups, each owning 128 dw rows as two
-// m64n128k16 accumulators (2 x 64 fp32 a thread); the walk's first
-// product overwrites them (scale-d 0): zero-filling them instead is a
-// non-wgmma write inside the pipeline, and ptxas then serializes every
-// wgmma. The fp32 dw tile goes from the accumulators to memory in 8-byte
-// stores. 192 KB of shared
-// memory: one block an SM. What bounds it now is most likely the L2
-// (not confirmed: no profiler of stall reasons here): every 256 x 128
-// tile reads 48 KB a step, so each of an expert's rows is read once by
-// each of its 8-44 column tiles and 4-11 row tiles, about 2.3 GB a call
-// at the MoE flagship's dw gate|up (≈ 5.8 TB/s at 0.40 ms); one expert's
-// 28 MB of x and dy stay resident in the 50 MB L2 while its blocks run.
-// No TMA, no multicast across a cluster, no warp specialisation yet. Ragged k and n are masked here (zero-filled
-// copies, masked stores), so any width runs; Mosaic's 128-lane rule does
-// not apply.
+// fp32, K6 and K7 (the conformance path; TF32 off, exact products): one
+// block of 256 threads owns a 64 x 128 output tile on the CUDA cores, 4 x
+// 8 outputs a thread, and walks the reduction in steps of 16 through two
+// shared-memory stages filled by cp.async (16-byte copies when every row
+// starts on 16 bytes, element copies otherwise), so the next step's copy
+// is in flight while this one is multiplied.
+// bf16, K6 and K7: Hopper's warpgroup MMA (wgmma.cuh), m64n128k16 with
+// fp32 accumulators, operands in 128-byte-swizzled shared memory, fed by
+// a 4-stage cp.async ring (loads two steps ahead, one wgmma group in
+// flight, one barrier a step, the proxy fence between). The walk's first
+// product overwrites the accumulators (scale-d 0): zero-filling them
+// instead is a non-wgmma write inside the pipeline, and ptxas then
+// serializes every wgmma (its warning C7515, which chip_smoke.py's build
+// phase refuses). 192 KB of shared memory: one block an SM.
+// - K7 (gmm_dw_wgmma_kernel): dw = x^T dy reduces over the rows of both
+//   operands, so both enter MN-major: each 64-row step of x (256 k
+//   columns) and dy (128 n columns) lands as it sits in memory. Two
+//   warpgroups, each owning 128 dw rows as two accumulators (2 x 64 fp32
+//   a thread). The fp32 dw tile goes from the accumulators to memory in
+//   8-byte stores. What bounds it now is most likely the L2 (not
+//   confirmed: no profiler of stall reasons here): every 256 x 128 tile
+//   reads 48 KB a step, so each of an expert's rows is read once by each
+//   of its 8-44 column tiles and 4-11 row tiles, about 2.3 GB a call at
+//   the MoE flagship's dw gate|up (≈ 5.8 TB/s at 0.40 ms); one expert's
+//   28 MB of x and dy stay resident in the 50 MB L2 while its blocks run.
+// - K6 (gmm_fwd_wgmma_kernel): the ordinary GEMM layout. A = x is
+//   K-major (each step 128 rows x 64 k, one 128-byte row a row), B = w is
+//   MN-major (64 k rows x 256 n, as K7's operands) or, for the dx sites
+//   (TRANS_W: w stored [e, n, k]), K-major (256 n rows x 64 k). A 128 x
+//   256 output tile, two warpgroups, each owning 64 rows as two
+//   accumulators (the two 128-column halves). The row tile never crosses
+//   a block_m boundary, so block_expert[row0 / block_m] names its only
+//   expert: 128-row tiles where block_m is a multiple of 128, else 64-row
+//   tiles (each warpgroup then owns one 128-column half). The fp32 sums
+//   are rounded once to bf16 straight from the accumulators, staged in
+//   shared memory and stored 16 bytes a thread (4-byte bf16x2 stores
+//   straight from registers where a row is not a whole number of 16-byte
+//   words). On an H100 it reaches about 430 TFLOP/s at the MoE
+//   flagship's sites, 2.3x its bound; what holds it there is most likely
+//   the ring itself (every thread issues 12 cp.async a step and waits at
+//   one barrier; no TMA, no producer warp), not confirmed: no profiler of
+//   stall reasons here.
+// No TMA, no multicast across a cluster, no warp specialisation, no
+// persistent blocks yet. Ragged k and n are masked here (zero-filled
+// element copies into the same layouts, masked stores), so any width
+// runs; Mosaic's 128-lane rule does not apply.
 //   The TPU grid is (n, m) with m innermost so that a run of row tiles of
 // one expert reuses the weight tile resident in VMEM (K6), and K7 carries
 // an fp32 accumulator across sequential grid steps keyed by first/last.
@@ -67,12 +82,8 @@
 // block, writing its dw tile once: no atomics, deterministic, an empty
 // expert (one zero tile) writes zeros. Under skew one expert's blocks walk
 // most of the rows; splitting the row loop over blocks with a second
-// reduction pass is later work, as are K6 on wgmma and fusing SiLU*up
-// into the gate|up epilogue.
-
-#include <mma.h>
-
-#include <type_traits>
+// reduction pass is later work, as is fusing SiLU*up into the gate|up
+// epilogue.
 
 #include "common.cuh"
 #include "mma.cuh"
@@ -81,39 +92,38 @@
 namespace {
 
 using namespace kubeflow;
-namespace wmma = nvcuda::wmma;
 using bf16 = __nv_bfloat16;
+
+// ------------------------------------------------ fp32, CUDA cores
 
 constexpr int kThreads = 256;          // 8 warps
 constexpr int kBM = 64;                // tile rows: output rows (K6), k (K7)
 constexpr int kBN = 128;               // tile columns
+constexpr int kDepth = 16;             // reduction depth of a staged step
+constexpr int kPad = 4;                // row padding of the staged tiles
 constexpr int kLdC = kBN + 4;          // fp32 staging tile row stride
 constexpr int kSmemBytes = 34 * 1024;  // the two stages, or the staging tile
 static_assert(kBM * kLdC * sizeof(float) <= kSmemBytes, "staging tile fits");
 
-// reduction depth of one staged step and the row padding of its tiles
-template <typename T> struct Step;
-template <> struct Step<bf16> { static constexpr int kDepth = 32, kPad = 8; };
-template <> struct Step<float> { static constexpr int kDepth = 16, kPad = 4; };
-
 // Copy the R x C window at (r0, c0) of a row-major global matrix with row
 // stride ld into shared memory with row stride lds; entries at rows >= r_lim
 // or columns >= c_lim read as 0. VEC: 16-byte cp.async copies (ld, c0 and
-// c_lim multiples of the vector width, the base 16-byte aligned); otherwise
-// element copies through registers.
-template <typename T, int R, int C, bool VEC>
-__device__ __forceinline__ void load_tile(T* dst, int lds, const T* src,
-                                          size_t ld, int r0, int c0,
-                                          int r_lim, int c_lim) {
+// c_lim multiples of 4, the base 16-byte aligned); otherwise element
+// copies through registers.
+template <int R, int C, bool VEC>
+__device__ __forceinline__ void load_tile(float* dst, int lds,
+                                          const float* src, size_t ld,
+                                          int r0, int c0, int r_lim,
+                                          int c_lim) {
   if constexpr (VEC) {
-    constexpr int V = vec_width<T>();
+    constexpr int V = vec_width<float>();
     static_assert(C % V == 0, "rows split into 16-byte words");
     for (int u = threadIdx.x; u < R * C / V; u += kThreads) {
       const int r = u / (C / V);
       const int c = (u % (C / V)) * V;
       const bool ok = r0 + r < r_lim && c0 + c < c_lim;
-      const T* g = ok ? src + static_cast<size_t>(r0 + r) * ld + (c0 + c)
-                      : src;
+      const float* g =
+          ok ? src + static_cast<size_t>(r0 + r) * ld + (c0 + c) : src;
       cp_async16(smem_u32(dst + r * lds + c), g, ok);
     }
   } else {
@@ -121,8 +131,8 @@ __device__ __forceinline__ void load_tile(T* dst, int lds, const T* src,
       const int r = u / C;
       const int c = u % C;
       const bool ok = r0 + r < r_lim && c0 + c < c_lim;
-      dst[r * lds + c] = ok ? src[static_cast<size_t>(r0 + r) * ld + (c0 + c)]
-                            : from_f32<T>(0.f);
+      dst[r * lds + c] =
+          ok ? src[static_cast<size_t>(r0 + r) * ld + (c0 + c)] : 0.f;
     }
   }
 }
@@ -130,65 +140,10 @@ __device__ __forceinline__ void load_tile(T* dst, int lds, const T* src,
 // One block's kBM x kBN fp32 product, accumulated one staged step at a
 // time. A (row i, reduction index p) sits in shared memory as As[i*lda + p]
 // when A_ROW, else As[p*lda + i]; B (p, column j) as Bs[p*ldb + j] when
-// B_ROW, else Bs[j*ldb + p]. store() writes the tile to Cs[i*kLdC + j].
-template <typename T, bool A_ROW, bool B_ROW> struct BlockGemm;
-
-// bf16 on the tensor cores: warp w owns rows 32*(w/4) and columns 32*(w%4)
-// as 2 x 2 wmma fragments of 16 x 16, fp32 accumulators.
-template <bool A_ROW, bool B_ROW> struct BlockGemm<bf16, A_ROW, B_ROW> {
-  using ALayout = std::conditional_t<A_ROW, wmma::row_major, wmma::col_major>;
-  using BLayout = std::conditional_t<B_ROW, wmma::row_major, wmma::col_major>;
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2];
-
-  __device__ __forceinline__ void zero() {
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-  }
-
-  __device__ __forceinline__ void step(const bf16* As, int lda, const bf16* Bs,
-                                       int ldb) {
-    const int warp = threadIdx.x / 32;
-    const int i0 = (warp / 4) * 32;
-    const int j0 = (warp % 4) * 32;
-#pragma unroll
-    for (int p = 0; p < Step<bf16>::kDepth; p += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, ALayout> a[2];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, BLayout> b[2];
-#pragma unroll
-      for (int t = 0; t < 2; ++t) {
-        const int i = i0 + 16 * t;
-        wmma::load_matrix_sync(a[t], A_ROW ? As + i * lda + p : As + p * lda + i,
-                               lda);
-        const int j = j0 + 16 * t;
-        wmma::load_matrix_sync(b[t], B_ROW ? Bs + p * ldb + j : Bs + j * ldb + p,
-                               ldb);
-      }
-#pragma unroll
-      for (int s = 0; s < 2; ++s)
-#pragma unroll
-        for (int t = 0; t < 2; ++t)
-          wmma::mma_sync(acc[s][t], a[s], b[t], acc[s][t]);
-    }
-  }
-
-  __device__ __forceinline__ void store(float* Cs) {
-    const int warp = threadIdx.x / 32;
-    const int i0 = (warp / 4) * 32;
-    const int j0 = (warp % 4) * 32;
-#pragma unroll
-    for (int s = 0; s < 2; ++s)
-#pragma unroll
-      for (int t = 0; t < 2; ++t)
-        wmma::store_matrix_sync(Cs + (i0 + 16 * s) * kLdC + j0 + 16 * t,
-                                acc[s][t], kLdC, wmma::mem_row_major);
-  }
-};
-
-// fp32 on the CUDA cores: thread (ty, tx) owns rows ty + 16 s (s < 4) and
-// columns tx + 16 t (t < 8).
-template <bool A_ROW, bool B_ROW> struct BlockGemm<float, A_ROW, B_ROW> {
+// B_ROW, else Bs[j*ldb + p]. Thread (ty, tx) owns rows ty + 16 s (s < 4)
+// and columns tx + 16 t (t < 8); store() writes the tile to
+// Cs[i*kLdC + j].
+template <bool A_ROW, bool B_ROW> struct BlockGemm {
   float acc[4][8];
 
   __device__ __forceinline__ void zero() {
@@ -203,7 +158,7 @@ template <bool A_ROW, bool B_ROW> struct BlockGemm<float, A_ROW, B_ROW> {
     const int ty = threadIdx.x / 16;
     const int tx = threadIdx.x % 16;
 #pragma unroll
-    for (int p = 0; p < Step<float>::kDepth; ++p) {
+    for (int p = 0; p < kDepth; ++p) {
       float a[4], b[8];
 #pragma unroll
       for (int s = 0; s < 4; ++s) {
@@ -233,58 +188,55 @@ template <bool A_ROW, bool B_ROW> struct BlockGemm<float, A_ROW, B_ROW> {
   }
 };
 
-// The staged fp32 tile to out (row stride ldo) at (r0, c0), rounded once
-// to OutT; rows >= r_lim and columns >= c_lim are not written.
-template <typename OutT>
-__device__ __forceinline__ void write_tile(const float* Cs, OutT* out,
+// The staged fp32 tile to out (row stride ldo) at (r0, c0); rows >= r_lim
+// and columns >= c_lim are not written.
+__device__ __forceinline__ void write_tile(const float* Cs, float* out,
                                            size_t ldo, int r0, int c0,
                                            int r_lim, int c_lim) {
   for (int u = threadIdx.x; u < kBM * kBN; u += kThreads) {
     const int r = u / kBN;
     const int c = u % kBN;
     if (r0 + r < r_lim && c0 + c < c_lim)
-      out[static_cast<size_t>(r0 + r) * ldo + (c0 + c)] =
-          from_f32<OutT>(Cs[r * kLdC + c]);
+      out[static_cast<size_t>(r0 + r) * ldo + (c0 + c)] = Cs[r * kLdC + c];
   }
 }
 
-// K6: one block per (64-row tile, 128-column tile), row tiles fastest.
-template <typename T, bool TRANS_W, bool VEC>
+// K6 in fp32: one block per (64-row tile, 128-column tile), row tiles
+// fastest.
+template <bool TRANS_W, bool VEC>
 __global__ void __launch_bounds__(kThreads)
-gmm_fwd_kernel(const T* __restrict__ x,                // [m, k]
-               const T* __restrict__ w,                // [e, k, n]; [e, n, k] if TRANS_W
+gmm_fwd_kernel(const float* __restrict__ x,            // [m, k]
+               const float* __restrict__ w,            // [e, k, n]; [e, n, k] if TRANS_W
                const int* __restrict__ block_expert,   // [m / block_m]
-               T* __restrict__ out,                    // [m, n]
+               float* __restrict__ out,                // [m, n]
                int m, int k, int n, int n_experts, int block_m) {
-  constexpr int kDepth = Step<T>::kDepth;
-  constexpr int kPad = Step<T>::kPad;
   constexpr int kLdA = kDepth + kPad;                        // As[kBM][kLdA]
   constexpr int kLdB = TRANS_W ? kDepth + kPad : kBN + kPad;
   constexpr int kStageA = kBM * kLdA;
   constexpr int kStageB = TRANS_W ? kBN * kLdB : kDepth * kLdB;
-  static_assert(2 * (kStageA + kStageB) * sizeof(T) <= kSmemBytes,
+  static_assert(2 * (kStageA + kStageB) * sizeof(float) <= kSmemBytes,
                 "two stages fit");
   __shared__ __align__(128) unsigned char smem[kSmemBytes];
-  T* As = reinterpret_cast<T*>(smem);
-  T* Bs = As + 2 * kStageA;
+  float* As = reinterpret_cast<float*>(smem);
+  float* Bs = As + 2 * kStageA;
 
   const int row0 = blockIdx.x * kBM;
   const int col0 = blockIdx.y * kBN;
   // the tile's expert: scalar prefetch on the TPU, read by the block here
   const int g = block_expert[row0 / block_m];
-  BlockGemm<T, true, !TRANS_W> gemm;
+  BlockGemm<true, !TRANS_W> gemm;
   gemm.zero();
   if (g >= 0 && g < n_experts) {
-    const T* wg = w + static_cast<size_t>(g) * k * n;
+    const float* wg = w + static_cast<size_t>(g) * k * n;
     auto load = [&](int stage, int p0) {
-      load_tile<T, kBM, kDepth, VEC>(As + stage * kStageA, kLdA, x, k, row0,
-                                     p0, m, k);
+      load_tile<kBM, kDepth, VEC>(As + stage * kStageA, kLdA, x, k, row0,
+                                  p0, m, k);
       if constexpr (TRANS_W)
-        load_tile<T, kBN, kDepth, VEC>(Bs + stage * kStageB, kLdB, wg, k, col0,
-                                       p0, n, k);
+        load_tile<kBN, kDepth, VEC>(Bs + stage * kStageB, kLdB, wg, k, col0,
+                                    p0, n, k);
       else
-        load_tile<T, kDepth, kBN, VEC>(Bs + stage * kStageB, kLdB, wg, n, p0,
-                                       col0, k, n);
+        load_tile<kDepth, kBN, VEC>(Bs + stage * kStageB, kLdB, wg, n, p0,
+                                    col0, k, n);
     };
     const int steps = (k + kDepth - 1) / kDepth;
     load(0, 0);
@@ -306,42 +258,41 @@ gmm_fwd_kernel(const T* __restrict__ x,                // [m, k]
   write_tile(Cs, out, n, row0, col0, m, n);
 }
 
-// K7: one block per (64-row k tile, 128-column n tile, expert), walking the
-// expert's row tiles [tiles[2g], tiles[2g+1]) in steps of kDepth rows.
-template <typename T, bool VEC>
+// K7 in fp32: one block per (64-row k tile, 128-column n tile, expert),
+// walking the expert's row tiles [tiles[2g], tiles[2g+1]) in steps of
+// kDepth rows.
+template <bool VEC>
 __global__ void __launch_bounds__(kThreads)
-gmm_dw_kernel(const T* __restrict__ x,        // [m, k]
-              const T* __restrict__ dy,       // [m, n]
+gmm_dw_kernel(const float* __restrict__ x,    // [m, k]
+              const float* __restrict__ dy,   // [m, n]
               const int* __restrict__ tiles,  // [e, 2] row-tile range
               float* __restrict__ dw,         // [e, k, n]
               int m, int k, int n, int block_m) {
-  constexpr int kDepth = Step<T>::kDepth;
-  constexpr int kPad = Step<T>::kPad;
   // A = x^T: its reduction index is x's row, so the x tile is kept as it
   // sits in memory (As[row][k], k contiguous) and read as a column-major A
   constexpr int kLdA = kBM + kPad;
   constexpr int kLdB = kBN + kPad;
   constexpr int kStageA = kDepth * kLdA;
   constexpr int kStageB = kDepth * kLdB;
-  static_assert(2 * (kStageA + kStageB) * sizeof(T) <= kSmemBytes,
+  static_assert(2 * (kStageA + kStageB) * sizeof(float) <= kSmemBytes,
                 "two stages fit");
   __shared__ __align__(128) unsigned char smem[kSmemBytes];
-  T* As = reinterpret_cast<T*>(smem);
-  T* Bs = As + 2 * kStageA;
+  float* As = reinterpret_cast<float*>(smem);
+  float* Bs = As + 2 * kStageA;
 
   const int k0 = blockIdx.x * kBM;
   const int n0 = blockIdx.y * kBN;
   const int g = blockIdx.z;
   const int r_begin = tiles[2 * g] * block_m;
   const int r_end = min(m, tiles[2 * g + 1] * block_m);
-  BlockGemm<T, false, true> gemm;
+  BlockGemm<false, true> gemm;
   gemm.zero();
   if (r_end > r_begin) {
     auto load = [&](int stage, int r0) {
-      load_tile<T, kDepth, kBM, VEC>(As + stage * kStageA, kLdA, x, k, r0, k0,
-                                     r_end, k);
-      load_tile<T, kDepth, kBN, VEC>(Bs + stage * kStageB, kLdB, dy, n, r0, n0,
-                                     r_end, n);
+      load_tile<kDepth, kBM, VEC>(As + stage * kStageA, kLdA, x, k, r0, k0,
+                                  r_end, k);
+      load_tile<kDepth, kBN, VEC>(Bs + stage * kStageB, kLdB, dy, n, r0, n0,
+                                  r_end, n);
     };
     const int steps = (r_end - r_begin + kDepth - 1) / kDepth;
     load(0, r_begin);
@@ -363,38 +314,37 @@ gmm_dw_kernel(const T* __restrict__ x,        // [m, k]
   write_tile(Cs, dw + static_cast<size_t>(g) * k * n, n, k0, n0, k, n);
 }
 
-// ------------------------------------------------ K7, bf16, wgmma
+// ------------------------------------------------ bf16, wgmma (K7, K6)
 
-constexpr int kDwThreads = 256;   // 2 warpgroups, each 128 dw rows
-constexpr int kDwBM = 256;        // dw rows (k) a block: 4 atoms of 64
-constexpr int kDwBN = 128;        // dw columns (n) a block: 2 atoms of 64
-constexpr int kDwDepth = 64;      // x / dy rows a reduction step
-constexpr int kDwStages = 4;      // loads run 2 steps ahead, 1 wgmma group
-constexpr int kAtomBytes = kDwDepth * 128;             // 64 rows x 128 bytes
-constexpr int kDwStageA = kDwBM / 64 * kAtomBytes;     // x tile, 32 KB
-constexpr int kDwStageBytes = kDwStageA + kDwBN / 64 * kAtomBytes;  // 48 KB
-constexpr size_t kDwSmemBytes = kDwStages * kDwStageBytes + 1024;  // + align
+constexpr int kWgThreads = 256;   // 2 warpgroups
+constexpr int kWgDepth = 64;      // reduction indices a step: a 128-byte row
+constexpr int kWgStages = 4;      // loads run 2 steps ahead, 1 wgmma group
+constexpr int kAtomBytes = kWgDepth * 128;   // an MN-major atom column
+constexpr int kStageBytes = 48 * 1024;       // one stage of either kernel
+constexpr size_t kWgSmemBytes = kWgStages * kStageBytes + 1024;  // + align
 
-// Rows [r0, r0 + 64) x columns [c0, c0 + C) of a row-major bf16 matrix
-// (row stride ld) into C / 64 swizzled atoms at smem (wgmma.cuh): column
-// c0 + 64 a + 8 q + i of row r at byte a * kAtomBytes + 128 r +
-// 16 (q ^ r % 8) + 2 i. Rows >= r_lim and columns >= c_lim land as 0.
-// VEC: 16-byte cp.async copies (ld, c0 and c_lim multiples of 8, the base
-// 16-byte aligned); otherwise element copies through registers.
-template <int C, bool VEC>
-__device__ __forceinline__ void load_atoms(unsigned char* smem,
-                                           const bf16* src, size_t ld,
-                                           int r0, int c0, int r_lim,
-                                           int c_lim) {
+// Rows [r0, r0 + R) x columns [c0, c0 + C) of a row-major bf16 matrix
+// (row stride ld) into C / 64 swizzled atom columns at smem (wgmma.cuh),
+// each R rows of 128 bytes: column c0 + 64 a + 8 q + i of row r at byte
+// a * 128 R + 128 r + 16 (q ^ r % 8) + 2 i. MN-major when a row is one
+// reduction index, K-major when C is 64 and a row is one M or N index.
+// Rows >= r_lim and columns >= c_lim land as 0. VEC: 16-byte cp.async
+// copies (ld, c0 and c_lim multiples of 8, the base 16-byte aligned);
+// otherwise element copies through registers.
+template <int R, int C, bool VEC>
+__device__ __forceinline__ void load_swizzled(unsigned char* smem,
+                                              const bf16* src, size_t ld,
+                                              int r0, int c0, int r_lim,
+                                              int c_lim) {
   auto at = [](int r, int c16) {   // byte offset of chunk c16 of row r
-    return (c16 / 8) * kAtomBytes + r * 128 + (((c16 % 8) ^ (r % 8)) << 4);
+    return (c16 / 8) * (R * 128) + r * 128 + (((c16 % 8) ^ (r % 8)) << 4);
   };
   if constexpr (VEC) {
     constexpr int kChunks = C / 8;
-    static_assert(kDwDepth * kChunks % kDwThreads == 0, "whole rounds");
+    static_assert(R * kChunks % kWgThreads == 0, "whole rounds");
 #pragma unroll
-    for (int i = 0; i < kDwDepth * kChunks / kDwThreads; ++i) {
-      const int u = threadIdx.x + i * kDwThreads;
+    for (int i = 0; i < R * kChunks / kWgThreads; ++i) {
+      const int u = threadIdx.x + i * kWgThreads;
       const int r = u / kChunks;
       const int c16 = u % kChunks;
       const bool ok = r0 + r < r_lim && c0 + c16 * 8 < c_lim;
@@ -403,7 +353,7 @@ __device__ __forceinline__ void load_atoms(unsigned char* smem,
       cp_async16(smem_u32(smem + at(r, c16)), g, ok);
     }
   } else {
-    for (int u = threadIdx.x; u < kDwDepth * C; u += kDwThreads) {
+    for (int u = threadIdx.x; u < R * C; u += kWgThreads) {
       const int r = u / C;
       const int c = u % C;
       const bool ok = r0 + r < r_lim && c0 + c < c_lim;
@@ -414,6 +364,13 @@ __device__ __forceinline__ void load_atoms(unsigned char* smem,
   }
 }
 
+// ----- K7
+
+constexpr int kDwBM = 256;        // dw rows (k) a block: 4 atoms of 64
+constexpr int kDwBN = 128;        // dw columns (n) a block: 2 atoms of 64
+constexpr int kDwStageA = kDwBM / 64 * kAtomBytes;     // x tile, 32 KB
+static_assert(kDwStageA + kDwBN / 64 * kAtomBytes == kStageBytes, "48 KB");
+
 // K7 in bf16: one block per (256-row k tile, 128-column n tile, expert),
 // walking the expert's row tiles [tiles[2g], tiles[2g+1]) 64 rows a step.
 // dw = x^T dy is an MN-major product on both sides: the step's x rows are
@@ -421,7 +378,7 @@ __device__ __forceinline__ void load_atoms(unsigned char* smem,
 // are B's K rows (its N = n contiguous). Warpgroup w owns dw rows
 // 128 w .. 128 w + 127 of the tile: two m64n128k16 a 16-row slice.
 template <bool VEC>
-__global__ void __launch_bounds__(kDwThreads, 1)
+__global__ void __launch_bounds__(kWgThreads, 1)
 gmm_dw_wgmma_kernel(const bf16* __restrict__ x,     // [m, k]
                     const bf16* __restrict__ dy,    // [m, n]
                     const int* __restrict__ tiles,  // [e, 2] row-tile range
@@ -429,6 +386,8 @@ gmm_dw_wgmma_kernel(const bf16* __restrict__ x,     // [m, k]
                     int m, int k, int n, int block_m) {
   extern __shared__ unsigned char dw_smem_raw[];
   // the atoms' swizzle is keyed to address bits [7, 10): align to 1024
+  // (written out here: through a helper function, ptxas scheduled this
+  // kernel's loads otherwise and it ran 3 % slower)
   unsigned char* smem =
       dw_smem_raw + ((1024 - (smem_u32(dw_smem_raw) & 1023)) & 1023);
 
@@ -438,15 +397,16 @@ gmm_dw_wgmma_kernel(const bf16* __restrict__ x,     // [m, k]
   const int r_begin = tiles[2 * g] * block_m;
   const int r_end = min(m, tiles[2 * g + 1] * block_m);
   const int steps =
-      r_end > r_begin ? (r_end - r_begin + kDwDepth - 1) / kDwDepth : 0;
+      r_end > r_begin ? (r_end - r_begin + kWgDepth - 1) / kWgDepth : 0;
   const int wg = threadIdx.x / 128;
 
   auto load = [&](int step) {
     if (step < steps) {
-      unsigned char* stage = smem + (step % kDwStages) * kDwStageBytes;
-      const int r0 = r_begin + step * kDwDepth;
-      load_atoms<kDwBM, VEC>(stage, x, k, r0, k0, r_end, k);
-      load_atoms<kDwBN, VEC>(stage + kDwStageA, dy, n, r0, n0, r_end, n);
+      unsigned char* stage = smem + (step % kWgStages) * kStageBytes;
+      const int r0 = r_begin + step * kWgDepth;
+      load_swizzled<kWgDepth, kDwBM, VEC>(stage, x, k, r0, k0, r_end, k);
+      load_swizzled<kWgDepth, kDwBN, VEC>(stage + kDwStageA, dy, n, r0, n0,
+                                          r_end, n);
     }
     cp_async_commit();   // an empty group past the last step keeps the count
   };
@@ -471,17 +431,17 @@ gmm_dw_wgmma_kernel(const bf16* __restrict__ x,     // [m, k]
     fence_proxy_async();
     __syncthreads();
     load(s + 2);
-    const uint64_t stage = (s % kDwStages) * (kDwStageBytes >> 4);
+    const uint64_t stage = (s % kWgStages) * (kStageBytes >> 4);
     wgmma_fence_operand(acc[0]);
     wgmma_fence_operand(acc[1]);
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < kDwDepth / 16; ++kk) {
+    for (int kk = 0; kk < kWgDepth / 16; ++kk) {
       const uint64_t off = stage + kk * (2048 >> 4);   // 16 rows further
       const bool accumulate = s > 0 || kk > 0;
-      wgmma_m64n128k16_mn(acc[0], a_desc + off, b_desc + off, accumulate);
-      wgmma_m64n128k16_mn(acc[1], a_desc + off + (kAtomBytes >> 4),
-                          b_desc + off, accumulate);
+      wgmma_m64n128k16<1, 1>(acc[0], a_desc + off, b_desc + off, accumulate);
+      wgmma_m64n128k16<1, 1>(acc[1], a_desc + off + (kAtomBytes >> 4),
+                             b_desc + off, accumulate);
     }
     wgmma_commit();
     wgmma_fence_operand(acc[0]);
@@ -527,61 +487,261 @@ gmm_dw_wgmma_kernel(const bf16* __restrict__ x,     // [m, k]
     }
 }
 
-template <typename T, bool TRANS_W, bool VEC>
+// ----- K6
+
+constexpr int kFwBN = 256;              // output columns a block: 2 halves
+constexpr int kFwStageA = 128 * 128;    // x tile: up to 128 rows x 128 bytes
+static_assert(kFwStageA + kWgDepth * kFwBN * 2 == kStageBytes, "48 KB");
+constexpr int kFwLdS = kFwBN + 8;       // bf16 staging tile row stride
+
+// K6 in bf16: one block per (BM-row tile, 256-column tile), row tiles
+// fastest (blockIdx.x), walking k 64 a step. BM = 128: warpgroup w owns
+// rows 64 w .. 64 w + 63 and both 128-column halves (two accumulators);
+// BM = 64: warpgroup w owns the 64 rows and the half w. A = x K-major; B
+// = w[g] MN-major ([k, n], n contiguous) or, TRANS_W, K-major ([n, k]).
+template <int BM, bool TRANS_W, bool VEC>
+__global__ void __launch_bounds__(kWgThreads, 1)
+gmm_fwd_wgmma_kernel(const bf16* __restrict__ x,             // [m, k]
+                     const bf16* __restrict__ w,             // [e, k, n]; [e, n, k] if TRANS_W
+                     const int* __restrict__ block_expert,   // [m / block_m]
+                     bf16* __restrict__ out,                 // [m, n]
+                     int m, int k, int n, int n_experts, int block_m) {
+  static_assert(BM == 64 || BM == 128, "one or two 64-row slices");
+  constexpr int kAcc = BM / 64;   // accumulators a warpgroup
+  extern __shared__ unsigned char fw_smem_raw[];
+  // aligned to 1024, as K7's
+  unsigned char* smem =
+      fw_smem_raw + ((1024 - (smem_u32(fw_smem_raw) & 1023)) & 1023);
+
+  const int row0 = blockIdx.x * BM;
+  const int col0 = blockIdx.y * kFwBN;
+  const int wg = threadIdx.x / 128;
+  // the tile's expert: scalar prefetch on the TPU, read by the block here;
+  // a padding tile's (out of range) output is 0
+  const int g = block_expert[row0 / block_m];
+  const bool live = g >= 0 && g < n_experts;
+  const int steps = live ? (k + kWgDepth - 1) / kWgDepth : 0;
+  const bf16* wg_w = w + static_cast<size_t>(live ? g : 0) * k * n;
+
+  auto load = [&](int step) {
+    if (step < steps) {
+      unsigned char* stage = smem + (step % kWgStages) * kStageBytes;
+      const int p0 = step * kWgDepth;
+      load_swizzled<BM, kWgDepth, VEC>(stage, x, k, row0, p0, m, k);
+      if constexpr (TRANS_W)
+        load_swizzled<kFwBN, kWgDepth, VEC>(stage + kFwStageA, wg_w, k,
+                                            col0, p0, n, k);
+      else
+        load_swizzled<kWgDepth, kFwBN, VEC>(stage + kFwStageA, wg_w, n, p0,
+                                            col0, k, n);
+    }
+    cp_async_commit();   // an empty group past the last step keeps the count
+  };
+  load(0);
+  load(1);
+
+  // step 0's descriptors. A (K-major): this warpgroup's 64 rows, groups
+  // of 8 rows 1024 bytes apart. B: MN-major atoms of 64 columns LBO apart,
+  // or K-major rows like A's; either way the second 128-column half is
+  // 16 KB further on. The next k16 slice: 32 bytes along a K-major row,
+  // 16 rows (2048 bytes) down an MN-major atom.
+  const uint32_t base = smem_u32(smem);
+  const uint64_t a_desc = wgmma_desc_sw128(
+      base + (kAcc == 2 ? wg * 64 * 128 : 0), 16, 1024);
+  const uint64_t b_desc = wgmma_desc_sw128(base + kFwStageA,
+                                           TRANS_W ? 16 : kAtomBytes, 1024);
+  constexpr uint64_t kBk16 = TRANS_W ? 32 >> 4 : 2048 >> 4;
+  constexpr uint64_t kHalf = (128 * 128) >> 4;
+  uint64_t b_half[kAcc];
+#pragma unroll
+  for (int i = 0; i < kAcc; ++i) b_half[i] = (kAcc == 2 ? i : wg) * kHalf;
+
+  // no zero fill: the first product of the walk overwrites (scale-d 0)
+  float acc[kAcc][64];
+  for (int s = 0; s < steps; ++s) {
+    // one barrier a step, as K7's
+    cp_async_wait<1>();
+    fence_proxy_async();
+    __syncthreads();
+    load(s + 2);
+    const uint64_t stage = (s % kWgStages) * (kStageBytes >> 4);
+#pragma unroll
+    for (int i = 0; i < kAcc; ++i) wgmma_fence_operand(acc[i]);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kWgDepth / 16; ++kk) {
+      const bool accumulate = s > 0 || kk > 0;
+#pragma unroll
+      for (int i = 0; i < kAcc; ++i)
+        wgmma_m64n128k16<0, TRANS_W ? 0 : 1>(
+            acc[i], a_desc + stage + kk * (32 >> 4),
+            b_desc + stage + b_half[i] + kk * kBk16, accumulate);
+    }
+    wgmma_commit();
+#pragma unroll
+    for (int i = 0; i < kAcc; ++i) wgmma_fence_operand(acc[i]);
+    wgmma_wait<1>();   // step s - 1's products are done
+  }
+  wgmma_wait<0>();
+#pragma unroll
+  for (int i = 0; i < kAcc; ++i) wgmma_fence_operand(acc[i]);
+  cp_async_wait<0>();
+  if (steps == 0) {   // a padding tile, or k = 0: the output is 0
+#pragma unroll
+    for (int i = 0; i < kAcc; ++i)
+#pragma unroll
+      for (int j = 0; j < 64; ++j) acc[i][j] = 0.f;
+  }
+
+  // thread (warp v of warpgroup wg, lane 4 q + t) holds rows r_loc and
+  // r_loc + 8, columns c_loc[i] + 8 j + {0, 1} of accumulator i
+  const int lane = threadIdx.x % 32;
+  const int r_loc = (kAcc == 2 ? 64 * wg : 0) +
+                    16 * (threadIdx.x % 128 / 32) + lane / 4;
+  int c_loc[kAcc];
+#pragma unroll
+  for (int i = 0; i < kAcc; ++i)
+    c_loc[i] = 128 * (kAcc == 2 ? i : wg) + 2 * (lane % 4);
+
+  if constexpr (VEC) {
+    // the rounded tile through shared memory, then 16-byte stores: 9 %
+    // faster at gate|up than 4-byte stores straight from the accumulators
+    // (hack/gmm_ab.py); every warpgroup's products are done before the
+    // stages are reused
+    __syncthreads();
+    bf16* tile = reinterpret_cast<bf16*>(smem);   // [BM][kFwLdS]
+#pragma unroll
+    for (int i = 0; i < kAcc; ++i)
+#pragma unroll
+      for (int half = 0; half < 2; ++half)
+#pragma unroll
+        for (int j = 0; j < 16; ++j)
+          *reinterpret_cast<__nv_bfloat162*>(
+              tile + (r_loc + 8 * half) * kFwLdS + c_loc[i] + 8 * j) =
+              __floats2bfloat162_rn(acc[i][4 * j + 2 * half],
+                                    acc[i][4 * j + 2 * half + 1]);
+    __syncthreads();
+    constexpr int kChunks = kFwBN / 8;   // 16-byte words a row
+    for (int u = threadIdx.x; u < BM * kChunks; u += kWgThreads) {
+      const int r = u / kChunks;
+      const int c = (u % kChunks) * 8;
+      if (row0 + r < m && col0 + c < n)   // n % 8 == 0: whole words
+        *reinterpret_cast<uint4*>(out + static_cast<size_t>(row0 + r) * n +
+                                  col0 + c) =
+            *reinterpret_cast<const uint4*>(tile + r * kFwLdS + c);
+    }
+  } else {
+    // rows not a whole number of 16-byte words: 4-byte bf16x2 stores where
+    // n is even, else one value at a time
+    const bool pairs = n % 2 == 0;
+#pragma unroll
+    for (int i = 0; i < kAcc; ++i)
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int row = row0 + r_loc + 8 * half;
+        if (row >= m) continue;
+        bf16* dst = out + static_cast<size_t>(row) * n;
+#pragma unroll
+        for (int j = 0; j < 16; ++j) {
+          const int col = col0 + c_loc[i] + 8 * j;
+          const float v0 = acc[i][4 * j + 2 * half];
+          const float v1 = acc[i][4 * j + 2 * half + 1];
+          if (pairs && col + 1 < n) {
+            *reinterpret_cast<__nv_bfloat162*>(dst + col) =
+                __floats2bfloat162_rn(v0, v1);
+          } else {
+            if (col < n) dst[col] = from_f32<bf16>(v0);
+            if (col + 1 < n) dst[col + 1] = from_f32<bf16>(v1);
+          }
+        }
+      }
+  }
+}
+
+// ------------------------------------------------ launches, dispatch
+
+// the kernel's dynamic shared memory limit, raised once per instantiation
+template <typename Kernel>
+int allow_smem(Kernel kernel, bool& attribute_set) {
+  if (attribute_set) return 0;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(kWgSmemBytes));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  attribute_set = true;
+  return 0;
+}
+
+template <bool TRANS_W, bool VEC>
 int launch_fwd(const void* x, const void* w, const void* block_expert,
                void* out, int m, int k, int n, int n_experts, int block_m,
                cudaStream_t stream) {
   const dim3 grid((m + kBM - 1) / kBM, (n + kBN - 1) / kBN);
-  gmm_fwd_kernel<T, TRANS_W, VEC><<<grid, kThreads, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(w),
-      static_cast<const int*>(block_expert), static_cast<T*>(out), m, k, n,
-      n_experts, block_m);
+  gmm_fwd_kernel<TRANS_W, VEC><<<grid, kThreads, 0, stream>>>(
+      static_cast<const float*>(x), static_cast<const float*>(w),
+      static_cast<const int*>(block_expert), static_cast<float*>(out), m, k,
+      n, n_experts, block_m);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-int dispatch_fwd(bool trans_w, bool vec, const void* x, const void* w,
-                 const void* block_expert, void* out, int m, int k, int n,
-                 int n_experts, int block_m, cudaStream_t s) {
+template <int BM, bool TRANS_W, bool VEC>
+int launch_fwd_wgmma(const void* x, const void* w, const void* block_expert,
+                     void* out, int m, int k, int n, int n_experts,
+                     int block_m, cudaStream_t stream) {
+  static bool attribute_set = false;
+  if (int err = allow_smem(gmm_fwd_wgmma_kernel<BM, TRANS_W, VEC>,
+                           attribute_set))
+    return err;
+  const dim3 grid(m / BM, (n + kFwBN - 1) / kFwBN);
+  gmm_fwd_wgmma_kernel<BM, TRANS_W, VEC>
+      <<<grid, kWgThreads, kWgSmemBytes, stream>>>(
+          static_cast<const bf16*>(x), static_cast<const bf16*>(w),
+          static_cast<const int*>(block_expert), static_cast<bf16*>(out), m,
+          k, n, n_experts, block_m);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K6 in bf16: 128-row tiles where block_m allows them, else 64
+template <int BM>
+int dispatch_fwd_wgmma(bool trans_w, bool vec, const void* x, const void* w,
+                       const void* block_expert, void* out, int m, int k,
+                       int n, int n_experts, int block_m, cudaStream_t s) {
   if (trans_w)
-    return vec ? launch_fwd<T, true, true>(x, w, block_expert, out, m, k, n,
-                                           n_experts, block_m, s)
-               : launch_fwd<T, true, false>(x, w, block_expert, out, m, k, n,
-                                            n_experts, block_m, s);
-  return vec ? launch_fwd<T, false, true>(x, w, block_expert, out, m, k, n,
-                                          n_experts, block_m, s)
-             : launch_fwd<T, false, false>(x, w, block_expert, out, m, k, n,
-                                           n_experts, block_m, s);
+    return vec ? launch_fwd_wgmma<BM, true, true>(x, w, block_expert, out, m,
+                                                  k, n, n_experts, block_m, s)
+               : launch_fwd_wgmma<BM, true, false>(x, w, block_expert, out,
+                                                   m, k, n, n_experts,
+                                                   block_m, s);
+  return vec ? launch_fwd_wgmma<BM, false, true>(x, w, block_expert, out, m,
+                                                 k, n, n_experts, block_m, s)
+             : launch_fwd_wgmma<BM, false, false>(x, w, block_expert, out, m,
+                                                  k, n, n_experts, block_m,
+                                                  s);
 }
 
 template <bool VEC>
 int launch_dw_wgmma(const void* x, const void* dy, const void* tiles,
                     void* dw, int m, int k, int n, int n_experts,
                     int block_m, cudaStream_t stream) {
-  static bool attribute_set = false;   // once per instantiation
-  if (!attribute_set) {
-    cudaError_t err = cudaFuncSetAttribute(
-        gmm_dw_wgmma_kernel<VEC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(kDwSmemBytes));
-    if (err != cudaSuccess) return static_cast<int>(err);
-    attribute_set = true;
-  }
+  static bool attribute_set = false;
+  if (int err = allow_smem(gmm_dw_wgmma_kernel<VEC>, attribute_set))
+    return err;
   const dim3 grid((k + kDwBM - 1) / kDwBM, (n + kDwBN - 1) / kDwBN,
                   n_experts);
-  gmm_dw_wgmma_kernel<VEC><<<grid, kDwThreads, kDwSmemBytes, stream>>>(
+  gmm_dw_wgmma_kernel<VEC><<<grid, kWgThreads, kWgSmemBytes, stream>>>(
       static_cast<const bf16*>(x), static_cast<const bf16*>(dy),
       static_cast<const int*>(tiles), static_cast<float*>(dw), m, k, n,
       block_m);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, bool VEC>
+template <bool VEC>
 int launch_dw(const void* x, const void* dy, const void* tiles, void* dw,
               int m, int k, int n, int n_experts, int block_m,
               cudaStream_t stream) {
   const dim3 grid((k + kBM - 1) / kBM, (n + kBN - 1) / kBN, n_experts);
-  gmm_dw_kernel<T, VEC><<<grid, kThreads, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(dy),
+  gmm_dw_kernel<VEC><<<grid, kThreads, 0, stream>>>(
+      static_cast<const float*>(x), static_cast<const float*>(dy),
       static_cast<const int*>(tiles), static_cast<float*>(dw), m, k, n,
       block_m);
   return static_cast<int>(cudaGetLastError());
@@ -611,14 +771,27 @@ extern "C" int kubeflow_gmm(const void* x, const void* w,
     return static_cast<int>(cudaErrorInvalidValue);
   if (m == 0 || n == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return dispatch_fwd<float>(trans_w != 0, vectorizable<float>(k, n), x, w,
-                               block_expert, out, m, k, n, n_experts, block_m,
-                               s);
-  if (dtype == 1)
-    return dispatch_fwd<bf16>(trans_w != 0, vectorizable<bf16>(k, n), x, w,
-                              block_expert, out, m, k, n, n_experts, block_m,
-                              s);
+  const bool trans = trans_w != 0;
+  if (dtype == 0) {
+    const bool vec = vectorizable<float>(k, n);
+    if (trans)
+      return vec ? launch_fwd<true, true>(x, w, block_expert, out, m, k, n,
+                                          n_experts, block_m, s)
+                 : launch_fwd<true, false>(x, w, block_expert, out, m, k, n,
+                                           n_experts, block_m, s);
+    return vec ? launch_fwd<false, true>(x, w, block_expert, out, m, k, n,
+                                         n_experts, block_m, s)
+               : launch_fwd<false, false>(x, w, block_expert, out, m, k, n,
+                                          n_experts, block_m, s);
+  }
+  if (dtype == 1) {
+    const bool vec = vectorizable<bf16>(k, n);
+    return block_m % 128 == 0
+               ? dispatch_fwd_wgmma<128>(trans, vec, x, w, block_expert, out,
+                                         m, k, n, n_experts, block_m, s)
+               : dispatch_fwd_wgmma<64>(trans, vec, x, w, block_expert, out,
+                                        m, k, n, n_experts, block_m, s);
+  }
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -634,10 +807,10 @@ extern "C" int kubeflow_gmm_dw(const void* x, const void* dy,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return vectorizable<float>(k, n)
-               ? launch_dw<float, true>(x, dy, tiles, dw, m, k, n, n_experts,
-                                        block_m, s)
-               : launch_dw<float, false>(x, dy, tiles, dw, m, k, n, n_experts,
-                                         block_m, s);
+               ? launch_dw<true>(x, dy, tiles, dw, m, k, n, n_experts,
+                                 block_m, s)
+               : launch_dw<false>(x, dy, tiles, dw, m, k, n, n_experts,
+                                  block_m, s);
   if (dtype == 1)
     return vectorizable<bf16>(k, n)
                ? launch_dw_wgmma<true>(x, dy, tiles, dw, m, k, n, n_experts,

@@ -1,17 +1,23 @@
 // Hopper's warpgroup matrix multiply (wgmma, sm_90a only): the shared-
 // memory matrix descriptor for bf16 tiles in the 128-byte swizzle, the
-// fences and groups around wgmma.mma_async, and m64n128k16 with both
-// operands MN-major ("transposed", which bf16 allows) and fp32
-// accumulators. K7 is its first user; K6 and the flash kernels are next.
+// fences and groups around wgmma.mma_async, and m64n128k16 with bf16
+// operands, fp32 accumulators and each operand K-major or MN-major
+// ("transposed", which bf16 allows). K7 takes both operands MN-major, K6
+// takes A K-major and B MN-major (or K-major when it reads w^T).
 //
-// Operand tiles (MN-major, 128-byte swizzle). A tile is stored as atoms
-// of 64 MN-elements (128 bytes, one row) x its K rows, each atom 1024-byte
-// aligned. Within an atom the 16-byte chunk c of K row r sits at chunk
-// c ^ (r % 8) of the row (the swizzle the hardware undoes from the
-// address bits [7, 10)). In the descriptor, LBO is the byte step between
-// atoms along MN and SBO the byte step between groups of 8 K rows
-// (1024 bytes for 128-byte rows); an m64n128k16 reads 2 such groups, and
-// the next k16 slice of the same atom starts 2048 bytes further on.
+// Both layouts store a tile as 1024-byte aligned atoms of 8 rows of 128
+// bytes, the 16-byte chunk c of row r at chunk c ^ (r % 8) of the row (the
+// swizzle the hardware undoes from the address bits [7, 10)).
+// - MN-major: a row holds 64 MN-elements of one K index; an atom column
+//   is 64 MN-elements wide and as many rows deep as the tile has K
+//   indices. In the descriptor, LBO is the byte step between atoms along
+//   MN and SBO the byte step between groups of 8 K rows (1024 bytes); an
+//   m64n128k16 reads 2 such groups, and the next k16 slice starts 2048
+//   bytes further on.
+// - K-major: a row holds 64 K-elements of one MN index, rows stacked
+//   along MN. SBO is the byte step between groups of 8 MN rows (1024
+//   bytes); LBO is unused for a swizzled K-major operand (encoded as 1).
+//   The next k16 slice starts 32 bytes further along the row.
 //
 // Accumulators of m64nNk16 (fp32), thread i of the warpgroup, warp
 // w = i / 32, lane = 4 g + t: d[4 j + e] is row 16 w + g (e < 2) or
@@ -64,11 +70,13 @@ __device__ __forceinline__ void wgmma_fence_operand(float (&d)[N]) {
 }
 
 // d = A B + (accumulate ? d : 0) on the tensor cores, A 64 x 16 and B
-// 16 x 128, both bf16 and MN-major in shared memory (descriptors a, b), d
-// fp32 (64 a thread)
-__device__ __forceinline__ void wgmma_m64n128k16_mn(float (&d)[64],
-                                                    uint64_t a, uint64_t b,
-                                                    bool accumulate) {
+// 16 x 128, both bf16 in shared memory (descriptors a, b), d fp32 (64 a
+// thread). TRANS_A / TRANS_B: 1 when that operand is MN-major, 0 when it
+// is K-major.
+template <int TRANS_A, int TRANS_B>
+__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t a,
+                                                 uint64_t b,
+                                                 bool accumulate) {
   asm volatile(
       "{\n"
       ".reg .pred p;\n"
@@ -82,7 +90,7 @@ __device__ __forceinline__ void wgmma_m64n128k16_mn(float (&d)[64],
       "%40, %41, %42, %43, %44, %45, %46, %47, "
       "%48, %49, %50, %51, %52, %53, %54, %55, "
       "%56, %57, %58, %59, %60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1, 1, 1;\n"
+      "}, %64, %65, p, 1, 1, %67, %68;\n"
       "}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
         "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
@@ -100,7 +108,8 @@ __device__ __forceinline__ void wgmma_m64n128k16_mn(float (&d)[64],
         "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(a), "l"(b), "r"(static_cast<int>(accumulate)));
+      : "l"(a), "l"(b), "r"(static_cast<int>(accumulate)), "n"(TRANS_A),
+        "n"(TRANS_B));
 }
 
 }  // namespace kubeflow

@@ -8,7 +8,11 @@ their plain PyTorch versions:
 - K2, the multi-token chunk-after-prefix read (``csrc/paged_chunk.cu``),
   replaces ``_chunk_kernel`` (same file, :190, through
   ``paged_chunk_attention``) — the read of the cached partial prefill,
-  of every prefill chunk and of the speculative verify.
+  of every prefill chunk and of the speculative verify. In bf16 its
+  products run on the tensor cores and its key walk is split over
+  blocks (:func:`chunk_splits`), the splits' partials merged in split
+  order by a second kernel of the same C call; one wrapper call counts
+  one launch.
 
 Both take one layer's pool as a float ``(k, v)`` pair in q's dtype or as
 the int8 quadruple ``(k, v, k_scale, v_scale)`` of the engine's
@@ -28,6 +32,7 @@ never falls back.
 """
 
 import ctypes
+import functools
 
 import torch
 
@@ -73,8 +78,11 @@ def paged_decode_reference(q, pages, tables, lengths, *, block_size,
 _SIGNATURES = {
     "paged_decode": ("paged_decode", "kubeflow_paged_decode", 6, 7),
     "paged_decode_i8": ("paged_decode", "kubeflow_paged_decode_i8", 8, 7),
-    "paged_chunk": ("paged_chunk", "kubeflow_paged_chunk", 8, 8),
-    "paged_chunk_i8": ("paged_chunk", "kubeflow_paged_chunk_i8", 10, 8)}
+    "paged_chunk": ("paged_chunk", "kubeflow_paged_chunk", 9, 9),
+    "paged_chunk_i8": ("paged_chunk", "kubeflow_paged_chunk_i8", 11, 9)}
+#: K2's query-row tile and key tile (``csrc/paged_chunk.cu``)
+CHUNK_ROW_TILE = 64
+CHUNK_KEY_TILE = 64
 
 
 def _entry(name):
@@ -193,6 +201,25 @@ paged_decode_attention.launches = 0
 paged_decode_attention.launches_i8 = 0
 
 
+def chunk_splits(batch, seq, kv_heads, n_rep, block_size, bps, sms):
+    """How many blocks share one row tile's key walk in the bf16 K2: the
+    blocks of one split (row tiles x kv heads x slots) times the splits
+    cover the card's ``sms`` SMs about twice, never with more splits
+    than there are key tiles in the longest walk a table allows
+    (``bps·block_size`` prefix positions and ``seq`` chunk columns). One
+    split where the grid already fills the card."""
+    blocks = -(-seq // (CHUNK_ROW_TILE // n_rep)) * kv_heads * batch
+    if blocks == 0:
+        return 1
+    tiles = -(-(bps * block_size + seq) // CHUNK_KEY_TILE)
+    return max(1, min(tiles, -(-2 * sms // blocks)))
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index):
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def paged_chunk_reference(q, pages, tables, prefix_len, k_chunk, v_chunk,
                           *, block_size, n_rep=1, scale=None):
     """Plain version of K2, on any device: q ``[B, S, H, D]``, ``pages``
@@ -250,13 +277,19 @@ def paged_chunk_attention(q, pages, tables, prefix_len, k_chunk, v_chunk,
     plens = plens.contiguous()
     _build.check_aligned(qs, *pages[:2], k_chunk, v_chunk)
     out = torch.empty_like(qs)
+    bs, bps = pages[0].shape[1], tables.shape[1]
+    # bf16 splits the key walk; the splits' fp32 partials need no zeroing
+    splits = 1 if q.dtype == torch.float32 else chunk_splits(
+        B, S, kv_heads, n_rep, bs, bps, _sm_count(q.device.index))
+    ws = None if splits == 1 else torch.empty(
+        splits * B * S * H * (D + 2), dtype=torch.float32, device=q.device)
     name = "paged_chunk_i8" if len(pages) == 4 else "paged_chunk"
     ptrs = [t.data_ptr() for t in (qs, *pages, tables, plens, k_chunk,
                                    v_chunk, out)]
     with torch.cuda.device(q.device):
         err = _entry(name)(
-            *ptrs, B, S, kv_heads, n_rep, D, pages[0].shape[1],
-            tables.shape[1], _DTYPE_CODES[q.dtype],
+            *ptrs, None if ws is None else ws.data_ptr(), B, S, kv_heads,
+            n_rep, D, bs, bps, splits, _DTYPE_CODES[q.dtype],
             torch.cuda.current_stream(q.device).cuda_stream)
     if err:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")

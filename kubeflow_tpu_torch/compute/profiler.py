@@ -98,12 +98,13 @@ def trace(logdir=None):
 #: a kernel's name takes it
 KERNEL_GROUPS = (
     ("K1 paged_decode", ("paged_decode_kernel",)),
-    ("K2 paged_chunk", ("paged_chunk_kernel",)),
+    ("K2 paged_chunk", ("paged_chunk_kernel", "paged_chunk_tc_kernel",
+                        "paged_chunk_combine_kernel")),
     ("K3 flash_fwd", ("flash_fwd_kernel", "flash_fwd_tc_kernel")),
     ("K4 flash_bwd_dq", ("flash_bwd_dq_kernel", "flash_bwd_dq_tc_kernel")),
     ("K5 flash_bwd_dkv", ("flash_bwd_dkv_kernel",
                           "flash_bwd_dkv_tc_kernel")),
-    ("K6 grouped_matmul", ("gmm_fwd_kernel",)),
+    ("K6 grouped_matmul", ("gmm_fwd_kernel", "gmm_fwd_wgmma_kernel")),
     ("K7 grouped_matmul_dw", ("gmm_dw_kernel", "gmm_dw_wgmma_kernel")),
     ("K8 fused_block", ("fused_block_kernel",)),
     ("convolution", ("fprop", "dgrad", "wgrad", "cudnn", "conv2d",

@@ -53,3 +53,17 @@ def test_ptxas_entries_reads_registers_and_spills_per_kernel():
     assert (fp32["registers"], fp32["spill_stores"], fp32["spill_loads"]) == (
         128, 24, 16)
     assert chip_smoke.ptxas_entries("") == {}
+
+
+def test_serialized_wgmma_finds_ptxas_warning_c7515():
+    """The build phase fails on these lines: a kernel whose wgmma ptxas
+    serialized runs every product after the one before."""
+    warning = (f"ptxas info    : (C7515) Potential Performance Loss: "
+               f"wgmma.mma_async instructions are serialized due to the "
+               f"presence of Extern calls in the function '{NS}_kernel'")
+    log = "\n".join([
+        f"ptxas info    : Compiling entry function '{NS}_kernel' for "
+        "'sm_90a'", warning,
+        "ptxas info    : Used 168 registers, used 1 barriers"])
+    assert chip_smoke.serialized_wgmma(log) == [warning.strip()]
+    assert chip_smoke.serialized_wgmma(log.replace(warning, "")) == []

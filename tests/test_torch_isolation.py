@@ -1,6 +1,7 @@
-"""The port stands alone: no module of ``kubeflow_tpu_torch/``, and not
-``chip_smoke.py``, imports JAX, its ecosystem or the JAX package, and
-none imports ``triton`` at module level (the CPU test host has none; a
+"""The port stands alone: no module of ``kubeflow_tpu_torch/``, not
+``chip_smoke.py`` and not the port's scripts under ``hack/`` (the
+kernel A/B timings, the serving profile) imports JAX, its ecosystem or
+the JAX package, and none imports ``triton`` at module level (the CPU test host has none; a
 kernel module imports it inside the function that launches)."""
 
 import ast
@@ -9,8 +10,11 @@ import pathlib
 import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
+# the port's package, its smoke run, and the scripts that time its kernels
+# and serving steps on the card
 FILES = sorted((ROOT / "kubeflow_tpu_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"]
+    ROOT / "chip_smoke.py"] + sorted((ROOT / "hack").glob("*_ab.py")) + [
+    ROOT / "hack" / "port_decode_profile.py"]
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "kubeflow_tpu")
 
 

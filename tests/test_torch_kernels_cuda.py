@@ -14,8 +14,11 @@ counters and the wrappers' refusals; K1-i8 and K2-i8 (int8 pages with
 fp32 scales) over the same matrices and serving shapes, and the refusal
 of malformed int8 quadruples; for K2 (the chunk read) its three
 serving shapes (a 256-row chunk behind a long prefix, a prefix hit's
-suffix, an 8-slot verify with per-slot prefixes), prefix 0 and a
-ragged last row tile; for K4 and K5 (the flash backward) every head_dim
+suffix, an 8-slot verify with per-slot prefixes), prefix 0, one row
+(S = 1) and a ragged last row tile, its matrix over GQA groups
+1/2/3/4/8/16 and block sizes 1/8/12/16, and the bf16 K2 and K2-i8
+(``mma.sync``, the key walk split over blocks, splits with no key
+included) bit-identical on two calls; for K4 and K5 (the flash backward) every head_dim
 template, GQA groups 1/2/4, ragged, causal and full shapes and the
 train step's shape, each against the plain backward (K4 over GQA
 groups 1/2/4/8, S in {1, 53, 63, 64, 65, 77, 100, 300, 1000}, causal,
@@ -25,7 +28,9 @@ against autograd through the plain dense attention; for K6 and K7 (the
 grouped matmul of dropless MoE and its weight gradient) ragged k and n
 (not multiples of the tiles, and not of the 16-byte copy width), weights
 read transposed (the backward's dx), uniform routing, all rows on one
-expert, an empty expert and (K7) a skewed routing, K7 also at the MoE
+expert, an empty expert, a skewed routing and (K6) padding tiles that
+name expert -1, K6 also at ragged widths past one tile (1000 x 1000,
+72 x 136) and at the MoE step's four sites' widths, K7 also at the MoE
 step's dw gate|up widths, ``block_m`` 64 and 128, the launch counters,
 the autograd path (K6 forward, K6 + K7 backward) and the refusal of a
 ``block_m`` the kernels do not take; K3-K5 at the BERT step's shape
@@ -41,9 +46,9 @@ GQA groups 1/2/4/8 x causal, full and full with Sk != S x S in {1, 7,
 63, 64, 65, 300, 1000} (one tile, ragged tiles on either side of the
 64-row tile), the train, MoE and BERT step shapes, K4 and K5
 bit-identical on two calls, and the bf16 autograd path (one launch each
-of K3, K4, K5) against the plain backward; the bf16 K7 (``wgmma``)
-bit-identical on two calls at the dw gate|up widths under a skewed
-routing. Tolerances: fp32
+of K3, K4, K5) against the plain backward; the bf16 K6 and K7
+(``wgmma``) bit-identical on two calls at the gate|up, dx and dw gate|up
+widths under a skewed routing. Tolerances: fp32
 1e-4, bf16 2e-2 (the kernels sum in another order than the plain
 versions; bf16 outputs may round one unit apart); the backward's
 relative to the plain gradient's max |value|, with an absolute floor
@@ -146,6 +151,8 @@ VERIFY_PREFIX = [0, 1, 17, 100, 333, 512, 777, 1019]
     (1, 256, 0),              # a chunked prefill's first chunk
     (1, 40, 512),             # a prefix hit's suffix
     (1, 13, 32),              # a ragged last row tile
+    (1, 1, 100),              # one row behind a prefix
+    (1, 1, 0),                # one row, no prefix
     (8, 5, VERIFY_PREFIX)])   # the verify, per-slot prefixes
 def test_paged_chunk_matches_plain(dev, dtype, B, S, prefix):
     q, pages, tables, plen, kch, vch = _chunk_case(dev, dtype, B, S, prefix)
@@ -162,16 +169,31 @@ def test_paged_chunk_matches_plain(dev, dtype, B, S, prefix):
                                rtol=0)
 
 
+def _matrix_table(bs):
+    """Blocks a slot and per-slot prefixes of the matrix tests: no
+    prefix, one that ends inside a block, one that ends 3 positions
+    into the table's last block (the whole table for bs 1)."""
+    bps = 6 if bs > 1 else 100
+    return bps, [0, 9, (bps - 1) * bs + 3 % bs]
+
+
+CHUNK_REPS = [1, 2, 4, 3, 8, 16]
+CHUNK_BLOCKS = [8, 12, 1, 16]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("D", [32, 64, 128])
-@pytest.mark.parametrize("n_rep", [1, 2, 4, 3])
-@pytest.mark.parametrize("bs", [8, 12])
+@pytest.mark.parametrize("n_rep", CHUNK_REPS)
+@pytest.mark.parametrize("bs", CHUNK_BLOCKS)
 def test_paged_chunk_matrix(dev, dtype, D, n_rep, bs):
     """Every head_dim template, GQA groups that do and do not divide the
-    64-row tile, block sizes that do not divide the 32-key tile."""
+    64-row tile, block sizes that do not divide the key tiles (one
+    position a block too); in bf16 the split walk's slot with no prefix
+    has splits with no key."""
+    bps, prefix = _matrix_table(bs)
     q, pages, tables, plen, kch, vch = _chunk_case(
-        dev, dtype, 3, 23, [0, 9, 5 * bs + 3], n_rep=n_rep, D=D, bs=bs,
-        bps=6, seed=D + n_rep)
+        dev, dtype, 3, 23, prefix, n_rep=n_rep, D=D, bs=bs, bps=bps,
+        seed=D + n_rep)
     kw = dict(block_size=bs, n_rep=n_rep)
     got = paged_ops.paged_chunk_attention(q, pages, tables, plen, kch, vch,
                                           **kw)
@@ -219,8 +241,8 @@ def test_paged_decode_i8_matches_plain(dev, dtype, D, n_rep, bs):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,S,prefix", [
-    (1, 256, 768), (1, 256, 0), (1, 40, 512), (1, 13, 32),
-    (8, 5, VERIFY_PREFIX)])
+    (1, 256, 768), (1, 256, 0), (1, 40, 512), (1, 13, 32), (1, 1, 100),
+    (1, 1, 0), (8, 5, VERIFY_PREFIX)])
 def test_paged_chunk_i8_matches_plain(dev, dtype, B, S, prefix):
     """K2-i8 at the serving shapes: int8 prefix pages, the chunk's own
     K/V in q's dtype (a tile that straddles the prefix's end holds
@@ -243,12 +265,13 @@ def test_paged_chunk_i8_matches_plain(dev, dtype, B, S, prefix):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("D", [32, 64, 128])
-@pytest.mark.parametrize("n_rep", [1, 2, 4, 3])
-@pytest.mark.parametrize("bs", [8, 12])
+@pytest.mark.parametrize("n_rep", CHUNK_REPS)
+@pytest.mark.parametrize("bs", CHUNK_BLOCKS)
 def test_paged_chunk_i8_matrix(dev, dtype, D, n_rep, bs):
+    bps, prefix = _matrix_table(bs)
     q, pages, tables, plen, kch, vch = _chunk_case(
-        dev, dtype, 3, 23, [0, 9, 5 * bs + 3], n_rep=n_rep, D=D, bs=bs,
-        bps=6, seed=D + n_rep + 1)
+        dev, dtype, 3, 23, prefix, n_rep=n_rep, D=D, bs=bs, bps=bps,
+        seed=D + n_rep + 1)
     pages = _quantized(pages)
     kw = dict(block_size=bs, n_rep=n_rep)
     got = paged_ops.paged_chunk_attention(q, pages, tables, plen, kch, vch,
@@ -258,6 +281,28 @@ def test_paged_chunk_i8_matrix(dev, dtype, D, n_rep, bs):
     torch.cuda.synchronize()
     torch.testing.assert_close(got.float(), want.float(), atol=TOL[dtype],
                                rtol=0)
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("B,S,prefix", [(1, 256, 768), (8, 5, VERIFY_PREFIX)])
+def test_paged_chunk_bf16_is_deterministic(dev, int8, B, S, prefix):
+    """The bf16 K2 at a split walk (the combine reads the splits in
+    order, never in the order the blocks finished): two calls give the
+    same bits."""
+    q, pages, tables, plen, kch, vch = _chunk_case(dev, torch.bfloat16, B,
+                                                   S, prefix, seed=2)
+    assert paged_ops.chunk_splits(B, S, 2, 4, 16, 64, torch.cuda.
+                                  get_device_properties(dev).
+                                  multi_processor_count) > 1
+    if int8:
+        pages = _quantized(pages)
+    kw = dict(block_size=16, n_rep=4)
+    first = paged_ops.paged_chunk_attention(q, pages, tables, plen, kch,
+                                            vch, **kw)
+    second = paged_ops.paged_chunk_attention(q, pages, tables, plen, kch,
+                                             vch, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
@@ -585,27 +630,40 @@ def _gmm_layout(dev, rows, e, block_m, routing, seed=0):
 
 
 GMM_WIDTHS = [(128, 256), (100, 72), (33, 130)]   # k, n; ragged ones too
+# K6 also: ragged widths past one 256-column tile and one 64-deep step,
+# and the MoE flagship's four sites (gate|up, down, dx gate|up, dx down)
+GMM_FWD_WIDTHS = GMM_WIDTHS + [(1000, 1000), (72, 136), (1024, 5632),
+                               (2816, 1024), (5632, 1024), (1024, 2816)]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("block_m", [64, 128])
 @pytest.mark.parametrize("routing", ["uniform", "one_expert",
-                                     "empty_expert"])
-@pytest.mark.parametrize("k,n", GMM_WIDTHS)
+                                     "empty_expert", "skewed", "padding"])
+@pytest.mark.parametrize("k,n", GMM_FWD_WIDTHS)
 @pytest.mark.parametrize("trans", [False, True])
 def test_grouped_matmul_matches_plain(dev, dtype, block_m, routing, k, n,
                                       trans):
+    """``padding``: the last two tiles name expert -1, as padding tiles
+    out of every expert's range, and their rows come out 0."""
     e = 4
-    _, be, _, _, m_pad = _gmm_layout(dev, 300, e, block_m, routing, k + n)
+    _, be, _, _, m_pad = _gmm_layout(
+        dev, 300, e, block_m, "uniform" if routing == "padding" else routing,
+        k + n)
     g = torch.Generator().manual_seed(k * n)
     x = torch.randn((m_pad, k), generator=g).to(dev, dtype)
     if trans:     # the backward's dx: w^T read through its strides
         w = torch.randn((e, n, k), generator=g).to(dev, dtype).transpose(1, 2)
     else:
         w = torch.randn((e, k, n), generator=g).to(dev, dtype)
+    if routing == "padding":
+        be = be.clone()
+        be[-2:] = -1
     before = gmm_ops.grouped_matmul.launches
     got = gmm_ops.grouped_matmul(x, w, be, block_m)
-    want = gmm_ops.grouped_matmul_reference(x, w, be, block_m)
+    want = gmm_ops.grouped_matmul_reference(x, w, be.clamp(min=0), block_m)
+    if routing == "padding":
+        want[-2 * block_m:] = 0
     torch.cuda.synchronize()
     assert gmm_ops.grouped_matmul.launches == before + 1
     assert got.dtype == dtype and got.shape == (m_pad, n)
@@ -653,6 +711,26 @@ def test_gmm_dw_bf16_is_deterministic(dev):
     dy = torch.randn((m_pad, 5632), generator=g).to(dev, torch.bfloat16)
     first = gmm_ops.grouped_matmul_dw(x, dy, be, fst, lst, 8, 256)
     second = gmm_ops.grouped_matmul_dw(x, dy, be, fst, lst, 8, 256)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+@pytest.mark.parametrize("trans", [False, True])
+def test_gmm_bf16_is_deterministic(dev, trans):
+    """K6 in bf16 (wgmma) at the MoE step's gate|up widths (its dx
+    widths with w read transposed) under a skewed routing: two calls
+    give the same bits."""
+    _, be, _, _, m_pad = _gmm_layout(dev, 2048, 8, 128, "skewed", 6)
+    g = torch.Generator().manual_seed(9)
+    k, n = (5632, 1024) if trans else (1024, 5632)
+    x = torch.randn((m_pad, k), generator=g).to(dev, torch.bfloat16)
+    if trans:
+        w = torch.randn((8, n, k), generator=g).to(
+            dev, torch.bfloat16).transpose(1, 2)
+    else:
+        w = torch.randn((8, k, n), generator=g).to(dev, torch.bfloat16)
+    first = gmm_ops.grouped_matmul(x, w, be, 128)
+    second = gmm_ops.grouped_matmul(x, w, be, 128)
     torch.cuda.synchronize()
     assert torch.equal(first, second)
 

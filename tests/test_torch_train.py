@@ -483,6 +483,12 @@ def test_profiler_refuses_nesting_and_stops_on_a_crash(tmp_path):
              "K4 flash_bwd_dq"),
             ("void (anonymous namespace)::gmm_dw_wgmma_kernel<true>",
              "K7 grouped_matmul_dw"),
+            ("void (anonymous namespace)::gmm_fwd_wgmma_kernel<128, true, "
+             "true>", "K6 grouped_matmul"),
+            ("void (anonymous namespace)::paged_chunk_tc_kernel<signed "
+             "char, 128>", "K2 paged_chunk"),
+            ("void (anonymous namespace)::paged_chunk_combine_kernel<128>",
+             "K2 paged_chunk"),
             ("void (anonymous namespace)::paged_decode_kernel<float>",
              "K1 paged_decode"),
             ("sm80_xmma_gemm_f32f32_f32f32_f32_tn_n", "matmul"),
