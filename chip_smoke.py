@@ -17,13 +17,15 @@ if any phase fails:
    at the serving path's shapes, fp32 (tolerance 1e-4) and bf16 (2e-2),
    with its time, the plain version's time, one PyTorch library call's
    time (SDPA) and the least time the card could take: K1 (decode
-   read), K3 (flash forward) and K2 (chunk-after-prefix read) at a
-   256-row prefill chunk behind 768 cached positions, a 64-row prefix-hit
-   suffix behind 512, and an 8-slot verify of 5 rows with per-slot
-   prefixes (each K2 row names the bf16 key walk's splits and the
-   grid's blocks); K1-i8 and K2-i8 (the int8-page reads) at the same
-   shapes, the pages quantized from the same draw, each beside the float
-   kernel's time;
+   read; its row names the key walk's splits, more than one, and the
+   grid's blocks), K3 (flash forward) and K2 (chunk-after-prefix read)
+   at a 256-row prefill chunk behind 768 cached positions, a 64-row
+   prefix-hit suffix behind 512, and an 8-slot verify of 5 rows with
+   per-slot prefixes (each K2 row names the bf16 key walk's splits and
+   the grid's blocks); K1-i8 and K2-i8 (the int8-page reads) at the
+   same shapes, the pages quantized from the same draw, each beside the
+   float kernel's time; and bf16 K1 and K1-i8 over a lone 1024-token
+   slot, side rows kept out of the ``kernels`` line;
 4. engine — the bench-LM flagship (vocab 32768, d_model 1024, 12
    layers, GQA 8:2, bf16, random weights from a seed) served by the
    port's ``GenerationEngine``: 12 concurrent requests over 8 slots,
@@ -308,11 +310,15 @@ def phase_build():
     return seconds
 
 
-def _paged_case(dtype, seed=0):
+DECODE_LENGTHS = [0, 1, 17, 100, 333, 512, 777, 1024]
+
+
+def _paged_case(dtype, seed=0, lengths=DECODE_LENGTHS):
     """K1 at the serving path's shape: 8 slots, 2 kv heads x GQA 4,
-    head_dim 128, block 16, 64 blocks per slot, ragged lengths."""
+    head_dim 128, block 16, 64 blocks per slot, ragged lengths (or one
+    slot a length of ``lengths``)."""
     import torch
-    S, kv, n_rep, D, bs, bps = 8, 2, 4, 128, 16, 64
+    S, kv, n_rep, D, bs, bps = len(lengths), 2, 4, 128, 16, 64
     g = torch.Generator().manual_seed(seed)
     N = S * bps
     kc = torch.randn((N, bs, kv, D), generator=g).to("cuda", dtype)
@@ -320,8 +326,7 @@ def _paged_case(dtype, seed=0):
     q = torch.randn((S, 1, kv * n_rep, D), generator=g).to("cuda", dtype)
     tables = torch.randperm(N, generator=g).reshape(S, bps).to(
         "cuda", torch.int32)
-    lengths = torch.tensor([0, 1, 17, 100, 333, 512, 777, 1024],
-                           dtype=torch.int32, device="cuda")
+    lengths = torch.tensor(lengths, dtype=torch.int32, device="cuda")
     return q, (kc, vc), tables, lengths, n_rep, bs
 
 
@@ -343,14 +348,45 @@ def _pool_bytes(pages, n_pos):
     return n_pos * per_pos
 
 
-def check_paged(dtype_name, flush, int8=False):
-    """K1 (or, ``int8``, K1-i8 on the same draw quantized, beside the
-    float K1's time at the same shape) against its plain version."""
+def decode_yardsticks(q, pages, tables, lengths, n_rep, bs, flush):
+    """K1's yardsticks at one input → ``(library_ms, bound_ms,
+    bound_by)``: SDPA over the gathered, masked context (the gather, and
+    an int8 pool's dequant, are set-up and not timed), and the least
+    time the card could take (q read and out written once, the K/V rows
+    of every valid position read once, the tables and lengths)."""
     import torch
     import torch.nn.functional as F
     from kubeflow_tpu_torch.compute.ops import paged_attention as ops
+    S, _, H, D = q.shape
+    T = tables.shape[1] * bs
+    k_all, v_all = (p[tables.long()].reshape(S, T, -1, D)
+                    .repeat_interleave(n_rep, dim=2).transpose(1, 2)
+                    for p in ops._dequant_kernel(pages, q.dtype))
+    mask = (torch.arange(T, device=q.device)[None, :]
+            < lengths[:, None])[:, None, None, :]
+    qt = q.transpose(1, 2)
+    library_ms = time_ms(lambda: F.scaled_dot_product_attention(
+        qt, k_all, v_all, attn_mask=mask), flush=flush)
+    n_tok = int(lengths.sum())
+    bytes_moved = (2 * q.numel() * q.element_size()
+                   + _pool_bytes(pages, n_tok)
+                   + tables.numel() * 4 + lengths.numel() * 4)
+    flops = 4 * n_tok * H * D
+    bound_ms, bound_by = bound(bytes_moved, flops,
+                               str(q.dtype).removeprefix("torch."))
+    return library_ms, bound_ms, bound_by
+
+
+def check_paged(dtype_name, flush, int8=False, lengths=DECODE_LENGTHS):
+    """K1 (or, ``int8``, K1-i8 on the same draw quantized, beside the
+    float K1's time at the same shape) against its plain version; the
+    row names the key walk's splits and the grid's blocks, and requires
+    more than one split."""
+    import torch
+    from kubeflow_tpu_torch.compute.ops import paged_attention as ops
     dtype = getattr(torch, dtype_name)
-    q, pages, tables, lengths, n_rep, bs = _paged_case(dtype)
+    q, pages, tables, lengths, n_rep, bs = _paged_case(dtype,
+                                                       lengths=lengths)
     float_pages = pages
     if int8:
         pages = _int8_pool(pages)
@@ -364,31 +400,23 @@ def check_paged(dtype_name, flush, int8=False):
         q, pages, tables, lengths, **kw), flush=flush)
     plain_ms = time_ms(lambda: ops.paged_decode_reference(
         q, pages, tables, lengths, **kw), flush=flush)
-    # library yardstick: SDPA over the gathered, masked context (the
-    # gather, and an int8 pool's dequant, are set-up and not timed)
+    library_ms, bound_ms, bound_by = decode_yardsticks(
+        q, pages, tables, lengths, n_rep, bs, flush)
     S, _, H, D = q.shape
-    T = tables.shape[1] * bs
-    k_all, v_all = (p[tables.long()].reshape(S, T, -1, D)
-                    .repeat_interleave(n_rep, dim=2).transpose(1, 2)
-                    for p in ops._dequant_kernel(pages, dtype))
-    mask = (torch.arange(T, device="cuda")[None, :]
-            < lengths[:, None])[:, None, None, :]
-    qt = q.transpose(1, 2)
-    library_ms = time_ms(lambda: F.scaled_dot_product_attention(
-        qt, k_all, v_all, attn_mask=mask), flush=flush)
-    n_tok = int(lengths.sum())
-    itemsize = q.element_size()
-    bytes_moved = (2 * q.numel() * itemsize + _pool_bytes(pages, n_tok)
-                   + tables.numel() * 4 + lengths.numel() * 4)
-    flops = 4 * n_tok * H * D
-    bound_ms, bound_by = bound(bytes_moved, flops, dtype_name)
+    # the grid: splits x kv heads x slots
+    kv = H // n_rep
+    splits = ops.decode_splits(S, kv, bs, tables.shape[1],
+                               torch.cuda.get_device_properties(
+                                   0).multi_processor_count)
+    ok = ok and splits > 1
     row = {"phase": "kernels",
            "kernel": "paged_decode_i8" if int8 else "paged_decode",
            "dtype": dtype_name,
-           "shape": {"slots": S, "heads": H, "kv_heads": H // n_rep,
+           "shape": {"slots": S, "heads": H, "kv_heads": kv,
                      "head_dim": D, "block_size": bs,
                      "blocks_per_slot": tables.shape[1],
-                     "lengths": lengths.tolist()},
+                     "lengths": lengths.tolist(), "splits": splits,
+                     "blocks": splits * kv * S},
            "max_abs_err": err, "tol": TOL[dtype_name], "ok": ok,
            "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
            "bound_ms": bound_ms, "bound_by": bound_by}
@@ -890,6 +918,11 @@ def phase_kernels():
             rows.append(check_gmm(dtype_name, case, layout, flush))
         for case in DW_CASES:
             rows.append(check_gmm_dw(dtype_name, case, layout, flush))
+    # K1 and K1-i8 over a lone 1024-token slot (the longest walk alone),
+    # side rows kept out of the kernels line
+    lone = [check_paged("bfloat16", flush, int8=i8, lengths=[1024])
+            for i8 in (False, True)]
+    rows += [dict(r, side_row=True) for r in lone]
     # K6 and K7 under routing skew, side rows kept out of the kernels line
     skewed_layout = moe_layout(skewed=True)
     skewed = [check_gmm("bfloat16", ("gate_up_skewed", 1024, 2 * 2816,

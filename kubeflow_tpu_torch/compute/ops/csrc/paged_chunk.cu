@@ -49,9 +49,10 @@
 //     fp32 to a workspace (a split with no key writes m = -1e30, l = 0,
 //     acc = 0); paged_chunk_combine_kernel then merges the partials in
 //     split order (deterministic), each scaled by exp(m_i - m_max), divides
-//     once and rounds once to bf16. The wrapper picks the split count from
-//     the shapes (../paged_attention.py, chunk_splits); one split writes
-//     the output directly;
+//     once and rounds once to bf16 (split_combine.cuh, shared with K1).
+//     The wrapper picks the split count from the shapes
+//     (../paged_attention.py, chunk_splits); one split writes the output
+//     directly;
 //   - numerics: S = q K^T from bf16 operands with fp32 sums (the TPU
 //     kernel's preferred_element_type=float32); p stays fp32 in p.V as
 //     the TPU kernel's `p @ v.astype(float32)`: p is split into
@@ -79,6 +80,7 @@
 
 #include "common.cuh"
 #include "mma.cuh"
+#include "split_combine.cuh"
 
 #include <type_traits>
 
@@ -671,17 +673,14 @@ paged_chunk_tc_kernel(const bf16* __restrict__ q,       // [B, S, H, D], pre-sca
   }
 }
 
-// The splits' partials of every row → out: one warp a row, the splits in
-// order (the result does not depend on which block finished first), each
-// scaled by exp(m_i - m_max), one division with the l == 0 → 1 guard, one
-// rounding to bf16.
+// The splits' partials of every row → out, one warp a row
+// (split_combine.cuh: in split order, one division, one rounding to bf16).
 template <int D>
 __global__ void __launch_bounds__(128)
 paged_chunk_combine_kernel(const float* __restrict__ ws,
                            bf16* __restrict__ out,   // [B, S, H, D]
                            int n_rows, int S, int kv_heads, int n_rep,
                            int splits) {
-  constexpr int kPer = D / 32;   // values a lane
   const int row = blockIdx.x * 4 + threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   if (row >= n_rows) return;
@@ -690,29 +689,10 @@ paged_chunk_combine_kernel(const float* __restrict__ ws,
   const int f = row % R;   // s n_rep + h % n_rep
   const int b = bkv / kv_heads;
   const int h = (bkv % kv_heads) * n_rep + f % n_rep;
-  const float2* ml =
-      reinterpret_cast<const float2*>(ws + static_cast<size_t>(splits) *
-                                               n_rows * D);
-  float m_max = kNegInf;
-  for (int i = 0; i < splits; ++i)
-    m_max = fmaxf(m_max, ml[static_cast<size_t>(i) * n_rows + row].x);
-  float acc[kPer], l = 0.f;
-#pragma unroll
-  for (int e = 0; e < kPer; ++e) acc[e] = 0.f;
-  for (int i = 0; i < splits; ++i) {
-    const size_t at = static_cast<size_t>(i) * n_rows + row;
-    const float2 part = ml[at];
-    const float w = expf(part.x - m_max);
-    l += w * part.y;
-    const float* a = ws + at * D + lane * kPer;
-#pragma unroll
-    for (int e = 0; e < kPer; ++e) acc[e] += w * a[e];
-  }
-  const float inv = 1.f / (l == 0.f ? 1.f : l);
-  bf16* dst = out + ((static_cast<size_t>(b) * S + f / n_rep) * kv_heads *
-                         n_rep + h) * D + lane * kPer;
-#pragma unroll
-  for (int e = 0; e < kPer; ++e) dst[e] = from_f32<bf16>(acc[e] * inv);
+  combine_split_row<bf16, D>(
+      ws, n_rows, row, splits, lane,
+      out + ((static_cast<size_t>(b) * S + f / n_rep) * kv_heads * n_rep +
+             h) * D);
 }
 
 // ------------------------------------------------- launches, dispatch

@@ -4,7 +4,10 @@ their plain PyTorch versions:
 - K1, the one-token decode read (``csrc/paged_decode.cu``), replaces the
   Pallas TPU kernel ``_decode_kernel``
   (``kubeflow_tpu/compute/ops/paged_attention.py:49``, through
-  ``paged_decode_attention``);
+  ``paged_decode_attention``). Its key walk is split over blocks
+  (:func:`decode_splits`), the splits' partials merged in split order by
+  a second kernel of the same C call, in both dtypes; one wrapper call
+  counts one launch;
 - K2, the multi-token chunk-after-prefix read (``csrc/paged_chunk.cu``),
   replaces ``_chunk_kernel`` (same file, :190, through
   ``paged_chunk_attention``) — the read of the cached partial prefill,
@@ -76,13 +79,15 @@ def paged_decode_reference(q, pages, tables, lengths, *, block_size,
 
 # per entry point: (source, C symbol, pointer args, int args)
 _SIGNATURES = {
-    "paged_decode": ("paged_decode", "kubeflow_paged_decode", 6, 7),
-    "paged_decode_i8": ("paged_decode", "kubeflow_paged_decode_i8", 8, 7),
+    "paged_decode": ("paged_decode", "kubeflow_paged_decode", 7, 8),
+    "paged_decode_i8": ("paged_decode", "kubeflow_paged_decode_i8", 9, 8),
     "paged_chunk": ("paged_chunk", "kubeflow_paged_chunk", 9, 9),
     "paged_chunk_i8": ("paged_chunk", "kubeflow_paged_chunk_i8", 11, 9)}
 #: K2's query-row tile and key tile (``csrc/paged_chunk.cu``)
 CHUNK_ROW_TILE = 64
 CHUNK_KEY_TILE = 64
+#: K1's tile of positions (``csrc/paged_decode.cu``)
+DECODE_TILE = 32
 
 
 def _entry(name):
@@ -180,13 +185,18 @@ def paged_decode_attention(q, pages, tables, lengths, *, block_size,
     # 16-byte words move q and the pages; the scales are read as scalars
     _build.check_aligned(qs, *pages[:2])
     out = torch.empty_like(qs)
+    bs, bps = pages[0].shape[1], tables.shape[1]
+    # the split key walk; the splits' fp32 partials need no zeroing
+    splits = decode_splits(S, kv_heads, bs, bps, _sm_count(q.device.index))
+    ws = None if splits == 1 else torch.empty(
+        splits * S * H * (D + 2), dtype=torch.float32, device=q.device)
     name = "paged_decode_i8" if len(pages) == 4 else "paged_decode"
     ptrs = [t.data_ptr() for t in (qs, *pages, tables, lengths, out)]
     # the launch goes to the runtime's current device: make it q's
     with torch.cuda.device(q.device):
         err = _entry(name)(
-            *ptrs, S, kv_heads, n_rep, D, pages[0].shape[1],
-            tables.shape[1], _DTYPE_CODES[q.dtype],
+            *ptrs, None if ws is None else ws.data_ptr(), S, kv_heads,
+            n_rep, D, bs, bps, splits, _DTYPE_CODES[q.dtype],
             torch.cuda.current_stream(q.device).cuda_stream)
     if err:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
@@ -199,6 +209,20 @@ def paged_decode_attention(q, pages, tables, lengths, *, block_size,
 
 paged_decode_attention.launches = 0
 paged_decode_attention.launches_i8 = 0
+
+
+def decode_splits(slots, kv_heads, block_size, bps, sms):
+    """How many blocks share one (slot, kv head)'s key walk in K1: the
+    ``slots · kv_heads`` blocks of one split times the splits cover the
+    card's ``sms`` SMs about twice, never with more splits than the
+    table's tiles of :data:`DECODE_TILE` positions (``bps·block_size``
+    positions). One split where the grid already fills the card. Known
+    from the shapes alone, so the wrapper needs no device sync."""
+    blocks = slots * kv_heads
+    if blocks == 0:
+        return 1
+    tiles = -(-(bps * block_size) // DECODE_TILE)
+    return max(1, min(tiles, -(-2 * sms // blocks)))
 
 
 def chunk_splits(batch, seq, kv_heads, n_rep, block_size, bps, sms):

@@ -97,7 +97,8 @@ def trace(logdir=None):
 #: symbol, then library kernels by kind; the first group that matches
 #: a kernel's name takes it
 KERNEL_GROUPS = (
-    ("K1 paged_decode", ("paged_decode_kernel",)),
+    ("K1 paged_decode", ("paged_decode_kernel",
+                         "paged_decode_combine_kernel")),
     ("K2 paged_chunk", ("paged_chunk_kernel", "paged_chunk_tc_kernel",
                         "paged_chunk_combine_kernel")),
     ("K3 flash_fwd", ("flash_fwd_kernel", "flash_fwd_tc_kernel")),

@@ -12,7 +12,11 @@ template, GQA groups 1/2/4, block sizes that do not divide the kernel's
 32-position tile, ragged and causal/full flash shapes, the launch
 counters and the wrappers' refusals; K1-i8 and K2-i8 (int8 pages with
 fp32 scales) over the same matrices and serving shapes, and the refusal
-of malformed int8 quadruples; for K2 (the chunk read) its three
+of malformed int8 quadruples; K1 and K1-i8's split key walk with the
+split count forced (1, 2, 3, 17, 32 and 40 spans of a 32-tile table) x
+the serving lengths, a lone 1024-token slot, all-zero lengths and 8 x
+512 x fp32/bf16 x head_dim 128/64/32, the wrapper's own split count,
+and five bf16 calls bit-identical; for K2 (the chunk read) its three
 serving shapes (a 256-row chunk behind a long prefix, a prefix hit's
 suffix, an 8-slot verify with per-slot prefixes), prefix 0, one row
 (S = 1) and a ragged last row tile, its matrix over GQA groups
@@ -303,6 +307,88 @@ def test_paged_chunk_bf16_is_deterministic(dev, int8, B, S, prefix):
                                              vch, **kw)
     torch.cuda.synchronize()
     assert torch.equal(first, second)
+
+
+# K1's lengths: the serving shape's ragged slots, a lone 1024-token slot
+# (the longest walk alone), every slot empty, and the engine's decode
+# step at 8 x 512
+DECODE_LENGTHS = {"serving": [0, 1, 17, 100, 333, 512, 777, 1024],
+                  "lone_1024": [1024], "all_zero": [0] * 8,
+                  "all_512": [512] * 8}
+
+
+def _decode_case(dev, dtype, lengths, int8=False, n_rep=4, D=128, kv=2,
+                 bs=16, bps=64, seed=3):
+    g = torch.Generator().manual_seed(seed)
+    S = len(lengths)
+    N = S * bps
+    kc, vc = (torch.randn((N, bs, kv, D), generator=g).to(dev, dtype)
+              for _ in range(2))
+    q = torch.randn((S, 1, kv * n_rep, D), generator=g).to(dev, dtype)
+    tables = torch.randperm(N, generator=g).reshape(S, bps).to(
+        dev, torch.int32)
+    lengths = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    pages = _quantized((kc, vc)) if int8 else (kc, vc)
+    return q, pages, tables, lengths
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("int8", [False, True], ids=["float", "int8"])
+@pytest.mark.parametrize("lengths", sorted(DECODE_LENGTHS))
+@pytest.mark.parametrize("splits", [1, 2, 3, 17, 32, 40])
+@pytest.mark.parametrize("D,n_rep", [(128, 4), (64, 16), (32, 1)])
+def test_paged_decode_split_matrix(dev, monkeypatch, dtype, int8, lengths,
+                                   splits, D, n_rep):
+    """K1 and K1-i8 with the key walk forced into ``splits`` spans of the
+    table's 32 tiles: one split (the output written directly), spans of
+    many tiles (longer than the ring), of one tile (32), and more splits
+    than tiles (40: empty spans); splits wholly past a slot's length
+    write the empty partial. One wrapper call, one launch."""
+    monkeypatch.setattr(paged_ops, "decode_splits", lambda *a: splits)
+    q, pages, tables, lens = _decode_case(dev, dtype, DECODE_LENGTHS[lengths],
+                                          int8, n_rep=n_rep, D=D)
+    fn = paged_ops.paged_decode_attention
+    before = (fn.launches, fn.launches_i8)
+    kw = dict(block_size=16, n_rep=n_rep)
+    got = fn(q, pages, tables, lens, **kw)
+    want = paged_ops.paged_decode_reference(q, pages, tables, lens, **kw)
+    torch.cuda.synchronize()
+    assert (fn.launches, fn.launches_i8) == (
+        (before[0], before[1] + 1) if int8 else (before[0] + 1, before[1]))
+    assert got.dtype == dtype and torch.isfinite(got.float()).all()
+    torch.testing.assert_close(got.float(), want.float(), atol=TOL[dtype],
+                               rtol=0)
+    if lengths == "all_zero":
+        assert not got.float().abs().max()
+
+
+def test_paged_decode_splits_at_the_serving_shape(dev):
+    """The wrapper's own split count: more than one at the serving
+    shape and for a lone slot (one split a tile at most), one where 512
+    blocks already fill the card."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    serving = paged_ops.decode_splits(8, 2, 16, 64, sms)
+    assert 1 < serving <= 32 and 16 * serving >= sms
+    assert paged_ops.decode_splits(1, 2, 16, 64, sms) == min(32, sms)
+    assert paged_ops.decode_splits(64, 8, 16, 64, sms) == 1
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("lengths", ["serving", "lone_1024", "all_512"])
+def test_paged_decode_bf16_is_deterministic(dev, int8, lengths):
+    """K1 and K1-i8 at the wrapper's split walk (the combine reads the
+    splits in order, never in the order the blocks finished): five calls
+    give the same bits."""
+    q, pages, tables, lens = _decode_case(dev, torch.bfloat16,
+                                          DECODE_LENGTHS[lengths], int8,
+                                          seed=4)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    assert paged_ops.decode_splits(q.shape[0], 2, 16, 64, sms) > 1
+    kw = dict(block_size=16, n_rep=4)
+    outs = [paged_ops.paged_decode_attention(q, pages, tables, lens, **kw)
+            for _ in range(5)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(outs[0], o) for o in outs[1:])
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
