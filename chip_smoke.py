@@ -144,6 +144,9 @@ each ResNet-50 stage (batch 256: 56x56x256, 28x28x512, 14x14x1024,
 randomised, fp32 and bf16, within 1e-4 / 2e-2 of the plain version's max
 |value|. K8's yardstick is the port's unfused ``resnet._block`` in eval
 mode: three cuDNN convolutions with the BN multiply-adds between them.
+Each K8 row also names its plan's block tile and step depth, the
+registers and spills of the instantiation it launches (from
+the build row) and the weight bytes its blocks pull from L2, per ms.
 
 One JSON object per phase, then the run's total seconds, the card line,
 the ``kernels`` line and the last line ``{"ok": true, "device": {...}}``.
@@ -292,13 +295,14 @@ def serialized_wgmma(log):
 def phase_build():
     """Build every kernel; the row lists each kernel's registers and
     spills a thread as ptxas reported them (``name<args>: lines``). Fails
-    when ptxas serialized the wgmma of any kernel (C7515)."""
+    when ptxas serialized the wgmma of any kernel (C7515). Returns
+    ``{source: ptxas_entries}`` (empty for a library built before)."""
     from kubeflow_tpu_torch.compute.ops import _build
     seconds = _build.build()
-    report, serialized = {}, []
+    report, serialized, built = {}, [], {}
     for name in _build.SOURCES:
         log = _build.ptxas_report(name) or ""
-        entries = ptxas_entries(log)
+        entries = built[name] = ptxas_entries(log)
         report[name] = [f"{k}: {' | '.join(e['lines'])}"
                         for k, e in entries.items()]
         serialized += serialized_wgmma(log)
@@ -307,7 +311,7 @@ def phase_build():
           "serialized_wgmma": serialized})
     if serialized:
         raise RuntimeError(f"ptxas serialized wgmma (C7515): {serialized}")
-    return seconds
+    return built
 
 
 DECODE_LENGTHS = [0, 1, 17, 100, 333, 512, 777, 1024]
@@ -796,7 +800,34 @@ def random_block(c, m, g):
     return bp, bs
 
 
-def check_fused_block(dtype_name, shape, flush):
+def k8_weight_bytes(n, h, w, c, m, band, block_m, itemsize,
+                    halo_inside=True, row_align=16):
+    """The weight bytes one K8 launch pulls from L2: every block streams
+    all of W1 [C, M] for each of phase A's row tiles and W2 [9M, M] and
+    W3 [M, C] for each of phase B's and C's (``band (W + 2)`` pixels,
+    rounded up to ``row_align``). ``halo_inside``: phase A's rows are the
+    band's in-image rows (else the band's R + 2 rows, as the earlier
+    wmma kernel computed them)."""
+    b_rows = -(-band * (w + 2) // row_align) * row_align
+    b_tiles = -(-b_rows // block_m)
+    total = 0
+    for r0 in range(0, h, band):
+        a_rows = (min(r0 + band + 1, h) - max(r0 - 1, 0) if halo_inside
+                  else band + 2) * w
+        total += (-(-a_rows // block_m) * c * m
+                  + b_tiles * (9 * m * m + m * c))
+    return n * total * itemsize
+
+
+def k8_kernel_name(dtype_name, tiles):
+    """The K8 instantiation a plan launches, as ``ptxas_entries`` names
+    it."""
+    t = "bf16" if dtype_name == "bfloat16" else "float"
+    return (f"fused_block_kernel<{t}, {tiles['block_m']}, "
+            f"{tiles['block_n']}, {tiles['depth']}>")
+
+
+def check_fused_block(dtype_name, shape, flush, ptxas):
     """K8 against its plain version at one ResNet-50 stage's identity
     block, batch 256; errors and the tolerance relative to the plain
     result's max |value|. The library yardstick is the port's unfused
@@ -831,17 +862,27 @@ def check_fused_block(dtype_name, shape, flush):
         library_ms = time_ms(lambda: resnet._block(x, bp, bs, cfg, 1, False),
                              flush=flush, iters=10)
     band_rows, smem, threads = ops.launch_plan(hw, hw, c, m, dtype)
+    tiles = ops.tile_plan(hw, hw, c, m, dtype)
+    ptxas = ptxas.get("fused_block", {}).get(
+        k8_kernel_name(dtype_name, tiles), {})
     itemsize = x.element_size()
     pixels = n * hw * hw
     bytes_moved = (2 * pixels * c + 2 * c * m + 9 * m * m) * itemsize \
         + (2 * m + c) * 4
     flops = 2 * pixels * (2 * c * m + 9 * m * m)
     bound_ms, bound_by = bound(bytes_moved, flops, dtype_name)
+    weight_bytes = k8_weight_bytes(
+        n, hw, hw, c, m, band_rows, tiles["block_m"], itemsize,
+        row_align=16 if dtype == torch.bfloat16 else 1)
     row = {"phase": "kernels", "kernel": "fused_block", "dtype": dtype_name,
            "shape": {"batch": n, "height": hw, "width": hw, "channels": c,
                      "bottleneck": m, "band_rows": band_rows,
                      "shared_memory_bytes": smem,
-                     "block_threads": threads},
+                     "block_threads": threads, **tiles},
+           "registers": ptxas.get("registers"),
+           "spill_stores": ptxas.get("spill_stores"),
+           "l2_weight_bytes": weight_bytes,
+           "l2_weight_bytes_per_ms": weight_bytes / ms,
            "max_abs_err": diff, "max_rel_err": rel,
            "tol_rel": TOL[dtype_name],
            "ok": bool(torch.isfinite(got.float()).all())
@@ -884,6 +925,7 @@ def k8_band_sweep(bands):
                   "batch": BLOCK_BATCH, "dtype": "bfloat16",
                   "band_rows": band, "auto": band == auto,
                   "block_threads": threads, "shared_memory_bytes": smem,
+                  **ops.tile_plan(hw, hw, c, m, x.dtype, band),
                   "ms": ms, "max_rel_err": rel})
             if not rel <= TOL["bfloat16"]:
                 raise AssertionError(f"K8 disagrees at band {band}: {rel}")
@@ -891,7 +933,7 @@ def k8_band_sweep(bands):
         torch.cuda.empty_cache()
 
 
-def phase_kernels():
+def phase_kernels(ptxas):
     import torch
     flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
     rows = []
@@ -941,7 +983,7 @@ def phase_kernels():
                                 causal=False))
         rows += check_flash_bwd(dtype_name, flush, BERT_ATTN)
         for shape in BLOCK_SHAPES:
-            rows.append(check_fused_block(dtype_name, shape, flush))
+            rows.append(check_fused_block(dtype_name, shape, flush, ptxas))
             torch.cuda.empty_cache()
     del flush
     torch.cuda.empty_cache()
@@ -2202,12 +2244,12 @@ def main():
     from kubeflow_tpu_torch.compute.ops import paged_attention as paged_ops
     t_start = time.perf_counter()
     info = phase_device()
-    phase_build()
+    ptxas = phase_build()
     if sys.argv[1:2] == ["--k8-bands"]:        # the side measurement only
         k8_band_sweep([int(b) for b in sys.argv[2].split(",")])
         print(info["card"], flush=True)
         return
-    rows = phase_kernels()
+    rows = phase_kernels(ptxas)
     params = transformer.init_params(
         flagship_config(), torch.Generator().manual_seed(0), device="cuda")
     kernel_fns = {"paged_decode": paged_ops.paged_decode_attention,

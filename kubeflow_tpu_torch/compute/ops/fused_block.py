@@ -134,6 +134,9 @@ def bind(lib):
     lib.kubeflow_fused_block_plan.argtypes = (
         [ctypes.c_int] * 6 + [ctypes.POINTER(ctypes.c_int)])
     lib.kubeflow_fused_block_plan.restype = ctypes.c_int
+    lib.kubeflow_fused_block_tiles.argtypes = (
+        [ctypes.c_int] * 6 + [ctypes.POINTER(ctypes.c_int)])
+    lib.kubeflow_fused_block_tiles.restype = ctypes.c_int
     return lib
 
 
@@ -159,6 +162,19 @@ def launch_plan(h, w, c, m, dtype, band_rows=None):
             f"multiples of {WIDTH_MULTIPLE} and one band of the c1 plane "
             f"must fit an SM's shared memory")
     return plan[0], plan[1], plan[2]
+
+
+def tile_plan(h, w, c, m, dtype, band_rows=None):
+    """The rest of a launch's plan, for measurement: ``{"block_m",
+    "block_n", "depth"}`` — one thread block's output tile (rows ×
+    columns of each of the three products) and the reduction depth of a
+    staged weight step. Needs the built library (the card's host)."""
+    launch_plan(h, w, c, m, dtype, band_rows)       # raises for no fit
+    tiles = (ctypes.c_int * 3)()
+    if _library().kubeflow_fused_block_tiles(
+            h, w, c, m, band_rows or 0, _DTYPE_CODES[dtype], tiles):
+        raise ValueError(f"no tile plan for H {h}, W {w}, C {c}, M {m}")
+    return dict(zip(("block_m", "block_n", "depth"), tiles))
 
 
 def fused_bottleneck_eval(x, block_params, block_stats, eps=1e-5, *,

@@ -42,7 +42,9 @@ the autograd path (K6 forward, K6 + K7 backward) and the refusal of a
 bottleneck of ResNet's eval forward) the four ResNet-50 stage shapes at
 a small batch, planes narrower than a 16-row fragment and odd ones,
 widths with C other than 4 M, every band height from one row to the
-whole image (the halo rows, the last ragged band), randomised BN, the
+whole image (the halo rows, the last ragged band) at widths whose bf16
+steps are 64 and 32 deep, the bf16 kernel bit-identical across five
+calls, randomised BN, the
 unfused ``resnet._block`` as a second reference, the launch counter and
 the refusals; for the bf16 K3, K4 and K5, which run on the tensor cores
 (``mma.sync``) while fp32 stays on the CUDA cores, head_dim 32/64/128 x
@@ -926,14 +928,33 @@ def test_fused_block_odd_planes_and_widths(dev, dtype, n, h, w, c, m):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("band_rows", [1, 2, 3, 5, 11])
-def test_fused_block_every_band_height(dev, dtype, band_rows):
+@pytest.mark.parametrize("c,m,depth", [(64, 32, 32), (64, 64, 64),
+                                       (96, 160, 32)])
+def test_fused_block_every_band_height(dev, dtype, band_rows, c, m, depth):
     """The halo rows between bands and the ragged last band: 11 rows in
-    bands of 1, 2, 3 (ragged), 5 (ragged) and the whole image."""
-    _check_fused_block(dev, dtype, 2, 11, 6, 64, 32, band_rows=band_rows)
-    rows, smem, threads = block_ops.launch_plan(11, 6, 64, 32, dtype,
+    bands of 1, 2, 3 (ragged), 5 (ragged) and the whole image; at C = M =
+    64 the bf16 steps are 64 deep, at M 32 and at C 96 / M 160 (64 does
+    not divide them) 32 deep."""
+    _check_fused_block(dev, dtype, 2, 11, 6, c, m, band_rows=band_rows)
+    rows, smem, threads = block_ops.launch_plan(11, 6, c, m, dtype,
                                                 band_rows)
     assert rows == band_rows and 0 < smem <= 227 * 1024
-    assert threads in (256, 512)
+    assert threads == 256
+    tiles = block_ops.tile_plan(11, 6, c, m, dtype, band_rows)
+    assert tiles["depth"] == (depth if dtype == torch.bfloat16 else 16)
+
+
+@pytest.mark.parametrize("h,c,m", [(56, 256, 64), (7, 2048, 512),
+                                   (5, 96, 160)])
+def test_fused_block_bf16_is_bit_identical_across_calls(dev, h, c, m):
+    """No atomics: five calls on the same input give the same bits."""
+    params, stats = _random_block(dev, c, m, h + c)
+    g = torch.Generator().manual_seed(h)
+    x = torch.randn((3, h, h, c), generator=g).to(dev, torch.bfloat16)
+    first = block_ops.fused_bottleneck_eval(x, params, stats)
+    for _ in range(4):
+        again = block_ops.fused_bottleneck_eval(x, params, stats)
+        assert torch.equal(again, first)
 
 
 def test_fused_block_refuses_what_the_kernel_does_not_take(dev):
