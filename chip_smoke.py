@@ -53,7 +53,26 @@ if any phase fails:
    engine's on an int8 pool the plain int8 engine's, apart from steps
    where the plain engine's top-2 logit gap is below 1e-3; the bf16
    agreement is printed, not asserted;
-9. train — the flagship at full width and depth (bf16, ``remat=False``)
+9. wire — the bf16 flagship engine (8 slots, paged backend, prefix cache
+   on) behind the port's ``ModelServer`` on 127.0.0.1 (threaded
+   transport): 12 keep-alive clients POST the engine phase's 12 requests
+   to ``:generate`` together; every stream is 200 NDJSON with contiguous
+   token indices, its done frame holds the streamed tokens (each budget
+   spent) and ``X-TTFT-Ms`` is its ``ttft_s`` x 1000; K1 and K3 launch;
+   the streamed tokens equal the same engine's in-process tokens for the
+   same requests right after (where bf16 rounding on the prefix-cache
+   path makes them differ, the comparison runs again in fp32 at full
+   width and must hold there); tokens/s, TTFT p50/max and ITG p50 from
+   the done frames beside the in-process tokens/s;
+10. wire_cmd — ``python -m kubeflow_tpu_torch.cmd model-server`` as a
+   subprocess at the flagship's width under the JAX entry's knobs (MHA:
+   there is no KV-head knob), 8 slots, 256-token prefill chunks:
+   ``/healthz``, ``/v1/models/default`` on ``cuda:0``, a first request
+   timed alone (the replica's cold start), 4 streams (one a
+   700-token prompt: more prefill chunks than prefills, K2), the tokens
+   counted on ``/metrics``, a 503 after ``POST /admin/drain``, and
+   SIGTERM ending it with 0 within 30 s;
+11. train — the flagship at full width and depth (bf16, ``remat=False``)
    trained by the port's ``compute.train``: ``init_state`` →
    ``make_train_step(plain_loss(transformer.loss_fn))`` → ``fit`` over
    one repeated ``synthetic_lm`` batch of 16 x 1024 tokens, 2 warm
@@ -63,7 +82,7 @@ if any phase fails:
    every step launch K3, K4 and K5 exactly 12 times each; then one step
    profiled through the port's ``profiler`` (device ms by kernel
    group, the device's idle share);
-10. train conformance — fp32, TF32 off, flagship width, 2 layers, batch
+12. train conformance — fp32, TF32 off, flagship width, 2 layers, batch
    2 x 1024: the loss and every gradient leaf through K3/K4/K5 against
    ``attention="dense"`` (plain PyTorch autograd) on the card, loss
    within 1e-5 relative, each leaf's max |Δg| within 1e-3 of that
@@ -71,22 +90,22 @@ if any phase fails:
    against ``remat=False``: gradients within 1e-5 of each leaf's max
    |g| (the embedding's scatter-add sums in another order each run),
    24 K3 launches against 12, 12 of K4 and K5 in both;
-11. moe_apply — the MoE flagship (``moe_config``: vocab 32000, d_model
+13. moe_apply — the MoE flagship (``moe_config``: vocab 32000, d_model
    1024, 8 layers, 8 heads MHA, ff 2816, 8 experts top-2, dropless on
    the grouped matmul, bf16, random weights from a seed):
    ``transformer.apply`` on 1 x 1024 tokens, finite logits, exactly 16
    K6 and 8 K3 launches;
-12. moe_train — the same model trained (``remat=False``, one repeated
+14. moe_train — the same model trained (``remat=False``, one repeated
    8 x 1024 batch, 2 warm + 3 timed steps): step ms, tokens/s, MFU by
    JAX's ``flops_per_token`` (which counts the dense MLP once), peak
    memory, losses, ``moe_aux`` and the padded-row share; the loss falls
    and every step launches K6 32, K7 16 and K3/K4/K5 8 times each; then
    one step profiled (``moe_train_profile``);
-13. moe_conformance — fp32, TF32 off, MoE width, 2 layers, batch 2 x
+15. moe_conformance — fp32, TF32 off, MoE width, 2 layers, batch 2 x
    1024: the loss and every gradient leaf through K6/K7 against the
    plain ragged engine (``moe_gmm=False``), loss within 1e-5 relative,
    each leaf within 1e-3 of its max |g|, ``apply`` logits within 1e-3;
-14. resnet_eval — ResNet-50 (bf16, random weights and randomised BN from
+16. resnet_eval — ResNet-50 (bf16, random weights and randomised BN from
    a seed) at batch 256, 224 px in eval mode: every identity block's
    input through both ``resnet._block`` and K8
    (``fused_bottleneck_eval``), agreeing within 3e-2 of the block
@@ -95,23 +114,23 @@ if any phase fails:
    (exactly 12 launches, finite logits within 5e-2 of the unfused
    forward's, statistics untouched) and samples/s of the unfused and the
    K8 forward;
-15. resnet_train — ResNet-50 trained (bf16, ``init_state(extra=stats)``
+17. resnet_train — ResNet-50 trained (bf16, ``init_state(extra=stats)``
    → ``make_train_step(stateful_loss(resnet.loss_fn))`` → ``fit`` over
    one repeated 256 x 224 x 224 x 3 batch, 2 warm + 3 timed steps): step
    ms, samples/s, MFU by ``flops_per_sample``, peak memory; the loss
    falls and the running means move; then one step profiled
    (``resnet_train_profile``);
-16. bert_train — bert-base (bf16, ``remat=False``, per-layer weights) on
+18. bert_train — bert-base (bf16, ``remat=False``, per-layer weights) on
    one repeated 16 x 512 ``mlm_batch``, 2 warm + 3 timed steps: step ms,
    tokens/s, MFU; the loss falls and every step launches K3, K4 and K5
    12 times each; then one step profiled; and bert_conformance — fp32, 2
    layers, 2 x 512: loss and every gradient leaf through K3-K5 (no
    causal mask, head_dim 64) against ``attention="dense"``, 1e-5 / 1e-3
    of each leaf's max |g|;
-17. sweep — ``run_mnist_sweep`` of 8 trials in 2 shape buckets, 30
+19. sweep — ``run_mnist_sweep`` of 8 trials in 2 shape buckets, 30
    steps, equal within 1e-5 to 8 calls of ``run_mnist_trial``; wall
    seconds of both;
-18. the ``kernels`` line — every ported kernel with its launches on each
+20. the ``kernels`` line — every ported kernel with its launches on each
    path (counts zeroed just before a path, read just after), its max
    |Δ| and its times.
 
@@ -1445,6 +1464,363 @@ def phase_identity(params, target, draft, dcfg):
     return report
 
 
+WIRE_MODEL = "flagship"
+
+
+def _wire_stream(port, prompt, max_tokens, model, start=None):
+    """One keep-alive client: ``GET /healthz``, wait at ``start`` (a
+    barrier), then ``POST`` one ``:generate`` on the same connection and
+    read the stream frame by frame → dict of the status, the head, the
+    frames (or the error body), the seconds to the first token frame
+    and to the end, on the client's clock."""
+    import http.client
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+    try:
+        conn.request("GET", "/healthz")
+        conn.getresponse().read()
+        if start is not None:
+            start.wait()
+        t0 = time.perf_counter()
+        conn.request("POST", f"/v1/models/{model}:generate",
+                     json.dumps({"tokens": prompt,
+                                 "max_tokens": max_tokens}).encode(),
+                     {"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        out = {"status": resp.status, "max_tokens": max_tokens,
+               "head": {k.lower(): v for k, v in resp.getheaders()},
+               "first_frame_s": None}
+        if resp.status != 200:
+            out["error"] = resp.read().decode()
+            return out
+        frames = []
+        while True:
+            line = resp.readline()
+            if not line:
+                break
+            if line.strip():
+                frames.append(json.loads(line))
+                if out["first_frame_s"] is None:
+                    out["first_frame_s"] = time.perf_counter() - t0
+        out["frames"] = frames
+        out["seconds"] = time.perf_counter() - t0
+        return out
+    finally:
+        conn.close()
+
+
+def _wire_clients(port, reqs, model):
+    """``len(reqs)`` keep-alive clients POST together → (their results
+    in request order, wall seconds from the start to the last frame)."""
+    import threading
+    start = threading.Barrier(len(reqs) + 1)
+    results = [None] * len(reqs)
+
+    def client(i, prompt, m):
+        try:
+            results[i] = _wire_stream(port, prompt, m, model, start)
+        except Exception as e:  # noqa: BLE001 — reported by _check_wire
+            results[i] = {"status": None, "error": repr(e)}
+
+    threads = [threading.Thread(target=client, args=(i, p, m))
+               for i, (p, m) in enumerate(reqs)]
+    for t in threads:
+        t.start()
+    start.wait()
+    t0 = time.perf_counter()
+    for t in threads:
+        t.join(timeout=900)
+    return results, time.perf_counter() - t0
+
+
+def _check_wire(results, vocab):
+    """Every stream 200 NDJSON, token frames with contiguous indices,
+    the done frame's tokens the streamed ones (plain ints, each budget
+    spent unless EOS came first) and ``X-TTFT-Ms`` the done frame's
+    ``ttft_s`` x 1000 → the streamed tokens."""
+    out = []
+    for i, r in enumerate(results):
+        if r["status"] != 200 or r["head"].get("content-type") \
+                != "application/x-ndjson":
+            raise AssertionError(f"stream {i}: {r['status']} "
+                                 f"{r.get('error') or r['head']}")
+        frames = r["frames"]
+        toks = [f for f in frames if "token" in f]
+        done = frames[-1]
+        streamed = [f["token"] for f in toks]
+        if [f["index"] for f in toks] != list(range(len(toks))) \
+                or not done.get("done") or done["tokens"] != streamed \
+                or len(toks) + 1 != len(frames):
+            raise AssertionError(f"stream {i}: broken frames {frames}")
+        if not all(type(t) is int and 0 <= t < vocab for t in streamed):
+            raise AssertionError(f"stream {i}: tokens {streamed}")
+        if not (done["reason"] == "eos"
+                or (done["reason"] == "length"
+                    and len(streamed) == r["max_tokens"])):
+            raise AssertionError(f"stream {i} ended {done['reason']!r} "
+                                 f"with {len(streamed)} of "
+                                 f"{r['max_tokens']} tokens")
+        if r["head"].get("x-ttft-ms") \
+                != repr(round(done["ttft_s"] * 1000, 3)):
+            raise AssertionError(f"stream {i}: X-TTFT-Ms "
+                                 f"{r['head'].get('x-ttft-ms')} != done "
+                                 f"ttft_s {done['ttft_s']} x 1000")
+        out.append(streamed)
+    return out
+
+
+def _wire_numbers(results, wall):
+    """tokens/s over the wall, TTFT p50/max and ITG p50 from the done
+    frames, and the client's own time to the first frame."""
+    dones = [r["frames"][-1] for r in results]
+    n = sum(len(d["tokens"]) for d in dones)
+    ttft = sorted(d["ttft_s"] for d in dones)
+    itg = [d["itg_p50_s"] for d in dones if d["itg_p50_s"] is not None]
+    return {"tokens": n, "wall_s": wall, "tokens_per_s": n / wall,
+            "ttft_p50_ms": 1e3 * statistics.median(ttft),
+            "ttft_max_ms": 1e3 * ttft[-1],
+            "itg_p50_ms": 1e3 * statistics.median(itg),
+            "itg_max_ms": 1e3 * max(d["itg_max_s"] for d in dones
+                                    if d["itg_max_s"] is not None),
+            "client_first_frame_p50_ms": 1e3 * statistics.median(
+                r["first_frame_s"] for r in results)}
+
+
+def _wire_run(eng, reqs, kernel_fns):
+    """Serve ``eng`` on the port's ``ModelServer`` (127.0.0.1, port 0),
+    warm it over HTTP, zero the launch counts, let ``len(reqs)`` clients
+    stream ``reqs`` together, read the counts; right after, the same
+    engine serves the same ``reqs`` in-process through ``submit``. The
+    server (and with it the engine) stops at the end → dict."""
+    from kubeflow_tpu_torch.compute import serving
+    server = serving.ModelServer()
+    server.register_generator(WIRE_MODEL, eng)
+    try:
+        port = server.start(port=0, host="127.0.0.1")
+        warm = _wire_stream(port, [1, 2, 3], 2, WIRE_MODEL)
+        if warm["status"] != 200:
+            raise AssertionError(f"warm-up stream: {warm}")
+        for fn in kernel_fns.values():
+            fn.launches = 0
+        s0 = dict(eng.stats)
+        results, wall = _wire_clients(port, reqs, WIRE_MODEL)
+        launches = {name: fn.launches for name, fn in kernel_fns.items()}
+        s1 = dict(eng.stats)
+        t0 = time.perf_counter()
+        handles = [eng.submit(p, max_tokens=m) for p, m in reqs]
+        outs = [h.result(timeout=600) for h in handles]
+        wall_in = time.perf_counter() - t0
+        s2 = dict(eng.stats)
+    finally:
+        server.stop()
+    return {"results": results, "wall": wall, "launches": launches,
+            "outs": outs, "wall_in": wall_in,
+            "d_wire": {k: s1[k] - s0[k] for k in s0},
+            "d_in": {k: s2[k] - s1[k] for k in s1}}
+
+
+def _first_mismatches(got, want):
+    """Per request, the first step where ``got`` leaves ``want`` (None
+    where they agree)."""
+    return [next((j for j, (x, y) in enumerate(zip(a, b)) if x != y),
+                 None if len(a) == len(b) else min(len(a), len(b)))
+            for a, b in zip(got, want)]
+
+
+def phase_wire(params, kernel_fns):
+    """The flagship streamed over HTTP: the bf16 engine (8 slots, the
+    paged backend, the prefix cache on) behind the port's
+    ``ModelServer``; 12 keep-alive clients POST ``requests(12)`` to
+    ``:generate`` together. Every stream is checked (``_check_wire``), K1
+    and K3 must launch, and the streamed tokens must equal what the same
+    engine gives the same requests in-process right after. That run
+    meets the prefix cache the wire run filled, so its first tokens come
+    from K2 over cached pages instead of K3: where bf16 rounding makes
+    the two differ, the same comparison runs in fp32 at full width,
+    where they must agree."""
+    import torch
+    from kubeflow_tpu_torch.compute import generate as gen_lib
+    kw = dict(max_slots=8, block_size=16, max_context=1024)
+    cfg = flagship_config()
+    reqs = requests(12, cfg.vocab_size)
+    run = _wire_run(gen_lib.GenerationEngine(params, cfg, name="wire", **kw),
+                    reqs, kernel_fns)
+    torch.cuda.empty_cache()
+    streamed = _check_wire(run["results"], cfg.vocab_size)
+    _check_served(reqs, run["outs"], cfg.vocab_size)
+    inproc = [o for o, _ in run["outs"]]
+    n_in = sum(len(o) for o in inproc)
+    d = run["d_wire"]
+    identity = {"bfloat16": {
+        "equal": streamed == inproc,
+        "first_mismatch": _first_mismatches(streamed, inproc),
+        "inproc_prefix_hits": run["d_in"]["prefix_hits"]}}
+    if streamed != inproc:
+        run32 = _wire_run(gen_lib.GenerationEngine(
+            params, flagship_config("float32"), name="wire-fp32", **kw),
+            reqs, {})
+        torch.cuda.empty_cache()
+        s32 = _check_wire(run32["results"], cfg.vocab_size)
+        in32 = [o for o, _ in run32["outs"]]
+        identity["float32"] = {
+            "equal": s32 == in32,
+            "first_mismatch": _first_mismatches(s32, in32),
+            "inproc_prefix_hits": run32["d_in"]["prefix_hits"]}
+    row = {"phase": "wire", "dtype": "bfloat16", "requests": len(reqs),
+           "slots": 8, "clients": len(reqs), "transport": "threaded",
+           **_wire_numbers(run["results"], run["wall"]),
+           "decode_steps": d["decode_steps"],
+           "decode_step_ms": 1e3 * d["decode_seconds_total"]
+                             / d["decode_steps"],
+           "prefills": d["prefills"],
+           "inproc_tokens_per_s": n_in / run["wall_in"],
+           "inproc_decode_steps": run["d_in"]["decode_steps"],
+           "inproc_decode_step_ms": 1e3 * run["d_in"]["decode_seconds_total"]
+                                    / run["d_in"]["decode_steps"],
+           "identity": identity, "launches": run["launches"]}
+    emit(row)
+    _require(run["launches"], ("paged_decode", "flash_fwd"), "wire")
+    if not identity.get("float32", identity["bfloat16"])["equal"]:
+        raise AssertionError(f"streamed tokens differ from the same "
+                             f"engine's in-process tokens: {identity}")
+    return row
+
+
+#: the flagship's width under the JAX entry's knobs (no KV-head knob:
+#: the model is MHA), 8 slots, 256-token prefill chunks
+WIRE_CMD_ENV = {"MODEL_GENERATE": "1", "PORT": "0", "HOST": "127.0.0.1",
+                "GEN_VOCAB": "32768", "GEN_D_MODEL": "1024",
+                "GEN_LAYERS": "12", "GEN_HEADS": "8",
+                "GEN_MAX_CONTEXT": "1024", "GEN_DTYPE": "bfloat16",
+                "GEN_SLOTS": "8", "GEN_PREFILL_CHUNK": "256",
+                "OBS_EXPORT_DIR": ""}
+WIRE_CMD_DEVICE = "cuda:0"
+
+
+def _http(port, method, path, body=None):
+    """One request on a fresh connection → (status, head, body bytes)."""
+    import http.client
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+    try:
+        conn.request(method, path,
+                     None if body is None else json.dumps(body).encode(),
+                     {"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        return (resp.status, {k.lower(): v for k, v in resp.getheaders()},
+                resp.read())
+    finally:
+        conn.close()
+
+
+def phase_wire_cmd():
+    """``python -m kubeflow_tpu_torch.cmd model-server`` as a subprocess
+    under ``WIRE_CMD_ENV``: read ``PORT n``; ``/healthz`` answers ok,
+    ``/v1/models/default`` names ``cuda:0``; one first request, timed
+    alone (the replica's first launches); 4 requests (one a
+    700-token prompt) stream together, with more prefill chunks than
+    prefills (chunked prefill on K2); ``/metrics`` counts generated
+    tokens; after ``POST /admin/drain`` a ``:generate`` answers 503; and
+    SIGTERM ends the process with 0 within 30 s."""
+    import os
+    import pathlib
+    import queue
+    import signal
+    import subprocess
+    import threading
+    root = pathlib.Path(__file__).resolve().parent
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith("GEN_") and k not in (
+               "MODEL_MODULE", "MODEL_DEVICE_MS", "QOS_TENANTS",
+               "SERVING_TRANSPORT", "MODEL_NAME")}
+    env.update(WIRE_CMD_ENV, PYTHONPATH=str(root))
+    lines = queue.Queue()
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "kubeflow_tpu_torch.cmd", "model-server"],
+        env=env, cwd=root, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)
+    log = []
+
+    def pump():
+        for ln in proc.stdout:
+            log.append(ln.rstrip())
+            lines.put(ln)
+        lines.put(None)
+
+    threading.Thread(target=pump, daemon=True).start()
+    try:
+        port = None
+        while port is None:
+            ln = lines.get(timeout=300)
+            if ln is None:
+                raise AssertionError(f"model-server exited "
+                                     f"{proc.wait()} before PORT: {log}")
+            if ln.startswith("PORT "):
+                port = int(ln.split()[1])
+        startup = time.perf_counter() - t0
+        status, _, body = _http(port, "GET", "/healthz")
+        if (status, json.loads(body)) != (200, {"status": "ok"}):
+            raise AssertionError(f"/healthz: {status} {body}")
+        # the replica's first request pays the first launches and the
+        # library handles: timed on its own, before the 4 streams
+        first = _wire_stream(port, [1, 2, 3], 2, "default")
+        _check_wire([first], 32768)
+        snap0 = json.loads(_http(port, "GET", "/v1/models/default")[2])[
+            "generator"]
+        if snap0["device"] != WIRE_CMD_DEVICE \
+                or snap0["prefill_chunk"] != 256:
+            raise AssertionError(f"/v1/models/default: device "
+                                 f"{snap0['device']}, prefill_chunk "
+                                 f"{snap0['prefill_chunk']}")
+        reqs = [r for i, r in enumerate(requests(5, 32768)) if i != 1]
+        results, wall = _wire_clients(port, reqs, "default")
+        _check_wire(results, 32768)
+        snap1 = json.loads(_http(port, "GET", "/v1/models/default")[2])[
+            "generator"]
+        prefills = snap1["stats"]["prefills"] - snap0["stats"]["prefills"]
+        chunks = snap1["prefill_chunks"] - snap0["prefill_chunks"]
+        metrics = _http(port, "GET", "/metrics")[2].decode()
+        m = re.search(r'^serving_generate_tokens_total\{model="default"\} '
+                      r'(\S+)$', metrics, re.M)
+        drain = _http(port, "POST", "/admin/drain", {})
+        refused = _http(port, "POST", "/v1/models/default:generate",
+                        {"tokens": [1, 2], "max_tokens": 2})
+        t_term = time.perf_counter()
+        proc.send_signal(signal.SIGTERM)
+        code = proc.wait(timeout=30)
+        row = {"phase": "wire_cmd", "dtype": WIRE_CMD_ENV["GEN_DTYPE"],
+               "heads": int(WIRE_CMD_ENV["GEN_HEADS"]),
+               "kv_heads": int(WIRE_CMD_ENV["GEN_HEADS"]),
+               "prefill_chunk": int(WIRE_CMD_ENV["GEN_PREFILL_CHUNK"]),
+               "requests": len(reqs),
+               "prompt_lens": [len(p) for p, _ in reqs],
+               "startup_s": startup,
+               "first_request_ttft_ms": 1e3 * first["frames"][-1]["ttft_s"],
+               **_wire_numbers(results, wall),
+               "prefills": prefills, "prefill_chunks": chunks,
+               "tokens_total_metric": float(m.group(1)) if m else None,
+               "drain": drain[0], "after_drain": refused[0],
+               "retry_after": refused[1].get("retry-after"),
+               "sigterm_exit": code,
+               "sigterm_s": time.perf_counter() - t_term}
+        emit(row)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=30)
+    if chunks <= prefills:
+        raise AssertionError(f"{chunks} prefill chunks for {prefills} "
+                             f"prefills: nothing was chunked (K2)")
+    if not row["tokens_total_metric"]:
+        raise AssertionError("serving_generate_tokens_total is not > 0")
+    if drain[0] != 200 or refused[0] != 503 or row["retry_after"] != "1":
+        raise AssertionError(f"drain {drain[0]}, then :generate "
+                             f"{refused[0]} (Retry-After "
+                             f"{row['retry_after']}), want 200 then 503")
+    if code != 0:
+        raise AssertionError(f"SIGTERM exit code {code}: {log[-20:]}")
+    return row
+
+
 TRAIN_BATCH = (16, 1024)
 TRAIN_WARM, TRAIN_TIMED = 2, 5
 def phase_train(kernel_fns):
@@ -2272,6 +2648,8 @@ def main():
     paths["speculative"] = phase_spec(target, draft, dcfg, kernel_fns)
     phase_conformance(params)
     phase_identity(params, target, draft, dcfg)
+    paths["wire"] = phase_wire(params, kernel_fns)
+    phase_wire_cmd()
     del params, target, draft
     torch.cuda.empty_cache()
     paths["train"] = phase_train(kernel_fns)

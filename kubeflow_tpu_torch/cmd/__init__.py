@@ -1,0 +1,185 @@
+"""Process entry points of the port —
+``python -m kubeflow_tpu_torch.cmd <component>``.
+
+``model-server`` is the generation branch (``MODEL_GENERATE=1``) of the
+JAX package's ``model-server``: a stock TransformerLM from a seed behind
+``POST /v1/models/<name>:generate`` on the port's ``ModelServer``,
+sized by the same ``GEN_*`` knobs. It runs on the card; ``GEN_DEVICE=cpu``
+asks for the CPU by name, and with neither a CUDA card nor that knob it
+exits through ``device.resolve``'s error (there is no silent fallback).
+It prints ``PORT <n>`` once serving and blocks until SIGTERM/SIGINT,
+then stops the server.
+
+Knobs the port does not serve yet refuse by name, with a non-zero exit
+(``SystemExit``) that names the work that brings them; see
+``REFUSED``.
+"""
+
+import logging
+import os
+import signal
+import threading
+
+#: the seed of the stock model's weights (the JAX entry uses
+#: ``PRNGKey(0)``; the port draws its own numbers from this seed)
+SEED = 0
+
+_TRUE = ("1", "true", "yes", "on")
+_FALSE = ("0", "false", "no", "off")
+
+
+def _flag(name):
+    return os.environ.get(name, "").strip().lower() in _TRUE
+
+
+def _tp():
+    """``GEN_MESH`` ("tensor=N" or a bare N) wins over ``GEN_TP``."""
+    mesh = os.environ.get("GEN_MESH", "")
+    return int(mesh.rpartition("=")[2] or os.environ.get("GEN_TP", "1")
+               or 1)
+
+
+#: (knob, is it set to what the port refuses?, the work that brings it)
+REFUSED = (
+    ("GEN_MESH", lambda: bool(os.environ.get("GEN_MESH", "").strip())
+     and _tp() > 1, "tensor-sharded serving (the port's mesh slice)"),
+    ("GEN_TP", lambda: _tp() > 1,
+     "tensor-sharded serving (the port's mesh slice)"),
+    ("GEN_ROW_SHARD", lambda: _flag("GEN_ROW_SHARD"),
+     "row-sharded projections (the port's mesh slice)"),
+    ("QOS_TENANTS", lambda: bool(os.environ.get("QOS_TENANTS", "").strip()),
+     "the tenant token ledger (the port's QoS/preemption slice)"),
+    ("GEN_ROLE", lambda: (os.environ.get("GEN_ROLE") or "both").strip()
+     != "both", "prefill/decode roles (the port's KV-migration slice)"),
+    ("GEN_CALIBRATE", lambda: _flag("GEN_CALIBRATE"),
+     "collective-share calibration (the port's mesh slice)"),
+    ("SERVING_TRANSPORT", lambda: (os.environ.get("SERVING_TRANSPORT")
+                                   or "").strip().lower() == "async",
+     "the async transport (the port's async-transport slice)"),
+)
+
+
+def _refuse_unported():
+    """Raise ``SystemExit`` naming the first knob the port refuses."""
+    if not _flag("MODEL_GENERATE"):
+        unary = [k for k in ("MODEL_MODULE", "MODEL_DEVICE_MS")
+                 if os.environ.get(k, "").strip()]
+        raise SystemExit(
+            f"MODEL_GENERATE is not set: the port's model-server serves "
+            f"only the generation branch (MODEL_GENERATE=1); the unary "
+            f"branches ({', '.join(unary) or 'the stock MLP'}) come with "
+            f"the port's unary-predict slice")
+    for knob, refused, work in REFUSED:
+        if refused():
+            raise SystemExit(
+                f"{knob}={os.environ.get(knob)!r} is not served by the "
+                f"port: {work} is not ported yet")
+
+
+def _block(*cleanup):
+    """Wait for SIGTERM/SIGINT, then run the cleanup callbacks."""
+    stop = threading.Event()
+    for sig in (signal.SIGTERM, signal.SIGINT):
+        signal.signal(sig, lambda *_: stop.set())
+    stop.wait()
+    for fn in cleanup:
+        try:
+            fn()
+        except Exception:
+            logging.exception("shutdown cleanup failed")
+
+
+def build_engine(name="default"):
+    """The ``GEN_*`` knobs → a started ``GenerationEngine`` of a stock
+    TransformerLM (random weights from :data:`SEED`) on ``GEN_DEVICE``
+    (unset: the card)."""
+    import torch
+
+    from ..compute import device as device_lib
+    from ..compute import generate as gen_lib
+    from ..compute.models import transformer
+
+    dev = device_lib.resolve(os.environ.get("GEN_DEVICE") or None)
+    cfg = transformer.Config(
+        vocab_size=int(os.environ.get("GEN_VOCAB", "512")),
+        d_model=int(os.environ.get("GEN_D_MODEL", "128")),
+        n_layers=int(os.environ.get("GEN_LAYERS", "2")),
+        n_heads=int(os.environ.get("GEN_HEADS", "4")),
+        max_seq=int(os.environ.get("GEN_MAX_CONTEXT", "256")),
+        dtype=os.environ.get("GEN_DTYPE", "float32"),
+        attention="dense", remat=False, scan_layers=True)
+    params = transformer.init_params(
+        cfg, torch.Generator().manual_seed(SEED), device=dev)
+    # GEN_SPEC_K/GEN_DRAFT: a draft from the target's first GEN_DRAFT
+    # layers; GEN_DRAFT_DAMPEN scales the served target's upper layers
+    # so random weights give a measurable acceptance (a test-pair knob)
+    spec_k = int(os.environ.get("GEN_SPEC_K", "0") or 0)
+    draft_params = draft_cfg = None
+    if spec_k > 0:
+        draft_layers = int(os.environ.get("GEN_DRAFT", "0") or 0)
+        if not draft_layers:
+            raise SystemExit("GEN_SPEC_K > 0 needs GEN_DRAFT=<draft layers>")
+        dampen = os.environ.get("GEN_DRAFT_DAMPEN", "")
+        if dampen:
+            logging.warning(
+                "GEN_DRAFT_DAMPEN=%s: the SERVED target model's layers "
+                ">= %d are residual-dampened (test-pair knob; do not set "
+                "on a real checkpoint)", dampen, draft_layers)
+        params, draft_params, draft_cfg = gen_lib.truncated_draft(
+            params, cfg, draft_layers,
+            dampen=float(dampen) if dampen else None)
+    if os.environ.get("GEN_PREEMPTION", "1").lower() not in _FALSE:
+        # accepted: the port's engine admits FIFO and never suspends a
+        # slot — what GEN_PREEMPTION=0 asks of the JAX engine
+        logging.info("GEN_PREEMPTION is on, but the port never preempts "
+                     "a slot (FIFO admission)")
+    return gen_lib.GenerationEngine(
+        params, cfg, draft_params=draft_params, draft_config=draft_cfg,
+        spec_k=spec_k,
+        max_slots=int(os.environ.get("GEN_SLOTS", "4")),
+        block_size=int(os.environ.get("GEN_BLOCK_SIZE", "16")),
+        num_blocks=int(os.environ.get("GEN_BLOCKS", "0")) or None,
+        kv_dtype=os.environ.get("GEN_KV_DTYPE") or None,
+        admission=os.environ.get("GEN_ADMISSION", "continuous"),
+        prefix_cache=os.environ.get(
+            "GEN_PREFIX_CACHE", "1").lower() not in _FALSE,
+        attn_backend=os.environ.get("GEN_ATTN_BACKEND", "paged")
+        or "paged",
+        prefill_chunk=int(os.environ.get("GEN_PREFILL_CHUNK", "0") or 0)
+        or None,
+        name=name, device=dev)
+
+
+def model_server(argv=()):
+    """One generation replica: the port's ``ModelServer`` on the
+    threaded transport serving ``MODEL_NAME`` (default ``default``) on
+    ``HOST:PORT`` (default ``0.0.0.0:8500``; ``PORT=0`` picks a free
+    port)."""
+    _refuse_unported()
+    from ..compute import serving
+
+    name = os.environ.get("MODEL_NAME", "default")
+    server = serving.ModelServer()
+    server.register_generator(name, build_engine(name))
+    port = server.start(
+        port=int(os.environ.get("PORT", "8500")),
+        host=os.environ.get("HOST", "0.0.0.0"))
+    logging.info("model-server serving on :%d (%s transport)", port,
+                 server.transport)
+    print(f"PORT {port}", flush=True)    # local-pod discovery
+    _block(server.stop)
+
+
+COMPONENTS = {"model-server": model_server}
+
+
+def main(argv):
+    logging.basicConfig(
+        level=os.environ.get("LOG_LEVEL", "INFO"),
+        format="%(asctime)s %(name)s %(levelname)s %(message)s")
+    if len(argv) < 1 or argv[0] not in COMPONENTS:
+        names = "\n  ".join(sorted(COMPONENTS))
+        raise SystemExit(
+            f"usage: python -m kubeflow_tpu_torch.cmd <component>\n"
+            f"components:\n  {names}")
+    COMPONENTS[argv[0]](argv[1:])

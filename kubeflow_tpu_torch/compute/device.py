@@ -13,14 +13,18 @@ import torch
 
 
 def resolve(device=None):
-    """``None`` → ``torch.device("cuda")``; anything else is taken as
-    given. Raises ``RuntimeError`` when CUDA is asked for (explicitly or
-    by default) on a host that has none."""
+    """``None`` → the current CUDA card (``cuda:<index>``); anything
+    else is taken as given, a CUDA device without an index getting the
+    current one, so a served engine names its card exactly. Raises
+    ``RuntimeError`` when CUDA is asked for (explicitly or by default)
+    on a host that has none."""
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "CUDA is not available on this host; pass device='cpu' to "
             "run on the CPU explicitly (there is no silent fallback)")
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
     return dev
 
 

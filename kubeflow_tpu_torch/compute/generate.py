@@ -3,8 +3,11 @@ TransformerLM with a paged KV pool, prefix-cache reuse, chunked prefill,
 speculative decoding and token-level continuous batching.
 
 Port of ``kubeflow_tpu/compute/generate.py`` (the engine at :595) on a
-float or int8 pool, without a mesh, QoS/preemption, KV migration or the
-``admission="drain"`` baseline — those come with later slices.
+float or int8 pool, without a mesh, QoS/preemption or KV migration —
+those come with later slices. Its wire surface (deadlines, drain,
+``close``, the header and done-frame views, the ``serving_generate_*``
+families) is the JAX engine's: ``compute/serving.py`` streams it over
+HTTP.
 
 - **Paged KV pool**: one pool of ``num_blocks`` blocks of ``block_size``
   positions per layer, shared by all sequences; a sequence holds a block
@@ -38,8 +41,10 @@ float or int8 pool, without a mesh, QoS/preemption, KV migration or the
   accepted prefix plus the target's own next token.
 - **Continuous batching**: finished sequences leave mid-batch and
   queued prompts (FIFO) take their slots; one engine-loop iteration is
-  admit → advance one prefill chunk → one decode (or speculative)
-  step.
+  sweep the queue (deadlines, cancels) → admit → sweep the slots →
+  advance one prefill chunk → one decode (or speculative) step.
+  ``admission="drain"`` is the drain-then-refill baseline: admit only
+  into an empty batch.
 
 Where JAX donates the cache to its jitted programs
 (``generate.py:828-838``), this engine updates the pool tensors in
@@ -57,12 +62,15 @@ launches happen there, on its current stream) and all slot state;
 import collections
 import dataclasses
 import logging
+import os
+import statistics
 import threading
 import time
 
 import numpy as np
 import torch
 
+from ..obs import metrics as obs_metrics
 from . import attention as attn_lib
 from . import device as device_lib
 from . import quantize as quantize_lib
@@ -73,11 +81,243 @@ from .ops import paged_attention as paged_ops
 
 log = logging.getLogger("kubeflow_tpu_torch.generate")
 
+# the serving_generate_* families under the JAX package's names,
+# labels, buckets and help text (one dashboard, one metrics hub for
+# both); the shard, preemption and migration families are registered
+# and stay at zero until the mesh, QoS and KV-migration slices
+_TOKENS_TOTAL = obs_metrics.REGISTRY.counter(
+    "serving_generate_tokens_total",
+    "Generated tokens emitted (prefill first-tokens + decode steps) — "
+    "rate() of this is the engine's tokens/sec",
+    ("model",))
+_PREFILL_SECONDS = obs_metrics.REGISTRY.histogram(
+    "serving_generate_prefill_seconds",
+    "One prefill program call (padded prompt forward + cache fill + "
+    "first token), by prompt-length bucket economics",
+    ("model",),
+    buckets=(1e-3, 5e-3, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5, 1.0, 5.0))
+_PREFILL_CHUNKS_TOTAL = obs_metrics.REGISTRY.counter(
+    "serving_generate_prefill_chunks_total",
+    "Prefill program calls by chunk economics: a monolithic prefill "
+    "counts 1, a chunked long-prompt prefill counts one per chunk — "
+    "rate() of this over prefills is the chunking factor, and a "
+    "sustained high ratio with a low prefill_chunk knob means long "
+    "prompts dominate admission",
+    ("model",))
+_DECODE_STEP_SECONDS = obs_metrics.REGISTRY.histogram(
+    "serving_generate_decode_step_seconds",
+    "One decode step advancing every occupied slot by one token",
+    ("model",),
+    buckets=(1e-4, 5e-4, 1e-3, 2.5e-3, 5e-3, 0.01, 0.025, 0.05, 0.1,
+             0.5, 1.0))
+_QUEUE_WAIT_SECONDS = obs_metrics.REGISTRY.histogram(
+    "serving_generate_queue_wait_seconds",
+    "Time a prompt waited in the admission queue, by outcome: "
+    "admitted = the wait before its prefill launched, expired = the "
+    "wait of a request whose deadline died in the queue (504 with no "
+    "prefill) — without the expired series, overload queue time is "
+    "survivorship-biased toward the requests that made it",
+    ("model", "outcome"),
+    buckets=(1e-4, 1e-3, 5e-3, 0.01, 0.05, 0.1, 0.5, 1.0, 5.0, 30.0))
+_SLOT_OCCUPANCY = obs_metrics.REGISTRY.histogram(
+    "serving_generate_slot_occupancy_slots",
+    "Occupied decode slots per decode step — the continuous-batching "
+    "win is this distribution's mass near max_slots under mixed-"
+    "length concurrent load (a drain-then-refill policy decays to 1)",
+    ("model",),
+    buckets=(1, 2, 3, 4, 6, 8, 12, 16, 24, 32))
+_EVICTIONS_TOTAL = obs_metrics.REGISTRY.counter(
+    "serving_generate_evictions_total",
+    "Decode-slot evictions by reason (eos | length | deadline | "
+    "draining | cancelled | error) — mid-batch eviction is the "
+    "mechanism of token-level continuous batching, so eos/length here "
+    "are normal completions, not failures",
+    ("model", "reason"))
+_PREEMPTIONS_TOTAL = obs_metrics.REGISTRY.counter(
+    "serving_generate_preemptions_total",
+    "Low-QoS slots SUSPENDED mid-decode to make room for a higher-"
+    "class admission, by the resource the suspension freed (slot = "
+    "no free decode slot, blocks = free slot but not enough cache "
+    "blocks) — the suspended stream's pages are cache-retained and "
+    "the request re-queues for a prefix-cached resume, so this is a "
+    "pause, not a failure",
+    ("model", "reason"))
+_RESUME_PREFILL_TOKENS = obs_metrics.REGISTRY.counter(
+    "serving_generate_resume_prefill_tokens_total",
+    "Suffix tokens actually re-prefilled when a preempted request "
+    "resumed — the cache-miss cost of resume. Compare with the "
+    "resumed prompts' full extended length (prompt + tokens emitted "
+    "before suspension): the gap is the prefill the retained pages "
+    "saved",
+    ("model",))
+_PREFIX_HITS_TOTAL = obs_metrics.REGISTRY.counter(
+    "serving_generate_prefix_hits_total",
+    "Admissions whose prompt matched >=1 full cached block in the "
+    "prefix trie (the shared tokens skipped prefill entirely)",
+    ("model",))
+_PREFIX_MISSES_TOTAL = obs_metrics.REGISTRY.counter(
+    "serving_generate_prefix_misses_total",
+    "Admissions with no cached-prefix match (full prefill paid); "
+    "hits/(hits+misses) is the prefix-cache hit ratio",
+    ("model",))
+_PREFIX_TOKENS_SKIPPED_TOTAL = obs_metrics.REGISTRY.counter(
+    "serving_generate_prefix_tokens_skipped_total",
+    "Prompt tokens whose prefill was skipped because their K/V was "
+    "already cached — rate() of this is the prefill compute the "
+    "prefix cache is saving",
+    ("model",))
+_PREFIX_CACHED_BLOCKS = obs_metrics.REGISTRY.gauge(
+    "serving_generate_prefix_cached_blocks",
+    "Physical cache blocks currently indexed by the prefix trie "
+    "(reclaimable-at-zero-ref plus pinned-by-live-sequences)",
+    ("model",))
+_QUEUED_PROMPT_TOKENS = obs_metrics.REGISTRY.gauge(
+    "serving_generate_queued_prompt_tokens",
+    "Prompt tokens (plus already-generated context of preempted "
+    "resumes) waiting in the admission queue — the token-aware "
+    "autoscaling signal: request counts hide that one queued 4k "
+    "prompt is more backlog than ten queued chat turns",
+    ("model",))
+_PREFIX_RECLAIMS_TOTAL = obs_metrics.REGISTRY.counter(
+    "serving_generate_prefix_reclaims_total",
+    "Cached zero-ref blocks reclaimed LRU-on-demand to serve a new "
+    "allocation — sustained rate means the pool is too small for the "
+    "working set of shared prefixes",
+    ("model",))
+_SHARD_MESH_DEVICES = obs_metrics.REGISTRY.gauge(
+    "serving_generate_shard_mesh_devices",
+    "Tensor-parallel mesh size the generation engine is sharded over "
+    "(1 = unsharded single-chip engine)",
+    ("model",))
+_SHARD_BLOCKS_PER_CHIP = obs_metrics.REGISTRY.gauge(
+    "serving_generate_shard_cache_blocks_per_chip",
+    "Per-chip HBM footprint of the head-partitioned KV block pool in "
+    "single-chip block units (num_blocks / mesh size) — at a fixed "
+    "per-chip budget the POOL grows linearly with the mesh, which is "
+    "the cache-capacity win of sharded serving",
+    ("model",))
+_SHARD_COLLECTIVE_SHARE = obs_metrics.REGISTRY.gauge(
+    "serving_generate_shard_collective_share",
+    "Measured share of the decode step spent in cross-chip "
+    "collectives (the per-layer activation all-gathers), from "
+    "measure_collective_share() calibration — 0.0 until calibrated "
+    "or when the engine is unsharded",
+    ("model",))
+_SPEC_PROPOSED_TOTAL = obs_metrics.REGISTRY.counter(
+    "serving_generate_spec_proposed_tokens_total",
+    "Draft-model tokens proposed to the speculative verify step "
+    "(clamped per slot to the remaining generation budget) — the "
+    "denominator of the acceptance ratio",
+    ("model",))
+_SPEC_ACCEPTED_TOTAL = obs_metrics.REGISTRY.counter(
+    "serving_generate_spec_accepted_tokens_total",
+    "Draft tokens the target's argmax confirmed (the longest "
+    "draft==target prefix per verify step) — rate() over the "
+    "proposed rate is the live acceptance ratio",
+    ("model",))
+_SPEC_ACCEPTANCE_RATIO = obs_metrics.REGISTRY.gauge(
+    "serving_generate_spec_acceptance_ratio",
+    "Cumulative accepted/proposed draft-token ratio — the "
+    "speculative speedup is ~(1 + k*ratio) tokens per target "
+    "forward, so a sustained low ratio means the draft/target pair "
+    "(or k) is mis-sized",
+    ("model",))
+_ATTN_BACKEND = obs_metrics.REGISTRY.gauge(
+    "serving_generate_attn_backend",
+    "Info-style gauge: 1 for the engine's selected paged-attention "
+    "read backend (gather | paged | paged-kernel), 0 for the others "
+    "— join on the backend label to see which read path a fleet's "
+    "engines run",
+    ("model", "backend"))
+_ATTN_BYTES_TOTAL = obs_metrics.REGISTRY.counter(
+    "serving_generate_attn_bytes_read_total",
+    "Analytic KV-cache bytes touched by the attention reads (decode, "
+    "verify, cached-prefill prefix), derived from block occupancy: "
+    "the gather backend is charged the full padded pool width per "
+    "step while the paged backends are charged only occupied blocks "
+    "— rate() per token is the decode-bandwidth figure the paged "
+    "read path exists to shrink",
+    ("model", "backend"))
+_TOKENS_PER_STEP = obs_metrics.REGISTRY.histogram(
+    "serving_generate_tokens_per_step",
+    "Tokens a sequence emitted per decode/verify step — exactly 1 "
+    "on the plain engine, 1..k+1 under speculative decoding; "
+    "normalize serving_generate_decode_step_seconds by this "
+    "distribution's mean to keep per-token latency interpretable",
+    ("model",),
+    buckets=(1, 2, 3, 4, 5, 6, 8, 12, 16))
+_TTFT_SECONDS = obs_metrics.REGISTRY.histogram(
+    "serving_generate_ttft_seconds",
+    "Time to first token: request admission (submit) to the first "
+    "emitted token, decomposing as queue wait + prefill (the "
+    "generate.queue_wait / generate.prefill trace phases) — the "
+    "user-felt responsiveness figure of a streamed generation",
+    ("model",),
+    buckets=(0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5, 1.0, 2.5,
+             10.0))
+_INTER_TOKEN_SECONDS = obs_metrics.REGISTRY.histogram(
+    "serving_generate_inter_token_seconds",
+    "Gap between consecutive token EMISSION EVENTS of one sequence "
+    "(first gap starts at the first token): one sample per decode "
+    "step, and one per speculative verify round — the 1..k+1 tokens "
+    "a verify round accepts share one emission event, so a spec "
+    "burst counts its round gap ONCE instead of k+1 zero-gaps",
+    ("model",),
+    buckets=(5e-4, 1e-3, 2.5e-3, 5e-3, 0.01, 0.025, 0.05, 0.1, 0.25,
+             1.0))
+_EMITTED_TOKENS = obs_metrics.REGISTRY.histogram(
+    "serving_generate_emitted_tokens",
+    "Tokens emitted per finished request (0 for queue-side failures "
+    "that never reached prefill) — the per-request totals behind the "
+    "engine's tokens/sec",
+    ("model",),
+    buckets=(1, 2, 4, 8, 16, 32, 64, 128, 256, 1024))
+_KV_MIGRATED_BYTES = obs_metrics.REGISTRY.counter(
+    "serving_kv_migrated_bytes_total",
+    "KV-cache page bytes EXPORTED as prefill/decode migration bundles "
+    "(counted at export, in the pool's native dtype — int8 pages ship "
+    "with their float32 scales, both included here), by pool dtype. "
+    "A prefill-role replica's rate() of this is the bytes/sec the "
+    "x-tensor wire carries into the decode pool",
+    ("model", "dtype"))
+_KV_MIGRATION_SECONDS = obs_metrics.REGISTRY.histogram(
+    "serving_kv_migration_seconds",
+    "Bundle received -> imported slot live in decode (block "
+    "allocation + native-dtype page memcpy + trie seed + admission), "
+    "observed on the IMPORTING engine — the decode-side half of the "
+    "two-hop migration latency (the export half rides "
+    "serving_generate_prefill_seconds on the prefill replica)",
+    ("model",),
+    buckets=(1e-4, 5e-4, 1e-3, 5e-3, 0.01, 0.05, 0.1, 0.5, 1.0, 5.0))
+_KV_IMPORT_REJECTIONS = obs_metrics.REGISTRY.counter(
+    "serving_kv_import_rejections_total",
+    "Page bundles REFUSED by the importing engine, by reason "
+    "(block_size | geometry | dtype | vocab | capacity | role | mesh) "
+    "— the router treats any rejection as a transfer failure and "
+    "falls back to colocated serving, so a nonzero rate here with "
+    "zero 5xx is the fallback path working as designed",
+    ("model", "reason"))
+_GEN_ROLE = obs_metrics.REGISTRY.gauge(
+    "serving_generate_role",
+    "Disaggregation role of this engine, one-hot over (prefill | "
+    "decode | both) — joins the serving_generate_* families to a "
+    "role track so the hub's /debug/generate can split prefill-queue "
+    "pressure from decode-slot occupancy per role",
+    ("model", "role"))
+
+#: slot lifecycle timeline ring size (snapshot ``timeline``)
+_TIMELINE_EVENTS = int(os.environ.get("GEN_TIMELINE_EVENTS", "256"))
+
 ATTN_BACKENDS = ("gather", "paged", "paged-kernel")
+#: the QoS classes, lowest priority first (``kubeflow_tpu/qos``): a
+#: request's class is resolved and reported; the port schedules FIFO
+QOS_CLASSES = ("batch", "standard", "interactive")
+DEFAULT_QOS_CLASS = "standard"
 
-
-class DrainingError(RuntimeError):
-    """The engine is draining or closed and refuses new work."""
+#: the engine raises the serving plane's classes, which the transport
+#: maps to 503 and 504
+DrainingError = serving_lib.DrainingError
+DeadlineExceededError = serving_lib.DeadlineExceededError
 
 
 class GenerationHandle:
@@ -85,32 +325,53 @@ class GenerationHandle:
     tokens and fires the callbacks from ITS thread; ``wait()`` /
     ``result()`` serve blocking callers."""
 
-    __slots__ = ("prompt", "max_tokens", "eos_id", "on_token", "on_done",
-                 "out_tokens", "reason", "error", "cancelled",
-                 "cancel_reason", "prefill_seconds", "logits", "ttft_s",
-                 "enqueued", "prefix_tokens_skipped", "spec_rounds",
-                 "spec_proposed", "spec_accepted", "_engine", "_done")
+    __slots__ = ("prompt", "max_tokens", "eos_id", "deadline",
+                 "on_token", "on_done", "rt", "out_tokens", "reason",
+                 "error", "cancelled", "cancel_reason", "enqueued",
+                 "enqueued_w", "prefix_tokens_skipped",
+                 "prefill_seconds", "spec_rounds", "spec_proposed",
+                 "spec_accepted", "spec_wire", "logits", "seq",
+                 "ttft_s", "itg_gaps", "last_emit",
+                 "admitted_w", "tenant", "qos_class", "preemptible",
+                 "on_event", "preemptions", "resume_prefill_tokens",
+                 "_engine", "_done")
 
-    def __init__(self, prompt, max_tokens, eos_id, on_token, on_done):
+    def __init__(self, prompt, max_tokens, eos_id, deadline, on_token,
+                 on_done, rt):
         self.prompt = prompt
         self.max_tokens = max_tokens
         self.eos_id = eos_id
+        self.deadline = deadline  # absolute time.monotonic, or None
         self.on_token = on_token
         self.on_done = on_done
+        self.rt = rt              # tracing.RequestTrace of the request
         self.out_tokens = []
-        self.reason = None        # eos | length | draining | error | ...
-        self.error = None
+        self.reason = None        # eos|length|deadline|draining|...
+        self.error = None         # the finish error the transport maps
         self.cancelled = False
         self.cancel_reason = "cancelled"
-        self.prefill_seconds = None
-        self.logits = []          # per-emitted-token fp32 logits, filled
-        #                           only on a debug_logits engine
-        self.ttft_s = None        # submit -> first token, seconds
-        self.enqueued = time.perf_counter()
         self.prefix_tokens_skipped = 0
+        self.prefill_seconds = None
         self.spec_rounds = 0      # verify rounds this request rode
         self.spec_proposed = 0    # draft tokens proposed for it
         self.spec_accepted = 0    # ... and accepted
+        self.spec_wire = None     # X-Spec-Acceptance frozen at prefill
+        self.logits = []          # per-emitted-token fp32 logits, filled
+        #                           only on a debug_logits engine
+        self.seq = 0              # engine-assigned request number
+        self.ttft_s = None        # submit -> first token, seconds
+        self.itg_gaps = []        # seconds between emission events (a
+        #                           verify round's burst is one event)
+        self.last_emit = None     # perf_counter of the last event
+        self.admitted_w = None    # wall clock at admission
+        self.tenant = None        # X-Tenant attribution, None = anonymous
+        self.qos_class = DEFAULT_QOS_CLASS
+        self.preemptible = True
+        self.on_event = None      # mid-stream lifecycle callback
+        self.preemptions = 0      # the port never suspends a slot
+        self.resume_prefill_tokens = 0
+        self.enqueued = time.perf_counter()
+        self.enqueued_w = time.time()
         self._engine = None
         self._done = threading.Event()
 
@@ -142,8 +403,8 @@ class _Slot:
     batches until ``_advance_prefills`` has written its whole prompt."""
 
     __slots__ = ("handle", "blocks", "length", "last_token", "reserve",
-                 "prefilling", "pf_written", "pf_matched", "pf_chunks",
-                 "pf_t0")
+                 "decode_start_w", "prefilling", "pf_written",
+                 "pf_matched", "pf_chunks", "pf_t0", "pf_t0w")
 
     def __init__(self, handle, blocks, length, last_token, reserve):
         self.handle = handle
@@ -151,11 +412,13 @@ class _Slot:
         self.length = length          # positions whose K/V are cached
         self.last_token = last_token  # next decode step's input
         self.reserve = reserve        # worst-case blocks held at admit
+        self.decode_start_w = time.time()
         self.prefilling = False       # chunked prefill in progress
         self.pf_written = 0           # prompt tokens whose K/V are cached
         self.pf_matched = ()          # trie nodes pinned at admission
         self.pf_chunks = 0            # prefill chunks run so far
         self.pf_t0 = 0.0              # perf_counter at admission
+        self.pf_t0w = 0.0             # wall clock at admission
 
 
 class _PrefixNode:
@@ -186,6 +449,12 @@ class GenerationEngine:
       every slot at full ``max_context``),
     - ``max_context``: prompt + generated ceiling per sequence,
     - ``eos_id``: default stop token (per-request override),
+    - ``name`` / ``version``: the served model's name (the metric label)
+      and version (``X-Served-Version``),
+    - ``admission``: ``"continuous"`` (token-level continuous batching,
+      the default) or ``"drain"`` (drain-then-refill: admit only into
+      an EMPTY batch — the baseline the continuous policy is measured
+      against),
     - ``prefix_cache``: radix-trie prefix KV reuse (default on, as in
       JAX); ``False`` frees pages at eviction and prefills every prompt
       whole,
@@ -215,7 +484,8 @@ class GenerationEngine:
 
     def __init__(self, params, config, *, max_slots=4, block_size=16,
                  max_context=None, num_blocks=None, name="model",
-                 eos_id=None, default_max_tokens=64, prefix_cache=True,
+                 version=1, eos_id=None, default_max_tokens=64,
+                 admission="continuous", prefix_cache=True,
                  draft_params=None, draft_config=None, spec_k=0,
                  debug_logits=False, attn_backend="paged",
                  prefill_chunk=None, kv_dtype=None, device=None):
@@ -223,6 +493,10 @@ class GenerationEngine:
             raise ValueError(
                 "GenerationEngine supports dense TransformerLM configs "
                 "(no MoE, no pipeline parallelism)")
+        if admission not in ("continuous", "drain"):
+            raise ValueError(
+                f"admission must be 'continuous' or 'drain', got "
+                f"{admission!r}")
         if attn_backend not in ATTN_BACKENDS:
             raise ValueError(
                 f"attn_backend must be 'gather', 'paged' or "
@@ -255,6 +529,12 @@ class GenerationEngine:
         self.device = device_lib.resolve(device)
         self.config = config
         self.name = name
+        self.version = version
+        self.admission = admission
+        # the views of the slices to come: one chip (no tensor mesh)
+        # and the colocated role
+        self.tp = 1
+        self.role = "both"
         self.attn_backend = attn_backend
         self.eos_id = eos_id
         self.default_max_tokens = int(default_max_tokens)
@@ -271,6 +551,7 @@ class GenerationEngine:
         if self.num_blocks < 1:
             raise ValueError(
                 f"num_blocks must be >= 1, got {self.num_blocks}")
+        self.per_chip_blocks = self.num_blocks
         self.prefix_cache = bool(prefix_cache)
         self.debug_logits = bool(debug_logits)
         if self.debug_logits and (self.prefix_cache or self._spec_on
@@ -306,6 +587,13 @@ class GenerationEngine:
         self._slots = [None] * self.max_slots
         self._queue = collections.deque()
         self._cond = threading.Condition()
+        for r in ("prefill", "decode", "both"):
+            _GEN_ROLE.labels(name, r).set(1 if r == self.role else 0)
+        _SHARD_MESH_DEVICES.labels(name).set(self.tp)
+        _SHARD_BLOCKS_PER_CHIP.labels(name).set(self.num_blocks / self.tp)
+        for b in ATTN_BACKENDS:
+            _ATTN_BACKEND.labels(name, b).set(1 if b == attn_backend else 0)
+        _QUEUED_PROMPT_TOKENS.labels(name).set(0)
         # prefix trie state, every mutation under self._cond:
         # - _ref[b]: block-table memberships plus in-flight prefill
         #   holds; an indexed block at ref 0 is cached (reclaimable),
@@ -323,6 +611,11 @@ class GenerationEngine:
         self._n_reclaimable = 0
         self._draining = False
         self._stop = False
+        self._step_sleep = 0.0    # test knob: fake device time per step
+        self._seq = 0             # request numbering for the timeline
+        # bounded slot-lifecycle ring (snapshot "timeline"); appends are
+        # engine-thread-only
+        self._timeline = collections.deque(maxlen=_TIMELINE_EVENTS)
         self.stats = {"prefills": 0, "prefill_chunks": 0,
                       "decode_steps": 0, "decode_token_slots": 0,
                       "tokens": 0, "peak_occupancy": 0,
@@ -385,10 +678,21 @@ class GenerationEngine:
 
     # ------------------------------------------------------ public API
 
-    def submit(self, tokens, max_tokens=None, eos_id=None, on_token=None,
-               on_done=None):
-        """Enqueue one prompt (token ids) → :class:`GenerationHandle`.
-        Raises :class:`DrainingError` once the engine drains."""
+    def submit(self, tokens, max_tokens=None, eos_id=None,
+               deadline=None, on_token=None, on_done=None, rt=None,
+               tenant=None, qos_class=None, preemptible=None,
+               on_event=None):
+        """Enqueue one prompt (token ids) → :class:`GenerationHandle`
+        (``generate.py:1425``). ``deadline`` is an absolute
+        ``time.monotonic`` instant (``serving.parse_deadline``): expired
+        in the queue, the request fails with
+        :class:`DeadlineExceededError` (504 on the wire); expired in a
+        slot, the slot is evicted with reason ``deadline``. ``rt`` is
+        the request's ``tracing.RequestTrace``. ``tenant`` and
+        ``qos_class`` (default ``"standard"``) are reported in the done
+        frame's ``qos`` view; ``preemptible`` and ``on_event`` are
+        kept, and the port never suspends a slot. Raises
+        :class:`DrainingError` once the engine drains."""
         try:
             tokens = [int(t) for t in tokens]
         except (TypeError, ValueError):
@@ -415,16 +719,38 @@ class GenerationEngine:
                 f"pool holds {self.num_blocks}; lower max_tokens or "
                 f"grow num_blocks")
         eos = self.eos_id if eos_id is None else int(eos_id)
-        handle = GenerationHandle(tokens, max_tokens, eos, on_token,
-                                  on_done)
+        if qos_class is None:
+            qos_class = DEFAULT_QOS_CLASS
+        if qos_class not in QOS_CLASSES:
+            raise ValueError(
+                f"unknown qos class {qos_class!r} (expected one of "
+                f"{QOS_CLASSES})")
+        handle = GenerationHandle(tokens, max_tokens, eos, deadline,
+                                  on_token, on_done, rt)
+        handle.tenant = tenant
+        handle.qos_class = qos_class
+        handle.preemptible = (qos_class != "interactive"
+                              if preemptible is None
+                              else bool(preemptible))
+        handle.on_event = on_event
         handle._engine = self
         with self._cond:
             if self._draining or self._stop:
                 raise DrainingError(
-                    f"generation engine {self.name!r} is draining")
+                    f"generation engine {self.name!r} is draining; "
+                    f"retry against another replica")
+            self._seq += 1
+            handle.seq = self._seq
             self._queue.append(handle)
+            self._book_queued_tokens_locked()
             self._cond.notify()
         return handle
+
+    def _book_queued_tokens_locked(self):
+        """Refresh ``serving_generate_queued_prompt_tokens`` (lock
+        held): the prompt tokens waiting for admission."""
+        _QUEUED_PROMPT_TOKENS.labels(self.name).set(
+            sum(len(h.prompt) for h in self._queue))
 
     def generate(self, tokens, **kwargs):
         """Blocking convenience → ``(generated_tokens, reason)``."""
@@ -432,28 +758,54 @@ class GenerationEngine:
 
     def cancel(self, handle, reason="cancelled"):
         """Evict ``handle``'s slot (or dequeue it) before the next
-        decode step."""
+        decode step; the transport cancels with reason ``disconnect``
+        when the client goes away mid-stream."""
         with self._cond:
             handle.cancelled = True
             handle.cancel_reason = reason
             self._cond.notify()
 
     def begin_drain(self):
-        """Active slots are evicted (reason ``draining``), queued
-        prompts fail with :class:`DrainingError`, further submits
-        refuse. The engine thread stays up until :meth:`close`."""
+        """Active slots are evicted (reason ``draining``: an open stream
+        gets a ``draining`` frame), queued prompts fail with
+        :class:`DrainingError`, further submits refuse. The engine
+        thread stays up until :meth:`close`."""
         with self._cond:
             self._draining = True
             self._cond.notify()
 
-    def close(self):
+    def close(self, graceful=True):
         """Stop the engine: drain as :meth:`begin_drain`, then end the
-        engine thread."""
+        engine thread. ``graceful`` is accepted for symmetry with the
+        JAX engine: both ways evict active slots with a termination
+        frame (a half-generated sequence has no successor to go to)."""
         with self._cond:
             self._draining = True
             self._stop = True
             self._cond.notify()
         self.thread.join(timeout=10)
+
+    def occupancy(self):
+        with self._cond:
+            return sum(1 for s in self._slots if s is not None)
+
+    def mesh_view(self):
+        """The sharding summary of the done frame and the snapshot
+        (``generate.py:1228``): one chip, the whole pool on it, until
+        the port serves over a tensor mesh."""
+        return {"tensor": self.tp, "devices": self.tp,
+                "cache_blocks": self.num_blocks,
+                "per_chip_blocks": self.per_chip_blocks}
+
+    def mesh_header(self):
+        """``X-Generate-Mesh`` wire value."""
+        return (f"tensor={self.tp};"
+                f"per_chip_blocks={self.per_chip_blocks}")
+
+    def attn_view(self):
+        """The done frame's ``attn_backend``: the selected pool-read
+        backend, unconditionally."""
+        return self.attn_backend
 
     def spec_view(self, handle=None):
         """Speculative-decoding economics (``generate.py:1254``); None
@@ -479,18 +831,97 @@ class GenerationEngine:
                 if handle.spec_rounds else 0.0})
         return view
 
+    def spec_header(self):
+        """``X-Spec-Acceptance`` wire value (``generate.py:1281``);
+        None when speculation is off. The transport sends the copy
+        frozen on the handle at its prefill (``spec_wire``)."""
+        if not self._spec_on:
+            return None
+        return (f"k={self.spec_k};"
+                f"proposed={self.stats['spec_proposed']};"
+                f"accepted={self.stats['spec_accepted']}")
+
+    def token_latency_view(self, handle):
+        """The done frame's token latency: TTFT and the request's own
+        inter-emission-gap median and max (None before the first token
+        / the second emission event)."""
+        gaps = list(handle.itg_gaps)
+        return {
+            "ttft_s": round(handle.ttft_s, 6)
+            if handle.ttft_s is not None else None,
+            "itg_p50_s": round(statistics.median(gaps), 6)
+            if gaps else None,
+            "itg_max_s": round(max(gaps), 6) if gaps else None,
+        }
+
+    def qos_view(self, handle):
+        """The done frame's tenancy view; None for an anonymous request
+        that was never preempted (every request, on the port, is never
+        preempted)."""
+        if handle.tenant is None and not handle.preemptions:
+            return None
+        return {
+            "tenant": handle.tenant,
+            "class": handle.qos_class,
+            "preemptions": handle.preemptions,
+            "resume_prefill_tokens": handle.resume_prefill_tokens,
+        }
+
+    def ttft_header(self, handle):
+        """``X-TTFT-Ms``: the done frame's rounded ``ttft_s`` in ms, by
+        the shortest round-trip ``repr`` (``generate.py:1384``), so the
+        two agree exactly. None before the first token."""
+        if handle.ttft_s is None:
+            return None
+        return repr(round(round(handle.ttft_s, 6) * 1000, 3))
+
+    def timeline_view(self):
+        """The slot-lifecycle ring, oldest first."""
+        return list(self._timeline)
+
     def snapshot(self):
-        """Operator view: slots, blocks, the prefix cache and the
-        aggregate stats. ``free_blocks`` counts what is allocatable now:
-        the free list plus the cached zero-ref blocks the LRU reclaimer
-        hands out on demand (``generate.py:1702-1808``)."""
+        """Operator view for ``/v1/models/<name>``: every key of the
+        JAX engine's (``generate.py:1702-1808``) plus the port's
+        ``device`` and ``stats``. ``free_blocks`` counts what is
+        allocatable now: the free list plus the cached zero-ref blocks
+        the LRU reclaimer hands out on demand."""
         with self._cond:
             reclaimable = self._n_reclaimable
             hits = self.stats["prefix_hits"]
             misses = self.stats["prefix_misses"]
+            now_w, now_pc = time.time(), time.perf_counter()
+            now_mono = time.monotonic()
+            slot_detail = []
+            for i, s in enumerate(self._slots):
+                if s is None:
+                    slot_detail.append(None)
+                    continue
+                h = s.handle
+                slot_detail.append({
+                    "slot": i,
+                    "request": h.seq,
+                    "age_s": round(now_w - h.admitted_w, 3)
+                    if h.admitted_w is not None else None,
+                    "tokens_emitted": len(h.out_tokens),
+                    "deadline_remaining_s":
+                        round(h.deadline - now_mono, 3)
+                        if h.deadline is not None else None,
+                    "last_emit_age_s": round(now_pc - h.last_emit, 3)
+                    if h.last_emit is not None else None,
+                    "tenant": h.tenant,
+                    "qos_class": h.qos_class,
+                    "preemptible": h.preemptible,
+                })
             return {
                 "slots": self.max_slots,
                 "occupied": sum(1 for s in self._slots if s is not None),
+                "role": self.role,
+                "queued_tokens": sum(len(h.prompt) for h in self._queue),
+                # no KV migration until that slice: nothing moves
+                "migration": {"exports": 0, "imports": 0, "bytes": 0,
+                              "rejections": 0},
+                "slot_detail": slot_detail,
+                "timeline": self.timeline_view(),
                 "queued": len(self._queue),
                 "blocks": self.num_blocks,
                 "free_blocks": len(self._free) + reclaimable,
@@ -498,11 +929,13 @@ class GenerationEngine:
                 "max_context": self.max_context,
                 "kv_dtype": self.kv_dtype or str(
                     self.config.compute_dtype).replace("torch.", ""),
-                "attn_backend": self.attn_backend,
-                "device": str(self.device),
                 "draining": self._draining,
+                "attn_backend": self.attn_backend,
+                "attn_bytes_read": self.stats["attn_bytes_read"],
+                "device": str(self.device),
                 "prefill_chunk": self.prefill_chunk or None,
                 "prefill_chunks": self.stats["prefill_chunks"],
+                "mesh": self.mesh_view(),
                 "speculative": self.spec_view(),
                 "prefix_cache": {
                     "enabled": self.prefix_cache,
@@ -562,10 +995,12 @@ class GenerationEngine:
                             while not self._stop and not self._queue:
                                 self._cond.wait()
                         continue
-                    self._sweep_cancelled()
+                    # JAX's order (generate.py:1859-1872): the sweeps
+                    # bracket admission, so an expired deadline waits
+                    # for at most one prefill chunk and one step
+                    self._sweep_queued()
                     self._admit()
-                    # one bounded prefill chunk, then one step over the
-                    # slots past prefill (generate.py:1859-1872)
+                    self._sweep_active()
                     self._advance_prefills()
                     if any(s is not None and not s.prefilling
                            for s in self._slots):
@@ -583,9 +1018,11 @@ class GenerationEngine:
         with self._cond:
             queued = list(self._queue)
             self._queue.clear()
+            self._book_queued_tokens_locked()
         for handle in queued:
             self._finish(handle, "draining", DrainingError(
-                f"generation engine {self.name!r} is draining"))
+                f"generation engine {self.name!r} is draining; retry "
+                f"against another replica"))
         for i, slot in enumerate(self._slots):
             if slot is not None:
                 self._evict(i, "draining")
@@ -594,6 +1031,7 @@ class GenerationEngine:
         with self._cond:
             queued = list(self._queue)
             self._queue.clear()
+            self._book_queued_tokens_locked()
         for handle in queued:
             self._finish(handle, "error", error)
         for i, slot in enumerate(self._slots):
@@ -613,19 +1051,51 @@ class GenerationEngine:
             self._inflight = []
             self._reclaimable = {}
             self._n_reclaimable = 0
+        _PREFIX_CACHED_BLOCKS.labels(self.name).set(0)
 
-    def _sweep_cancelled(self):
-        """Drop cancelled requests: queued ones before a prefill is
-        spent on them, active ones before the next decode step."""
+    def _expired_in_queue(self, handle):
+        """Book an expired queued request's wait (outcome ``expired``)
+        → its :class:`DeadlineExceededError`."""
+        waited = time.perf_counter() - handle.enqueued
+        _QUEUE_WAIT_SECONDS.labels(self.name, "expired").observe(waited)
+        return DeadlineExceededError(
+            f"deadline expired while queued for a generation slot "
+            f"(waited {waited * 1000:.0f} ms)")
+
+    def _sweep_queued(self):
+        """Fail queued requests that died waiting (cancel, deadline)
+        before a prefill is spent on them (``generate.py:1935``)."""
         with self._cond:
-            dead = [h for h in self._queue if h.cancelled]
-            for h in dead:
-                self._queue.remove(h)
-        for h in dead:
-            self._finish(h, h.cancel_reason)
+            queued = list(self._queue)
+        now = time.monotonic()
+        for handle in queued:
+            if handle.cancelled:
+                reason, err = handle.cancel_reason, None
+            elif handle.deadline is not None and now >= handle.deadline:
+                reason, err = "deadline", self._expired_in_queue(handle)
+            else:
+                continue
+            with self._cond:
+                try:
+                    self._queue.remove(handle)
+                except ValueError:
+                    continue      # admitted by a racing pass
+                self._book_queued_tokens_locked()
+            self._finish(handle, reason, err)
+
+    def _sweep_active(self):
+        """Evict slots that should not take another step: cancelled
+        (disconnected) streams and expired deadlines
+        (``generate.py:1965``)."""
+        now = time.monotonic()
         for i, slot in enumerate(self._slots):
-            if slot is not None and slot.handle.cancelled:
-                self._evict(i, slot.handle.cancel_reason)
+            if slot is None:
+                continue
+            handle = slot.handle
+            if handle.cancelled:
+                self._evict(i, handle.cancel_reason)
+            elif handle.deadline is not None and now >= handle.deadline:
+                self._evict(i, "deadline")
 
     # ------------------------------------------------------- admission
 
@@ -695,6 +1165,7 @@ class GenerationEngine:
             victim = next(iter(self._reclaimable))     # LRU = oldest
             self._detach_node_locked(victim)
             self.stats["prefix_reclaims"] += 1
+            _PREFIX_RECLAIMS_TOTAL.labels(self.name).inc()
             block = victim.block
         self._ref[block] += 1
         return block
@@ -710,6 +1181,8 @@ class GenerationEngine:
         if parent.block is not None and not parent.children \
                 and self._ref[parent.block] == 0:
             self._reclaimable[parent] = None
+        _PREFIX_CACHED_BLOCKS.labels(self.name).set(
+            len(self._node_by_block))
 
     def _release_blocks_locked(self, blocks):
         """Drop one reference from each block: a zero-ref block stays
@@ -756,6 +1229,8 @@ class GenerationEngine:
                 node.children[key] = child
                 self._node_by_block[blocks[j]] = child
             node = child
+        _PREFIX_CACHED_BLOCKS.labels(self.name).set(
+            len(self._node_by_block))
 
     def _book_match(self, handle, matched):
         offset = len(matched) * self.block_size
@@ -765,8 +1240,34 @@ class GenerationEngine:
         if matched:
             self.stats["prefix_hits"] += 1
             self.stats["prefix_tokens_skipped"] += offset
+            _PREFIX_HITS_TOTAL.labels(self.name).inc()
+            _PREFIX_TOKENS_SKIPPED_TOTAL.labels(self.name).inc(offset)
         else:
             self.stats["prefix_misses"] += 1
+            _PREFIX_MISSES_TOTAL.labels(self.name).inc()
+
+    def _book_admission(self, handle, slot_idx, **attrs):
+        """Admission bookkeeping shared by every prefill path: the
+        queue wait (outcome ``admitted``), the request's queue phase and
+        the ``admitted`` timeline event → (t0 perf_counter, t0 wall)."""
+        t0, t0w = time.perf_counter(), time.time()
+        handle.admitted_w = t0w
+        wait_s = t0 - handle.enqueued
+        _QUEUE_WAIT_SECONDS.labels(self.name, "admitted").observe(wait_s)
+        if handle.rt is not None:
+            handle.rt.phase("generate.queue_wait", handle.enqueued_w, t0w)
+        self._record_event("admitted", handle, slot=slot_idx,
+                           wait_s=round(wait_s, 6), **attrs)
+        return t0, t0w
+
+    def _book_prefill_call(self, handle, elapsed):
+        """One prefill program call (a monolithic prefill or a chunk)."""
+        self.stats["prefill_chunks"] += 1
+        self.stats["prefill_seconds_total"] += elapsed
+        _PREFILL_CHUNKS_TOTAL.labels(self.name).inc()
+        _PREFILL_SECONDS.labels(self.name).observe(
+            elapsed, trace_id=handle.rt.exemplar(elapsed)
+            if handle.rt is not None else None)
 
     def _admit(self):
         """Move queued prompts into free slots, FIFO, while the pool can
@@ -774,23 +1275,43 @@ class GenerationEngine:
         evictions (no overtaking). The head's trie match is taken here,
         so the reservation charges only its unshared blocks; matched
         zero-ref pages leave the reclaimable pool when pinned, so they
-        are debited (``generate.py:2213-2244``)."""
+        are debited (``generate.py:2181-2290``, with ``preemption``
+        off: the port never suspends a slot). Under
+        ``admission="drain"`` an occupied batch admits nothing; an
+        empty one refills to capacity in one pass."""
+        refilling = False
         while True:
             with self._cond:
                 if not self._queue:
                     return
-                handle = self._queue[0]
-                free_slot = next((i for i, s in enumerate(self._slots)
-                                  if s is None), None)
-                matched = self._match_prefix_locked(handle.prompt)
-                needed = self._worst_case_blocks(
-                    len(handle.prompt), handle.max_tokens, len(matched))
-                pinning = sum(1 for n in matched if self._ref[n.block] == 0)
-                if free_slot is None \
-                        or self._available_blocks() - pinning < needed:
+                if self.admission == "drain" and not refilling \
+                        and any(s is not None for s in self._slots):
                     return
+                handle = self._queue[0]
+                free_slot, matched = None, []
+                if not handle.cancelled:
+                    free_slot = next((i for i, s in enumerate(self._slots)
+                                      if s is None), None)
+                    matched = self._match_prefix_locked(handle.prompt)
+                    needed = self._worst_case_blocks(
+                        len(handle.prompt), handle.max_tokens,
+                        len(matched))
+                    pinning = sum(1 for n in matched
+                                  if self._ref[n.block] == 0)
+                    if free_slot is None \
+                            or self._available_blocks() - pinning < needed:
+                        return
                 self._queue.popleft()
-            self._prefill(free_slot, handle, matched)
+                self._book_queued_tokens_locked()
+            refilling = True
+            if handle.cancelled:
+                self._finish(handle, handle.cancel_reason)
+            elif handle.deadline is not None \
+                    and time.monotonic() >= handle.deadline:
+                self._finish(handle, "deadline",
+                             self._expired_in_queue(handle))
+            else:
+                self._prefill(free_slot, handle, matched)
 
     def _prefill(self, slot_idx, handle, matched=()):
         """Prefill ``handle`` into ``slot_idx``. With a trie match the
@@ -814,7 +1335,7 @@ class GenerationEngine:
         self._book_match(handle, matched)
         tokens = np.zeros((padded,), np.int64)
         tokens[:suffix_len] = prompt[offset:]
-        t0 = time.perf_counter()
+        t0, t0w = self._book_admission(handle, slot_idx)
         try:
             if matched:
                 first = self._prefill_cached_step(
@@ -841,8 +1362,16 @@ class GenerationEngine:
         if dbg is not None:
             handle.logits.append(dbg)
         self.stats["prefills"] += 1
-        self.stats["prefill_chunks"] += 1
-        self.stats["prefill_seconds_total"] += elapsed
+        self._book_prefill_call(handle, elapsed)
+        if handle.rt is not None:
+            handle.rt.phase("generate.prefill", t0w, rows=padded,
+                            prompt=prompt_len,
+                            prefix_tokens_skipped=offset)
+        self._record_event("prefill", handle, slot=slot_idx,
+                           seconds=round(elapsed, 6))
+        # frozen now: the stream head goes out after the first token,
+        # which races this request's own verify rounds
+        handle.spec_wire = self.spec_header()
         if matched:
             # the partial prefill read the shared prefix pages
             self._account_attn_read(self._blocks_touched(1, [offset]))
@@ -857,7 +1386,11 @@ class GenerationEngine:
         self._first_token(slot_idx, handle, first)
 
     def _first_token(self, slot_idx, handle, first):
-        handle.ttft_s = time.perf_counter() - handle.enqueued
+        # TTFT closes BEFORE the emit, so the transport reads it when
+        # the first token arrives
+        self._note_emission_event(handle)
+        self._record_event("first_token", handle, slot=slot_idx,
+                           ttft_s=round(handle.ttft_s, 6))
         self._emit(handle, first)
         if handle.eos_id is not None and first == handle.eos_id:
             self._evict(slot_idx, "eos")
@@ -883,7 +1416,8 @@ class GenerationEngine:
         slot.prefilling = True
         slot.pf_written = offset
         slot.pf_matched = list(matched)
-        slot.pf_t0 = time.perf_counter()
+        slot.pf_t0, slot.pf_t0w = self._book_admission(
+            handle, slot_idx, chunked_prefill=True)
         with self._cond:
             self._slots[slot_idx] = slot
             self._cond.notify()
@@ -918,7 +1452,7 @@ class GenerationEngine:
             slot.blocks.extend(fresh)
         tokens = np.zeros((padded,), np.int64)
         tokens[:chunk_len] = prompt[written:written + chunk_len]
-        t0 = time.perf_counter()
+        t0, t0w = time.perf_counter(), time.time()
         try:
             first = self._prefill_cached_step(tokens, chunk_len, written,
                                               prefix_blocks, fresh)
@@ -933,8 +1467,11 @@ class GenerationEngine:
             return
         elapsed = time.perf_counter() - t0
         slot.pf_chunks += 1
-        self.stats["prefill_chunks"] += 1
-        self.stats["prefill_seconds_total"] += elapsed
+        self._book_prefill_call(handle, elapsed)
+        if handle.rt is not None:
+            handle.rt.phase("generate.prefill", t0w, rows=padded,
+                            prompt=prompt_len, chunk=slot.pf_chunks,
+                            offset=written)
         if written:
             # this chunk's attention read the whole written prefix
             self._account_attn_read(self._blocks_touched(1, [written]))
@@ -944,8 +1481,13 @@ class GenerationEngine:
             return
         slot.prefilling = False
         slot.last_token = first
+        slot.decode_start_w = time.time()
         handle.prefill_seconds = time.perf_counter() - slot.pf_t0
+        self._record_event("prefill", handle, slot=idx,
+                           seconds=round(handle.prefill_seconds, 6),
+                           chunks=slot.pf_chunks)
         self.stats["prefills"] += 1
+        handle.spec_wire = self.spec_header()
         with self._cond:
             # the prompt's blocks enter the trie only now, at its last
             # chunk (generate.py:2883-2886)
@@ -981,7 +1523,11 @@ class GenerationEngine:
             writes[:, n] = (i, slot.blocks[block_idx], pos % bs)
         t0 = time.perf_counter()
         nxt, dbg = self._decode_step(tables, lengths, tokens, writes)
+        if self._step_sleep:
+            time.sleep(self._step_sleep)
         elapsed = time.perf_counter() - t0
+        _DECODE_STEP_SECONDS.labels(self.name).observe(elapsed)
+        _SLOT_OCCUPANCY.labels(self.name).observe(len(active))
         self.stats["decode_steps"] += 1
         self.stats["decode_token_slots"] += len(active)
         self.stats["decode_seconds_total"] += elapsed
@@ -994,8 +1540,10 @@ class GenerationEngine:
             token = int(nxt[i])
             slot.last_token = token
             handle = slot.handle
+            _TOKENS_PER_STEP.labels(self.name).observe(1)
             if dbg is not None:
                 handle.logits.append(dbg[i])
+            self._note_emission_event(handle)
             self._emit(handle, token)
             if handle.eos_id is not None and token == handle.eos_id:
                 self._evict(i, "eos")
@@ -1078,7 +1626,11 @@ class GenerationEngine:
         props = self._propose_step(tokens, lengths, limits)     # [S, k]
         vtokens = np.concatenate([tokens[:, None], props], axis=1)
         target = self._verify_step(tables, lengths, vtokens, writes)
+        if self._step_sleep:
+            time.sleep(self._step_sleep)
         elapsed = time.perf_counter() - t0
+        _DECODE_STEP_SECONDS.labels(self.name).observe(elapsed)
+        _SLOT_OCCUPANCY.labels(self.name).observe(len(active))
         self.stats["decode_steps"] += 1
         self.stats["decode_token_slots"] += len(active)
         self.stats["decode_seconds_total"] += elapsed
@@ -1103,9 +1655,18 @@ class GenerationEngine:
             # the handle, and its reader must see this round counted
             self.stats["spec_proposed"] += ke
             self.stats["spec_accepted"] += a
+            if ke:
+                _SPEC_PROPOSED_TOTAL.labels(self.name).inc(ke)
+            if a:
+                _SPEC_ACCEPTED_TOTAL.labels(self.name).inc(a)
+        if self.stats["spec_proposed"]:
+            _SPEC_ACCEPTANCE_RATIO.labels(self.name).set(
+                self.stats["spec_accepted"] / self.stats["spec_proposed"])
         for i, slot in active:
             a = accepts[i]
             handle = slot.handle
+            self._record_event("spec_round", handle, slot=i,
+                               proposed=k_eff[i], accepted=a)
             L = slot.length
             # rollback: positions L..L+a stay, everything past the first
             # rejection is dead — truncate the table to the last valid
@@ -1118,9 +1679,14 @@ class GenerationEngine:
                     extra = slot.blocks[keep:]
                     del slot.blocks[keep:]
                     self._release_blocks_locked(extra)
+            # the verified burst is ONE emission event: one gap sample
+            # per round, booked before any of its tokens
+            self._note_emission_event(handle)
+            emitted = 0
             for j in range(a + 1):
                 token = int(target[i, j])
                 self._emit(handle, token)
+                emitted += 1
                 if handle.eos_id is not None and token == handle.eos_id:
                     # nothing past the eos reaches the stream or the
                     # retained cache (eviction frees decode pages)
@@ -1129,9 +1695,46 @@ class GenerationEngine:
                 if len(handle.out_tokens) >= handle.max_tokens:
                     self._evict(i, "length")
                     break
+            _TOKENS_PER_STEP.labels(self.name).observe(emitted)
+
+    def _record_event(self, event, handle, slot=None, **attrs):
+        """One slot-lifecycle event: appended to the bounded ring
+        (snapshot ``timeline``) and dropped as a zero-duration marker
+        on the request's trace (``generate.slot<i>.<event>``).
+        Engine-thread-only."""
+        now = time.time()
+        entry = {"ts": round(now, 6), "event": event,
+                 "request": handle.seq}
+        if slot is not None:
+            entry["slot"] = slot
+        entry.update(attrs)
+        self._timeline.append(entry)
+        if handle.rt is not None:
+            lane = f"generate.slot{slot}" if slot is not None \
+                else "generate.queue"
+            handle.rt.phase(f"{lane}.{event}", now, end=now, **attrs)
+
+    def _note_emission_event(self, handle):
+        """Book ONE emission event before its tokens go out
+        (``generate.py:1319``): the first closes the TTFT clock (submit
+        → first token), every later one books an inter-token gap."""
+        now = time.perf_counter()
+        if handle.last_emit is None:
+            handle.ttft_s = now - handle.enqueued
+            _TTFT_SECONDS.labels(self.name).observe(
+                handle.ttft_s, trace_id=handle.rt.exemplar(
+                    handle.ttft_s) if handle.rt is not None else None)
+        else:
+            gap = now - handle.last_emit
+            handle.itg_gaps.append(gap)
+            _INTER_TOKEN_SECONDS.labels(self.name).observe(
+                gap, trace_id=handle.rt.exemplar(gap)
+                if handle.rt is not None else None)
+        handle.last_emit = now
 
     def _emit(self, handle, token):
         handle.out_tokens.append(token)
+        _TOKENS_TOTAL.labels(self.name).inc()
         self.stats["tokens"] += 1
         if handle.on_token is not None:
             try:
@@ -1147,11 +1750,23 @@ class GenerationEngine:
             # refcount 0, everything else frees (generate.py:3191-3198)
             self._release_blocks_locked(slot.blocks)
             self._cond.notify()
-        self._finish(slot.handle, reason, error)
+        _EVICTIONS_TOTAL.labels(self.name, reason).inc()
+        handle = slot.handle
+        self._record_event("evicted", handle, slot=slot_idx,
+                           reason=reason, tokens=len(handle.out_tokens))
+        if handle.rt is not None and slot.length > len(handle.prompt):
+            handle.rt.phase("generate.decode", slot.decode_start_w,
+                            tokens=len(handle.out_tokens))
+        if reason == "deadline" and error is None:
+            error = DeadlineExceededError(
+                "deadline expired mid-generation; slot evicted")
+        self._finish(handle, reason, error)
 
     def _finish(self, handle, reason, error=None):
         handle.reason = reason
         handle.error = error
+        # a queue-side failure books 0 emitted tokens
+        _EMITTED_TOKENS.labels(self.name).observe(len(handle.out_tokens))
         if handle.on_done is not None:
             try:
                 handle.on_done(reason, list(handle.out_tokens), error)

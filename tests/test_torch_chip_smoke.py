@@ -67,3 +67,45 @@ def test_serialized_wgmma_finds_ptxas_warning_c7515():
         "ptxas info    : Used 168 registers, used 1 barriers"])
     assert chip_smoke.serialized_wgmma(log) == [warning.strip()]
     assert chip_smoke.serialized_wgmma(log.replace(warning, "")) == []
+
+
+def _stream_result(frames, ttft_ms, max_tokens=2):
+    return {"status": 200, "max_tokens": max_tokens, "frames": frames,
+            "head": {"content-type": "application/x-ndjson",
+                     "x-ttft-ms": ttft_ms}}
+
+
+GOOD = [{"token": 5, "index": 0}, {"token": 9, "index": 1},
+        {"done": True, "reason": "length", "tokens": [5, 9],
+         "ttft_s": 0.012345}]
+
+
+def test_check_wire_takes_a_whole_stream():
+    assert chip_smoke._check_wire([_stream_result(GOOD, "12.345")],
+                                  vocab=16) == [[5, 9]]
+
+
+@pytest.mark.parametrize("frames,ttft_ms,max_tokens", [
+    (GOOD, "12.3", 2),                                  # X-TTFT-Ms off
+    ([GOOD[1], GOOD[0], GOOD[2]], "12.345", 2),         # indices out of order
+    ([GOOD[0], GOOD[2]], "12.345", 2),                  # a frame missing
+    (GOOD, "12.345", 3),                                # budget not spent
+    ([{"token": 99, "index": 0}, {"token": 9, "index": 1},
+      dict(GOOD[2], tokens=[99, 9])], "12.345", 2),     # out of the vocab
+], ids=["ttft", "order", "missing", "budget", "vocab"])
+def test_check_wire_refuses_a_broken_stream(frames, ttft_ms, max_tokens):
+    with pytest.raises(AssertionError):
+        chip_smoke._check_wire(
+            [_stream_result(frames, ttft_ms, max_tokens)], vocab=16)
+
+
+def test_check_wire_refuses_an_error_status():
+    with pytest.raises(AssertionError, match="503"):
+        chip_smoke._check_wire([{"status": 503, "head": {},
+                                 "error": "draining"}], vocab=16)
+
+
+def test_first_mismatches():
+    assert chip_smoke._first_mismatches(
+        [[1, 2, 3], [1, 2], [4, 5]], [[1, 2, 3], [1, 2, 3], [4, 6]]) == [
+        None, 2, 1]

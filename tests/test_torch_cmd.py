@@ -1,0 +1,186 @@
+"""``python -m kubeflow_tpu_torch.cmd model-server``: a real subprocess
+on the CPU (``GEN_DEVICE=cpu``, tiny ``GEN_*`` knobs) streams one
+request token-identically to the greedy oracles on the weights the
+entry builds (its ``SEED``), and SIGTERM ends it with 0. In process:
+every knob the port does not serve yet refuses by name, and without
+``GEN_DEVICE`` a CUDA-less host gets ``device.resolve``'s error."""
+
+import http.client
+import json
+import os
+import pathlib
+import signal
+import subprocess
+import sys
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from kubeflow_tpu.compute import generate as j_gen
+from kubeflow_tpu.compute.models import transformer as jt
+from kubeflow_tpu_torch import cmd
+from kubeflow_tpu_torch.compute import generate as t_gen
+from kubeflow_tpu_torch.compute.models import transformer as tt
+from kubeflow_tpu_torch.compute.params import params_to_numpy
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+KNOBS = {"MODEL_GENERATE": "1", "GEN_DEVICE": "cpu", "PORT": "0",
+         "HOST": "127.0.0.1", "GEN_VOCAB": "64", "GEN_D_MODEL": "32",
+         "GEN_LAYERS": "2", "GEN_HEADS": "4", "GEN_MAX_CONTEXT": "64",
+         "GEN_SLOTS": "2", "GEN_BLOCK_SIZE": "8", "GEN_PREFILL_CHUNK": "8",
+         "OBS_EXPORT_DIR": ""}
+UNSET = ("MODEL_GENERATE", "MODEL_MODULE", "MODEL_DEVICE_MS", "GEN_DEVICE",
+         "GEN_MESH", "GEN_TP", "GEN_ROW_SHARD", "QOS_TENANTS", "GEN_ROLE",
+         "GEN_CALIBRATE", "SERVING_TRANSPORT", "GEN_SPEC_K", "GEN_DRAFT",
+         "GEN_PREEMPTION", "GEN_KV_DTYPE", "GEN_ADMISSION", "GEN_BLOCKS",
+         "GEN_PREFIX_CACHE", "GEN_ATTN_BACKEND", "GEN_PREFILL_CHUNK")
+
+
+def _env(**extra):
+    env = {k: v for k, v in os.environ.items() if k not in UNSET}
+    env.update(KNOBS, PYTHONPATH=str(ROOT), **extra)
+    return env
+
+
+def _get(port, path):
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+    conn.request("GET", path)
+    resp = conn.getresponse()
+    body = resp.read()
+    conn.close()
+    return resp.status, body
+
+
+@pytest.fixture(scope="module")
+def server():
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "kubeflow_tpu_torch.cmd", "model-server"],
+        env=_env(), stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True, cwd=ROOT)
+    try:
+        line = proc.stdout.readline()
+        assert line.startswith("PORT "), (line, proc.stderr.read()
+                                          if proc.poll() is not None
+                                          else "")
+        yield proc, int(line.split()[1])
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(30)
+
+
+def _stock_weights():
+    cfg = tt.Config(vocab_size=64, d_model=32, n_layers=2, n_heads=4,
+                    max_seq=64, dtype="float32", attention="dense",
+                    remat=False)
+    params = tt.init_params(cfg, torch.Generator().manual_seed(cmd.SEED),
+                            device="cpu")
+    return cfg, params
+
+
+@pytest.mark.parametrize("prompt,n", [([1, 2, 3], 8),
+                                      (list(range(5, 25)), 6)],
+                         ids=["short", "chunked"])
+def test_a_stream_equals_the_oracles(server, prompt, n):
+    _, port = server
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+    conn.request("POST", "/v1/models/default:generate",
+                 json.dumps({"tokens": prompt, "max_tokens": n}).encode(),
+                 {"Content-Type": "application/json"})
+    resp = conn.getresponse()
+    assert resp.status == 200
+    frames = [json.loads(ln) for ln in resp.read().splitlines() if ln]
+    conn.close()
+    cfg, params = _stock_weights()
+    want = t_gen.reference_greedy_decode(params, cfg, prompt, n)
+    jcfg = jt.Config(**{f: getattr(cfg, f) for f in (
+        "vocab_size", "d_model", "n_layers", "n_heads", "max_seq", "dtype",
+        "attention", "remat")})
+    assert want == j_gen.reference_greedy_decode(
+        jax.tree.map(np.asarray, params_to_numpy(params)), jcfg, prompt, n)
+    assert [f["token"] for f in frames if "token" in f] == want
+    assert frames[-1]["done"] and frames[-1]["tokens"] == want
+
+
+def test_the_server_shows_its_device_and_chunks(server):
+    _, port = server
+    status, body = _get(port, "/healthz")
+    assert (status, json.loads(body)) == (200, {"status": "ok"})
+    snap = json.loads(_get(port, "/v1/models/default")[1])["generator"]
+    assert snap["device"] == "cpu" and snap["prefill_chunk"] == 8
+    assert snap["slots"] == 2 and snap["attn_backend"] == "paged"
+    text = _get(port, "/metrics")[1].decode()
+    assert "# TYPE serving_generate_tokens_total counter" in text
+
+
+def test_sigterm_exits_zero(server):
+    proc, port = server
+    _get(port, "/healthz")
+    proc.send_signal(signal.SIGTERM)
+    assert proc.wait(30) == 0
+
+
+def test_without_gen_device_a_cuda_less_host_exits_non_zero():
+    if torch.cuda.is_available():
+        pytest.skip("this host has CUDA: GEN_DEVICE unset is the card")
+    env = _env()
+    del env["GEN_DEVICE"]
+    out = subprocess.run(
+        [sys.executable, "-m", "kubeflow_tpu_torch.cmd", "model-server"],
+        env=env, capture_output=True, text=True, cwd=ROOT, timeout=120)
+    assert out.returncode != 0 and "PORT" not in out.stdout
+    assert "no silent fallback" in out.stderr
+
+
+@pytest.fixture
+def knobs(monkeypatch):
+    for k in UNSET:
+        monkeypatch.delenv(k, raising=False)
+    for k, v in KNOBS.items():
+        monkeypatch.setenv(k, v)
+    return monkeypatch
+
+
+@pytest.mark.parametrize("knob,value", [
+    ("GEN_MESH", "tensor=2"), ("GEN_TP", "4"), ("GEN_ROW_SHARD", "1"),
+    ("QOS_TENANTS", "acme=interactive:100:10"), ("GEN_ROLE", "prefill"),
+    ("GEN_ROLE", "decode"), ("GEN_CALIBRATE", "1"),
+    ("SERVING_TRANSPORT", "async")])
+def test_unported_knobs_refuse_by_name(knobs, knob, value):
+    knobs.setenv(knob, value)
+    with pytest.raises(SystemExit, match=knob):
+        cmd.model_server()
+
+
+@pytest.mark.parametrize("knob,value", [
+    ("MODEL_GENERATE", None), ("MODEL_GENERATE", "0"),
+    ("MODEL_MODULE", "my.models"), ("MODEL_DEVICE_MS", "5")])
+def test_the_unary_branches_refuse_by_name(knobs, knob, value):
+    knobs.delenv("MODEL_GENERATE")
+    if value is not None:
+        knobs.setenv(knob, value)
+    with pytest.raises(SystemExit, match=knob) as err:
+        cmd.model_server()
+    assert "MODEL_GENERATE" in str(err.value)
+
+
+@pytest.mark.parametrize("value", ["0", "1"])
+def test_gen_preemption_is_read_and_accepted(knobs, value):
+    knobs.setenv("GEN_PREEMPTION", value)
+    knobs.setenv("GEN_TP", "1")
+    knobs.setenv("GEN_ROLE", "both")
+    eng = cmd.build_engine("accepted")
+    try:
+        assert eng.generate([1, 2], max_tokens=2)[1] == "length"
+    finally:
+        eng.close()
+
+
+def test_gen_device_unset_raises_the_no_fallback_error(knobs):
+    if torch.cuda.is_available():
+        pytest.skip("this host has CUDA: GEN_DEVICE unset is the card")
+    knobs.delenv("GEN_DEVICE")
+    with pytest.raises(RuntimeError, match="no silent fallback"):
+        cmd.model_server()

@@ -45,3 +45,12 @@ def test_no_jax_and_no_module_level_triton(path):
         assert root not in FORBIDDEN, f"{path.name} imports {name}"
         assert not (root == "triton" and top_level), \
             f"{path.name} imports triton at module level"
+
+
+@pytest.mark.parametrize("rel", [
+    "kubeflow_tpu_torch/cmd/__init__.py", "kubeflow_tpu_torch/cmd/__main__.py",
+    "kubeflow_tpu_torch/web/__init__.py", "kubeflow_tpu_torch/web/http.py",
+    "kubeflow_tpu_torch/obs/tracing.py", "kubeflow_tpu_torch/obs/export.py",
+    "kubeflow_tpu_torch/compute/serving.py"])
+def test_the_scan_reaches_the_serving_plane(rel):
+    assert ROOT / rel in FILES

@@ -1,0 +1,437 @@
+"""The port's ``:generate`` serving plane against the JAX package's, over
+real sockets.
+
+One JAX ``ModelServer`` with its engine and one port ``ModelServer``
+with the port's engine (``device="cpu"``: the kernels' plain versions),
+on the same fp32 weights carried across through numpy (the 2-layer
+config of ``tests/test_serving_generate.py`` with GQA 4:2, one slot,
+block 8), both on the threaded transport on port 0, get the same
+requests. Streamed tokens must be identical to each other and to the
+JAX cache-free oracle; status codes, error text, header names, the
+mesh/prefix/QoS header values and the done frame's keys must match.
+"""
+
+import dataclasses
+import http.client
+import json
+import re
+import time
+
+import jax
+import numpy as np
+import pytest
+
+from kubeflow_tpu.compute import generate as j_gen
+from kubeflow_tpu.compute import serving as j_serving
+from kubeflow_tpu.compute.models import transformer as jt
+from kubeflow_tpu_torch.compute import generate as t_gen
+from kubeflow_tpu_torch.compute import serving as t_serving
+from kubeflow_tpu_torch.compute.models import transformer as tt
+from kubeflow_tpu_torch.compute.params import params_from_jax
+
+CFG = jt.Config(
+    vocab_size=64, d_model=32, n_layers=2, n_heads=4, n_kv_heads=2,
+    max_seq=64, dtype="float32", attention="dense", remat=False,
+    scan_layers=True)
+TCFG = tt.Config(**{f.name: getattr(CFG, f.name)
+                    for f in dataclasses.fields(tt.Config)})
+SIDES = ("jax", "port")
+# what a response head carries besides the server's own Date/Server
+HEADERS = {"content-type", "transfer-encoding", "x-served-version",
+           "x-prefix-tokens-skipped", "x-generate-mesh", "x-qos-class",
+           "x-ttft-ms", "traceparent"}
+
+
+@pytest.fixture(scope="module")
+def jparams():
+    return jt.init_params(CFG, jax.random.PRNGKey(0))
+
+
+@pytest.fixture(scope="module")
+def tparams(jparams):
+    return params_from_jax(jax.tree.map(np.asarray, jparams), device="cpu")
+
+
+def _engines(jparams, tparams):
+    kw = dict(max_slots=1, block_size=8, max_context=64, name="lm")
+    return {"jax": j_gen.GenerationEngine(jparams, CFG, **kw),
+            "port": t_gen.GenerationEngine(tparams, TCFG, device="cpu",
+                                           **kw)}
+
+
+def _start(engines):
+    """→ {side: (server, engine, port)}"""
+    out = {}
+    for side, lib in (("jax", j_serving), ("port", t_serving)):
+        server = lib.ModelServer()
+        server.register_generator("lm", engines[side])
+        out[side] = (server, engines[side],
+                     server.start(port=0, host="127.0.0.1",
+                                  transport="threaded"))
+    return out
+
+
+@pytest.fixture(scope="module")
+def served(jparams, tparams):
+    pair = _start(_engines(jparams, tparams))
+    yield pair
+    for server, _, _ in pair.values():
+        server.stop()
+
+
+@pytest.fixture
+def fresh(jparams, tparams):
+    """A pair of servers for a test that drains them."""
+    pair = _start(_engines(jparams, tparams))
+    yield pair
+    for server, _, _ in pair.values():
+        server.stop()
+
+
+def _post(port, body, headers=None, path="/v1/models/lm:generate"):
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+    hdrs = {"Content-Type": "application/json", **(headers or {})}
+    conn.request("POST", path, json.dumps(body).encode(), hdrs)
+    return conn, conn.getresponse()
+
+
+def _get(port, path):
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+    conn.request("GET", path)
+    resp = conn.getresponse()
+    body = resp.read()
+    conn.close()
+    return resp.status, body
+
+
+def _frames(resp):
+    return [json.loads(ln) for ln in resp.read().splitlines()
+            if ln.strip()]
+
+
+def _stream(port, body, headers=None):
+    """→ (status, {lowercased header: value}, frames)"""
+    conn, resp = _post(port, body, headers)
+    head = {k.lower(): v for k, v in resp.getheaders()}
+    frames = _frames(resp) if resp.status == 200 else json.loads(resp.read())
+    conn.close()
+    return resp.status, head, frames
+
+
+@pytest.mark.parametrize("prompt,n", [([1, 2, 3], 6), ([5, 6, 7, 8, 9], 7),
+                                      (list(range(10, 29)), 5)])
+def test_streams_equal_jax_and_the_oracle(served, jparams, prompt, n):
+    ref = j_gen.reference_greedy_decode(jparams, CFG, prompt, n)
+    got = {}
+    for side in SIDES:
+        status, head, frames = _stream(served[side][2],
+                                       {"tokens": prompt, "max_tokens": n})
+        assert status == 200, (side, frames)
+        assert head["content-type"] == "application/x-ndjson"
+        assert HEADERS <= set(head), (side, head)
+        toks = [f for f in frames if "token" in f]
+        assert [f["token"] for f in toks] == ref, side
+        assert [f["index"] for f in toks] == list(range(len(ref)))
+        assert all(type(f["token"]) is int for f in toks)
+        done = frames[-1]
+        assert done["done"] and done["tokens"] == ref
+        # the head's TTFT is the done frame's, exactly
+        assert head["x-ttft-ms"] == repr(round(done["ttft_s"] * 1000, 3))
+        got[side] = (head, done)
+    (jh, jd), (th, td) = got["jax"], got["port"]
+    assert set(jh) == set(th)
+    for key in ("x-served-version", "x-prefix-tokens-skipped",
+                "x-generate-mesh", "x-qos-class"):
+        assert jh[key] == th[key], key
+    assert set(jd) == set(td)
+    for key in ("reason", "tokens", "prefix_tokens_skipped", "mesh",
+                "attn_backend"):
+        assert jd[key] == td[key], key
+
+
+def test_prefix_hit_is_reported_alike(served, jparams):
+    shared = list(range(30, 46))            # two full blocks of 8
+    heads = {}
+    for side in SIDES:
+        port = served[side][2]
+        assert _stream(port, {"tokens": shared + [1, 2],
+                              "max_tokens": 3})[0] == 200
+        status, head, frames = _stream(port, {"tokens": shared + [3],
+                                              "max_tokens": 3})
+        assert status == 200
+        assert frames[-1]["prefix_tokens_skipped"] == 16
+        assert frames[-1]["tokens"] == j_gen.reference_greedy_decode(
+            jparams, CFG, shared + [3], 3)
+        heads[side] = head["x-prefix-tokens-skipped"]
+    assert heads == {"jax": "16", "port": "16"}
+
+
+@pytest.mark.parametrize("body", [{"nope": 1}, {"tokens": []},
+                                  {"tokens": [999]},
+                                  {"tokens": [1], "max_tokens": 0},
+                                  ["not-a-dict"], {"tokens": "abc"}],
+                         ids=["no-tokens", "empty", "vocab", "budget",
+                              "list", "string"])
+def test_bad_bodies_answer_400_alike(served, body):
+    answers = {side: _stream(served[side][2], body)[::2] for side in SIDES}
+    assert answers["jax"][0] == 400
+    assert answers["port"] == answers["jax"]
+
+
+def test_unknown_engine_answers_404_alike(served):
+    answers = {}
+    for side in SIDES:
+        conn, resp = _post(served[side][2], {"tokens": [1]},
+                           path="/v1/models/ghost:generate")
+        answers[side] = (resp.status, json.loads(resp.read()))
+        conn.close()
+    assert answers["jax"][0] == 404
+    assert answers["port"] == answers["jax"]
+
+
+def _slowed(pair, seconds):
+    for _, engine, _ in pair.values():
+        engine._step_sleep = seconds
+
+
+def test_queued_deadline_answers_504_alike(served):
+    answers = {}
+    _slowed(served, 0.05)
+    try:
+        for side in SIDES:
+            port = served[side][2]
+            bconn, blocker = _post(port, {"tokens": [1, 2],
+                                          "max_tokens": 30})
+            assert blocker.status == 200     # the one slot is taken
+            status, _, payload = _stream(
+                port, {"tokens": [3, 4], "max_tokens": 5},
+                {"X-Request-Deadline-Ms": "40"})
+            blocker.read()
+            bconn.close()
+            answers[side] = (status,
+                             re.sub(r"\d+ ms", "N ms", payload["error"]))
+    finally:
+        _slowed(served, 0.0)
+    assert answers["jax"][0] == 504 and "deadline" in answers["jax"][1]
+    assert answers["port"] == answers["jax"]
+
+
+def test_deadline_mid_stream_ends_with_a_deadline_frame(served):
+    dones = {}
+    _slowed(served, 0.04)
+    try:
+        for side in SIDES:
+            status, _, frames = _stream(
+                served[side][2], {"tokens": [1, 2, 3], "max_tokens": 50},
+                {"X-Request-Deadline-Ms": "250"})
+            assert status == 200
+            dones[side] = frames[-1]
+    finally:
+        _slowed(served, 0.0)
+    for side, done in dones.items():
+        assert done["reason"] == "deadline", side
+        assert 0 < len(done["tokens"]) < 50
+        assert "deadline expired mid-generation" in done["error"]
+        assert served[side][1].occupancy() == 0
+    assert set(dones["port"]) == set(dones["jax"])
+
+
+def test_admin_drain_ends_streams_and_then_answers_503(fresh):
+    answers = {}
+    _slowed(fresh, 0.04)
+    for side in SIDES:
+        port = fresh[side][2]
+        conn, resp = _post(port, {"tokens": [1, 2], "max_tokens": 60})
+        assert resp.status == 200
+        time.sleep(0.15)                      # a few tokens on the wire
+        aconn, aresp = _post(port, {}, path="/admin/drain")
+        assert (aresp.status, json.loads(aresp.read())) == (
+            200, {"status": "draining"})
+        aconn.close()
+        done = _frames(resp)[-1]
+        conn.close()
+        assert done["reason"] == "draining" and done["tokens"], side
+        status, head, payload = _stream(port, {"tokens": [5],
+                                               "max_tokens": 2})
+        answers[side] = (status, head.get("retry-after"), payload,
+                         json.loads(_get(port, "/healthz")[1]))
+    assert answers["jax"][:2] == (503, "1")
+    assert "draining" in answers["jax"][2]["error"]
+    assert answers["port"] == answers["jax"]
+
+
+def test_keepalive_survives_a_stream(served):
+    for side in SIDES:
+        conn = http.client.HTTPConnection("127.0.0.1", served[side][2],
+                                          timeout=60)
+        conn.request("POST", "/v1/models/lm:generate",
+                     json.dumps({"tokens": [4, 5],
+                                 "max_tokens": 3}).encode(),
+                     {"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        assert resp.status == 200
+        resp.read()
+        conn.request("GET", "/v1/models/lm")     # the same socket
+        resp = conn.getresponse()
+        snap = json.loads(resp.read())["generator"]
+        assert resp.status == 200, side
+        assert snap["slots"] == 1 and snap["occupied"] == 0
+        conn.close()
+
+
+def test_health_and_model_listings_have_the_same_keys(served):
+    bodies = {side: {path: json.loads(_get(served[side][2], path)[1])
+                     for path in ("/healthz", "/v1/models",
+                                  "/v1/models/lm")}
+              for side in SIDES}
+    j, t = bodies["jax"], bodies["port"]
+    assert t["/healthz"] == j["/healthz"] == {"status": "ok"}
+    assert set(t["/v1/models"]) == set(j["/v1/models"])
+    assert [g["name"] for g in t["/v1/models"]["generators"]] == ["lm"]
+    assert set(t["/v1/models"]["generators"][0]) \
+        >= set(j["/v1/models"]["generators"][0])
+    assert set(t["/v1/models/lm"]) == set(j["/v1/models/lm"])
+    assert t["/v1/models/lm"]["model_version_status"] \
+        == j["/v1/models/lm"]["model_version_status"]
+    assert set(t["/v1/models/lm"]["generator"]) \
+        >= set(j["/v1/models/lm"]["generator"])
+    assert t["/v1/models/lm"]["generator"]["device"] == "cpu"
+    assert _get(served["port"][2], "/v1/models/ghost")[0] == 404
+
+
+def _families(port, prefix):
+    text = _get(port, "/metrics")[1].decode()
+    return {ln.split()[2] for ln in text.splitlines()
+            if ln.startswith("# TYPE ") and ln.split()[2].startswith(prefix)}
+
+
+def test_metrics_hold_every_generate_family_of_jax(served):
+    _stream(served["port"][2], {"tokens": [9, 8], "max_tokens": 2})
+    want = _families(served["jax"][2], "serving_generate_")
+    assert len(want) > 20
+    assert want <= _families(served["port"][2], "serving_generate_")
+    text = _get(served["port"][2], "/metrics")[1].decode()
+    assert re.search(r'^serving_generate_tokens_total\{model="lm"\} '
+                     r'[1-9]', text, re.M)
+    assert re.search(r'^serving_requests_total\{model="lm",code="200"\} '
+                     r'[1-9]', text, re.M)
+
+
+def test_request_trace_is_kept_and_continues_the_callers(served):
+    tid = "ab" * 16
+    status, head, _ = _stream(
+        served["port"][2], {"tokens": [3, 3], "max_tokens": 2},
+        {"traceparent": f"00-{tid}-{'cd' * 8}-01"})
+    assert status == 200 and head["traceparent"].split("-")[1] == tid
+    traces = json.loads(_get(served["port"][2],
+                             f"/debug/traces?trace_id={tid}")[1])["traces"]
+    names = {s["name"] for s in traces[0]["spans"]}
+    assert {"http POST /v1/models/lm:generate", "generate.queue_wait",
+            "generate.prefill", "generate.decode"} <= names
+    latency = json.loads(_get(served["port"][2],
+                              "/debug/latency?path=:generate")[1])
+    assert latency["requests"]["count"] >= 1
+
+
+def test_a_disconnect_cancels_the_slot(served):
+    _, engine, port = served["port"]
+    engine._step_sleep = 0.05
+    try:
+        conn, resp = _post(port, {"tokens": [1, 2, 3], "max_tokens": 50})
+        assert resp.status == 200
+        resp.read1(64)
+        conn.sock.close()
+        conn.close()
+        deadline = time.monotonic() + 20
+        while engine.occupancy() and time.monotonic() < deadline:
+            time.sleep(0.02)
+    finally:
+        engine._step_sleep = 0.0
+    assert engine.occupancy() == 0
+    assert any(e["event"] == "evicted" and e["reason"] == "disconnect"
+               for e in engine.timeline_view())
+
+
+@pytest.mark.parametrize("verb,words", [("prefill", "KV-migration"),
+                                        ("attach", "KV-migration"),
+                                        ("predict", "unary-predict"),
+                                        ("predictStream", "unary-predict")])
+def test_unported_verbs_answer_501_by_name(served, verb, words):
+    conn, resp = _post(served["port"][2], {"tokens": [1]},
+                       path=f"/v1/models/lm:{verb}")
+    assert resp.status == 501
+    error = json.loads(resp.read())["error"]
+    assert f":{verb}" in error and words in error
+    conn.close()
+
+
+def test_the_async_transport_is_refused_by_name():
+    with pytest.raises(ValueError, match="async-transport slice"):
+        t_serving.ModelServer().start(port=0, host="127.0.0.1",
+                                      transport="async")
+
+
+def test_the_router_relays_the_ports_stream_as_it_goes(served, jparams):
+    from kubeflow_tpu.web import router as router_lib
+    _, engine, port = served["port"]
+    core = router_lib.RouterCore(health_interval=999)
+    core.set_backends([f"127.0.0.1:{port}"])
+    httpd = router_lib.create_app(core=core).serve(port=0,
+                                                   host="127.0.0.1")
+    engine._step_sleep = 0.05
+    try:
+        conn, resp = _post(httpd.server_address[1],
+                           {"tokens": [1, 2, 3], "max_tokens": 20})
+        assert resp.status == 200
+        first = b""
+        while b"\n" not in first:
+            chunk = resp.read1(65536)
+            assert chunk, "stream closed before the first frame"
+            first += chunk
+        # frame 1 came through while the engine still holds the slot
+        assert engine.occupancy() == 1
+        frames = [json.loads(ln) for ln in (first + resp.read()).splitlines()
+                  if ln.strip()]
+        conn.close()
+    finally:
+        engine._step_sleep = 0.0
+        httpd.shutdown()
+        core.stop()
+    ref = j_gen.reference_greedy_decode(jparams, CFG, [1, 2, 3], 20)
+    assert [f["token"] for f in frames if "token" in f] == ref
+    assert frames[-1]["done"] and frames[-1]["tokens"] == ref
+
+
+def test_a_speculative_stream_matches_jax_frame_for_frame(jparams, tparams):
+    """draft == target, k = 3: every verify round accepts all, so both
+    engines emit the same bursts; one frame a token, contiguous indices,
+    the same ``X-Spec-Acceptance`` and done-frame ``spec`` view."""
+    kw = dict(max_slots=1, block_size=8, max_context=64, name="lm",
+              spec_k=3)
+    pair = _start({
+        "jax": j_gen.GenerationEngine(jparams, CFG, draft_params=jparams,
+                                      draft_config=CFG, **kw),
+        "port": t_gen.GenerationEngine(tparams, TCFG, draft_params=tparams,
+                                       draft_config=TCFG, device="cpu",
+                                       **kw)})
+    got = {}
+    try:
+        for side in SIDES:
+            status, head, frames = _stream(pair[side][2],
+                                           {"tokens": [1, 2, 3],
+                                            "max_tokens": 10})
+            assert status == 200
+            toks = [f for f in frames if "token" in f]
+            assert all(set(f) == {"token", "index"} for f in toks)
+            assert [f["index"] for f in toks] == list(range(10))
+            got[side] = (head, frames)
+    finally:
+        for server, _, _ in pair.values():
+            server.stop()
+    (jh, jf), (th, tf) = got["jax"], got["port"]
+    assert set(th) == set(jh) and "x-spec-acceptance" in th
+    assert th["x-spec-acceptance"] == jh["x-spec-acceptance"]
+    assert tf[:-1] == jf[:-1]
+    assert tf[-1]["tokens"] == jf[-1]["tokens"] \
+        == j_gen.reference_greedy_decode(jparams, CFG, [1, 2, 3], 10)
+    assert tf[-1]["spec"] == jf[-1]["spec"]
