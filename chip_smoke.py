@@ -69,10 +69,30 @@ if any phase fails:
    there is no KV-head knob), 8 slots, 256-token prefill chunks:
    ``/healthz``, ``/v1/models/default`` on ``cuda:0``, a first request
    timed alone (the replica's cold start), 4 streams (one a
-   700-token prompt: more prefill chunks than prefills, K2), the tokens
-   counted on ``/metrics``, a 503 after ``POST /admin/drain``, and
-   SIGTERM ending it with 0 within 30 s;
-11. train — the flagship at full width and depth (bf16, ``remat=False``)
+   700-token prompt: more prefill chunks than prefills, K2) sent as the
+   tenants ``crawler`` and ``acme`` of its ``QOS_TENANTS`` ledger (each
+   ``X-QoS-Class`` the tenant's class), the tokens counted on
+   ``/metrics`` (and per tenant under ``serving_qos_tokens_total``), a
+   503 after ``POST /admin/drain``, and SIGTERM ending it with 0 within
+   30 s;
+11. qos — QoS classes and preemptible decoding on the bf16 flagship at
+   full width and depth (4 slots, block 16, prefix cache on): 8 batch
+   streams (tenant ``crawler``) of distinct 512-token prompts, 128
+   tokens each, then, once every slot has emitted, 8 interactive
+   streams (``acme``) of distinct 64-token prompts, 16 tokens each, 100
+   ms apart; run on a FIFO engine (``preemption=False``: no
+   suspension, admission in submit order, no K2) and on a preempting
+   one (at least one suspension, as many resumes, each skipping the 32
+   retained blocks and re-prefilling at most 2 through K2, exactly 12
+   K2 launches a resume, interactive TTFT p95 at least 2x better than
+   FIFO's); every stream spends its budget with contiguous indices; K1
+   and K3 launch on both; the bf16 preempted streams' agreement with
+   FIFO's is printed, and in fp32 at full width (2 slots, 3 batch
+   streams x 48 tokens, 2 interactive) every preempted stream equals the
+   uninterrupted engine's tokens but at top-2 logit gaps below 1e-3;
+   qos_i8 — the preemption run on an int8 pool: resumes on K2-i8
+   (exactly 12 a resume), decode on K1-i8, never K1 or K2;
+12. train — the flagship at full width and depth (bf16, ``remat=False``)
    trained by the port's ``compute.train``: ``init_state`` →
    ``make_train_step(plain_loss(transformer.loss_fn))`` → ``fit`` over
    one repeated ``synthetic_lm`` batch of 16 x 1024 tokens, 2 warm
@@ -82,7 +102,7 @@ if any phase fails:
    every step launch K3, K4 and K5 exactly 12 times each; then one step
    profiled through the port's ``profiler`` (device ms by kernel
    group, the device's idle share);
-12. train conformance — fp32, TF32 off, flagship width, 2 layers, batch
+13. train conformance — fp32, TF32 off, flagship width, 2 layers, batch
    2 x 1024: the loss and every gradient leaf through K3/K4/K5 against
    ``attention="dense"`` (plain PyTorch autograd) on the card, loss
    within 1e-5 relative, each leaf's max |Δg| within 1e-3 of that
@@ -90,22 +110,22 @@ if any phase fails:
    against ``remat=False``: gradients within 1e-5 of each leaf's max
    |g| (the embedding's scatter-add sums in another order each run),
    24 K3 launches against 12, 12 of K4 and K5 in both;
-13. moe_apply — the MoE flagship (``moe_config``: vocab 32000, d_model
+14. moe_apply — the MoE flagship (``moe_config``: vocab 32000, d_model
    1024, 8 layers, 8 heads MHA, ff 2816, 8 experts top-2, dropless on
    the grouped matmul, bf16, random weights from a seed):
    ``transformer.apply`` on 1 x 1024 tokens, finite logits, exactly 16
    K6 and 8 K3 launches;
-14. moe_train — the same model trained (``remat=False``, one repeated
+15. moe_train — the same model trained (``remat=False``, one repeated
    8 x 1024 batch, 2 warm + 3 timed steps): step ms, tokens/s, MFU by
    JAX's ``flops_per_token`` (which counts the dense MLP once), peak
    memory, losses, ``moe_aux`` and the padded-row share; the loss falls
    and every step launches K6 32, K7 16 and K3/K4/K5 8 times each; then
    one step profiled (``moe_train_profile``);
-15. moe_conformance — fp32, TF32 off, MoE width, 2 layers, batch 2 x
+16. moe_conformance — fp32, TF32 off, MoE width, 2 layers, batch 2 x
    1024: the loss and every gradient leaf through K6/K7 against the
    plain ragged engine (``moe_gmm=False``), loss within 1e-5 relative,
    each leaf within 1e-3 of its max |g|, ``apply`` logits within 1e-3;
-16. resnet_eval — ResNet-50 (bf16, random weights and randomised BN from
+17. resnet_eval — ResNet-50 (bf16, random weights and randomised BN from
    a seed) at batch 256, 224 px in eval mode: every identity block's
    input through both ``resnet._block`` and K8
    (``fused_bottleneck_eval``), agreeing within 3e-2 of the block
@@ -114,23 +134,23 @@ if any phase fails:
    (exactly 12 launches, finite logits within 5e-2 of the unfused
    forward's, statistics untouched) and samples/s of the unfused and the
    K8 forward;
-17. resnet_train — ResNet-50 trained (bf16, ``init_state(extra=stats)``
+18. resnet_train — ResNet-50 trained (bf16, ``init_state(extra=stats)``
    → ``make_train_step(stateful_loss(resnet.loss_fn))`` → ``fit`` over
    one repeated 256 x 224 x 224 x 3 batch, 2 warm + 3 timed steps): step
    ms, samples/s, MFU by ``flops_per_sample``, peak memory; the loss
    falls and the running means move; then one step profiled
    (``resnet_train_profile``);
-18. bert_train — bert-base (bf16, ``remat=False``, per-layer weights) on
+19. bert_train — bert-base (bf16, ``remat=False``, per-layer weights) on
    one repeated 16 x 512 ``mlm_batch``, 2 warm + 3 timed steps: step ms,
    tokens/s, MFU; the loss falls and every step launches K3, K4 and K5
    12 times each; then one step profiled; and bert_conformance — fp32, 2
    layers, 2 x 512: loss and every gradient leaf through K3-K5 (no
    causal mask, head_dim 64) against ``attention="dense"``, 1e-5 / 1e-3
    of each leaf's max |g|;
-19. sweep — ``run_mnist_sweep`` of 8 trials in 2 shape buckets, 30
+20. sweep — ``run_mnist_sweep`` of 8 trials in 2 shape buckets, 30
    steps, equal within 1e-5 to 8 calls of ``run_mnist_trial``; wall
    seconds of both;
-20. the ``kernels`` line — every ported kernel with its launches on each
+21. the ``kernels`` line — every ported kernel with its launches on each
    path (counts zeroed just before a path, read just after), its max
    |Δ| and its times.
 
@@ -1467,12 +1487,13 @@ def phase_identity(params, target, draft, dcfg):
 WIRE_MODEL = "flagship"
 
 
-def _wire_stream(port, prompt, max_tokens, model, start=None):
+def _wire_stream(port, prompt, max_tokens, model, start=None, headers=None):
     """One keep-alive client: ``GET /healthz``, wait at ``start`` (a
-    barrier), then ``POST`` one ``:generate`` on the same connection and
-    read the stream frame by frame → dict of the status, the head, the
-    frames (or the error body), the seconds to the first token frame
-    and to the end, on the client's clock."""
+    barrier), then ``POST`` one ``:generate`` (with ``headers``, e.g.
+    ``X-Tenant``) on the same connection and read the stream frame by
+    frame → dict of the status, the head, the frames (or the error
+    body), the seconds to the first token frame and to the end, on the
+    client's clock."""
     import http.client
     conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
     try:
@@ -1484,7 +1505,8 @@ def _wire_stream(port, prompt, max_tokens, model, start=None):
         conn.request("POST", f"/v1/models/{model}:generate",
                      json.dumps({"tokens": prompt,
                                  "max_tokens": max_tokens}).encode(),
-                     {"Content-Type": "application/json"})
+                     {"Content-Type": "application/json",
+                      **(headers or {})})
         resp = conn.getresponse()
         out = {"status": resp.status, "max_tokens": max_tokens,
                "head": {k.lower(): v for k, v in resp.getheaders()},
@@ -1508,16 +1530,19 @@ def _wire_stream(port, prompt, max_tokens, model, start=None):
         conn.close()
 
 
-def _wire_clients(port, reqs, model):
-    """``len(reqs)`` keep-alive clients POST together → (their results
-    in request order, wall seconds from the start to the last frame)."""
+def _wire_clients(port, reqs, model, headers=None):
+    """``len(reqs)`` keep-alive clients POST together, client i with
+    ``headers[i]`` → (their results in request order, wall seconds from
+    the start to the last frame)."""
     import threading
     start = threading.Barrier(len(reqs) + 1)
     results = [None] * len(reqs)
+    headers = headers or [None] * len(reqs)
 
     def client(i, prompt, m):
         try:
-            results[i] = _wire_stream(port, prompt, m, model, start)
+            results[i] = _wire_stream(port, prompt, m, model, start,
+                                      headers[i])
         except Exception as e:  # noqa: BLE001 — reported by _check_wire
             results[i] = {"status": None, "error": repr(e)}
 
@@ -1685,14 +1710,23 @@ def phase_wire(params, kernel_fns):
     return row
 
 
+#: the two tenants of the QoS phases and of ``wire_cmd``'s ledger (no
+#: rates: unconstrained)
+QOS_TENANTS = {"crawler": {"class": "batch"},
+               "acme": {"class": "interactive"}}
+
 #: the flagship's width under the JAX entry's knobs (no KV-head knob:
-#: the model is MHA), 8 slots, 256-token prefill chunks
+#: the model is MHA), 8 slots, 256-token prefill chunks, the tenants'
+#: ledger
 WIRE_CMD_ENV = {"MODEL_GENERATE": "1", "PORT": "0", "HOST": "127.0.0.1",
                 "GEN_VOCAB": "32768", "GEN_D_MODEL": "1024",
                 "GEN_LAYERS": "12", "GEN_HEADS": "8",
                 "GEN_MAX_CONTEXT": "1024", "GEN_DTYPE": "bfloat16",
                 "GEN_SLOTS": "8", "GEN_PREFILL_CHUNK": "256",
+                "QOS_TENANTS": json.dumps(QOS_TENANTS),
                 "OBS_EXPORT_DIR": ""}
+#: the tenant of each of ``wire_cmd``'s 4 streams
+WIRE_CMD_TENANTS = ("crawler", "acme", "crawler", "acme")
 WIRE_CMD_DEVICE = "cuda:0"
 
 
@@ -1711,15 +1745,40 @@ def _http(port, method, path, body=None):
         conn.close()
 
 
+def _check_qos_classes(results, tenants):
+    """Each stream's ``X-QoS-Class`` and done-frame ``qos`` view name
+    its tenant and the class ``QOS_TENANTS`` gives it."""
+    for i, (r, tenant) in enumerate(zip(results, tenants)):
+        cls = QOS_TENANTS[tenant]["class"]
+        qos = r["frames"][-1].get("qos") or {}
+        if r["head"].get("x-qos-class") != cls \
+                or (qos.get("tenant"), qos.get("class")) != (tenant, cls):
+            raise AssertionError(
+                f"stream {i} of tenant {tenant!r}: X-QoS-Class "
+                f"{r['head'].get('x-qos-class')!r}, done qos {qos}, "
+                f"want class {cls!r}")
+
+
+def _qos_tokens(metrics_text):
+    """``serving_qos_tokens_total`` by (tenant, class) from a
+    ``/metrics`` exposition."""
+    return {(t, c): float(v) for t, c, v in re.findall(
+        r'^serving_qos_tokens_total\{tenant="([^"]*)",class="([^"]*)"\} '
+        r'(\S+)$', metrics_text, re.M)}
+
+
 def phase_wire_cmd():
     """``python -m kubeflow_tpu_torch.cmd model-server`` as a subprocess
     under ``WIRE_CMD_ENV``: read ``PORT n``; ``/healthz`` answers ok,
     ``/v1/models/default`` names ``cuda:0``; one first request, timed
     alone (the replica's first launches); 4 requests (one a
-    700-token prompt) stream together, with more prefill chunks than
-    prefills (chunked prefill on K2); ``/metrics`` counts generated
-    tokens; after ``POST /admin/drain`` a ``:generate`` answers 503; and
-    SIGTERM ends the process with 0 within 30 s."""
+    700-token prompt) stream together, two as tenant ``crawler`` and two
+    as ``acme``, with more prefill chunks than prefills (chunked prefill
+    on K2) and each ``X-QoS-Class`` its tenant's ledger class;
+    ``/metrics`` counts generated tokens, and tokens of both tenants
+    under ``serving_qos_tokens_total``; after ``POST /admin/drain`` a
+    ``:generate`` answers 503; and SIGTERM ends the process with 0
+    within 30 s."""
     import os
     import pathlib
     import queue
@@ -1772,8 +1831,11 @@ def phase_wire_cmd():
                                  f"{snap0['device']}, prefill_chunk "
                                  f"{snap0['prefill_chunk']}")
         reqs = [r for i, r in enumerate(requests(5, 32768)) if i != 1]
-        results, wall = _wire_clients(port, reqs, "default")
+        results, wall = _wire_clients(
+            port, reqs, "default",
+            [{"X-Tenant": t} for t in WIRE_CMD_TENANTS])
         _check_wire(results, 32768)
+        _check_qos_classes(results, WIRE_CMD_TENANTS)
         snap1 = json.loads(_http(port, "GET", "/v1/models/default")[2])[
             "generator"]
         prefills = snap1["stats"]["prefills"] - snap0["stats"]["prefills"]
@@ -1781,6 +1843,7 @@ def phase_wire_cmd():
         metrics = _http(port, "GET", "/metrics")[2].decode()
         m = re.search(r'^serving_generate_tokens_total\{model="default"\} '
                       r'(\S+)$', metrics, re.M)
+        qos_tokens = _qos_tokens(metrics)
         drain = _http(port, "POST", "/admin/drain", {})
         refused = _http(port, "POST", "/v1/models/default:generate",
                         {"tokens": [1, 2], "max_tokens": 2})
@@ -1798,6 +1861,11 @@ def phase_wire_cmd():
                **_wire_numbers(results, wall),
                "prefills": prefills, "prefill_chunks": chunks,
                "tokens_total_metric": float(m.group(1)) if m else None,
+               "tenants": list(WIRE_CMD_TENANTS),
+               "qos_classes": [r["head"].get("x-qos-class")
+                               for r in results],
+               "qos_tokens_metric": {f"{t}/{c}": v for (t, c), v
+                                     in sorted(qos_tokens.items())},
                "drain": drain[0], "after_drain": refused[0],
                "retry_after": refused[1].get("retry-after"),
                "sigterm_exit": code,
@@ -1812,12 +1880,319 @@ def phase_wire_cmd():
                              f"prefills: nothing was chunked (K2)")
     if not row["tokens_total_metric"]:
         raise AssertionError("serving_generate_tokens_total is not > 0")
+    for tenant in sorted(set(WIRE_CMD_TENANTS)):
+        key = (tenant, QOS_TENANTS[tenant]["class"])
+        if not qos_tokens.get(key):
+            raise AssertionError(f"serving_qos_tokens_total{key} is not "
+                                 f"> 0: {qos_tokens}")
     if drain[0] != 200 or refused[0] != 503 or row["retry_after"] != "1":
         raise AssertionError(f"drain {drain[0]}, then :generate "
                              f"{refused[0]} (Retry-After "
                              f"{row['retry_after']}), want 200 then 503")
     if code != 0:
         raise AssertionError(f"SIGTERM exit code {code}: {log[-20:]}")
+    return row
+
+
+#: the QoS schedule at the flagship's size (the shape of
+#: ``bench.py:1445-1489``): batch streams of distinct 512-token prompts
+#: (32 full blocks) and interactive streams of distinct 64-token prompts,
+#: the latter submitted 100 ms apart once every slot has emitted a token
+QOS_SLOTS = 4
+QOS_PROMPTS = {"batch": 512, "interactive": 64}
+QOS_GAP_S = 0.1
+
+
+def qos_requests(vocab, n_batch, batch_tokens, n_inter, inter_tokens=16,
+                 seed=5):
+    """→ (batch, interactive) lists of ``(prompt, max_tokens)``, distinct
+    prompts drawn from ``seed``: they share no block, so only a resume
+    reads cached pages."""
+    rng = np.random.default_rng(seed)
+    batch = [(rng.integers(0, vocab, QOS_PROMPTS["batch"]).tolist(),
+              batch_tokens) for _ in range(n_batch)]
+    inter = [(rng.integers(0, vocab, QOS_PROMPTS["interactive"]).tolist(),
+              inter_tokens) for _ in range(n_inter)]
+    return batch, inter
+
+
+def _pctl(vals, q):
+    """The engine's percentile rule (``token_latency_stats``): the
+    sample at index ``int(q · n)`` of the sorted values."""
+    vals = sorted(vals)
+    return vals[min(len(vals) - 1, int(q * len(vals)))]
+
+
+def _qos_run(eng, batch, inter, kernel_fns):
+    """Warm ``eng`` up, set every launch count to 0, submit the
+    ``batch`` streams (tenant ``crawler``) together; once every slot has
+    emitted a token, the ``inter`` streams (tenant ``acme``) one every
+    ``QOS_GAP_S``; wait for all and read the counts → dict of the
+    streams (handle, tenant, token indices, lifecycle events), the
+    launches, the stats before and after, the wall and the timeline."""
+    eng.generate([1, 2, 3], max_tokens=2)        # warm-up
+    for fn in kernel_fns.values():
+        fn.launches = 0
+    s0 = dict(eng.stats)
+    streams = []
+
+    def submit(prompt, m, tenant):
+        st = {"tenant": tenant, "indices": [], "events": []}
+        st["handle"] = eng.submit(
+            prompt, max_tokens=m, tenant=tenant,
+            on_token=lambda t, i: st["indices"].append(i),
+            on_event=lambda ev, at: st["events"].append((ev, at)))
+        streams.append(st)
+        return st["handle"]
+
+    t0 = time.perf_counter()
+    first = [submit(p, m, "crawler") for p, m in batch]
+    deadline = time.monotonic() + 300
+    while sum(1 for h in first if h.out_tokens) < min(eng.max_slots,
+                                                       len(first)):
+        if time.monotonic() > deadline:
+            raise AssertionError("the batch streams never filled the slots")
+        time.sleep(0.001)
+    for k, (p, m) in enumerate(inter):
+        if k:
+            time.sleep(QOS_GAP_S)
+        submit(p, m, "acme")
+    for st in streams:
+        st["handle"].result(timeout=600)
+    wall = time.perf_counter() - t0
+    return {"streams": streams, "wall": wall, "s0": s0,
+            "s1": dict(eng.stats),
+            "launches": {n: fn.launches for n, fn in kernel_fns.items()},
+            "timeline": eng.timeline_view(),
+            "latency": eng.token_latency_stats()}
+
+
+def _admission_order(timeline, seqs):
+    """The requests among ``seqs`` in the order of their ``admitted``
+    events (a resume's included)."""
+    seqs = set(seqs)
+    return [e["request"] for e in timeline
+            if e["event"] == "admitted" and e["request"] in seqs]
+
+
+def _check_streams(streams, vocab):
+    """Every stream spent its whole budget, and its token indices run
+    0, 1, ... without a gap across its suspensions."""
+    for i, st in enumerate(streams):
+        h = st["handle"]
+        if h.reason != "length" or len(h.out_tokens) != h.max_tokens \
+                or st["indices"] != list(range(h.max_tokens)) \
+                or not all(0 <= t < vocab for t in h.out_tokens):
+            raise AssertionError(
+                f"stream {i} ({st['tenant']}): ended {h.reason!r} with "
+                f"{len(h.out_tokens)} of {h.max_tokens} tokens, indices "
+                f"{st['indices'][:8]}...")
+
+
+def _check_resumes(resumes, floor, most):
+    """Each resume (its ``resumed`` event's attributes) skipped at least
+    ``floor`` prefix tokens and re-prefilled at most ``most``."""
+    if not resumes:
+        raise AssertionError("no stream resumed")
+    bad = [r for r in resumes if r["prefix_tokens_skipped"] < floor
+           or r["prefilled"] > most]
+    if bad:
+        raise AssertionError(f"resumes outside skipped >= {floor}, "
+                             f"prefilled <= {most}: {bad}")
+
+
+def _qos_numbers(run, names):
+    """The numbers of one ``_qos_run``: interactive TTFT p50/p95 from the
+    handles and the engine's own ``token_latency_stats``, tokens/s over
+    the wall, preemptions, resumes, resume prefill tokens, the smallest
+    skip and largest re-prefill of a resume, the batch streams' ITG max,
+    and the launches of ``names``."""
+    st = run["streams"]
+    inter = [s["handle"] for s in st if s["tenant"] == "acme"]
+    batch = [s["handle"] for s in st if s["tenant"] == "crawler"]
+    resumes = [at for s in st for ev, at in s["events"] if ev == "resumed"]
+    ttft = [h.ttft_s for h in inter]
+    d = {k: run["s1"][k] - run["s0"][k] for k in (
+        "preemptions", "resumes", "resume_prefill_tokens", "decode_steps",
+        "decode_seconds_total")}
+    n_tokens = sum(len(s["handle"].out_tokens) for s in st)
+    return {
+        "interactive_ttft_p50_ms": 1e3 * statistics.median(ttft),
+        "interactive_ttft_p95_ms": 1e3 * _pctl(ttft, 0.95),
+        "engine_latency": run["latency"],
+        "tokens": n_tokens, "wall_s": run["wall"],
+        "tokens_per_s": n_tokens / run["wall"],
+        "decode_step_ms": 1e3 * d["decode_seconds_total"]
+                          / d["decode_steps"],
+        "preemptions": d["preemptions"], "resumes": d["resumes"],
+        "resume_prefill_tokens": d["resume_prefill_tokens"],
+        "resume_skip_min": min((r["prefix_tokens_skipped"]
+                                for r in resumes), default=None),
+        "resume_prefilled_max": max((r["prefilled"] for r in resumes),
+                                    default=None),
+        "batch_itg_max_ms": 1e3 * max(g for h in batch for g in h.itg_gaps),
+        "launches": {n: run["launches"][n] for n in names}}
+
+
+def _qos_engine(params, cfg, name, max_slots=QOS_SLOTS, **kw):
+    """The QoS phases' engine: block 16, the paged backend, the prefix
+    cache on unless ``kw`` says otherwise, the tenants' ledger."""
+    from kubeflow_tpu_torch.compute import generate as gen_lib
+    from kubeflow_tpu_torch.qos import buckets as qos_lib
+    return gen_lib.GenerationEngine(
+        params, cfg, max_slots=max_slots, block_size=16, max_context=1024,
+        attn_backend="paged", qos=qos_lib.TokenLedger(QOS_TENANTS),
+        name=name, **kw)
+
+
+def phase_qos(params, kernel_fns):
+    """QoS classes and preemptible decoding on the bf16 flagship (4
+    slots, block 16, prefix cache on, paged backend): 8 batch streams
+    (``crawler``) of distinct 512-token prompts, 128 tokens each, and
+    once all 4 slots have emitted, 8 interactive streams (``acme``) of
+    64 tokens, 16 each, 100 ms apart — on a FIFO engine
+    (``preemption=False``), then on a preempting one. FIFO suspends
+    nothing and admits in submit order, K2 never launches; with
+    preemption every resume skips the 32 retained blocks and re-prefills
+    at most 2, K2 launches 12 times a resume (only resumes read cached
+    pages) and interactive TTFT p95 is at least 2× better than FIFO's.
+    The preempted streams' tokens against FIFO's are printed; the fp32
+    reduced schedule (``_qos_fp32``) holds them equal. The counts of the
+    preemption run are the path's."""
+    import torch
+    cfg = flagship_config()
+    batch, inter = qos_requests(cfg.vocab_size, 8, 128, 8)
+    names = ("paged_decode", "paged_chunk", "flash_fwd")
+    runs = {}
+    for mode, preemption in (("fifo", False), ("preemption", True)):
+        eng = _qos_engine(params, cfg, f"qos-{mode}", preemption=preemption)
+        try:
+            runs[mode] = _qos_run(eng, batch, inter, kernel_fns)
+        finally:
+            eng.close()
+        _check_streams(runs[mode]["streams"], cfg.vocab_size)
+    torch.cuda.empty_cache()
+    fifo, pre = runs["fifo"], runs["preemption"]
+    nums = {m: _qos_numbers(r, names) for m, r in runs.items()}
+    seqs = [s["handle"].seq for s in fifo["streams"]]
+    fifo_order = _admission_order(fifo["timeline"], seqs)
+    preempted = [i for i, s in enumerate(pre["streams"])
+                 if s["handle"].preemptions]
+    same = sum(pre["streams"][i]["handle"].out_tokens
+               == fifo["streams"][i]["handle"].out_tokens for i in preempted)
+    fp32 = _qos_fp32(params)
+    row = {"phase": "qos", "dtype": "bfloat16", "slots": QOS_SLOTS,
+           "batch_streams": len(batch), "interactive_streams": len(inter),
+           "prompts": QOS_PROMPTS, "max_tokens": {"batch": 128,
+                                                  "interactive": 16},
+           **nums,
+           "ttft_p95_gain": nums["fifo"]["interactive_ttft_p95_ms"]
+                            / nums["preemption"]["interactive_ttft_p95_ms"],
+           "fifo_admission_in_submit_order": fifo_order == sorted(seqs),
+           "bf16_preempted_streams": len(preempted),
+           "bf16_preempted_equal_to_fifo": same,
+           "bf16_first_mismatch": _first_mismatches(
+               [pre["streams"][i]["handle"].out_tokens for i in preempted],
+               [fifo["streams"][i]["handle"].out_tokens for i in preempted]),
+           "fp32": fp32, "launches": pre["launches"]}
+    emit(row)
+    f, p = nums["fifo"], nums["preemption"]
+    if f["preemptions"] or fifo_order != sorted(seqs):
+        raise AssertionError(f"FIFO preempted {f['preemptions']} times or "
+                             f"admitted {fifo_order}, not {sorted(seqs)}")
+    if p["preemptions"] < 1 or p["resumes"] != p["preemptions"]:
+        raise AssertionError(f"{p['preemptions']} preemptions, "
+                             f"{p['resumes']} resumes")
+    _check_resumes([at for s in pre["streams"] for ev, at in s["events"]
+                    if ev == "resumed"], QOS_PROMPTS["batch"], 32)
+    if p["launches"]["paged_chunk"] != cfg.n_layers * p["resumes"] \
+            or f["launches"]["paged_chunk"]:
+        raise AssertionError(f"K2 launched {p['launches']['paged_chunk']} "
+                             f"times for {p['resumes']} resumes (want "
+                             f"{cfg.n_layers} each) and "
+                             f"{f['launches']['paged_chunk']} on FIFO "
+                             f"(want 0)")
+    _require(f["launches"], ("paged_decode", "flash_fwd"), "qos FIFO")
+    _require(p["launches"], ("paged_decode", "flash_fwd"), "qos")
+    if row["ttft_p95_gain"] < 2:
+        raise AssertionError(
+            f"interactive TTFT p95 {p['interactive_ttft_p95_ms']} ms with "
+            f"preemption against FIFO's {f['interactive_ttft_p95_ms']}: "
+            f"{row['ttft_p95_gain']:.2f}x, want >= 2x")
+    return row
+
+
+def _qos_fp32(params):
+    """The fp32 flagship at full width on a reduced schedule (2 slots, 3
+    batch streams of 512 tokens x 48, 2 interactive): the uninterrupted
+    FIFO engine (prefix cache off, ``debug_logits``) against the
+    preempting one. Every preempted stream's tokens equal the FIFO
+    engine's but where its top-2 logit gap is below 1e-3
+    (``_agreement``) → the report."""
+    import torch
+    cfg = flagship_config("float32")
+    batch, inter = qos_requests(cfg.vocab_size, 3, 48, 2, seed=6)
+    runs = {}
+    for mode, kw in (("fifo", dict(preemption=False, prefix_cache=False,
+                                   debug_logits=True)),
+                     ("preemption", dict(preemption=True))):
+        eng = _qos_engine(params, cfg, f"qos-fp32-{mode}", max_slots=2, **kw)
+        try:
+            runs[mode] = _qos_run(eng, batch, inter, {})
+        finally:
+            eng.close()
+        _check_streams(runs[mode]["streams"], cfg.vocab_size)
+    torch.cuda.empty_cache()
+    fifo, pre = runs["fifo"]["streams"], runs["preemption"]["streams"]
+    preempted = [i for i, s in enumerate(pre) if s["handle"].preemptions]
+    if not preempted:
+        raise AssertionError("the fp32 schedule preempted no stream")
+    report = _agreement([pre[i]["handle"].out_tokens for i in preempted],
+                        [fifo[i]["handle"].out_tokens for i in preempted],
+                        [fifo[i]["handle"].logits for i in preempted])
+    return {"preempted_streams": len(preempted),
+            "preemptions": sum(pre[i]["handle"].preemptions
+                               for i in preempted),
+            "equal": sum(e["first_mismatch"] is None for e in report),
+            "per_stream": report}
+
+
+def phase_qos_i8(params, kernel_fns, bf16_row):
+    """The preemption run of ``phase_qos`` alone on an int8 pool: every
+    resume reads its int8 prefix pages through K2-i8 (exactly 12
+    launches a resume), decode reads through K1-i8, and K1 and K2 never
+    launch; interactive TTFT p95 beside the bf16 run's."""
+    import torch
+    cfg = flagship_config()
+    batch, inter = qos_requests(cfg.vocab_size, 8, 128, 8)
+    eng = _qos_engine(params, cfg, "qos-int8", kv_dtype="int8")
+    try:
+        run = _qos_run(eng, batch, inter, kernel_fns)
+    finally:
+        eng.close()
+    torch.cuda.empty_cache()
+    _check_streams(run["streams"], cfg.vocab_size)
+    names = ("paged_decode_i8", "paged_chunk_i8", "flash_fwd",
+             "paged_decode", "paged_chunk")
+    p = _qos_numbers(run, names)
+    row = {"phase": "qos_i8", "dtype": "bfloat16", "kv_dtype": "int8",
+           "slots": QOS_SLOTS, **p,
+           "bf16_interactive_ttft_p95_ms":
+               bf16_row["preemption"]["interactive_ttft_p95_ms"],
+           "launches": run["launches"]}
+    emit(row)
+    if p["preemptions"] < 1 or p["resumes"] != p["preemptions"]:
+        raise AssertionError(f"int8: {p['preemptions']} preemptions, "
+                             f"{p['resumes']} resumes")
+    _check_resumes([at for s in run["streams"] for ev, at in s["events"]
+                    if ev == "resumed"], QOS_PROMPTS["batch"], 32)
+    if p["launches"]["paged_chunk_i8"] != cfg.n_layers * p["resumes"]:
+        raise AssertionError(f"K2-i8 launched "
+                             f"{p['launches']['paged_chunk_i8']} times for "
+                             f"{p['resumes']} resumes (want {cfg.n_layers} "
+                             f"each)")
+    _require(run["launches"], ("paged_decode_i8", "flash_fwd"), "qos_i8")
+    _refuse(run["launches"], ("paged_decode", "paged_chunk"), "qos_i8")
     return row
 
 
@@ -2650,6 +3025,8 @@ def main():
     phase_identity(params, target, draft, dcfg)
     paths["wire"] = phase_wire(params, kernel_fns)
     phase_wire_cmd()
+    paths["qos"] = phase_qos(params, kernel_fns)
+    paths["qos_i8"] = phase_qos_i8(params, kernel_fns, paths["qos"])
     del params, target, draft
     torch.cuda.empty_cache()
     paths["train"] = phase_train(kernel_fns)

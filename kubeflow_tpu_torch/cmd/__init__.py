@@ -47,8 +47,6 @@ REFUSED = (
      "tensor-sharded serving (the port's mesh slice)"),
     ("GEN_ROW_SHARD", lambda: _flag("GEN_ROW_SHARD"),
      "row-sharded projections (the port's mesh slice)"),
-    ("QOS_TENANTS", lambda: bool(os.environ.get("QOS_TENANTS", "").strip()),
-     "the tenant token ledger (the port's QoS/preemption slice)"),
     ("GEN_ROLE", lambda: (os.environ.get("GEN_ROLE") or "both").strip()
      != "both", "prefill/decode roles (the port's KV-migration slice)"),
     ("GEN_CALIBRATE", lambda: _flag("GEN_CALIBRATE"),
@@ -87,6 +85,15 @@ def _block(*cleanup):
             fn()
         except Exception:
             logging.exception("shutdown cleanup failed")
+
+
+def _gen_qos_ledger():
+    """The replica's token ledger from ``QOS_TENANTS`` — None when
+    unset, so the engine skips every ledger branch."""
+    if not (os.environ.get("QOS_TENANTS") or "").strip():
+        return None
+    from ..qos import buckets
+    return buckets.from_env()
 
 
 def build_engine(name="default"):
@@ -128,11 +135,6 @@ def build_engine(name="default"):
         params, draft_params, draft_cfg = gen_lib.truncated_draft(
             params, cfg, draft_layers,
             dampen=float(dampen) if dampen else None)
-    if os.environ.get("GEN_PREEMPTION", "1").lower() not in _FALSE:
-        # accepted: the port's engine admits FIFO and never suspends a
-        # slot — what GEN_PREEMPTION=0 asks of the JAX engine
-        logging.info("GEN_PREEMPTION is on, but the port never preempts "
-                     "a slot (FIFO admission)")
     return gen_lib.GenerationEngine(
         params, cfg, draft_params=draft_params, draft_config=draft_cfg,
         spec_k=spec_k,
@@ -147,6 +149,11 @@ def build_engine(name="default"):
         or "paged",
         prefill_chunk=int(os.environ.get("GEN_PREFILL_CHUNK", "0") or 0)
         or None,
+        # QOS_TENANTS: the engine's own token ledger; GEN_PREEMPTION=0
+        # is strict FIFO that never suspends a slot
+        qos=_gen_qos_ledger(),
+        preemption=os.environ.get("GEN_PREEMPTION", "1").lower()
+        not in _FALSE,
         name=name, device=dev)
 
 

@@ -3,11 +3,11 @@ TransformerLM with a paged KV pool, prefix-cache reuse, chunked prefill,
 speculative decoding and token-level continuous batching.
 
 Port of ``kubeflow_tpu/compute/generate.py`` (the engine at :595) on a
-float or int8 pool, without a mesh, QoS/preemption or KV migration —
-those come with later slices. Its wire surface (deadlines, drain,
-``close``, the header and done-frame views, the ``serving_generate_*``
-families) is the JAX engine's: ``compute/serving.py`` streams it over
-HTTP.
+float or int8 pool, with QoS admission and preemptible decoding, without
+a mesh or KV migration — those come with later slices. Its wire surface
+(deadlines, drain, ``close``, the header and done-frame views, the
+``serving_generate_*`` and ``serving_qos_*`` families) is the JAX
+engine's: ``compute/serving.py`` streams it over HTTP.
 
 - **Paged KV pool**: one pool of ``num_blocks`` blocks of ``block_size``
   positions per layer, shared by all sequences; a sequence holds a block
@@ -40,11 +40,22 @@ HTTP.
   whose pool read is K2 with per-slot prefix lengths, and emits the
   accepted prefix plus the target's own next token.
 - **Continuous batching**: finished sequences leave mid-batch and
-  queued prompts (FIFO) take their slots; one engine-loop iteration is
-  sweep the queue (deadlines, cancels) → admit → sweep the slots →
-  advance one prefill chunk → one decode (or speculative) step.
+  queued prompts take their slots; one engine-loop iteration is sweep
+  the queue (deadlines, cancels) → admit → sweep the slots → advance one
+  prefill chunk → one decode (or speculative) step.
   ``admission="drain"`` is the drain-then-refill baseline: admit only
   into an empty batch.
+- **QoS and preemption** (``preemption=True``, the default as in JAX):
+  the queue admits by class (``batch`` < ``standard`` <
+  ``interactive``), submit order within a class, passing over tenants
+  whose token bucket (``qos=``, a ``qos.TokenLedger``) cannot pay their
+  ``max_tokens`` yet. When a slot or blocks are short, a preemptible
+  slot of a strictly lower class is SUSPENDED: the K/V it has written
+  is indexed into the prefix trie, its pages release cache-retained,
+  and the request re-queues with its original number. Its resume
+  prefills prompt + emitted tokens, so the retained pages are a prefix
+  hit and only the last block or two run (through K2 on the card).
+  ``preemption=False`` is strict FIFO, never suspending.
 
 Where JAX donates the cache to its jitted programs
 (``generate.py:828-838``), this engine updates the pool tensors in
@@ -71,6 +82,7 @@ import numpy as np
 import torch
 
 from ..obs import metrics as obs_metrics
+from ..qos import buckets as qos_lib
 from . import attention as attn_lib
 from . import device as device_lib
 from . import quantize as quantize_lib
@@ -83,8 +95,8 @@ log = logging.getLogger("kubeflow_tpu_torch.generate")
 
 # the serving_generate_* families under the JAX package's names,
 # labels, buckets and help text (one dashboard, one metrics hub for
-# both); the shard, preemption and migration families are registered
-# and stay at zero until the mesh, QoS and KV-migration slices
+# both); the shard and migration families are registered and stay at
+# zero until the mesh and KV-migration slices
 _TOKENS_TOTAL = obs_metrics.REGISTRY.counter(
     "serving_generate_tokens_total",
     "Generated tokens emitted (prefill first-tokens + decode steps) — "
@@ -307,12 +319,10 @@ _GEN_ROLE = obs_metrics.REGISTRY.gauge(
 
 #: slot lifecycle timeline ring size (snapshot ``timeline``)
 _TIMELINE_EVENTS = int(os.environ.get("GEN_TIMELINE_EVENTS", "256"))
+#: raw TTFT / inter-token-gap samples kept for token_latency_stats
+_LATENCY_SAMPLES = 4096
 
 ATTN_BACKENDS = ("gather", "paged", "paged-kernel")
-#: the QoS classes, lowest priority first (``kubeflow_tpu/qos``): a
-#: request's class is resolved and reported; the port schedules FIFO
-QOS_CLASSES = ("batch", "standard", "interactive")
-DEFAULT_QOS_CLASS = "standard"
 
 #: the engine raises the serving plane's classes, which the transport
 #: maps to 503 and 504
@@ -331,9 +341,10 @@ class GenerationHandle:
                  "enqueued_w", "prefix_tokens_skipped",
                  "prefill_seconds", "spec_rounds", "spec_proposed",
                  "spec_accepted", "spec_wire", "logits", "seq",
-                 "ttft_s", "itg_gaps", "last_emit",
+                 "ttft_s", "token_times", "itg_gaps", "last_emit",
                  "admitted_w", "tenant", "qos_class", "preemptible",
-                 "on_event", "preemptions", "resume_prefill_tokens",
+                 "on_event", "suspended", "preemptions",
+                 "resume_prefill_tokens", "_qos_charged", "_qos_deferred",
                  "_engine", "_done")
 
     def __init__(self, prompt, max_tokens, eos_id, deadline, on_token,
@@ -360,16 +371,26 @@ class GenerationHandle:
         #                           only on a debug_logits engine
         self.seq = 0              # engine-assigned request number
         self.ttft_s = None        # submit -> first token, seconds
+        self.token_times = []     # wall clock of every emitted token
         self.itg_gaps = []        # seconds between emission events (a
         #                           verify round's burst is one event)
         self.last_emit = None     # perf_counter of the last event
         self.admitted_w = None    # wall clock at admission
-        self.tenant = None        # X-Tenant attribution, None = anonymous
-        self.qos_class = DEFAULT_QOS_CLASS
-        self.preemptible = True
-        self.on_event = None      # mid-stream lifecycle callback
-        self.preemptions = 0      # the port never suspends a slot
-        self.resume_prefill_tokens = 0
+        self.tenant = None        # X-Tenant attribution (the ledger and
+        #                           serving_qos_*), None = anonymous
+        self.qos_class = qos_lib.DEFAULT_CLASS   # admission priority
+        #                           and preemption rank
+        self.preemptible = True   # may a higher class suspend it?
+        self.on_event = None      # (event, attrs) for "suspended" /
+        #                           "resumed", relayed as event frames
+        self.suspended = False    # re-queued, pages cache-retained,
+        #                           waiting for its resume
+        self.preemptions = 0      # times this request was suspended
+        self.resume_prefill_tokens = 0   # suffix tokens re-prefilled
+        #                           over all its resumes
+        self._qos_charged = False  # the ledger charged at first
+        #                            admission (a resume never again)
+        self._qos_deferred = False  # one deferral booked a queue stint
         self.enqueued = time.perf_counter()
         self.enqueued_w = time.time()
         self._engine = None
@@ -400,11 +421,13 @@ class _Slot:
     """One occupied decode slot (engine-thread-only state). A slot
     admitted under chunked prefill starts with ``prefilling=True``: it
     holds its slot and reservation but stays out of decode and verify
-    batches until ``_advance_prefills`` has written its whole prompt."""
+    batches, and out of preemption, until ``_advance_prefills`` has
+    written its whole prompt."""
 
     __slots__ = ("handle", "blocks", "length", "last_token", "reserve",
                  "decode_start_w", "prefilling", "pf_written",
-                 "pf_matched", "pf_chunks", "pf_t0", "pf_t0w")
+                 "pf_matched", "pf_resuming", "pf_chunks", "pf_t0",
+                 "pf_t0w")
 
     def __init__(self, handle, blocks, length, last_token, reserve):
         self.handle = handle
@@ -416,6 +439,7 @@ class _Slot:
         self.prefilling = False       # chunked prefill in progress
         self.pf_written = 0           # prompt tokens whose K/V are cached
         self.pf_matched = ()          # trie nodes pinned at admission
+        self.pf_resuming = False      # this admission is a resume
         self.pf_chunks = 0            # prefill chunks run so far
         self.pf_t0 = 0.0              # perf_counter at admission
         self.pf_t0w = 0.0             # wall clock at admission
@@ -472,6 +496,13 @@ class GenerationEngine:
     - ``kv_dtype``: ``None`` (the pool in the compute dtype) or
       ``"int8"`` (int8 pages with fp32 per-(position, head) scales;
       ``generate.py:606``),
+    - ``qos``: a ``qos.TokenLedger`` (or None): admission charges a
+      tenant's bucket its ``max_tokens`` once, deferring (not failing)
+      a request its bucket cannot pay yet, and ``submit`` takes a
+      tenant's class from it,
+    - ``preemption``: priority admission by QoS class and preemptible
+      decoding (default on, as in JAX); ``False`` is strict FIFO that
+      never suspends a slot,
     - ``attn_backend``: the pool reads — ``"paged"`` (default) and
       ``"paged-kernel"`` both read through ``ops.paged_attention``
       (kernels K1 and K2 on the card, their plain versions on the CPU);
@@ -488,7 +519,8 @@ class GenerationEngine:
                  admission="continuous", prefix_cache=True,
                  draft_params=None, draft_config=None, spec_k=0,
                  debug_logits=False, attn_backend="paged",
-                 prefill_chunk=None, kv_dtype=None, device=None):
+                 prefill_chunk=None, kv_dtype=None, qos=None,
+                 preemption=True, device=None):
         if config.moe_experts:
             raise ValueError(
                 "GenerationEngine supports dense TransformerLM configs "
@@ -531,6 +563,11 @@ class GenerationEngine:
         self.name = name
         self.version = version
         self.admission = admission
+        # the tenant ledger (None: every tenant unconstrained) and the
+        # QoS admission order with preemptible decoding; preemption
+        # False is strict FIFO, never suspending (generate.py:769-777)
+        self._qos = qos
+        self.preemption = bool(preemption)
         # the views of the slices to come: one chip (no tensor mesh)
         # and the colocated role
         self.tp = 1
@@ -616,6 +653,9 @@ class GenerationEngine:
         # bounded slot-lifecycle ring (snapshot "timeline"); appends are
         # engine-thread-only
         self._timeline = collections.deque(maxlen=_TIMELINE_EVENTS)
+        # engine-wide raw TTFT / gap samples (token_latency_stats)
+        self._ttft_samples = collections.deque(maxlen=_LATENCY_SAMPLES)
+        self._itg_samples = collections.deque(maxlen=_LATENCY_SAMPLES)
         self.stats = {"prefills": 0, "prefill_chunks": 0,
                       "decode_steps": 0, "decode_token_slots": 0,
                       "tokens": 0, "peak_occupancy": 0,
@@ -624,7 +664,8 @@ class GenerationEngine:
                       "prefix_hits": 0, "prefix_misses": 0,
                       "prefix_tokens_skipped": 0, "prefix_reclaims": 0,
                       "spec_rounds": 0, "spec_proposed": 0,
-                      "spec_accepted": 0}
+                      "spec_accepted": 0, "preemptions": 0, "resumes": 0,
+                      "resume_prefill_tokens": 0, "qos_deferrals": 0}
         self.thread = threading.Thread(target=self._loop, daemon=True,
                                        name=f"generate-{name}")
         self.thread.start()
@@ -688,11 +729,12 @@ class GenerationEngine:
         in the queue, the request fails with
         :class:`DeadlineExceededError` (504 on the wire); expired in a
         slot, the slot is evicted with reason ``deadline``. ``rt`` is
-        the request's ``tracing.RequestTrace``. ``tenant`` and
-        ``qos_class`` (default ``"standard"``) are reported in the done
-        frame's ``qos`` view; ``preemptible`` and ``on_event`` are
-        kept, and the port never suspends a slot. Raises
-        :class:`DrainingError` once the engine drains."""
+        the request's ``tracing.RequestTrace``. ``qos_class`` defaults
+        to the ledger's class of ``tenant`` (``"standard"`` without a
+        ledger); ``preemptible`` defaults to every class but
+        ``interactive``; ``on_event(event, attrs)`` hears ``suspended``
+        and ``resumed``. Raises :class:`DrainingError` once the engine
+        drains."""
         try:
             tokens = [int(t) for t in tokens]
         except (TypeError, ValueError):
@@ -720,15 +762,19 @@ class GenerationEngine:
                 f"grow num_blocks")
         eos = self.eos_id if eos_id is None else int(eos_id)
         if qos_class is None:
-            qos_class = DEFAULT_QOS_CLASS
-        if qos_class not in QOS_CLASSES:
+            qos_class = (self._qos.class_of(tenant)
+                         if self._qos is not None
+                         else qos_lib.DEFAULT_CLASS)
+        if qos_class not in qos_lib.PRIORITY:
             raise ValueError(
                 f"unknown qos class {qos_class!r} (expected one of "
-                f"{QOS_CLASSES})")
+                f"{qos_lib.QOS_CLASSES})")
         handle = GenerationHandle(tokens, max_tokens, eos, deadline,
                                   on_token, on_done, rt)
         handle.tenant = tenant
         handle.qos_class = qos_class
+        # interactive never suspends by default: it is the class that
+        # preemption protects
         handle.preemptible = (qos_class != "interactive"
                               if preemptible is None
                               else bool(preemptible))
@@ -748,9 +794,12 @@ class GenerationEngine:
 
     def _book_queued_tokens_locked(self):
         """Refresh ``serving_generate_queued_prompt_tokens`` (lock
-        held): the prompt tokens waiting for admission."""
-        _QUEUED_PROMPT_TOKENS.labels(self.name).set(
-            sum(len(h.prompt) for h in self._queue))
+        held): the prompt tokens waiting for admission, a suspended
+        request's emitted tokens included (its resume prefills them)."""
+        _QUEUED_PROMPT_TOKENS.labels(self.name).set(self._queued_tokens())
+
+    def _queued_tokens(self):
+        return sum(len(h.prompt) + len(h.out_tokens) for h in self._queue)
 
     def generate(self, tokens, **kwargs):
         """Blocking convenience → ``(generated_tokens, reason)``."""
@@ -856,8 +905,7 @@ class GenerationEngine:
 
     def qos_view(self, handle):
         """The done frame's tenancy view; None for an anonymous request
-        that was never preempted (every request, on the port, is never
-        preempted)."""
+        that was never preempted."""
         if handle.tenant is None and not handle.preemptions:
             return None
         return {
@@ -878,6 +926,29 @@ class GenerationEngine:
     def timeline_view(self):
         """The slot-lifecycle ring, oldest first."""
         return list(self._timeline)
+
+    def token_latency_stats(self):
+        """Engine-wide TTFT / inter-token-gap percentiles from the raw
+        sample rings (``generate.py:1397``): the sample at index
+        ``int(q · n)`` of the sorted ring, in ms."""
+        def pctl(vals, q):
+            return vals[min(len(vals) - 1, int(q * len(vals)))]
+
+        ttft = sorted(self._ttft_samples)
+        itg = sorted(self._itg_samples)
+        return {
+            "ttft_count": len(ttft),
+            "ttft_p50_ms": round(1000 * pctl(ttft, 0.50), 3)
+            if ttft else None,
+            "ttft_p95_ms": round(1000 * pctl(ttft, 0.95), 3)
+            if ttft else None,
+            "itg_count": len(itg),
+            "itg_p50_ms": round(1000 * pctl(itg, 0.50), 3)
+            if itg else None,
+            "itg_p99_ms": round(1000 * pctl(itg, 0.99), 3)
+            if itg else None,
+            "itg_max_ms": round(1000 * max(itg), 3) if itg else None,
+        }
 
     def snapshot(self):
         """Operator view for ``/v1/models/<name>``: every key of the
@@ -916,7 +987,7 @@ class GenerationEngine:
                 "slots": self.max_slots,
                 "occupied": sum(1 for s in self._slots if s is not None),
                 "role": self.role,
-                "queued_tokens": sum(len(h.prompt) for h in self._queue),
+                "queued_tokens": self._queued_tokens(),
                 # no KV migration until that slice: nothing moves
                 "migration": {"exports": 0, "imports": 0, "bytes": 0,
                               "rejections": 0},
@@ -1269,40 +1340,124 @@ class GenerationEngine:
             elapsed, trace_id=handle.rt.exemplar(elapsed)
             if handle.rt is not None else None)
 
+    def _qos_priority(self, handle):
+        return qos_lib.PRIORITY.get(handle.qos_class, 1)
+
+    def _queue_candidate_locked(self):
+        """The next admission candidate (lock held;
+        ``generate.py:2122``). With ``preemption`` on: a cancelled entry
+        first (cheap cleanup), else the highest class, submit order
+        within a class — a suspended request keeps its ``seq``, so its
+        resume outranks later arrivals of its class. A tenant whose
+        bucket cannot pay its ``max_tokens`` now is passed over
+        (deferred, not failed). ``preemption=False``: the head of the
+        queue. None when every candidate is deferred."""
+        if not self.preemption:
+            return self._queue[0]
+        best = best_key = None
+        for h in self._queue:
+            if h.cancelled:
+                return h
+            if self._qos is not None and h.tenant is not None \
+                    and not h._qos_charged \
+                    and not self._qos.fits(h.tenant, h.max_tokens):
+                if not h._qos_deferred:
+                    h._qos_deferred = True
+                    self.stats["qos_deferrals"] += 1
+                    qos_lib.THROTTLED_TOTAL.labels(h.tenant,
+                                                   "deferred").inc()
+                continue
+            key = (-self._qos_priority(h), h.seq)
+            if best is None or key < best_key:
+                best, best_key = h, key
+        return best
+
+    def _preempt_victim_locked(self, priority):
+        """The slot to suspend for a class-``priority`` admission (lock
+        held; ``generate.py:2153``): preemptible, not cancelled, past
+        its prefill (a mid-chunked-prefill slot has nothing to resume
+        from), of a strictly lower class; the lowest class first, the
+        youngest admission within it. None when nothing qualifies."""
+        victim = victim_key = None
+        for i, slot in enumerate(self._slots):
+            if slot is None or slot.prefilling:
+                continue
+            h = slot.handle
+            if not h.preemptible or h.cancelled:
+                continue
+            p = self._qos_priority(h)
+            if p >= priority:
+                continue
+            key = (p, -(h.admitted_w or 0.0))
+            if victim is None or key < victim_key:
+                victim, victim_key = i, key
+        return victim
+
     def _admit(self):
-        """Move queued prompts into free slots, FIFO, while the pool can
-        hold their worst case; a head too big for the pool waits for
-        evictions (no overtaking). The head's trie match is taken here,
-        so the reservation charges only its unshared blocks; matched
-        zero-ref pages leave the reclaimable pool when pinned, so they
-        are debited (``generate.py:2181-2290``, with ``preemption``
-        off: the port never suspends a slot). Under
-        ``admission="drain"`` an occupied batch admits nothing; an
-        empty one refills to capacity in one pass."""
+        """Move queued prompts into free slots while the pool can hold
+        their worst case (``generate.py:2181-2290``), in the order of
+        ``_queue_candidate_locked``; a candidate too big for the pool
+        blocks the rest (no packing around it). The candidate's trie
+        match is taken here, so the reservation charges only its
+        unshared blocks; matched zero-ref pages leave the reclaimable
+        pool when pinned, so they are debited. A resume re-admits the
+        extended sequence (prompt + emitted tokens) with the remaining
+        budget. When a slot or blocks are short under
+        ``admission="continuous"`` with ``preemption`` on, a
+        lower-class preemptible slot is suspended and admission tries
+        again. The ledger is charged once, at the first admission.
+        Under ``admission="drain"`` an occupied batch admits nothing;
+        an empty one refills to capacity in one pass."""
         refilling = False
         while True:
+            suspend = None
             with self._cond:
                 if not self._queue:
                     return
                 if self.admission == "drain" and not refilling \
                         and any(s is not None for s in self._slots):
                     return
-                handle = self._queue[0]
+                handle = self._queue_candidate_locked()
+                if handle is None:
+                    return       # every candidate budget-deferred
                 free_slot, matched = None, []
                 if not handle.cancelled:
                     free_slot = next((i for i, s in enumerate(self._slots)
                                       if s is None), None)
-                    matched = self._match_prefix_locked(handle.prompt)
+                    prompt = handle.prompt + handle.out_tokens \
+                        if handle.suspended else handle.prompt
+                    matched = self._match_prefix_locked(prompt)
                     needed = self._worst_case_blocks(
-                        len(handle.prompt), handle.max_tokens,
+                        len(prompt),
+                        handle.max_tokens - len(handle.out_tokens),
                         len(matched))
                     pinning = sum(1 for n in matched
                                   if self._ref[n.block] == 0)
                     if free_slot is None \
                             or self._available_blocks() - pinning < needed:
-                        return
-                self._queue.popleft()
-                self._book_queued_tokens_locked()
+                        if self.admission == "continuous" \
+                                and self.preemption:
+                            suspend = self._preempt_victim_locked(
+                                self._qos_priority(handle))
+                        if suspend is None:
+                            return    # wait for evictions
+                        suspend_why = "slot" if free_slot is None \
+                            else "blocks"
+                    else:
+                        if self._qos is not None \
+                                and handle.tenant is not None \
+                                and not handle._qos_charged:
+                            if not self._qos.try_charge(
+                                    handle.tenant, handle.max_tokens):
+                                return    # refill raced; next pass
+                            handle._qos_charged = True
+                        handle._qos_deferred = False
+                if suspend is None:
+                    self._queue.remove(handle)
+                    self._book_queued_tokens_locked()
+            if suspend is not None:
+                self._suspend(suspend, suspend_why)
+                continue
             refilling = True
             if handle.cancelled:
                 self._finish(handle, handle.cancel_reason)
@@ -1313,18 +1468,82 @@ class GenerationEngine:
             else:
                 self._prefill(free_slot, handle, matched)
 
+    def _suspend(self, slot_idx, reason="slot"):
+        """Pause ``slot_idx`` mid-stream without finishing it
+        (``generate.py:2292``). Exactly the written K/V — prompt +
+        emitted tokens up to ``slot.length``; the last emitted token is
+        the next decode input and has none — is indexed into the trie
+        before the pages release cache-retained, so the resume re-pins
+        them and prefills only the unshared tail. The request re-queues
+        with its original ``seq`` and a restarted queue-wait clock (its
+        TTFT stays closed); the stream hears ``suspended`` with the
+        tokens emitted so far, and its indices continue on resume."""
+        slot = self._slots[slot_idx]
+        handle = slot.handle
+        with self._cond:
+            self._slots[slot_idx] = None
+            if self.prefix_cache:
+                written = (handle.prompt + handle.out_tokens)[:slot.length]
+                self._index_prompt_locked(
+                    written, slot.blocks,
+                    self._match_prefix_locked(written))
+            self._release_blocks_locked(slot.blocks)
+            handle.suspended = True
+            handle.preemptions += 1
+            handle.enqueued = time.perf_counter()
+            handle.enqueued_w = time.time()
+            self._queue.append(handle)
+            self._book_queued_tokens_locked()
+            self._cond.notify()
+        self.stats["preemptions"] += 1
+        _EVICTIONS_TOTAL.labels(self.name, "preempted").inc()
+        _PREEMPTIONS_TOTAL.labels(self.name, reason).inc()
+        if handle.tenant is not None:
+            qos_lib.PREEMPTIONS_TOTAL.labels(handle.tenant,
+                                             handle.qos_class).inc()
+        self._record_event("suspended", handle, slot=slot_idx,
+                           reason=reason, tokens=len(handle.out_tokens))
+        if handle.rt is not None and slot.length > len(handle.prompt):
+            handle.rt.phase("generate.decode", slot.decode_start_w,
+                            tokens=len(handle.out_tokens))
+        self._notify_event(handle, "suspended", reason="preempted",
+                           tokens=len(handle.out_tokens))
+
+    def _notify_event(self, handle, event, **attrs):
+        """Fire the handle's lifecycle callback (``suspended`` /
+        ``resumed``), which the transport relays as an event frame;
+        guarded like ``_emit``."""
+        if handle.on_event is None:
+            return
+        try:
+            handle.on_event(event, dict(attrs))
+        except Exception:  # noqa: BLE001 — a callback bug must not
+            log.exception("on_event callback failed")  # kill the batch
+
     def _prefill(self, slot_idx, handle, matched=()):
         """Prefill ``handle`` into ``slot_idx``. With a trie match the
         matched pages are pinned into the table and only the unshared
         suffix runs, at positional offset ``len(matched)·block_size``,
         reading the prefix through the chunk read (``generate.py:2503``).
-        A suffix longer than ``prefill_chunk`` goes the chunked way."""
-        prompt = handle.prompt
+        A suffix longer than ``prefill_chunk`` goes the chunked way.
+
+        A resume (``handle.suspended``) prefills the extended sequence,
+        prompt + emitted tokens, with the remaining budget: the
+        suspension indexed its written pages, so the match covers all
+        but the last block or two. The last emitted token had no K/V
+        (it was the next decode input), so it rides the prefill, whose
+        last-row argmax is the next token of the uninterrupted
+        stream."""
+        resuming = handle.suspended
+        prompt = handle.prompt + handle.out_tokens if resuming \
+            else handle.prompt
+        remaining = handle.max_tokens - len(handle.out_tokens)
         prompt_len = len(prompt)
         offset = len(matched) * self.block_size
         suffix_len = prompt_len - offset
         if self.prefill_chunk and suffix_len > self.prefill_chunk:
-            self._begin_chunked_prefill(slot_idx, handle, matched)
+            self._begin_chunked_prefill(slot_idx, handle, matched,
+                                        resuming, prompt, remaining)
             return
         padded = self._suffix_padded(prompt_len, offset)
         n_blocks = -(-padded // self.block_size)
@@ -1377,20 +1596,39 @@ class GenerationEngine:
             self._account_attn_read(self._blocks_touched(1, [offset]))
         slot = _Slot(handle, prefix_blocks + fresh, prompt_len, first,
                      len(matched) + self._worst_case_blocks(
-                         prompt_len, handle.max_tokens, len(matched)))
+                         prompt_len, remaining, len(matched)))
         with self._cond:
             self._inflight = []
             self._slots[slot_idx] = slot
             if self.prefix_cache:
                 self._index_prompt_locked(prompt, slot.blocks, matched)
-        self._first_token(slot_idx, handle, first)
+        self._first_token(slot_idx, handle, first,
+                          (offset, suffix_len) if resuming else None)
 
-    def _first_token(self, slot_idx, handle, first):
-        # TTFT closes BEFORE the emit, so the transport reads it when
-        # the first token arrives
+    def _first_token(self, slot_idx, handle, first, resumed=None):
+        """Emit a prefill's token. The emission event is booked BEFORE
+        the emit, so the transport reads TTFT when the first token
+        arrives; a resume (``resumed`` = (prefix tokens skipped, tokens
+        prefilled)) books a gap there instead — the suspension's wall
+        time is the stream's price — and the ``resumed`` event."""
         self._note_emission_event(handle)
-        self._record_event("first_token", handle, slot=slot_idx,
-                           ttft_s=round(handle.ttft_s, 6))
+        if resumed is not None:
+            offset, suffix_len = resumed
+            handle.suspended = False
+            handle.resume_prefill_tokens += suffix_len
+            self.stats["resumes"] += 1
+            self.stats["resume_prefill_tokens"] += suffix_len
+            _RESUME_PREFILL_TOKENS.labels(self.name).inc(suffix_len)
+            self._record_event("resumed", handle, slot=slot_idx,
+                               prefix_tokens_skipped=offset,
+                               prefilled=suffix_len)
+            self._notify_event(handle, "resumed",
+                               prefix_tokens_skipped=offset,
+                               prefilled=suffix_len,
+                               tokens=len(handle.out_tokens))
+        else:
+            self._record_event("first_token", handle, slot=slot_idx,
+                               ttft_s=round(handle.ttft_s, 6))
         self._emit(handle, first)
         if handle.eos_id is not None and first == handle.eos_id:
             self._evict(slot_idx, "eos")
@@ -1399,23 +1637,26 @@ class GenerationEngine:
 
     # ------------------------------------------------- chunked prefill
 
-    def _begin_chunked_prefill(self, slot_idx, handle, matched):
+    def _begin_chunked_prefill(self, slot_idx, handle, matched, resuming,
+                               prompt, remaining):
         """Admission half of a chunked prefill (``generate.py:2699``):
         pin the match and install the slot with ``prefilling=True``. Its
         table starts as the pinned prefix and grows one chunk of fresh
         blocks per ``_advance_prefills``; the whole reservation is
-        debited here, so no later chunk can fail to allocate."""
+        debited here, so no later chunk can fail to allocate. A resume
+        prefills ``prompt`` (the extended sequence) with ``remaining``
+        tokens of budget."""
         offset = len(matched) * self.block_size
         with self._cond:
             prefix_blocks = self._pin_locked(matched)
         self._book_match(handle, matched)
         slot = _Slot(handle, prefix_blocks, offset, None,
                      len(matched) + self._worst_case_blocks(
-                         len(handle.prompt), handle.max_tokens,
-                         len(matched)))
+                         len(prompt), remaining, len(matched)))
         slot.prefilling = True
         slot.pf_written = offset
         slot.pf_matched = list(matched)
+        slot.pf_resuming = resuming
         slot.pf_t0, slot.pf_t0w = self._book_admission(
             handle, slot_idx, chunked_prefill=True)
         with self._cond:
@@ -1434,7 +1675,8 @@ class GenerationEngine:
             return
         slot = self._slots[idx]
         handle = slot.handle
-        prompt = handle.prompt
+        prompt = handle.prompt + handle.out_tokens if slot.pf_resuming \
+            else handle.prompt
         prompt_len = len(prompt)
         C = self.prefill_chunk
         written = slot.pf_written
@@ -1494,7 +1736,10 @@ class GenerationEngine:
             if self.prefix_cache:
                 self._index_prompt_locked(prompt, slot.blocks,
                                           slot.pf_matched)
-        self._first_token(idx, handle, first)
+        offset = len(slot.pf_matched) * self.block_size
+        self._first_token(idx, handle, first,
+                          (offset, prompt_len - offset)
+                          if slot.pf_resuming else None)
 
     # ------------------------------------------------------ decode step
 
@@ -1721,21 +1966,33 @@ class GenerationEngine:
         now = time.perf_counter()
         if handle.last_emit is None:
             handle.ttft_s = now - handle.enqueued
+            self._ttft_samples.append(handle.ttft_s)
             _TTFT_SECONDS.labels(self.name).observe(
                 handle.ttft_s, trace_id=handle.rt.exemplar(
                     handle.ttft_s) if handle.rt is not None else None)
+            if handle.tenant is not None:
+                qos_lib.TTFT_SECONDS.labels(
+                    handle.tenant, handle.qos_class).observe(handle.ttft_s)
         else:
             gap = now - handle.last_emit
             handle.itg_gaps.append(gap)
+            self._itg_samples.append(gap)
             _INTER_TOKEN_SECONDS.labels(self.name).observe(
                 gap, trace_id=handle.rt.exemplar(gap)
                 if handle.rt is not None else None)
+            if handle.tenant is not None:
+                qos_lib.INTER_TOKEN_SECONDS.labels(
+                    handle.tenant, handle.qos_class).observe(gap)
         handle.last_emit = now
 
     def _emit(self, handle, token):
         handle.out_tokens.append(token)
+        handle.token_times.append(time.time())
         _TOKENS_TOTAL.labels(self.name).inc()
         self.stats["tokens"] += 1
+        if handle.tenant is not None:
+            qos_lib.TOKENS_TOTAL.labels(handle.tenant,
+                                        handle.qos_class).inc()
         if handle.on_token is not None:
             try:
                 handle.on_token(token, len(handle.out_tokens) - 1)

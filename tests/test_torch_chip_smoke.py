@@ -109,3 +109,97 @@ def test_first_mismatches():
     assert chip_smoke._first_mismatches(
         [[1, 2, 3], [1, 2], [4, 5]], [[1, 2, 3], [1, 2, 3], [4, 6]]) == [
         None, 2, 1]
+
+
+def _qos_result(tenant, cls, head_cls=None):
+    return {"head": {"x-qos-class": head_cls or cls},
+            "frames": [{"done": True, "qos": {"tenant": tenant,
+                                              "class": cls}}]}
+
+
+def test_check_qos_classes_takes_each_tenants_class():
+    chip_smoke._check_qos_classes(
+        [_qos_result("crawler", "batch"), _qos_result("acme", "interactive")],
+        ["crawler", "acme"])
+
+
+@pytest.mark.parametrize("result", [
+    _qos_result("crawler", "batch", head_cls="standard"),   # header off
+    _qos_result("crawler", "standard"),                     # done view off
+    _qos_result("acme", "batch"),                           # other tenant
+    {"head": {"x-qos-class": "batch"}, "frames": [{"done": True}]},
+], ids=["header", "done-class", "done-tenant", "no-qos-view"])
+def test_check_qos_classes_refuses_another_class(result):
+    with pytest.raises(AssertionError, match="crawler"):
+        chip_smoke._check_qos_classes([result], ["crawler"])
+
+
+def test_qos_tokens_reads_the_family_by_tenant_and_class():
+    text = "\n".join([
+        "# TYPE serving_qos_tokens_total counter",
+        'serving_qos_tokens_total{tenant="acme",class="interactive"} 96.0',
+        'serving_qos_tokens_total{tenant="crawler",class="batch"} 16',
+        'serving_qos_ttft_seconds_count{tenant="acme",class="interactive"} 2',
+        'serving_generate_tokens_total{model="default"} 112.0'])
+    assert chip_smoke._qos_tokens(text) == {("acme", "interactive"): 96.0,
+                                            ("crawler", "batch"): 16.0}
+    assert chip_smoke._qos_tokens("") == {}
+
+
+def test_admission_order_reads_admitted_events_of_the_requests():
+    timeline = [{"event": "admitted", "request": 1},
+                {"event": "first_token", "request": 1},
+                {"event": "admitted", "request": 3},
+                {"event": "suspended", "request": 3},
+                {"event": "admitted", "request": 2},
+                {"event": "admitted", "request": 3},
+                {"event": "admitted", "request": 9}]
+    assert chip_smoke._admission_order(timeline, [2, 3, 1]) == [1, 3, 2, 3]
+
+
+def test_check_resumes_holds_the_skip_floor_and_the_prefill_cap():
+    good = {"prefix_tokens_skipped": 512, "prefilled": 9}
+    chip_smoke._check_resumes([good, dict(good, prefilled=32)], 512, 32)
+    for bad in ([], [dict(good, prefix_tokens_skipped=496)],
+                [good, dict(good, prefilled=33)]):
+        with pytest.raises(AssertionError):
+            chip_smoke._check_resumes(bad, 512, 32)
+
+
+class _Handle:
+    def __init__(self, tokens, max_tokens, reason="length"):
+        self.out_tokens, self.max_tokens, self.reason = (tokens, max_tokens,
+                                                         reason)
+
+
+@pytest.mark.parametrize("stream,ok", [
+    ({"handle": _Handle([1, 2, 3], 3), "indices": [0, 1, 2]}, True),
+    ({"handle": _Handle([1, 2], 3), "indices": [0, 1]}, False),
+    ({"handle": _Handle([1, 2, 3], 3), "indices": [0, 2, 1]}, False),
+    ({"handle": _Handle([1, 2, 3], 3), "indices": [0, 1, 1, 2]}, False),
+    ({"handle": _Handle([1, 2, 99], 3), "indices": [0, 1, 2]}, False),
+    ({"handle": _Handle([1, 2, 3], 3, "eos"), "indices": [0, 1, 2]}, False),
+], ids=["whole", "short", "order", "repeat", "vocab", "reason"])
+def test_check_streams(stream, ok):
+    stream = dict(stream, tenant="crawler")
+    if ok:
+        chip_smoke._check_streams([stream], vocab=16)
+    else:
+        with pytest.raises(AssertionError):
+            chip_smoke._check_streams([stream], vocab=16)
+
+
+def test_pctl_is_the_engines_rule():
+    vals = [5, 1, 4, 2, 3]
+    assert chip_smoke._pctl(vals, 0.5) == 3
+    assert chip_smoke._pctl(vals, 0.95) == 5
+    assert chip_smoke._pctl(list(range(100)), 0.95) == 95
+
+
+def test_qos_requests_share_no_block():
+    batch, inter = chip_smoke.qos_requests(32768, 8, 128, 8)
+    assert [len(p) for p, _ in batch] == [512] * 8
+    assert [len(p) for p, _ in inter] == [64] * 8
+    assert {m for _, m in batch} == {128} and {m for _, m in inter} == {16}
+    firsts = {tuple(p[:16]) for p, _ in batch + inter}
+    assert len(firsts) == 16

@@ -1,14 +1,19 @@
 """``python -m kubeflow_tpu_torch.cmd model-server``: a real subprocess
-on the CPU (``GEN_DEVICE=cpu``, tiny ``GEN_*`` knobs) streams one
-request token-identically to the greedy oracles on the weights the
-entry builds (its ``SEED``), and SIGTERM ends it with 0. In process:
-every knob the port does not serve yet refuses by name, and without
-``GEN_DEVICE`` a CUDA-less host gets ``device.resolve``'s error."""
+on the CPU (``GEN_DEVICE=cpu``, tiny ``GEN_*`` knobs, a ``QOS_TENANTS``
+ledger) streams one request token-identically to the greedy oracles on
+the weights the entry builds (its ``SEED``), names each tenant's
+ledger class in ``X-QoS-Class`` and books its tokens under
+``serving_qos_tokens_total``, and SIGTERM ends it with 0. In process:
+every knob the port does not serve yet refuses by name,
+``QOS_TENANTS`` and ``GEN_PREEMPTION`` reach the engine as in the JAX
+entry, and without ``GEN_DEVICE`` a CUDA-less host gets
+``device.resolve``'s error."""
 
 import http.client
 import json
 import os
 import pathlib
+import re
 import signal
 import subprocess
 import sys
@@ -31,6 +36,8 @@ KNOBS = {"MODEL_GENERATE": "1", "GEN_DEVICE": "cpu", "PORT": "0",
          "GEN_LAYERS": "2", "GEN_HEADS": "4", "GEN_MAX_CONTEXT": "64",
          "GEN_SLOTS": "2", "GEN_BLOCK_SIZE": "8", "GEN_PREFILL_CHUNK": "8",
          "OBS_EXPORT_DIR": ""}
+TENANTS = ('{"acme": {"class": "interactive"}, '
+           '"crawler": {"class": "batch", "rate": 1000}}')
 UNSET = ("MODEL_GENERATE", "MODEL_MODULE", "MODEL_DEVICE_MS", "GEN_DEVICE",
          "GEN_MESH", "GEN_TP", "GEN_ROW_SHARD", "QOS_TENANTS", "GEN_ROLE",
          "GEN_CALIBRATE", "SERVING_TRANSPORT", "GEN_SPEC_K", "GEN_DRAFT",
@@ -57,8 +64,8 @@ def _get(port, path):
 def server():
     proc = subprocess.Popen(
         [sys.executable, "-m", "kubeflow_tpu_torch.cmd", "model-server"],
-        env=_env(), stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-        text=True, cwd=ROOT)
+        env=_env(QOS_TENANTS=TENANTS), stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True, cwd=ROOT)
     try:
         line = proc.stdout.readline()
         assert line.startswith("PORT "), (line, proc.stderr.read()
@@ -115,6 +122,30 @@ def test_the_server_shows_its_device_and_chunks(server):
     assert "# TYPE serving_generate_tokens_total counter" in text
 
 
+@pytest.mark.parametrize("tenant,cls", [("acme", "interactive"),
+                                        ("crawler", "batch"),
+                                        (None, "standard")])
+def test_x_qos_class_is_the_ledgers(server, tenant, cls):
+    _, port = server
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+    conn.request("POST", "/v1/models/default:generate",
+                 json.dumps({"tokens": [1, 2, 3], "max_tokens": 3}).encode(),
+                 {"Content-Type": "application/json",
+                  **({"X-Tenant": tenant} if tenant else {})})
+    resp = conn.getresponse()
+    assert resp.status == 200 and resp.getheader("X-QoS-Class") == cls
+    done = [json.loads(ln) for ln in resp.read().splitlines() if ln][-1]
+    conn.close()
+    if tenant is None:
+        assert "qos" not in done
+        return
+    assert done["qos"] == {"tenant": tenant, "class": cls,
+                           "preemptions": 0, "resume_prefill_tokens": 0}
+    text = _get(port, "/metrics")[1].decode()
+    assert re.search(rf'^serving_qos_tokens_total\{{tenant="{tenant}",'
+                     rf'class="{cls}"\}} [1-9]', text, re.M), text[-2000:]
+
+
 def test_sigterm_exits_zero(server):
     proc, port = server
     _get(port, "/healthz")
@@ -145,7 +176,7 @@ def knobs(monkeypatch):
 
 @pytest.mark.parametrize("knob,value", [
     ("GEN_MESH", "tensor=2"), ("GEN_TP", "4"), ("GEN_ROW_SHARD", "1"),
-    ("QOS_TENANTS", "acme=interactive:100:10"), ("GEN_ROLE", "prefill"),
+    ("GEN_ROLE", "prefill"),
     ("GEN_ROLE", "decode"), ("GEN_CALIBRATE", "1"),
     ("SERVING_TRANSPORT", "async")])
 def test_unported_knobs_refuse_by_name(knobs, knob, value):
@@ -173,7 +204,25 @@ def test_gen_preemption_is_read_and_accepted(knobs, value):
     knobs.setenv("GEN_ROLE", "both")
     eng = cmd.build_engine("accepted")
     try:
+        assert eng.preemption is (value == "1")
         assert eng.generate([1, 2], max_tokens=2)[1] == "length"
+    finally:
+        eng.close()
+
+
+@pytest.mark.parametrize("spec,tenant,cls", [
+    (TENANTS, "acme", "interactive"), (TENANTS, "crawler", "batch"),
+    (TENANTS, "stranger", "standard"), ("", "acme", "standard")],
+    ids=["interactive", "batch", "unlisted", "unset"])
+def test_qos_tenants_gives_the_engine_its_ledger(knobs, spec, tenant, cls):
+    knobs.setenv("QOS_TENANTS", spec)
+    cmd._refuse_unported()
+    eng = cmd.build_engine("ledger")
+    try:
+        assert (eng._qos is None) == (not spec)
+        h = eng.submit([1, 2], max_tokens=2, tenant=tenant)
+        assert h.result(timeout=60)[1] == "length"
+        assert h.qos_class == cls
     finally:
         eng.close()
 

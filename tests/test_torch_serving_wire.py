@@ -8,7 +8,10 @@ config of ``tests/test_serving_generate.py`` with GQA 4:2, one slot,
 block 8), both on the threaded transport on port 0, get the same
 requests. Streamed tokens must be identical to each other and to the
 JAX cache-free oracle; status codes, error text, header names, the
-mesh/prefix/QoS header values and the done frame's keys must match.
+mesh/prefix/QoS header values and the done frame's keys must match. A
+stream preempted by an interactive tenant sends the same ``suspended``/
+``resumed`` frames and the same done-frame ``qos`` view on both, with
+``X-QoS-Class`` the class each side's tenant ledger names.
 """
 
 import dataclasses
@@ -24,10 +27,12 @@ import pytest
 from kubeflow_tpu.compute import generate as j_gen
 from kubeflow_tpu.compute import serving as j_serving
 from kubeflow_tpu.compute.models import transformer as jt
+from kubeflow_tpu.qos import buckets as j_qos
 from kubeflow_tpu_torch.compute import generate as t_gen
 from kubeflow_tpu_torch.compute import serving as t_serving
 from kubeflow_tpu_torch.compute.models import transformer as tt
 from kubeflow_tpu_torch.compute.params import params_from_jax
+from kubeflow_tpu_torch.qos import buckets as t_qos
 
 CFG = jt.Config(
     vocab_size=64, d_model=32, n_layers=2, n_heads=4, n_kv_heads=2,
@@ -435,3 +440,81 @@ def test_a_speculative_stream_matches_jax_frame_for_frame(jparams, tparams):
     assert tf[-1]["tokens"] == jf[-1]["tokens"] \
         == j_gen.reference_greedy_decode(jparams, CFG, [1, 2, 3], 10)
     assert tf[-1]["spec"] == jf[-1]["spec"]
+
+
+def _read_frames(resp, n_tokens):
+    """Read a stream frame by frame until ``n_tokens`` token frames have
+    come → those frames."""
+    frames = []
+    while sum("token" in f for f in frames) < n_tokens:
+        line = resp.readline()
+        assert line, "the stream ended early"
+        if line.strip():
+            frames.append(json.loads(line))
+    return frames
+
+
+def test_a_preempted_stream_is_framed_as_jaxs(jparams, tparams):
+    """One slot, each side's engine with its own ledger built from the
+    same spec: a ``crawler`` (batch) stream is preempted mid-stream by an
+    ``acme`` (interactive) request and resumes. Both servers send the
+    same frame sequence (token, event and done frames, their keys), the
+    same done-frame ``qos`` views and ``X-QoS-Class`` values, and the
+    oracle's tokens."""
+    spec = {"acme": {"class": "interactive"}, "crawler": {"class": "batch"}}
+    kw = dict(max_slots=1, block_size=8, max_context=64, name="lm")
+    pair = _start({
+        "jax": j_gen.GenerationEngine(jparams, CFG,
+                                      qos=j_qos.TokenLedger(spec), **kw),
+        "port": t_gen.GenerationEngine(tparams, TCFG, device="cpu",
+                                       qos=t_qos.TokenLedger(spec), **kw)})
+    _slowed(pair, 0.02)
+    got = {}
+    try:
+        for side in SIDES:
+            port = pair[side][2]
+            conn, resp = _post(port, {"tokens": [5, 9, 3, 7, 11, 2],
+                                      "max_tokens": 24},
+                               {"X-Tenant": "crawler"})
+            assert resp.status == 200
+            bhead = resp.getheader("X-QoS-Class")
+            frames = _read_frames(resp, 5)
+            status, ihead, iframes = _stream(port, {"tokens": [4, 4, 8],
+                                                    "max_tokens": 4},
+                                             {"X-Tenant": "acme"})
+            assert status == 200
+            frames += _frames(resp)
+            conn.close()
+            got[side] = (bhead, ihead["x-qos-class"], frames, iframes)
+    finally:
+        _slowed(pair, 0.0)
+        for server, _, _ in pair.values():
+            server.stop()
+    ref = j_gen.reference_greedy_decode(jparams, CFG, [5, 9, 3, 7, 11, 2],
+                                        24)
+    shapes = {}
+    for side, (bhead, ihead, frames, iframes) in got.items():
+        assert (bhead, ihead) == ("batch", "interactive"), side
+        toks = [f for f in frames if "token" in f]
+        assert [f["token"] for f in toks] == ref, side
+        assert [f["index"] for f in toks] == list(range(24)), side
+        events = [f for f in frames if "event" in f]
+        assert [e["event"] for e in events] == ["suspended", "resumed"]
+        done = frames[-1]
+        assert done["done"] and done["tokens"] == ref
+        assert done["qos"]["preemptions"] == 1
+        assert 0 < done["qos"]["resume_prefill_tokens"] <= 16
+        assert iframes[-1]["qos"] == {"tenant": "acme",
+                                      "class": "interactive",
+                                      "preemptions": 0,
+                                      "resume_prefill_tokens": 0}
+        kinds = ["event" if "event" in f else "done" if "done" in f
+                 else "token" for f in frames]
+        shapes[side] = ([sorted(e) for e in events], sorted(done),
+                        sorted(done["qos"]),
+                        {k: done["qos"][k] for k in ("tenant", "class",
+                                                     "preemptions")},
+                        kinds[-1], kinds.count("event"))
+    assert shapes["port"] == shapes["jax"]
+    assert shapes["port"][3] == {"tenant": "crawler", "class": "batch",
+                                 "preemptions": 1}
