@@ -72,9 +72,10 @@ if any phase fails:
    700-token prompt: more prefill chunks than prefills, K2) sent as the
    tenants ``crawler`` and ``acme`` of its ``QOS_TENANTS`` ledger (each
    ``X-QoS-Class`` the tenant's class), the tokens counted on
-   ``/metrics`` (and per tenant under ``serving_qos_tokens_total``), a
-   503 after ``POST /admin/drain``, and SIGTERM ending it with 0 within
-   30 s;
+   ``/metrics`` (and per tenant under ``serving_qos_tokens_total``), one
+   two-hop request (``:prefill`` on it, ``:attach`` on a second
+   ``model-server`` started with ``GEN_ROLE=decode``), a 503 after
+   ``POST /admin/drain``, and SIGTERM ending both with 0 within 30 s;
 11. qos — QoS classes and preemptible decoding on the bf16 flagship at
    full width and depth (4 slots, block 16, prefix cache on): 8 batch
    streams (tenant ``crawler``) of distinct 512-token prompts, 128
@@ -92,7 +93,31 @@ if any phase fails:
    uninterrupted engine's tokens but at top-2 logit gaps below 1e-3;
    qos_i8 — the preemption run on an int8 pool: resumes on K2-i8
    (exactly 12 a resume), decode on K1-i8, never K1 or K2;
-12. train — the flagship at full width and depth (bf16, ``remat=False``)
+12. disagg — prefill/decode disaggregation on the bf16 flagship (block
+   16): a prefill-role engine (1 slot) exports the 896-token intruder's
+   56 blocks (K3 exactly 12 times, 11,010,048 page bytes), the bundle
+   goes through ``encode_kv_bundle`` → bytes → ``decode_kv_bundle``, and
+   one schedule of 4 short streams (64-token prompts, 128 tokens) runs
+   in three topologies: baseline, colocated (the intruder, budget 8,
+   submitted to a role-both engine once every stream has emitted 16
+   tokens) and disagg (the bundle imported at that point by a
+   decode-role engine, 5 slots, the prefix cache off): no prefill and
+   no K3 for the intruder, K1 decodes it, its pages land bit for bit,
+   its first token is the bundle's, each engine's migration view shows
+   its one export or import; a follow-up sharing 512 tokens of the
+   imported prompt on a prefix-caching decode engine is a hit (K2 12
+   times); in fp32 at full width the intruder's disagg tokens equal the
+   colocated engine's and the reference's but at top-2 gaps below 1e-3;
+   the short streams' ITG p50/p99/max per topology, the intruder's first
+   token, the export's device→host ms and ``serving_kv_migration_seconds``
+   printed; disagg_i8 — the same on an int8 pool (K1-i8, never K1 or K2,
+   half the page bytes, 172,032 scale bytes); disagg_wire — two port
+   ``ModelServer``s over a prefill-role and a decode-role engine, this
+   script the router: ``:prefill`` then ``:attach`` (``X-KV-Bytes-Migrated``
+   right, tokens equal the same hop in process), an int8 bundle on the
+   bf16 pool 400 naming ``dtype`` (counted on ``/metrics``), ``:attach`` on
+   the prefill-role server 400 naming ``role``;
+13. train — the flagship at full width and depth (bf16, ``remat=False``)
    trained by the port's ``compute.train``: ``init_state`` →
    ``make_train_step(plain_loss(transformer.loss_fn))`` → ``fit`` over
    one repeated ``synthetic_lm`` batch of 16 x 1024 tokens, 2 warm
@@ -102,7 +127,7 @@ if any phase fails:
    every step launch K3, K4 and K5 exactly 12 times each; then one step
    profiled through the port's ``profiler`` (device ms by kernel
    group, the device's idle share);
-13. train conformance — fp32, TF32 off, flagship width, 2 layers, batch
+14. train conformance — fp32, TF32 off, flagship width, 2 layers, batch
    2 x 1024: the loss and every gradient leaf through K3/K4/K5 against
    ``attention="dense"`` (plain PyTorch autograd) on the card, loss
    within 1e-5 relative, each leaf's max |Δg| within 1e-3 of that
@@ -110,22 +135,22 @@ if any phase fails:
    against ``remat=False``: gradients within 1e-5 of each leaf's max
    |g| (the embedding's scatter-add sums in another order each run),
    24 K3 launches against 12, 12 of K4 and K5 in both;
-14. moe_apply — the MoE flagship (``moe_config``: vocab 32000, d_model
+15. moe_apply — the MoE flagship (``moe_config``: vocab 32000, d_model
    1024, 8 layers, 8 heads MHA, ff 2816, 8 experts top-2, dropless on
    the grouped matmul, bf16, random weights from a seed):
    ``transformer.apply`` on 1 x 1024 tokens, finite logits, exactly 16
    K6 and 8 K3 launches;
-15. moe_train — the same model trained (``remat=False``, one repeated
+16. moe_train — the same model trained (``remat=False``, one repeated
    8 x 1024 batch, 2 warm + 3 timed steps): step ms, tokens/s, MFU by
    JAX's ``flops_per_token`` (which counts the dense MLP once), peak
    memory, losses, ``moe_aux`` and the padded-row share; the loss falls
    and every step launches K6 32, K7 16 and K3/K4/K5 8 times each; then
    one step profiled (``moe_train_profile``);
-16. moe_conformance — fp32, TF32 off, MoE width, 2 layers, batch 2 x
+17. moe_conformance — fp32, TF32 off, MoE width, 2 layers, batch 2 x
    1024: the loss and every gradient leaf through K6/K7 against the
    plain ragged engine (``moe_gmm=False``), loss within 1e-5 relative,
    each leaf within 1e-3 of its max |g|, ``apply`` logits within 1e-3;
-17. resnet_eval — ResNet-50 (bf16, random weights and randomised BN from
+18. resnet_eval — ResNet-50 (bf16, random weights and randomised BN from
    a seed) at batch 256, 224 px in eval mode: every identity block's
    input through both ``resnet._block`` and K8
    (``fused_bottleneck_eval``), agreeing within 3e-2 of the block
@@ -134,23 +159,23 @@ if any phase fails:
    (exactly 12 launches, finite logits within 5e-2 of the unfused
    forward's, statistics untouched) and samples/s of the unfused and the
    K8 forward;
-18. resnet_train — ResNet-50 trained (bf16, ``init_state(extra=stats)``
+19. resnet_train — ResNet-50 trained (bf16, ``init_state(extra=stats)``
    → ``make_train_step(stateful_loss(resnet.loss_fn))`` → ``fit`` over
    one repeated 256 x 224 x 224 x 3 batch, 2 warm + 3 timed steps): step
    ms, samples/s, MFU by ``flops_per_sample``, peak memory; the loss
    falls and the running means move; then one step profiled
    (``resnet_train_profile``);
-19. bert_train — bert-base (bf16, ``remat=False``, per-layer weights) on
+20. bert_train — bert-base (bf16, ``remat=False``, per-layer weights) on
    one repeated 16 x 512 ``mlm_batch``, 2 warm + 3 timed steps: step ms,
    tokens/s, MFU; the loss falls and every step launches K3, K4 and K5
    12 times each; then one step profiled; and bert_conformance — fp32, 2
    layers, 2 x 512: loss and every gradient leaf through K3-K5 (no
    causal mask, head_dim 64) against ``attention="dense"``, 1e-5 / 1e-3
    of each leaf's max |g|;
-20. sweep — ``run_mnist_sweep`` of 8 trials in 2 shape buckets, 30
+21. sweep — ``run_mnist_sweep`` of 8 trials in 2 shape buckets, 30
    steps, equal within 1e-5 to 8 calls of ``run_mnist_trial``; wall
    seconds of both;
-21. the ``kernels`` line — every ported kernel with its launches on each
+22. the ``kernels`` line — every ported kernel with its launches on each
    path (counts zeroed just before a path, read just after), its max
    |Δ| and its times.
 
@@ -1767,6 +1792,44 @@ def _qos_tokens(metrics_text):
         r'(\S+)$', metrics_text, re.M)}
 
 
+class _Replica:
+    """A ``model-server`` subprocess whose output a thread reads; ``port()``
+    waits for its ``PORT n`` line."""
+
+    def __init__(self, env, root):
+        import queue
+        import subprocess
+        import threading
+        self.lines, self.log = queue.Queue(), []
+        self.t0 = time.perf_counter()
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", "kubeflow_tpu_torch.cmd", "model-server"],
+            env=env, cwd=root, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True)
+        threading.Thread(target=self._pump, daemon=True).start()
+
+    def _pump(self):
+        for ln in self.proc.stdout:
+            self.log.append(ln.rstrip())
+            self.lines.put(ln)
+        self.lines.put(None)
+
+    def port(self):
+        while True:
+            ln = self.lines.get(timeout=300)
+            if ln is None:
+                raise AssertionError(f"model-server exited "
+                                     f"{self.proc.wait()} before PORT: "
+                                     f"{self.log}")
+            if ln.startswith("PORT "):
+                return int(ln.split()[1])
+
+    def stop(self):
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait(timeout=30)
+
+
 def phase_wire_cmd():
     """``python -m kubeflow_tpu_torch.cmd model-server`` as a subprocess
     under ``WIRE_CMD_ENV``: read ``PORT n``; ``/healthz`` answers ok,
@@ -1776,46 +1839,27 @@ def phase_wire_cmd():
     as ``acme``, with more prefill chunks than prefills (chunked prefill
     on K2) and each ``X-QoS-Class`` its tenant's ledger class;
     ``/metrics`` counts generated tokens, and tokens of both tenants
-    under ``serving_qos_tokens_total``; after ``POST /admin/drain`` a
-    ``:generate`` answers 503; and SIGTERM ends the process with 0
-    within 30 s."""
+    under ``serving_qos_tokens_total``; one two-hop request, ``:prefill``
+    on it and ``:attach`` on a second replica started with
+    ``GEN_ROLE=decode`` (``check_hop``; the second replica's snapshot
+    names its role and one import, no prefill); after ``POST
+    /admin/drain`` a ``:generate`` answers 503; and SIGTERM ends both
+    processes with 0 within 30 s."""
     import os
     import pathlib
-    import queue
     import signal
-    import subprocess
-    import threading
     root = pathlib.Path(__file__).resolve().parent
     env = {k: v for k, v in os.environ.items()
            if not k.startswith("GEN_") and k not in (
                "MODEL_MODULE", "MODEL_DEVICE_MS", "QOS_TENANTS",
                "SERVING_TRANSPORT", "MODEL_NAME")}
     env.update(WIRE_CMD_ENV, PYTHONPATH=str(root))
-    lines = queue.Queue()
-    t0 = time.perf_counter()
-    proc = subprocess.Popen(
-        [sys.executable, "-m", "kubeflow_tpu_torch.cmd", "model-server"],
-        env=env, cwd=root, stdout=subprocess.PIPE,
-        stderr=subprocess.STDOUT, text=True)
-    log = []
-
-    def pump():
-        for ln in proc.stdout:
-            log.append(ln.rstrip())
-            lines.put(ln)
-        lines.put(None)
-
-    threading.Thread(target=pump, daemon=True).start()
+    replica = _Replica(env, root)
+    decoder = _Replica({**env, "GEN_ROLE": "decode"}, root)
+    proc, log = replica.proc, replica.log
     try:
-        port = None
-        while port is None:
-            ln = lines.get(timeout=300)
-            if ln is None:
-                raise AssertionError(f"model-server exited "
-                                     f"{proc.wait()} before PORT: {log}")
-            if ln.startswith("PORT "):
-                port = int(ln.split()[1])
-        startup = time.perf_counter() - t0
+        port = replica.port()
+        startup = time.perf_counter() - replica.t0
         status, _, body = _http(port, "GET", "/healthz")
         if (status, json.loads(body)) != (200, {"status": "ok"}):
             raise AssertionError(f"/healthz: {status} {body}")
@@ -1844,12 +1888,21 @@ def phase_wire_cmd():
         m = re.search(r'^serving_generate_tokens_total\{model="default"\} '
                       r'(\S+)$', metrics, re.M)
         qos_tokens = _qos_tokens(metrics)
+        dport = decoder.port()
+        # a prompt the 4 streams served: the export is a prefix hit (K2)
+        hop_prompt = requests(5, 32768)[2][0]               # 200 tokens
+        hop = disagg_hop(port, dport, hop_prompt, 8, "default")
+        hop_tokens = check_hop(hop, 8, 32768)
+        dsnap = json.loads(_http(dport, "GET", "/v1/models/default")[2])[
+            "generator"]
         drain = _http(port, "POST", "/admin/drain", {})
         refused = _http(port, "POST", "/v1/models/default:generate",
                         {"tokens": [1, 2], "max_tokens": 2})
         t_term = time.perf_counter()
         proc.send_signal(signal.SIGTERM)
+        decoder.proc.send_signal(signal.SIGTERM)
         code = proc.wait(timeout=30)
+        dcode = decoder.proc.wait(timeout=30)
         row = {"phase": "wire_cmd", "dtype": WIRE_CMD_ENV["GEN_DTYPE"],
                "heads": int(WIRE_CMD_ENV["GEN_HEADS"]),
                "kv_heads": int(WIRE_CMD_ENV["GEN_HEADS"]),
@@ -1868,13 +1921,23 @@ def phase_wire_cmd():
                                      in sorted(qos_tokens.items())},
                "drain": drain[0], "after_drain": refused[0],
                "retry_after": refused[1].get("retry-after"),
-               "sigterm_exit": code,
+               "hop": {"prompt": len(hop_prompt), "tokens": len(hop_tokens),
+                       "export_prefix_tokens_skipped": int(hop[
+                           "prefill_head"]["x-prefix-tokens-skipped"]),
+                       "bundle_bytes": hop["bundle_bytes"],
+                       "kv_bytes_migrated": int(hop["attach_head"][
+                           "x-kv-bytes-migrated"]),
+                       "decode_role": dsnap["role"],
+                       "decode_migration": dsnap["migration"],
+                       "decode_prefills": dsnap["stats"]["prefills"],
+                       "decode_device": dsnap["device"],
+                       "ttft_ms": 1e3 * hop["frames"][-1]["ttft_s"]},
+               "sigterm_exit": code, "decode_sigterm_exit": dcode,
                "sigterm_s": time.perf_counter() - t_term}
         emit(row)
     finally:
-        if proc.poll() is None:
-            proc.kill()
-            proc.wait(timeout=30)
+        replica.stop()
+        decoder.stop()
     if chunks <= prefills:
         raise AssertionError(f"{chunks} prefill chunks for {prefills} "
                              f"prefills: nothing was chunked (K2)")
@@ -1889,8 +1952,14 @@ def phase_wire_cmd():
         raise AssertionError(f"drain {drain[0]}, then :generate "
                              f"{refused[0]} (Retry-After "
                              f"{row['retry_after']}), want 200 then 503")
-    if code != 0:
-        raise AssertionError(f"SIGTERM exit code {code}: {log[-20:]}")
+    if code != 0 or dcode != 0:
+        raise AssertionError(f"SIGTERM exit codes {code}, {dcode}: "
+                             f"{log[-20:]} {decoder.log[-20:]}")
+    h = row["hop"]
+    if h["decode_role"] != "decode" or h["decode_prefills"] \
+            or h["decode_migration"]["imports"] != 1 \
+            or h["decode_device"] != WIRE_CMD_DEVICE:
+        raise AssertionError(f"the GEN_ROLE=decode replica: {h}")
     return row
 
 
@@ -2193,6 +2262,642 @@ def phase_qos_i8(params, kernel_fns, bf16_row):
                              f"each)")
     _require(run["launches"], ("paged_decode_i8", "flash_fwd"), "qos_i8")
     _refuse(run["launches"], ("paged_decode", "paged_chunk"), "qos_i8")
+    return row
+
+
+#: the disaggregation schedule at the flagship's size (the shape of
+#: ``bench.py:1712-1850``): short streams of distinct 64-token prompts,
+#: 128 tokens each; once every one has emitted ``DISAGG_ARRIVAL`` tokens
+#: an 896-token intruder arrives with a budget of 8 — colocated, or as a
+#: page import whose bundle a prefill-role engine built before the wave
+#: (one card cannot play two replicas)
+DISAGG_SHORTS = (4, 64, 128)          # streams, prompt tokens, budget
+DISAGG_INTRUDER = (896, 8)            # prompt tokens, budget
+DISAGG_ARRIVAL = 16
+DISAGG_HIT_PREFIX = 512               # tokens a follow-up shares
+
+
+def disagg_requests(vocab, seed=7):
+    """→ (short streams as ``(prompt, max_tokens)``, the intruder's
+    prompt), distinct prompts drawn from ``seed``."""
+    rng = np.random.default_rng(seed)
+    n, length, budget = DISAGG_SHORTS
+    shorts = [(rng.integers(0, vocab, length).tolist(), budget)
+              for _ in range(n)]
+    return shorts, rng.integers(0, vocab, DISAGG_INTRUDER[0]).tolist()
+
+
+def bundle_bytes(n_blocks, block_size, n_layers, kv_heads, head_dim,
+                 itemsize, int8=False):
+    """(page bytes, scale bytes) a bundle of ``n_blocks`` ships: k and v
+    pages in the pool's dtype, plus one fp32 scale per (position, head)
+    of each on an int8 pool."""
+    rows = n_blocks * block_size * n_layers * kv_heads * 2
+    return rows * head_dim * itemsize, rows * 4 if int8 else 0
+
+
+def itg_stats(gaps):
+    """Inter-token gaps (s) → p50 / p99 / max in ms by the engine's
+    percentile rule (``_pctl``), and their count."""
+    return {"gaps": len(gaps), "p50_ms": 1e3 * _pctl(gaps, 0.50),
+            "p99_ms": 1e3 * _pctl(gaps, 0.99), "max_ms": 1e3 * max(gaps)}
+
+
+def launch_delta(before, after):
+    """Launches between two reads of the counts, per kernel."""
+    return {k: after[k] - before[k] for k in after}
+
+
+def launch_sum(*runs):
+    """Launch counts of several attributed runs, added per kernel."""
+    return {k: sum(r[k] for r in runs) for k in runs[0]}
+
+
+def _launches(kernel_fns):
+    return {name: fn.launches for name, fn in kernel_fns.items()}
+
+
+def _zero(kernel_fns):
+    for fn in kernel_fns.values():
+        fn.launches = 0
+
+
+def _encode_body(bundle):
+    """A bundle as the prefill replica puts it on the wire → (its framing
+    headers, the body as the decode replica reads it: a bytearray)."""
+    from kubeflow_tpu_torch.compute import serving
+    parts, framing, _ = serving.encode_kv_bundle(bundle)
+    return dict(framing), bytearray(b"".join(bytes(p) for p in parts))
+
+
+def _wire_bundle(bundle):
+    """A bundle through the port's x-tensor codec → the decoded bundle."""
+    from kubeflow_tpu_torch.compute import serving
+    return serving.decode_kv_bundle(*_encode_body(bundle))
+
+
+def _same_bits(a, b):
+    """Two page tensors (any device) hold the same bytes."""
+    import torch
+    return a.shape == b.shape and a.dtype == b.dtype and torch.equal(
+        a.cpu().contiguous().view(torch.uint8),
+        b.cpu().contiguous().view(torch.uint8))
+
+
+def _landing(eng, prompt, n_blocks, out):
+    """An ``on_token`` that, at the first token of the slot holding
+    ``prompt`` (installed, before any decode step), copies its first
+    ``n_blocks`` blocks out of every pool component into ``out``."""
+    import torch
+
+    def on_token(token, index):
+        if index:
+            return
+        slot = next(s for s in eng._slots
+                    if s is not None and s.handle.prompt == prompt)
+        idx = torch.tensor(slot.blocks[:n_blocks], device=eng.device)
+        out["pages"] = [comp.index_select(1, idx) for comp in eng._cache]
+    return on_token
+
+
+def _disagg_wave(eng, shorts, kernel_fns, arrive=None):
+    """Zero the launch counts, submit the ``shorts`` together; once each
+    has emitted ``DISAGG_ARRIVAL`` tokens, ``arrive()`` (the intruder's
+    submit or import → its handle); wait for all and read the counts →
+    dict of the handles, the counts and the stats at arrival and at the
+    end, and the client's seconds from arrival to the intruder's first
+    token."""
+    _zero(kernel_fns)
+    s0 = dict(eng.stats)
+    hs = [eng.submit(p, max_tokens=m) for p, m in shorts]
+    deadline = time.monotonic() + 300
+    while not all(len(h.out_tokens) >= DISAGG_ARRIVAL for h in hs):
+        if time.monotonic() > deadline:
+            raise AssertionError("the short streams never decoded")
+        time.sleep(0.001)
+    at = _launches(kernel_fns)
+    s_at = dict(eng.stats)
+    gaps_at = [len(h.itg_gaps) for h in hs]
+    hi = first_s = None
+    if arrive is not None:
+        t0 = time.perf_counter()
+        hi = arrive()
+        while not hi.out_tokens and not hi.done():
+            if time.monotonic() > deadline:
+                raise AssertionError("the intruder never emitted")
+            time.sleep(0.0005)
+        first_s = time.perf_counter() - t0
+    outs = [h.result(timeout=600) for h in hs]
+    intruder = hi.result(timeout=600) if hi is not None else None
+    return {"handles": hs, "outs": outs, "intruder": hi,
+            "intruder_out": intruder, "first_token_s": first_s,
+            "at_arrival": at, "end": _launches(kernel_fns),
+            "gaps_at_arrival": gaps_at, "stats": (s0, s_at, dict(eng.stats)),
+            "timeline": eng.timeline_view()}
+
+
+def _check_disagg_streams(run, vocab):
+    shorts = [(h.prompt, h.max_tokens) for h in run["handles"]]
+    _check_served(shorts, run["outs"], vocab)
+    if run["intruder"] is not None:
+        _check_served([(run["intruder"].prompt, DISAGG_INTRUDER[1])],
+                      [run["intruder_out"]], vocab)
+
+
+def _wave_numbers(run):
+    """One wave's numbers: the short streams' ITG over the whole wave
+    and from the intruder's arrival on (the window it can stall; the
+    wave's first gaps carry the 4 streams' own admission), split into
+    the two gaps each stream had around the arrival (``arrival_gap_max``:
+    where a prefill or an import lands) and the rest, the
+    intruder's TTFT on the engine's clock (colocated: its prefill;
+    disagg: import_bundle → first token) and on the client's, an
+    import's queue wait and admission (copy-in, trie seed) from its
+    timeline events, and the prefills and launches after the arrival."""
+    s0, s_at, s1 = run["stats"]
+    row = {"itg": itg_stats([g for h in run["handles"] for g in h.itg_gaps]),
+           "itg_after_arrival": itg_stats([
+               g for h, n in zip(run["handles"], run["gaps_at_arrival"])
+               for g in h.itg_gaps[n:]]),
+           "arrival_gap_max_ms": 1e3 * max(
+               g for h, n in zip(run["handles"], run["gaps_at_arrival"])
+               for g in h.itg_gaps[n:n + 2]),
+           "later_gap_max_ms": 1e3 * max(
+               g for h, n in zip(run["handles"], run["gaps_at_arrival"])
+               for g in h.itg_gaps[n + 2:]),
+           "decode_step_ms": 1e3 * (s1["decode_seconds_total"]
+                                    - s0["decode_seconds_total"])
+                             / (s1["decode_steps"] - s0["decode_steps"]),
+           "prefills_after_arrival": s1["prefills"] - s_at["prefills"],
+           "launches_after_arrival": launch_delta(run["at_arrival"],
+                                                  run["end"])}
+    if run["intruder"] is not None:
+        row["intruder_ttft_ms"] = 1e3 * run["intruder"].ttft_s
+        row["intruder_first_token_client_ms"] = 1e3 * run["first_token_s"]
+        events = {e["event"]: e for e in run["timeline"]
+                  if e["request"] == run["intruder"].seq}
+        if "imported" in events:
+            row["import_queue_wait_ms"] = 1e3 * events["admitted"]["wait_s"]
+            row["import_admission_ms"] = 1e3 * (events["imported"]["ts"]
+                                                - events["admitted"]["ts"])
+    return row
+
+
+def _disagg_engines(params, cfg, kv_dtype, tag):
+    """The prefill-role exporter (1 slot), the decode-role importer and a
+    colocated engine of the same geometry (5 slots each); block 16, the
+    prefix cache off, monolithic prefill."""
+    from kubeflow_tpu_torch.compute import generate as gen_lib
+    kw = dict(block_size=16, max_context=1024, prefix_cache=False,
+              kv_dtype=kv_dtype)
+    slots = DISAGG_SHORTS[0] + 1
+    return (gen_lib.GenerationEngine(params, cfg, max_slots=1, role="prefill",
+                                     name=f"{tag}-prefill", **kw),
+            gen_lib.GenerationEngine(params, cfg, max_slots=slots,
+                                     role="decode", name=f"{tag}-decode",
+                                     **kw),
+            gen_lib.GenerationEngine(params, cfg, max_slots=slots,
+                                     role="both", name=f"{tag}-colocated",
+                                     **kw))
+
+
+def _disagg_run(params, cfg, kernel_fns, kv_dtype=None):
+    """The three topologies on one schedule (``disagg_requests``):
+    baseline (no intruder) and colocated on the colocated engine, disagg
+    on the decode engine with the intruder's bundle, exported before the
+    wave and carried through the codec, imported mid-wave. Counts are
+    zeroed before the export and again before each wave → dict."""
+    import torch
+    from kubeflow_tpu_torch.compute import serving
+    tag = "disagg" if kv_dtype is None else f"disagg-{kv_dtype}"
+    shorts, intruder = disagg_requests(cfg.vocab_size)
+    budget = DISAGG_INTRUDER[1]
+    pre, dec, colo = _disagg_engines(params, cfg, kv_dtype, tag)
+    warm = disagg_requests(cfg.vocab_size, seed=9)
+    try:
+        # warm-up, no migration: a wave of 4 on the decoding engines, an
+        # 896-token prefill on the two that prefill the intruder
+        for eng in (dec, colo):
+            for h in [eng.submit(p, max_tokens=4) for p, _ in warm[0]]:
+                h.result(timeout=600)
+        for eng in (pre, colo):
+            eng.generate(warm[1], max_tokens=2)
+        _zero(kernel_fns)
+        t0 = time.perf_counter()
+        bundle = pre.prefill_export(intruder, max_tokens=budget)
+        export_ms = 1e3 * (time.perf_counter() - t0)
+        export_launches = _launches(kernel_fns)
+        # the export's device→host copy (``_build_kv_bundle``'s) alone,
+        # timed again on as many blocks of the same pool
+        n = bundle["meta"]["n_blocks"]
+        idx = torch.arange(n, device=pre.device)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for comp in pre._cache:
+            comp.index_select(1, idx).cpu()
+        copy_ms = 1e3 * (time.perf_counter() - t0)
+        framing, body = _encode_body(bundle)
+        t0 = time.perf_counter()
+        wired = serving.decode_kv_bundle(framing, body)
+        decode_ms = 1e3 * (time.perf_counter() - t0)
+        runs = {"baseline": _disagg_wave(colo, shorts, kernel_fns),
+                "colocated": _disagg_wave(
+                    colo, shorts, kernel_fns,
+                    lambda: colo.submit(intruder, max_tokens=budget))}
+        landed = {}
+        # the decode replica reads the body when it arrives: the
+        # migration clock (``_t_recv``) starts there
+        runs["disagg"] = _disagg_wave(
+            dec, shorts, kernel_fns, lambda: dec.import_bundle(
+                serving.decode_kv_bundle(framing, body),
+                on_token=_landing(dec, intruder, n, landed)))
+        imported = next(e for e in dec.timeline_view()
+                        if e["event"] == "imported")
+        snaps = {"prefill": pre.snapshot()["migration"],
+                 "decode": dec.snapshot()["migration"]}
+        pre_bytes = pre.stats["kv_bytes_migrated"]
+    finally:
+        for eng in (pre, dec, colo):
+            eng.close()
+    torch.cuda.empty_cache()
+    for run in runs.values():
+        _check_disagg_streams(run, cfg.vocab_size)
+    return {"bundle": bundle, "wired": wired, "framing": framing,
+            "body_len": len(body), "export_ms": export_ms,
+            "export_copy_ms": copy_ms, "wire_decode_ms": decode_ms,
+            "export_launches": export_launches, "runs": runs,
+            "landed": landed.get("pages"), "imported": imported,
+            "snaps": snaps, "pre_bytes": pre_bytes, "intruder": intruder}
+
+
+def _check_disagg(run, cfg, kv_dtype, path):
+    """The asserts every disagg path shares."""
+    meta = run["bundle"]["meta"]
+    itemsize = 1 if kv_dtype == "int8" else 2
+    want = bundle_bytes(-(-DISAGG_INTRUDER[0] // 16), 16, cfg.n_layers,
+                        cfg.kv_heads, cfg.head_dim, itemsize,
+                        int8=kv_dtype == "int8")
+    got = (meta["page_bytes"], meta["scale_bytes"])
+    meta_len = int(run["framing"]["X-KV-Meta-Bytes"])
+    if got != want or run["body_len"] != meta_len + sum(got) \
+            or run["pre_bytes"] != sum(got):
+        raise AssertionError(f"{path}: bundle bytes {got}, want {want}; "
+                             f"body {run['body_len']} = meta {meta_len} + "
+                             f"{sum(got)}?; exporter booked "
+                             f"{run['pre_bytes']}")
+    if run["export_launches"]["flash_fwd"] != cfg.n_layers \
+            or sum(run["export_launches"].values()) != cfg.n_layers:
+        raise AssertionError(f"{path}: the export launched "
+                             f"{run['export_launches']}, want K3 "
+                             f"{cfg.n_layers} times and nothing else")
+    dis = run["runs"]["disagg"]
+    nums = _wave_numbers(dis)
+    k3 = nums["launches_after_arrival"]["flash_fwd"]
+    if nums["prefills_after_arrival"] or k3:
+        raise AssertionError(f"{path}: the decode engine ran "
+                             f"{nums['prefills_after_arrival']} prefills "
+                             f"and {k3} K3 launches for the imported "
+                             f"intruder")
+    if dis["intruder_out"][0][0] != meta["first_token"]:
+        raise AssertionError(f"{path}: the import streamed "
+                             f"{dis['intruder_out'][0][0]} first, the "
+                             f"bundle says {meta['first_token']}")
+    if run["landed"] is None or not all(
+            _same_bits(a, b)
+            for a, b in zip(run["landed"], run["wired"]["pages"])):
+        raise AssertionError(f"{path}: the imported blocks differ from the "
+                             f"bundle's pages")
+    if not all(_same_bits(a, b) for a, b in zip(run["wired"]["pages"],
+                                                run["bundle"]["pages"])):
+        raise AssertionError(f"{path}: the codec changed the pages")
+    if (run["snaps"]["prefill"]["exports"], run["snaps"]["decode"]["imports"]
+            ) != (1, 1):
+        raise AssertionError(f"{path}: migration views {run['snaps']}, "
+                             f"want 1 export and 1 import")
+
+
+def _disagg_row(phase, run, cfg, kv_dtype):
+    """The printed row of a disagg path; its ``launches`` are the export's
+    plus the disagg wave's (counted apart, each engine its own run)."""
+    meta = run["bundle"]["meta"]
+    waves = {t: _wave_numbers(r) for t, r in run["runs"].items()}
+    col, dis = run["runs"]["colocated"], run["runs"]["disagg"]
+    return {"phase": phase, "dtype": "bfloat16",
+            "kv_dtype": kv_dtype or "bfloat16",
+            "shorts": DISAGG_SHORTS[0], "short_prompt": DISAGG_SHORTS[1],
+            "short_budget": DISAGG_SHORTS[2],
+            "intruder": list(DISAGG_INTRUDER), "arrival": DISAGG_ARRIVAL,
+            "n_blocks": meta["n_blocks"], "page_bytes": meta["page_bytes"],
+            "scale_bytes": meta["scale_bytes"],
+            "export_ms": run["export_ms"],
+            "export_copy_ms": run["export_copy_ms"],
+            "wire_decode_ms": run["wire_decode_ms"],
+            "kv_migration_seconds": run["imported"]["seconds"],
+            "topologies": waves,
+            "itg_max_after_arrival_vs_baseline": {
+                t: waves[t]["itg_after_arrival"]["max_ms"]
+                / waves["baseline"]["itg_after_arrival"]["max_ms"]
+                for t in ("colocated", "disagg")},
+            "bf16_agreement": {
+                "intruder_equal": dis["intruder_out"][0]
+                == col["intruder_out"][0],
+                "intruder_first_mismatch": _first_mismatches(
+                    [dis["intruder_out"][0]], [col["intruder_out"][0]])[0],
+                "shorts_equal": {t: [o for o, _ in r["outs"]]
+                                 == [o for o, _ in
+                                     run["runs"]["baseline"]["outs"]]
+                                 for t, r in run["runs"].items()}},
+            "migration": run["snaps"],
+            "export_launches": run["export_launches"],
+            "wave_launches": dis["end"],
+            "colocated_wave_launches": col["end"]}
+
+
+def _disagg_hit(params, cfg, bundle, kernel_fns):
+    """A decode-role engine with the prefix cache imports the intruder's
+    bundle; a follow-up sharing its first ``DISAGG_HIT_PREFIX`` tokens is
+    a prefix hit over the imported pages (K2 once a layer, no K3) →
+    (dict, the follow-up's launches)."""
+    from kubeflow_tpu_torch.compute import generate as gen_lib
+    eng = gen_lib.GenerationEngine(params, cfg, max_slots=2, block_size=16,
+                                   max_context=1024, role="decode",
+                                   name="disagg-hit")
+    prompt = bundle["meta"]["prompt"]
+    follow = prompt[:DISAGG_HIT_PREFIX] + disagg_requests(
+        cfg.vocab_size, seed=8)[0][0][0]
+    try:
+        eng.import_bundle(bundle, max_tokens=4).result(timeout=600)
+        _zero(kernel_fns)
+        h = eng.submit(follow, max_tokens=4)
+        out = h.result(timeout=600)
+        launches = _launches(kernel_fns)
+    finally:
+        eng.close()
+    return {"follow_up_prompt": len(follow),
+            "prefix_tokens_skipped": h.prefix_tokens_skipped,
+            "reason": out[1], "launches": launches}, launches
+
+
+def _disagg_fp32(params, intruder):
+    """fp32 at full width, the intruder alone with 16 tokens: exported by
+    a prefill-role engine, through the codec, imported by a decode-role
+    one; its tokens against a colocated engine's (``debug_logits``) and
+    the port's ``reference_greedy_decode``'s, equal but at top-2 logit
+    gaps below 1e-3 (``_agreement``) → the report."""
+    import torch
+    from kubeflow_tpu_torch.compute import generate as gen_lib
+    cfg = flagship_config("float32")
+    kw = dict(max_slots=1, block_size=16, max_context=1024,
+              prefix_cache=False)
+    pre = gen_lib.GenerationEngine(params, cfg, role="prefill",
+                                   name="disagg-fp32-prefill", **kw)
+    dec = gen_lib.GenerationEngine(params, cfg, role="decode",
+                                   name="disagg-fp32-decode", **kw)
+    col = gen_lib.GenerationEngine(params, cfg, debug_logits=True,
+                                   name="disagg-fp32-colocated", **kw)
+    try:
+        wired = _wire_bundle(pre.prefill_export(intruder, max_tokens=16))
+        got = dec.import_bundle(wired).result(timeout=600)[0]
+        h = col.submit(intruder, max_tokens=16)
+        want = h.result(timeout=600)[0]
+    finally:
+        for eng in (pre, dec, col):
+            eng.close()
+    ref = gen_lib.reference_greedy_decode(
+        params, flagship_config("float32", "dense"), intruder, 16)
+    torch.cuda.empty_cache()
+    return {"tokens": len(want),
+            "disagg_vs_colocated": _agreement([got], [want], [h.logits])[0],
+            "reference_vs_colocated": _agreement([ref], [want],
+                                                 [h.logits])[0]}
+
+
+def phase_disagg(params, kernel_fns):
+    """Prefill/decode disaggregation on the bf16 flagship (block 16): a
+    prefill-role engine (1 slot) exports the 896-token intruder's 56
+    blocks (K3 exactly once a layer); the bundle goes through
+    ``encode_kv_bundle`` → bytes → ``decode_kv_bundle``. Three topologies
+    run one schedule of 4 short streams (64-token prompts, 128 tokens):
+    baseline, colocated (the intruder submitted mid-wave to a role-both
+    engine) and disagg (imported mid-wave by a decode-role engine, 5
+    slots, the prefix cache off). The decode engine runs no prefill and
+    no K3 for the intruder, decodes it on K1, lands its pages bit for bit
+    and streams the bundle's first token first; each engine's migration
+    view shows its one export or import; the bytes are 56 × 16 × 12 × 2 ×
+    128 × 2 × 2. A follow-up sharing 512 tokens of the imported prompt on
+    a prefix-caching decode engine is a hit: K2 12 times, no K3. In fp32
+    at full width the disagg tokens equal the colocated engine's and the
+    reference's but at top-2 gaps below 1e-3. ITG and the intruder's
+    first token per topology are printed, not asserted."""
+    cfg = flagship_config()
+    run = _disagg_run(params, cfg, kernel_fns)
+    hit, hit_launches = _disagg_hit(params, cfg, run["wired"], kernel_fns)
+    fp32 = _disagg_fp32(params, run["intruder"])
+    row = _disagg_row("disagg", run, cfg, None)
+    row.update(hit=hit, fp32=fp32, launches=launch_sum(
+        run["export_launches"], row["wave_launches"], hit_launches))
+    emit(row)
+    _check_disagg(run, cfg, None, "disagg")
+    _require(row["wave_launches"], ("paged_decode",), "disagg wave")
+    if hit["launches"]["paged_chunk"] != cfg.n_layers \
+            or hit["launches"]["flash_fwd"] \
+            or hit["prefix_tokens_skipped"] < DISAGG_HIT_PREFIX:
+        raise AssertionError(f"the follow-up over imported pages: {hit}, "
+                             f"want K2 {cfg.n_layers} times, no K3, "
+                             f">= {DISAGG_HIT_PREFIX} tokens skipped")
+    return row
+
+
+def phase_disagg_i8(params, kernel_fns, bf16_row):
+    """``phase_disagg``'s three topologies on an int8 pool: the import
+    decodes on K1-i8 and never on K1, K2 never launches, the page bytes
+    are half the bf16 bundle's with 56 × 16 × 2 × 4 × 2 × 12 scale bytes,
+    and the bits land exactly."""
+    cfg = flagship_config()
+    run = _disagg_run(params, cfg, kernel_fns, kv_dtype="int8")
+    row = _disagg_row("disagg_i8", run, cfg, "int8")
+    row.update(bf16_page_bytes=bf16_row["page_bytes"],
+               launches=launch_sum(run["export_launches"],
+                                   row["wave_launches"]))
+    emit(row)
+    _check_disagg(run, cfg, "int8", "disagg_i8")
+    if 2 * row["page_bytes"] != bf16_row["page_bytes"]:
+        raise AssertionError(f"int8 bundle page bytes {row['page_bytes']} "
+                             f"are not half of bf16's "
+                             f"{bf16_row['page_bytes']}")
+    _require(row["wave_launches"], ("paged_decode_i8",), "disagg_i8 wave")
+    _refuse(row["launches"], ("paged_decode", "paged_chunk"), "disagg_i8")
+    return row
+
+
+def _http_raw(port, path, body, headers):
+    """One POST of raw ``body`` → (status, head, body bytes)."""
+    import http.client
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+    try:
+        conn.request("POST", path, bytes(body), headers)
+        resp = conn.getresponse()
+        return (resp.status, {k.lower(): v for k, v in resp.getheaders()},
+                resp.read())
+    finally:
+        conn.close()
+
+
+BUNDLE_HEADERS = ("X-KV-Meta-Bytes", "X-Tensor-Dtype", "X-Tensor-Shape")
+
+
+def disagg_hop(prefill_port, decode_port, prompt, max_tokens, model):
+    """The router's two hops: ``:prefill`` on one replica, its body and
+    framing headers forwarded to ``:attach`` on the other → dict of both
+    answers (the stream's frames parsed)."""
+    status, head, body = _http(prefill_port, "POST",
+                               f"/v1/models/{model}:prefill",
+                               {"tokens": prompt, "max_tokens": max_tokens})
+    out = {"prefill_status": status, "prefill_head": head,
+           "bundle_bytes": len(body)}
+    if status != 200:
+        out["error"] = body.decode()
+        return out
+    framing = {h: head[h.lower()] for h in BUNDLE_HEADERS}
+    out["meta"] = json.loads(body[:int(framing["X-KV-Meta-Bytes"])])
+    status, ahead, data = _http_raw(
+        decode_port, f"/v1/models/{model}:attach", body,
+        {"Content-Type": "application/x-tensor", **framing})
+    out.update(attach_status=status, attach_head=ahead)
+    if status != 200:
+        out["error"] = data.decode()
+        return out
+    out["frames"] = [json.loads(ln) for ln in data.splitlines()
+                     if ln.strip()]
+    return out
+
+
+def check_hop(hop, max_tokens, vocab):
+    """A two-hop answer: 200 x-tensor, then 200 NDJSON with contiguous
+    token frames, the budget spent, and ``X-KV-Bytes-Migrated`` the
+    bundle's page + scale bytes → the streamed tokens."""
+    if hop["prefill_status"] != 200 or hop["prefill_head"].get(
+            "content-type") != "application/x-tensor":
+        raise AssertionError(f":prefill {hop['prefill_status']}: "
+                             f"{hop.get('error') or hop['prefill_head']}")
+    if hop.get("attach_status") != 200 or hop["attach_head"].get(
+            "content-type") != "application/x-ndjson":
+        raise AssertionError(f":attach {hop.get('attach_status')}: "
+                             f"{hop.get('error')}")
+    frames = hop["frames"]
+    toks = [f["token"] for f in frames if "token" in f]
+    if [f["index"] for f in frames if "token" in f] \
+            != list(range(len(toks))) or not frames[-1].get("done") \
+            or frames[-1]["tokens"] != toks or len(toks) != max_tokens \
+            or not all(0 <= t < vocab for t in toks):
+        raise AssertionError(f":attach stream: {frames}")
+    meta = hop["meta"]
+    want = str(meta["page_bytes"] + meta["scale_bytes"])
+    if hop["attach_head"].get("x-kv-bytes-migrated") != want:
+        raise AssertionError(f"X-KV-Bytes-Migrated "
+                             f"{hop['attach_head'].get('x-kv-bytes-migrated')}"
+                             f", want {want}")
+    return toks
+
+
+def _rejections(port, model, reason):
+    """``serving_kv_import_rejections_total`` of ``reason`` on a
+    server's ``/metrics``."""
+    text = _http(port, "GET", "/metrics")[2].decode()
+    m = re.search(rf'^serving_kv_import_rejections_total\{{model="{model}",'
+                  rf'reason="{reason}"\}} (\S+)$', text, re.M)
+    return float(m.group(1)) if m else 0.0
+
+
+def phase_disagg_wire(params, kernel_fns):
+    """The two hops over HTTP: two port ``ModelServer``s on 127.0.0.1, one
+    over a prefill-role bf16 flagship engine and one over a decode-role
+    one; this phase is the router: ``:prefill`` on the first, the body
+    and its three framing headers to ``:attach`` on the second. Checked:
+    both answers (``check_hop``), K3 on the export and K1 on the decode,
+    the streamed tokens equal to the same hop in process on the same two
+    engines right after, an int8 bundle on the bf16 pool answering 400
+    naming ``dtype`` (its rejection counted on ``/metrics``), and
+    ``:attach`` on the prefill-role server answering 400 naming
+    ``role``."""
+    import torch
+    from kubeflow_tpu_torch.compute import generate as gen_lib
+    from kubeflow_tpu_torch.compute import serving
+    cfg = flagship_config()
+    kw = dict(block_size=16, max_context=1024, prefix_cache=False)
+    prompt = requests(5, cfg.vocab_size)[3][0]          # 300 tokens
+    budget = 16
+    pre = gen_lib.GenerationEngine(params, cfg, max_slots=1, role="prefill",
+                                   name="disagg-wire-prefill", **kw)
+    dec = gen_lib.GenerationEngine(params, cfg, max_slots=4, role="decode",
+                                   name="disagg-wire-decode", **kw)
+    i8 = gen_lib.GenerationEngine(params, cfg, max_slots=1, role="prefill",
+                                  kv_dtype="int8", name="disagg-wire-i8",
+                                  **kw)
+    servers = {"prefill": serving.ModelServer(),
+               "decode": serving.ModelServer()}
+    servers["prefill"].register_generator(WIRE_MODEL, pre)
+    servers["decode"].register_generator(WIRE_MODEL, dec)
+    try:
+        ports = {k: s.start(port=0, host="127.0.0.1")
+                 for k, s in servers.items()}
+        warm = disagg_hop(ports["prefill"], ports["decode"], [1, 2, 3], 2,
+                          WIRE_MODEL)
+        check_hop(warm, 2, cfg.vocab_size)
+        _zero(kernel_fns)
+        hop = disagg_hop(ports["prefill"], ports["decode"], prompt, budget,
+                         WIRE_MODEL)
+        launches = _launches(kernel_fns)
+        streamed = check_hop(hop, budget, cfg.vocab_size)
+        inproc = dec.import_bundle(_wire_bundle(pre.prefill_export(
+            prompt, max_tokens=budget))).result(timeout=600)[0]
+        parts, framing, _ = serving.encode_kv_bundle(
+            i8.prefill_export(prompt[:40], max_tokens=4))
+        before = _rejections(ports["decode"], dec.name, "dtype")
+        wrong_dtype = _http_raw(
+            ports["decode"], f"/v1/models/{WIRE_MODEL}:attach",
+            b"".join(bytes(p) for p in parts),
+            {"Content-Type": "application/x-tensor", **dict(framing)})
+        after = _rejections(ports["decode"], dec.name, "dtype")
+        _, head, body = _http(ports["prefill"], "POST",
+                              f"/v1/models/{WIRE_MODEL}:prefill",
+                              {"tokens": prompt[:20], "max_tokens": 2})
+        wrong_role = _http_raw(
+            ports["prefill"], f"/v1/models/{WIRE_MODEL}:attach", body,
+            {"Content-Type": "application/x-tensor",
+             **{h: head[h.lower()] for h in BUNDLE_HEADERS}})
+    finally:
+        for s in servers.values():
+            s.stop()
+        i8.close()
+    torch.cuda.empty_cache()
+    row = {"phase": "disagg_wire", "dtype": "bfloat16",
+           "prompt": len(prompt), "max_tokens": budget,
+           "bundle_bytes": hop["bundle_bytes"],
+           "kv_bytes_migrated": int(hop["attach_head"]["x-kv-bytes-migrated"]),
+           "ttft_ms": 1e3 * hop["frames"][-1]["ttft_s"],
+           "streamed_equal_inproc": streamed == inproc,
+           "first_mismatch": _first_mismatches([streamed], [inproc])[0],
+           "wrong_dtype": [wrong_dtype[0], wrong_dtype[2].decode()[:200]],
+           "dtype_rejections": after - before,
+           "wrong_role": [wrong_role[0], wrong_role[2].decode()[:200]],
+           "launches": launches}
+    emit(row)
+    _require(launches, ("flash_fwd", "paged_decode"), "disagg_wire")
+    if launches["flash_fwd"] != cfg.n_layers:
+        raise AssertionError(f"the hop launched K3 {launches['flash_fwd']} "
+                             f"times, want {cfg.n_layers} (the export)")
+    if streamed != inproc:
+        raise AssertionError(f"the two hops streamed {streamed}, the same "
+                             f"hop in process gives {inproc}")
+    if wrong_dtype[0] != 400 or b"dtype" not in wrong_dtype[2] \
+            or after != before + 1:
+        raise AssertionError(f"int8 bundle on the bf16 pool: {wrong_dtype[0]}"
+                             f" {wrong_dtype[2][:200]}, rejections "
+                             f"{before} → {after}")
+    if wrong_role[0] != 400 or b"role" not in wrong_role[2]:
+        raise AssertionError(f":attach on the prefill-role server: "
+                             f"{wrong_role[0]} {wrong_role[2][:200]}")
     return row
 
 
@@ -3027,6 +3732,9 @@ def main():
     phase_wire_cmd()
     paths["qos"] = phase_qos(params, kernel_fns)
     paths["qos_i8"] = phase_qos_i8(params, kernel_fns, paths["qos"])
+    paths["disagg"] = phase_disagg(params, kernel_fns)
+    paths["disagg_i8"] = phase_disagg_i8(params, kernel_fns, paths["disagg"])
+    paths["disagg_wire"] = phase_disagg_wire(params, kernel_fns)
     del params, target, draft
     torch.cuda.empty_cache()
     paths["train"] = phase_train(kernel_fns)

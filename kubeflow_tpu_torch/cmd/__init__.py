@@ -8,7 +8,10 @@ sized by the same ``GEN_*`` knobs. It runs on the card; ``GEN_DEVICE=cpu``
 asks for the CPU by name, and with neither a CUDA card nor that knob it
 exits through ``device.resolve``'s error (there is no silent fallback).
 It prints ``PORT <n>`` once serving and blocks until SIGTERM/SIGINT,
-then stops the server.
+then stops the server. ``GEN_ROLE`` (``prefill`` | ``decode`` | ``both``)
+gives the engine its disaggregation role: a prefill replica answers
+``:prefill`` with page bundles, a decode replica takes them on
+``:attach``.
 
 Knobs the port does not serve yet refuse by name, with a non-zero exit
 (``SystemExit``) that names the work that brings them; see
@@ -47,14 +50,26 @@ REFUSED = (
      "tensor-sharded serving (the port's mesh slice)"),
     ("GEN_ROW_SHARD", lambda: _flag("GEN_ROW_SHARD"),
      "row-sharded projections (the port's mesh slice)"),
-    ("GEN_ROLE", lambda: (os.environ.get("GEN_ROLE") or "both").strip()
-     != "both", "prefill/decode roles (the port's KV-migration slice)"),
     ("GEN_CALIBRATE", lambda: _flag("GEN_CALIBRATE"),
      "collective-share calibration (the port's mesh slice)"),
     ("SERVING_TRANSPORT", lambda: (os.environ.get("SERVING_TRANSPORT")
                                    or "").strip().lower() == "async",
      "the async transport (the port's async-transport slice)"),
 )
+
+
+#: the disaggregation roles ``GEN_ROLE`` may name
+ROLES = ("prefill", "decode", "both")
+
+
+def _gen_role():
+    """``GEN_ROLE`` (default ``both``) → the engine's role; any other
+    value exits non-zero by name."""
+    role = (os.environ.get("GEN_ROLE") or "both").strip()
+    if role not in ROLES:
+        raise SystemExit(f"GEN_ROLE={role!r} is not a role: "
+                         f"{' | '.join(ROLES)}")
+    return role
 
 
 def _refuse_unported():
@@ -106,6 +121,7 @@ def build_engine(name="default"):
     from ..compute import generate as gen_lib
     from ..compute.models import transformer
 
+    role = _gen_role()
     dev = device_lib.resolve(os.environ.get("GEN_DEVICE") or None)
     cfg = transformer.Config(
         vocab_size=int(os.environ.get("GEN_VOCAB", "512")),
@@ -154,7 +170,9 @@ def build_engine(name="default"):
         qos=_gen_qos_ledger(),
         preemption=os.environ.get("GEN_PREEMPTION", "1").lower()
         not in _FALSE,
-        name=name, device=dev)
+        # GEN_ROLE: prefill | decode | both; a role-split fleet's router
+        # sends :prefill to prefill replicas and :attach to decode ones
+        role=role, name=name, device=dev)
 
 
 def model_server(argv=()):

@@ -3,11 +3,12 @@ TransformerLM with a paged KV pool, prefix-cache reuse, chunked prefill,
 speculative decoding and token-level continuous batching.
 
 Port of ``kubeflow_tpu/compute/generate.py`` (the engine at :595) on a
-float or int8 pool, with QoS admission and preemptible decoding, without
-a mesh or KV migration — those come with later slices. Its wire surface
-(deadlines, drain, ``close``, the header and done-frame views, the
-``serving_generate_*`` and ``serving_qos_*`` families) is the JAX
-engine's: ``compute/serving.py`` streams it over HTTP.
+float or int8 pool, with QoS admission, preemptible decoding and KV-page
+migration between prefill and decode replicas, without a mesh — that
+comes with a later slice. Its wire surface (deadlines, drain, ``close``,
+the header and done-frame views, the ``serving_generate_*``,
+``serving_kv_*`` and ``serving_qos_*`` families) is the JAX engine's:
+``compute/serving.py`` streams it over HTTP.
 
 - **Paged KV pool**: one pool of ``num_blocks`` blocks of ``block_size``
   positions per layer, shared by all sequences; a sequence holds a block
@@ -56,6 +57,15 @@ engine's: ``compute/serving.py`` streams it over HTTP.
   prefills prompt + emitted tokens, so the retained pages are a prefix
   hit and only the last block or two run (through K2 on the card).
   ``preemption=False`` is strict FIFO, never suspending.
+- **KV-page migration** (``generate.py:1517-1665``, :2356-2500): a
+  ``prefill_export`` runs the prefill only and returns the prompt's
+  pages in the pool's native dtype with the first token
+  (``serving.encode_kv_bundle`` puts them on the wire, ``:prefill``); an
+  ``import_bundle`` on another engine copies them into free blocks and
+  installs the slot straight into decode (``:attach``), so the
+  continuation is the colocated engine's. ``role`` (``prefill`` |
+  ``decode`` | ``both``) steers the router; every role stays
+  capability-complete, and only a ``prefill`` engine refuses an import.
 
 Where JAX donates the cache to its jitted programs
 (``generate.py:828-838``), this engine updates the pool tensors in
@@ -95,8 +105,8 @@ log = logging.getLogger("kubeflow_tpu_torch.generate")
 
 # the serving_generate_* families under the JAX package's names,
 # labels, buckets and help text (one dashboard, one metrics hub for
-# both); the shard and migration families are registered and stay at
-# zero until the mesh and KV-migration slices
+# both); the shard families are registered and stay at their one-chip
+# values until the mesh slice
 _TOKENS_TOTAL = obs_metrics.REGISTRY.counter(
     "serving_generate_tokens_total",
     "Generated tokens emitted (prefill first-tokens + decode steps) — "
@@ -329,6 +339,22 @@ ATTN_BACKENDS = ("gather", "paged", "paged-kernel")
 DrainingError = serving_lib.DrainingError
 DeadlineExceededError = serving_lib.DeadlineExceededError
 
+ROLES = ("prefill", "decode", "both")
+
+
+class KVImportError(ValueError):
+    """A KV-page bundle the importing engine cannot admit
+    (``generate.py:410``). ``reason`` is the rejection class
+    (``block_size`` | ``geometry`` | ``dtype`` | ``vocab`` | ``capacity``
+    | ``role`` | ``mesh``; ``mesh`` cannot fire while the port serves on
+    one chip), booked on ``serving_kv_import_rejections_total`` before
+    raising; the transport answers 400 (a ValueError), and the router
+    falls back to colocated serving."""
+
+    def __init__(self, reason, message):
+        super().__init__(message)
+        self.reason = reason
+
 
 class GenerationHandle:
     """One submitted prompt's lifecycle: the engine appends generated
@@ -344,8 +370,8 @@ class GenerationHandle:
                  "ttft_s", "token_times", "itg_gaps", "last_emit",
                  "admitted_w", "tenant", "qos_class", "preemptible",
                  "on_event", "suspended", "preemptions",
-                 "resume_prefill_tokens", "_qos_charged", "_qos_deferred",
-                 "_engine", "_done")
+                 "resume_prefill_tokens", "export_kv", "kv_bundle",
+                 "_qos_charged", "_qos_deferred", "_engine", "_done")
 
     def __init__(self, prompt, max_tokens, eos_id, deadline, on_token,
                  on_done, rt):
@@ -388,6 +414,10 @@ class GenerationHandle:
         self.preemptions = 0      # times this request was suspended
         self.resume_prefill_tokens = 0   # suffix tokens re-prefilled
         #                           over all its resumes
+        self.export_kv = False    # prefill only: the pages export as a
+        #                           bundle (reason "exported")
+        self.kv_bundle = None     # the exported bundle (export side), or
+        #                           the bundle to import until admitted
         self._qos_charged = False  # the ledger charged at first
         #                            admission (a resume never again)
         self._qos_deferred = False  # one deferral booked a queue stint
@@ -503,6 +533,10 @@ class GenerationEngine:
     - ``preemption``: priority admission by QoS class and preemptible
       decoding (default on, as in JAX); ``False`` is strict FIFO that
       never suspends a slot,
+    - ``role``: ``"both"`` (default), ``"prefill"`` or ``"decode"`` — the
+      disaggregation role the router and the per-role metrics read; a
+      ``"prefill"`` engine refuses ``import_bundle`` (reason ``role``),
+      and is otherwise as capable as the others,
     - ``attn_backend``: the pool reads — ``"paged"`` (default) and
       ``"paged-kernel"`` both read through ``ops.paged_attention``
       (kernels K1 and K2 on the card, their plain versions on the CPU);
@@ -520,7 +554,7 @@ class GenerationEngine:
                  draft_params=None, draft_config=None, spec_k=0,
                  debug_logits=False, attn_backend="paged",
                  prefill_chunk=None, kv_dtype=None, qos=None,
-                 preemption=True, device=None):
+                 preemption=True, role="both", device=None):
         if config.moe_experts:
             raise ValueError(
                 "GenerationEngine supports dense TransformerLM configs "
@@ -536,6 +570,10 @@ class GenerationEngine:
         if kv_dtype not in (None, "int8"):
             raise ValueError(
                 f"kv_dtype must be None or 'int8', got {kv_dtype!r}")
+        if role not in ROLES:
+            raise ValueError(
+                f"role must be 'prefill', 'decode' or 'both', got "
+                f"{role!r}")
         self.kv_dtype = kv_dtype
         self.spec_k = int(spec_k)
         if self.spec_k < 0:
@@ -568,10 +606,12 @@ class GenerationEngine:
         # False is strict FIFO, never suspending (generate.py:769-777)
         self._qos = qos
         self.preemption = bool(preemption)
-        # the views of the slices to come: one chip (no tensor mesh)
-        # and the colocated role
+        # one chip (the mesh slice's view to come); the disaggregation
+        # role steers the router (prefill replicas get :prefill, decode
+        # replicas :attach); every role serves :generate too, since the
+        # router falls back to colocated serving (generate.py:752-764)
         self.tp = 1
-        self.role = "both"
+        self.role = role
         self.attn_backend = attn_backend
         self.eos_id = eos_id
         self.default_max_tokens = int(default_max_tokens)
@@ -624,7 +664,7 @@ class GenerationEngine:
         self._slots = [None] * self.max_slots
         self._queue = collections.deque()
         self._cond = threading.Condition()
-        for r in ("prefill", "decode", "both"):
+        for r in ROLES:
             _GEN_ROLE.labels(name, r).set(1 if r == self.role else 0)
         _SHARD_MESH_DEVICES.labels(name).set(self.tp)
         _SHARD_BLOCKS_PER_CHIP.labels(name).set(self.num_blocks / self.tp)
@@ -665,7 +705,9 @@ class GenerationEngine:
                       "prefix_tokens_skipped": 0, "prefix_reclaims": 0,
                       "spec_rounds": 0, "spec_proposed": 0,
                       "spec_accepted": 0, "preemptions": 0, "resumes": 0,
-                      "resume_prefill_tokens": 0, "qos_deferrals": 0}
+                      "resume_prefill_tokens": 0, "qos_deferrals": 0,
+                      "kv_exports": 0, "kv_imports": 0,
+                      "kv_bytes_migrated": 0, "kv_import_rejections": 0}
         self.thread = threading.Thread(target=self._loop, daemon=True,
                                        name=f"generate-{name}")
         self.thread.start()
@@ -722,7 +764,7 @@ class GenerationEngine:
     def submit(self, tokens, max_tokens=None, eos_id=None,
                deadline=None, on_token=None, on_done=None, rt=None,
                tenant=None, qos_class=None, preemptible=None,
-               on_event=None):
+               on_event=None, export_kv=False):
         """Enqueue one prompt (token ids) → :class:`GenerationHandle`
         (``generate.py:1425``). ``deadline`` is an absolute
         ``time.monotonic`` instant (``serving.parse_deadline``): expired
@@ -733,8 +775,11 @@ class GenerationEngine:
         to the ledger's class of ``tenant`` (``"standard"`` without a
         ledger); ``preemptible`` defaults to every class but
         ``interactive``; ``on_event(event, attrs)`` hears ``suspended``
-        and ``resumed``. Raises :class:`DrainingError` once the engine
-        drains."""
+        and ``resumed``. ``export_kv`` makes it a prefill-only request
+        whose pages come back as ``handle.kv_bundle`` (reason
+        ``exported``): its ``max_tokens`` is the importing engine's
+        budget, so only the prompt has to fit here. Raises
+        :class:`DrainingError` once the engine drains."""
         try:
             tokens = [int(t) for t in tokens]
         except (TypeError, ValueError):
@@ -749,17 +794,31 @@ class GenerationEngine:
                          else self.default_max_tokens)
         if max_tokens < 1:
             raise ValueError(f"max_tokens must be >= 1, got {max_tokens}")
-        if len(tokens) + max_tokens > self.max_context:
+        # an export never decodes here (generate.py:1454-1464)
+        decoded = 0 if export_kv else max_tokens
+        if len(tokens) + decoded > self.max_context:
             raise ValueError(
                 f"prompt ({len(tokens)} tokens) + max_tokens "
                 f"({max_tokens}) exceeds max_context "
                 f"({self.max_context})")
-        worst = self._worst_case_blocks(len(tokens), max_tokens)
+        worst = self._worst_case_blocks(len(tokens), decoded)
         if worst > self.num_blocks:
             raise ValueError(
                 f"request needs up to {worst} cache blocks but the "
                 f"pool holds {self.num_blocks}; lower max_tokens or "
                 f"grow num_blocks")
+        handle = self._handle(tokens, max_tokens, eos_id, deadline,
+                              on_token, on_done, rt, tenant, qos_class,
+                              preemptible, on_event)
+        handle.export_kv = bool(export_kv)
+        return self._enqueue(handle)
+
+    def _handle(self, prompt, max_tokens, eos_id, deadline, on_token,
+                on_done, rt, tenant, qos_class, preemptible, on_event):
+        """A new handle with its stop token and QoS class resolved:
+        ``qos_class`` defaults to the ledger's class of ``tenant``;
+        interactive never suspends by default, being the class that
+        preemption protects."""
         eos = self.eos_id if eos_id is None else int(eos_id)
         if qos_class is None:
             qos_class = (self._qos.class_of(tenant)
@@ -769,17 +828,20 @@ class GenerationEngine:
             raise ValueError(
                 f"unknown qos class {qos_class!r} (expected one of "
                 f"{qos_lib.QOS_CLASSES})")
-        handle = GenerationHandle(tokens, max_tokens, eos, deadline,
+        handle = GenerationHandle(prompt, max_tokens, eos, deadline,
                                   on_token, on_done, rt)
         handle.tenant = tenant
         handle.qos_class = qos_class
-        # interactive never suspends by default: it is the class that
-        # preemption protects
         handle.preemptible = (qos_class != "interactive"
                               if preemptible is None
                               else bool(preemptible))
         handle.on_event = on_event
         handle._engine = self
+        return handle
+
+    def _enqueue(self, handle):
+        """Number ``handle`` and queue it; :class:`DrainingError` once the
+        engine drains."""
         with self._cond:
             if self._draining or self._stop:
                 raise DrainingError(
@@ -804,6 +866,128 @@ class GenerationEngine:
     def generate(self, tokens, **kwargs):
         """Blocking convenience → ``(generated_tokens, reason)``."""
         return self.submit(tokens, **kwargs).result()
+
+    # ------------------------------------------- KV-page migration API
+
+    def prefill_export(self, tokens, max_tokens=None, timeout=None,
+                       **kwargs):
+        """Prefill only (chunked or monolithic, prefix-cache hits
+        honoured) and return the page bundle — ``submit(export_kv=True)``
+        and wait (``generate.py:1519``). ``max_tokens`` is the decode
+        budget the bundle carries to the importing engine."""
+        handle = self.submit(tokens, max_tokens=max_tokens,
+                             export_kv=True, **kwargs)
+        if not handle.wait(timeout):
+            self.cancel(handle, reason="abandoned")
+            raise TimeoutError("prefill export did not finish in time")
+        if handle.error is not None:
+            raise handle.error
+        if handle.kv_bundle is None:
+            raise RuntimeError(
+                f"prefill export finished with reason "
+                f"{handle.reason!r} and no bundle")
+        return handle.kv_bundle
+
+    def import_bundle(self, bundle, *, max_tokens=None, eos_id=None,
+                      deadline=None, on_token=None, on_done=None,
+                      on_event=None, rt=None, tenant=None,
+                      qos_class=None, preemptible=None):
+        """Queue an exported page bundle for admission straight into
+        decode → :class:`GenerationHandle` (``generate.py:1539-1665``).
+        Its stream starts with the bundle's first token, then decodes
+        over the imported pages. The pages may be torch tensors
+        (``serving.decode_kv_bundle``) or numpy arrays (the JAX
+        package's codec); they are compared with the pool by dtype name
+        and copied in by the engine thread at admission. Every check of
+        JAX's, in its order, raises :class:`KVImportError` booked by
+        reason on ``serving_kv_import_rejections_total``; the budget
+        defaults to the bundle's ``max_tokens``, the class and tenant as
+        in :meth:`submit`."""
+        meta = bundle["meta"]
+        pages = tuple(bundle["pages"])
+        c = self.config
+
+        def reject(reason, msg):
+            with self._cond:          # handler threads import concurrently
+                self.stats["kv_import_rejections"] += 1
+            _KV_IMPORT_REJECTIONS.labels(self.name, reason).inc()
+            raise KVImportError(reason, msg)
+
+        if self.role == "prefill":
+            reject("role",
+                   f"engine {self.name!r} has role='prefill': it "
+                   f"exports bundles, it does not import them")
+        if self.tp > 1:
+            reject("mesh",
+                   "page import into a tensor-sharded pool is not "
+                   "supported (the bundle is a single-chip layout); "
+                   "route this prompt to an unsharded decode replica")
+        if int(meta.get("block_size", -1)) != self.block_size:
+            reject("block_size",
+                   f"bundle block_size {meta.get('block_size')} != "
+                   f"pool block_size {self.block_size}")
+        if (int(meta.get("n_layers", -1)) != c.n_layers
+                or int(meta.get("kv_heads", -1)) != c.kv_heads
+                or int(meta.get("head_dim", -1)) != c.head_dim):
+            reject("geometry",
+                   f"bundle geometry (layers={meta.get('n_layers')}, "
+                   f"kv_heads={meta.get('kv_heads')}, head_dim="
+                   f"{meta.get('head_dim')}) does not match the pool "
+                   f"({c.n_layers}, {c.kv_heads}, {c.head_dim})")
+        want = tuple(serving_lib.dtype_name(x) for x in self._cache)
+        got = tuple(serving_lib.dtype_name(p) for p in pages)
+        if got != want:
+            reject("dtype",
+                   f"bundle component dtypes {got} != pool {want} "
+                   f"(pages must ship in the pool's native dtype)")
+        try:
+            prompt = [int(t) for t in meta["prompt"]]
+            first = int(meta["first_token"])
+            n_import = int(meta["n_blocks"])
+        except (KeyError, TypeError, ValueError):
+            reject("geometry", "bundle meta is missing prompt/"
+                   "first_token/n_blocks")
+        if not prompt or any(t < 0 or t >= c.vocab_size
+                             for t in prompt) \
+                or not 0 <= first < c.vocab_size:
+            reject("vocab",
+                   f"bundle tokens must be ids in [0, {c.vocab_size})")
+        if n_import != -(-len(prompt) // self.block_size):
+            reject("geometry",
+                   f"bundle ships {n_import} blocks for a "
+                   f"{len(prompt)}-token prompt at block_size "
+                   f"{self.block_size}")
+        for p, comp in zip(pages, self._cache):
+            if tuple(p.shape) != (comp.shape[0], n_import) \
+                    + tuple(comp.shape[2:]):
+                reject("geometry",
+                       f"bundle page shape {tuple(p.shape)} does not "
+                       f"match pool block layout")
+        max_tokens = int(max_tokens if max_tokens is not None
+                         else meta.get("max_tokens")
+                         or self.default_max_tokens)
+        if max_tokens < 1:
+            raise ValueError(
+                f"max_tokens must be >= 1, got {max_tokens}")
+        if len(prompt) + max_tokens > self.max_context:
+            reject("capacity",
+                   f"prompt ({len(prompt)}) + max_tokens "
+                   f"({max_tokens}) exceeds max_context "
+                   f"({self.max_context})")
+        needed = max(n_import,
+                     -(-(len(prompt) + max_tokens) // self.block_size))
+        if needed > self.num_blocks:
+            reject("capacity",
+                   f"import needs up to {needed} cache blocks but "
+                   f"the pool holds {self.num_blocks}")
+        handle = self._handle(prompt, max_tokens, eos_id, deadline,
+                              on_token, on_done, rt, tenant, qos_class,
+                              preemptible, on_event)
+        handle.kv_bundle = {
+            "meta": meta,
+            "pages": tuple(serving_lib.page_tensor(p) for p in pages),
+            "_t_recv": bundle.get("_t_recv", time.perf_counter())}
+        return self._enqueue(handle)
 
     def cancel(self, handle, reason="cancelled"):
         """Evict ``handle``'s slot (or dequeue it) before the next
@@ -988,9 +1172,14 @@ class GenerationEngine:
                 "occupied": sum(1 for s in self._slots if s is not None),
                 "role": self.role,
                 "queued_tokens": self._queued_tokens(),
-                # no KV migration until that slice: nothing moves
-                "migration": {"exports": 0, "imports": 0, "bytes": 0,
-                              "rejections": 0},
+                # page migration: the export side books bytes, the
+                # import side latency and rejections
+                "migration": {
+                    "exports": self.stats["kv_exports"],
+                    "imports": self.stats["kv_imports"],
+                    "bytes": self.stats["kv_bytes_migrated"],
+                    "rejections": self.stats["kv_import_rejections"],
+                },
                 "slot_detail": slot_detail,
                 "timeline": self.timeline_view(),
                 "queued": len(self._queue),
@@ -1406,6 +1595,9 @@ class GenerationEngine:
         ``admission="continuous"`` with ``preemption`` on, a
         lower-class preemptible slot is suspended and admission tries
         again. The ledger is charged once, at the first admission.
+        An import reserves its bundle's blocks plus the decode growth
+        its budget promises, matches no prefix and goes to
+        ``_import_admit``; an export reserves only its padded prefill.
         Under ``admission="drain"`` an occupied batch admits nothing;
         an empty one refills to capacity in one pass."""
         refilling = False
@@ -1426,13 +1618,23 @@ class GenerationEngine:
                                       if s is None), None)
                     prompt = handle.prompt + handle.out_tokens \
                         if handle.suspended else handle.prompt
-                    matched = self._match_prefix_locked(prompt)
-                    needed = self._worst_case_blocks(
-                        len(prompt),
-                        handle.max_tokens - len(handle.out_tokens),
-                        len(matched))
-                    pinning = sum(1 for n in matched
-                                  if self._ref[n.block] == 0)
+                    remaining = handle.max_tokens - len(handle.out_tokens)
+                    if self._importing(handle):
+                        # no prefill and no pinning: the bundle's blocks
+                        # are written fresh (generate.py:2223-2233)
+                        needed = max(
+                            int(handle.kv_bundle["meta"]["n_blocks"]),
+                            -(-(len(prompt) + remaining)
+                              // self.block_size))
+                        pinning = 0
+                    else:
+                        matched = self._match_prefix_locked(prompt)
+                        needed = self._worst_case_blocks(
+                            len(prompt),
+                            0 if handle.export_kv else remaining,
+                            len(matched))
+                        pinning = sum(1 for n in matched
+                                      if self._ref[n.block] == 0)
                     if free_slot is None \
                             or self._available_blocks() - pinning < needed:
                         if self.admission == "continuous" \
@@ -1465,8 +1667,15 @@ class GenerationEngine:
                     and time.monotonic() >= handle.deadline:
                 self._finish(handle, "deadline",
                              self._expired_in_queue(handle))
+            elif self._importing(handle):
+                self._import_admit(free_slot, handle)
             else:
                 self._prefill(free_slot, handle, matched)
+
+    @staticmethod
+    def _importing(handle):
+        """Is ``handle`` a queued page import (not yet in the pool)?"""
+        return handle.kv_bundle is not None and not handle.export_kv
 
     def _suspend(self, slot_idx, reason="slot"):
         """Pause ``slot_idx`` mid-stream without finishing it
@@ -1542,8 +1751,10 @@ class GenerationEngine:
         offset = len(matched) * self.block_size
         suffix_len = prompt_len - offset
         if self.prefill_chunk and suffix_len > self.prefill_chunk:
-            self._begin_chunked_prefill(slot_idx, handle, matched,
-                                        resuming, prompt, remaining)
+            # an export's reservation covers its prefill only
+            self._begin_chunked_prefill(
+                slot_idx, handle, matched, resuming, prompt,
+                0 if handle.export_kv else remaining)
             return
         padded = self._suffix_padded(prompt_len, offset)
         n_blocks = -(-padded // self.block_size)
@@ -1562,7 +1773,7 @@ class GenerationEngine:
                 dbg = None
             else:
                 first, dbg = self._prefill_step(tokens, prompt_len, fresh)
-            if self._spec_on:
+            if self._spec_on and not handle.export_kv:
                 self._draft_prefill_step(prompt, slot_idx)
         except Exception as e:  # noqa: BLE001 — fail THIS request: it is
             # in neither the queue nor a slot, so nothing else resolves
@@ -1594,6 +1805,23 @@ class GenerationEngine:
         if matched:
             # the partial prefill read the shared prefix pages
             self._account_attn_read(self._blocks_touched(1, [offset]))
+        if handle.export_kv:
+            # prefill only (generate.py:2644-2658): the pages go to the
+            # host, the prompt into the trie so the next cohort prompt
+            # still hits, and the blocks release cache-retained — the
+            # slot never decodes
+            bundle = self._build_kv_bundle(handle, prompt,
+                                           prefix_blocks + fresh, first,
+                                           offset, elapsed)
+            with self._cond:
+                if self.prefix_cache:
+                    self._index_prompt_locked(prompt, prefix_blocks + fresh,
+                                              matched)
+                self._release_blocks_locked(prefix_blocks + fresh)
+                self._inflight = []
+                self._cond.notify()
+            self._book_export(handle, bundle, slot=slot_idx)
+            return
         slot = _Slot(handle, prefix_blocks + fresh, prompt_len, first,
                      len(matched) + self._worst_case_blocks(
                          prompt_len, remaining, len(matched)))
@@ -1634,6 +1862,118 @@ class GenerationEngine:
             self._evict(slot_idx, "eos")
         elif len(handle.out_tokens) >= handle.max_tokens:
             self._evict(slot_idx, "length")
+
+    # ------------------------------------------ KV-page export/import
+
+    def _build_kv_bundle(self, handle, prompt, blocks, first, offset,
+                         prefill_s):
+        """The prompt's pages → the migration bundle (``generate.py:2358``):
+        only the ``ceil(len / block_size)`` blocks that hold prompt K/V
+        ship, in the pool's native dtype, copied to the host
+        synchronously on the engine thread before the blocks release
+        (a later prefill may overwrite them). The partial tail block
+        ships with its pad rows, as a colocated slot holds it: every
+        read is length-masked."""
+        c = self.config
+        n_keep = -(-len(prompt) // self.block_size)
+        idx = torch.tensor(blocks[:n_keep], dtype=torch.long,
+                           device=self.device)
+        pages = tuple(comp.index_select(1, idx).cpu()
+                      for comp in self._cache)
+        # k + v pages apart from the int8 scales, for the wire-byte
+        # accounting (int8 halves the page bytes; the scales ride on top)
+        nbytes = [p.numel() * p.element_size() for p in pages]
+        meta = {
+            "model": self.name, "version": self.version,
+            "prompt": list(prompt), "first_token": int(first),
+            "max_tokens": int(handle.max_tokens),
+            "eos_id": handle.eos_id,
+            "block_size": self.block_size, "n_blocks": n_keep,
+            "kv_dtype": self.kv_dtype
+                or serving_lib.dtype_name(self._cache[0]),
+            "n_layers": c.n_layers, "kv_heads": c.kv_heads,
+            "head_dim": c.head_dim,
+            "prefix_tokens_skipped": int(offset),
+            "prefill_seconds": prefill_s,
+            "page_bytes": sum(nbytes[:2]), "scale_bytes": sum(nbytes[2:]),
+        }
+        return {"meta": meta, "pages": pages}
+
+    def _book_export(self, handle, bundle, slot=None):
+        """Finish an export: the bundle is the result (reason
+        ``exported``); no token is emitted here — the first one rides
+        the bundle and the importing engine's stream emits it
+        (``generate.py:2394``)."""
+        meta = bundle["meta"]
+        nbytes = meta["page_bytes"] + meta["scale_bytes"]
+        self.stats["kv_exports"] += 1
+        self.stats["kv_bytes_migrated"] += nbytes
+        _KV_MIGRATED_BYTES.labels(self.name, meta["kv_dtype"]).inc(nbytes)
+        handle.kv_bundle = bundle
+        self._record_event("exported", handle, slot=slot,
+                           blocks=meta["n_blocks"], bytes=nbytes)
+        self._finish(handle, "exported")
+
+    def _import_admit(self, slot_idx, handle):
+        """Admit an imported bundle (``generate.py:2410-2500``): allocate
+        blocks, copy the pages into the pool (native dtype, no
+        requantization; on this, the engine thread, which owns the
+        pool), prefill the draft from the prompt when speculation is
+        on, and install the slot straight into decode — ``length`` the
+        prompt's, ``last_token`` the bundle's first token — with its
+        prompt seeded into the trie. No forward pass runs; the stream
+        starts with that first token. A failed copy frees the blocks
+        and finishes the request with ``error``."""
+        bundle = handle.kv_bundle
+        meta, pages = bundle["meta"], bundle["pages"]
+        prompt = handle.prompt
+        prompt_len = len(prompt)
+        n_import = int(meta["n_blocks"])
+        with self._cond:
+            blocks = [self._alloc_block_locked() for _ in range(n_import)]
+            self._inflight = list(blocks)
+        self._book_admission(handle, slot_idx, imported=True)
+        try:
+            idx = torch.tensor(blocks, dtype=torch.long, device=self.device)
+            for pool, page in zip(self._cache, pages):
+                pool.index_copy_(1, idx, page.to(self.device))
+            if self._spec_on:
+                # the draft has no pages to import (a dense per-slot
+                # cache of another model): it prefills from the prompt
+                # so its proposals start aligned
+                self._draft_prefill_step(prompt, slot_idx)
+        except Exception as e:  # noqa: BLE001 — fail THIS request, or
+            # the pool shrinks with every bad bundle
+            with self._cond:
+                self._release_blocks_locked(blocks)
+                self._inflight = []
+                self._cond.notify()
+            log.exception("page import failed for a %d-block bundle on "
+                          "engine %s", n_import, self.name)
+            self._finish(handle, "error", e)
+            return
+        first = int(meta["first_token"])
+        handle.prefix_tokens_skipped = int(
+            meta.get("prefix_tokens_skipped") or 0)
+        handle.prefill_seconds = float(meta.get("prefill_seconds") or 0.0)
+        handle.kv_bundle = None    # the pages are in the pool now
+        handle.spec_wire = self.spec_header()
+        slot = _Slot(handle, blocks, prompt_len, first,
+                     max(n_import, -(-(prompt_len + handle.max_tokens)
+                                     // self.block_size)))
+        with self._cond:
+            self._inflight = []
+            self._slots[slot_idx] = slot
+            if self.prefix_cache:
+                self._index_prompt_locked(prompt, slot.blocks,
+                                          self._match_prefix_locked(prompt))
+        elapsed = time.perf_counter() - bundle.get("_t_recv",
+                                                   handle.enqueued)
+        self.stats["kv_imports"] += 1
+        _KV_MIGRATION_SECONDS.labels(self.name).observe(elapsed)
+        self._record_event("imported", handle, slot=slot_idx,
+                           blocks=n_import, seconds=round(elapsed, 6))
+        self._first_token(slot_idx, handle, first)
 
     # ------------------------------------------------- chunked prefill
 
@@ -1698,7 +2038,7 @@ class GenerationEngine:
         try:
             first = self._prefill_cached_step(tokens, chunk_len, written,
                                               prefix_blocks, fresh)
-            if is_final and self._spec_on:
+            if is_final and self._spec_on and not handle.export_kv:
                 self._draft_prefill_step(prompt, idx)
         except Exception as e:  # noqa: BLE001 — the slot is installed:
             # evicting it releases every block it holds and finishes it
@@ -1730,13 +2070,30 @@ class GenerationEngine:
                            chunks=slot.pf_chunks)
         self.stats["prefills"] += 1
         handle.spec_wire = self.spec_header()
+        offset = len(slot.pf_matched) * self.block_size
+        if handle.export_kv:
+            # chunked prefill only (generate.py:2855-2870): the export of
+            # _prefill, and the slot frees without the decode it will
+            # never run (eviction reason "exported")
+            bundle = self._build_kv_bundle(handle, prompt, slot.blocks,
+                                           first, offset,
+                                           handle.prefill_seconds)
+            with self._cond:
+                self._slots[idx] = None
+                if self.prefix_cache:
+                    self._index_prompt_locked(prompt, slot.blocks,
+                                              slot.pf_matched)
+                self._release_blocks_locked(slot.blocks)
+                self._cond.notify()
+            _EVICTIONS_TOTAL.labels(self.name, "exported").inc()
+            self._book_export(handle, bundle, slot=idx)
+            return
         with self._cond:
             # the prompt's blocks enter the trie only now, at its last
             # chunk (generate.py:2883-2886)
             if self.prefix_cache:
                 self._index_prompt_locked(prompt, slot.blocks,
                                           slot.pf_matched)
-        offset = len(slot.pf_matched) * self.block_size
         self._first_token(idx, handle, first,
                           (offset, prompt_len - offset)
                           if slot.pf_resuming else None)

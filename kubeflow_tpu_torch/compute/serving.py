@@ -21,18 +21,32 @@ headers, NDJSON frames and error taxonomy.
   plain Python ints through a ``queue.Queue``; every device call stays
   on the engine's own thread.
 
+- ``POST /v1/models/<name>:prefill`` (the body of ``:generate``): the
+  engine prefills only and answers 200 ``application/x-tensor`` with
+  the prompt's KV pages as a bundle (``encode_kv_bundle``), headers
+  ``X-KV-Meta-Bytes``, ``X-Tensor-Dtype``, ``X-Tensor-Shape``,
+  ``X-Served-Version`` and ``X-Prefix-Tokens-Skipped``.
+  ``POST /v1/models/<name>:attach`` with that body and its three framing
+  headers: the engine imports the pages into free blocks and streams the
+  continuation as ``:generate`` does, plus ``X-KV-Bytes-Migrated``; a
+  malformed bundle or one the pool cannot take (``KVImportError``)
+  answers 400.
+
 Not served yet, each refused by name: the unary ``:predict`` and
-``:predictStream`` verbs (501), the KV-migration verbs ``:prefill`` and
-``:attach`` (501) and the async transport (``ValueError``).
+``:predictStream`` verbs (501) and the async transport (``ValueError``).
 """
 
 import json
 import os
 import queue
+import sys
 import threading
 import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from urllib.parse import parse_qs, urlsplit
+
+import numpy as np
+import torch
 
 from ..obs import metrics as obs_metrics
 from ..obs import tracing
@@ -57,10 +71,6 @@ UNARY_PREDICT_MISSING = (
     "the unary predict plane (ServedModel, its batcher and the x-tensor "
     "codec) is not ported yet; it comes with the port's unary-predict "
     "slice")
-KV_MIGRATION_MISSING = (
-    "KV-page migration (:prefill/:attach, prefill/decode "
-    "disaggregation) is not ported yet; it comes with the port's "
-    "KV-migration slice")
 ASYNC_TRANSPORT_MISSING = (
     "the async serving transport is not ported yet (threaded only); "
     "it comes with the port's async-transport slice")
@@ -135,6 +145,146 @@ def classify_predict_error(e):
     if isinstance(e, ValueError):
         return 400, {"error": str(e)}, ()
     return 500, {"error": f"inference failed: {e}"}, ()
+
+
+#: dtypes a KV-page bundle may ship: the pool's native storage dtypes
+#: (compute-dtype pages, or int8 pages with their fp32 scales). bf16
+#: ships raw: widening it would double the bytes, and the import is a
+#: copy of the pool's own bits (``serving.py:843-847``)
+KV_BUNDLE_DTYPES = {"float32", "float16", "bfloat16", "int8"}
+_KV_TORCH_DTYPES = {"float32": torch.float32, "float16": torch.float16,
+                    "bfloat16": torch.bfloat16, "int8": torch.int8}
+
+
+def dtype_name(x):
+    """A torch tensor's or numpy array's dtype by the name the wire and
+    the JAX package use: ``"bfloat16"``, not ``"torch.bfloat16"``."""
+    if isinstance(x, torch.Tensor):
+        return str(x.dtype).removeprefix("torch.")
+    return x.dtype.name
+
+
+def page_tensor(p):
+    """One bundle component → a torch tensor. A numpy array (what the
+    JAX package's codec gives) is taken as is; its bf16 (the
+    ``ml_dtypes`` type, told apart by name) is read through its int16
+    bits, so the port needs no ``ml_dtypes``."""
+    if isinstance(p, torch.Tensor):
+        return p
+    a = np.ascontiguousarray(p)
+    if a.dtype.byteorder == ">":
+        a = a.astype(a.dtype.newbyteorder("<"))
+    bf16 = a.dtype.name == "bfloat16"
+    if bf16:
+        a = a.view(np.int16)
+    if not a.flags.writeable:
+        a = a.copy()          # torch.from_numpy shares only writable memory
+    t = torch.from_numpy(a)
+    return t.view(torch.bfloat16) if bf16 else t
+
+
+def _raw_part(p):
+    """One page component → (dtype name, shape, its little-endian bytes
+    as a uint8 array aliasing the component)."""
+    if isinstance(p, torch.Tensor):
+        p = p.detach().cpu().contiguous()
+        return dtype_name(p), tuple(p.shape), \
+            p.reshape(-1).view(torch.uint8).numpy()
+    p = np.ascontiguousarray(p)
+    if p.dtype.byteorder == ">" or (
+            p.dtype.byteorder == "=" and sys.byteorder == "big"):
+        p = p.astype(p.dtype.newbyteorder("<"))
+    return p.dtype.name, p.shape, p.reshape(-1).view(np.uint8)
+
+
+def encode_kv_bundle(bundle):
+    """An engine page bundle (``{"meta", "pages"}``) → ``(parts,
+    extra_headers, content_type)`` of a ``:prefill`` answer, byte for
+    byte the JAX package's framing (``serving.py:859``): part 0 is the
+    JSON meta, its length in ``X-KV-Meta-Bytes``; then one raw
+    little-endian part per pool component (an int8 pool ships four: k,
+    v, k scales, v scales), their dtypes comma-joined in
+    ``X-Tensor-Dtype`` and shapes semicolon-joined in
+    ``X-Tensor-Shape``. The parts alias the pages (torch tensors, or
+    numpy arrays), and the transport writes each one separately."""
+    meta_b = json.dumps(bundle["meta"]).encode()
+    parts = [meta_b]
+    dtypes, shapes = [], []
+    for p in bundle["pages"]:
+        name, shape, raw = _raw_part(p)
+        dtypes.append(name)
+        shapes.append(",".join(str(d) for d in shape))
+        parts.append(memoryview(raw))
+    extra = (("X-KV-Meta-Bytes", str(len(meta_b))),
+             ("X-Tensor-Dtype", ",".join(dtypes)),
+             ("X-Tensor-Shape", ";".join(shapes)))
+    return parts, extra, "application/x-tensor"
+
+
+def decode_kv_bundle(headers, body):
+    """The framing headers and raw body of an ``:attach`` → ``{"meta",
+    "pages", "_t_recv"}`` for ``GenerationEngine.import_bundle``
+    (``serving.py:891``). The pages are CPU torch tensors over the body
+    (``torch.frombuffer``: no copy when ``body`` is writable, as the
+    server's ``bytearray`` is; read-only bytes are copied once). A
+    malformed bundle raises ``ValueError`` (400: the caller's fault);
+    a bundle the pool cannot take is the engine's ``KVImportError``.
+    The host is taken to be little-endian, as torch's CPUs are."""
+    t_recv = time.perf_counter()
+    try:
+        meta_len = int(str(headers.get("X-KV-Meta-Bytes") or "").strip())
+    except ValueError:
+        raise ValueError(
+            "X-KV-Meta-Bytes header required (byte length of the "
+            "JSON meta part)") from None
+    if not 0 < meta_len <= len(body):
+        raise ValueError(
+            f"X-KV-Meta-Bytes says {meta_len} but the body is "
+            f"{len(body)} bytes")
+    try:
+        meta = json.loads(bytes(body[:meta_len]))
+    except ValueError:
+        raise ValueError("bundle meta part is not valid JSON") from None
+    if not isinstance(meta, dict):
+        raise ValueError("bundle meta must be a JSON object")
+    dtypes = [d.strip()
+              for d in (headers.get("X-Tensor-Dtype") or "").split(",")]
+    shapes_raw = (headers.get("X-Tensor-Shape") or "").split(";")
+    if not dtypes[0] or len(dtypes) != len(shapes_raw):
+        raise ValueError(
+            "X-Tensor-Dtype (comma-joined) and X-Tensor-Shape "
+            "(semicolon-joined) must list one entry per tensor part")
+    if memoryview(body).readonly:
+        body = bytearray(body)
+    pages, off = [], meta_len
+    for dname, sraw in zip(dtypes, shapes_raw):
+        if dname not in KV_BUNDLE_DTYPES:
+            raise ValueError(
+                f"bundle dtype must be one of "
+                f"{sorted(KV_BUNDLE_DTYPES)}, got {dname!r}")
+        dt = _KV_TORCH_DTYPES[dname]
+        try:
+            shape = [int(d) for d in sraw.split(",")]
+        except ValueError:
+            raise ValueError(
+                f"X-Tensor-Shape entries must be comma-separated "
+                f"ints, got {sraw!r}") from None
+        if any(d < 0 for d in shape):
+            raise ValueError(
+                f"X-Tensor-Shape dims must be >= 0, got {sraw!r}")
+        count = int(np.prod(shape))
+        want = count * dt.itemsize
+        if off + want > len(body):
+            raise ValueError(
+                "bundle body is shorter than its declared tensor parts")
+        pages.append(torch.frombuffer(body, dtype=dt, count=count,
+                                      offset=off).view(shape)
+                     if count else torch.empty(shape, dtype=dt))
+        off += want
+    if off != len(body):
+        raise ValueError(
+            f"{len(body) - off} trailing bytes after the last tensor part")
+    return {"meta": meta, "pages": tuple(pages), "_t_recv": t_recv}
 
 
 class ModelServer:
@@ -241,13 +391,18 @@ class ModelServer:
 
             def _send(self, code, payload, extra_headers=(),
                       content_type="application/json"):
-                if isinstance(payload, (bytes, memoryview)):
-                    body = bytes(payload)
+                if isinstance(payload, (list, tuple)):
+                    # pre-encoded parts (encode_kv_bundle), written one
+                    # by one: joining them would copy every page
+                    parts = list(payload)
+                elif isinstance(payload, (bytes, memoryview)):
+                    parts = [payload]
                 else:
-                    body = json.dumps(payload).encode()
+                    parts = [json.dumps(payload).encode()]
                 self.send_response(code)
                 self.send_header("Content-Type", content_type)
-                self.send_header("Content-Length", str(len(body)))
+                self.send_header("Content-Length",
+                                 str(sum(len(p) for p in parts)))
                 sp = getattr(self, "_rt", None) or \
                     tracing.current_span()
                 if sp is not None:
@@ -266,7 +421,8 @@ class ModelServer:
                 self.end_headers()
                 rt = getattr(self, "_rt", None)
                 t_write = time.time()
-                self.wfile.write(body)
+                for p in parts:
+                    self.wfile.write(p)
                 if rt is not None:
                     rt.phase("http.write", t_write)
 
@@ -324,66 +480,162 @@ class ModelServer:
                 name, verb = target
                 if verb == "generate":
                     return self._generate_stream(name, length)
-                if verb in ("prefill", "attach"):
-                    return self._send(501, {
-                        "error": f":{verb} is not served: "
-                                 f"{KV_MIGRATION_MISSING}"})
+                if verb == "prefill":
+                    # disaggregation hop 1: prefill only, the pages
+                    # answer as an application/x-tensor bundle
+                    return self._prefill_export(name, length)
+                if verb == "attach":
+                    # hop 2: import the bundle, stream the continuation
+                    return self._generate_stream(name, length,
+                                                 attach=True)
                 if verb in ("predict", "predictStream"):
                     return self._send(501, {
                         "error": f":{verb} is not served: "
                                  f"{UNARY_PREDICT_MISSING}"})
                 return self._send(404, {"error": "model not found"})
 
-            def _generate_stream(self, name, length):
-                """``:generate``: greedy decode through the named
-                engine, streamed as chunked NDJSON. Queue-side
-                failures before any token (drain, deadline, engine
-                crash) answer with the plain error taxonomy — no
-                stream is started for a dead request."""
+            def _read_body(self, length):
+                """The request body into a writable ``bytearray`` (the
+                bundle's pages are tensors over it)."""
+                buf = bytearray(length)
+                view, got = memoryview(buf), 0
+                while got < length:
+                    n = self.rfile.readinto(view[got:])
+                    if not n:
+                        break
+                    got += n
+                return buf if got == length else buf[:got]
+
+            def _read_json(self, length):
+                """A ``:generate``-shaped body → the request dict, with
+                its ``http.read`` and ``decode`` phases; raises
+                ValueError (400) for a malformed one."""
                 rt = self._rt
+                t_read = time.time()
+                raw = self.rfile.read(length) if length else b""
+                rt.phase("http.read", t_read)
+                t_dec = time.time()
+                req = json.loads(raw or b"{}")
+                if not isinstance(req, dict):
+                    raise ValueError("body must be a JSON object")
+                if req.get("tokens") is None:
+                    raise ValueError('"tokens" is required '
+                                     '(a list of prompt token ids)')
+                rt.phase("decode", t_dec, format="json")
+                return req
+
+            def _generate_target(self, name):
+                """The named engine and the request's deadline → (engine,
+                deadline), or None after answering 404 / 400."""
                 engine = server._generators.get(name)
                 if engine is None:
-                    return self._send(
-                        404, {"error": f"no generation engine "
-                                       f"registered for {name!r}"})
-                rt.attrs["model"] = name
-                rt.attrs["track"] = "stable"
+                    self._send(404, {"error": f"no generation engine "
+                                              f"registered for {name!r}"})
+                    return None
+                self._rt.attrs["model"] = name
+                self._rt.attrs["track"] = "stable"
                 try:
-                    deadline = parse_deadline(
+                    return engine, parse_deadline(
                         self.headers.get("X-Request-Deadline-Ms"))
                 except ValueError as e:
-                    return self._send(400, {"error": f"bad request: {e}"})
+                    self._send(400, {"error": f"bad request: {e}"})
+                    return None
+
+            def _prefill_export(self, name, length):
+                """``:prefill``: disaggregation hop 1 — prefill only
+                (chunked or monolithic, prefix-cache hits honoured) and
+                answer with the prompt's KV pages as one
+                ``application/x-tensor`` bundle (``encode_kv_bundle``).
+                The body is ``:generate``'s; ``max_tokens`` rides the
+                bundle as the importing engine's budget."""
+                target = self._generate_target(name)
+                if target is None:
+                    return
+                engine, deadline = target
+                rt = self._rt
                 try:
-                    t_read = time.time()
-                    raw = self.rfile.read(length) if length else b""
-                    rt.phase("http.read", t_read)
-                    t_dec = time.time()
-                    req = json.loads(raw or b"{}")
-                    if not isinstance(req, dict):
-                        raise ValueError("body must be a JSON object")
-                    tokens = req.get("tokens")
-                    if tokens is None:
-                        raise ValueError('"tokens" is required '
-                                         '(a list of prompt token ids)')
-                    rt.phase("decode", t_dec, format="json")
+                    req = self._read_json(length)
                 except (ValueError, KeyError, TypeError) as e:
                     return self._send(400, {"error": f"bad request: {e}"})
                 _WIRE_FORMAT_TOTAL.labels("json").inc()
-                events = queue.Queue()
                 try:
-                    handle = engine.submit(
-                        tokens, max_tokens=req.get("max_tokens"),
+                    bundle = engine.prefill_export(
+                        req["tokens"], max_tokens=req.get("max_tokens"),
                         eos_id=req.get("eos_id"), deadline=deadline,
                         rt=rt, tenant=self.headers.get("X-Tenant"),
-                        qos_class=self.headers.get("X-QoS-Class"),
-                        on_token=lambda t, i: events.put(
-                            ("token", t, i)),
-                        on_event=lambda ev, attrs: events.put(
-                            ("event", ev, attrs)),
-                        on_done=lambda reason, toks, error: events.put(
-                            ("done", reason, toks, error)))
+                        qos_class=self.headers.get("X-QoS-Class"))
                 except Exception as e:  # noqa: BLE001 — wire boundary
-                    # ValueError → 400, DrainingError → 503, else 500
+                    code, payload, extra = classify_predict_error(e)
+                    return self._send(code, payload, extra)
+                t_enc = time.time()
+                parts, extra, ctype = encode_kv_bundle(bundle)
+                rt.phase("encode", t_enc, format="binary")
+                self._send(200, parts, extra + (
+                    ("X-Served-Version", str(engine.version)),
+                    ("X-Prefix-Tokens-Skipped",
+                     str(bundle["meta"].get("prefix_tokens_skipped", 0)))),
+                    content_type=ctype)
+
+            def _generate_stream(self, name, length, attach=False):
+                """``:generate``: greedy decode through the named
+                engine, streamed as chunked NDJSON. ``attach=True`` is
+                ``:attach``: the body is a page bundle
+                (``decode_kv_bundle``), the engine imports it and the
+                same stream drains the continuation, with an
+                ``X-KV-Bytes-Migrated`` head. Queue-side failures
+                before any token (drain, deadline, engine crash)
+                answer with the plain error taxonomy — no stream is
+                started for a dead request."""
+                target = self._generate_target(name)
+                if target is None:
+                    return
+                engine, deadline = target
+                rt = self._rt
+                fmt = "binary" if attach else "json"
+                try:
+                    if attach:
+                        t_read = time.time()
+                        raw = self._read_body(length)
+                        rt.phase("http.read", t_read)
+                        t_dec = time.time()
+                        bundle = decode_kv_bundle(self.headers, raw)
+                        rt.phase("decode", t_dec, format=fmt)
+                    else:
+                        req = self._read_json(length)
+                except (ValueError, KeyError, TypeError) as e:
+                    return self._send(400, {"error": f"bad request: {e}"})
+                _WIRE_FORMAT_TOTAL.labels(fmt).inc()
+                events = queue.Queue()
+                callbacks = dict(
+                    on_token=lambda t, i: events.put(("token", t, i)),
+                    on_event=lambda ev, attrs: events.put(
+                        ("event", ev, attrs)),
+                    on_done=lambda reason, toks, error: events.put(
+                        ("done", reason, toks, error)))
+                kv_bytes = None
+                try:
+                    if attach:
+                        meta = bundle["meta"]
+                        kv_bytes = (int(meta.get("page_bytes") or 0)
+                                    + int(meta.get("scale_bytes") or 0)) \
+                            or sum(p.numel() * p.element_size()
+                                   for p in bundle["pages"])
+                        handle = engine.import_bundle(
+                            bundle, deadline=deadline, rt=rt,
+                            tenant=self.headers.get("X-Tenant"),
+                            qos_class=self.headers.get("X-QoS-Class"),
+                            **callbacks)
+                    else:
+                        handle = engine.submit(
+                            req["tokens"], max_tokens=req.get("max_tokens"),
+                            eos_id=req.get("eos_id"), deadline=deadline,
+                            rt=rt, tenant=self.headers.get("X-Tenant"),
+                            qos_class=self.headers.get("X-QoS-Class"),
+                            **callbacks)
+                except Exception as e:  # noqa: BLE001 — wire boundary
+                    # ValueError → 400 (a KVImportError too: the router
+                    # falls back to colocated serving), DrainingError →
+                    # 503, else 500
                     code, payload, extra = classify_predict_error(e)
                     return self._send(code, payload, extra)
                 event = events.get()
@@ -405,6 +657,9 @@ class ModelServer:
                 self.send_header("X-Generate-Mesh",
                                  engine.mesh_header())
                 self.send_header("X-QoS-Class", handle.qos_class)
+                if kv_bytes is not None:
+                    # the bundle's pages + scales, mirrored by the router
+                    self.send_header("X-KV-Bytes-Migrated", str(kv_bytes))
                 if handle.spec_wire is not None:
                     self.send_header("X-Spec-Acceptance",
                                      handle.spec_wire)

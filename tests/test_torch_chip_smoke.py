@@ -203,3 +203,66 @@ def test_qos_requests_share_no_block():
     assert {m for _, m in batch} == {128} and {m for _, m in inter} == {16}
     firsts = {tuple(p[:16]) for p, _ in batch + inter}
     assert len(firsts) == 16
+
+
+def test_bundle_bytes_of_the_flagships_intruder():
+    """56 blocks of 16 over 12 layers, 2 KV heads of 128: the bf16 pages,
+    the int8 pages (half) and their fp32 scales."""
+    assert chip_smoke.bundle_bytes(56, 16, 12, 2, 128, 2) == (11_010_048, 0)
+    assert chip_smoke.bundle_bytes(56, 16, 12, 2, 128, 1, int8=True) == (
+        5_505_024, 172_032)
+
+
+def test_itg_stats_are_the_engines_percentiles_in_ms():
+    gaps = [0.010] * 95 + [0.020] * 4 + [0.5]
+    stats = chip_smoke.itg_stats(gaps)
+    assert stats["gaps"] == 100 and stats["p50_ms"] == 10.0
+    assert stats["p99_ms"] == 500.0 and stats["max_ms"] == 500.0
+    assert chip_smoke.itg_stats(gaps[:99])["p99_ms"] == 20.0
+
+
+def test_launches_are_attributed_per_run_and_summed_per_path():
+    at = {"flash_fwd": 48, "paged_decode": 200}
+    end = {"flash_fwd": 48, "paged_decode": 1524}
+    assert chip_smoke.launch_delta(at, end) == {"flash_fwd": 0,
+                                                "paged_decode": 1324}
+    export = {"flash_fwd": 12, "paged_decode": 0}
+    assert chip_smoke.launch_sum(export, end) == {"flash_fwd": 60,
+                                                  "paged_decode": 1524}
+
+
+def test_disagg_requests_are_the_schedule():
+    shorts, intruder = chip_smoke.disagg_requests(32768)
+    assert [len(p) for p, _ in shorts] == [64] * 4
+    assert {m for _, m in shorts} == {128} and len(intruder) == 896
+    assert len({tuple(p[:16]) for p, _ in shorts}
+               | {tuple(intruder[:16])}) == 5
+
+
+def _hop(frames, migrated="100", status=200):
+    return {"prefill_status": 200,
+            "prefill_head": {"content-type": "application/x-tensor"},
+            "meta": {"page_bytes": 96, "scale_bytes": 4},
+            "attach_status": status, "frames": frames,
+            "attach_head": {"content-type": "application/x-ndjson",
+                            "x-kv-bytes-migrated": migrated}}
+
+
+HOP = [{"token": 5, "index": 0}, {"token": 9, "index": 1},
+       {"done": True, "reason": "length", "tokens": [5, 9]}]
+
+
+def test_check_hop_takes_a_whole_two_hop_answer():
+    assert chip_smoke.check_hop(_hop(HOP), 2, vocab=16) == [5, 9]
+
+
+@pytest.mark.parametrize("hop,max_tokens", [
+    (_hop(HOP, migrated="96"), 2),                      # scales left out
+    (_hop([HOP[1], HOP[0], HOP[2]]), 2),                # indices out of order
+    (_hop(HOP), 3),                                     # budget not spent
+    (_hop(HOP, status=400), 2),                         # refused import
+    (dict(_hop(HOP), prefill_status=503), 2),           # no bundle
+], ids=["bytes", "order", "budget", "attach-400", "prefill-503"])
+def test_check_hop_refuses_a_broken_hop(hop, max_tokens):
+    with pytest.raises(AssertionError):
+        chip_smoke.check_hop(hop, max_tokens, vocab=16)

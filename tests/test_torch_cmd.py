@@ -5,9 +5,11 @@ the weights the entry builds (its ``SEED``), names each tenant's
 ledger class in ``X-QoS-Class`` and books its tokens under
 ``serving_qos_tokens_total``, and SIGTERM ends it with 0. In process:
 every knob the port does not serve yet refuses by name,
-``QOS_TENANTS`` and ``GEN_PREEMPTION`` reach the engine as in the JAX
-entry, and without ``GEN_DEVICE`` a CUDA-less host gets
-``device.resolve``'s error."""
+``QOS_TENANTS``, ``GEN_PREEMPTION`` and ``GEN_ROLE`` reach the engine as
+in the JAX entry, and without ``GEN_DEVICE`` a CUDA-less host gets
+``device.resolve``'s error. A second subprocess with ``GEN_ROLE=decode``
+takes the first one's ``:prefill`` bundle on ``:attach`` and streams the
+oracle's continuation."""
 
 import http.client
 import json
@@ -60,22 +62,41 @@ def _get(port, path):
     return resp.status, body
 
 
-@pytest.fixture(scope="module")
-def server():
+def _serve(**extra):
+    """A model-server subprocess → (the process, its port)."""
     proc = subprocess.Popen(
         [sys.executable, "-m", "kubeflow_tpu_torch.cmd", "model-server"],
-        env=_env(QOS_TENANTS=TENANTS), stdout=subprocess.PIPE,
-        stderr=subprocess.PIPE, text=True, cwd=ROOT)
+        env=_env(**extra), stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True, cwd=ROOT)
+    line = proc.stdout.readline()
+    if not line.startswith("PORT "):
+        proc.kill()
+        raise AssertionError((line, proc.stderr.read()))
+    return proc, int(line.split()[1])
+
+
+def _stopped(proc):
+    if proc.poll() is None:
+        proc.kill()
+        proc.wait(30)
+
+
+@pytest.fixture(scope="module")
+def server():
+    proc, port = _serve(QOS_TENANTS=TENANTS)
     try:
-        line = proc.stdout.readline()
-        assert line.startswith("PORT "), (line, proc.stderr.read()
-                                          if proc.poll() is not None
-                                          else "")
-        yield proc, int(line.split()[1])
+        yield proc, port
     finally:
-        if proc.poll() is None:
-            proc.kill()
-            proc.wait(30)
+        _stopped(proc)
+
+
+@pytest.fixture(scope="module")
+def decode_server():
+    proc, port = _serve(GEN_ROLE="decode")
+    try:
+        yield proc, port
+    finally:
+        _stopped(proc)
 
 
 def _stock_weights():
@@ -146,6 +167,42 @@ def test_x_qos_class_is_the_ledgers(server, tenant, cls):
                      rf'class="{cls}"\}} [1-9]', text, re.M), text[-2000:]
 
 
+def test_a_prefill_bundle_attaches_on_a_decode_role_server(server,
+                                                         decode_server):
+    """The two hops of a role-split fleet between two entry processes:
+    ``:prefill`` on the first, its body and framing headers ``:attach``ed
+    on the ``GEN_ROLE=decode`` one."""
+    _, port = server
+    _, dport = decode_server
+    snap = json.loads(_get(dport, "/v1/models/default")[1])["generator"]
+    assert snap["role"] == "decode"
+    prompt = list(range(3, 16))
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+    conn.request("POST", "/v1/models/default:prefill",
+                 json.dumps({"tokens": prompt, "max_tokens": 5}).encode(),
+                 {"Content-Type": "application/json"})
+    resp = conn.getresponse()
+    body = resp.read()
+    assert resp.status == 200, body
+    framing = {h: resp.getheader(h) for h in (
+        "X-KV-Meta-Bytes", "X-Tensor-Dtype", "X-Tensor-Shape")}
+    conn.close()
+    conn = http.client.HTTPConnection("127.0.0.1", dport, timeout=60)
+    conn.request("POST", "/v1/models/default:attach", body,
+                 {"Content-Type": "application/x-tensor", **framing})
+    resp = conn.getresponse()
+    assert resp.status == 200
+    assert int(resp.getheader("X-KV-Bytes-Migrated")) > 0
+    frames = [json.loads(ln) for ln in resp.read().splitlines() if ln]
+    conn.close()
+    cfg, params = _stock_weights()
+    want = t_gen.reference_greedy_decode(params, cfg, prompt, 5)
+    assert [f["token"] for f in frames if "token" in f] == want
+    snap = json.loads(_get(dport, "/v1/models/default")[1])["generator"]
+    assert snap["migration"]["imports"] == 1 and snap["stats"][
+        "prefills"] == 0
+
+
 def test_sigterm_exits_zero(server):
     proc, port = server
     _get(port, "/healthz")
@@ -176,13 +233,33 @@ def knobs(monkeypatch):
 
 @pytest.mark.parametrize("knob,value", [
     ("GEN_MESH", "tensor=2"), ("GEN_TP", "4"), ("GEN_ROW_SHARD", "1"),
-    ("GEN_ROLE", "prefill"),
-    ("GEN_ROLE", "decode"), ("GEN_CALIBRATE", "1"),
+    ("GEN_CALIBRATE", "1"),
     ("SERVING_TRANSPORT", "async")])
 def test_unported_knobs_refuse_by_name(knobs, knob, value):
     knobs.setenv(knob, value)
     with pytest.raises(SystemExit, match=knob):
         cmd.model_server()
+
+
+@pytest.mark.parametrize("role", ["prefill", "decode", "both", None])
+def test_gen_role_reaches_the_engine(knobs, role):
+    if role is not None:
+        knobs.setenv("GEN_ROLE", role)
+    cmd._refuse_unported()
+    eng = cmd.build_engine(f"role-{role}")
+    try:
+        assert eng.role == (role or "both")
+        assert eng.snapshot()["role"] == eng.role
+    finally:
+        eng.close()
+
+
+@pytest.mark.parametrize("value", ["decoder", "PREFILL", "both,decode"])
+def test_an_invalid_gen_role_exits_by_name(knobs, value):
+    knobs.setenv("GEN_ROLE", value)
+    with pytest.raises(SystemExit, match="GEN_ROLE") as err:
+        cmd.model_server()
+    assert value in str(err.value)
 
 
 @pytest.mark.parametrize("knob,value", [

@@ -1,6 +1,7 @@
 """The port stands alone: no module of ``kubeflow_tpu_torch/``, not
 ``chip_smoke.py`` and not the port's scripts under ``hack/`` (the
-kernel A/B timings, the serving profile) imports JAX, its ecosystem or
+kernel A/B timings, the serving profile) imports JAX, its ecosystem
+(``ml_dtypes`` included: the KV-bundle codec reads bf16 without it) or
 the JAX package, and none imports ``triton`` at module level (the CPU test host has none; a
 kernel module imports it inside the function that launches)."""
 
@@ -15,7 +16,7 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 FILES = sorted((ROOT / "kubeflow_tpu_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py"] + sorted((ROOT / "hack").glob("*_ab.py")) + [
     ROOT / "hack" / "port_decode_profile.py"]
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "kubeflow_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "ml_dtypes", "kubeflow_tpu")
 
 
 def _imports(tree):

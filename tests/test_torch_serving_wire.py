@@ -11,7 +11,12 @@ JAX cache-free oracle; status codes, error text, header names, the
 mesh/prefix/QoS header values and the done frame's keys must match. A
 stream preempted by an interactive tenant sends the same ``suspended``/
 ``resumed`` frames and the same done-frame ``qos`` view on both, with
-``X-QoS-Class`` the class each side's tenant ledger names.
+``X-QoS-Class`` the class each side's tenant ledger names. The
+KV-migration verbs: ``:prefill`` answers the same ``application/x-tensor``
+framing, and a bundle from either server ``:attach``es on either, with
+the oracle's tokens, ``X-KV-Bytes-Migrated`` and the same frames; a
+bundle the pool cannot take (a prefill-role engine, an int8 bundle on a
+float pool) or a malformed one answers the same 400.
 """
 
 import dataclasses
@@ -357,9 +362,7 @@ def test_a_disconnect_cancels_the_slot(served):
                for e in engine.timeline_view())
 
 
-@pytest.mark.parametrize("verb,words", [("prefill", "KV-migration"),
-                                        ("attach", "KV-migration"),
-                                        ("predict", "unary-predict"),
+@pytest.mark.parametrize("verb,words", [("predict", "unary-predict"),
                                         ("predictStream", "unary-predict")])
 def test_unported_verbs_answer_501_by_name(served, verb, words):
     conn, resp = _post(served["port"][2], {"tokens": [1]},
@@ -518,3 +521,209 @@ def test_a_preempted_stream_is_framed_as_jaxs(jparams, tparams):
     assert shapes["port"] == shapes["jax"]
     assert shapes["port"][3] == {"tenant": "crawler", "class": "batch",
                                  "preemptions": 1}
+
+
+BUNDLE_HEADERS = ("X-KV-Meta-Bytes", "X-Tensor-Dtype", "X-Tensor-Shape")
+
+
+def _prefill(port, body, name="lm"):
+    """``:prefill`` → (status, {lowercased header: value}, body bytes)"""
+    conn, resp = _post(port, body, path=f"/v1/models/{name}:prefill")
+    head = {k.lower(): v for k, v in resp.getheaders()}
+    data = resp.read()
+    conn.close()
+    return resp.status, head, data
+
+
+def _attach(port, framing, body, name="lm"):
+    """``:attach`` of ``body`` with the bundle's ``framing`` headers →
+    (status, head, frames or the error payload)"""
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+    conn.request("POST", f"/v1/models/{name}:attach", bytes(body),
+                 {"Content-Type": "application/x-tensor", **framing})
+    resp = conn.getresponse()
+    head = {k.lower(): v for k, v in resp.getheaders()}
+    out = _frames(resp) if resp.status == 200 else json.loads(resp.read())
+    conn.close()
+    return resp.status, head, out
+
+
+def _framing(head):
+    return {h: head[h.lower()] for h in BUNDLE_HEADERS}
+
+
+def test_prefill_answers_jaxs_framing(served, jparams):
+    prompt = [7, 1, 7, 2, 7, 3, 7, 4, 7, 5, 7]
+    got = {}
+    for side in SIDES:
+        status, head, body = _prefill(served[side][2],
+                                      {"tokens": prompt, "max_tokens": 5})
+        assert status == 200, (side, body)
+        assert head["content-type"] == "application/x-tensor"
+        assert int(head["content-length"]) == len(body)
+        bundle = j_serving.decode_kv_bundle(_framing(head), body)
+        got[side] = (head, bundle["meta"])
+    (jh, jm), (th, tm) = got["jax"], got["port"]
+    assert set(th) == set(jh)
+    for key in ("x-tensor-dtype", "x-tensor-shape", "x-served-version",
+                "x-prefix-tokens-skipped"):
+        assert th[key] == jh[key], key
+    assert set(tm) == set(jm)
+    for key in ("prompt", "first_token", "max_tokens", "n_blocks",
+                "page_bytes", "scale_bytes", "kv_dtype"):
+        assert tm[key] == jm[key], key
+    assert tm["first_token"] == j_gen.reference_greedy_decode(
+        jparams, CFG, prompt, 1)[0]
+    traces = json.loads(_get(served["port"][2],
+                             "/debug/traces?format=json")[1])["traces"]
+    spans = {sp["name"]: sp for t in traces for sp in t["spans"]
+             if t["spans"][0]["name"].endswith(":prefill")}
+    assert spans["encode"]["attrs"]["format"] == "binary"
+    assert spans["decode"]["attrs"]["format"] == "json"
+
+
+@pytest.mark.parametrize("src", SIDES)
+def test_a_bundle_attaches_on_either_server_alike(served, jparams, src):
+    """One server's ``:prefill`` bundle, ``:attach``ed on both: the
+    oracle's tokens, contiguous indices, the same head (with
+    ``X-KV-Bytes-Migrated`` = the bundle's page + scale bytes) and the
+    same done frame."""
+    prompt = [11 + len(src), 3, 5, 8, 13, 21, 34, 55, 2, 4]
+    status, head, body = _prefill(served[src][2],
+                                  {"tokens": prompt, "max_tokens": 6})
+    assert status == 200
+    meta = j_serving.decode_kv_bundle(_framing(head), body)["meta"]
+    ref = j_gen.reference_greedy_decode(jparams, CFG, prompt, 6)
+    got = {}
+    for side in SIDES:
+        status, ahead, frames = _attach(served[side][2], _framing(head),
+                                        body)
+        assert status == 200, (side, frames)
+        assert ahead["content-type"] == "application/x-ndjson"
+        toks = [f for f in frames if "token" in f]
+        assert [f["token"] for f in toks] == ref, side
+        assert [f["index"] for f in toks] == list(range(6))
+        assert frames[-1]["done"] and frames[-1]["tokens"] == ref
+        assert ahead["x-kv-bytes-migrated"] == str(
+            meta["page_bytes"] + meta["scale_bytes"])
+        got[side] = (ahead, frames[-1])
+    (jh, jd), (th, td) = got["jax"], got["port"]
+    assert set(th) == set(jh) and "x-kv-bytes-migrated" in th
+    for key in ("x-served-version", "x-prefix-tokens-skipped",
+                "x-generate-mesh", "x-qos-class", "x-kv-bytes-migrated"):
+        assert th[key] == jh[key], key
+    assert set(td) == set(jd)
+    for key in ("reason", "tokens", "prefix_tokens_skipped", "mesh"):
+        assert td[key] == jd[key], key
+
+
+def test_attach_records_its_read_and_binary_decode(served):
+    status, head, body = _prefill(served["port"][2],
+                                  {"tokens": [9, 9, 1], "max_tokens": 2})
+    tid = "ef" * 16
+    framing = {**_framing(head), "traceparent": f"00-{tid}-{'12' * 8}-01"}
+    assert _attach(served["port"][2], framing, body)[0] == 200
+    traces = json.loads(_get(served["port"][2],
+                             f"/debug/traces?trace_id={tid}")[1])["traces"]
+    spans = {sp["name"]: sp for sp in traces[0]["spans"]}
+    assert spans["decode"]["attrs"]["format"] == "binary"
+    assert "http.read" in spans
+
+
+def _bundle_body(engine, prompt, max_tokens=4):
+    parts, framing, _ = t_serving.encode_kv_bundle(
+        engine.prefill_export(prompt, max_tokens=max_tokens))
+    return dict(framing), b"".join(bytes(p) for p in parts)
+
+
+def _rejected(port, reason):
+    text = _get(port, "/metrics")[1].decode()
+    m = re.search(rf'^serving_kv_import_rejections_total\{{model="lm",'
+                  rf'reason="{reason}"\}} (\S+)$', text, re.M)
+    return float(m.group(1)) if m else 0.0
+
+
+def test_an_int8_bundle_on_a_float_pool_answers_400_alike(served,
+                                                          tparams):
+    i8 = t_gen.GenerationEngine(tparams, TCFG, device="cpu", max_slots=1,
+                                block_size=8, max_context=64,
+                                kv_dtype="int8", name="i8")
+    try:
+        framing, body = _bundle_body(i8, [1, 2, 3, 4, 5])
+    finally:
+        i8.close()
+    before = _rejected(served["port"][2], "dtype")
+    answers = {side: _attach(served[side][2], framing, body)[::2]
+               for side in SIDES}
+    assert answers["jax"][0] == 400 and "dtype" in answers["jax"][1]["error"]
+    assert answers["port"] == answers["jax"]
+    assert _rejected(served["port"][2], "dtype") == before + 1
+
+
+def test_a_prefill_role_server_refuses_attach_alike(jparams, tparams,
+                                                    served):
+    kw = dict(max_slots=1, block_size=8, max_context=64, name="lm",
+              role="prefill")
+    pair = _start({"jax": j_gen.GenerationEngine(jparams, CFG, **kw),
+                   "port": t_gen.GenerationEngine(tparams, TCFG,
+                                                  device="cpu", **kw)})
+    try:
+        status, head, body = _prefill(served["port"][2],
+                                      {"tokens": [4, 2], "max_tokens": 3})
+        assert status == 200
+        answers = {side: _attach(pair[side][2], _framing(head), body)[::2]
+                   for side in SIDES}
+        # a prefill replica still exports
+        assert _prefill(pair["port"][2], {"tokens": [4, 2]})[0] == 200
+    finally:
+        for server, _, _ in pair.values():
+            server.stop()
+    assert answers["jax"][0] == 400 and "role" in answers["jax"][1]["error"]
+    assert answers["port"] == answers["jax"]
+
+
+@pytest.mark.parametrize("defect", ["truncated", "trailing", "no-meta-bytes",
+                                    "no-dtypes"])
+def test_a_malformed_bundle_answers_400_alike(served, defect):
+    status, head, body = _prefill(served["port"][2],
+                                  {"tokens": [6, 5, 4], "max_tokens": 3})
+    framing = _framing(head)
+    if defect == "truncated":
+        body = body[:-4]
+    elif defect == "trailing":
+        body = body + b"\0\0"
+    else:
+        del framing[{"no-meta-bytes": "X-KV-Meta-Bytes",
+                     "no-dtypes": "X-Tensor-Dtype"}[defect]]
+    answers = {side: _attach(served[side][2], framing, body)[::2]
+               for side in SIDES}
+    assert answers["jax"][0] == 400
+    assert answers["jax"][1]["error"].startswith("bad request: ")
+    assert answers["port"] == answers["jax"]
+
+
+@pytest.mark.parametrize("body", [{"nope": 1}, {"tokens": []},
+                                  {"tokens": [999]}, ["not-a-dict"],
+                                  {"tokens": list(range(1, 60)) * 2}],
+                         ids=["no-tokens", "empty", "vocab", "list",
+                              "context"])
+def test_bad_prefill_bodies_answer_400_alike(served, body):
+    answers = {}
+    for side in SIDES:
+        status, _, data = _prefill(served[side][2], body)
+        answers[side] = (status, json.loads(data))
+    assert answers["jax"][0] == 400
+    assert answers["port"] == answers["jax"]
+
+
+@pytest.mark.parametrize("verb", ["prefill", "attach"])
+def test_migration_verbs_on_an_unknown_engine_answer_404_alike(served,
+                                                               verb):
+    answers = {}
+    for side in SIDES:
+        conn, resp = _post(served[side][2], {"tokens": [1]},
+                           path=f"/v1/models/ghost:{verb}")
+        answers[side] = (resp.status, json.loads(resp.read()))
+        conn.close()
+    assert answers["jax"][0] == 404
+    assert answers["port"] == answers["jax"]
