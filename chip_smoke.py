@@ -117,7 +117,24 @@ if any phase fails:
    right, tokens equal the same hop in process), an int8 bundle on the
    bf16 pool 400 naming ``dtype`` (counted on ``/metrics``), ``:attach`` on
    the prefill-role server 400 naming ``role``;
-13. train — the flagship at full width and depth (bf16, ``remat=False``)
+13. mesh — the engine's tensor mesh on the one card:
+   ``mesh_for_generation(tensor=2, devices=[cuda:0, cuda:0])``, two
+   shards of the bf16 flagship (4 q and 1 KV head each, half of every
+   pool block), the engine phase's 12 requests on one locked schedule
+   beside the unsharded engine and a ``tensor=1`` mesh: tp 1 tokens and
+   pool bytes equal the unsharded engine's; tp 2 tokens and pool bytes
+   compared with the shards' split count at the model's KV heads and,
+   in a second run, at their own; K3 24 a cold prefill, K2 24 a prefix
+   hit, K1 24 a decode step (twice the unsharded counts); an export from
+   tp 2 equal to the unsharded bundle byte for byte; at 8 blocks a
+   shard the tp 2 pool admits twice the sequences; a prefix + 256-token
+   chunk schedule; fp32 at full width: tp 2 tokens equal the unsharded
+   engine's but at top-2 gaps below 1e-3, logits within 1e-3 of the
+   cache-free oracle; bf16 tp 2 and ``row_shard`` within 0.2 / 0.1 of
+   it; decode-step ms, ``measure_collective_share()`` and
+   ``collective_bytes_per_step()`` printed as two shards on one card,
+   which makes no speed claim;
+14. train — the flagship at full width and depth (bf16, ``remat=False``)
    trained by the port's ``compute.train``: ``init_state`` →
    ``make_train_step(plain_loss(transformer.loss_fn))`` → ``fit`` over
    one repeated ``synthetic_lm`` batch of 16 x 1024 tokens, 2 warm
@@ -127,7 +144,7 @@ if any phase fails:
    every step launch K3, K4 and K5 exactly 12 times each; then one step
    profiled through the port's ``profiler`` (device ms by kernel
    group, the device's idle share);
-14. train conformance — fp32, TF32 off, flagship width, 2 layers, batch
+15. train conformance — fp32, TF32 off, flagship width, 2 layers, batch
    2 x 1024: the loss and every gradient leaf through K3/K4/K5 against
    ``attention="dense"`` (plain PyTorch autograd) on the card, loss
    within 1e-5 relative, each leaf's max |Δg| within 1e-3 of that
@@ -135,22 +152,22 @@ if any phase fails:
    against ``remat=False``: gradients within 1e-5 of each leaf's max
    |g| (the embedding's scatter-add sums in another order each run),
    24 K3 launches against 12, 12 of K4 and K5 in both;
-15. moe_apply — the MoE flagship (``moe_config``: vocab 32000, d_model
+16. moe_apply — the MoE flagship (``moe_config``: vocab 32000, d_model
    1024, 8 layers, 8 heads MHA, ff 2816, 8 experts top-2, dropless on
    the grouped matmul, bf16, random weights from a seed):
    ``transformer.apply`` on 1 x 1024 tokens, finite logits, exactly 16
    K6 and 8 K3 launches;
-16. moe_train — the same model trained (``remat=False``, one repeated
+17. moe_train — the same model trained (``remat=False``, one repeated
    8 x 1024 batch, 2 warm + 3 timed steps): step ms, tokens/s, MFU by
    JAX's ``flops_per_token`` (which counts the dense MLP once), peak
    memory, losses, ``moe_aux`` and the padded-row share; the loss falls
    and every step launches K6 32, K7 16 and K3/K4/K5 8 times each; then
    one step profiled (``moe_train_profile``);
-17. moe_conformance — fp32, TF32 off, MoE width, 2 layers, batch 2 x
+18. moe_conformance — fp32, TF32 off, MoE width, 2 layers, batch 2 x
    1024: the loss and every gradient leaf through K6/K7 against the
    plain ragged engine (``moe_gmm=False``), loss within 1e-5 relative,
    each leaf within 1e-3 of its max |g|, ``apply`` logits within 1e-3;
-18. resnet_eval — ResNet-50 (bf16, random weights and randomised BN from
+19. resnet_eval — ResNet-50 (bf16, random weights and randomised BN from
    a seed) at batch 256, 224 px in eval mode: every identity block's
    input through both ``resnet._block`` and K8
    (``fused_bottleneck_eval``), agreeing within 3e-2 of the block
@@ -159,23 +176,23 @@ if any phase fails:
    (exactly 12 launches, finite logits within 5e-2 of the unfused
    forward's, statistics untouched) and samples/s of the unfused and the
    K8 forward;
-19. resnet_train — ResNet-50 trained (bf16, ``init_state(extra=stats)``
+20. resnet_train — ResNet-50 trained (bf16, ``init_state(extra=stats)``
    → ``make_train_step(stateful_loss(resnet.loss_fn))`` → ``fit`` over
    one repeated 256 x 224 x 224 x 3 batch, 2 warm + 3 timed steps): step
    ms, samples/s, MFU by ``flops_per_sample``, peak memory; the loss
    falls and the running means move; then one step profiled
    (``resnet_train_profile``);
-20. bert_train — bert-base (bf16, ``remat=False``, per-layer weights) on
+21. bert_train — bert-base (bf16, ``remat=False``, per-layer weights) on
    one repeated 16 x 512 ``mlm_batch``, 2 warm + 3 timed steps: step ms,
    tokens/s, MFU; the loss falls and every step launches K3, K4 and K5
    12 times each; then one step profiled; and bert_conformance — fp32, 2
    layers, 2 x 512: loss and every gradient leaf through K3-K5 (no
    causal mask, head_dim 64) against ``attention="dense"``, 1e-5 / 1e-3
    of each leaf's max |g|;
-21. sweep — ``run_mnist_sweep`` of 8 trials in 2 shape buckets, 30
+22. sweep — ``run_mnist_sweep`` of 8 trials in 2 shape buckets, 30
    steps, equal within 1e-5 to 8 calls of ``run_mnist_trial``; wall
    seconds of both;
-22. the ``kernels`` line — every ported kernel with its launches on each
+23. the ``kernels`` line — every ported kernel with its launches on each
    path (counts zeroed just before a path, read just after), its max
    |Δ| and its times.
 
@@ -2903,6 +2920,374 @@ def phase_disagg_wire(params, kernel_fns):
 
 TRAIN_BATCH = (16, 1024)
 TRAIN_WARM, TRAIN_TIMED = 2, 5
+MESH_TP = 2
+MESH_BUDGET = 8          # blocks per shard in the capacity check
+
+
+def _locked_submit(eng, reqs):
+    """Submit ``reqs`` while holding the engine's lock, so that its
+    thread finds them queued together and admits them in order → the
+    handles. Engines given the same requests this way run one schedule
+    (admissions, block allocation, batches), so their pools compare
+    byte for byte."""
+    with eng._cond:
+        return [eng.submit(p, max_tokens=m) for p, m in reqs]
+
+
+def _mesh_run(eng, reqs, kernel_fns):
+    """Warm ``eng`` up, zero the launch counts, run ``reqs`` on one
+    locked schedule → (tokens per request, launches, stats before, stats
+    after, wall s)."""
+    eng.generate([1, 2, 3], max_tokens=2)
+    _zero(kernel_fns)
+    s0 = dict(eng.stats)
+    t0 = time.perf_counter()
+    outs = [h.result(timeout=600) for h in _locked_submit(eng, reqs)]
+    wall = time.perf_counter() - t0
+    _check_served(reqs, outs, eng.config.vocab_size)
+    return ([o for o, _ in outs], _launches(kernel_fns), s0,
+            dict(eng.stats), wall)
+
+
+def _same_pool(a, b):
+    """Two engines' pools (``engine._cache``, or a sharded engine's
+    ``joined_pool_copy()``) hold the same bytes."""
+    return len(a) == len(b) and all(_same_bits(x, y) for x, y in zip(a, b))
+
+
+def check_tp_identity(main):
+    """The tp 2 engine's 12 bf16 streams and pool equal the unsharded
+    engine's (with the split rule at the model's KV heads, as the engine
+    passes ``split_heads``), and with the shards' own split count the
+    pool is not: the check would see the engine drop ``split_heads``."""
+    if not (main["tp2_tokens_equal"] and main["tp2_pool_bytes_equal"]):
+        raise AssertionError(f"the tensor=2 mesh left the unsharded "
+                             f"engine: {main}")
+    if main["tp2_local_splits_pool_bytes_equal"]:
+        raise AssertionError("with the shards' own split count the tp 2 "
+                             "pool still equals the unsharded one: the "
+                             "identity check cannot see split_heads")
+
+
+def check_export_copy(peak_extra, pool_bytes):
+    """An export from a sharded pool copies only its own blocks: the
+    device memory it adds at its peak stays under half the pool's
+    bytes, where a copy of the whole pool would take all of them."""
+    if peak_extra >= pool_bytes / 2:
+        raise AssertionError(f"the export's peak allocation {peak_extra} "
+                             f"bytes reaches half the {pool_bytes}-byte "
+                             f"pool: it copied the pool")
+
+
+def check_tp_launches(sharded, unsharded, expected, tp):
+    """Each kernel of ``expected`` (name → the unsharded engine's count)
+    launched exactly that often unsharded and ``tp`` times that often on
+    the sharded engine: one launch a shard."""
+    bad = {n: (sharded[n], unsharded[n], want)
+           for n, want in expected.items()
+           if unsharded[n] != want or sharded[n] != tp * want}
+    if bad:
+        raise AssertionError(f"launches (sharded, unsharded, expected "
+                             f"unsharded) at tp {tp}: {bad}")
+
+
+def check_pool_doubling(peaks, per_chip, shard_bytes, budget, tp):
+    """The capacity claim at a fixed per-shard budget: both engines book
+    ``budget`` blocks a shard and one shard of the ``tp`` pool holds the
+    bytes of the whole unsharded pool, and the sharded engine reaches
+    ``tp`` times the unsharded peak occupancy."""
+    if per_chip != {1: budget, tp: budget}:
+        raise AssertionError(f"per-shard blocks {per_chip}, want {budget}")
+    if shard_bytes[1] != shard_bytes[tp]:
+        raise AssertionError(f"one shard's pool bytes {shard_bytes[tp]} "
+                             f"!= the unsharded pool's {shard_bytes[1]}")
+    if not peaks[1] or peaks[tp] != tp * peaks[1]:
+        raise AssertionError(f"peak occupancy {peaks}: the {tp}-shard "
+                             f"pool must admit {tp}x the sequences")
+
+
+class local_splits:
+    """While open, the pool reads' split rules (``decode_splits``,
+    ``chunk_splits``) are evaluated at a shard's own KV heads — the
+    count the engine passes as ``split_heads`` (the model's) over
+    ``tp`` — as the wrappers would without ``split_heads``. The kernels
+    and their launch counts are untouched."""
+
+    def __init__(self, tp):
+        self.tp = tp
+
+    def __enter__(self):
+        from kubeflow_tpu_torch.compute.ops import paged_attention as ops
+        self.ops = ops
+        self.saved = (ops.decode_splits, ops.chunk_splits)
+        decode, chunk = self.saved
+        ops.decode_splits = lambda slots, kv, *rest: decode(
+            slots, kv // self.tp, *rest)
+        ops.chunk_splits = lambda batch, seq, kv, *rest: chunk(
+            batch, seq, kv // self.tp, *rest)
+        return self
+
+    def __exit__(self, *exc):
+        self.ops.decode_splits, self.ops.chunk_splits = self.saved
+
+
+def _mesh_logits(params, cfg, reqs, mesh, **kw):
+    """A ``debug_logits`` engine's (tokens, per-step fp32 logits) for
+    ``reqs`` (on ``mesh``, or unsharded on the card)."""
+    from kubeflow_tpu_torch.compute import generate as gen_lib
+    eng = gen_lib.GenerationEngine(
+        params, cfg, max_slots=8, block_size=16, max_context=1024,
+        prefix_cache=False, debug_logits=True, mesh=mesh,
+        device=None if mesh is not None else "cuda",
+        name=f"mesh-logits-{cfg.dtype}", **kw)
+    try:
+        handles = [eng.submit(p, max_tokens=m) for p, m in reqs]
+        return [(h.result(timeout=600)[0], h.logits) for h in handles]
+    finally:
+        eng.close()
+
+
+def _vs_oracle(got, oracle, atol, rtol, what):
+    """Each request's logits against the oracle's up to the first step
+    where its tokens leave the oracle's → per request (first mismatch,
+    max |Δ|)."""
+    from kubeflow_tpu_torch.compute import conformance
+    out = []
+    for (toks, logits), (want, rows) in zip(got, oracle):
+        n = _first_mismatches([toks], [want])[0]
+        upto = len(want) if n is None else n + 1
+        div = conformance.assert_logits_close(
+            logits[:upto], rows[:upto], atol=atol, rtol=rtol, what=what)
+        out.append({"first_mismatch": n, "max_abs": div["atol"]})
+    return out
+
+
+def phase_mesh(params, kernel_fns):
+    """The engine's tensor mesh on one card: ``mesh_for_generation(
+    tensor=2, devices=[cuda:0, cuda:0])`` — two shards, each with 4 q and
+    1 KV head of the bf16 flagship and half of every pool block — against
+    the unsharded engine and a ``tensor=1`` mesh, with the engine
+    phase's 12 requests on one locked schedule. Checked: tp 1 tokens and
+    pool bytes equal the unsharded engine's; bf16 tp 2 tokens and pool
+    bytes equal them too, with the shards' split count at the model's
+    KV heads, and in a second run at their own the pool differs (so the
+    check sees ``split_heads``); in fp32 at full width tp 2 tokens equal
+    the unsharded engine's but at top-2 gaps below 1e-3, logits within
+    1e-3 of the cache-free oracle; bf16 tp 2 and a ``row_shard`` engine
+    within 0.2 / 0.1 of it; an export from tp 2 is the unsharded bundle
+    byte for byte and allocates less than half the pool's bytes; K3 24
+    a cold prefill, K2 24 a prefix hit, K1 24 a decode step, twice the
+    unsharded counts; at 8 blocks a shard the tp 2 pool admits twice
+    the sequences; a prefix + 256-token chunk schedule with the
+    unsharded engine's tokens. Printed: decode-step ms sharded and
+    unsharded, ``measure_collective_share()`` and
+    ``collective_bytes_per_step()``, labelled as two shards on one card,
+    which makes no speed claim."""
+    import torch
+    from kubeflow_tpu_torch.compute import device as device_lib
+    from kubeflow_tpu_torch.compute import generate as gen_lib
+    from kubeflow_tpu_torch.compute import mesh as mesh_lib
+    t_phase = time.perf_counter()
+    tp = MESH_TP
+    card = device_lib.resolve("cuda:0")
+    meshes = {1: mesh_lib.mesh_for_generation(tensor=1, devices=[card]),
+              tp: mesh_lib.mesh_for_generation(tensor=tp,
+                                               devices=[card] * tp)}
+    cfg = flagship_config()
+    kw = dict(max_slots=8, block_size=16, max_context=1024)
+    reqs = requests(12, cfg.vocab_size)
+    row = {"phase": "mesh", "tp": tp,
+           "devices": [str(d) for d in meshes[tp].devices],
+           "speed": "two shards on one card: no speed claim",
+           "card": device_lib.card_identity()}
+
+    def engine(mesh, name, **extra):
+        return gen_lib.GenerationEngine(
+            params, cfg, mesh=mesh, device=None if mesh else "cuda",
+            name=name, **kw, **extra)
+
+    flat = engine(None, "mesh-flat")
+    sharded = engine(meshes[tp], "mesh-tp2")
+    try:
+        # -- tp 1: the unsharded engine byte for byte
+        one = engine(meshes[1], "mesh-tp1")
+        try:
+            toks_flat, launch_flat, f0, f1, _ = _mesh_run(flat, reqs,
+                                                          kernel_fns)
+            toks_one = _mesh_run(one, reqs, kernel_fns)[0]
+            same_pool_one = _same_pool(one._cache, flat._cache)
+        finally:
+            one.close()
+        # -- tp 2: the main path's run
+        toks_tp, launches, s0, s1, wall = _mesh_run(sharded, reqs,
+                                                    kernel_fns)
+        same_pool_tp = _same_pool(sharded.joined_pool_copy(), flat._cache)
+        local = engine(meshes[tp], "mesh-local")
+        try:
+            with local_splits(tp):
+                toks_local = _mesh_run(local, reqs, kernel_fns)[0]
+            same_pool_local = _same_pool(local.joined_pool_copy(),
+                                         flat._cache)
+        finally:
+            local.close()
+        row["main"] = {
+            "requests": len(reqs),
+            "tokens": sum(len(t) for t in toks_tp),
+            "tp1_tokens_equal": toks_one == toks_flat,
+            "tp1_pool_bytes_equal": same_pool_one,
+            "tp2_tokens_equal": toks_tp == toks_flat,
+            "tp2_first_mismatch": _first_mismatches(toks_tp, toks_flat),
+            "tp2_pool_bytes_equal": same_pool_tp,
+            "tp2_local_splits_tokens_equal": toks_local == toks_flat,
+            "tp2_local_splits_pool_bytes_equal": same_pool_local,
+            "tp2_local_splits_first_mismatch": _first_mismatches(
+                toks_local, toks_flat),
+            "wall_s": wall,
+            "decode_step_ms": 1e3 * (s1["decode_seconds_total"]
+                                     - s0["decode_seconds_total"])
+            / (s1["decode_steps"] - s0["decode_steps"]),
+            "unsharded_decode_step_ms": 1e3 * (
+                f1["decode_seconds_total"] - f0["decode_seconds_total"])
+            / (f1["decode_steps"] - f0["decode_steps"]),
+            "launches": launches, "unsharded_launches": launch_flat}
+        if not (toks_one == toks_flat and same_pool_one):
+            raise AssertionError(f"the tensor=1 mesh is not the unsharded "
+                                 f"engine byte for byte: {row['main']}")
+        check_tp_identity(row["main"])
+        _require(launches, ("paged_decode", "flash_fwd"), "mesh")
+        # one schedule: every launch of the unsharded run, once a shard
+        check_tp_launches(launches, launch_flat, {
+            n: launch_flat[n]
+            for n in ("flash_fwd", "paged_decode", "paged_chunk")}, tp)
+        # -- an export from the sharded pool is the single-chip bundle
+        prompt = requests(5, cfg.vocab_size, seed=11)[4][0]   # 700 tokens
+        pool_bytes = sum(c.numel() * c.element_size()
+                         for sh in sharded._shards for c in sh.cache)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        a = sharded.prefill_export(prompt, max_tokens=8, timeout=600)
+        torch.cuda.synchronize()
+        peak_extra = torch.cuda.max_memory_allocated() - base
+        b = flat.prefill_export(prompt, max_tokens=8, timeout=600)
+        row["export"] = {
+            "blocks": a["meta"]["n_blocks"],
+            "page_bytes": a["meta"]["page_bytes"],
+            "peak_extra_bytes": peak_extra, "pool_bytes": pool_bytes,
+            "bytes_equal": a["meta"]["first_token"]
+            == b["meta"]["first_token"] and all(
+                _same_bits(x, y) for x, y in zip(a["pages"], b["pages"]))}
+        # -- launches: a cold prefill, a prefix hit + one decode step
+        rng = np.random.default_rng(12)
+        cold = rng.integers(0, cfg.vocab_size, 40).tolist()
+        hit = cold[:32] + rng.integers(0, cfg.vocab_size, 8).tolist()
+        counts = {}
+        for label, eng in (("tp", sharded), ("flat", flat)):
+            for name, (p, m) in (("cold", (cold, 1)), ("hit", (hit, 2))):
+                _zero(kernel_fns)
+                eng.generate(p, max_tokens=m)
+                counts[label, name] = _launches(kernel_fns)
+        L = cfg.n_layers
+        check_tp_launches(counts["tp", "cold"], counts["flat", "cold"],
+                          {"flash_fwd": L, "paged_decode": 0,
+                           "paged_chunk": 0}, tp)
+        check_tp_launches(counts["tp", "hit"], counts["flat", "hit"],
+                          {"flash_fwd": 0, "paged_chunk": L,
+                           "paged_decode": L}, tp)
+        row["launches_per_call"] = {
+            f"{label}_{name}": {k: v for k, v in c.items()
+                                if k in ("flash_fwd", "paged_chunk",
+                                         "paged_decode")}
+            for (label, name), c in counts.items()}
+        row["collective_share"] = sharded.measure_collective_share()
+        row["collective_bytes_per_step"] = \
+            sharded.collective_bytes_per_step()
+        row["mesh_view"] = sharded.mesh_view()
+    finally:
+        sharded.close()
+        flat.close()
+    # -- capacity at a fixed per-shard budget
+    peaks, per_chip, shard_bytes = {}, {}, {}
+    cap_reqs = [(np.random.default_rng(20 + i).integers(
+        0, cfg.vocab_size, 48).tolist(), 16) for i in range(8)]
+    for n, mesh in ((1, None), (tp, meshes[tp])):
+        eng = gen_lib.GenerationEngine(
+            params, cfg, mesh=mesh, device=None if mesh else "cuda",
+            num_blocks=MESH_BUDGET * n, prefix_cache=False,
+            name=f"mesh-cap{n}", **kw)
+        try:
+            eng.generate([1, 2, 3], max_tokens=2)
+            eng.stats["peak_occupancy"] = 0
+            for h in _locked_submit(eng, cap_reqs):
+                h.result(timeout=600)
+            peaks[n] = eng.stats["peak_occupancy"]
+            per_chip[n] = eng.per_chip_blocks
+            shard_bytes[n] = sum(c.numel() * c.element_size()
+                                 for c in eng._shards[0].cache)
+        finally:
+            eng.close()
+    row["capacity"] = {"budget_blocks_per_shard": MESH_BUDGET,
+                       "peak_occupancy": peaks, "shard_pool_bytes":
+                       shard_bytes[tp]}
+    check_pool_doubling(peaks, per_chip, shard_bytes, MESH_BUDGET, tp)
+    # -- prefix cache + chunked prefill on the mesh
+    leads, rest, cold_reqs = cohort_requests(cfg.vocab_size, budget=8)
+    batches = [[leads[0]], [rest[0], rest[1], (cold_reqs[0][0], 8)]]
+    got = {}
+    for n, mesh in ((1, None), (tp, meshes[tp])):
+        eng = gen_lib.GenerationEngine(
+            params, cfg, mesh=mesh, device=None if mesh else "cuda",
+            prefill_chunk=256, name=f"mesh-prefix{n}", **kw)
+        try:
+            eng.generate([1, 2, 3], max_tokens=2)
+            _zero(kernel_fns)
+            s0 = dict(eng.stats)
+            got[n] = _served(eng, batches)
+            st = {k: eng.stats[k] - s0[k]
+                  for k in ("prefix_hits", "prefills", "prefill_chunks")}
+            if n == tp:
+                prefix_launches = _launches(kernel_fns)
+        finally:
+            eng.close()
+    row["prefix"] = {**st, "tokens_equal": got[tp] == got[1],
+                     "first_mismatch": _first_mismatches(got[tp], got[1]),
+                     "launches": prefix_launches}
+    if st["prefix_hits"] < 2 or st["prefill_chunks"] <= st["prefills"]:
+        raise AssertionError(f"mesh prefix run: {st}")
+    _require(prefix_launches, ("paged_chunk", "paged_decode"), "mesh prefix")
+    # -- fp32 at full width, and the tolerance tier against the oracle
+    oracle_cfg = flagship_config("float32", "dense")
+    short = [(p, 16) for p, _ in requests(4, cfg.vocab_size)]
+    oracle = [gen_lib.reference_greedy_decode(params, oracle_cfg, p, m,
+                                              collect_logits=True)
+              for p, m in short]
+    cfg32 = flagship_config("float32")
+    tp32 = _mesh_logits(params, cfg32, short, meshes[tp])
+    flat32 = _mesh_logits(params, cfg32, short, None)
+    row["fp32"] = {
+        "vs_unsharded": _agreement([t for t, _ in tp32],
+                                   [t for t, _ in flat32],
+                                   [lg for _, lg in flat32]),
+        "vs_oracle": _vs_oracle(tp32, oracle, 1e-3, 1e-3,
+                                "fp32 tp 2 engine vs fp32 oracle")}
+    row["bf16_vs_oracle"] = _vs_oracle(
+        _mesh_logits(params, cfg, short, meshes[tp]), oracle, 0.2, 0.1,
+        "bf16 tp 2 engine vs fp32 oracle")
+    row["row_shard_bf16_vs_oracle"] = _vs_oracle(
+        _mesh_logits(params, cfg, short, meshes[tp], row_shard=True),
+        oracle, 0.2, 0.1, "bf16 row_shard tp 2 engine vs fp32 oracle")
+    row["seconds"] = time.perf_counter() - t_phase
+    emit(row)
+    if not row["export"]["bytes_equal"]:
+        raise AssertionError("the tp 2 export is not the unsharded bundle")
+    check_export_copy(row["export"]["peak_extra_bytes"],
+                      row["export"]["pool_bytes"])
+    if not row["prefix"]["tokens_equal"]:
+        raise AssertionError(f"the tp 2 prefix + chunked run left the "
+                             f"unsharded engine: {row['prefix']}")
+    return {**row, "launches": launches}
+
+
 def phase_train(kernel_fns):
     """The train path: the flagship at full width and depth, bf16,
     ``remat=False``, through ``init_state`` → ``make_train_step`` →
@@ -3735,6 +4120,7 @@ def main():
     paths["disagg"] = phase_disagg(params, kernel_fns)
     paths["disagg_i8"] = phase_disagg_i8(params, kernel_fns, paths["disagg"])
     paths["disagg_wire"] = phase_disagg_wire(params, kernel_fns)
+    paths["mesh"] = phase_mesh(params, kernel_fns)
     del params, target, draft
     torch.cuda.empty_cache()
     paths["train"] = phase_train(kernel_fns)

@@ -11,7 +11,12 @@ It prints ``PORT <n>`` once serving and blocks until SIGTERM/SIGINT,
 then stops the server. ``GEN_ROLE`` (``prefill`` | ``decode`` | ``both``)
 gives the engine its disaggregation role: a prefill replica answers
 ``:prefill`` with page bundles, a decode replica takes them on
-``:attach``.
+``:attach``. ``GEN_MESH`` (``tensor=N`` or a bare N; it wins over
+``GEN_TP``) or ``GEN_TP`` > 1 shards the engine over a tensor mesh: the
+first N cards, or N CPU shards under ``GEN_DEVICE=cpu``; a host with
+fewer cards exits non-zero naming the count. ``GEN_ROW_SHARD`` shards
+the row projections too (it needs the mesh), and ``GEN_CALIBRATE``
+measures the collective share before serving.
 
 Knobs the port does not serve yet refuse by name, with a non-zero exit
 (``SystemExit``) that names the work that brings them; see
@@ -44,14 +49,6 @@ def _tp():
 
 #: (knob, is it set to what the port refuses?, the work that brings it)
 REFUSED = (
-    ("GEN_MESH", lambda: bool(os.environ.get("GEN_MESH", "").strip())
-     and _tp() > 1, "tensor-sharded serving (the port's mesh slice)"),
-    ("GEN_TP", lambda: _tp() > 1,
-     "tensor-sharded serving (the port's mesh slice)"),
-    ("GEN_ROW_SHARD", lambda: _flag("GEN_ROW_SHARD"),
-     "row-sharded projections (the port's mesh slice)"),
-    ("GEN_CALIBRATE", lambda: _flag("GEN_CALIBRATE"),
-     "collective-share calibration (the port's mesh slice)"),
     ("SERVING_TRANSPORT", lambda: (os.environ.get("SERVING_TRANSPORT")
                                    or "").strip().lower() == "async",
      "the async transport (the port's async-transport slice)"),
@@ -102,6 +99,26 @@ def _block(*cleanup):
             logging.exception("shutdown cleanup failed")
 
 
+def _gen_mesh(dev):
+    """``GEN_MESH``/``GEN_TP`` → the engine's tensor mesh, or None at 1
+    (the unsharded engine, no mesh machinery; JAX
+    ``cmd/__init__.py:289-297``). ``dev`` is ``GEN_DEVICE`` resolved: on
+    the CPU the mesh is ``tp`` CPU shards; otherwise the first ``tp``
+    cards, and a host with fewer exits non-zero naming the count."""
+    tp = _tp()
+    if tp <= 1:
+        return None
+    from ..compute import mesh as mesh_lib
+    if dev is not None and dev.type == "cpu":
+        return mesh_lib.mesh_for_generation(tensor=tp, devices=[dev] * tp)
+    import torch
+    cards = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    if tp > cards:
+        raise SystemExit(f"GEN_TP={tp} (GEN_MESH/GEN_TP) needs {tp} CUDA "
+                         f"cards, this host has {cards}")
+    return mesh_lib.mesh_for_generation(tensor=tp)
+
+
 def _gen_qos_ledger():
     """The replica's token ledger from ``QOS_TENANTS`` — None when
     unset, so the engine skips every ledger branch."""
@@ -122,7 +139,9 @@ def build_engine(name="default"):
     from ..compute.models import transformer
 
     role = _gen_role()
-    dev = device_lib.resolve(os.environ.get("GEN_DEVICE") or None)
+    gen_device = os.environ.get("GEN_DEVICE") or None
+    mesh = _gen_mesh(torch.device(gen_device) if gen_device else None)
+    dev = device_lib.resolve(gen_device)
     cfg = transformer.Config(
         vocab_size=int(os.environ.get("GEN_VOCAB", "512")),
         d_model=int(os.environ.get("GEN_D_MODEL", "128")),
@@ -151,7 +170,7 @@ def build_engine(name="default"):
         params, draft_params, draft_cfg = gen_lib.truncated_draft(
             params, cfg, draft_layers,
             dampen=float(dampen) if dampen else None)
-    return gen_lib.GenerationEngine(
+    engine = gen_lib.GenerationEngine(
         params, cfg, draft_params=draft_params, draft_config=draft_cfg,
         spec_k=spec_k,
         max_slots=int(os.environ.get("GEN_SLOTS", "4")),
@@ -172,7 +191,17 @@ def build_engine(name="default"):
         not in _FALSE,
         # GEN_ROLE: prefill | decode | both; a role-split fleet's router
         # sends :prefill to prefill replicas and :attach to decode ones
-        role=role, name=name, device=dev)
+        role=role, name=name,
+        # GEN_MESH/GEN_TP: the mesh names the devices; GEN_ROW_SHARD
+        # (the tolerance-tier layout) needs it, and the engine refuses
+        # it without one, as JAX's does
+        mesh=mesh, row_shard=_flag("GEN_ROW_SHARD"),
+        device=None if mesh is not None else dev)
+    if _flag("GEN_CALIBRATE"):
+        # one decode-step calibration before traffic arrives:
+        # serving_generate_shard_collective_share
+        engine.measure_collective_share()
+    return engine
 
 
 def model_server(argv=()):

@@ -3,9 +3,9 @@ TransformerLM with a paged KV pool, prefix-cache reuse, chunked prefill,
 speculative decoding and token-level continuous batching.
 
 Port of ``kubeflow_tpu/compute/generate.py`` (the engine at :595) on a
-float or int8 pool, with QoS admission, preemptible decoding and KV-page
-migration between prefill and decode replicas, without a mesh — that
-comes with a later slice. Its wire surface (deadlines, drain, ``close``,
+float or int8 pool, with QoS admission, preemptible decoding, KV-page
+migration between prefill and decode replicas and tensor-sharded
+serving over a mesh. Its wire surface (deadlines, drain, ``close``,
 the header and done-frame views, the ``serving_generate_*``,
 ``serving_kv_*`` and ``serving_qos_*`` families) is the JAX engine's:
 ``compute/serving.py`` streams it over HTTP.
@@ -66,10 +66,31 @@ the header and done-frame views, the ``serving_generate_*``,
   continuation is the colocated engine's. ``role`` (``prefill`` |
   ``decode`` | ``both``) steers the router; every role stays
   capability-complete, and only a ``prefill`` engine refuses an import.
+- **Tensor-sharded serving** (``mesh=``, ``generate.py:82-111``): the
+  engine holds one parameter shard and one pool shard per position on
+  the mesh's ``tensor`` axis (``compute/mesh.py``), each on that
+  position's device. wq/wk/wv and w_gate/w_up are column-sharded, so
+  every layer runs its column projections and its attention read PER
+  SHARD, over the shard's ``kv_heads / tp`` heads of every block (a
+  head-partitioned pool: N shards hold N× the blocks at one shard's
+  budget). By default wo, w_down, the embedding and the LM head stay
+  replicated, and ``_gathered`` moves the shards' raw activations to
+  every device and joins them in shard order — a concatenation, no
+  arithmetic, so the tokens are the unsharded engine's.
+  ``row_shard=True`` shards wo/w_down rows and the embedding/head over
+  vocab instead, and ``_psummed`` adds the partial products in shard
+  order (the tolerance tier). Where JAX runs one ``shard_map`` program
+  per step from one controller, this engine is that controller: it
+  drives each shard on its device in turn, and does replicated work
+  once per distinct device. All host state (trie, refcounts, tables,
+  admission, preemption, migration) is the unsharded engine's; a
+  1-shard mesh is the unsharded engine byte for byte. A mesh may name
+  one device more than once (``["cpu"] * 4``, two shards on one card).
 
 Where JAX donates the cache to its jitted programs
 (``generate.py:828-838``), this engine updates the pool tensors in
-place: a step writes its K/V rows straight into ``self._cache``. A
+place: a step writes its K/V rows straight into its shard's pool
+(``_shards[i].cache``; ``self._cache`` at one shard). A
 page a slot shares through the trie is never written again: every
 write goes to a fresh page (an unindexed partial tail or a page past
 the prompt), and after an exception mid-step ``_fail_everything``
@@ -95,8 +116,10 @@ from ..obs import metrics as obs_metrics
 from ..qos import buckets as qos_lib
 from . import attention as attn_lib
 from . import device as device_lib
+from . import mesh as mesh_lib
 from . import quantize as quantize_lib
 from . import serving as serving_lib
+from . import sharding
 from .models import transformer
 from .ops import flash_attention as flash_ops
 from .ops import paged_attention as paged_ops
@@ -105,8 +128,7 @@ log = logging.getLogger("kubeflow_tpu_torch.generate")
 
 # the serving_generate_* families under the JAX package's names,
 # labels, buckets and help text (one dashboard, one metrics hub for
-# both); the shard families are registered and stay at their one-chip
-# values until the mesh slice
+# both)
 _TOKENS_TOTAL = obs_metrics.REGISTRY.counter(
     "serving_generate_tokens_total",
     "Generated tokens emitted (prefill first-tokens + decode steps) — "
@@ -342,14 +364,22 @@ DeadlineExceededError = serving_lib.DeadlineExceededError
 ROLES = ("prefill", "decode", "both")
 
 
+class MeshShapeError(ValueError):
+    """The generation mesh cannot shard this model (``generate.py:400``):
+    the tensor axis must divide ``n_heads`` AND ``kv_heads`` (heads are
+    partitioned whole), every non-tensor mesh axis must be size 1, and
+    ``row_shard`` needs it to divide ``vocab_size``. Raised at
+    construction, as one named error."""
+
+
 class KVImportError(ValueError):
     """A KV-page bundle the importing engine cannot admit
     (``generate.py:410``). ``reason`` is the rejection class
     (``block_size`` | ``geometry`` | ``dtype`` | ``vocab`` | ``capacity``
-    | ``role`` | ``mesh``; ``mesh`` cannot fire while the port serves on
-    one chip), booked on ``serving_kv_import_rejections_total`` before
-    raising; the transport answers 400 (a ValueError), and the router
-    falls back to colocated serving."""
+    | ``role`` | ``mesh``), booked on
+    ``serving_kv_import_rejections_total`` before raising; the transport
+    answers 400 (a ValueError), and the router falls back to colocated
+    serving."""
 
     def __init__(self, reason, message):
         super().__init__(message)
@@ -491,6 +521,43 @@ class _PrefixNode:
         self.last_used = time.monotonic()
 
 
+class _Shard:
+    """One position on the mesh's ``tensor`` axis (the whole model when
+    there is no mesh): its device, its params (its column pieces, and
+    the replicated leaves it shares with every shard on its device), the
+    per-layer views of them, the fp32 LM head where this shard computes
+    logits (None elsewhere), and its slice of the pool."""
+
+    __slots__ = ("device", "params", "layers", "head", "cache")
+
+    def __init__(self, device, params, layers, head):
+        self.device = device
+        self.params = params
+        self.layers = layers
+        self.head = head
+        self.cache = None
+
+
+class _MeshLayer:
+    """One layer's hooks for ``transformer.layer_core``'s sharded form
+    (``generate.py:3230``): each shard's layer params, the norms once
+    per device (the replicated scales of that device's first shard),
+    and the row projections through the engine's ``_row_proj``."""
+
+    def __init__(self, engine, layer):
+        self.engine, self.layer = engine, layer
+        self.layers = [sh.layers[layer] for sh in engine._shards]
+
+    def norm(self, xs, name):
+        e = self.engine
+        hs = {d: transformer._rmsnorm(x, e._lead[d].layers[self.layer][name])
+              for d, x in xs.items()}
+        return [hs[sh.device] for sh in e._shards]
+
+    def project(self, xs, pieces, name):
+        return self.engine._row_proj(xs, pieces, self.layer, name)
+
+
 class GenerationEngine:
     """Autoregressive decode server for one TransformerLM.
 
@@ -543,6 +610,12 @@ class GenerationEngine:
       ``"gather"`` materializes the ``[S, T]`` context and runs
       ``attention.decode_attention`` / ``chunk_attention``, the
       conformance reads,
+    - ``mesh``: a ``mesh.mesh_for_generation(tensor=N)`` mesh shards
+      the engine over its ``tensor`` axis (see the module docstring);
+      the mesh names the devices, so ``device`` stays None,
+    - ``row_shard``: with a mesh, shard wo/w_down rows and the
+      embedding/LM head over vocab, summing partial products (the
+      tolerance tier) instead of gathering raw activations,
     - ``device``: None → the card (raises without CUDA); ``"cpu"`` runs
       the plain versions of the kernels.
     """
@@ -554,7 +627,8 @@ class GenerationEngine:
                  draft_params=None, draft_config=None, spec_k=0,
                  debug_logits=False, attn_backend="paged",
                  prefill_chunk=None, kv_dtype=None, qos=None,
-                 preemption=True, role="both", device=None):
+                 preemption=True, role="both", mesh=None, row_shard=False,
+                 device=None):
         if config.moe_experts:
             raise ValueError(
                 "GenerationEngine supports dense TransformerLM configs "
@@ -596,7 +670,46 @@ class GenerationEngine:
             raise ValueError(
                 "the draft must be a dense TransformerLM (no MoE, no "
                 "pipeline parallelism)")
-        self.device = device_lib.resolve(device)
+        self.mesh = mesh
+        self.tp = 1
+        if mesh is not None:
+            sizes = dict(mesh.shape)
+            self.tp = int(sizes.get(mesh_lib.TENSOR, 1))
+            nontrivial = {a: s for a, s in sizes.items()
+                          if s != 1 and a != mesh_lib.TENSOR}
+            if nontrivial:
+                raise MeshShapeError(
+                    f"generation mesh may only shard the "
+                    f"'{mesh_lib.TENSOR}' axis; got non-trivial axes "
+                    f"{nontrivial} (use mesh_for_generation(tensor=N))")
+            if config.n_heads % self.tp or config.kv_heads % self.tp:
+                raise MeshShapeError(
+                    f"mesh tensor axis {self.tp} must divide n_heads="
+                    f"{config.n_heads} and kv_heads={config.kv_heads}:"
+                    f" attention heads are partitioned whole per chip "
+                    f"(pick a tensor size that divides both, or adjust"
+                    f" the model's head counts)")
+            if device is not None:
+                raise ValueError(
+                    "mesh= names the engine's devices; leave device= "
+                    "unset")
+        # row-sharded projections (generate.py:730-750): opt-in, the
+        # tolerance tier; the default sharded engine gathers raw
+        # activations and keeps the tokens exact
+        self.row_shard = bool(row_shard)
+        if self.row_shard:
+            if mesh is None:
+                raise ValueError(
+                    "row_shard=True needs a mesh (it shards wo/w_down/"
+                    "embed/head over the tensor axis)")
+            if config.vocab_size % self.tp:
+                raise MeshShapeError(
+                    f"row_shard needs the mesh tensor axis {self.tp} "
+                    f"to divide vocab_size={config.vocab_size}: the "
+                    f"embedding table and LM head partition over vocab "
+                    f"rows/columns whole")
+        self.device = (mesh.devices[0] if mesh is not None
+                       else device_lib.resolve(device))
         self.config = config
         self.name = name
         self.version = version
@@ -606,11 +719,10 @@ class GenerationEngine:
         # False is strict FIFO, never suspending (generate.py:769-777)
         self._qos = qos
         self.preemption = bool(preemption)
-        # one chip (the mesh slice's view to come); the disaggregation
-        # role steers the router (prefill replicas get :prefill, decode
-        # replicas :attach); every role serves :generate too, since the
-        # router falls back to colocated serving (generate.py:752-764)
-        self.tp = 1
+        # the disaggregation role steers the router (prefill replicas get
+        # :prefill, decode replicas :attach); every role serves :generate
+        # too, since the router falls back to colocated serving
+        # (generate.py:752-764)
         self.role = role
         self.attn_backend = attn_backend
         self.eos_id = eos_id
@@ -628,7 +740,13 @@ class GenerationEngine:
         if self.num_blocks < 1:
             raise ValueError(
                 f"num_blocks must be >= 1, got {self.num_blocks}")
-        self.per_chip_blocks = self.num_blocks
+        # each shard stores kv_heads/tp heads of every block: one shard's
+        # share costs the memory of num_blocks/tp single-chip blocks
+        # (generate.py:807-814)
+        self.per_chip_blocks = (
+            self.num_blocks // self.tp
+            if self.num_blocks % self.tp == 0
+            else round(self.num_blocks / self.tp, 2))
         self.prefix_cache = bool(prefix_cache)
         self.debug_logits = bool(debug_logits)
         if self.debug_logits and (self.prefix_cache or self._spec_on
@@ -637,11 +755,26 @@ class GenerationEngine:
                 "debug_logits is the plain-path tolerance-conformance "
                 "probe (compute/conformance.py): it requires "
                 "prefix_cache=False, no draft model and monolithic "
-                "prefill")
-        self.params, self._head, self._layers = self._load(params, config)
-        self._cache = self._make_cache()
+                "prefill (a mesh IS allowed — it is how the sharded "
+                "paths are graded under the tolerance tier)")
+        self._shards = self._load_shards(params)
+        # the distinct devices in shard order, and the first shard on
+        # each: replicated work runs once per device, on that shard's
+        # copies of the replicated leaves
+        self._devices = list(dict.fromkeys(sh.device for sh in self._shards))
+        self._lead = {}
+        for sh in self._shards:
+            self._lead.setdefault(sh.device, sh)
+        self.params = self._shards[0].params
+        self._mesh_layers = [_MeshLayer(self, i)
+                             for i in range(self.config.n_layers)]
+        self._make_cache()
+        self._elide_collectives = False     # measure_collective_share
         self.draft_config = draft_config if self._spec_on else None
         if self._spec_on:
+            # the draft runs once, on the first shard's device: the
+            # proposals go to the host, so copies on every device would
+            # compute the same tokens again
             (self.draft_params, self._draft_head,
              self._draft_layers) = self._load(draft_params, draft_config)
             # the draft's dense per-slot cache spans the same per-slot
@@ -703,6 +836,7 @@ class GenerationEngine:
                       "decode_seconds_total": 0.0, "attn_bytes_read": 0,
                       "prefix_hits": 0, "prefix_misses": 0,
                       "prefix_tokens_skipped": 0, "prefix_reclaims": 0,
+                      "collective_share": 0.0,
                       "spec_rounds": 0, "spec_proposed": 0,
                       "spec_accepted": 0, "preemptions": 0, "resumes": 0,
                       "resume_prefill_tokens": 0, "qos_deferrals": 0,
@@ -712,41 +846,111 @@ class GenerationEngine:
                                        name=f"generate-{name}")
         self.thread.start()
 
-    def _load(self, params, config):
-        """Model params → (compute-dtype params on the device, the fp32
-        LM head, per-layer views). The head is widened to fp32 once:
-        exact, so logits are the fp32 sums of compute-dtype products
-        (JAX's ``preferred_element_type``); a no-op view for an fp32
-        model."""
+    @staticmethod
+    def _stacked(params):
+        """A per-layer-list ``layers`` stacked, as JAX stacks it
+        (``generate.py:801-806``)."""
         layers = params["layers"]
         if isinstance(layers, (list, tuple)):
             params = {**params, "layers": {
                 k: torch.stack([lp[k] for lp in layers])
                 for k in layers[0]}}
-        p = transformer.cast_params(params, config.compute_dtype,
-                                    self.device)
+        return params
+
+    def _load(self, params, config):
+        """Model params → (compute-dtype params on the engine's device,
+        the fp32 LM head, per-layer views). The head is widened to fp32
+        once: exact, so logits are the fp32 sums of compute-dtype
+        products (JAX's ``preferred_element_type``); a no-op view for an
+        fp32 model."""
+        p = transformer.cast_params(self._stacked(params),
+                                    config.compute_dtype, self.device)
         return (p, p["head"].float(),
                 [transformer.layer_params(p, i)
                  for i in range(config.n_layers)])
 
+    def _param_axes(self):
+        """Logical axes of the engine's stacked param layout
+        (``generate.py:964``): the platform rules shard the attention
+        heads and the MLP hidden dim over ``tensor``; by default wo,
+        w_down, the embedding and the LM head are replicated (``None``),
+        so the only cross-shard traffic is ``_gathered``'s raw
+        activations. ``row_shard`` keeps the rules as they are: wo rows
+        over heads, w_down rows over mlp, embed/head over vocab."""
+        cfg = dataclasses.replace(self.config, scan_layers=True)
+        axes = transformer.logical_axes(cfg)
+        if not self.row_shard:
+            axes["embed"] = axes["head"] = None
+            axes["layers"] = dict(axes["layers"], wo=None, w_down=None)
+        return axes
+
+    def _load_shards(self, params):
+        """The target's params → one :class:`_Shard` per mesh position
+        (``_shard_params``, ``generate.py:1043``), or one holding the
+        whole model without a mesh. The fp32 head is made where logits
+        are computed: on the first shard, or on every shard's vocab
+        slice under ``row_shard``."""
+        if self.mesh is None:
+            p, head, layers = self._load(params, self.config)
+            return [_Shard(self.device, p, layers, head)]
+        p = transformer.cast_params(self._stacked(params),
+                                    self.config.compute_dtype)
+        trees = sharding.shard_tree(p, self.mesh, self._param_axes())
+        return [_Shard(dev, t,
+                       [transformer.layer_params(t, i)
+                        for i in range(self.config.n_layers)],
+                       t["head"].float() if self.row_shard or i == 0
+                       else None)
+                for i, (dev, t) in enumerate(zip(self.mesh.devices, trees))]
+
     def _make_cache(self):
-        """A zeroed ``(k, v)`` pool, each ``[layers, num_blocks,
-        block_size, kv_heads, head_dim]`` in the compute dtype; int8:
-        ``(k, v, k_scale, v_scale)`` with int8 zeros and fp32 ones
-        ``[..., kv_heads, 1]`` (``generate.py:1008-1012``)."""
+        """Each shard's zeroed pool slice (``_make_cache``,
+        ``generate.py:997``): ``(k, v)``, each ``[layers, num_blocks,
+        block_size, kv_heads / tp, head_dim]`` in the compute dtype;
+        int8: ``(k, v, k_scale, v_scale)`` with int8 zeros and fp32 ones
+        ``[..., kv_heads / tp, 1]`` (``generate.py:1008-1012``). The pool
+        is head-partitioned (``_cache_specs``, :989): shard i holds heads
+        ``[i kv/tp, (i+1) kv/tp)`` of every block, scales included."""
         c = self.config
         shape = (c.n_layers, self.num_blocks, self.block_size,
-                 c.kv_heads, c.head_dim)
-        dev = self.device
-        if self.kv_dtype == "int8":
-            return (torch.zeros(shape, dtype=torch.int8, device=dev),
+                 c.kv_heads // self.tp, c.head_dim)
+        for sh in self._shards:
+            dev = sh.device
+            if self.kv_dtype == "int8":
+                sh.cache = (
+                    torch.zeros(shape, dtype=torch.int8, device=dev),
                     torch.zeros(shape, dtype=torch.int8, device=dev),
                     torch.ones(shape[:-1] + (1,), dtype=torch.float32,
                                device=dev),
                     torch.ones(shape[:-1] + (1,), dtype=torch.float32,
                                device=dev))
-        return tuple(torch.zeros(shape, dtype=c.compute_dtype, device=dev)
-                     for _ in range(2))
+            else:
+                sh.cache = tuple(
+                    torch.zeros(shape, dtype=c.compute_dtype, device=dev)
+                    for _ in range(2))
+
+    @property
+    def _cache(self):
+        """The pool at one shard: the tuple the steps write. Under a
+        mesh each shard holds its own (``_shards[i].cache``) and there is
+        no single pool: this raises, so no engine path can copy the
+        whole pool by reading it."""
+        if self.tp > 1:
+            raise RuntimeError(
+                f"a {self.tp}-shard engine has one pool per shard "
+                f"(_shards[i].cache); joined_pool_copy() copies them")
+        return self._shards[0].cache
+
+    def joined_pool_copy(self):
+        """A host copy of the whole pool in the single-chip layout
+        ``[layers, num_blocks, block_size, kv_heads, head_dim]``, the
+        shards' heads joined in order — what JAX's ``np.asarray`` of its
+        sharded pool gives. It moves every block of every shard, so the
+        engine never calls it: it is for comparing two engines' pools
+        (an export copies only its own blocks)."""
+        return tuple(torch.cat([sh.cache[i].cpu() for sh in self._shards],
+                               dim=3)
+                     for i in range(len(self._shards[0].cache)))
 
     def _make_draft_cache(self):
         """The draft's dense per-slot cache ``(k, v)``, each ``[layers,
@@ -917,7 +1121,7 @@ class GenerationEngine:
             reject("role",
                    f"engine {self.name!r} has role='prefill': it "
                    f"exports bundles, it does not import them")
-        if self.tp > 1:
+        if self.mesh is not None:
             reject("mesh",
                    "page import into a tensor-sharded pool is not "
                    "supported (the bundle is a single-chip layout); "
@@ -934,7 +1138,8 @@ class GenerationEngine:
                    f"kv_heads={meta.get('kv_heads')}, head_dim="
                    f"{meta.get('head_dim')}) does not match the pool "
                    f"({c.n_layers}, {c.kv_heads}, {c.head_dim})")
-        want = tuple(serving_lib.dtype_name(x) for x in self._cache)
+        pool = self._shards[0].cache        # one shard: no mesh here
+        want = tuple(serving_lib.dtype_name(x) for x in pool)
         got = tuple(serving_lib.dtype_name(p) for p in pages)
         if got != want:
             reject("dtype",
@@ -957,7 +1162,7 @@ class GenerationEngine:
                    f"bundle ships {n_import} blocks for a "
                    f"{len(prompt)}-token prompt at block_size "
                    f"{self.block_size}")
-        for p, comp in zip(pages, self._cache):
+        for p, comp in zip(pages, pool):
             if tuple(p.shape) != (comp.shape[0], n_import) \
                     + tuple(comp.shape[2:]):
                 reject("geometry",
@@ -1022,16 +1227,86 @@ class GenerationEngine:
         with self._cond:
             return sum(1 for s in self._slots if s is not None)
 
+    def measure_collective_share(self, iters=5):
+        """Calibrate ``serving_generate_shard_collective_share``
+        (``generate.py:1137``): time the real decode step against its
+        twin with every gather/psum replaced by a local tile of the same
+        shape (``_elide_collectives``), over an idle batch that writes
+        and reads nothing, the minimum of ``iters`` each (a host hiccup
+        only ever inflates a sample). Call while the engine is idle: it
+        runs on the caller's thread. → the share (0.0 unsharded)."""
+        if self.mesh is None:
+            _SHARD_COLLECTIVE_SHARE.labels(self.name).set(0.0)
+            return 0.0
+        S, bps = self.max_slots, self.blocks_per_slot
+        idle = (np.zeros((S, bps), np.int32), np.zeros((S,), np.int32),
+                np.zeros((S,), np.int64), np.zeros((3, 0), np.int64))
+
+        def sync():
+            for d in self._devices:
+                if d.type == "cuda":
+                    torch.cuda.synchronize(d)
+
+        def timed():
+            with torch.no_grad():
+                self._decode_step(*idle)
+                sync()
+                best = float("inf")
+                for _ in range(iters):
+                    t0 = time.perf_counter()
+                    self._decode_step(*idle)
+                    sync()
+                    best = min(best, time.perf_counter() - t0)
+            return best
+
+        self._elide_collectives = True
+        try:
+            t_local = timed()
+        finally:
+            self._elide_collectives = False
+        t_sharded = timed()
+        share = max(0.0, 1.0 - t_local / t_sharded) if t_sharded else 0.0
+        self.stats["collective_share"] = round(share, 4)
+        _SHARD_COLLECTIVE_SHARE.labels(self.name).set(share)
+        return share
+
+    def collective_bytes_per_step(self):
+        """Analytic ring-model cross-shard traffic of ONE decode step,
+        per shard (``generate.py:1195``): an all-gather of N bytes
+        delivers ``(tp-1)/tp × N`` to each shard, a psum ``2(tp-1)/tp ×
+        N``. ``per_layer`` is the default layout's two raw-activation
+        gathers (d_model + ff_dim wide) or the row layout's two
+        d_model-wide psums; ``per_step`` the row layout's embed psum and
+        fp32 vocab gather; ``total`` = ``n_layers × per_layer +
+        per_step``. Zeros unsharded."""
+        if self.mesh is None or self.tp == 1:
+            return {"per_layer": 0, "per_step": 0, "total": 0}
+        c = self.config
+        rows = self.max_slots          # decode: one token per slot
+        act = torch.empty((), dtype=c.compute_dtype).element_size()
+        ring = (self.tp - 1) / self.tp
+        if self.row_shard:
+            per_layer = 2 * (2 * ring * rows * c.d_model * act)
+            per_step = (2 * ring * rows * c.d_model * act
+                        + ring * rows * c.vocab_size * 4)
+        else:
+            per_layer = ring * rows * (c.d_model + c.ff_dim) * act
+            per_step = 0
+        return {"per_layer": round(per_layer),
+                "per_step": round(per_step),
+                "total": round(c.n_layers * per_layer + per_step)}
+
     def mesh_view(self):
         """The sharding summary of the done frame and the snapshot
-        (``generate.py:1228``): one chip, the whole pool on it, until
-        the port serves over a tensor mesh."""
+        (``generate.py:1228``): the mesh size and the per-shard block
+        count. Every shard holds a slice of EVERY block, so one shard's
+        exhaustion is the pool's."""
         return {"tensor": self.tp, "devices": self.tp,
                 "cache_blocks": self.num_blocks,
                 "per_chip_blocks": self.per_chip_blocks}
 
     def mesh_header(self):
-        """``X-Generate-Mesh`` wire value."""
+        """``X-Generate-Mesh`` wire value, mirrored by the router."""
         return (f"tensor={self.tp};"
                 f"per_chip_blocks={self.per_chip_blocks}")
 
@@ -1876,10 +2151,18 @@ class GenerationEngine:
         read is length-masked."""
         c = self.config
         n_keep = -(-len(prompt) // self.block_size)
-        idx = torch.tensor(blocks[:n_keep], dtype=torch.long,
-                           device=self.device)
-        pages = tuple(comp.index_select(1, idx).cpu()
-                      for comp in self._cache)
+        # a sharded pool ships as the single-chip layout: the shards'
+        # heads joined in order (JAX's np.asarray, generate.py:2370-2372)
+        pages = []
+        for i in range(len(self._shards[0].cache)):
+            parts = []
+            for sh in self._shards:
+                idx = torch.tensor(blocks[:n_keep], dtype=torch.long,
+                                   device=sh.device)
+                parts.append(sh.cache[i].index_select(1, idx).cpu())
+            pages.append(parts[0] if len(parts) == 1
+                         else torch.cat(parts, dim=3))
+        pages = tuple(pages)
         # k + v pages apart from the int8 scales, for the wire-byte
         # accounting (int8 halves the page bytes; the scales ride on top)
         nbytes = [p.numel() * p.element_size() for p in pages]
@@ -1890,7 +2173,7 @@ class GenerationEngine:
             "eos_id": handle.eos_id,
             "block_size": self.block_size, "n_blocks": n_keep,
             "kv_dtype": self.kv_dtype
-                or serving_lib.dtype_name(self._cache[0]),
+                or serving_lib.dtype_name(self._shards[0].cache[0]),
             "n_layers": c.n_layers, "kv_heads": c.kv_heads,
             "head_dim": c.head_dim,
             "prefix_tokens_skipped": int(offset),
@@ -1935,7 +2218,8 @@ class GenerationEngine:
         self._book_admission(handle, slot_idx, imported=True)
         try:
             idx = torch.tensor(blocks, dtype=torch.long, device=self.device)
-            for pool, page in zip(self._cache, pages):
+            # import_bundle refuses every mesh: the pool is one shard's
+            for pool, page in zip(self._shards[0].cache, pages):
                 pool.index_copy_(1, idx, page.to(self.device))
             if self._spec_on:
                 # the draft has no pages to import (a dense per-slot
@@ -2405,24 +2689,105 @@ class GenerationEngine:
 
     # --------------------------------------------------- device steps
 
-    def _layer_core(self, x, lp, attend):
-        """The transformer layer with attention abstracted — the model's
-        own ``transformer.layer_core``, so the cached paths stay
-        op-identical to ``transformer.apply``."""
-        return transformer.layer_core(x, lp, attend, self.config)[:2]
+    def _on_devices(self, fn):
+        """``fn(device)`` once per distinct device of the shards →
+        ``{device: result}``: a step's host inputs and replicated
+        activations live once on every device."""
+        return {d: fn(d) for d in self._devices}
 
-    def _head_logits(self, x):
-        """Final-norm hidden → fp32 logits (``transformer._logits``)."""
-        x = transformer._rmsnorm(x, self.params["final_norm"])
-        return transformer._logits(x, self._head)
+    def _put(self, a):
+        """A host numpy array → ``{device: tensor}``."""
+        t = torch.from_numpy(a)
+        return self._on_devices(lambda d: t.to(d))
 
-    def _write_pages(self, layer, block_ids, k, v):
-        """Prefill cache fill, in place: ``k``/``v`` ``[P, kv, D]`` padded
-        with zeros to whole blocks and copied into this layer's pool
-        pages ``block_ids``, quantized when the pool is int8
-        (``generate.py:3315-3323``: the zero-padded pages go through
-        ``kv_quantize``). The padded tail's K/V is masked by length at
-        every later read."""
+    def _gathered(self, pieces, dev):
+        """All-gather the shards' head/hidden slices along the last dim
+        onto ``dev`` (``generate.py:1071``): each shard's activation goes
+        to ``dev`` and the pieces join in shard order — a concatenation,
+        no arithmetic, so the row projections that follow compute on the
+        unsharded engine's values. One piece is returned as it is (the
+        1-shard mesh is the unsharded engine). ``torch.cat`` copies, so
+        no later in-place pool write reaches the result; a copy between
+        cards runs ordered after both devices' current streams. Under
+        ``_elide_collectives`` (the calibration twin) ``dev``'s own piece
+        is tiled to the same shape instead."""
+        if len(pieces) == 1:
+            return pieces[0].to(dev)
+        if self._elide_collectives:
+            local = pieces[self._shards.index(self._lead[dev])]
+            return torch.cat([local] * len(pieces), dim=-1)
+        return torch.cat([p.to(dev) for p in pieces], dim=-1)
+
+    def _psummed(self, partials, dev):
+        """Sum the shards' partial products onto ``dev`` in shard order
+        (``generate.py:1102``), the ``row_shard`` twin of
+        ``_gathered``: each partial rounded before the sum, so this path
+        is graded on the tolerance tier. ``dev``'s own partial alone
+        under ``_elide_collectives``."""
+        if self._elide_collectives:
+            return partials[self._shards.index(self._lead[dev])]
+        out = partials[0].to(dev)
+        for p in partials[1:]:
+            out = out + p.to(dev)
+        return out
+
+    def _embed(self, toks):
+        """Token ids ``{device: ids}`` → the residual stream ``{device:
+        x}`` (``generate.py:1116``). Under ``row_shard`` each shard owns
+        a slice of the vocab rows: it looks up the ids it owns, zero
+        elsewhere, and the partials are psummed — one non-zero
+        contributor per row, so the sum is exact."""
+        if not self.row_shard:
+            return {d: self._lead[d].params["embed"][t]
+                    for d, t in toks.items()}
+        vs = self.config.vocab_size // self.tp
+        parts = []
+        for i, sh in enumerate(self._shards):
+            idx = toks[sh.device] - i * vs
+            ok = (idx >= 0) & (idx < vs)
+            rows = sh.params["embed"][idx.clamp(0, vs - 1)]
+            parts.append(rows.masked_fill(~ok[..., None], 0))
+        return self._on_devices(lambda d: self._psummed(parts, d))
+
+    def _row_proj(self, xs, pieces, layer, name):
+        """``x + pieces @ W`` for the row projection ``name`` (``wo`` or
+        ``w_down``): by default the pieces gathered to full width on
+        every device and multiplied by the replicated weight; under
+        ``row_shard`` each shard's piece times its own rows of W, the
+        partial products psummed."""
+        if self.row_shard:
+            partials = [torch.matmul(p, sh.layers[layer][name])
+                        for p, sh in zip(pieces, self._shards)]
+            return {d: x + self._psummed(partials, d)
+                    for d, x in xs.items()}
+        return {d: x + torch.matmul(self._gathered(pieces, d),
+                                    self._lead[d].layers[layer][name])
+                for d, x in xs.items()}
+
+    def _head_logits(self, xs):
+        """Final-norm hidden ``{device: x}`` → fp32 logits on the first
+        device (``generate.py:3280``, ``transformer._logits``). The head
+        is replicated by default, so the logits are computed once; under
+        ``row_shard`` each shard computes its vocab slice and the slices
+        are gathered (a concatenation of single-chip products)."""
+        if self.row_shard:
+            normed = {d: transformer._rmsnorm(
+                x, self._lead[d].params["final_norm"])
+                for d, x in xs.items()}
+            return self._gathered(
+                [transformer._logits(normed[sh.device], sh.head)
+                 for sh in self._shards], self.device)
+        sh = self._shards[0]
+        x = transformer._rmsnorm(xs[sh.device], sh.params["final_norm"])
+        return transformer._logits(x, sh.head)
+
+    def _write_pages(self, layer, block_ids, k, v, shard=0):
+        """Prefill cache fill, in place: ``k``/``v`` ``[P, kv, D]`` (the
+        shard's local heads) padded with zeros to whole blocks and
+        copied into this layer's pages ``block_ids`` of ``shard``'s
+        pool, quantized when the pool is int8 (``generate.py:3304-3323``:
+        the zero-padded pages go through ``kv_quantize``). The padded
+        tail's K/V is masked by length at every later read."""
         n = block_ids.shape[0]
         rows = n * self.block_size
         pages = []
@@ -2431,7 +2796,8 @@ class GenerationEngine:
                                dtype=t.dtype, device=t.device)
             page[:t.shape[0]] = t
             pages.append(page.view(n, self.block_size, *t.shape[1:]))
-        for pool, page in zip(self._cache, self._pool_rows(*pages)):
+        for pool, page in zip(self._shards[shard].cache,
+                              self._pool_rows(*pages)):
             pool[layer].index_copy_(0, block_ids, page)
 
     def _pool_rows(self, k, v):
@@ -2444,32 +2810,34 @@ class GenerationEngine:
         codes, scales = quantize_lib.kv_quantize(torch.stack((k, v)))
         return codes[0], codes[1], scales[0], scales[1]
 
-    def _layer_pages(self, layer):
-        """One layer's slice of every pool component (``(k, v)`` or the
-        int8 quadruple), the pool reads' ``pages``."""
-        return tuple(pool[layer] for pool in self._cache)
+    def _layer_pages(self, layer, shard=0):
+        """One layer's slice of every component of ``shard``'s pool
+        (``(k, v)`` or the int8 quadruple), the pool reads' ``pages``."""
+        return tuple(pool[layer] for pool in self._shards[shard].cache)
 
     def _prefill_step(self, tokens, true_len, block_ids):
         """tokens [padded] → (first token, its fp32 logits or None).
         The padded tail sits causally after every real row, so the real
         rows — and the K/V written for them — are the bare prompt's."""
         c = self.config
-        dev = self.device
-        toks = torch.from_numpy(tokens).to(dev)
-        ids = torch.tensor(block_ids, dtype=torch.long, device=dev)
-        x = self.params["embed"][toks][None]
-        cos, sin = transformer.rope_tables(
-            c, torch.arange(toks.shape[0], device=dev))
-        for layer, lp in enumerate(self._layers):
-            def attend(q, k, v):
-                q = transformer.apply_rope(q, cos, sin)
-                k = transformer.apply_rope(k, cos, sin)
+        ids = self._on_devices(lambda d: torch.tensor(
+            block_ids, dtype=torch.long, device=d))
+        rope = self._on_devices(lambda d: transformer.rope_tables(
+            c, torch.arange(tokens.shape[0], device=d)))
+        xs = self._embed({d: t[None] for d, t in self._put(tokens).items()})
+        for layer in range(c.n_layers):
+            def attend(i, q, k, v):
+                dev = self._shards[i].device
+                q = transformer.apply_rope(q, *rope[dev])
+                k = transformer.apply_rope(k, *rope[dev])
                 o, _ = flash_ops.flash_attention(q, k, v, causal=True)
-                self._write_pages(layer, ids, k[0], v[0])
-                return o, None
+                self._write_pages(layer, ids[dev], k[0], v[0], i)
+                return o
 
-            x, _ = self._layer_core(x, lp, attend)
-        logits = self._head_logits(x[:, true_len - 1])[0]
+            xs, _, _ = transformer.layer_core(xs, None, attend, c,
+                                              self._mesh_layers[layer])
+        logits = self._head_logits(
+            {d: x[:, true_len - 1] for d, x in xs.items()})[0]
         first = int(torch.argmax(logits))
         dbg = logits.cpu().numpy() if self.debug_logits else None
         return first, dbg
@@ -2484,27 +2852,29 @@ class GenerationEngine:
         the token from the last real row are the cold prefill's.
         → the first generated token."""
         c = self.config
-        dev = self.device
         n_rep = c.n_heads // c.kv_heads
-        toks = torch.from_numpy(tokens).to(dev)
-        ids = torch.tensor(block_ids, dtype=torch.long, device=dev)
+        ids = self._on_devices(lambda d: torch.tensor(
+            block_ids, dtype=torch.long, device=d))
         tables = np.zeros((1, self.blocks_per_slot), np.int32)
         tables[0, :len(prefix_blocks)] = prefix_blocks
-        tables = torch.from_numpy(tables).to(dev)
-        x = self.params["embed"][toks][None]
-        cos, sin = transformer.rope_tables(
-            c, offset + torch.arange(toks.shape[0], device=dev))
-        for layer, lp in enumerate(self._layers):
-            def attend(q, k, v):
-                q = transformer.apply_rope(q, cos, sin)
-                k = transformer.apply_rope(k, cos, sin)
-                o = self._attn_chunk_read(q, self._layer_pages(layer),
-                                          tables, offset, k, v, n_rep)
-                self._write_pages(layer, ids, k[0], v[0])
-                return o, None
+        tables = self._put(tables)
+        rope = self._on_devices(lambda d: transformer.rope_tables(
+            c, offset + torch.arange(tokens.shape[0], device=d)))
+        xs = self._embed({d: t[None] for d, t in self._put(tokens).items()})
+        for layer in range(c.n_layers):
+            def attend(i, q, k, v):
+                dev = self._shards[i].device
+                q = transformer.apply_rope(q, *rope[dev])
+                k = transformer.apply_rope(k, *rope[dev])
+                o = self._attn_chunk_read(q, self._layer_pages(layer, i),
+                                          tables[dev], offset, k, v, n_rep)
+                self._write_pages(layer, ids[dev], k[0], v[0], i)
+                return o
 
-            x, _ = self._layer_core(x, lp, attend)
-        logits = self._head_logits(x[:, true_len - 1])[0]
+            xs, _, _ = transformer.layer_core(xs, None, attend, c,
+                                              self._mesh_layers[layer])
+        logits = self._head_logits(
+            {d: x[:, true_len - 1] for d, x in xs.items()})[0]
         return int(torch.argmax(logits))
 
     @staticmethod
@@ -2527,14 +2897,16 @@ class GenerationEngine:
 
         return rope_rows
 
-    def _write_kv(self, layer, phys, off, k, v):
-        """Decode and verify write, in place: K/V rows ``[n, kv, D]``
-        into their pages at ``(phys, off)``, quantized when the pool is
-        int8 (``generate.py:3517-3524``). The callers pass only the rows
-        to write — JAX drops its inactive and clamped rows'
-        out-of-bounds sentinel writes (``mode="drop"``), which torch
-        indexing would not."""
-        for pool, t in zip(self._cache, self._pool_rows(k, v)):
+    def _write_kv(self, layer, phys, off, k, v, shard=0):
+        """Decode and verify write, in place: K/V rows ``[n, kv, D]`` (the
+        shard's local heads) into their pages of ``shard``'s pool at
+        ``(phys, off)``, quantized when the pool is int8
+        (``generate.py:3517-3524``). The callers pass only the rows to
+        write — JAX drops its inactive and clamped rows' out-of-bounds
+        sentinel writes (``mode="drop"``), which torch indexing would
+        not."""
+        for pool, t in zip(self._shards[shard].cache,
+                           self._pool_rows(k, v)):
             pool[layer].index_put_((phys, off), t)
 
     def _gather_kv(self, pages, tables):
@@ -2558,9 +2930,12 @@ class GenerationEngine:
             return attn_lib.decode_attention(
                 q, attn_lib.repeat_kv(k_all, n_rep),
                 attn_lib.repeat_kv(v_all, n_rep), lengths)
+        # the split rule at the model's whole KV-head count: a shard's
+        # key walk splits, and its partials merge, as the unsharded
+        # engine's do
         return paged_ops.paged_decode_attention(
             q, pages, tables, lengths, block_size=self.block_size,
-            n_rep=n_rep)
+            n_rep=n_rep, split_heads=self.config.kv_heads)
 
     def _attn_chunk_read(self, q, pages, tables, prefix_len, k, v, n_rep):
         """Backend dispatch for the multi-token chunk-after-prefix reads
@@ -2576,7 +2951,8 @@ class GenerationEngine:
                 prefix_len)
         return paged_ops.paged_chunk_attention(
             q, pages, tables, prefix_len, k, v,
-            block_size=self.block_size, n_rep=n_rep)
+            block_size=self.block_size, n_rep=n_rep,
+            split_heads=self.config.kv_heads)
 
     def _decode_step(self, tables, lengths, tokens, writes):
         """One token for every slot → (next tokens [S] numpy, fp32
@@ -2585,27 +2961,34 @@ class GenerationEngine:
         Inactive rows read nothing (length 0) and their outputs are
         discarded."""
         c = self.config
-        dev = self.device
         n_rep = c.n_heads // c.kv_heads
-        tables_t = torch.from_numpy(tables).to(dev)
-        lengths_t = torch.from_numpy(lengths).to(dev)
-        writes_t = torch.from_numpy(writes).to(dev)
-        rows, phys, off = writes_t[0], writes_t[1], writes_t[2]
-        read_lengths = torch.zeros_like(lengths_t)
-        read_lengths[rows] = lengths_t[rows] + 1
-        x = self.params["embed"][torch.from_numpy(tokens).to(dev)][:, None]
-        rope_rows = self._rope_rows_fn(
-            *transformer.rope_tables(c, lengths_t), c.compute_dtype)
-        for layer, lp in enumerate(self._layers):
-            def attend(q, k, v):
-                q, k = rope_rows(q), rope_rows(k)
-                self._write_kv(layer, phys, off, k[rows, 0], v[rows, 0])
-                o = self._attn_decode_read(q, self._layer_pages(layer),
-                                           tables_t, read_lengths, n_rep)
-                return o, None
+        tables_t = self._put(tables)
 
-            x, _ = self._layer_core(x, lp, attend)
-        logits = self._head_logits(x[:, 0])
+        def inputs(dev):
+            lengths_t = torch.from_numpy(lengths).to(dev)
+            rows, phys, off = torch.from_numpy(writes).to(dev)
+            read_lengths = torch.zeros_like(lengths_t)
+            read_lengths[rows] = lengths_t[rows] + 1
+            rope_rows = self._rope_rows_fn(
+                *transformer.rope_tables(c, lengths_t), c.compute_dtype)
+            return rows, phys, off, read_lengths, rope_rows
+
+        ins = self._on_devices(inputs)
+        xs = self._embed({d: t[:, None]
+                          for d, t in self._put(tokens).items()})
+        for layer in range(c.n_layers):
+            def attend(i, q, k, v):
+                dev = self._shards[i].device
+                rows, phys, off, read_lengths, rope_rows = ins[dev]
+                q, k = rope_rows(q), rope_rows(k)
+                self._write_kv(layer, phys, off, k[rows, 0], v[rows, 0], i)
+                return self._attn_decode_read(
+                    q, self._layer_pages(layer, i), tables_t[dev],
+                    read_lengths, n_rep)
+
+            xs, _, _ = transformer.layer_core(xs, None, attend, c,
+                                              self._mesh_layers[layer])
+        logits = self._head_logits({d: x[:, 0] for d, x in xs.items()})
         nxt = torch.argmax(logits, dim=-1).cpu().numpy()
         dbg = logits.cpu().numpy() if self.debug_logits else None
         return nxt, dbg
@@ -2696,21 +3079,28 @@ class GenerationEngine:
         chunk read with the per-slot prefix depth ``lengths`` (K2).
         → the target's argmax per position ``[S, k+1]`` numpy."""
         c = self.config
-        dev = self.device
         n_rep = c.n_heads // c.kv_heads
-        tables_t = torch.from_numpy(tables).to(dev)
-        lengths_t = torch.from_numpy(lengths).to(dev)
-        rows, cols, phys, off = torch.from_numpy(writes).to(dev)
+        tables_t = self._put(tables)
         K1 = tokens.shape[1]
-        x = self.params["embed"][torch.from_numpy(tokens).to(dev)]
-        positions = lengths_t[:, None].long() + torch.arange(K1, device=dev)
-        rope_rows = self._rope_rows_fn(
-            *transformer.rope_tables(c, positions), c.compute_dtype)
-        for layer, lp in enumerate(self._layers):
-            def attend(q, k, v):
+
+        def inputs(dev):
+            lengths_t = torch.from_numpy(lengths).to(dev)
+            positions = (lengths_t[:, None].long()
+                         + torch.arange(K1, device=dev))
+            rope_rows = self._rope_rows_fn(
+                *transformer.rope_tables(c, positions), c.compute_dtype)
+            return (lengths_t, torch.from_numpy(writes).to(dev),
+                    rope_rows)
+
+        ins = self._on_devices(inputs)
+        xs = self._embed(self._put(tokens))
+        for layer in range(c.n_layers):
+            def attend(i, q, k, v):
+                dev = self._shards[i].device
+                lengths_t, (rows, cols, phys, off), rope_rows = ins[dev]
                 q, k = rope_rows(q), rope_rows(k)
                 self._write_kv(layer, phys, off, k[rows, cols],
-                               v[rows, cols])
+                               v[rows, cols], i)
                 if self.kv_dtype == "int8":
                     # plain decode reads every position, its own token
                     # included, back through the int8 pool: the verify
@@ -2720,12 +3110,13 @@ class GenerationEngine:
                     k, v = quantize_lib.kv_dequantize(
                         *quantize_lib.kv_quantize(torch.stack((k, v))),
                         c.compute_dtype)
-                o = self._attn_chunk_read(q, self._layer_pages(layer),
-                                          tables_t, lengths_t, k, v, n_rep)
-                return o, None
+                return self._attn_chunk_read(
+                    q, self._layer_pages(layer, i), tables_t[dev],
+                    lengths_t, k, v, n_rep)
 
-            x, _ = self._layer_core(x, lp, attend)
-        logits = self._head_logits(x)
+            xs, _, _ = transformer.layer_core(xs, None, attend, c,
+                                              self._mesh_layers[layer])
+        logits = self._head_logits(xs)
         return torch.argmax(logits, dim=-1).cpu().numpy()
 
 

@@ -2,8 +2,9 @@
 plain PyTorch functions over a parameter dict.
 
 Port of ``kubeflow_tpu/compute/models/transformer.py`` (``Config``
-:32-121, ``init_params`` :178, the forward :215-586, ``loss_fn`` :589,
-``flops_per_token`` :624, ``param_count`` :638): dense layers and the
+:32-121, ``logical_axes`` :162, ``init_params`` :178, the forward
+:215-586, ``loss_fn`` :589, ``flops_per_token`` :624, ``param_count``
+:638): dense layers and the
 mixture-of-experts MLP (capacity dispatch ``_switch_moe`` and dropless
 ``_dropless_moe``, the latter on the grouped-matmul kernels K6/K7 of
 ``ops/grouped_matmul.py``). The parameter layout is the JAX one — a dict
@@ -140,6 +141,54 @@ def _layer_shapes(c):
     else:
         shapes.update({"w_gate": (d, f), "w_up": (d, f), "w_down": (f, d)})
     return shapes
+
+
+#: each layer leaf's logical axes (JAX ``_layer_shapes``' second
+#: element), which ``sharding.spec_for`` maps to mesh axes
+_LAYER_AXES = {
+    "attn_norm": (None,),
+    "wq": ("embed", "heads", None),
+    "wk": ("embed", "heads", None),
+    "wv": ("embed", "heads", None),
+    "wo": ("heads", None, "embed"),
+    "mlp_norm": (None,),
+    "router": ("embed", None),
+    "we_gate": ("expert", "embed", "mlp"),
+    "we_up": ("expert", "embed", "mlp"),
+    "we_down": ("expert", "mlp", "embed"),
+    "w_gate": ("embed", "mlp"),
+    "w_up": ("embed", "mlp"),
+    "w_down": ("mlp", "embed"),
+}
+
+
+def _shapes(c):
+    """Every leaf → ``(shape, logical axes)`` (JAX ``_shapes``, :152)."""
+    return {
+        "embed": ((c.vocab_size, c.d_model), ("vocab", "embed")),
+        "final_norm": ((c.d_model,), (None,)),
+        "head": ((c.d_model, c.vocab_size), ("embed", "vocab")),
+        "layers": {k: (s, _LAYER_AXES[k])
+                   for k, s in _layer_shapes(c).items()},
+    }
+
+
+def logical_axes(config):
+    """The params tree's logical axes (JAX ``logical_axes``, :162): the
+    stacked layout's leaves lead with ``"layers"``; with
+    ``scan_layers=False`` the layers are a per-layer list. (Pipeline
+    stages are refused by :class:`Config`, so the lead is never
+    ``"stage"``.)"""
+    tree = {}
+    for name, v in _shapes(config).items():
+        if name == "layers":
+            prefix = ("layers",) if config.scan_layers else ()
+            tree["layers"] = {k: prefix + ax for k, (_, ax) in v.items()}
+            if not config.scan_layers:
+                tree["layers"] = [tree["layers"]] * config.n_layers
+        else:
+            tree[name] = v[1]
+    return tree
 
 
 def init_params(config, generator=None, *, device=None):
@@ -364,6 +413,14 @@ def _dropless_moe(h, lp, config):
 
 # ---------------------------------------------------------------- layers
 
+def _swiglu(h, lp):
+    """The dense MLP's gated hidden ``silu(h @ w_gate) * (h @ w_up)``
+    (over whatever columns of the two weights ``lp`` holds)."""
+    gate = torch.matmul(h, lp["w_gate"])
+    up = torch.matmul(h, lp["w_up"])
+    return F.silu(gate) * up
+
+
 def _mlp(h, lp, config):
     """The layer's MLP → ``(down [B, S, D], aux)``: MoE (dropless or
     capacity) with its aux loss, or the dense SwiGLU with aux None."""
@@ -371,27 +428,63 @@ def _mlp(h, lp, config):
         return _dropless_moe(h, lp, config)
     if config.moe_experts:
         return _switch_moe(h, lp, config)
-    gate = torch.matmul(h, lp["w_gate"])
-    up = torch.matmul(h, lp["w_up"])
-    return torch.matmul(F.silu(gate) * up, lp["w_down"]), None
+    return torch.matmul(_swiglu(h, lp), lp["w_down"]), None
 
 
-def layer_core(x, lp, attend, config):
+class _Whole:
+    """The unsharded layer as the one shard of itself: the hooks of
+    :func:`layer_core`'s sharded form over one parameter dict."""
+
+    def __init__(self, lp):
+        self.lp = lp
+        self.layers = [lp]
+
+    def norm(self, x, name):
+        return [_rmsnorm(x, self.lp[name])]
+
+    def project(self, x, pieces, name):
+        return x + torch.matmul(pieces[0], self.lp[name])
+
+
+def layer_core(x, lp, attend, config, shards=None):
     """The transformer layer with attention abstracted — ``attend(q, k,
     v) → (o, extra)`` gets the projected (pre-RoPE) heads → ``(x, extra,
     aux)``, aux the MoE load-balancing loss (None for a dense MLP).
-    Shared by :func:`apply` and the generation engine's prefill and
-    decode, so the cached paths cannot drift from the model."""
-    B, S, d = x.shape
+    Shared by :func:`apply` and the generation engine's prefill, decode,
+    verify and draft, sharded or not, so the cached and sharded paths
+    cannot drift from the model.
+
+    The sharded form (the engine's tensor mesh; a dense MLP): ``shards``
+    holds ``layers``, each shard's layer params with its column slices
+    of wq/wk/wv and w_gate/w_up; ``norm(x, name)``, each shard's normed
+    input; and ``project(x, pieces, name)``, the residual plus the
+    shards' head or hidden slices brought back to full width through
+    ``wo``/``w_down``. ``x`` is whatever those hooks take, ``lp`` is
+    unused, and ``attend(i, q, k, v) → o`` runs per shard over its local
+    heads. The unsharded layer is the one-shard case."""
+    whole = shards is None
+    if whole:
+        shards = _Whole(lp)
     hd = config.head_dim
-    h = _rmsnorm(x, lp["attn_norm"])
-    q = torch.matmul(h, lp["wq"]).view(B, S, config.n_heads, hd)
-    k = torch.matmul(h, lp["wk"]).view(B, S, config.kv_heads, hd)
-    v = torch.matmul(h, lp["wv"]).view(B, S, config.kv_heads, hd)
-    o, extra = attend(q, k, v)
-    x = x + torch.matmul(o.reshape(B, S, -1), lp["wo"])
-    down, aux = _mlp(_rmsnorm(x, lp["mlp_norm"]), lp, config)
-    return x + down, extra, aux
+    outs, extra = [], None
+    for i, (sp, h) in enumerate(zip(shards.layers,
+                                    shards.norm(x, "attn_norm"))):
+        B, S, _ = h.shape
+        q = torch.matmul(h, sp["wq"]).view(B, S, -1, hd)
+        k = torch.matmul(h, sp["wk"]).view(B, S, -1, hd)
+        v = torch.matmul(h, sp["wv"]).view(B, S, -1, hd)
+        if whole:
+            o, extra = attend(q, k, v)
+        else:
+            o = attend(i, q, k, v)
+        outs.append(o.reshape(B, S, -1))
+    x = shards.project(x, outs, "wo")
+    hs = shards.norm(x, "mlp_norm")
+    if whole:
+        down, aux = _mlp(hs[0], lp, config)
+        return x + down, extra, aux
+    acts = [_swiglu(h, sp) for sp, h in zip(shards.layers, hs)]
+    return shards.project(x, acts, "w_down"), None, None
 
 
 def _layer(lp, x, rope, config):

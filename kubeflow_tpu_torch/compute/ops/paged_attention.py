@@ -155,14 +155,18 @@ def _check_pool(q, pages, block_size, n_rep):
 
 
 def paged_decode_attention(q, pages, tables, lengths, *, block_size,
-                           n_rep=1, scale=None):
+                           n_rep=1, scale=None, split_heads=None):
     """Decode read over the paged pool; shapes as
     :func:`paged_decode_reference`. Launches on the caller's current
     CUDA stream and does not synchronise. The table entries a slot's
     length reaches (the first ``ceil(length / block_size)``) must be
     block ids below ``N``: checking them on the host would cost a
     device sync per call, and the engine builds its tables from its own
-    allocator."""
+    allocator. ``split_heads`` is the KV-head count the split rule
+    (:func:`decode_splits`) is evaluated at, default the pool's own: a
+    head-partitioned shard of the engine passes the model's whole count,
+    so each head's walk splits — and its partials merge — as in the
+    unsharded engine, and its output is that engine's bit for bit."""
     if q.device.type == "cpu":
         return paged_decode_reference(q, pages, tables, lengths,
                                       block_size=block_size, n_rep=n_rep,
@@ -187,7 +191,8 @@ def paged_decode_attention(q, pages, tables, lengths, *, block_size,
     out = torch.empty_like(qs)
     bs, bps = pages[0].shape[1], tables.shape[1]
     # the split key walk; the splits' fp32 partials need no zeroing
-    splits = decode_splits(S, kv_heads, bs, bps, _sm_count(q.device.index))
+    splits = decode_splits(S, split_heads or kv_heads, bs, bps,
+                           _sm_count(q.device.index))
     ws = None if splits == 1 else torch.empty(
         splits * S * H * (D + 2), dtype=torch.float32, device=q.device)
     name = "paged_decode_i8" if len(pages) == 4 else "paged_decode"
@@ -262,13 +267,16 @@ def paged_chunk_reference(q, pages, tables, prefix_len, k_chunk, v_chunk,
 
 
 def paged_chunk_attention(q, pages, tables, prefix_len, k_chunk, v_chunk,
-                          *, block_size, n_rep=1, scale=None):
+                          *, block_size, n_rep=1, scale=None,
+                          split_heads=None):
     """Chunk-after-prefix read over the paged pool; shapes as
     :func:`paged_chunk_reference`. A scalar ``prefix_len`` is broadcast
     to ``[B]`` (``paged_attention.py:288``). Launches on the caller's
     current CUDA stream and does not synchronise; as for the decode
     read, the first ``ceil(prefix_len[b] / block_size)`` table entries
-    of every row must be block ids below ``N``."""
+    of every row must be block ids below ``N``. ``split_heads``: as for
+    :func:`paged_decode_attention`, the KV-head count
+    :func:`chunk_splits` is evaluated at."""
     if q.device.type == "cpu":
         return paged_chunk_reference(q, pages, tables, prefix_len, k_chunk,
                                      v_chunk, block_size=block_size,
@@ -304,7 +312,8 @@ def paged_chunk_attention(q, pages, tables, prefix_len, k_chunk, v_chunk,
     bs, bps = pages[0].shape[1], tables.shape[1]
     # bf16 splits the key walk; the splits' fp32 partials need no zeroing
     splits = 1 if q.dtype == torch.float32 else chunk_splits(
-        B, S, kv_heads, n_rep, bs, bps, _sm_count(q.device.index))
+        B, S, split_heads or kv_heads, n_rep, bs, bps,
+        _sm_count(q.device.index))
     ws = None if splits == 1 else torch.empty(
         splits * B * S * H * (D + 2), dtype=torch.float32, device=q.device)
     name = "paged_chunk_i8" if len(pages) == 4 else "paged_chunk"

@@ -266,3 +266,116 @@ def test_check_hop_takes_a_whole_two_hop_answer():
 def test_check_hop_refuses_a_broken_hop(hop, max_tokens):
     with pytest.raises(AssertionError):
         chip_smoke.check_hop(hop, max_tokens, vocab=16)
+
+
+def test_check_tp_launches_takes_one_launch_a_shard():
+    flat = {"flash_fwd": 12, "paged_chunk": 0, "paged_decode": 0}
+    chip_smoke.check_tp_launches({"flash_fwd": 24, "paged_chunk": 0,
+                                  "paged_decode": 0}, flat,
+                                 {"flash_fwd": 12, "paged_chunk": 0}, 2)
+
+
+@pytest.mark.parametrize("sharded,flat", [
+    ({"flash_fwd": 12}, {"flash_fwd": 12}),      # one launch for 2 shards
+    ({"flash_fwd": 36}, {"flash_fwd": 12}),
+    ({"flash_fwd": 22}, {"flash_fwd": 11}),      # not the expected count
+])
+def test_check_tp_launches_refuses_other_counts(sharded, flat):
+    with pytest.raises(AssertionError, match="launches"):
+        chip_smoke.check_tp_launches(sharded, flat, {"flash_fwd": 12}, 2)
+
+
+def test_check_pool_doubling_holds_the_capacity_claim():
+    chip_smoke.check_pool_doubling({1: 2, 2: 4}, {1: 8, 2: 8},
+                                   {1: 4096, 2: 4096}, 8, 2)
+
+
+@pytest.mark.parametrize("peaks,per_chip,shard_bytes", [
+    ({1: 2, 2: 3}, {1: 8, 2: 8}, {1: 4096, 2: 4096}),
+    ({1: 0, 2: 0}, {1: 8, 2: 8}, {1: 4096, 2: 4096}),
+    ({1: 2, 2: 4}, {1: 8, 2: 16}, {1: 4096, 2: 4096}),
+    ({1: 2, 2: 4}, {1: 8, 2: 8}, {1: 4096, 2: 8192}),
+])
+def test_check_pool_doubling_refuses(peaks, per_chip, shard_bytes):
+    with pytest.raises(AssertionError):
+        chip_smoke.check_pool_doubling(peaks, per_chip, shard_bytes, 8, 2)
+
+
+_TP_MAIN = {"tp2_tokens_equal": True, "tp2_pool_bytes_equal": True,
+            "tp2_local_splits_pool_bytes_equal": False}
+
+
+def test_check_tp_identity_takes_equal_streams_and_a_split_sensitive_pool():
+    chip_smoke.check_tp_identity(dict(_TP_MAIN))
+
+
+@pytest.mark.parametrize("key", sorted(_TP_MAIN))
+def test_check_tp_identity_refuses(key):
+    with pytest.raises(AssertionError):
+        chip_smoke.check_tp_identity({**_TP_MAIN, key: not _TP_MAIN[key]})
+
+
+@pytest.mark.parametrize("peak,ok", [(0, True), (4095, True),
+                                     (4096, False), (9000, False)])
+def test_check_export_copy_refuses_a_copy_of_the_pool(peak, ok):
+    if ok:
+        chip_smoke.check_export_copy(peak, 8192)
+    else:
+        with pytest.raises(AssertionError, match="copied the pool"):
+            chip_smoke.check_export_copy(peak, 8192)
+
+
+def test_local_splits_takes_a_shards_own_heads_and_restores_the_rules():
+    from kubeflow_tpu_torch.compute.ops import paged_attention as ops
+    saved = (ops.decode_splits, ops.chunk_splits)
+    with chip_smoke.local_splits(2):
+        # the engine passes the model's 2 KV heads; a shard holds 1
+        assert ops.decode_splits(8, 2, 16, 64, 132) \
+            == saved[0](8, 1, 16, 64, 132) == 32
+        assert ops.chunk_splits(1, 256, 2, 4, 16, 64, 132) \
+            == saved[1](1, 256, 1, 4, 16, 64, 132)
+    assert (ops.decode_splits, ops.chunk_splits) == saved
+    assert ops.decode_splits(8, 2, 16, 64, 132) == 17
+
+
+def test_locked_submit_gives_engines_one_schedule():
+    """Two engines fed the same requests under their locks admit them as
+    one queue: the same tokens and the same pool bytes."""
+    import torch
+    from kubeflow_tpu_torch.compute import generate as gen_lib
+    from kubeflow_tpu_torch.compute.models import transformer
+    cfg = transformer.Config(vocab_size=64, d_model=32, n_layers=2,
+                             n_heads=4, max_seq=64, dtype="float32",
+                             attention="dense", remat=False)
+    params = transformer.init_params(cfg, torch.Generator().manual_seed(0),
+                                     device="cpu")
+    reqs = [([1, 2, 3], 5), ([4] * 9, 3), ([7, 8], 6)]
+    engines = [gen_lib.GenerationEngine(params, cfg, max_slots=2,
+                                        block_size=8, device="cpu",
+                                        name=f"locked{i}")
+               for i in range(2)]
+    try:
+        outs = [[h.result(timeout=60)[0]
+                 for h in chip_smoke._locked_submit(e, reqs)]
+                for e in engines]
+        assert outs[0] == outs[1]
+        assert [len(o) for o in outs[0]] == [5, 3, 6]
+        assert chip_smoke._same_pool(engines[0]._cache, engines[1]._cache)
+    finally:
+        for e in engines:
+            e.close()
+
+
+def test_vs_oracle_grades_up_to_the_first_mismatch():
+    import numpy as np
+    rows = [np.array([0.0, 1.0]), np.array([1.0, 0.0]),
+            np.array([0.0, 1.0])]
+    oracle = [([1, 0, 1], rows)]
+    close = [r + 0.05 for r in rows]
+    assert chip_smoke._vs_oracle([([1, 0, 1], close)], oracle, 0.2, 0.1,
+                                 "x")[0]["first_mismatch"] is None
+    far = [rows[0], rows[1] + 0.05, rows[2] + 5.0]     # past the mismatch
+    got = chip_smoke._vs_oracle([([1, 1, 0], far)], oracle, 0.2, 0.1, "x")
+    assert got[0]["first_mismatch"] == 1
+    with pytest.raises(AssertionError):
+        chip_smoke._vs_oracle([([1, 0, 1], far)], oracle, 0.2, 0.1, "x")

@@ -5,11 +5,14 @@ the weights the entry builds (its ``SEED``), names each tenant's
 ledger class in ``X-QoS-Class`` and books its tokens under
 ``serving_qos_tokens_total``, and SIGTERM ends it with 0. In process:
 every knob the port does not serve yet refuses by name,
-``QOS_TENANTS``, ``GEN_PREEMPTION`` and ``GEN_ROLE`` reach the engine as
-in the JAX entry, and without ``GEN_DEVICE`` a CUDA-less host gets
-``device.resolve``'s error. A second subprocess with ``GEN_ROLE=decode``
-takes the first one's ``:prefill`` bundle on ``:attach`` and streams the
-oracle's continuation."""
+``QOS_TENANTS``, ``GEN_PREEMPTION``, ``GEN_ROLE`` and the mesh knobs
+(``GEN_MESH``, ``GEN_TP``, ``GEN_ROW_SHARD``, ``GEN_CALIBRATE``) reach the
+engine as in the JAX entry, and without ``GEN_DEVICE`` a CUDA-less host
+gets ``device.resolve``'s error, or, asked for a mesh, the card count's.
+A second subprocess with ``GEN_ROLE=decode`` takes the first one's
+``:prefill`` bundle on ``:attach`` and streams the oracle's continuation;
+a third with ``GEN_TP=2`` serves the oracle's tokens over a 2-shard CPU
+mesh under ``X-Generate-Mesh: tensor=2;...``."""
 
 import http.client
 import json
@@ -231,10 +234,7 @@ def knobs(monkeypatch):
     return monkeypatch
 
 
-@pytest.mark.parametrize("knob,value", [
-    ("GEN_MESH", "tensor=2"), ("GEN_TP", "4"), ("GEN_ROW_SHARD", "1"),
-    ("GEN_CALIBRATE", "1"),
-    ("SERVING_TRANSPORT", "async")])
+@pytest.mark.parametrize("knob,value", [("SERVING_TRANSPORT", "async")])
 def test_unported_knobs_refuse_by_name(knobs, knob, value):
     knobs.setenv(knob, value)
     with pytest.raises(SystemExit, match=knob):
@@ -310,3 +310,82 @@ def test_gen_device_unset_raises_the_no_fallback_error(knobs):
     knobs.delenv("GEN_DEVICE")
     with pytest.raises(RuntimeError, match="no silent fallback"):
         cmd.model_server()
+
+
+@pytest.mark.parametrize("env,tp", [
+    ({"GEN_TP": "2"}, 2), ({"GEN_MESH": "tensor=4"}, 4),
+    ({"GEN_MESH": "4", "GEN_TP": "2"}, 4), ({"GEN_TP": "1"}, 1),
+    ({"GEN_MESH": "tensor=1", "GEN_TP": "2"}, 1)],
+    ids=["tp", "mesh", "mesh-wins", "tp1", "mesh1-wins"])
+def test_gen_mesh_and_gen_tp_shard_the_engine(knobs, env, tp):
+    for k, v in env.items():
+        knobs.setenv(k, v)
+    cmd._refuse_unported()
+    eng = cmd.build_engine(f"mesh-{tp}")
+    try:
+        assert eng.tp == tp and (eng.mesh is None) == (tp == 1)
+        assert eng.mesh_header() == (
+            f"tensor={tp};per_chip_blocks={eng.per_chip_blocks}")
+        cfg, params = _stock_weights()
+        assert eng.generate([1, 2, 3], max_tokens=6)[0] \
+            == t_gen.reference_greedy_decode(params, cfg, [1, 2, 3], 6)
+    finally:
+        eng.close()
+
+
+def test_gen_row_shard_and_gen_calibrate_reach_the_engine(knobs):
+    knobs.setenv("GEN_TP", "2")
+    knobs.setenv("GEN_ROW_SHARD", "1")
+    knobs.setenv("GEN_CALIBRATE", "yes")
+    cmd._refuse_unported()
+    eng = cmd.build_engine("rowcal")
+    try:
+        assert eng.row_shard and eng.tp == 2
+        assert 0.0 <= eng.stats["collective_share"] < 1.0
+        assert round(t_gen._SHARD_COLLECTIVE_SHARE.value("rowcal"), 4) \
+            == eng.stats["collective_share"]
+    finally:
+        eng.close()
+
+
+def test_gen_row_shard_without_a_mesh_fails_by_name(knobs):
+    knobs.setenv("GEN_ROW_SHARD", "1")
+    with pytest.raises(ValueError, match="row_shard=True needs a mesh"):
+        cmd.build_engine("row-nomesh")
+
+
+def test_gen_tp_beyond_the_cards_exits_naming_the_count(knobs):
+    if torch.cuda.device_count() >= 64:
+        pytest.skip("this host has 64 cards")
+    knobs.delenv("GEN_DEVICE")
+    knobs.setenv("GEN_TP", "64")
+    cards = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    with pytest.raises(SystemExit, match="GEN_TP=64") as err:
+        cmd.model_server()
+    assert f"needs 64 CUDA cards, this host has {cards}" in str(err.value)
+
+
+def test_a_gen_tp_server_streams_under_its_mesh_header():
+    proc, port = _serve(GEN_TP="2")
+    try:
+        snap = json.loads(_get(port, "/v1/models/default")[1])["generator"]
+        assert snap["mesh"]["tensor"] == 2 and snap["mesh"]["devices"] == 2
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+        conn.request("POST", "/v1/models/default:generate",
+                     json.dumps({"tokens": [4, 5, 6],
+                                 "max_tokens": 5}).encode(),
+                     {"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        assert resp.status == 200
+        assert resp.getheader("X-Generate-Mesh") == (
+            f"tensor=2;per_chip_blocks={snap['mesh']['per_chip_blocks']}")
+        frames = [json.loads(ln) for ln in resp.read().splitlines() if ln]
+        conn.close()
+        cfg, params = _stock_weights()
+        want = t_gen.reference_greedy_decode(params, cfg, [4, 5, 6], 5)
+        assert [f["token"] for f in frames if "token" in f] == want
+        assert frames[-1]["mesh"] == snap["mesh"]
+        proc.send_signal(signal.SIGTERM)
+        assert proc.wait(30) == 0
+    finally:
+        _stopped(proc)

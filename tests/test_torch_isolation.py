@@ -53,6 +53,8 @@ def test_no_jax_and_no_module_level_triton(path):
     "kubeflow_tpu_torch/web/__init__.py", "kubeflow_tpu_torch/web/http.py",
     "kubeflow_tpu_torch/obs/tracing.py", "kubeflow_tpu_torch/obs/export.py",
     "kubeflow_tpu_torch/compute/serving.py",
+    "kubeflow_tpu_torch/compute/mesh.py",
+    "kubeflow_tpu_torch/compute/sharding.py",
     "kubeflow_tpu_torch/qos/__init__.py", "kubeflow_tpu_torch/qos/buckets.py"])
 def test_the_scan_reaches_the_serving_plane(rel):
     assert ROOT / rel in FILES

@@ -16,7 +16,11 @@ of malformed int8 quadruples; K1 and K1-i8's split key walk with the
 split count forced (1, 2, 3, 17, 32 and 40 spans of a 32-tile table) x
 the serving lengths, a lone 1024-token slot, all-zero lengths and 8 x
 512 x fp32/bf16 x head_dim 128/64/32, the wrapper's own split count,
-and five bf16 calls bit-identical; for K2 (the chunk read) its three
+and five bf16 calls bit-identical; K1, K2 and their int8 entries
+read by a head-partitioned shard (one KV head with its q heads) at
+``split_heads`` = the whole pool's KV heads equal to the whole pool's
+read of those heads bit for bit (the engine's tensor mesh); for K2 (the
+chunk read) its three
 serving shapes (a 256-row chunk behind a long prefix, a prefix hit's
 suffix, an 8-slot verify with per-slot prefixes), prefix 0, one row
 (S = 1) and a ragged last row tile, its matrix over GQA groups
@@ -391,6 +395,41 @@ def test_paged_decode_bf16_is_deterministic(dev, int8, lengths):
             for _ in range(5)]
     torch.cuda.synchronize()
     assert all(torch.equal(outs[0], o) for o in outs[1:])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("int8", [False, True], ids=["float", "int8"])
+@pytest.mark.parametrize("read", ["decode", "chunk", "hit"])
+def test_a_head_shard_at_split_heads_reads_as_the_whole_pool(dev, dtype,
+                                                             int8, read):
+    """The engine's tensor mesh: a shard holding KV head h (and its q
+    heads) reads, with ``split_heads`` the whole pool's KV-head count,
+    exactly the whole pool's read of those heads — the split count is
+    the unsharded engine's, and every (split, head, slot) block and the
+    ordered combine are per-head."""
+    n_rep, kv = 4, 2
+    if read == "decode":
+        q, pages, tables, lens = _decode_case(
+            dev, dtype, DECODE_LENGTHS["serving"], int8, seed=5)
+        fn, extra = paged_ops.paged_decode_attention, ()
+    else:
+        B, S, prefix = (1, 256, 768) if read == "chunk" else (1, 40, 512)
+        q, pages, tables, lens, kch, vch = _chunk_case(dev, dtype, B, S,
+                                                       prefix, seed=6)
+        if int8:
+            pages = _quantized(pages)
+        fn, extra = paged_ops.paged_chunk_attention, (kch, vch)
+    kw = dict(block_size=16, n_rep=n_rep)
+    whole = fn(q, pages, tables, lens, *extra, **kw)
+    for h in range(kv):
+        heads = slice(h * n_rep, (h + 1) * n_rep)
+        part = fn(q[:, :, heads].contiguous(),
+                  tuple(p[:, :, h:h + 1].contiguous() for p in pages),
+                  tables, lens,
+                  *(t[:, :, h:h + 1].contiguous() for t in extra),
+                  split_heads=kv, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(part, whole[:, :, heads]), (read, h)
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
