@@ -189,10 +189,34 @@ if any phase fails:
    layers, 2 x 512: loss and every gradient leaf through K3-K5 (no
    causal mask, head_dim 64) against ``attention="dense"``, 1e-5 / 1e-3
    of each leaf's max |g|;
-22. sweep — ``run_mnist_sweep`` of 8 trials in 2 shape buckets, 30
+22. train_mesh — the flagship (bf16, ``remat=False``) trained on a
+   ``data=2, tensor=2`` mesh over four positions of the one card
+   (``init_state(mesh=)`` → ``make_train_step(mesh=)`` → ``fit(mesh=)``,
+   3 steps on one 16 x 1024 batch; 4 q and 1 KV head a tensor shard):
+   the loss falls, K3, K4 and K5 launch 12 x 4 = 48 times a step each,
+   every replicated copy of the params, moments and state is byte-equal
+   after the steps and every gathered param finite; step ms beside the
+   ``train`` phase's (one card: no speed claim), peak memory and the
+   telemetry's ``live_mfu`` over the mesh's one distinct card;
+   train_mesh_conformance — fp32, TF32 off, flagship width, 2 layers,
+   batch 4 x 1024 on ``data=2, fsdp=2, tensor=2`` (eight positions)
+   against the port's unsharded step on the same weights: loss within
+   1e-5 relative, every leaf's gradient within 1e-3 of its max |g|, the
+   params after one update by ``tests/test_torch_train.py``'s rule;
+   bert_mesh — bert-base (bf16, per-layer weights) on ``data=2, fsdp=2,
+   tensor=2``, 3 steps on one 16 x 512 batch: the loss falls, K3–K5 96
+   a step each; fp32 at 2 layers on 8 rows whose pieces hold different
+   masked-token counts: the mesh loss within 1e-5 of the unsharded one;
+   resnet_mesh — ResNet-50 (bf16) on ``data=2``, 2 steps on one 256 x
+   224² batch (sync BN; cuDNN convolutions, no hand-written kernel);
+   fp32 at depth 50 on 8 images, one step at rate 1e-3: with BN
+   randomised the loss and every running statistic within 1e-5 of the
+   unsharded step's; at the seed's init the gradient norm within 1e-5
+   and the params by ``test_torch_train.py``'s rule over all elements;
+23. sweep — ``run_mnist_sweep`` of 8 trials in 2 shape buckets, 30
    steps, equal within 1e-5 to 8 calls of ``run_mnist_trial``; wall
    seconds of both;
-23. the ``kernels`` line — every ported kernel with its launches on each
+24. the ``kernels`` line — every ported kernel with its launches on each
    path (counts zeroed just before a path, read just after), its max
    |Δ| and its times.
 
@@ -3652,18 +3676,19 @@ EVAL_TOL = {"bfloat16": 3e-2, "float32": 1e-4}
 EVAL_LOGITS_TOL = 5e-2
 
 
-def resnet_weights(cfg, seed):
+def resnet_weights(cfg, seed, device="cuda"):
     """ResNet weights from a seed with every BN quantity randomised →
-    ``(params, stats)`` on the card."""
+    ``(params, stats)`` on ``device``."""
     import torch
     from kubeflow_tpu_torch.compute.models import resnet
     g = torch.Generator().manual_seed(seed)
-    params, stats = resnet.init_params(cfg, g, device="cuda")
+    params, stats = resnet.init_params(cfg, g, device=device)
 
     def visit(p, st):
         for key in list(p):
             if isinstance(p[key], dict) and "scale" in p[key]:
-                p[key], st[key] = random_bn(p[key]["scale"].shape[0], g)
+                p[key], st[key] = random_bn(p[key]["scale"].shape[0], g,
+                                            device)
             elif isinstance(p[key], dict):
                 visit(p[key], st.get(key, {}))
             elif isinstance(p[key], list):
@@ -4011,6 +4036,404 @@ def phase_bert_conformance(kernel_fns):
     return report
 
 
+# ------------------------------------------------------ the training mesh
+
+MESH_STEPS = 3
+CARD = "cuda:0"          # every position of the mesh phases' meshes
+
+
+def check_mesh_launches(launches, names, per_step, steps, path):
+    """Each of ``names`` launched exactly ``per_step`` times a step (one
+    a layer per mesh position: every position holds a batch piece)."""
+    bad = {n: launches[n] for n in names if launches[n] != per_step * steps}
+    if bad:
+        raise AssertionError(f"{path}: launches {bad} in {steps} steps, "
+                             f"want {per_step} a step each")
+
+
+def unequal_copies(state):
+    """``(leaf, position)`` of every replicated copy of a mesh state's
+    params, moments or model state that differs from its group's first
+    copy by a single bit."""
+    import torch
+    from kubeflow_tpu_torch.compute import train
+    leaves = [x for tree in (state.params, state.opt_state["mu"],
+                             state.opt_state["nu"], state.extra)
+              for x in train.tree_leaves(tree)]
+    return [(i, q) for i, leaf in enumerate(leaves)
+            for group in leaf.sharding.copies for q in group[1:]
+            if not torch.equal(leaf.pieces[q], leaf.pieces[group[0]])]
+
+
+def params_rule(got, want, lr, updates, whole_model=False):
+    """``tests/test_torch_train.py``'s rule for params after ``updates``
+    nonzero-rate updates → ``(worst |Δ|, worst share of a leaf beyond
+    1e-6, ok)``; it holds when the first is at most 2·lr·updates and the
+    second at most 0.1 %. ``whole_model`` takes the share over all
+    elements at once, as ``tests/test_torch_train_mesh.py`` does for
+    ResNet, whose BN leaves of 64 channels hold one element in 1.6 %."""
+    worst, beyond, total, share = 0.0, 0, 0, 0.0
+    for a, b in zip(got, want):
+        d = (a.float() - b.float()).abs()
+        worst = max(worst, float(d.max()))
+        n = int((d > 1e-6).sum())
+        beyond, total = beyond + n, total + d.numel()
+        share = max(share, n / d.numel())
+    if whole_model:
+        share = beyond / total
+    ok = worst <= 2 * lr * updates and share <= 1e-3
+    return worst, share, ok
+
+
+def mesh_grads(state, loss_fn, batch):
+    """A mesh state's ``(loss, each leaf's logical gradient)``: every
+    position's gradient summed over its piece's copies (the train
+    step's sum), the pieces gathered."""
+    import torch
+    from kubeflow_tpu_torch.compute import sharding, train
+    leaves = train.tree_leaves(state.params)
+    pieces = sharding.pieces_of(leaves)
+    loss, _ = loss_fn(state.params, state.extra, batch)
+    raw = torch.autograd.grad(loss, pieces, allow_unused=True)
+    raw = [torch.zeros_like(p) if g is None else g
+           for p, g in zip(pieces, raw)]
+    summed, _ = train._sum_copies(leaves, raw)
+    out, start = [], 0
+    for leaf in leaves:
+        n = len(leaf.pieces)
+        out.append(sharding.Sharded(summed[start:start + n], leaf.sharding,
+                                    leaf.shape).gather())
+        start += n
+    return float(loss.detach()), out
+
+
+def _mesh_training(name, init_fn, logical_axes, loss, mesh, batch,
+                   flops_per_step, kernel_fns, lr, extra=None,
+                   steps=MESH_STEPS):
+    """``init_state(mesh=)`` → ``make_train_step(mesh=)`` → ``fit(mesh=)``
+    over ``steps`` repeats of ``batch`` (warmup 1), each step waiting
+    for the card; counts zeroed just before ``fit`` and read just after.
+    → ``(state, row)``: step ms of the steps after the first, peak
+    memory, the telemetry's live MFU over the mesh's distinct card, the
+    copies that differ, and whether every gathered param is finite."""
+    import torch
+    from kubeflow_tpu_torch.compute import telemetry, train
+    t_phase = time.perf_counter()
+    opt = train.make_optimizer(learning_rate=lr, warmup_steps=1,
+                               total_steps=100)
+    state = train.init_state(init_fn, opt, mesh=mesh,
+                             logical_axes=logical_axes,
+                             generator=torch.Generator().manual_seed(0),
+                             extra=extra)
+    step = train.make_train_step(loss, opt, mesh=mesh)
+
+    def synced(state, batch):
+        out = step(state, batch)
+        torch.cuda.synchronize()
+        return out
+
+    tel = telemetry.TrainTelemetry(name, flops_per_step=flops_per_step,
+                                   peak=telemetry.mesh_peak_flops(mesh))
+    marks, losses = [], []
+
+    def on_step(n, metrics):
+        marks.append(time.perf_counter())
+        losses.append(metrics["loss"])
+
+    _zero(kernel_fns)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state, metrics = train.fit(state, synced, itertools.repeat(batch, steps),
+                               mesh, on_step=on_step, telemetry=tel)
+    launches = _launches(kernel_fns)
+    peak_mem = torch.cuda.max_memory_allocated()
+    step_s = [b - a for a, b in zip(marks, marks[1:])]
+    finite = all(bool(torch.isfinite(leaf.gather(mesh.devices[0])).all())
+                 for leaf in train.tree_leaves(state.params))
+    row = {"phase": name,
+           "mesh": {a: n for a, n in mesh.shape.items() if n > 1},
+           "positions": mesh.size,
+           "devices": [str(d) for d in dict.fromkeys(mesh.devices)],
+           "steps": steps, "first_step_s": marks[0] - t0,
+           "step_ms": 1e3 * statistics.mean(step_s),
+           "step_ms_each": [1e3 * x for x in step_s],
+           "peak_memory_bytes": peak_mem,
+           "losses": [float(x) for x in losses],
+           "grad_norm": float(metrics["grad_norm"]),
+           "flops_per_step": flops_per_step,
+           "peak_flops": telemetry.mesh_peak_flops(mesh),
+           "live_mfu": tel.live_mfu(),
+           "copies_unequal": unequal_copies(state)[:8],
+           "params_finite": finite, "launches": launches,
+           "launches_per_step": {k: v / steps
+                                 for k, v in launches.items()}}
+    row["seconds"] = time.perf_counter() - t_phase
+    if row["copies_unequal"]:
+        raise AssertionError(f"{name}: replicated copies differ: "
+                             f"{row['copies_unequal']}")
+    if not finite or not all(np.isfinite(row["losses"])):
+        raise AssertionError(f"{name}: non-finite params or losses: "
+                             f"{row['losses']}")
+    return state, row
+
+
+def phase_train_mesh(kernel_fns, train_row):
+    """The flagship (bf16, ``remat=False``) trained on ``data=2,
+    tensor=2`` over four positions of the one card: each tensor shard
+    holds 4 q heads and 1 KV head. 3 steps on one 16 x 1024 batch: the
+    loss falls, K3/K4/K5 launch 12 x 4 = 48 times a step each, the
+    copies stay byte-equal, the params finite; step ms beside the
+    ``train`` phase's (one card: not a speed result)."""
+    from kubeflow_tpu_torch.compute import data, mesh as mesh_lib, train
+    from kubeflow_tpu_torch.compute.models import transformer
+    cfg = flagship_config(remat=False)
+    mesh = mesh_lib.make_mesh(data=2, tensor=2, devices=[CARD] * 4)
+    B, S = TRAIN_BATCH
+    batch = next(data.synthetic_lm(B, S, cfg.vocab_size, seed=4))
+    _, row = _mesh_training(
+        "train_mesh", functools.partial(transformer.init_params, cfg),
+        transformer.logical_axes(cfg),
+        train.plain_loss(transformer.loss_fn, cfg), mesh, batch,
+        transformer.flops_per_token(cfg) * B * S, kernel_fns, lr=1e-3)
+    row.update(dtype="bfloat16", batch=B, seq=S, layers=cfg.n_layers,
+               heads_per_shard=cfg.n_heads // 2,
+               kv_heads_per_shard=cfg.kv_heads // 2,
+               train_step_ms=train_row["step_ms"],
+               train_peak_memory_bytes=train_row["peak_memory_bytes"])
+    emit(row)
+    if not row["losses"][-1] < row["losses"][0]:
+        raise AssertionError(f"train_mesh loss did not fall: "
+                             f"{row['losses']}")
+    check_mesh_launches(row["launches"], BERT_KERNELS,
+                        cfg.n_layers * mesh.size, MESH_STEPS, "train_mesh")
+    return row
+
+
+def phase_train_mesh_conformance(kernel_fns):
+    """fp32 (TF32 off), flagship width, 2 layers, batch 4 x 1024: the
+    mesh ``data=2, fsdp=2, tensor=2`` over eight positions of the card
+    against the port's unsharded step on the same weights — loss within
+    1e-5 relative, each leaf's gradient within 1e-3 of its max |g|, the
+    params after one update (rate lr: warmup 0) by
+    ``tests/test_torch_train.py``'s rule."""
+    import torch
+    from kubeflow_tpu_torch.compute import data, mesh as mesh_lib, train
+    from kubeflow_tpu_torch.compute.models import transformer
+    t_phase = time.perf_counter()
+    cfg = flagship_config("float32", n_layers=2, remat=False)
+    mesh = mesh_lib.make_mesh(data=2, fsdp=2, tensor=2, devices=[CARD] * 8)
+    host = next(data.synthetic_lm(4, 1024, cfg.vocab_size, seed=21))
+    params = transformer.init_params(cfg, torch.Generator().manual_seed(1),
+                                     device="cpu")
+    loss = train.plain_loss(transformer.loss_fn, cfg)
+    lr = 1e-3
+
+    def fresh(**where):
+        opt = train.make_optimizer(learning_rate=lr, warmup_steps=0,
+                                   total_steps=100)
+        return opt, train.init_state(
+            lambda g, device: train.tree_map(torch.clone, params), opt,
+            **where)
+
+    m_opt, ms = fresh(mesh=mesh, logical_axes=transformer.logical_axes(cfg))
+    card = mesh.devices[0]
+    u_opt, us = fresh(device=card)
+    placed = data.shard_batch(host, mesh)
+    batch = data.to_device(host, card)
+    _zero(kernel_fns)
+    m_loss, m_g = mesh_grads(ms, loss, placed)
+    torch.cuda.synchronize()
+    launches = {n: kernel_fns[n].launches for n in BERT_KERNELS}
+    u_leaves = train.tree_leaves(us.params)
+    u_value, _ = loss(us.params, us.extra, batch)
+    u_g = torch.autograd.grad(u_value, u_leaves)
+    u_loss = float(u_value.detach())
+    errs = _leaf_errors(m_g, u_g)
+    loss_rel = abs(m_loss - u_loss) / abs(u_loss)
+    ms, mm = train.make_train_step(loss, m_opt, mesh=mesh)(ms, placed)
+    us, um = train.make_train_step(loss, u_opt)(us, batch)
+    worst, share, ok = params_rule(
+        train.tree_leaves(train.gather_params(ms, card)),
+        [t.detach() for t in train.tree_leaves(us.params)], lr, 1)
+    report = {"phase": "train_mesh_conformance", "dtype": "float32",
+              "layers": 2, "batch": [4, 1024],
+              "mesh": {a: n for a, n in mesh.shape.items() if n > 1},
+              "loss": [m_loss, u_loss], "loss_rel": loss_rel,
+              "tol_loss": 1e-5, "leaf_rel_max": max(errs),
+              "tol_leaf": 1e-3,
+              "grad_norm": [float(mm["grad_norm"]), float(um["grad_norm"])],
+              "params_max_abs": worst, "params_share_over_1e-6": share,
+              "params_rule": {"max_abs": 2 * lr, "share": 1e-3},
+              "copies_unequal": unequal_copies(ms)[:8],
+              "launches": launches,
+              "seconds": time.perf_counter() - t_phase}
+    emit(report)
+    if loss_rel > 1e-5 or max(errs) > 1e-3:
+        raise AssertionError(f"the mesh leaves the unsharded step: loss "
+                             f"{loss_rel}, leaves {errs}")
+    if not ok or report["copies_unequal"]:
+        raise AssertionError(f"params after one update: {worst}, {share}; "
+                             f"copies {report['copies_unequal']}")
+    check_mesh_launches(launches, BERT_KERNELS, cfg.n_layers * mesh.size, 1,
+                        "train_mesh_conformance")
+    return report
+
+
+def phase_bert_mesh(kernel_fns, bert_row):
+    """bert-base (bf16, ``remat=False``, per-layer weights) on ``data=2,
+    fsdp=2, tensor=2`` over eight positions of the card, 3 steps on one
+    16 x 512 ``mlm_batch``: the loss falls, K3–K5 launch 12 x 8 = 96 times
+    a step each. Then fp32 at 2 layers on 8 rows whose pieces hold
+    different masked-token counts: the mesh loss equals the unsharded
+    loss within 1e-5 relative."""
+    import torch
+    from kubeflow_tpu_torch.compute import data, mesh as mesh_lib, train
+    from kubeflow_tpu_torch.compute.models import bert
+    cfg = bert.Config(remat=False, scan_layers=False)
+    mesh = mesh_lib.make_mesh(data=2, fsdp=2, tensor=2, devices=[CARD] * 8)
+    batch = bert.mlm_batch(np.random.default_rng(13), BERT_BATCH, cfg)
+    tokens = BERT_BATCH * cfg.max_seq
+    state, row = _mesh_training(
+        "bert_mesh", functools.partial(bert.init_params, cfg),
+        bert.logical_axes(cfg), train.plain_loss(bert.loss_fn, cfg), mesh,
+        batch, bert.flops_per_token(cfg) * tokens, kernel_fns, lr=1e-4)
+    del state
+    torch.cuda.empty_cache()
+    t_check = time.perf_counter()
+    cfg2 = dataclasses.replace(cfg, n_layers=2, dtype="float32")
+    host = bert.mlm_batch(np.random.default_rng(14), 8, cfg2)
+    counts = host["mask"].reshape(4, -1).sum(1).tolist()
+    params = bert.init_params(cfg2, torch.Generator().manual_seed(4),
+                              device="cpu")
+    with torch.no_grad():
+        placed = train.init_state(
+            lambda g, device: params, train.make_optimizer(), mesh=mesh,
+            logical_axes=bert.logical_axes(cfg2))
+        m_loss = float(bert.loss_fn(placed.params,
+                                    data.shard_batch(host, mesh), cfg2)[0])
+        card = mesh.devices[0]
+        u_loss = float(bert.loss_fn(
+            train.tree_map(lambda t: t.to(card), params),
+            data.to_device(host, card), cfg2)[0])
+    rel = abs(m_loss - u_loss) / abs(u_loss)
+    row.update(dtype="bfloat16", batch=BERT_BATCH, seq=cfg.max_seq,
+               layers=cfg.n_layers, bert_train_step_ms=bert_row["step_ms"],
+               fp32_check={"layers": 2, "rows": 8, "piece_mask_counts": counts,
+                           "loss": [m_loss, u_loss], "loss_rel": rel,
+                           "tol": 1e-5,
+                           "seconds": time.perf_counter() - t_check})
+    emit(row)
+    if not row["losses"][-1] < row["losses"][0]:
+        raise AssertionError(f"bert_mesh loss did not fall: {row['losses']}")
+    check_mesh_launches(row["launches"], BERT_KERNELS,
+                        cfg.n_layers * mesh.size, MESH_STEPS, "bert_mesh")
+    if len(set(counts)) < 2 or rel > 1e-5:
+        raise AssertionError(f"bert_mesh fp32: counts {counts}, loss rel "
+                             f"{rel}")
+    return row
+
+
+def phase_resnet_mesh(kernel_fns, resnet_row):
+    """ResNet-50 (bf16) on ``data=2`` over two positions of the card, 2
+    steps on one 256 x 224² batch (sync BN over the two pieces; the
+    convolutions are cuDNN's, so no hand-written kernel launches). Then
+    fp32 at depth 50 on 8 images, one step at rate lr (warmup 0) on each
+    side. With every BN quantity randomised, the loss and every running
+    statistic equal the unsharded step's within 1e-5 (relative; a
+    statistic of its leaf's max |value|). At the seed's init, the
+    gradient through the synchronized batch norm: the pre-clip norm
+    within 1e-5 and the params after the update by
+    ``tests/test_torch_train.py``'s rule over all elements."""
+    import torch
+    from kubeflow_tpu_torch.compute import data, mesh as mesh_lib, sharding
+    from kubeflow_tpu_torch.compute import train
+    from kubeflow_tpu_torch.compute.models import resnet
+    cfg = resnet.Config(depth=50, n_classes=1000, dtype="bfloat16")
+    mesh = mesh_lib.make_mesh(data=2, devices=[CARD] * 2)
+    card = mesh.devices[0]
+    params, stats = resnet.init_params(
+        cfg, torch.Generator().manual_seed(0), device="cpu")
+    p_axes, _ = resnet.logical_axes(cfg)
+    batch = next(data.synthetic_images(RESNET_BATCH, RESNET_IMAGE,
+                                       cfg.n_classes, seed=12))
+    state, row = _mesh_training(
+        "resnet_mesh", lambda g, device: params, p_axes,
+        train.stateful_loss(resnet.loss_fn, cfg), mesh, batch,
+        resnet.flops_per_sample(cfg.depth) * RESNET_BATCH, kernel_fns,
+        lr=1e-3, extra=stats, steps=2)
+    before = stats["stages"][3][2]["bn2"]["mean"].to(card)
+    moved = float((state.extra["stages"][3][2]["bn2"]["mean"].pieces[0]
+                   - before).abs().max())
+    del state
+    torch.cuda.empty_cache()
+    t_check = time.perf_counter()
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    host = next(data.synthetic_images(8, RESNET_IMAGE, cfg.n_classes,
+                                      seed=16))
+    loss = train.stateful_loss(resnet.loss_fn, cfg32)
+    lr = 1e-3
+    sides = (("mesh", dict(mesh=mesh, logical_axes=p_axes),
+              data.shard_batch(host, mesh)),
+             ("unsharded", dict(device=card), data.to_device(host, card)))
+
+    def stepped(weights):
+        """Each side's ``(state, metrics)`` after one step at rate lr
+        from ``weights``."""
+        out = []
+        for _, where, batch in sides:
+            opt = train.make_optimizer(learning_rate=lr, warmup_steps=0,
+                                       total_steps=100)
+            st = train.init_state(
+                lambda g, device: train.tree_map(torch.clone, weights[0]),
+                opt, extra=train.tree_map(torch.clone, weights[1]), **where)
+            out.append(train.make_train_step(
+                loss, opt, mesh=where.get("mesh"))(st, batch))
+        return out
+
+    # the forward with every BN randomised (each block's branch live): the
+    # loss and every running statistic are the global batch's
+    (ms, mm), (us, um) = stepped(resnet_weights(cfg32, seed=15))
+    m_loss, u_loss = float(mm["loss"]), float(um["loss"])
+    errs = _leaf_errors(
+        train.tree_leaves(sharding.gather_tree(ms.extra, card)),
+        train.tree_leaves(sharding.gather_tree(us.extra, card)))
+    del ms, us
+    # the update at the seed's init: with every BN randomised each fp32
+    # gradient, on one device or the mesh, lies a fifth of a leaf's max
+    # |g| off the float64 one. At init the grad norm and the update's
+    # signs compare, a leaf's fp32 gradient does not: on one device the
+    # third stage's lie 9 % of their max |g| off the float64 gradient,
+    # the mesh's 4e-4 (hack/resnet_mesh_grads.py)
+    (gms, gm), (gus, gu) = stepped(resnet.init_params(
+        cfg32, torch.Generator().manual_seed(15), device=card))
+    m_norm, u_norm = float(gm["grad_norm"]), float(gu["grad_norm"])
+    worst, share, ok = params_rule(
+        train.tree_leaves(train.gather_params(gms, card)),
+        [t.detach() for t in train.tree_leaves(gus.params)], lr, 1,
+        whole_model=True)
+    del gms, gus
+    report = {"depth": 50, "images": 8, "loss": [m_loss, u_loss],
+              "loss_rel": abs(m_loss - u_loss) / abs(u_loss),
+              "stats_rel_max": max(errs), "tol": 1e-5,
+              "init_grad_norm": [m_norm, u_norm],
+              "init_grad_norm_rel": abs(m_norm - u_norm) / abs(u_norm),
+              "params_max_abs": worst, "params_share_over_1e-6": share,
+              "params_rule": {"max_abs": 2 * lr, "share": 1e-3,
+                              "over": "all elements"}}
+    row.update(dtype="bfloat16", batch=RESNET_BATCH, image=RESNET_IMAGE,
+               depth=cfg.depth, running_mean_moved_max=moved,
+               resnet_train_step_ms=resnet_row["step_ms"],
+               fp32_check={**report,
+                           "seconds": time.perf_counter() - t_check})
+    emit(row)
+    if not moved > 0:
+        raise AssertionError("resnet_mesh: the running means did not move")
+    if (report["loss_rel"] > 1e-5 or report["stats_rel_max"] > 1e-5
+            or report["init_grad_norm_rel"] > 1e-5 or not ok):
+        raise AssertionError(f"resnet_mesh fp32 sync BN: {report}")
+    return row
+
+
 SWEEP_TRIALS = [{"lr": lr, "hidden": hidden}
                 for hidden in (64, 128) for lr in (1e-2, 3e-3, 1e-3, 3e-4)]
 
@@ -4137,6 +4560,16 @@ def main():
     paths["bert_train"] = phase_bert_train(kernel_fns)
     torch.cuda.empty_cache()
     phase_bert_conformance(kernel_fns)
+    torch.cuda.empty_cache()
+    paths["train_mesh"] = phase_train_mesh(kernel_fns, paths["train"])
+    torch.cuda.empty_cache()
+    phase_train_mesh_conformance(kernel_fns)
+    torch.cuda.empty_cache()
+    paths["bert_mesh"] = phase_bert_mesh(kernel_fns, paths["bert_train"])
+    torch.cuda.empty_cache()
+    paths["resnet_mesh"] = phase_resnet_mesh(kernel_fns,
+                                             paths["resnet_train"])
+    torch.cuda.empty_cache()
     phase_sweep()
     meta = {
         "paged_decode": (

@@ -7,8 +7,13 @@ written into a hidden temporary directory first and renamed into place,
 so a crash mid-save never leaves a step that looks complete. The save
 copies the state to host memory at once (the only blocking part) and,
 with ``async_save``, writes it from a background thread while the next
-steps run; one save is in flight at a time. Restore maps the tensors
-onto the target state's device.
+steps run; one save is in flight at a time. A state on a mesh is saved
+as its LOGICAL tensors (each ``Sharded`` leaf gathered to the host), so
+the files do not depend on the mesh; restore places each tensor as the
+target state's leaf is placed — cut over the target's mesh by its
+spec, or on its device — so a checkpoint saved on one mesh restores
+onto another or onto one device (orbax's reshard on load, JAX
+``checkpoint.py:51-66``).
 
 Layout contract with the platform, as in JAX: checkpoints live under
 the workspace PVC at ``<workspace>/checkpoints/<run>/<step>/``.
@@ -20,19 +25,29 @@ import threading
 
 import torch
 
+from . import sharding as sharding_lib
 from .train import TrainState, tree_leaves, tree_map
 
 _FILE = "state.pt"
 
 
 def _host_copy(state):
-    """The state as a plain dict, every tensor COPIED to host memory
-    (the optimizer updates the live tensors in place)."""
-    def copy(x):
-        return x.detach().to("cpu", copy=True) if torch.is_tensor(x) else x
-    return {"step": int(state.step), "params": tree_map(copy, state.params),
-            "opt_state": tree_map(copy, state.opt_state),
-            "extra": tree_map(copy, state.extra)}
+    """The state as a plain dict of logical tensors, every one a COPY in
+    host memory (the optimizer updates the live tensors in place)."""
+    return {"step": int(state.step),
+            "params": sharding_lib.gather_tree(state.params),
+            "opt_state": sharding_lib.gather_tree(state.opt_state),
+            "extra": sharding_lib.gather_tree(state.extra)}
+
+
+def _like(saved, target):
+    """A restored tensor placed as ``target`` is: on its mesh by its
+    spec, or on its device."""
+    if isinstance(target, sharding_lib.Sharded):
+        return sharding_lib.place(saved, target.spec, target.mesh)
+    if torch.is_tensor(target):
+        return saved.to(target.device)
+    return saved
 
 
 class Checkpointer:
@@ -104,31 +119,34 @@ class Checkpointer:
                       and os.path.isfile(os.path.join(self._path(n), _FILE)))
 
     def restore(self, target_state, step=None):
-        """The saved state at ``step`` (None → the latest) with its
-        tensors on ``target_state``'s device and its float params
-        requiring grad, or None when there is no checkpoint. Raises if
-        the saved tree does not match the target's shapes."""
+        """The saved state at ``step`` (None → the latest) placed as
+        ``target_state`` is (its mesh and specs, or its device), its
+        float params requiring grad, or None when there is no
+        checkpoint. Raises if the saved tree does not match the target's
+        shapes."""
         self.wait()
         if step is None:
             step = self.latest_step()
         if step is None:
             return None
-        device = tree_leaves(target_state.params)[0].device
         saved = torch.load(os.path.join(self._path(step), _FILE),
-                           map_location=device, weights_only=True)
+                           map_location="cpu", weights_only=True)
         got = [tuple(t.shape) for t in tree_leaves(saved["params"])]
         want = [tuple(t.shape) for t in tree_leaves(target_state.params)]
         if got != want:
             raise ValueError(f"checkpoint {step} holds params of shapes "
                              f"{got}, the target {want}")
 
-        def leaf(t):
-            return t.requires_grad_(True) if t.is_floating_point() else t
+        def restored(name):
+            return tree_map(_like, saved[name], getattr(target_state, name))
 
-        return TrainState(step=saved["step"],
-                          params=tree_map(leaf, saved["params"]),
-                          opt_state=saved["opt_state"],
-                          extra=saved["extra"])
+        params = restored("params")
+        for t in sharding_lib.pieces_of(tree_leaves(params)):
+            if t.is_floating_point():
+                t.requires_grad_(True)
+        return TrainState(step=saved["step"], params=params,
+                          opt_state=restored("opt_state"),
+                          extra=restored("extra"))
 
     def latest_step(self):
         steps = self.all_steps()

@@ -1,13 +1,17 @@
-"""Data pipeline: host numpy batches → tensors on the device.
+"""Data pipeline: host numpy batches → tensors on the device or pieces
+on a mesh.
 
 Port of ``kubeflow_tpu/compute/data.py``. A background thread keeps
 ``depth`` batches ahead, so the host→device copy overlaps the step:
 batches for the card go through pinned host memory with
 ``non_blocking`` copies on the current stream, which orders them before
-the step that reads them. ``to_device`` takes the place of
-``shard_batch`` (one device; the mesh waits for the multi-device
-slice). The synthetic sources stay numpy, from a seed, so the port and
-the JAX package read the same batches.
+the step that reads them. ``to_device`` moves a batch to one device;
+``shard_batch`` (JAX :30) cuts it over a mesh by ``BATCH_SPEC``: dim 0
+over ``(data, fsdp)`` in that order, each piece copied to every
+position with those coordinates (replicated over the other axes). A
+batch that does not divide is refused (JAX pads). The synthetic
+sources stay numpy, from a seed, so the port and the JAX package read
+the same batches.
 """
 
 import queue
@@ -17,6 +21,16 @@ import time
 import numpy as np
 import torch
 
+from . import mesh as mesh_lib
+from . import sharding as sharding_lib
+
+#: a batch leaf's dim 0 over (data, fsdp), JAX's ``BATCH_SPEC`` (:22)
+BATCH_SPEC = ((mesh_lib.DATA, mesh_lib.FSDP),)
+
+
+def _tensor(x):
+    return torch.as_tensor(np.asarray(x)) if not torch.is_tensor(x) else x
+
 
 def to_device(batch, device):
     """A dict of numpy arrays (or tensors) → the same dict of tensors on
@@ -25,16 +39,31 @@ def to_device(batch, device):
     device = torch.device(device)
     out = {}
     for name, x in batch.items():
-        t = torch.as_tensor(np.asarray(x)) if not torch.is_tensor(x) else x
+        t = _tensor(x)
         if device.type == "cuda" and t.device.type == "cpu":
             t = t.pin_memory()
         out[name] = t.to(device, non_blocking=True)
     return out
 
 
+def batch_sharding(mesh, spec=BATCH_SPEC):
+    return sharding_lib.NamedSharding(mesh, tuple(spec))
+
+
+def shard_batch(batch, mesh, spec=BATCH_SPEC):
+    """A dict of host arrays (or tensors) → the same dict of
+    ``sharding.Sharded`` leaves on ``mesh``: each position holds a copy
+    of its piece. Raises ``ValueError`` naming a leaf that does not
+    divide."""
+    return {name: sharding_lib.place(_tensor(x), spec, mesh,
+                                     f"batch {name!r}")
+            for name, x in batch.items()}
+
+
 class Prefetcher:
     """Wrap a host-batch iterator; overlap host→device transfer with
-    compute by staying ``depth`` batches ahead.
+    compute by staying ``depth`` batches ahead: ``shard_batch`` by
+    ``spec`` onto a mesh, ``to_device`` onto a device.
 
     Supports the context-manager protocol: an abandoned iterator (early
     ``break``, an exception in the training loop) would otherwise leak
@@ -43,17 +72,24 @@ class Prefetcher:
 
     _DONE = object()
 
-    def __init__(self, iterator, device, depth=2):
+    def __init__(self, iterator, mesh_or_device, spec=BATCH_SPEC,
+                 depth=2):
         self._q = queue.Queue(maxsize=depth)
         self._err = None
         self._closed = False
+        if isinstance(mesh_or_device, mesh_lib.Mesh):
+            def put(item):
+                return shard_batch(item, mesh_or_device, spec)
+        else:
+            def put(item):
+                return to_device(item, mesh_or_device)
 
         def pump():
             try:
                 for item in iterator:
                     if self._closed:
                         return
-                    self._q.put(to_device(item, device))
+                    self._q.put(put(item))
                     # re-check AFTER the (blocking) put: close() is what
                     # unblocked it, and pulling one more item would
                     # consume a batch from the source

@@ -1,12 +1,17 @@
-"""Device meshes for the port's tensor-sharded serving.
+"""Device meshes for the port's sharded serving and training.
 
 Port of ``kubeflow_tpu/compute/mesh.py``: the canonical axis names and
-their order (:97-110), ``MeshSpec`` (:113), ``make_mesh`` (:144) and
-``mesh_for_generation`` (:181). A JAX mesh is a grid of devices that
-one controller drives through ``shard_map``; here a :class:`Mesh` is
-the same grid of ``torch.device``s, and the one controller is the
-generation engine itself, which runs each shard's slice on that shard's
-device and moves activations between them (``compute/generate.py``).
+their order (:97-110), ``MeshSpec`` (:113), ``make_mesh`` (:144),
+``topology_chips`` (``api/tpuslice.py:30``), ``mesh_for_slice`` (:167)
+and ``mesh_for_generation`` (:181). A JAX mesh is a grid of devices
+that one controller drives through ``shard_map`` or XLA's partitioner;
+here a :class:`Mesh` is the same grid of ``torch.device``s, and the one
+controller is the generation engine (``compute/generate.py``) or the
+train step (``compute/train.py``), which runs each position's share on
+that position's device and moves tensors between them. A position's
+coordinates (:meth:`Mesh.coords`) and the groups of positions along an
+axis (:meth:`Mesh.along`) say which pieces a position holds and with
+whom it reduces.
 
 A mesh may name one device more than once: ``["cpu"] * 4`` is four CPU
 shards, the counterpart of JAX's forced host-device mesh, and
@@ -14,12 +19,13 @@ shards, the counterpart of JAX's forced host-device mesh, and
 means every CUDA card, and raises on a host without CUDA (there is no
 silent fallback to the CPU; ``device.resolve``).
 
-The slice meshes (``mesh_for_slice``, ``device_slice_groups``) and
-multi-host initialization come with the port's training mesh and slice
-worker.
+``device_slice_groups``, ``make_multislice_mesh``, ``multislice_layout``,
+``distributed_env`` and ``initialize_distributed`` (multi-slice and
+multi-process meshes) come with the port's slice worker.
 """
 
 import dataclasses
+import itertools
 import math
 
 import torch
@@ -84,6 +90,32 @@ class Mesh:
     def size(self):
         return len(self.devices)
 
+    def coords(self, position):
+        """Position ``position`` (an index into ``devices``) → ``{axis:
+        index}`` over :data:`AXIS_ORDER`, ``tensor`` fastest."""
+        out = {}
+        for axis in reversed(AXIS_ORDER):
+            position, out[axis] = divmod(position, self.shape[axis])
+        return {a: out[a] for a in AXIS_ORDER}
+
+    def position(self, coords):
+        """``{axis: index}`` (axes left out at 0) → the position."""
+        p = 0
+        for axis in AXIS_ORDER:
+            p = p * self.shape[axis] + coords.get(axis, 0)
+        return p
+
+    def along(self, position, axes):
+        """The positions that agree with ``position`` on every axis but
+        ``axes``, in position order (``position`` among them): the group
+        a reduction over ``axes`` runs in."""
+        axes = (axes,) if isinstance(axes, str) else tuple(axes)
+        base = self.coords(position)
+        grid = [range(self.shape[a]) if a in axes else (base[a],)
+                for a in AXIS_ORDER]
+        return [self.position(dict(zip(AXIS_ORDER, c)))
+                for c in itertools.product(*grid)]
+
 
 def _devices(devices):
     """``None`` → every CUDA card in index order (raises without CUDA);
@@ -102,6 +134,26 @@ def make_mesh(spec=None, devices=None, **axis_sizes):
         spec = MeshSpec(**axis_sizes)
     devices = _devices(devices)
     return Mesh(devices, spec.resolved(len(devices)))
+
+
+def topology_chips(topology):
+    """'4x4' or '2x2x4' -> total chip count (a copy of the JAX package's
+    ``api/tpuslice.py:30``, the one place topology is parsed)."""
+    n = 1
+    for d in topology.lower().split("x"):
+        n *= int(d)
+    return n
+
+
+def mesh_for_slice(accelerator="", topology="", tensor=1, sequence=1,
+                   fsdp=1, expert=1, devices=None):
+    """Mesh for one slice: explicit inner axes, ``data`` fills the rest.
+    ``accelerator`` and ``topology`` are advisory, as in JAX: the device
+    count comes from ``devices`` (default: every CUDA card)."""
+    return make_mesh(
+        MeshSpec(data=-1, fsdp=fsdp, sequence=sequence, tensor=tensor,
+                 expert=expert),
+        devices=devices)
 
 
 def mesh_for_generation(tensor=1, devices=None):

@@ -7,13 +7,26 @@ head_dim 64 for bert-base —, learned position embeddings, GELU MLP (the
 tanh approximation, ``jax.nn.gelu``'s default), LayerNorm (not RMS),
 tied MLM head over the embedding table. The params keep JAX's layout;
 ``layers`` may be the stacked dict (leading layer dim, JAX's
-``scan_layers=True``) or the per-layer list.
+``scan_layers=True``) or the per-layer list. ``logical_axes`` is JAX's
+(:72).
+
+On a training mesh (:func:`loss_fn` given ``sharding.Sharded`` params)
+each batch piece's layers run over its ``tensor`` positions: each holds
+its heads of wq/wk/wv with their biases, its rows of wo, its columns of
+w_up/b_up and its rows of w_down (gathered over ``fsdp``); the row
+partials are summed in position order on the piece's lead position,
+and ``bo``/``b_down`` added once, after the sum. The tied embedding and
+``mlm_bias`` are gathered whole there (JAX's one-hot ``embed_lookup``
+is exact, so a plain index matches it). The loss is the global batch's:
+the pieces' masked nll sums and masked-token counts, each summed, then
+divided.
 
 bert-base = Config(vocab_size=30522, d_model=768, n_layers=12,
 n_heads=12, d_ff=3072, max_seq=512).
 """
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -22,6 +35,8 @@ from torch.utils.checkpoint import checkpoint
 
 from .. import attention as attn_lib
 from .. import device as device_lib
+from .. import mesh as mesh_lib
+from .. import sharding
 from ..ops.flash_attention import flash_attention
 
 
@@ -63,6 +78,39 @@ def _layer_shapes(c):
         "ln2_scale": (d,), "ln2_bias": (d,),
         "w_up": (d, f), "b_up": (f,),
         "w_down": (f, d), "b_down": (d,),
+    }
+
+
+#: each layer leaf's logical axes (JAX ``_layer_shapes``' second element)
+_LAYER_AXES = {
+    "ln1_scale": (None,), "ln1_bias": (None,),
+    "wq": ("embed", "heads", None), "wk": ("embed", "heads", None),
+    "wv": ("embed", "heads", None),
+    "bq": ("heads", None), "bk": ("heads", None), "bv": ("heads", None),
+    "wo": ("heads", None, "embed"), "bo": (None,),
+    "ln2_scale": (None,), "ln2_bias": (None,),
+    "w_up": ("embed", "mlp"), "b_up": ("mlp",),
+    "w_down": ("mlp", "embed"), "b_down": (None,),
+}
+
+
+def logical_axes(config):
+    """The params tree's logical axes (JAX ``logical_axes``, :72): the
+    stacked layout's layer leaves lead with ``"layers"``; with
+    ``scan_layers=False`` the layers are a per-layer list."""
+    prefix = ("layers",) if config.scan_layers else ()
+    layers = {k: prefix + ax for k, ax in _LAYER_AXES.items()}
+    if not config.scan_layers:
+        layers = [layers] * config.n_layers
+    return {
+        "embed": ("vocab", "embed"),
+        "pos_embed": (None, "embed"),
+        "type_embed": (None, "embed"),
+        "embed_ln_scale": (None,), "embed_ln_bias": (None,),
+        "layers": layers,
+        "mlm_ln_scale": (None,), "mlm_ln_bias": (None,),
+        "mlm_dense": ("embed", None),
+        "mlm_bias": ("vocab",),
     }
 
 
@@ -134,22 +182,40 @@ def _attention(q, k, v, config):
     return attn_lib.dense_attention(q, k, v, causal=False)
 
 
-def _layer(lp, x, config):
+def _layer(sps, x, devices, config):
+    """One encoder layer over its shards: ``sps`` each shard's layer
+    params on ``devices`` (one: the whole layer on x's device), x the
+    residual stream on the first. Each shard projects its heads and MLP
+    columns; the row partials (wo, w_down) are summed in shard order on
+    x's device, then the replicated biases added once."""
     dt = config.compute_dtype
-    h = x
-    q = torch.einsum("bsd,dhk->bshk", h, lp["wq"].to(dt)) + lp["bq"].to(dt)
-    k = torch.einsum("bsd,dhk->bshk", h, lp["wk"].to(dt)) + lp["bk"].to(dt)
-    v = torch.einsum("bsd,dhk->bshk", h, lp["wv"].to(dt)) + lp["bv"].to(dt)
-    o = _attention(q, k, v, config)
-    o = torch.einsum("bshk,hkd->bsd", o, lp["wo"].to(dt)) + lp["bo"].to(dt)
-    x = _ln(x + o, lp["ln1_scale"].to(dt), lp["ln1_bias"].to(dt),
+    lead = sps[0]
+
+    def rows(parts):
+        return functools.reduce(torch.add, (p.to(x.device) for p in parts))
+
+    outs = []
+    for lp, h in zip(sps, (x.to(d) for d in devices)):
+        q = torch.einsum("bsd,dhk->bshk", h, lp["wq"].to(dt)) \
+            + lp["bq"].to(dt)
+        k = torch.einsum("bsd,dhk->bshk", h, lp["wk"].to(dt)) \
+            + lp["bk"].to(dt)
+        v = torch.einsum("bsd,dhk->bshk", h, lp["wv"].to(dt)) \
+            + lp["bv"].to(dt)
+        o = _attention(q, k, v, config)
+        outs.append(torch.einsum("bshk,hkd->bsd", o, lp["wo"].to(dt)))
+    o = rows(outs) + lead["bo"].to(dt)
+    x = _ln(x + o, lead["ln1_scale"].to(dt), lead["ln1_bias"].to(dt),
             config.ln_eps)
 
-    up = torch.einsum("bsd,df->bsf", x, lp["w_up"].to(dt)) \
-        + lp["b_up"].to(dt)
-    down = torch.einsum("bsf,fd->bsd", _gelu(up), lp["w_down"].to(dt)) \
-        + lp["b_down"].to(dt)
-    return _ln(x + down, lp["ln2_scale"].to(dt), lp["ln2_bias"].to(dt),
+    downs = []
+    for lp, h in zip(sps, (x.to(d) for d in devices)):
+        up = torch.einsum("bsd,df->bsf", h, lp["w_up"].to(dt)) \
+            + lp["b_up"].to(dt)
+        downs.append(torch.einsum("bsf,fd->bsd", _gelu(up),
+                                  lp["w_down"].to(dt)))
+    down = rows(downs) + lead["b_down"].to(dt)
+    return _ln(x + down, lead["ln2_scale"].to(dt), lead["ln2_bias"].to(dt),
                config.ln_eps)
 
 
@@ -162,11 +228,13 @@ def _layers(params):
     return layers
 
 
-def encode(params, tokens, config, token_types=None):
+def encode(params, tokens, config, token_types=None, shards=None):
     """tokens [B,S] → hidden states [B,S,D]. With ``remat`` and autograd
     recording, each layer is a non-reentrant checkpoint
     (``jax.checkpoint``): its activations are recomputed in the
-    backward."""
+    backward. ``shards`` (a mesh's batch piece): ``(each layer's list
+    of its shards' layer params, the shards' devices)``; ``params``
+    then holds the whole non-layer leaves on the first device."""
     dt = config.compute_dtype
     tokens = tokens.long()
     x = params["embed"].to(dt)[tokens]
@@ -175,12 +243,16 @@ def encode(params, tokens, config, token_types=None):
         x = x + params["type_embed"].to(dt)[token_types.long()]
     x = _ln(x, params["embed_ln_scale"].to(dt),
             params["embed_ln_bias"].to(dt), config.ln_eps)
+    if shards is None:
+        shards = ([[lp] for lp in _layers(params)], [x.device])
+    layers, devices = shards
     remat = config.remat and torch.is_grad_enabled()
-    for lp in _layers(params):
+    for sps in layers:
         if remat:
-            x = checkpoint(_layer, lp, x, config, use_reentrant=False)
+            x = checkpoint(_layer, sps, x, devices, config,
+                           use_reentrant=False)
         else:
-            x = _layer(lp, x, config)
+            x = _layer(sps, x, devices, config)
     return x
 
 
@@ -206,16 +278,14 @@ def apply(params, tokens, config, token_types=None):
                     config)
 
 
-def loss_fn(params, batch, config):
-    """batch: tokens (with [MASK] substitutions applied), targets
-    (original ids), mask (1.0 where a token was masked-out for MLM).
-
-    The MLM head runs only on the (up to max_predictions) masked
-    positions per sequence — the [B,S,vocab] tensor never exists (the
-    published recipe's max_predictions_per_seq). The masked positions
-    come first under a STABLE descending sort of the mask, as in JAX, so
-    both pick the same weight-0 positions as padding."""
-    x = encode(params, batch["tokens"], config, batch.get("token_types"))
+def _loss_terms(params, x, batch, config):
+    """Hidden states → the masked nll sum (under autograd), the masked
+    correct count and the masked-token count. The MLM head runs only on
+    the (up to max_predictions) masked positions per sequence — the
+    [B,S,vocab] tensor never exists (the published recipe's
+    max_predictions_per_seq). The masked positions come first under a
+    STABLE descending sort of the mask, as in JAX, so both pick the same
+    weight-0 positions as padding."""
     weights = batch["mask"].float()
     p = min(config.max_predictions, config.max_seq)
     idx = torch.argsort(-weights, dim=1, stable=True)[:, :p]    # [B,P]
@@ -226,10 +296,73 @@ def loss_fn(params, batch, config):
     logz = torch.logsumexp(logits, dim=-1)
     label_logits = torch.gather(logits, 2, targets[..., None])[..., 0]
     nll = logz - label_logits
-    denom = torch.clamp_min(weights.sum(), 1.0)
-    loss = (nll * weights).sum() / denom
-    acc = ((logits.argmax(-1) == targets) * weights).sum() / denom
+    return {"nll": (nll * weights).sum(), "count": weights.sum(),
+            "correct": ((logits.argmax(-1) == targets) * weights).sum()}
+
+
+def _finish(terms):
+    denom = torch.clamp_min(terms["count"], 1.0)
+    loss = terms["nll"] / denom
+    acc = terms["correct"] / denom
     return loss, {"loss": loss, "mlm_accuracy": acc}
+
+
+def loss_fn(params, batch, config):
+    """batch: tokens (with [MASK] substitutions applied), targets
+    (original ids), mask (1.0 where a token was masked-out for MLM).
+    The loss is the masked nll sum over the masked-token count. Params
+    placed on a mesh (``train.init_state(mesh=)``) and a batch from
+    ``data.shard_batch`` run the mesh forward: the loss is then the
+    global batch's, whatever each piece's count."""
+    mesh = sharding.mesh_of(params)
+    if mesh is not None:
+        return _mesh_loss(params, batch, config, mesh)
+    x = encode(params, batch["tokens"], config, batch.get("token_types"))
+    return _finish(_loss_terms(params, x, batch, config))
+
+
+def _check_mesh(config, mesh):
+    tp, fsdp = mesh.shape[mesh_lib.TENSOR], mesh.shape[mesh_lib.FSDP]
+    for name, value, axis, n in (
+            ("n_heads", config.n_heads, "tensor", tp),
+            ("d_ff", config.d_ff, "tensor", tp),
+            ("vocab_size", config.vocab_size, "tensor", tp),
+            ("d_model", config.d_model, "fsdp", fsdp)):
+        if value % n:
+            raise ValueError(f"{name}={value} does not divide over the "
+                             f"mesh's {axis} axis of {n}")
+
+
+def _mesh_loss(params, batch, config, mesh):
+    """:func:`loss_fn` on a mesh → the global batch's ``(loss,
+    metrics)`` on the first position's device."""
+    _check_mesh(config, mesh)
+    sharding.check_layout(params, logical_axes(config), "BERT")
+    dt = config.compute_dtype
+
+    def cast(t):
+        return t.to(dt)
+
+    def is_leaf(x):
+        return isinstance(x, sharding.Sharded)
+
+    terms = []
+    for lead in mesh.along(0, (mesh_lib.DATA, mesh_lib.FSDP)):
+        shards = mesh.along(lead, mesh_lib.TENSOR)
+        per_shard = [_layers({"layers": sharding._map(
+            lambda v, q=q: v.gather_at(q, (mesh_lib.FSDP,), cast),
+            params["layers"], is_leaf=is_leaf)}) for q in shards]
+        whole = {k: v.gather_at(lead) for k, v in params.items()
+                 if k != "layers"}
+        local = {k: v.pieces[lead] for k, v in batch.items()}
+        x = encode(whole, local["tokens"], config, local.get("token_types"),
+                   shards=(list(map(list, zip(*per_shard))),
+                           [mesh.devices[q] for q in shards]))
+        terms.append(_loss_terms(whole, x, local, config))
+    dev = mesh.devices[0]
+    return _finish({k: functools.reduce(torch.add,
+                                        (t[k].to(dev) for t in terms))
+                    for k in terms[0]})
 
 
 def param_count(config):

@@ -20,14 +20,28 @@ What differs from PyTorch's habits and is kept as in JAX:
   normalise as one multiply-add in the compute dtype.
 
 bf16 conv compute with fp32 BN statistics and master weights.
+
+Batch norm reduces over the GLOBAL batch, as JAX's does under a data
+mesh (XLA inserts the psum: sync BN). The forward therefore runs a
+batch held in pieces — one on one device, a mesh's on their positions'
+devices — through each layer together: :func:`_bn_pieces` sums each piece's
+Σx, Σx² and count in piece order on the first piece's device and hands
+the global mean and variance back to every piece, differentiably. On a
+training mesh (:func:`loss_fn` given ``sharding.Sharded`` params and
+statistics; every leaf replicated, JAX's :func:`logical_axes`) each
+position's copy of the running statistics moves by those global values,
+so the copies stay equal.
 """
 
 import dataclasses
+import functools
 
 import torch
 import torch.nn.functional as F
 
 from .. import device as device_lib
+from .. import mesh as mesh_lib
+from .. import sharding
 
 STAGE_BLOCKS = {18: (2, 2, 2, 2), 34: (3, 4, 6, 3), 50: (3, 4, 6, 3),
                 101: (3, 4, 23, 3), 152: (3, 8, 36, 3)}
@@ -178,51 +192,111 @@ def _stem(x, w, config, dt):
     return _conv(x, w, 2, dt)
 
 
-def _bn(x, bp, bs, config, train):
-    """Batch norm as the JAX package computes it: one-pass fp32
-    statistics (E[x], E[x²], the variance clamped at 0) over batch and
-    space, the BIASED variance into the running average with
-    ``bn_momentum`` on the old value, then the normalise folded to one
-    multiply-add ``x*scale'+bias'`` in x's dtype. Gradients flow through
-    the batch statistics. → ``(y, new stats)``."""
+def _replicated(tree):
+    """Every leaf's logical axes, all None."""
+    if isinstance(tree, dict):
+        return {k: _replicated(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_replicated(v) for v in tree]
+    return (None,) * len(tree.shape)
+
+
+def logical_axes(config):
+    """``(params axes, statistics axes)``: every leaf replicated, JAX's
+    (:110; the weights are small next to the activations)."""
+    params, stats = init_params(config, device="meta")
+    return _replicated(params), _replicated(stats)
+
+
+def _bn_pieces(xs, bps, bss, config, train):
+    """Batch norm as the JAX package computes it, over a batch in pieces
+    (``xs``; one piece is one device's batch) → ``(ys, moments)``:
+    one-pass fp32 statistics (E[x], E[x²], the variance clamped at 0)
+    over batch and space — each piece's sums added in piece order on the
+    first piece's device —, then the normalise folded to one
+    multiply-add ``x*scale'+bias'`` in x's dtype, each piece with its
+    params ``bps`` (in eval: its running statistics ``bss``). Gradients
+    flow through the batch statistics. ``moments`` is ``{"mean",
+    "var"}`` of the global batch (train) or None."""
     if train:
-        xf = x.float()
-        n = x.shape[0] * x.shape[1] * x.shape[2]
-        m1 = xf.sum(dim=(0, 1, 2)) / n
-        m2 = (xf * xf).sum(dim=(0, 1, 2)) / n
-        mean = m1
-        var = torch.clamp_min(m2 - m1 * m1, 0.0)
-        mom = config.bn_momentum
-        new = {"mean": mom * bs["mean"] + (1 - mom) * mean,
-               "var": mom * bs["var"] + (1 - mom) * var}
+        dev = xs[0].device
+        xfs = [x.float() for x in xs]
+        n = sum(x.shape[0] * x.shape[1] * x.shape[2] for x in xs)
+
+        def total(parts):
+            return functools.reduce(torch.add, (t.to(dev) for t in parts))
+
+        m1 = total([xf.sum(dim=(0, 1, 2)) for xf in xfs]) / n
+        m2 = total([(xf * xf).sum(dim=(0, 1, 2)) for xf in xfs]) / n
+        moments = {"mean": m1, "var": torch.clamp_min(m2 - m1 * m1, 0.0)}
+        stats = [moments] * len(xs)
     else:
-        mean, var = bs["mean"], bs["var"]
-        new = bs
-    scale = bp["scale"] * torch.rsqrt(var + config.bn_eps)   # [C] fp32
-    bias = bp["bias"] - mean * scale
-    y = x * scale.to(x.dtype) + bias.to(x.dtype)
-    return y, new
+        moments, stats = None, bss
+    ys = []
+    for x, bp, st in zip(xs, bps, stats):
+        mean, var = st["mean"].to(x.device), st["var"].to(x.device)
+        scale = bp["scale"] * torch.rsqrt(var + config.bn_eps)  # [C] fp32
+        bias = bp["bias"] - mean * scale
+        ys.append(x * scale.to(x.dtype) + bias.to(x.dtype))
+    return ys, moments
+
+
+def _bn(x, bp, bs, config, train):
+    """:func:`_bn_pieces` on one device → ``(y, new stats)``."""
+    ys, moments = _bn_pieces([x], [bp], [bs], config, train)
+    return ys[0], _moved(bs, moments, config)
+
+
+def _moved(stats, moments, config):
+    """Running statistics moved by a batch's moments: the BIASED
+    variance, ``bn_momentum`` on the old value (eval: unchanged)."""
+    if moments is None:
+        return stats
+    mom = config.bn_momentum
+
+    def move(old, new):
+        if isinstance(old, dict):
+            return {k: move(old[k], new[k]) for k in old}
+        if isinstance(old, list):
+            return [move(o, n) for o, n in zip(old, new)]
+        return mom * old + (1 - mom) * new.to(old.device)
+
+    return move(stats, moments)
+
+
+def _blocks(xs, bps, bss, config, stride, train):
+    """One block over a batch in pieces (each piece's params ``bps``,
+    statistics ``bss``) → ``(ys, the block's moments)``."""
+    dt = config.compute_dtype
+    bottleneck = config.depth in BOTTLENECK
+    moments = {}
+    n_convs = 3 if bottleneck else 2
+    hs = xs
+    for i in range(n_convs):
+        s = stride if i == (1 if bottleneck else 0) else 1
+        hs = [_conv(h, bp[f"conv{i}"], s, dt) for h, bp in zip(hs, bps)]
+        hs, moments[f"bn{i}"] = _bn_pieces(hs, [bp[f"bn{i}"] for bp in bps],
+                                    [bs[f"bn{i}"] for bs in bss], config,
+                                    train)
+        if i < n_convs - 1:
+            hs = [torch.relu(h) for h in hs]
+    residuals = xs
+    if "proj" in bps[0]:
+        residuals = [_conv(x, bp["proj"], stride, dt)
+                     for x, bp in zip(xs, bps)]
+        residuals, moments["proj_bn"] = _bn_pieces(
+            residuals, [bp["proj_bn"] for bp in bps],
+            [bs["proj_bn"] for bs in bss], config, train)
+    return ([torch.relu(h + r.to(h.dtype)) for h, r in zip(hs, residuals)],
+            moments)
 
 
 def _block(x, bp, bs, config, stride, train):
-    dt = config.compute_dtype
-    bottleneck = config.depth in BOTTLENECK
-    new_bs = {}
-    residual = x
-    n_convs = 3 if bottleneck else 2
-    h = x
-    for i in range(n_convs):
-        s = stride if i == (1 if bottleneck else 0) else 1
-        h = _conv(h, bp[f"conv{i}"], s, dt)
-        h, new_bs[f"bn{i}"] = _bn(h, bp[f"bn{i}"], bs[f"bn{i}"], config,
-                                  train)
-        if i < n_convs - 1:
-            h = torch.relu(h)
-    if "proj" in bp:
-        residual = _conv(x, bp["proj"], stride, dt)
-        residual, new_bs["proj_bn"] = _bn(
-            residual, bp["proj_bn"], bs["proj_bn"], config, train)
-    return torch.relu(h + residual.to(h.dtype)), new_bs
+    """One block on one device → ``(y, its new statistics)``."""
+    ys, moments = _blocks([x], [bp], [bs], config, stride, train)
+    new = {k: (_moved(bs[k], m, config) if m is not None else bs[k])
+           for k, m in moments.items()}
+    return ys[0], new
 
 
 def block_stride(stage, block):
@@ -231,19 +305,31 @@ def block_stride(stage, block):
     return 2 if (stage > 0 and block == 0) else 1
 
 
-def _trunk_in(params, stats, x, config, train):
+def _trunks_in(params, stats, xs, config, train):
     """Stem conv → BN → relu → 3×3/2 max pool (SAME: −inf padding, the
-    odd pixel high) → ``(h, the stem's new BN stats)``."""
+    odd pixel high) over a batch in pieces → ``(hs, the stem's
+    moments)``."""
     dt = config.compute_dtype
-    h = _stem(x, params["stem"]["conv"], config, dt)
-    h, stem_bn = _bn(h, params["stem"]["bn"], stats["stem"]["bn"], config,
-                     train)
-    h = torch.relu(h)
-    pad_h = _same_pad(h.shape[1], 3, 2)
-    pad_w = _same_pad(h.shape[2], 3, 2)
-    h = F.pad(h, (0, 0, *pad_w, *pad_h), value=float("-inf"))
-    h = F.max_pool2d(h.permute(0, 3, 1, 2), 3, 2).permute(0, 2, 3, 1)
-    return h, stem_bn
+    hs = [_stem(x, p["stem"]["conv"], config, dt)
+          for x, p in zip(xs, params)]
+    hs, moments = _bn_pieces(hs, [p["stem"]["bn"] for p in params],
+                      [st["stem"]["bn"] for st in stats], config, train)
+    out = []
+    for h in hs:
+        h = torch.relu(h)
+        pad_h = _same_pad(h.shape[1], 3, 2)
+        pad_w = _same_pad(h.shape[2], 3, 2)
+        h = F.pad(h, (0, 0, *pad_w, *pad_h), value=float("-inf"))
+        out.append(
+            F.max_pool2d(h.permute(0, 3, 1, 2), 3, 2).permute(0, 2, 3, 1))
+    return out, moments
+
+
+def _trunk_in(params, stats, x, config, train):
+    """:func:`_trunks_in` on one device → ``(h, the stem's new BN
+    stats)``."""
+    hs, moments = _trunks_in([params], [stats], [x], config, train)
+    return hs[0], _moved(stats["stem"]["bn"], moments, config)
 
 
 def _head(params, h):
@@ -252,26 +338,72 @@ def _head(params, h):
     return h @ params["fc"]["w"] + params["fc"]["b"]
 
 
+def _forward(params, stats, xs, config, train):
+    """The network over a batch in pieces (each piece's params and
+    statistics) → ``(logits per piece, the batch's moments)`` (moments
+    None in eval)."""
+    hs, stem = _trunks_in(params, stats, xs, config, train)
+    moments = {"stem": {"bn": stem}, "stages": []}
+    for stage, blocks in enumerate(params[0]["stages"]):
+        per_block = []
+        for b in range(len(blocks)):
+            hs, m = _blocks(hs, [p["stages"][stage][b] for p in params],
+                            [st["stages"][stage][b] for st in stats],
+                            config, block_stride(stage, b), train)
+            per_block.append(m)
+        moments["stages"].append(per_block)
+    return ([_head(p, h) for p, h in zip(params, hs)],
+            moments if train else None)
+
+
 def apply(params, stats, x, config, train=True):
     """x [B,H,W,3] → (logits fp32 [B,n_classes], new_stats)."""
-    h, stem_bn = _trunk_in(params, stats, x, config, train)
-    new_stats = {"stem": {"bn": stem_bn}, "stages": []}
-    for stage, blocks in enumerate(params["stages"]):
-        sblocks = []
-        for b, bp in enumerate(blocks):
-            h, nbs = _block(h, bp, stats["stages"][stage][b], config,
-                            block_stride(stage, b), train)
-            sblocks.append(nbs)
-        new_stats["stages"].append(sblocks)
-    return _head(params, h), new_stats
+    logits, moments = _forward([params], [stats], [x], config, train)
+    return logits[0], _moved(stats, moments, config)
 
 
 def loss_fn(params, stats, batch, config, train=True):
+    """Mean cross entropy and accuracy → ``(loss, (metrics,
+    new_stats))``; on a mesh (params and statistics placed by
+    ``train.init_state(mesh=)``) those of the global batch, sync BN."""
+    mesh = sharding.mesh_of(params)
+    if mesh is not None:
+        return _mesh_loss(params, stats, batch, config, train, mesh)
     logits, new_stats = apply(params, stats, batch["image"], config, train)
     labels = batch["label"].long()
     nll = -F.log_softmax(logits, dim=-1).gather(1, labels[:, None])[:, 0]
     loss = nll.mean()
     acc = (logits.argmax(-1) == labels).float().mean()
+    return loss, ({"loss": loss, "accuracy": acc}, new_stats)
+
+
+def _mesh_loss(params, stats, batch, config, train, mesh):
+    """:func:`loss_fn` on a mesh: every batch piece through each layer
+    together on its lead position, with that position's copies of the
+    params and statistics; then each position's statistics moved by the
+    global moments."""
+    sharding.check_layout(params, _replicated(params), "ResNet params")
+    sharding.check_layout(stats, _replicated(stats), "ResNet statistics")
+    leads = mesh.along(0, (mesh_lib.DATA, mesh_lib.FSDP))
+    logits, moments = _forward(
+        [sharding.local(params, q) for q in leads],
+        [sharding.local(stats, q) for q in leads],
+        [batch["image"].pieces[q] for q in leads], config, train)
+    dev = mesh.devices[0]
+    nll, correct, rows = [], [], 0
+    for q, lg in zip(leads, logits):
+        labels = batch["label"].pieces[q].long()
+        nll.append((-F.log_softmax(lg, dim=-1).gather(
+            1, labels[:, None])[:, 0]).sum().to(dev))
+        correct.append((lg.argmax(-1) == labels).float().sum().to(dev))
+        rows += labels.shape[0]
+    loss = functools.reduce(torch.add, nll) / rows
+    acc = functools.reduce(torch.add, correct) / rows
+    new_stats = stats
+    if moments is not None:
+        new_stats = sharding.from_local(
+            [_moved(sharding.local(stats, q), moments, config)
+             for q in range(mesh.size)], stats)
     return loss, ({"loss": loss, "accuracy": acc}, new_stats)
 
 

@@ -13,6 +13,17 @@ whose leaves carry a leading layer dim — so weights cross between the
 two packages through numpy unchanged (``compute/params.py``).
 ``lax.scan`` over the stacked layers becomes a Python loop.
 
+On a training mesh (:func:`loss_fn` given ``sharding.Sharded`` params,
+a dense model) each batch piece runs on its ``tensor`` positions
+through :func:`layer_core`'s sharded form: a position's weights
+gathered over ``fsdp``, its heads of wq/wk/wv and columns of
+w_gate/w_up, its attention over its local heads (K3, and K4 + K5 in the
+backward, per shard), its row partials of wo/w_down summed in position
+order on the piece's lead position, where the residual stream, the
+norms, the embedding and the LM head (gathered whole) live. The loss and
+metrics are the global batch's: each piece's sums and mask count, summed
+over the pieces, then divided.
+
 Numerics mirrored on purpose (the token-identity contract rests on
 them): RoPE rotates interleaved (even, odd) pairs and restacks them
 (not ``rotate_half``); RMSNorm takes its variance in fp32, casts the
@@ -23,6 +34,7 @@ backward lands its gradients on the masters, as JAX's ``.astype`` does.
 """
 
 import dataclasses
+import functools
 import math
 
 import torch
@@ -31,6 +43,8 @@ from torch.utils.checkpoint import checkpoint
 
 from .. import attention as attn_lib
 from .. import device as device_lib
+from .. import mesh as mesh_lib
+from .. import sharding
 from ..ops import grouped_matmul as gmm_lib
 from ..ops.flash_attention import flash_attention
 
@@ -537,24 +551,10 @@ def apply(params, tokens, config):
     return _logits(x, params["head"].to(config.compute_dtype))
 
 
-def loss_fn(params, batch, config):
-    """batch: ``{tokens [B, S], targets [B, S], mask [B, S] optional}``
-    (tensors on the params' device) → ``(loss, metrics)``.
-
-    Cross entropy in fp32 with z-loss ``1e-4·logz²`` against logit
-    drift, over the masked positions (``transformer.py:589-621``). With
-    ``config.chunked_ce`` the fp32 ``[B, S, V]`` logits are never formed
-    (``ops/cross_entropy.py``). An MoE model adds ``0.01·aux`` (the
-    Switch load-balancing loss) and reports it as ``moe_aux``.
-    ``metrics`` (``loss``, ``accuracy``, ``perplexity``) are detached
-    0-d tensors: reading one waits for the device."""
-    targets = batch["targets"].long()
-    mask = batch.get("mask")
-    mask = (torch.ones(targets.shape, dtype=torch.float32,
-                       device=targets.device)
-            if mask is None else mask.float())
-    x, aux = backbone(params, batch["tokens"], config)
-    head = params["head"].to(config.compute_dtype)
+def _loss_terms(x, head, targets, mask, config):
+    """Final-norm hidden states and the LM head → the sums the loss and
+    metrics divide by the mask count: ``loss`` (nll + z-loss, under
+    autograd), ``nll`` and ``correct`` (detached), ``count``."""
     if config.chunked_ce:
         from ..ops.cross_entropy import chunked_softmax_xent
         nll, logz, pred = chunked_softmax_xent(x, head, targets,
@@ -566,18 +566,165 @@ def loss_fn(params, batch, config):
         nll = logz - label
         pred = logits.argmax(-1)
     z_loss = 1e-4 * logz.square()
-    denom = mask.sum().clamp_min(1.0)
-    loss = ((nll + z_loss) * mask).sum() / denom
+    terms = {"loss": ((nll + z_loss) * mask).sum(), "count": mask.sum()}
+    with torch.no_grad():
+        terms["nll"] = (nll * mask).sum()
+        terms["correct"] = ((pred == targets) * mask).sum()
+    return terms
+
+
+def _finish(terms, aux, config):
+    """The sums of :func:`_loss_terms` (one batch's, or summed over a
+    mesh's pieces) → ``(loss, metrics)``."""
+    denom = terms["count"].clamp_min(1.0)
+    loss = terms["loss"] / denom
     if config.moe_experts:
         loss = loss + 0.01 * aux
     with torch.no_grad():
         metrics = {
             "loss": loss.detach(),
-            "accuracy": ((pred == targets) * mask).sum() / denom,
-            "perplexity": torch.exp((nll * mask).sum() / denom)}
+            "accuracy": terms["correct"] / denom,
+            "perplexity": torch.exp(terms["nll"] / denom)}
         if config.moe_experts:
             metrics["moe_aux"] = aux.detach()
     return loss, metrics
+
+
+def _mask(batch, targets):
+    mask = batch.get("mask")
+    return (torch.ones(targets.shape, dtype=torch.float32,
+                       device=targets.device)
+            if mask is None else mask.float())
+
+
+def loss_fn(params, batch, config):
+    """batch: ``{tokens [B, S], targets [B, S], mask [B, S] optional}``
+    (tensors on the params' device) → ``(loss, metrics)``.
+
+    Cross entropy in fp32 with z-loss ``1e-4·logz²`` against logit
+    drift, over the masked positions (``transformer.py:589-621``). With
+    ``config.chunked_ce`` the fp32 ``[B, S, V]`` logits are never formed
+    (``ops/cross_entropy.py``). An MoE model adds ``0.01·aux`` (the
+    Switch load-balancing loss) and reports it as ``moe_aux``.
+    ``metrics`` (``loss``, ``accuracy``, ``perplexity``) are detached
+    0-d tensors: reading one waits for the device. Params placed on a
+    mesh (``train.init_state(mesh=)``) and a batch from
+    ``data.shard_batch`` run the mesh forward (:func:`_mesh_loss`)."""
+    mesh = sharding.mesh_of(params)
+    if mesh is not None:
+        return _mesh_loss(params, batch, config, mesh)
+    targets = batch["targets"].long()
+    mask = _mask(batch, targets)
+    x, aux = backbone(params, batch["tokens"], config)
+    head = params["head"].to(config.compute_dtype)
+    return _finish(_loss_terms(x, head, targets, mask, config), aux,
+                   config)
+
+
+# ------------------------------------------------------------- mesh
+
+def _check_mesh(config, mesh):
+    """The dims the mesh forward cuts must divide (ValueError names the
+    field), and a mixture of experts waits for its expert-parallel
+    slice on any mesh of more than one position."""
+    if config.moe_experts and mesh.size > 1:
+        raise ValueError(
+            f"moe_experts={config.moe_experts} on a mesh of {mesh.size} "
+            f"positions: the MoE's aux loss is a product of global-batch "
+            f"means, which comes with the port's expert parallelism")
+    tp, fsdp = mesh.shape[mesh_lib.TENSOR], mesh.shape[mesh_lib.FSDP]
+    for name, value, axis, n in (
+            ("n_heads", config.n_heads, "tensor", tp),
+            ("kv_heads", config.kv_heads, "tensor", tp),
+            ("ff_dim", config.ff_dim, "tensor", tp),
+            ("vocab_size", config.vocab_size, "tensor", tp),
+            ("d_model", config.d_model, "fsdp", fsdp)):
+        if value % n:
+            raise ValueError(f"{name}={value} does not divide over the "
+                             f"mesh's {axis} axis of {n}")
+
+
+class _TrainShards:
+    """One batch piece's hooks for :func:`layer_core`'s sharded form:
+    ``layers`` each tensor position's layer params (gathered over
+    ``fsdp``, in the compute dtype); the norms once, on the lead (the
+    first tensor position, which holds the residual stream), with its
+    copy of the scales, the normed input sent to every position; the
+    row projections as each position's partial product, summed in
+    position order on the lead."""
+
+    def __init__(self, layers, devices):
+        self.layers, self.devices = layers, devices
+
+    def norm(self, x, name):
+        h = _rmsnorm(x, self.layers[0][name])
+        return [h.to(d) for d in self.devices]
+
+    def project(self, x, pieces, name):
+        partials = [torch.matmul(o, sp[name]).to(x.device)
+                    for o, sp in zip(pieces, self.layers)]
+        return x + functools.reduce(torch.add, partials)
+
+
+def _piece_loss(params, batch, config, mesh, lead):
+    """The loss sums of the batch piece whose lead position is
+    ``lead`` (:func:`_loss_terms`), on the lead's device."""
+    dt = config.compute_dtype
+    shards = mesh.along(lead, mesh_lib.TENSOR)
+    devices = [mesh.devices[q] for q in shards]
+
+    def cast(t):
+        return t.to(dt)
+
+    def whole(name):
+        return params[name].gather_at(lead, cast=cast)
+
+    stacks = [{k: v.gather_at(q, (mesh_lib.FSDP,), cast)
+               for k, v in params["layers"].items()} for q in shards]
+    tokens = batch["tokens"].pieces[lead].long()
+    targets = batch["targets"].pieces[lead].long()
+    mask = _mask({k: v.pieces[lead] for k, v in batch.items()}, targets)
+    x = whole("embed")[tokens]
+    ropes = [rope_tables(config, torch.arange(tokens.shape[1], device=d))
+             for d in devices]
+
+    def attend(i, q, k, v):
+        cos, sin = ropes[i]
+        return _attention(apply_rope(q, cos, sin), apply_rope(k, cos, sin),
+                          v, config)
+
+    remat = config.remat and torch.is_grad_enabled()
+    for i in range(config.n_layers):
+        hooks = _TrainShards([layer_params({"layers": st}, i)
+                              for st in stacks], devices)
+
+        def layer(x, hooks=hooks):
+            return layer_core(x, None, attend, config, hooks)[0]
+
+        x = (checkpoint(layer, x, use_reentrant=False) if remat
+             else layer(x))
+    x = _rmsnorm(x, whole("final_norm"))
+    return _loss_terms(x, whole("head"), targets, mask, config)
+
+
+def _mesh_loss(params, batch, config, mesh):
+    """:func:`loss_fn` on a mesh → the global batch's ``(loss,
+    metrics)`` on the first position's device. One position is the
+    model on one device (its MoE included)."""
+    if mesh.size == 1:
+        return loss_fn(sharding.local(params, 0),
+                       sharding.local(batch, 0), config)
+    _check_mesh(config, mesh)
+    # the port's layers are stacked whatever scan_layers says
+    sharding.check_layout(
+        params, logical_axes(dataclasses.replace(config, scan_layers=True)),
+        "the transformer")
+    dev = mesh.devices[0]
+    pieces = [_piece_loss(params, batch, config, mesh, lead)
+              for lead in mesh.along(0, (mesh_lib.DATA, mesh_lib.FSDP))]
+    terms = {k: functools.reduce(torch.add, (t[k].to(dev) for t in pieces))
+             for k in pieces[0]}
+    return _finish(terms, None, config)
 
 
 def flops_per_token(config):

@@ -32,9 +32,9 @@ parsing are untouched.
 
 Worker entry: ``python -m kubeflow_tpu_torch.compute.sweep`` with
 ``TRIAL_SWEEP_PARAMETERS`` holding the JSON trial list (the env the
-StudyJobReconciler injects into a packed sweep pod). The shard exporter
-and the ``sweep-worker`` span of the JAX module wait for the port's
-copy of ``obs/export.py`` and ``obs/tracing.py``.
+StudyJobReconciler injects into a packed sweep pod). As in JAX, the
+worker runs the shard exporter (``obs/export.py``) and one
+``sweep-worker`` span (``obs/tracing.py``) on the study's trace.
 """
 
 import json
@@ -230,8 +230,11 @@ def trials_from_env():
 
 
 def main(device=None):
+    from ..obs import export as obs_export
+    from ..obs import tracing
     from . import telemetry as telem
 
+    exporter = obs_export.start_exporter()
     tele = telem.TrainTelemetry("sweep-mlp")
     install_cache_listener()
     trials = trials_from_env()
@@ -240,14 +243,22 @@ def main(device=None):
             "sweep worker: TRIAL_SWEEP_PARAMETERS is empty — nothing "
             "to run")
     steps = int(os.environ.get("TRIAL_SWEEP_STEPS", "30"))
-    # goodput: spawn → first dispatch is the start-up window; the
-    # sweep's wall time (results read back, so the card has finished)
-    # books as compute via observe_steps
-    tele.step()
-    t0 = time.perf_counter()
-    results = run_mnist_sweep(trials, steps=steps, device=device)
-    tele.observe_steps(steps, time.perf_counter() - t0)
-    report_sweep(results)
+    try:
+        # one span on the study's gang trace per packed pod. Goodput:
+        # spawn → first dispatch is the start-up window; the sweep's
+        # wall time (results read back, so the card has finished)
+        # books as compute via observe_steps
+        with tracing.span("sweep-worker",
+                          traceparent=os.environ.get("TRACEPARENT"),
+                          trials=len(trials), steps=steps):
+            tele.step()
+            t0 = time.perf_counter()
+            results = run_mnist_sweep(trials, steps=steps, device=device)
+            tele.observe_steps(steps, time.perf_counter() - t0)
+        report_sweep(results)
+    finally:
+        if exporter is not None:
+            exporter.stop()
     return 0
 
 

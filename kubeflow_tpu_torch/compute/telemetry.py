@@ -59,13 +59,24 @@ def peak_flops(device=None):
                      f"TrainTelemetry")
 
 
+def mesh_peak_flops(mesh):
+    """The MFU denominator on a mesh: the sum of :func:`peak_flops` over
+    the mesh's DISTINCT devices (one H100's for ``[cuda:0] * 4``, where
+    four positions share one card), None when one is not a card."""
+    devices = list(dict.fromkeys(mesh.devices))
+    if any(d.type != "cuda" for d in devices):
+        return None
+    return sum(peak_flops(d) for d in devices)
+
+
 class TrainTelemetry:
     """Per-workload telemetry feeder for a training loop.
 
     ``gang`` defaults to the ``OBS_GANG`` env the controllers inject;
     without one the goodput ledger is skipped and only the model-keyed
     families are fed. ``flops_per_step`` (analytic) enables the live
-    MFU gauge; ``peak`` overrides :func:`peak_flops`.
+    MFU gauge; ``peak`` overrides :func:`peak_flops` (on a mesh, pass
+    :func:`mesh_peak_flops`).
 
     The accounting mark starts at ``OBS_SPAWNED_AT`` (the runtime stamps
     the exec time into the child env) or object creation."""

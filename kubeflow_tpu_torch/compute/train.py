@@ -1,12 +1,28 @@
-"""Training engine: init → train step → metrics, on one device.
+"""Training engine: init → train step → metrics, on one device or a
+mesh.
 
 Port of ``kubeflow_tpu/compute/train.py``. PyTorch runs eagerly, so the
 step is a plain function: the loss and its gradients through autograd
 (the attention backward through kernels K4 and K5), then the
 optimizer's update applied to the parameters in place (JAX donates the
 old state instead; updating in place keeps one copy of the masters and
-the moments on the card). The mesh and logical axes wait for the
-multi-device slice.
+the moments on the card).
+
+On a mesh (``compute/mesh.py``; ``data``, ``fsdp`` and ``tensor``
+axes) the step is the one controller that XLA's partitioner is in JAX.
+``init_state(mesh=, logical_axes=)`` places the fp32 masters, the
+moments and the model state as ``sharding.Sharded`` leaves, one copy of
+its piece per position. The models' losses see the sharded tree and run
+each position's share on its device (the gathers over ``fsdp`` and the
+``tensor`` partials are ``.to()`` and ``torch.cat``/sums under
+autograd, so their backward is the reduce-scatter and the psum), and
+return the loss and metrics of the GLOBAL batch. The step then sums
+each piece's gradient over its copies in position order, hands every
+copy that sum, clips by the norm of the logical elements (each counted
+once) and updates every copy with the same arithmetic: replicated
+copies stay byte-equal. ``sequence``, ``pipeline`` and ``expert`` > 1
+are refused (ring attention, the pipeline and expert parallelism are
+later slices).
 
 Mixed precision: fp32 master weights (``state.params``), the compute
 dtype cast inside the model's graph, fp32 gradients summed over
@@ -22,12 +38,15 @@ update, so with warmup the first update has rate 0.
 """
 
 import dataclasses
+import functools
 import math
 
 import torch
 
 from . import data as data_lib
 from . import device as device_lib
+from . import mesh as mesh_lib
+from . import sharding as sharding_lib
 
 
 @dataclasses.dataclass
@@ -83,18 +102,25 @@ def warmup_cosine(peak, warmup_steps, total_steps):
 
 def global_norm(tensors):
     """``optax.global_norm``: the square root of the summed squares,
-    fp32, on the device (no host sync)."""
-    return torch.sqrt(sum(t.float().square().sum() for t in tensors))
+    fp32, on the first tensor's device (no host sync)."""
+    dev = tensors[0].device
+    return torch.sqrt(sum(t.float().square().sum().to(dev)
+                          for t in tensors))
 
 
-def clip_by_global_norm(grads, max_norm):
+def clip_by_global_norm(grads, max_norm, norm=None):
     """``optax.clip_by_global_norm``'s update on a list of tensors →
     ``(clipped, norm)``: each ``g`` kept when ``‖g‖ < max_norm``, else
-    ``(g / ‖g‖) · max_norm``, chosen on the device."""
-    norm = global_norm(grads)
-    keep = norm < max_norm
-    return [torch.where(keep, g, (g / norm) * max_norm)
-            for g in grads], norm
+    ``(g / ‖g‖) · max_norm``, chosen on the device. ``norm`` (default
+    the norm of ``grads``) is given where ``grads`` holds some elements
+    more than once (a mesh's copies)."""
+    if norm is None:
+        norm = global_norm(grads)
+    out = []
+    for g in grads:
+        n = norm.to(g.device)
+        out.append(torch.where(n < max_norm, g, (g / n) * max_norm))
+    return out, norm
 
 
 class AdamW:
@@ -116,6 +142,8 @@ class AdamW:
 
     def init(self, params):
         def zeros(p):
+            if isinstance(p, sharding_lib.Sharded):
+                return p.map(zeros)
             return torch.zeros(p.shape, dtype=torch.float32,
                                device=p.device)
         return {"count": 0, "mu": tree_map(zeros, params),
@@ -133,14 +161,20 @@ class AdamW:
         return (-self.schedule(count) * u).to(p.dtype), mu, nu
 
     @torch.no_grad()
-    def update(self, params, grads, opt_state):
+    def update(self, params, grads, opt_state, unique=None):
         """One update of the ``params`` leaves (in place) from ``grads``
-        (matching list of fp32 tensors) → the pre-clip global norm."""
-        grads, norm = clip_by_global_norm(grads, self.clip_norm)
+        (matching list of fp32 tensors) → the pre-clip global norm. On
+        a mesh ``params`` and ``grads`` are every position's pieces and
+        ``unique`` holds each logical element's gradient once, for the
+        norm."""
+        grads, norm = clip_by_global_norm(
+            grads, self.clip_norm,
+            None if unique is None else global_norm(unique))
         count = opt_state["count"]
-        for p, g, mu, nu in zip(params, grads,
-                                tree_leaves(opt_state["mu"]),
-                                tree_leaves(opt_state["nu"])):
+        for p, g, mu, nu in zip(
+                params, grads,
+                sharding_lib.pieces_of(tree_leaves(opt_state["mu"])),
+                sharding_lib.pieces_of(tree_leaves(opt_state["nu"]))):
             step, new_mu, new_nu = self._leaf(p, g, mu, nu, count)
             mu.copy_(new_mu)
             nu.copy_(new_nu)
@@ -182,14 +216,37 @@ def make_optimizer(learning_rate=3e-4, warmup_steps=100,
 
 # ---------------------------------------------------------------- state
 
-def init_state(init_params_fn, optimizer, *, device=None, generator=None,
-               extra=None):
+def init_state(init_params_fn, optimizer, *, mesh=None, logical_axes=None,
+               device=None, generator=None, extra=None):
     """A fresh TrainState on ``device`` (None → the card; raises on a
-    host without CUDA). ``init_params_fn(generator, device=...)`` builds
-    the fp32 masters (``functools.partial(transformer.init_params,
-    config)`` fits); they become leaves that require grad. ``extra`` is
-    the model's mutable state (ResNet's batch statistics; None → ``{}``):
-    its leaves go to the device and take no gradient."""
+    host without CUDA), or placed on ``mesh`` (JAX ``init_state``, :68).
+    ``init_params_fn(generator, device=...)`` builds the fp32 masters
+    (``functools.partial(transformer.init_params, config)`` fits); they
+    become leaves that require grad. ``extra`` is the model's mutable
+    state (ResNet's batch statistics; None → ``{}``): its leaves take
+    no gradient.
+
+    On a mesh the masters are built on the host and cut by
+    ``logical_axes`` under ``sharding.DEFAULT_RULES`` (the layout the
+    models' mesh forwards compute on; JAX's ``rules=`` is not taken),
+    every position keeping a copy of its piece; the moments take the params'
+    layout; ``extra`` is replicated unless its leaves are placed
+    already. The mesh names the devices, so ``device`` must be None."""
+    if mesh is not None:
+        if device is not None:
+            raise ValueError("init_state takes a mesh or a device, not "
+                             "both: the mesh names the devices")
+        params = sharding_lib.place_tree(
+            init_params_fn(generator, device="cpu"), mesh, logical_axes)
+        for t in sharding_lib.pieces_of(tree_leaves(params)):
+            if t.is_floating_point():
+                t.requires_grad_(True)
+        extra = tree_map(
+            lambda x: x if isinstance(x, sharding_lib.Sharded)
+            else sharding_lib.place(x.detach(), (), mesh),
+            extra if extra is not None else {})
+        return TrainState(step=0, params=params,
+                          opt_state=optimizer.init(params), extra=extra)
     dev = device_lib.resolve(device)
     params = init_params_fn(generator, device=dev)
 
@@ -204,6 +261,12 @@ def init_state(init_params_fn, optimizer, *, device=None, generator=None,
                       opt_state=optimizer.init(params), extra=extra)
 
 
+def gather_params(state, device="cpu"):
+    """A mesh state's params as the logical tree, each leaf a fresh
+    tensor on ``device`` (a single-device state's leaves copied)."""
+    return sharding_lib.gather_tree(state.params, device)
+
+
 def _grads(loss, leaves):
     """The loss's gradient for every leaf; zeros for a leaf the loss
     does not reach (BERT's ``type_embed`` without token types), as
@@ -213,7 +276,7 @@ def _grads(loss, leaves):
             for p, g in zip(leaves, grads)]
 
 
-def make_train_step(loss_fn, optimizer, accum_steps=1):
+def make_train_step(loss_fn, optimizer, mesh=None, accum_steps=1):
     """The train step ``run(state, batch) → (state, metrics)``.
 
     ``loss_fn(params, extra, batch) -> (loss, (metrics, new_extra))``.
@@ -224,60 +287,147 @@ def make_train_step(loss_fn, optimizer, accum_steps=1):
     ``metrics["grad_norm"]`` is the pre-clip global norm. The params are
     updated in place and the returned state shares them. ``new_extra``
     passes from one microbatch to the next (JAX's ``micro`` carry) and
-    is returned detached from the graph."""
+    is returned detached from the graph.
+
+    With ``mesh`` the state is ``init_state(mesh=)``'s and the batch
+    either placed already (``data.shard_batch``, ``fit(mesh=)``) or host
+    arrays, which the step cuts by ``data.BATCH_SPEC`` (microbatch by
+    microbatch under ``accum_steps``). Raises ``ValueError`` for a mesh
+    with ``sequence``, ``pipeline`` or ``expert`` larger than 1."""
+    if mesh is not None:
+        _check_train_mesh(mesh)
 
     def run(state, batch):
         leaves = tree_leaves(state.params)
+        pieces = sharding_lib.pieces_of(leaves)
         if accum_steps == 1:
-            loss, (metrics, new_extra) = loss_fn(state.params, state.extra,
-                                                 batch)
-            grads = _grads(loss, leaves)
+            loss, (metrics, new_extra) = loss_fn(
+                state.params, state.extra, _on_mesh(batch, mesh))
+            grads = _grads(loss, pieces)
         else:
             grads = [torch.zeros(p.shape, dtype=torch.float32,
-                                 device=p.device) for p in leaves]
+                                 device=p.device) for p in pieces]
             new_extra = state.extra
             history = []
             for i in range(accum_steps):
-                micro = {k: v[i] for k, v in batch.items()}
+                micro = _on_mesh({k: _micro(v, i) for k, v in
+                                  batch.items()}, mesh)
                 loss, (metrics, new_extra) = loss_fn(state.params,
                                                      new_extra, micro)
-                new_extra = tree_map(torch.Tensor.detach, new_extra)
-                for acc, g in zip(grads, _grads(loss, leaves)):
+                new_extra = _detached(new_extra)
+                for acc, g in zip(grads, _grads(loss, pieces)):
                     acc.add_(g)
                 history.append(metrics)
             grads = [g / accum_steps for g in grads]
             metrics = {k: torch.stack([m[k] for m in history]).mean()
                        for k in history[0]}
+        unique = None
+        if mesh is not None:
+            grads, unique = _sum_copies(leaves, grads)
         metrics = {k: v.detach() if torch.is_tensor(v) else v
                    for k, v in metrics.items()}
-        metrics["grad_norm"] = optimizer.update(leaves, grads,
-                                                state.opt_state)
-        new_extra = tree_map(torch.Tensor.detach, new_extra)
+        metrics["grad_norm"] = optimizer.update(pieces, grads,
+                                                state.opt_state,
+                                                unique=unique)
         return TrainState(step=state.step + 1, params=state.params,
                           opt_state=state.opt_state,
-                          extra=new_extra), metrics
+                          extra=_detached(new_extra)), metrics
 
     return run
 
 
-def fit(state, step_fn, batches, steps=None, prefetch_depth=2,
-        on_step=None, telemetry=None):
+#: the axes the train step refuses above size 1, and what they need
+_LATER_AXES = {mesh_lib.SEQUENCE: "ring attention",
+               mesh_lib.PIPELINE: "the pipeline schedule",
+               mesh_lib.EXPERT: "expert parallelism"}
+
+
+def _check_train_mesh(mesh):
+    for axis, what in _LATER_AXES.items():
+        if mesh.shape[axis] > 1:
+            raise ValueError(
+                f"the train step takes the data, fsdp and tensor axes; "
+                f"{axis}={mesh.shape[axis]} needs {what}, which the port "
+                f"does not have yet")
+
+
+def _on_mesh(batch, mesh, spec=data_lib.BATCH_SPEC):
+    """A batch as placed leaves: host arrays cut by ``spec`` (as it is
+    without a mesh)."""
+    if mesh is None or all(isinstance(v, sharding_lib.Sharded)
+                           for v in batch.values()):
+        return batch
+    return data_lib.shard_batch(batch, mesh, spec)
+
+
+def _micro(leaf, i):
+    """Microbatch ``i`` of a batch leaf (placed with a leading
+    replicated accumulation dim, or on the host)."""
+    if not isinstance(leaf, sharding_lib.Sharded):
+        return leaf[i]
+    if leaf.spec[:1] not in ((), (None,)):
+        raise ValueError(f"an accumulated batch leaf needs a replicated "
+                         f"leading dim, got spec {leaf.spec}")
+    return sharding_lib.Sharded(
+        [t[i] for t in leaf.pieces],
+        sharding_lib.NamedSharding(leaf.mesh, leaf.spec[1:]),
+        leaf.shape[1:])
+
+
+def _detached(tree):
+    return tree_map(lambda x: x.map(torch.Tensor.detach)
+                    if isinstance(x, sharding_lib.Sharded) else x.detach(),
+                    tree)
+
+
+def _sum_copies(leaves, grads):
+    """Every piece's gradient (``grads``: the pieces' in
+    ``pieces_of(leaves)`` order) → ``(each copy's gradient, one per
+    piece)``: the copies' gradients summed in position order on the
+    first copy's device, that sum handed to every copy (the psum over
+    the axes a leaf is replicated on)."""
+    out, unique = [], []
+    start = 0
+    for leaf in leaves:
+        mine = grads[start:start + len(leaf.pieces)]
+        start += len(leaf.pieces)
+        summed = [None] * len(mine)
+        for group in leaf.sharding.copies:
+            dev = mine[group[0]].device
+            total = functools.reduce(torch.add,
+                                     (mine[q].to(dev) for q in group))
+            unique.append(total)
+            for q in group:
+                summed[q] = total.to(mine[q].device)
+        out.extend(summed)
+    return out, unique
+
+
+def fit(state, step_fn, batches, mesh=None, steps=None, spec=None,
+        prefetch_depth=2, on_step=None, telemetry=None):
     """Run a training loop over host batches with prefetch overlap.
 
     ``batches`` is a host-batch iterator; it is wrapped in a
-    ``data.Prefetcher`` (host→device copy overlaps compute) on the
-    params' device, under its context manager, so the pump thread is
-    released on every exit path — exhaustion, the ``steps`` cap, an
-    ``on_step`` early stop, or an exception.
+    ``data.Prefetcher`` (host→device copy overlaps compute) — onto
+    ``mesh`` by ``spec`` (default ``data.BATCH_SPEC``) through
+    ``shard_batch``, else onto the params' device — under its context
+    manager, so the pump thread is released on every exit path —
+    exhaustion, the ``steps`` cap, an ``on_step`` early stop, or an
+    exception.
 
     ``on_step(step_count, metrics)`` runs after every step; returning
     False stops the loop. ``telemetry`` (a ``telemetry.TrainTelemetry``)
     gets one ``step()`` per iteration. Returns ``(state,
     last_metrics)``."""
-    device = tree_leaves(state.params)[0].device
+    if mesh is not None:
+        target = mesh
+    else:
+        target = tree_leaves(state.params)[0].device
     metrics = None
     done = 0
-    with data_lib.Prefetcher(batches, device, depth=prefetch_depth) as pf:
+    with data_lib.Prefetcher(batches, target,
+                             spec=spec or data_lib.BATCH_SPEC,
+                             depth=prefetch_depth) as pf:
         for batch in pf:
             state, metrics = step_fn(state, batch)
             done += 1
@@ -290,9 +440,11 @@ def fit(state, step_fn, batches, steps=None, prefetch_depth=2,
     return state, metrics
 
 
-def make_eval_step(loss_fn):
-    """``run(state, batch) → metrics`` without gradients."""
+def make_eval_step(loss_fn, mesh=None):
+    """``run(state, batch) → metrics`` without gradients; on ``mesh``
+    host batches are cut by ``data.BATCH_SPEC``."""
     def run(state, batch):
+        batch = _on_mesh(batch, mesh)
         with torch.no_grad():
             return loss_fn(state.params, state.extra, batch)[1][0]
     return run

@@ -12,10 +12,10 @@ metrics carry the objective. Workload side (this module):
   (``trial-metric {"name": ..., "value": ...}``, the log-scrape
   contract),
 - ``run_mnist_trial()``: the default objective, the MLP on a fixed
-  synthetic MNIST batch.
-
-The shard exporter and the ``trial`` span of the JAX module wait for
-the port's copy of ``obs/export.py`` and ``obs/tracing.py``.
+  synthetic MNIST batch, under the fleet telemetry of the JAX module:
+  the shard exporter (``obs/export.py``) runs for the whole trial and
+  the training loop is one ``trial`` span (``obs/tracing.py``) that
+  continues the controller's ``TRACEPARENT``.
 """
 
 import json
@@ -104,11 +104,15 @@ def mnist_batch(device):
 def run_mnist_trial(hp=None, steps=30, device=None):
     """Default objective: MLP on synthetic MNIST; returns final loss.
     ``device`` None → the card."""
+    from ..obs import export as obs_export
+    from ..obs import tracing
     from . import telemetry as telem
 
     # telemetry first: the start-up window in the goodput ledger should
     # include the torch import and the device's start (the real cost of
-    # a cold trial pod)
+    # a cold trial pod), and the exporter publishes even a crashed
+    # trial's partial state
+    exporter = obs_export.start_exporter()
     tele = telem.TrainTelemetry("mnist-mlp")
 
     import torch
@@ -144,10 +148,19 @@ def run_mnist_trial(hp=None, steps=30, device=None):
 
     # train.fit wraps the source in a Prefetcher under its context
     # manager: the pump thread is joined even if a step raises, so a
-    # failed trial never leaks a thread wedged on the batch queue
-    state, metrics = train.fit(state, step, batches(), telemetry=tele)
-    loss = float(metrics["loss"])
-    report(loss, extra={"accuracy": float(metrics["accuracy"])})
+    # failed trial never leaks a thread wedged on the batch queue.
+    # The root span continues the controller-injected TRACEPARENT so
+    # the trial's timeline stitches onto the StudyJob's gang trace.
+    try:
+        with tracing.span("trial", traceparent=os.environ.get(
+                "TRACEPARENT"), steps=steps):
+            state, metrics = train.fit(state, step, batches(),
+                                       telemetry=tele)
+            loss = float(metrics["loss"])
+        report(loss, extra={"accuracy": float(metrics["accuracy"])})
+    finally:
+        if exporter is not None:
+            exporter.stop()
     return loss
 
 

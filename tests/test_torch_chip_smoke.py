@@ -379,3 +379,86 @@ def test_vs_oracle_grades_up_to_the_first_mismatch():
     assert got[0]["first_mismatch"] == 1
     with pytest.raises(AssertionError):
         chip_smoke._vs_oracle([([1, 0, 1], far)], oracle, 0.2, 0.1, "x")
+
+
+# ------------------------------------------------- the mesh train phases
+
+def test_check_mesh_launches_takes_one_a_layer_a_position():
+    names = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+    chip_smoke.check_mesh_launches(dict.fromkeys(names, 144), names,
+                                   12 * 4, 3, "train_mesh")
+    with pytest.raises(AssertionError, match="want 96 a step"):
+        chip_smoke.check_mesh_launches(
+            {"flash_fwd": 288, "flash_bwd_dq": 288, "flash_bwd_dkv": 287},
+            names, 12 * 8, 3, "bert_mesh")
+
+
+def _mesh_mlp_state():
+    import functools
+
+    from kubeflow_tpu_torch.compute import mesh, train
+    from kubeflow_tpu_torch.compute.models import mlp
+    cfg = mlp.Config(in_dim=8, hidden=8, n_classes=4)
+    m = mesh.make_mesh(data=2, tensor=2, devices=["cpu"] * 4)
+    opt = train.make_optimizer(1e-3, warmup_steps=0, total_steps=10)
+    state = train.init_state(functools.partial(mlp.init_params, cfg), opt,
+                             mesh=m, logical_axes=mlp.logical_axes(cfg))
+    return cfg, m, opt, state
+
+
+def test_unequal_copies_finds_a_copy_one_bit_off():
+    import torch
+    _, _, _, state = _mesh_mlp_state()
+    assert chip_smoke.unequal_copies(state) == []
+    w = state.params["layers"][0]["w"]          # (embed, mlp): data copies
+    with torch.no_grad():
+        w.pieces[3].view(torch.int32)[0, 0] += 1
+    assert chip_smoke.unequal_copies(state) == [(1, 3)]
+
+
+def test_params_rule_is_test_torch_trains():
+    import torch
+    want = [torch.zeros(2000)]
+    assert chip_smoke.params_rule([torch.full((2000,), 5e-7)], want, 1e-3,
+                                  1)[2]
+    two = torch.zeros(2000)
+    two[:2] = 1.9e-3                             # 0.1 % flipped by ~2·lr
+    assert chip_smoke.params_rule([two], want, 1e-3, 1)[2]
+    three = two.clone()
+    three[2] = 1e-5                              # a third beyond 1e-6
+    assert not chip_smoke.params_rule([three], want, 1e-3, 1)[2]
+    assert not chip_smoke.params_rule([torch.full((2000,), 3e-3)], want,
+                                      1e-3, 1)[2]
+    # one element of a 64-channel leaf: 1.6 % of the leaf, 0.05 % of all
+    small = torch.zeros(64)
+    small[0] = 1.9e-3
+    pair = ([small, torch.zeros(1936)], [torch.zeros(64), torch.zeros(1936)])
+    assert not chip_smoke.params_rule(*pair, 1e-3, 1)[2]
+    worst, share, ok = chip_smoke.params_rule(*pair, 1e-3, 1,
+                                              whole_model=True)
+    assert ok and share == 1 / 2000
+
+
+def test_mesh_grads_are_the_logical_gradients():
+    """The conformance phase's mesh gradient (each piece summed over its
+    copies, gathered) is the unsharded model's, and the sync-BN check's
+    per-leaf error reads it."""
+    import numpy as np
+    import torch
+
+    from kubeflow_tpu_torch.compute import data, train
+    from kubeflow_tpu_torch.compute.models import mlp
+    cfg, m, _, state = _mesh_mlp_state()
+    host = {"image": np.random.default_rng(0).standard_normal(
+        (4, 8)).astype(np.float32), "label": np.arange(4, dtype=np.int32)}
+    loss_fn = train.plain_loss(mlp.loss_fn, cfg)
+    loss, grads = chip_smoke.mesh_grads(state, loss_fn,
+                                        data.shard_batch(host, m))
+    params = train.tree_map(lambda t: t.detach().requires_grad_(),
+                            train.gather_params(state))
+    value, _ = loss_fn(params, {}, data.to_device(host, "cpu"))
+    want = torch.autograd.grad(value, train.tree_leaves(params))
+    assert abs(loss - float(value)) <= 1e-6 * abs(float(value))
+    assert max(chip_smoke._leaf_errors(grads, want)) <= 1e-6
+    assert chip_smoke._leaf_errors([torch.ones(3)], [torch.full((3,), 2.)]
+                                   ) == [0.5]

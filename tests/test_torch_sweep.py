@@ -453,3 +453,37 @@ def test_trial_arms_the_mfu_model(monkeypatch):
         trial.run_mnist_trial({"hidden": 16}, steps=2, device="cpu")
     cfg = t_mlp.Config(in_dim=784, hidden=16, n_classes=10)
     assert seen["flops"] == 6.0 * t_mlp.param_count(cfg) * 64
+
+
+def test_trial_and_sweep_worker_spans_and_exporter(monkeypatch, tmp_path,
+                                                   capsys):
+    """As in JAX (``trial.py:87-96, :139-147``, ``sweep.py:278-301``):
+    each entry runs the shard exporter for its whole run, and its loop
+    is one span (``trial``, ``sweep-worker``) on the controller's trace,
+    continued from ``TRACEPARENT``."""
+    from kubeflow_tpu_torch.obs import tracing
+    trace_id = "4bf92f3577b34da6a3ce929d0e0e4736"
+    monkeypatch.setenv("TRACEPARENT",
+                       f"00-{trace_id}-00f067aa0ba902b7-01")
+    monkeypatch.setenv("METRICS_PATH", str(tmp_path / "metrics.json"))
+    monkeypatch.delenv("TRIAL_PARAMETERS", raising=False)
+    monkeypatch.setenv("TRIAL_SWEEP_PARAMETERS", json.dumps(
+        [{"index": 0, "parameters": {"hidden": 16}},
+         {"index": 1, "parameters": {"hidden": 16, "lr": 0.1}}]))
+    monkeypatch.setenv("TRIAL_SWEEP_STEPS", "2")
+    for name, run in (("trial", lambda: trial.run_mnist_trial(
+            {"hidden": 16}, steps=2, device="cpu")),
+            ("sweep-worker", lambda: sweep.main(device="cpu"))):
+        shards = tmp_path / name
+        monkeypatch.setenv("OBS_EXPORT_DIR", str(shards))
+        monkeypatch.delenv("OBS_POD_NAME", raising=False)
+        monkeypatch.setenv("POD_NAME", f"{name}-0")
+        run()
+        spans = [s for s in tracing.TRACES.spans(trace_id)
+                 if s.name == name]
+        assert len(spans) == 1 and spans[0].status == "ok"
+        assert spans[0].attrs["steps"] == 2
+        assert (shards / f"{name}-0.prom").read_text().startswith(
+            "# kubeflow-tpu-shard")
+    assert spans[0].attrs["trials"] == 2
+    capsys.readouterr()
