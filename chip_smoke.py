@@ -4212,20 +4212,32 @@ def phase_train_mesh(kernel_fns, train_row):
 def phase_train_mesh_conformance(kernel_fns):
     """fp32 (TF32 off), flagship width, 2 layers, batch 4 x 1024: the
     mesh ``data=2, fsdp=2, tensor=2`` over eight positions of the card
-    against the port's unsharded step on the same weights — loss within
-    1e-5 relative, each leaf's gradient within 1e-3 of its max |g|, the
-    params after one update (rate lr: warmup 0) by
-    ``tests/test_torch_train.py``'s rule."""
-    import torch
-    from kubeflow_tpu_torch.compute import data, mesh as mesh_lib, train
-    from kubeflow_tpu_torch.compute.models import transformer
-    t_phase = time.perf_counter()
+    against the port's unsharded step on the same weights (see
+    :func:`mesh_conformance`)."""
+    from kubeflow_tpu_torch.compute import mesh as mesh_lib
     cfg = flagship_config("float32", n_layers=2, remat=False)
     mesh = mesh_lib.make_mesh(data=2, fsdp=2, tensor=2, devices=[CARD] * 8)
-    host = next(data.synthetic_lm(4, 1024, cfg.vocab_size, seed=21))
+    return mesh_conformance("train_mesh_conformance", cfg, cfg, mesh,
+                            kernel_fns, cfg.n_layers * mesh.size)
+
+
+def mesh_conformance(name, cfg, plain_cfg, mesh, kernel_fns, per_call,
+                     rows=4, seed=21):
+    """The transformer ``cfg`` on ``mesh`` against the port's unsharded
+    step under ``plain_cfg`` on the same fp32 weights and a ``rows`` x
+    1024 batch: loss within 1e-5 relative, each leaf's gradient within
+    1e-3 of its max |g|, the params after one update (rate lr: warmup
+    0) by ``tests/test_torch_train.py``'s rule, the copies byte-equal;
+    K3–K5 launch ``per_call`` times each in the mesh's gradient."""
+    import torch
+    from kubeflow_tpu_torch.compute import data, train
+    from kubeflow_tpu_torch.compute.models import transformer
+    t_phase = time.perf_counter()
+    host = next(data.synthetic_lm(rows, 1024, cfg.vocab_size, seed=seed))
     params = transformer.init_params(cfg, torch.Generator().manual_seed(1),
                                      device="cpu")
     loss = train.plain_loss(transformer.loss_fn, cfg)
+    plain_loss = train.plain_loss(transformer.loss_fn, plain_cfg)
     lr = 1e-3
 
     def fresh(**where):
@@ -4245,18 +4257,21 @@ def phase_train_mesh_conformance(kernel_fns):
     torch.cuda.synchronize()
     launches = {n: kernel_fns[n].launches for n in BERT_KERNELS}
     u_leaves = train.tree_leaves(us.params)
-    u_value, _ = loss(us.params, us.extra, batch)
+    u_value, _ = plain_loss(us.params, us.extra, batch)
     u_g = torch.autograd.grad(u_value, u_leaves)
     u_loss = float(u_value.detach())
     errs = _leaf_errors(m_g, u_g)
     loss_rel = abs(m_loss - u_loss) / abs(u_loss)
     ms, mm = train.make_train_step(loss, m_opt, mesh=mesh)(ms, placed)
-    us, um = train.make_train_step(loss, u_opt)(us, batch)
+    us, um = train.make_train_step(plain_loss, u_opt)(us, batch)
     worst, share, ok = params_rule(
         train.tree_leaves(train.gather_params(ms, card)),
         [t.detach() for t in train.tree_leaves(us.params)], lr, 1)
-    report = {"phase": "train_mesh_conformance", "dtype": "float32",
-              "layers": 2, "batch": [4, 1024],
+    report = {"phase": name, "dtype": "float32",
+              "layers": cfg.n_layers, "batch": [rows, 1024],
+              "attention": [cfg.attention, plain_cfg.attention],
+              "pipeline_stages": cfg.pipeline_stages,
+              "microbatches": cfg.microbatches,
               "mesh": {a: n for a, n in mesh.shape.items() if n > 1},
               "loss": [m_loss, u_loss], "loss_rel": loss_rel,
               "tol_loss": 1e-5, "leaf_rel_max": max(errs),
@@ -4269,13 +4284,12 @@ def phase_train_mesh_conformance(kernel_fns):
               "seconds": time.perf_counter() - t_phase}
     emit(report)
     if loss_rel > 1e-5 or max(errs) > 1e-3:
-        raise AssertionError(f"the mesh leaves the unsharded step: loss "
-                             f"{loss_rel}, leaves {errs}")
+        raise AssertionError(f"{name}: the mesh leaves the unsharded step: "
+                             f"loss {loss_rel}, leaves {errs}")
     if not ok or report["copies_unequal"]:
-        raise AssertionError(f"params after one update: {worst}, {share}; "
-                             f"copies {report['copies_unequal']}")
-    check_mesh_launches(launches, BERT_KERNELS, cfg.n_layers * mesh.size, 1,
-                        "train_mesh_conformance")
+        raise AssertionError(f"{name}: params after one update: {worst}, "
+                             f"{share}; copies {report['copies_unequal']}")
+    check_mesh_launches(launches, BERT_KERNELS, per_call, 1, name)
     return report
 
 
@@ -4434,6 +4448,378 @@ def phase_resnet_mesh(kernel_fns, resnet_row):
     return row
 
 
+# ------------------------------------------- the sequence and pipeline axes
+
+RING_BATCH = (2, 4096)   # 4x the flagship's 1024 context
+RING_SEQ = 4
+PIPE_MICRO = 4
+F1B_MICRO = 8
+#: relative gap a bf16 loss may keep from another bf16 route's on the
+#: same weights and batch (flash vs the fp32-folded ring, pipelined vs
+#: whole-batch reductions)
+BF16_LOSS_REL = 1e-2
+
+
+def _train_steps(name, cfg, batch, steps=MESH_STEPS, lr=1e-3):
+    """The unsharded baseline: ``steps`` one-device steps of ``cfg`` on
+    ``batch`` (seed-0 weights, the mesh phases' init) → a row with the
+    losses, step ms of the steps after the first and peak memory."""
+    import torch
+    from kubeflow_tpu_torch.compute import data, train
+    from kubeflow_tpu_torch.compute.models import transformer
+    opt = train.make_optimizer(learning_rate=lr, warmup_steps=1,
+                               total_steps=100)
+    state = train.init_state(functools.partial(transformer.init_params, cfg),
+                             opt, device=CARD,
+                             generator=torch.Generator().manual_seed(0))
+    step = train.make_train_step(train.plain_loss(transformer.loss_fn, cfg),
+                                 opt)
+    batch = data.to_device(batch, CARD)
+    torch.cuda.reset_peak_memory_stats()
+    marks, losses = [time.perf_counter()], []
+    for _ in range(steps):
+        state, m = step(state, batch)
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        losses.append(float(m["loss"]))
+    step_s = [b - a for a, b in zip(marks[1:], marks[2:])]
+    del state
+    return {"phase": name, "losses": losses,
+            "step_ms": 1e3 * statistics.mean(step_s),
+            "peak_memory_bytes": torch.cuda.max_memory_allocated()}
+
+
+def _rel(a, b):
+    return abs(a - b) / abs(b)
+
+
+def phase_ring_mesh(kernel_fns):
+    """The flagship (bf16, ``remat=True``) with ``attention="ring"`` on
+    ``sequence=4`` over four positions of the card, 3 steps on one 2 x
+    4096 batch (4x its 1024 context): each position holds 1024 tokens
+    and its own copy of the replicated params, the K/V blocks hop
+    around the ring. The loss falls, K3–K5 never launch (the ring's fold
+    is plain PyTorch), the copies stay byte-equal; step 1's loss is the
+    unsharded one-device flash step's on the same weights and batch
+    within ``BF16_LOSS_REL``. Step ms, tokens/s and peak memory beside
+    that baseline's (one card: not a speed result)."""
+    import torch
+    from kubeflow_tpu_torch.compute import data, mesh as mesh_lib, train
+    from kubeflow_tpu_torch.compute.models import transformer
+    B, S = RING_BATCH
+    cfg = flagship_config(attention="ring", remat=True, max_seq=S)
+    mesh = mesh_lib.make_mesh(sequence=RING_SEQ, devices=[CARD] * RING_SEQ)
+    batch = next(data.synthetic_lm(B, S, cfg.vocab_size, seed=31))
+    state, row = _mesh_training(
+        "ring_mesh", functools.partial(transformer.init_params, cfg),
+        transformer.logical_axes(cfg),
+        train.plain_loss(transformer.loss_fn, cfg), mesh, batch,
+        transformer.flops_per_token(cfg) * B * S, kernel_fns, lr=1e-3)
+    del state
+    torch.cuda.empty_cache()
+    base = _train_steps("ring_baseline", dataclasses.replace(
+        cfg, attention="flash"), batch)
+    torch.cuda.empty_cache()
+    row.update(dtype="bfloat16", batch=B, seq=S, layers=cfg.n_layers,
+               remat=cfg.remat, tokens_per_position=S // RING_SEQ,
+               tokens_per_s=B * S / (row["step_ms"] / 1e3),
+               baseline=dict(base, tokens_per_s=B * S / (
+                   base["step_ms"] / 1e3)),
+               step1_loss_rel=_rel(row["losses"][0], base["losses"][0]),
+               tol_step1_loss_rel=BF16_LOSS_REL)
+    emit(row)
+    if not row["losses"][-1] < row["losses"][0]:
+        raise AssertionError(f"ring_mesh loss did not fall: {row['losses']}")
+    check_mesh_launches(row["launches"], BERT_KERNELS, 0, MESH_STEPS,
+                        "ring_mesh")
+    if row["step1_loss_rel"] > BF16_LOSS_REL:
+        raise AssertionError(f"ring_mesh step 1 loss {row['losses'][0]} vs "
+                             f"flash {base['losses'][0]}")
+    return row
+
+
+def phase_ring_conformance(kernel_fns):
+    """fp32, flagship width, 2 layers, 4 x 1024, ring attention on
+    ``data=2, sequence=2, tensor=2`` against the unsharded dense step
+    (:func:`mesh_conformance`); no K3–K5 launch."""
+    from kubeflow_tpu_torch.compute import mesh as mesh_lib
+    cfg = flagship_config("float32", attention="ring", n_layers=2,
+                          remat=False)
+    mesh = mesh_lib.make_mesh(data=2, sequence=2, tensor=2,
+                              devices=[CARD] * 8)
+    return mesh_conformance("ring_conformance", cfg,
+                            dataclasses.replace(cfg, attention="dense"),
+                            mesh, kernel_fns, 0, seed=22)
+
+
+def phase_bert_ring(kernel_fns, bert_row):
+    """bert-base (bf16, ``remat=False``, per-layer weights) with
+    ``attention="ring"`` (non-causal) on ``sequence=2`` over two
+    positions of the card, 3 steps on one 16 x 512 ``mlm_batch``: the
+    loss falls, no K3–K5 launch. Then fp32 at 2 layers on 8 rows: the
+    mesh's global-batch loss equals the unsharded dense loss within
+    1e-5 relative."""
+    import torch
+    from kubeflow_tpu_torch.compute import data, mesh as mesh_lib, train
+    from kubeflow_tpu_torch.compute.models import bert
+    cfg = bert.Config(remat=False, scan_layers=False, attention="ring")
+    mesh = mesh_lib.make_mesh(sequence=2, devices=[CARD] * 2)
+    batch = bert.mlm_batch(np.random.default_rng(15), BERT_BATCH, cfg)
+    tokens = BERT_BATCH * cfg.max_seq
+    state, row = _mesh_training(
+        "bert_ring", functools.partial(bert.init_params, cfg),
+        bert.logical_axes(cfg), train.plain_loss(bert.loss_fn, cfg), mesh,
+        batch, bert.flops_per_token(cfg) * tokens, kernel_fns, lr=1e-4)
+    del state
+    torch.cuda.empty_cache()
+    t_check = time.perf_counter()
+    cfg2 = dataclasses.replace(cfg, n_layers=2, dtype="float32")
+    host = bert.mlm_batch(np.random.default_rng(16), 8, cfg2)
+    params = bert.init_params(cfg2, torch.Generator().manual_seed(4),
+                              device="cpu")
+    with torch.no_grad():
+        placed = train.init_state(
+            lambda g, device: params, train.make_optimizer(), mesh=mesh,
+            logical_axes=bert.logical_axes(cfg2))
+        m_loss = float(bert.loss_fn(placed.params,
+                                    data.shard_batch(host, mesh), cfg2)[0])
+        u_loss = float(bert.loss_fn(
+            train.tree_map(lambda t: t.to(CARD), params),
+            data.to_device(host, CARD),
+            dataclasses.replace(cfg2, attention="dense"))[0])
+    rel = _rel(m_loss, u_loss)
+    row.update(dtype="bfloat16", batch=BERT_BATCH, seq=cfg.max_seq,
+               layers=cfg.n_layers, bert_train_step_ms=bert_row["step_ms"],
+               fp32_check={"layers": 2, "rows": 8, "loss": [m_loss, u_loss],
+                           "loss_rel": rel, "tol": 1e-5,
+                           "seconds": time.perf_counter() - t_check})
+    emit(row)
+    if not row["losses"][-1] < row["losses"][0]:
+        raise AssertionError(f"bert_ring loss did not fall: {row['losses']}")
+    check_mesh_launches(row["launches"], BERT_KERNELS, 0, MESH_STEPS,
+                        "bert_ring")
+    if rel > 1e-5:
+        raise AssertionError(f"bert_ring fp32 loss rel {rel}")
+    return row
+
+
+def phase_pipeline_mesh(kernel_fns, train_row):
+    """The flagship (bf16, ``remat=False``) in two stages of 6 layers on
+    ``pipeline=2`` over two positions of the card, GPipe over 4
+    microbatches of 4 rows, 3 steps on the ``train`` phase's 16 x 1024
+    batch and weights: the loss falls, step 1's loss is ``train``'s
+    within ``BF16_LOSS_REL``, K3/K4/K5 launch 12 x 4 = 48 times a step
+    each (every layer once a microbatch; the bubbles are not run), the
+    copies stay byte-equal. Step ms and peak memory beside ``train``'s
+    (one card: not a speed result)."""
+    from kubeflow_tpu_torch.compute import data, mesh as mesh_lib, train
+    from kubeflow_tpu_torch.compute.models import transformer
+    cfg = flagship_config(remat=False, pipeline_stages=2,
+                          pipeline_microbatches=PIPE_MICRO)
+    mesh = mesh_lib.make_mesh(pipeline=2, devices=[CARD] * 2)
+    B, S = TRAIN_BATCH
+    batch = next(data.synthetic_lm(B, S, cfg.vocab_size, seed=4))
+    _, row = _mesh_training(
+        "pipeline_mesh", functools.partial(transformer.init_params, cfg),
+        transformer.logical_axes(cfg),
+        train.plain_loss(transformer.loss_fn, cfg), mesh, batch,
+        transformer.flops_per_token(cfg) * B * S, kernel_fns, lr=1e-3)
+    row.update(dtype="bfloat16", batch=B, seq=S, layers=cfg.n_layers,
+               stages=2, microbatches=cfg.microbatches,
+               tokens_per_s=B * S / (row["step_ms"] / 1e3),
+               train_step_ms=train_row["step_ms"],
+               step_vs_train=row["step_ms"] / train_row["step_ms"],
+               train_peak_memory_bytes=train_row["peak_memory_bytes"],
+               train_step1_loss=train_row["losses"][0],
+               step1_loss_rel=_rel(row["losses"][0], train_row["losses"][0]),
+               tol_step1_loss_rel=BF16_LOSS_REL)
+    emit(row)
+    if not row["losses"][-1] < row["losses"][0]:
+        raise AssertionError(f"pipeline_mesh loss did not fall: "
+                             f"{row['losses']}")
+    if row["step1_loss_rel"] > BF16_LOSS_REL:
+        raise AssertionError(f"pipeline_mesh step 1 loss {row['losses'][0]}"
+                             f" vs train {train_row['losses'][0]}")
+    check_mesh_launches(row["launches"], BERT_KERNELS,
+                        cfg.n_layers * cfg.microbatches, MESH_STEPS,
+                        "pipeline_mesh")
+    return row
+
+
+def phase_pipeline_conformance(kernel_fns):
+    """fp32, flagship width, 4 layers in 2 stages, 4 x 1024 over 2
+    microbatches, on ``data=2, pipeline=2, tensor=2`` against the
+    unsharded unpipelined step (:func:`mesh_conformance`): every layer
+    runs once a microbatch on each data piece's 2 tensor shards."""
+    from kubeflow_tpu_torch.compute import mesh as mesh_lib
+    cfg = flagship_config("float32", n_layers=4, remat=False,
+                          pipeline_stages=2, pipeline_microbatches=2)
+    mesh = mesh_lib.make_mesh(data=2, pipeline=2, tensor=2,
+                              devices=[CARD] * 8)
+    return mesh_conformance(
+        "pipeline_conformance", cfg,
+        dataclasses.replace(cfg, pipeline_stages=0, pipeline_microbatches=0),
+        mesh, kernel_fns, cfg.n_layers * 2 * 2 * cfg.microbatches, seed=23)
+
+
+def flagship_1f1b_fns(cfg):
+    """The transformer as ``train_1f1b``'s three functions over fp32
+    masters cast to ``cfg``'s dtype at use: ``embed_fn(ep, tokens)``,
+    ``layer_fn(lp, x)`` (one layer, RoPE at positions ``arange(S)``)
+    and ``loss_fn(hp, y, targets)`` (final norm, head, the mean of nll +
+    z-loss over the microbatch)."""
+    import torch
+    from kubeflow_tpu_torch.compute.models import transformer
+    dt = cfg.compute_dtype
+
+    def embed_fn(ep, tokens):
+        return ep["embed"].to(dt)[tokens.long()]
+
+    def layer_fn(lp, x):
+        rope = transformer.rope_tables(
+            cfg, torch.arange(x.shape[1], device=x.device))
+        return transformer._layer(transformer.flat_layer(
+            {k: v.to(dt) for k, v in lp.items()}), x, rope, cfg)
+
+    def loss_fn(hp, y, targets):
+        x = transformer._rmsnorm(y, hp["final_norm"].to(dt))
+        mask = torch.ones(targets.shape, dtype=torch.float32,
+                          device=targets.device)
+        terms = transformer._loss_terms(x, hp["head"].to(dt),
+                                        targets.long(), mask, cfg)
+        return terms["loss"] / terms["count"]
+
+    return embed_fn, layer_fn, loss_fn
+
+
+def _1f1b_params(params):
+    """A transformer params tree as ``train_1f1b``'s ``{"embed",
+    "layers", "head"}``."""
+    return {"embed": {"embed": params["embed"]}, "layers": params["layers"],
+            "head": {"final_norm": params["final_norm"],
+                     "head": params["head"]}}
+
+
+def phase_pipeline_1f1b(kernel_fns):
+    """The flagship's 12 layers (bf16) through ``train_1f1b`` on
+    ``pipeline=2``, 16 x 1024 in 8 microbatches, beside the GPipe
+    gradient of the same weights and batch at the same M (the mesh loss
+    and ``autograd.grad``, no update): the loss within
+    ``BF16_LOSS_REL`` of GPipe's, peak memory below GPipe's, K3 2 x 12
+    x 8 = 192 (the forward and the recompute), K4/K5 96 (each schedule
+    called twice, the second call's numbers kept). Then fp32 at 2
+    layers (one a stage), 4 x 1024 in 4 microbatches: the loss within
+    1e-5 relative and each leaf's gradient within 1e-3 of its max |g| of
+    plain autograd through the same three functions."""
+    import torch
+    from kubeflow_tpu_torch.compute import (data, mesh as mesh_lib,
+                                            pipeline, sharding, train)
+    from kubeflow_tpu_torch.compute.models import transformer
+    t_phase = time.perf_counter()
+    cfg = flagship_config(remat=False, pipeline_stages=2,
+                          pipeline_microbatches=F1B_MICRO)
+    mesh = mesh_lib.make_mesh(pipeline=2, devices=[CARD] * 2)
+    B, S = TRAIN_BATCH
+    host = next(data.synthetic_lm(B, S, cfg.vocab_size, seed=4))
+    params = sharding.place_tree(
+        transformer.init_params(cfg, torch.Generator().manual_seed(0),
+                                device="cpu"),
+        mesh, transformer.logical_axes(cfg))
+    pieces = sharding.pieces_of(train.tree_leaves(params))
+    for t in pieces:
+        t.requires_grad_(True)
+    runs = {}
+    # two rounds: a schedule's first call meets cold shapes, so the
+    # second's time and memory are kept (the first's ms beside them)
+    for name in ("gpipe", "1f1b") * 2:
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        resident = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        _zero(kernel_fns)
+        t0 = time.perf_counter()
+        if name == "gpipe":
+            loss, _ = transformer.loss_fn(params,
+                                          data.shard_batch(host, mesh), cfg)
+            grads = train._grads(loss, pieces)
+        else:
+            loss, grads = pipeline.train_1f1b(
+                *flagship_1f1b_fns(cfg), _1f1b_params(params),
+                torch.from_numpy(host["tokens"]),
+                torch.from_numpy(host["targets"]), F1B_MICRO, mesh)
+        torch.cuda.synchronize()
+        first = runs.get(name, {}).get("ms")
+        runs[name] = {"loss": float(loss.detach()),
+                      "ms": 1e3 * (time.perf_counter() - t0),
+                      "first_ms": first,
+                      "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+                      "resident_bytes": resident,
+                      "launches": _launches(kernel_fns)}
+        del loss, grads
+    runs["1f1b"]["live_inputs"] = pipeline.train_1f1b.live_inputs
+    launches = runs["1f1b"]["launches"]
+    del params, pieces
+    torch.cuda.empty_cache()
+    fp32 = _1f1b_fp32(mesh)
+    row = {"phase": "pipeline_1f1b", "dtype": "bfloat16", "batch": B,
+           "seq": S, "layers": cfg.n_layers, "stages": 2,
+           "microbatches": F1B_MICRO, **runs,
+           "loss_rel": _rel(runs["1f1b"]["loss"], runs["gpipe"]["loss"]),
+           "tol_loss_rel": BF16_LOSS_REL,
+           "peak_vs_gpipe": (runs["1f1b"]["peak_memory_bytes"]
+                             / runs["gpipe"]["peak_memory_bytes"]),
+           "launches": launches, "fp32": fp32,
+           "seconds": time.perf_counter() - t_phase}
+    emit(row)
+    if row["loss_rel"] > BF16_LOSS_REL:
+        raise AssertionError(f"pipeline_1f1b loss {runs['1f1b']['loss']} vs "
+                             f"GPipe {runs['gpipe']['loss']}")
+    if not row["peak_vs_gpipe"] < 1:
+        raise AssertionError(f"1F1B peak memory is not below GPipe's: "
+                             f"{row['peak_vs_gpipe']}")
+    check_mesh_launches(launches, ("flash_fwd",),
+                        2 * cfg.n_layers * F1B_MICRO, 1, "pipeline_1f1b")
+    check_mesh_launches(launches, ("flash_bwd_dq", "flash_bwd_dkv"),
+                        cfg.n_layers * F1B_MICRO, 1, "pipeline_1f1b")
+    if runs["1f1b"]["live_inputs"] > 3:
+        raise AssertionError(f"1F1B held {runs['1f1b']['live_inputs']} "
+                             f"stage inputs, more than 2P - 1 = 3")
+    if fp32["loss_rel"] > 1e-5 or fp32["leaf_rel_max"] > 1e-3:
+        raise AssertionError(f"pipeline_1f1b fp32: {fp32}")
+    return row
+
+
+def _1f1b_fp32(mesh):
+    """fp32, flagship width, 2 layers: ``train_1f1b`` against plain
+    autograd through the same functions on the whole batch."""
+    import torch
+    from kubeflow_tpu_torch.compute import data, pipeline, train
+    from kubeflow_tpu_torch.compute.models import transformer
+    cfg = flagship_config("float32", n_layers=2, remat=False)
+    host = next(data.synthetic_lm(4, 1024, cfg.vocab_size, seed=24))
+    tokens, targets = (torch.from_numpy(host[k]).to(CARD)
+                       for k in ("tokens", "targets"))
+    params = _1f1b_params(transformer.init_params(
+        cfg, torch.Generator().manual_seed(3), device=CARD))
+    embed_fn, layer_fn, loss_fn = flagship_1f1b_fns(cfg)
+    loss, grads = pipeline.train_1f1b(embed_fn, layer_fn, loss_fn, params,
+                                      tokens, targets, 4, mesh)
+    leaves = train.tree_leaves(params)
+    for t in leaves:
+        t.requires_grad_(True)
+    x = embed_fn(params["embed"], tokens)
+    for i in range(cfg.n_layers):
+        x, _ = layer_fn({k: v[i] for k, v in params["layers"].items()}, x)
+    want = loss_fn(params["head"], x, targets)
+    want_g = torch.autograd.grad(want, leaves)
+    errs = _leaf_errors(train.tree_leaves(grads), want_g)
+    return {"layers": 2, "batch": [4, 1024], "microbatches": 4,
+            "loss": [float(loss), float(want.detach())],
+            "loss_rel": _rel(float(loss), float(want.detach())),
+            "tol_loss": 1e-5,
+            "leaf_rel_max": max(errs), "tol_leaf": 1e-3}
+
+
 SWEEP_TRIALS = [{"lr": lr, "hidden": hidden}
                 for hidden in (64, 128) for lr in (1e-2, 3e-3, 1e-3, 3e-4)]
 
@@ -4569,6 +4955,17 @@ def main():
     torch.cuda.empty_cache()
     paths["resnet_mesh"] = phase_resnet_mesh(kernel_fns,
                                              paths["resnet_train"])
+    torch.cuda.empty_cache()
+    paths["ring_mesh"] = phase_ring_mesh(kernel_fns)
+    phase_ring_conformance(kernel_fns)
+    torch.cuda.empty_cache()
+    paths["bert_ring"] = phase_bert_ring(kernel_fns, paths["bert_train"])
+    torch.cuda.empty_cache()
+    paths["pipeline_mesh"] = phase_pipeline_mesh(kernel_fns, paths["train"])
+    torch.cuda.empty_cache()
+    phase_pipeline_conformance(kernel_fns)
+    torch.cuda.empty_cache()
+    paths["pipeline_1f1b"] = phase_pipeline_1f1b(kernel_fns)
     torch.cuda.empty_cache()
     phase_sweep()
     meta = {

@@ -1,8 +1,8 @@
 """Plain attention reads: the dense reference, the decode and chunk
-reads over a gathered cache, and their block-streamed twins over the
-paged KV pool.
+reads over a gathered cache, their block-streamed twins over the paged
+KV pool, and ring attention over a mesh's sequence axis.
 
-Torch twins of ``kubeflow_tpu/compute/attention.py`` (lines 24-310),
+Torch twins of ``kubeflow_tpu/compute/attention.py`` (lines 24-385),
 op for op: the same contractions, fp32 logits from operands in the
 input dtype (JAX's ``preferred_element_type=float32`` — here the
 operands are widened to fp32, which multiplies them exactly and sums in
@@ -206,3 +206,121 @@ def paged_chunk_attention(q, pages, tables, prefix_len, k_chunk, v_chunk,
     o, m, l = _stream_fold((o, m, l), repeat_kv(k_chunk, n_rep),
                            repeat_kv(v_chunk, n_rep), valid, q)
     return _stream_finish(o, l, q.dtype)
+
+
+# ------------------------------------------------------------------ ring
+
+def _block(carry, k, v, q, q_offset, k_offset, causal, scale):
+    """One blockwise-softmax accumulation step (``attention.py:313``):
+    fp32 ``(o, m, l)`` state, fp32 sums of q's-dtype products, the
+    global causal mask from the blocks' offsets. A fully masked block
+    adds no mass once ``m`` is finite, which hop 0 (the diagonal block)
+    makes it."""
+    o, m, l = carry
+    logits = _logits(_scale(q, scale), k)
+    if causal:
+        q_pos = q_offset + torch.arange(q.shape[1], device=q.device)
+        k_pos = k_offset + torch.arange(k.shape[1], device=q.device)
+        logits = torch.where(q_pos[:, None] >= k_pos[None, :], logits,
+                             NEG_INF)
+    m_new = torch.maximum(m, logits.amax(dim=-1))
+    corr = torch.exp(m - m_new)
+    p = torch.exp(logits - m_new[..., None])
+    l = l * corr + p.sum(dim=-1)
+    pv = torch.einsum("bhqk,bkhd->bqhd", p, v.float())
+    o = o * corr.transpose(1, 2)[..., None] + pv
+    return o, m_new, l
+
+
+def ring_attention(qs, ks, vs, causal=True, scale=None):
+    """Sequence-parallel attention over a ring (``attention.py:332``).
+
+    ``qs``, ``ks``, ``vs``: one ``[B, S/n, H, D]`` block per position of
+    the ring, position ``i`` holding sequence block ``i`` on its device
+    (k and v repeated to q's head count). At hop ``s`` position ``i``
+    folds the K/V block that started on position ``(i - s) mod n`` into
+    its running blockwise softmax, then every position hands its block
+    on to the next (``.to()``, the ``ppermute`` ``i → i + 1``); the
+    offsets and the causal mask are the global ones. A fully masked
+    future block is folded all the same, as in JAX. → each position's
+    output block in q's dtype. The backward is autograd through the
+    folds and the hops."""
+    n = len(qs)
+    chunk = qs[0].shape[1]
+    state = []
+    for q, v in zip(qs, vs):
+        B, S, H, _ = q.shape
+        m = torch.full((B, H, S), NEG_INF, dtype=torch.float32,
+                       device=q.device)
+        state.append((torch.zeros((B, S, H, v.shape[-1]),
+                                  dtype=torch.float32, device=q.device),
+                      m, torch.zeros_like(m)))
+    kv = list(zip(ks, vs))
+    for s in range(n):
+        state = [_block(state[i], *kv[i], qs[i], i * chunk,
+                        ((i - s) % n) * chunk, causal, scale)
+                 for i in range(n)]
+        if s < n - 1:
+            kv = [tuple(t.to(qs[i].device) for t in kv[(i - 1) % n])
+                  for i in range(n)]
+    return [(o / l.transpose(1, 2)[..., None]).to(q.dtype)
+            for (o, _, l), q in zip(state, qs)]
+
+
+def ring_attention_sharded(q, k, v, mesh, seq_axis="sequence", causal=True,
+                           scale=None):
+    """:func:`ring_attention` on whole ``[B, S, H, D]`` tensors
+    (``attention.py:366``): S cut into ``mesh.shape[seq_axis]`` blocks
+    and the heads into ``mesh.shape["tensor"]`` groups, block ``j`` of
+    head group ``t`` on the device of the position at those coordinates
+    (every other axis at 0); a ring over the blocks of each head group;
+    the output joined on q's device."""
+    n, tp = mesh.shape[seq_axis], mesh.shape["tensor"]
+    for name, size, axis, parts in (("S", q.shape[1], seq_axis, n),
+                                    ("heads", q.shape[2], "tensor", tp)):
+        if size % parts:
+            raise ValueError(f"{name}={size} does not divide over the "
+                             f"mesh's {axis} axis of {parts}")
+    c, h = q.shape[1] // n, q.shape[2] // tp
+    groups = []
+    for t in range(tp):
+        devs = [mesh.devices[mesh.position({seq_axis: j, "tensor": t})]
+                for j in range(n)]
+
+        def cut(x):
+            return [x[:, j * c:(j + 1) * c, t * h:(t + 1) * h].to(d)
+                    for j, d in enumerate(devs)]
+
+        outs = ring_attention(cut(q), cut(k), cut(v), causal, scale)
+        groups.append(torch.cat([o.to(q.device) for o in outs], dim=1))
+    return torch.cat(groups, dim=2)
+
+
+def over_chunks(heads, n_chunks, whole, ring=None):
+    """Attention over a sequence cut into ``n_chunks`` chunks, the
+    chunks of one head group on that group's positions (a mesh's
+    ``sequence`` axis beside its ``tensor`` axis). ``heads``: each
+    shard's ``(q, k, v)``, chunk-major (chunk ``j`` of head group ``t``
+    at ``j * groups + t``) → each shard's output. ``ring(qs, ks, vs) →
+    outs`` runs a group's ring over its chunks; without one, a group's
+    chunks are joined on its first chunk's device, ``whole(q, k, v)``
+    attends over the whole sequence there (the gather XLA inserts for
+    an unsharded attention) and the output is cut back."""
+    groups = len(heads) // n_chunks
+    outs = [None] * len(heads)
+    for t in range(groups):
+        idx = range(t, len(heads), groups)
+        qs, ks, vs = zip(*(heads[i] for i in idx))
+        if ring is not None:
+            got = ring(list(qs), list(ks), list(vs))
+        elif n_chunks == 1:
+            got = [whole(qs[0], ks[0], vs[0])]
+        else:
+            dev = qs[0].device
+            o = whole(*(torch.cat([x.to(dev) for x in xs], dim=1)
+                        for xs in (qs, ks, vs)))
+            got = [part.to(q.device) for part, q in
+                   zip(o.split(qs[0].shape[1], dim=1), qs)]
+        for i, o in zip(idx, got):
+            outs[i] = o
+    return outs

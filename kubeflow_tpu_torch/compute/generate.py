@@ -2834,8 +2834,9 @@ class GenerationEngine:
                 self._write_pages(layer, ids[dev], k[0], v[0], i)
                 return o
 
-            xs, _, _ = transformer.layer_core(xs, None, attend, c,
-                                              self._mesh_layers[layer])
+            xs, _, _ = transformer.layer_core(
+                xs, None, transformer.each_shard(attend), c,
+                self._mesh_layers[layer])
         logits = self._head_logits(
             {d: x[:, true_len - 1] for d, x in xs.items()})[0]
         first = int(torch.argmax(logits))
@@ -2871,8 +2872,9 @@ class GenerationEngine:
                 self._write_pages(layer, ids[dev], k[0], v[0], i)
                 return o
 
-            xs, _, _ = transformer.layer_core(xs, None, attend, c,
-                                              self._mesh_layers[layer])
+            xs, _, _ = transformer.layer_core(
+                xs, None, transformer.each_shard(attend), c,
+                self._mesh_layers[layer])
         logits = self._head_logits(
             {d: x[:, true_len - 1] for d, x in xs.items()})[0]
         return int(torch.argmax(logits))
@@ -2986,8 +2988,9 @@ class GenerationEngine:
                     q, self._layer_pages(layer, i), tables_t[dev],
                     read_lengths, n_rep)
 
-            xs, _, _ = transformer.layer_core(xs, None, attend, c,
-                                              self._mesh_layers[layer])
+            xs, _, _ = transformer.layer_core(
+                xs, None, transformer.each_shard(attend), c,
+                self._mesh_layers[layer])
         logits = self._head_logits({d: x[:, 0] for d, x in xs.items()})
         nxt = torch.argmax(logits, dim=-1).cpu().numpy()
         dbg = logits.cpu().numpy() if self.debug_logits else None
@@ -3114,8 +3117,9 @@ class GenerationEngine:
                     q, self._layer_pages(layer, i), tables_t[dev],
                     lengths_t, k, v, n_rep)
 
-            xs, _, _ = transformer.layer_core(xs, None, attend, c,
-                                              self._mesh_layers[layer])
+            xs, _, _ = transformer.layer_core(
+                xs, None, transformer.each_shard(attend), c,
+                self._mesh_layers[layer])
         logits = self._head_logits(xs)
         return torch.argmax(logits, dim=-1).cpu().numpy()
 

@@ -19,7 +19,15 @@ and ``bo``/``b_down`` added once, after the sum. The tied embedding and
 ``mlm_bias`` are gathered whole there (JAX's one-hot ``embed_lookup``
 is exact, so a plain index matches it). The loss is the global batch's:
 the pieces' masked nll sums and masked-token counts, each summed, then
-divided.
+divided. The ``sequence`` axis cuts each piece's sequence into chunks,
+each with its own copy of the embeddings (``pos_embed`` at the chunk's
+global rows); a head group's attention runs over the chunks, on the
+ring for ``attention="ring"`` (non-causal) or over the whole sequence
+joined for dense and flash. The MLM head reads whole sequences (its
+positions index the full sequence), so the chunks are joined on the
+piece's lead before it, as XLA gathers a sequence-cut dim for
+``take_along_axis``. BERT has no pipeline (JAX's neither): a
+``pipeline`` axis larger than 1 is refused.
 
 bert-base = Config(vocab_size=30522, d_model=768, n_layers=12,
 n_heads=12, d_ff=3072, max_seq=512).
@@ -50,7 +58,8 @@ class Config:
     max_seq: int = 512
     type_vocab: int = 2
     dtype: str = "bfloat16"
-    attention: str = "flash"    # dense | flash | ring
+    attention: str = "flash"    # dense | flash | ring (non-causal,
+    #                             over the mesh's sequence axis)
     remat: bool = True
     scan_layers: bool = True
     ln_eps: float = 1e-12
@@ -173,50 +182,65 @@ def _gelu(x):
 
 
 def _attention(q, k, v, config):
+    """Non-causal attention of one head group; ``"ring"`` on one device
+    is the ring of one position."""
     if config.attention == "ring":
-        raise NotImplementedError(
-            "attention='ring' needs a device mesh: it comes with the "
-            "multi-device slice of the port")
+        return _ring([q], [k], [v])[0]
     if config.attention == "flash":
         return flash_attention(q, k, v, causal=False)[0]
     return attn_lib.dense_attention(q, k, v, causal=False)
 
 
-def _layer(sps, x, devices, config):
-    """One encoder layer over its shards: ``sps`` each shard's layer
-    params on ``devices`` (one: the whole layer on x's device), x the
-    residual stream on the first. Each shard projects its heads and MLP
-    columns; the row partials (wo, w_down) are summed in shard order on
-    x's device, then the replicated biases added once."""
-    dt = config.compute_dtype
-    lead = sps[0]
+def _ring(qs, ks, vs):
+    return attn_lib.ring_attention(qs, ks, vs, causal=False)
 
-    def rows(parts):
+
+def _layer(sps, xs, devices, config):
+    """One encoder layer over its shards: ``xs`` the residual stream's
+    sequence chunks (one on one device), chunk ``j`` on its lead, the
+    device of its first shard; ``sps`` each shard's layer params on
+    ``devices``, chunk-major (chunk ``j``'s ``tensor`` shards at
+    ``j·tp … j·tp + tp - 1``; one: the whole layer on x's device). Each
+    shard projects its heads and MLP columns; each head group attends
+    over the chunks (:func:`attention.over_chunks`); the row partials
+    (wo, w_down) are summed in shard order on the chunk's lead, then the
+    replicated biases added once → the new chunks."""
+    dt = config.compute_dtype
+    tp = len(sps) // len(xs)
+    groups = [range(j * tp, (j + 1) * tp) for j in range(len(xs))]
+
+    def rows(parts, x):
         return functools.reduce(torch.add, (p.to(x.device) for p in parts))
 
-    outs = []
-    for lp, h in zip(sps, (x.to(d) for d in devices)):
-        q = torch.einsum("bsd,dhk->bshk", h, lp["wq"].to(dt)) \
-            + lp["bq"].to(dt)
-        k = torch.einsum("bsd,dhk->bshk", h, lp["wk"].to(dt)) \
-            + lp["bk"].to(dt)
-        v = torch.einsum("bsd,dhk->bshk", h, lp["wv"].to(dt)) \
-            + lp["bv"].to(dt)
-        o = _attention(q, k, v, config)
-        outs.append(torch.einsum("bshk,hkd->bsd", o, lp["wo"].to(dt)))
-    o = rows(outs) + lead["bo"].to(dt)
-    x = _ln(x + o, lead["ln1_scale"].to(dt), lead["ln1_bias"].to(dt),
-            config.ln_eps)
-
-    downs = []
-    for lp, h in zip(sps, (x.to(d) for d in devices)):
-        up = torch.einsum("bsd,df->bsf", h, lp["w_up"].to(dt)) \
-            + lp["b_up"].to(dt)
-        downs.append(torch.einsum("bsf,fd->bsd", _gelu(up),
-                                  lp["w_down"].to(dt)))
-    down = rows(downs) + lead["b_down"].to(dt)
-    return _ln(x + down, lead["ln2_scale"].to(dt), lead["ln2_bias"].to(dt),
-               config.ln_eps)
+    heads = []
+    for x, group in zip(xs, groups):
+        for i in group:
+            lp, h = sps[i], x.to(devices[i])
+            heads.append(tuple(
+                torch.einsum("bsd,dhk->bshk", h, lp[w].to(dt))
+                + lp[b].to(dt)
+                for w, b in (("wq", "bq"), ("wk", "bk"), ("wv", "bv"))))
+    outs = attn_lib.over_chunks(
+        heads, len(xs), lambda q, k, v: _attention(q, k, v, config),
+        _ring if config.attention == "ring" else None)
+    new = []
+    for x, group in zip(xs, groups):
+        lead = sps[group[0]]
+        o = rows([torch.einsum("bshk,hkd->bsd", outs[i], sps[i]["wo"].to(dt))
+                  for i in group], x) + lead["bo"].to(dt)
+        x = _ln(x + o, lead["ln1_scale"].to(dt), lead["ln1_bias"].to(dt),
+                config.ln_eps)
+        downs = []
+        for i in group:
+            lp, h = sps[i], x.to(devices[i])
+            up = torch.einsum("bsd,df->bsf", h, lp["w_up"].to(dt)) \
+                + lp["b_up"].to(dt)
+            downs.append(torch.einsum("bsf,fd->bsd", _gelu(up),
+                                      lp["w_down"].to(dt)))
+        down = rows(downs, x) + lead["b_down"].to(dt)
+        new.append(_ln(x + down, lead["ln2_scale"].to(dt),
+                       lead["ln2_bias"].to(dt), config.ln_eps))
+    return new
 
 
 def _layers(params):
@@ -228,32 +252,39 @@ def _layers(params):
     return layers
 
 
-def encode(params, tokens, config, token_types=None, shards=None):
-    """tokens [B,S] → hidden states [B,S,D]. With ``remat`` and autograd
-    recording, each layer is a non-reentrant checkpoint
-    (``jax.checkpoint``): its activations are recomputed in the
-    backward. ``shards`` (a mesh's batch piece): ``(each layer's list
-    of its shards' layer params, the shards' devices)``; ``params``
-    then holds the whole non-layer leaves on the first device."""
+def _embed(params, tokens, config, token_types=None, offset=0):
+    """The embeddings of tokens [B,S] at sequence positions ``offset +
+    arange(S)``, layer-normed → [B,S,D]."""
     dt = config.compute_dtype
-    tokens = tokens.long()
-    x = params["embed"].to(dt)[tokens]
-    x = x + params["pos_embed"][: tokens.shape[1]].to(dt)
+    x = params["embed"].to(dt)[tokens.long()]
+    x = x + params["pos_embed"][offset:offset + tokens.shape[1]].to(dt)
     if token_types is not None:
         x = x + params["type_embed"].to(dt)[token_types.long()]
-    x = _ln(x, params["embed_ln_scale"].to(dt),
-            params["embed_ln_bias"].to(dt), config.ln_eps)
-    if shards is None:
-        shards = ([[lp] for lp in _layers(params)], [x.device])
-    layers, devices = shards
+    return _ln(x, params["embed_ln_scale"].to(dt),
+               params["embed_ln_bias"].to(dt), config.ln_eps)
+
+
+def _encoder(xs, layers, devices, config):
+    """The layers over sequence chunks ``xs`` (:func:`_layer`; ``layers``
+    each layer's list of its shards' params on ``devices``). With
+    ``remat`` and autograd recording, each layer is a non-reentrant
+    checkpoint (``jax.checkpoint``): its activations are recomputed in
+    the backward."""
     remat = config.remat and torch.is_grad_enabled()
     for sps in layers:
         if remat:
-            x = checkpoint(_layer, sps, x, devices, config,
-                           use_reentrant=False)
+            xs = checkpoint(_layer, sps, xs, devices, config,
+                            use_reentrant=False)
         else:
-            x = _layer(sps, x, devices, config)
-    return x
+            xs = _layer(sps, xs, devices, config)
+    return xs
+
+
+def encode(params, tokens, config, token_types=None):
+    """tokens [B,S] → hidden states [B,S,D]."""
+    x = _embed(params, tokens, config, token_types)
+    return _encoder([x], [[lp] for lp in _layers(params)], [x.device],
+                    config)[0]
 
 
 def mlm_head(params, x, config):
@@ -322,6 +353,9 @@ def loss_fn(params, batch, config):
 
 
 def _check_mesh(config, mesh):
+    if mesh.shape[mesh_lib.PIPELINE] > 1:
+        raise ValueError(f"BERT has no pipeline: the mesh's pipeline axis "
+                         f"is {mesh.shape[mesh_lib.PIPELINE]}")
     tp, fsdp = mesh.shape[mesh_lib.TENSOR], mesh.shape[mesh_lib.FSDP]
     for name, value, axis, n in (
             ("n_heads", config.n_heads, "tensor", tp),
@@ -346,19 +380,34 @@ def _mesh_loss(params, batch, config, mesh):
     def is_leaf(x):
         return isinstance(x, sharding.Sharded)
 
+    n_seq = mesh.shape[mesh_lib.SEQUENCE]
+    seq = batch["tokens"].shape[1]
+    if seq % n_seq:
+        raise ValueError(f"sequence length {seq} does not divide over the "
+                         f"mesh's sequence axis of {n_seq}")
+    chunk = seq // n_seq
     terms = []
     for lead in mesh.along(0, (mesh_lib.DATA, mesh_lib.FSDP)):
-        shards = mesh.along(lead, mesh_lib.TENSOR)
+        leads = mesh.along(lead, mesh_lib.SEQUENCE)
+        shards = [q for j in leads for q in mesh.along(j, mesh_lib.TENSOR)]
         per_shard = [_layers({"layers": sharding._map(
             lambda v, q=q: v.gather_at(q, (mesh_lib.FSDP,), cast),
             params["layers"], is_leaf=is_leaf)}) for q in shards]
-        whole = {k: v.gather_at(lead) for k, v in params.items()
-                 if k != "layers"}
+        copies = [{k: v.gather_at(pos) for k, v in params.items()
+                   if k != "layers"} for pos in leads]
+        xs = []
+        for j, (pos, mine) in enumerate(zip(leads, copies)):
+            cut = {k: v.pieces[pos][:, j * chunk:(j + 1) * chunk]
+                   for k, v in batch.items()
+                   if k in ("tokens", "token_types")}
+            xs.append(_embed(mine, cut["tokens"], config,
+                             cut.get("token_types"), j * chunk))
+        xs = _encoder(xs, list(map(list, zip(*per_shard))),
+                      [mesh.devices[q] for q in shards], config)
         local = {k: v.pieces[lead] for k, v in batch.items()}
-        x = encode(whole, local["tokens"], config, local.get("token_types"),
-                   shards=(list(map(list, zip(*per_shard))),
-                           [mesh.devices[q] for q in shards]))
-        terms.append(_loss_terms(whole, x, local, config))
+        x = xs[0] if n_seq == 1 else torch.cat(
+            [x.to(mesh.devices[lead]) for x in xs], dim=1)
+        terms.append(_loss_terms(copies[0], x, local, config))
     dev = mesh.devices[0]
     return _finish({k: functools.reduce(torch.add,
                                         (t[k].to(dev) for t in terms))

@@ -14,15 +14,22 @@ two packages through numpy unchanged (``compute/params.py``).
 ``lax.scan`` over the stacked layers becomes a Python loop.
 
 On a training mesh (:func:`loss_fn` given ``sharding.Sharded`` params,
-a dense model) each batch piece runs on its ``tensor`` positions
-through :func:`layer_core`'s sharded form: a position's weights
-gathered over ``fsdp``, its heads of wq/wk/wv and columns of
-w_gate/w_up, its attention over its local heads (K3, and K4 + K5 in the
-backward, per shard), its row partials of wo/w_down summed in position
-order on the piece's lead position, where the residual stream, the
-norms, the embedding and the LM head (gathered whole) live. The loss and
-metrics are the global batch's: each piece's sums and mask count, summed
-over the pieces, then divided.
+a dense model) each batch piece runs on its positions through
+:func:`layer_core`'s sharded form: a position's weights gathered over
+``fsdp``, its heads of wq/wk/wv and columns of w_gate/w_up, its
+attention over its local heads (K3, and K4 + K5 in the backward, per
+shard), its row partials of wo/w_down summed in position order on its
+sequence chunk's lead position, where that chunk of the residual
+stream, the norms, the embedding and the LM head (gathered whole, each
+chunk with its own copy) live. The ``sequence`` axis cuts each piece's
+sequence into chunks at their global RoPE positions; the heads of one
+``tensor`` coordinate ride the ring over the chunks
+(``attention="ring"``), or are joined over the whole sequence for dense
+and flash attention. With ``pipeline_stages > 1`` the ``pipeline`` axis
+holds the stages (``compute/pipeline.py``'s GPipe schedule); without,
+it is a replica the piece runs on once, at pipeline coordinate 0. The
+loss and metrics are the global batch's: each chunk's sums and mask
+count, summed over the chunks and the pieces, then divided.
 
 Numerics mirrored on purpose (the token-identity contract rests on
 them): RoPE rotates interleaved (even, odd) pairs and restacks them
@@ -44,6 +51,7 @@ from torch.utils.checkpoint import checkpoint
 from .. import attention as attn_lib
 from .. import device as device_lib
 from .. import mesh as mesh_lib
+from .. import pipeline as pipeline_lib
 from .. import sharding
 from ..ops import grouped_matmul as gmm_lib
 from ..ops.flash_attention import flash_attention
@@ -54,11 +62,16 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
 
 @dataclasses.dataclass(frozen=True)
 class Config:
-    """The JAX ``Config``'s fields. Pipeline stages and ring attention
-    are refused (``NotImplementedError``) until their slice of the port.
-    ``remat`` (default True, as in JAX) recomputes each layer's
-    activations in the backward (``torch.utils.checkpoint``); it changes
-    nothing without one.
+    """The JAX ``Config``'s fields, with its checks (:90-98).
+    ``attention="ring"`` runs :func:`attention.ring_attention` over the
+    mesh's ``sequence`` axis (a ring of one position on one device).
+    ``pipeline_stages > 1`` (dividing ``n_layers``, with
+    ``scan_layers=True``) runs the layers as a GPipe pipeline of
+    :attr:`microbatches` microbatches over the mesh's ``pipeline`` axis
+    (one stage on one device), the stacked-layer dim leading with the
+    ``"stage"`` logical axis. ``remat`` (default True, as in JAX)
+    recomputes each layer's activations in the backward
+    (``torch.utils.checkpoint``); it changes nothing without one.
 
     MoE (``moe_experts`` > 0): ``moe_top_k`` 1 is Switch, 2 GShard-style
     with renormalized gates; ``moe_dropless`` picks dropless dispatch
@@ -78,7 +91,7 @@ class Config:
     max_seq: int = 2048
     rope_theta: float = 10000.0
     dtype: str = "bfloat16"
-    attention: str = "flash"     # dense | flash
+    attention: str = "flash"     # dense | flash | ring
     remat: bool = True
     scan_layers: bool = True
     chunked_ce: bool = False
@@ -97,13 +110,9 @@ class Config:
             raise ValueError(
                 f"moe_gmm must be True, False or 'auto', got "
                 f"{self.moe_gmm!r}")
-        if self.pipeline_stages > 1:
-            raise NotImplementedError(
-                "pipeline parallelism is not ported yet")
-        if self.attention not in ("dense", "flash"):
-            raise NotImplementedError(
-                f"attention={self.attention!r} is not ported yet "
-                f"(dense | flash)")
+        if self.attention not in ("dense", "flash", "ring"):
+            raise ValueError(f"attention={self.attention!r}: dense, flash "
+                             f"or ring")
         if self.dtype not in _DTYPES:
             raise ValueError(f"unsupported dtype {self.dtype!r}")
         if self.n_kv_heads and self.n_heads % self.n_kv_heads:
@@ -115,6 +124,19 @@ class Config:
             raise ValueError(
                 f"ce_chunk={self.ce_chunk} must divide "
                 f"vocab_size={self.vocab_size}")
+        if self.pipeline_stages > 1:
+            if not self.scan_layers:
+                raise ValueError(
+                    "pipeline_stages needs scan_layers=True (stage "
+                    "assignment shards the stacked-layer dim)")
+            if self.n_layers % self.pipeline_stages:
+                raise ValueError(
+                    f"n_layers={self.n_layers} not divisible by "
+                    f"pipeline_stages={self.pipeline_stages}")
+
+    @property
+    def microbatches(self):
+        return self.pipeline_microbatches or self.pipeline_stages
 
     @property
     def kv_heads(self):
@@ -189,14 +211,15 @@ def _shapes(c):
 
 def logical_axes(config):
     """The params tree's logical axes (JAX ``logical_axes``, :162): the
-    stacked layout's leaves lead with ``"layers"``; with
-    ``scan_layers=False`` the layers are a per-layer list. (Pipeline
-    stages are refused by :class:`Config`, so the lead is never
-    ``"stage"``.)"""
+    stacked layout's leaves lead with ``"layers"``, or with ``"stage"``
+    when ``pipeline_stages > 1`` (the stage assignment, over the
+    ``pipeline`` mesh axis); with ``scan_layers=False`` the layers are a
+    per-layer list."""
     tree = {}
     for name, v in _shapes(config).items():
         if name == "layers":
-            prefix = ("layers",) if config.scan_layers else ()
+            lead = "stage" if config.pipeline_stages > 1 else "layers"
+            prefix = (lead,) if config.scan_layers else ()
             tree["layers"] = {k: prefix + ax for k, (_, ax) in v.items()}
             if not config.scan_layers:
                 tree["layers"] = [tree["layers"]] * config.n_layers
@@ -259,7 +282,12 @@ def cast_params(params, dtype, device=None):
 def layer_params(params, i):
     """Layer ``i``'s weights as views of the stacked tensors, the
     projections flattened to 2-D for ``torch.matmul``."""
-    lp = {k: v[i] for k, v in params["layers"].items()}
+    return flat_layer({k: v[i] for k, v in params["layers"].items()})
+
+
+def flat_layer(lp):
+    """One layer's weights with the projections flattened to 2-D."""
+    lp = dict(lp)
     d = lp["wq"].shape[0]
     for name in ("wq", "wk", "wv"):
         lp[name] = lp[name].reshape(d, -1)
@@ -295,13 +323,25 @@ def apply_rope(x, cos, sin):
 
 def _attention(q, k, v, config):
     """q [B, S, H, D]; k, v [B, S, kv_heads, D] (not repeated: the flash
-    kernel reads kv head ``h // n_rep`` itself)."""
+    kernel reads kv head ``h // n_rep`` itself). ``"ring"`` on one
+    device is the ring of one position."""
     if config.attention == "flash":
         return flash_attention(q, k, v, causal=True)[0]
+    if config.attention == "ring":
+        return _ring([q], [k], [v], config)[0]
     n_rep = config.n_heads // config.kv_heads
     return attn_lib.dense_attention(
         q, attn_lib.repeat_kv(k, n_rep), attn_lib.repeat_kv(v, n_rep),
         causal=True)
+
+
+def _ring(qs, ks, vs, config):
+    """The causal ring over sequence blocks, K/V repeated to the query
+    heads first (JAX's ``_attention`` repeats before the ring)."""
+    n_rep = config.n_heads // config.kv_heads
+    return attn_lib.ring_attention(
+        qs, [attn_lib.repeat_kv(k, n_rep) for k in ks],
+        [attn_lib.repeat_kv(v, n_rep) for v in vs], causal=True)
 
 
 # ------------------------------------------------------------------ MoE
@@ -468,30 +508,33 @@ def layer_core(x, lp, attend, config, shards=None):
     verify and draft, sharded or not, so the cached and sharded paths
     cannot drift from the model.
 
-    The sharded form (the engine's tensor mesh; a dense MLP): ``shards``
-    holds ``layers``, each shard's layer params with its column slices
-    of wq/wk/wv and w_gate/w_up; ``norm(x, name)``, each shard's normed
-    input; and ``project(x, pieces, name)``, the residual plus the
-    shards' head or hidden slices brought back to full width through
-    ``wo``/``w_down``. ``x`` is whatever those hooks take, ``lp`` is
-    unused, and ``attend(i, q, k, v) → o`` runs per shard over its local
-    heads. The unsharded layer is the one-shard case."""
+    The sharded form (the engine's tensor mesh, the training mesh; a
+    dense MLP): ``shards`` holds ``layers``, each shard's layer params
+    with its column slices of wq/wk/wv and w_gate/w_up; ``norm(x,
+    name)``, each shard's normed input; and ``project(x, pieces,
+    name)``, the residual plus the shards' head or hidden slices brought
+    back to full width through ``wo``/``w_down``. ``x`` is whatever
+    those hooks take, ``lp`` is unused, and ``attend(heads) → outs``
+    gets every shard's projected ``(q, k, v)`` over its local heads at
+    once (a ring needs the other shards' K/V; :func:`each_shard` makes
+    one from a per-shard read). The unsharded layer is the one-shard
+    case."""
     whole = shards is None
     if whole:
         shards = _Whole(lp)
     hd = config.head_dim
-    outs, extra = [], None
-    for i, (sp, h) in enumerate(zip(shards.layers,
-                                    shards.norm(x, "attn_norm"))):
+    heads = []
+    for sp, h in zip(shards.layers, shards.norm(x, "attn_norm")):
         B, S, _ = h.shape
-        q = torch.matmul(h, sp["wq"]).view(B, S, -1, hd)
-        k = torch.matmul(h, sp["wk"]).view(B, S, -1, hd)
-        v = torch.matmul(h, sp["wv"]).view(B, S, -1, hd)
-        if whole:
-            o, extra = attend(q, k, v)
-        else:
-            o = attend(i, q, k, v)
-        outs.append(o.reshape(B, S, -1))
+        heads.append(tuple(torch.matmul(h, sp[w]).view(B, S, -1, hd)
+                           for w in ("wq", "wk", "wv")))
+    extra = None
+    if whole:
+        o, extra = attend(*heads[0])
+        outs = [o]
+    else:
+        outs = attend(heads)
+    outs = [o.reshape(*o.shape[:2], -1) for o in outs]
     x = shards.project(x, outs, "wo")
     hs = shards.norm(x, "mlp_norm")
     if whole:
@@ -499,6 +542,12 @@ def layer_core(x, lp, attend, config, shards=None):
         return x + down, extra, aux
     acts = [_swiglu(h, sp) for sp, h in zip(shards.layers, hs)]
     return shards.project(x, acts, "w_down"), None, None
+
+
+def each_shard(attend):
+    """A per-shard read ``attend(i, q, k, v) → o`` as the sharded
+    form's ``attend(heads) → outs``."""
+    return lambda heads: [attend(i, *h) for i, h in enumerate(heads)]
 
 
 def _layer(lp, x, rope, config):
@@ -518,22 +567,32 @@ def backbone(params, tokens, config):
     dense MLP), as JAX's ``backbone`` (:536-573). With ``config.remat``
     and autograd recording, each layer is a non-reentrant checkpoint
     (``jax.checkpoint``, :545): its activations are recomputed in the
-    backward instead of kept."""
+    backward instead of kept. With ``pipeline_stages > 1`` the layers
+    run as the one-stage GPipe pipeline of ``config.microbatches``
+    microbatches (:547-562; aux then the mean over layers ×
+    microbatches)."""
     p = cast_params(params, config.compute_dtype)
     x = p["embed"][tokens.long()]
     positions = torch.arange(tokens.shape[1], device=x.device)
     rope = rope_tables(config, positions)
     remat = config.remat and torch.is_grad_enabled()
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for i in range(config.n_layers):
-        lp = layer_params(p, i)
+
+    def layer(lp, x):
         if remat:
-            x, a = checkpoint(_layer, lp, x, rope, config,
+            return checkpoint(_layer, lp, x, rope, config,
                               use_reentrant=False)
-        else:
-            x, a = _layer(lp, x, rope, config)
-        if a is not None:
-            aux = aux + a / config.n_layers
+        return _layer(lp, x, rope, config)
+
+    layers = [layer_params(p, i) for i in range(config.n_layers)]
+    if config.pipeline_stages > 1:
+        x, aux = pipeline_lib.pipelined_layers(layer, [layers], x,
+                                               config.microbatches)
+    else:
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        for lp in layers:
+            x, a = layer(lp, x)
+            if a is not None:
+                aux = aux + a / config.n_layers
     return _rmsnorm(x, p["final_norm"]), aux
 
 
@@ -626,7 +685,7 @@ def loss_fn(params, batch, config):
 def _check_mesh(config, mesh):
     """The dims the mesh forward cuts must divide (ValueError names the
     field), and a mixture of experts waits for its expert-parallel
-    slice on any mesh of more than one position."""
+    slice on any mesh of more than one position, pipelined or not."""
     if config.moe_experts and mesh.size > 1:
         raise ValueError(
             f"moe_experts={config.moe_experts} on a mesh of {mesh.size} "
@@ -645,66 +704,122 @@ def _check_mesh(config, mesh):
 
 
 class _TrainShards:
-    """One batch piece's hooks for :func:`layer_core`'s sharded form:
-    ``layers`` each tensor position's layer params (gathered over
-    ``fsdp``, in the compute dtype); the norms once, on the lead (the
-    first tensor position, which holds the residual stream), with its
-    copy of the scales, the normed input sent to every position; the
-    row projections as each position's partial product, summed in
-    position order on the lead."""
+    """One batch piece's hooks for :func:`layer_core`'s sharded form on
+    one pipeline stage: ``x`` is the piece's sequence chunks, chunk
+    ``j`` on its lead (the position of tensor coordinate 0, which holds
+    that chunk of the residual stream); ``layers`` each shard's layer
+    params (gathered over ``fsdp``, in the compute dtype), chunk-major
+    (chunk ``j``'s ``tensor`` shards at ``j·tp … j·tp + tp - 1``). The
+    norms run on each chunk's lead with its copy of the scales, the
+    normed input sent to the chunk's shards; the row projections are
+    each shard's partial product, summed in shard order on the lead;
+    the attention rotates q and k to their global positions and runs
+    each head group over the chunks (:func:`attention.over_chunks`)."""
 
-    def __init__(self, layers, devices):
-        self.layers, self.devices = layers, devices
+    def __init__(self, layers, devices, ropes, n_chunks, config):
+        self.layers, self.devices, self.ropes = layers, devices, ropes
+        self.n_chunks, self.config = n_chunks, config
+
+    def _groups(self, x):
+        tp = len(self.layers) // len(x)
+        return [range(j * tp, (j + 1) * tp) for j in range(len(x))]
 
     def norm(self, x, name):
-        h = _rmsnorm(x, self.layers[0][name])
-        return [h.to(d) for d in self.devices]
+        out = []
+        for xj, group in zip(x, self._groups(x)):
+            h = _rmsnorm(xj, self.layers[group[0]][name])
+            out.extend(h.to(self.devices[i]) for i in group)
+        return out
 
     def project(self, x, pieces, name):
-        partials = [torch.matmul(o, sp[name]).to(x.device)
-                    for o, sp in zip(pieces, self.layers)]
-        return x + functools.reduce(torch.add, partials)
+        return [xj + functools.reduce(torch.add, (
+            torch.matmul(pieces[i], self.layers[i][name]).to(xj.device)
+            for i in group)) for xj, group in zip(x, self._groups(x))]
+
+    def attend(self, heads):
+        c = self.config
+        roped = [(apply_rope(q, *rope), apply_rope(k, *rope), v)
+                 for (q, k, v), rope in zip(heads, self.ropes)]
+        ring = (functools.partial(_ring, config=c) if c.attention == "ring"
+                else None)
+        return attn_lib.over_chunks(
+            roped, self.n_chunks, lambda q, k, v: _attention(q, k, v, c),
+            ring)
 
 
 def _piece_loss(params, batch, config, mesh, lead):
-    """The loss sums of the batch piece whose lead position is
-    ``lead`` (:func:`_loss_terms`), on the lead's device."""
+    """The loss sums of the batch piece whose lead position is ``lead``
+    (:func:`_loss_terms`, summed over its sequence chunks), on the last
+    stage's lead device."""
     dt = config.compute_dtype
-    shards = mesh.along(lead, mesh_lib.TENSOR)
-    devices = [mesh.devices[q] for q in shards]
+    base = mesh.coords(lead)
+    n_seq, tp = mesh.shape[mesh_lib.SEQUENCE], mesh.shape[mesh_lib.TENSOR]
+    staged = config.pipeline_stages > 1
+    n_stages = mesh.shape[mesh_lib.PIPELINE] if staged else 1
+
+    def at(stage, j, t=0):
+        return mesh.position({**base, mesh_lib.PIPELINE: stage,
+                              mesh_lib.SEQUENCE: j, mesh_lib.TENSOR: t})
+
+    seq = batch["tokens"].shape[1]
+    if seq % n_seq:
+        raise ValueError(f"sequence length {seq} does not divide over the "
+                         f"mesh's sequence axis of {n_seq}")
+    chunk = seq // n_seq
 
     def cast(t):
         return t.to(dt)
 
-    def whole(name):
-        return params[name].gather_at(lead, cast=cast)
+    def local(name, pos, j):
+        return batch[name].pieces[pos][:, j * chunk:(j + 1) * chunk]
 
-    stacks = [{k: v.gather_at(q, (mesh_lib.FSDP,), cast)
-               for k, v in params["layers"].items()} for q in shards]
-    tokens = batch["tokens"].pieces[lead].long()
-    targets = batch["targets"].pieces[lead].long()
-    mask = _mask({k: v.pieces[lead] for k, v in batch.items()}, targets)
-    x = whole("embed")[tokens]
-    ropes = [rope_tables(config, torch.arange(tokens.shape[1], device=d))
-             for d in devices]
-
-    def attend(i, q, k, v):
-        cos, sin = ropes[i]
-        return _attention(apply_rope(q, cos, sin), apply_rope(k, cos, sin),
-                          v, config)
+    def stage_layers(s):
+        """Stage ``s``'s layers, each as its hooks over the stage's
+        shards (``L / stages`` layers of the stacked dim)."""
+        shards = [at(s, j, t) for j in range(n_seq) for t in range(tp)]
+        devices = [mesh.devices[q] for q in shards]
+        stacks = [{k: v.gather_at(q, (mesh_lib.FSDP,), cast)
+                   for k, v in params["layers"].items()} for q in shards]
+        ropes = [rope_tables(config, (i // tp) * chunk + torch.arange(
+            chunk, device=d)) for i, d in enumerate(devices)]
+        return [_TrainShards([layer_params({"layers": st}, i)
+                              for st in stacks], devices, ropes, n_seq,
+                             config)
+                for i in range(config.n_layers // n_stages)]
 
     remat = config.remat and torch.is_grad_enabled()
-    for i in range(config.n_layers):
-        hooks = _TrainShards([layer_params({"layers": st}, i)
-                              for st in stacks], devices)
 
-        def layer(x, hooks=hooks):
-            return layer_core(x, None, attend, config, hooks)[0]
+    def layer(hooks, x):
+        def run(*x):
+            return tuple(layer_core(list(x), None, hooks.attend, config,
+                                    hooks)[0])
+        return list(checkpoint(run, *x, use_reentrant=False) if remat
+                    else run(*x)), None
 
-        x = (checkpoint(layer, x, use_reentrant=False) if remat
-             else layer(x))
-    x = _rmsnorm(x, whole("final_norm"))
-    return _loss_terms(x, whole("head"), targets, mask, config)
+    x = [params["embed"].gather_at(at(0, j), cast=cast)[
+        local("tokens", at(0, j), j).long()] for j in range(n_seq)]
+    if staged:
+        x, _ = pipeline_lib.pipelined_layers(
+            layer, [stage_layers(s) for s in range(n_stages)], x,
+            config.microbatches,
+            hop=lambda s, y: [t.to(mesh.devices[at(s, j)])
+                              for j, t in enumerate(y)])
+    else:
+        for hooks in stage_layers(0):
+            x, _ = layer(hooks, x)
+    last = n_stages - 1
+    terms = []
+    for j, xj in enumerate(x):
+        pos = at(last, j)
+        targets = local("targets", pos, j).long()
+        mask = _mask({"mask": local("mask", pos, j)} if "mask" in batch
+                     else {}, targets)
+        xj = _rmsnorm(xj, params["final_norm"].gather_at(pos, cast=cast))
+        terms.append(_loss_terms(xj, params["head"].gather_at(pos, cast=cast),
+                                 targets, mask, config))
+    dev = mesh.devices[at(last, 0)]
+    return {k: functools.reduce(torch.add, (t[k].to(dev) for t in terms))
+            for k in terms[0]}
 
 
 def _mesh_loss(params, batch, config, mesh):

@@ -1,0 +1,277 @@
+"""GPipe and 1F1B pipeline schedules over a mesh's ``pipeline`` axis,
+for the one controller.
+
+Port of ``kubeflow_tpu/compute/pipeline.py``: :func:`pipelined_layers`
+(:40, GPipe) and :func:`train_1f1b` (:135). Stage assignment is a
+placement: the stacked-layer leaves carry the ``"stage"`` logical axis,
+which ``sharding.DEFAULT_RULES`` maps to ``pipeline``, so stage ``s``
+holds layers ``[s·L/P, (s+1)·L/P)`` on its positions (with the ``fsdp``
+and ``tensor`` cuts inside them) and a checkpoint stays a logical tree.
+
+JAX runs every stage as one traced program inside a ``shard_map`` and
+hops activations between neighbours with ``lax.ppermute``; its warm-up
+and drain ticks compute on garbage that is masked out. The one
+controller keeps the tick order (stage ``s`` runs microbatch ``t - s``
+at tick ``t``), moves a stage's output to the next stage's devices with
+``.to()``, and does not run the bubbles at all: the same numbers, in
+the same order, without the wasted work.
+"""
+
+import torch
+
+from . import mesh as mesh_lib
+from . import sharding
+from .train import tree_leaves, tree_map
+
+
+def _each(fn, x):
+    """``fn`` on a tensor, or on each tensor of a list of them."""
+    return [fn(t) for t in x] if isinstance(x, (list, tuple)) else fn(x)
+
+
+def _first(x):
+    return x[0] if isinstance(x, (list, tuple)) else x
+
+
+def _stage_aux(auxs):
+    """A stage's per-layer aux values summed in fp32 (None: no layer
+    gave one — a dense MLP)."""
+    auxs = [a for a in auxs if a is not None]
+    if not auxs:
+        return None
+    total = auxs[0].float()
+    for a in auxs[1:]:
+        total = total + a.float().to(total.device)
+    return total
+
+
+def pipelined_layers(layer_fn, stages, x, n_microbatches, hop=None):
+    """Run a stack of layers as a GPipe pipeline (``pipeline.py:40``).
+
+    ``layer_fn(lp, x) → (x', aux)``, one layer (remat'd by the caller;
+    ``aux`` None for a layer without one); ``stages``: one list of layer
+    params per stage, in layer order; ``x``: the first stage's input,
+    ``[B, ...]`` or a list of such tensors (a mesh's sequence chunks),
+    B divisible by ``n_microbatches``; ``hop(s, y)`` moves a stage's
+    output onto stage ``s``'s devices (default: left where it is).
+
+    Microbatch ``i`` is rows ``[i·mb, (i+1)·mb)``. → ``(y, aux)``: the
+    last stage's outputs joined in microbatch order, and the mean of the
+    per-layer aux values over layers × microbatches (fp32 0-d; 0 without
+    any)."""
+    m = n_microbatches
+    batch = _first(x).shape[0]
+    if batch % m:
+        raise ValueError(f"batch {batch} not divisible by "
+                         f"n_microbatches={m}")
+    mb = batch // m
+    micro = [_each(lambda t, i=i: t[i * mb:(i + 1) * mb], x)
+             for i in range(m)]
+    n_stages = len(stages)
+    n_layers = sum(len(st) for st in stages)
+    inbox, outs, aux_sums = {}, [None] * m, []
+    for t in range(m + n_stages - 1):
+        for s in range(n_stages):
+            i = t - s
+            if not 0 <= i < m:
+                continue              # a warm-up or drain bubble
+            y = micro[i] if s == 0 else inbox.pop((s, i))
+            auxs = []
+            for lp in stages[s]:
+                y, aux = layer_fn(lp, y)
+                auxs.append(aux)
+            aux_sums.append(_stage_aux(auxs))
+            if s == n_stages - 1:
+                outs[i] = y
+            else:
+                inbox[(s + 1, i)] = y if hop is None else hop(s + 1, y)
+    if isinstance(x, (list, tuple)):
+        y = [torch.cat(parts, dim=0) for parts in zip(*outs)]
+    else:
+        y = torch.cat(outs, dim=0)
+    aux = torch.zeros((), dtype=torch.float32, device=_first(y).device)
+    for a in aux_sums:
+        if a is not None:
+            aux = aux + a.to(aux.device)
+    return y, aux / (n_layers * m)
+
+
+# ------------------------------------------------------------- 1F1B
+
+def _placed(params, mesh):
+    """``params`` (``{"embed", "layers", "head"}``) as :class:`Sharded`
+    leaves: placed already (each ``layers`` leaf cut over ``pipeline``
+    on dim 0), or plain tensors placed here — ``layers`` by the
+    ``"stage"`` logical axis, ``embed`` and ``head`` replicated."""
+    leaves = tree_leaves(params)
+    if all(isinstance(x, sharding.Sharded) for x in leaves):
+        if mesh.shape[mesh_lib.PIPELINE] > 1:
+            for leaf in tree_leaves(params["layers"]):
+                if leaf.sharding.dim_axes(len(leaf.shape))[0] != (
+                        mesh_lib.PIPELINE,):
+                    raise ValueError(
+                        f"train_1f1b: a layers leaf lies by spec "
+                        f"{leaf.spec}; its dim 0 must be cut over "
+                        f"'{mesh_lib.PIPELINE}'")
+        return params
+    logical = {"embed": tree_map(lambda _: None, params["embed"]),
+               "layers": tree_map(lambda _: ("stage",), params["layers"]),
+               "head": tree_map(lambda _: None, params["head"])}
+    return sharding.place_tree(
+        tree_map(lambda t: t.detach(), params), mesh, logical)
+
+
+def _add(acc, grads):
+    for a, g in zip(acc, grads):
+        if g is not None:
+            a.add_(g.float())
+
+
+def train_1f1b(embed_fn, layer_fn, loss_fn, params, tokens, targets,
+               n_microbatches, mesh, aux_weight=0.0):
+    """One 1F1B pipeline training step (``pipeline.py:135``) →
+    ``(loss, grads)``.
+
+    ``params``: ``{"embed", "layers", "head"}`` trees; ``layers`` leaves
+    carry the leading layer dim. Plain tensors are placed on ``mesh``
+    (its only axis larger than 1 is ``pipeline``) and the grads come
+    back as logical tensors on each leaf's device; ``Sharded`` leaves
+    (``layers`` cut over ``pipeline``) get grads in their own layout,
+    every copy of ``embed`` and ``head`` holding the whole gradient (the
+    psum). ``embed_fn(ep, tokens_mb) → x0``; ``layer_fn(lp, x) → (y,
+    aux)`` (aux None or a 0-d tensor); ``loss_fn(hp, y, targets_mb) →``
+    the microbatch's mean loss. ``aux_weight`` adds ``aux_weight ·
+    mean(aux)`` over layers × microbatches to the objective.
+
+    The schedule is JAX's: stage ``s`` forwards microbatch ``t - s`` at
+    tick ``t`` under ``no_grad``, keeping its input in a ring of ``2P``
+    slots, and backwards microbatch ``t - 2(P-1) + s``, recomputing the
+    stage from the saved input and taking ``torch.autograd.grad`` with
+    the cotangent received from the next stage (cast to the activation
+    dtype). The last stage applies the loss as soon as a microbatch's
+    forward ends and seeds the cotangent at once: ``1/M`` for the loss,
+    ``aux_weight / (L·M)`` for the aux. So at most ``2P - 1`` stage
+    inputs are live per stage whatever M is; the most any stage held in
+    this call is left on ``train_1f1b.live_inputs``. Embed grads land at
+    stage 0, head grads at the last stage."""
+    m = n_microbatches
+    tokens, targets = torch.as_tensor(tokens), torch.as_tensor(targets)
+    if tokens.shape[0] % m:
+        raise ValueError(f"batch {tokens.shape[0]} not divisible by "
+                         f"n_microbatches={m}")
+    others = {a: n for a, n in mesh.shape.items()
+              if a != mesh_lib.PIPELINE and n > 1}
+    if others:
+        raise ValueError(f"train_1f1b runs over the "
+                         f"'{mesh_lib.PIPELINE}' axis alone; the mesh "
+                         f"also has {others}")
+    p = mesh.shape[mesh_lib.PIPELINE]
+    devs = list(mesh.devices)
+    placed = _placed(params, mesh)
+
+    def alias(x, s):
+        return x.pieces[s].detach().requires_grad_()
+
+    local = [tree_map(lambda x, s=s: alias(x, s), placed["layers"])
+             for s in range(p)]
+    eparams = tree_map(lambda x: alias(x, 0), placed["embed"])
+    hparams = tree_map(lambda x: alias(x, p - 1), placed["head"])
+    n_local = tree_leaves(local[0])[0].shape[0]
+    n_layers = n_local * p
+    mb = tokens.shape[0] // m
+    toks = [tokens[i * mb:(i + 1) * mb].to(devs[0]) for i in range(m)]
+    tgts = [targets[i * mb:(i + 1) * mb].to(devs[-1]) for i in range(m)]
+
+    def stage_fwd(s, xin):
+        y, auxs = xin, []
+        for i in range(n_local):
+            y, aux = layer_fn(tree_map(lambda t: t[i], local[s]), y)
+            auxs.append(aux)
+        return y, _stage_aux(auxs)
+
+    def zeros(t):
+        return torch.zeros(t.shape, dtype=torch.float32, device=t.device)
+
+    l_leaves = [tree_leaves(lp) for lp in local]
+    e_leaves, h_leaves = tree_leaves(eparams), tree_leaves(hparams)
+    g_l = [[zeros(t) for t in ls] for ls in l_leaves]
+    g_e, g_h = [zeros(t) for t in e_leaves], [zeros(t) for t in h_leaves]
+    loss_sum = [torch.zeros((), dtype=torch.float32, device=d) for d in devs]
+    aux_cot = aux_weight / (n_layers * m)
+    ring = 2 * p
+    saved = [{} for _ in range(p)]
+    live = 0
+    recv_f, recv_b = [None] * p, [None] * p
+    for t in range(m + 2 * (p - 1)):
+        send_f, send_b = [None] * p, [None] * p
+        for s in range(p):
+            last = s == p - 1
+            cot = None
+            f = t - s                 # forward half: microbatch f
+            if 0 <= f < m:
+                with torch.no_grad():
+                    xin = embed_fn(eparams, toks[f]) if s == 0 else recv_f[s]
+                    saved[s][f % ring] = xin
+                    live = max(live, len(saved[s]))
+                    y, aux_f = stage_fwd(s, xin)
+                if aux_f is not None:
+                    loss_sum[s] += aux_weight * aux_f / (n_layers * m)
+                if last:              # the loss and its cotangent, now
+                    yy = y.detach().requires_grad_()
+                    with torch.enable_grad():
+                        loss_f = loss_fn(hparams, yy, tgts[f])
+                    *dh, cot = torch.autograd.grad(
+                        loss_f, h_leaves + [yy],
+                        torch.full_like(loss_f, 1.0 / m), allow_unused=True)
+                    _add(g_h, dh)
+                    loss_sum[s] += loss_f.detach().float() / m
+                else:
+                    send_f[s + 1] = y
+            b = t - 2 * (p - 1) + s   # backward half: microbatch b
+            if 0 <= b < m:
+                x_req = saved[s].pop(b % ring).detach().requires_grad_()
+                if not last:
+                    cot = recv_b[s]
+                with torch.enable_grad():
+                    yb, aux_b = stage_fwd(s, x_req)
+                outs, cots = [yb], [cot.to(yb.dtype)]
+                if aux_b is not None and aux_b.requires_grad:
+                    outs.append(aux_b)
+                    cots.append(torch.full_like(aux_b, aux_cot))
+                *dl, dxin = torch.autograd.grad(
+                    outs, l_leaves[s] + [x_req], cots, allow_unused=True)
+                _add(g_l[s], dl)
+                if s == 0:
+                    with torch.enable_grad():
+                        x0 = embed_fn(eparams, toks[b])
+                    _add(g_e, torch.autograd.grad(x0, e_leaves, dxin,
+                                                  allow_unused=True))
+                else:
+                    send_b[s - 1] = dxin
+        recv_f = [None if y is None else y.to(devs[s])
+                  for s, y in enumerate(send_f)]
+        recv_b = [None if g is None else g.to(devs[s])
+                  for s, g in enumerate(send_b)]
+    train_1f1b.live_inputs = live
+    loss = sum(x.to(devs[0]) for x in loss_sum)
+
+    def rebuild(tree, pieces):
+        """``tree``'s leaves with ``pieces(i)`` for the i-th leaf in
+        ``tree_leaves`` order, in the leaf's layout."""
+        index = {id(leaf): i for i, leaf in enumerate(tree_leaves(tree))}
+        return tree_map(lambda leaf: sharding.Sharded(
+            pieces(index[id(leaf)]), leaf.sharding, leaf.shape), tree)
+
+    grads = {
+        "embed": rebuild(placed["embed"],
+                         lambda i: [g_e[i].to(d) for d in devs]),
+        "layers": rebuild(placed["layers"],
+                          lambda i: [g_l[s][i] for s in range(p)]),
+        "head": rebuild(placed["head"],
+                        lambda i: [g_h[i].to(d) for d in devs])}
+    if placed is not params:
+        grads = tree_map(lambda g, x: g.gather(x.device), grads, params)
+    return loss, grads
+
+
+train_1f1b.live_inputs = 0

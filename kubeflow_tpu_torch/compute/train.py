@@ -8,8 +8,10 @@ optimizer's update applied to the parameters in place (JAX donates the
 old state instead; updating in place keeps one copy of the masters and
 the moments on the card).
 
-On a mesh (``compute/mesh.py``; ``data``, ``fsdp`` and ``tensor``
-axes) the step is the one controller that XLA's partitioner is in JAX.
+On a mesh (``compute/mesh.py``; ``data``, ``fsdp``, ``tensor``,
+``sequence`` and ``pipeline`` axes) the step is the one controller that
+XLA's partitioner and the manual ``shard_map``s of ring attention and
+the pipeline are in JAX.
 ``init_state(mesh=, logical_axes=)`` places the fp32 masters, the
 moments and the model state as ``sharding.Sharded`` leaves, one copy of
 its piece per position. The models' losses see the sharded tree and run
@@ -20,9 +22,10 @@ return the loss and metrics of the GLOBAL batch. The step then sums
 each piece's gradient over its copies in position order, hands every
 copy that sum, clips by the norm of the logical elements (each counted
 once) and updates every copy with the same arithmetic: replicated
-copies stay byte-equal. ``sequence``, ``pipeline`` and ``expert`` > 1
-are refused (ring attention, the pipeline and expert parallelism are
-later slices).
+copies stay byte-equal. A copy the forward does not read (a
+replicated pipeline's, with no stages) takes the sum of the others, as
+JAX's psum hands it. ``expert`` > 1 is refused (expert parallelism is a
+later slice).
 
 Mixed precision: fp32 master weights (``state.params``), the compute
 dtype cast inside the model's graph, fp32 gradients summed over
@@ -293,7 +296,7 @@ def make_train_step(loss_fn, optimizer, mesh=None, accum_steps=1):
     either placed already (``data.shard_batch``, ``fit(mesh=)``) or host
     arrays, which the step cuts by ``data.BATCH_SPEC`` (microbatch by
     microbatch under ``accum_steps``). Raises ``ValueError`` for a mesh
-    with ``sequence``, ``pipeline`` or ``expert`` larger than 1."""
+    with ``expert`` larger than 1."""
     if mesh is not None:
         _check_train_mesh(mesh)
 
@@ -337,16 +340,15 @@ def make_train_step(loss_fn, optimizer, mesh=None, accum_steps=1):
 
 
 #: the axes the train step refuses above size 1, and what they need
-_LATER_AXES = {mesh_lib.SEQUENCE: "ring attention",
-               mesh_lib.PIPELINE: "the pipeline schedule",
-               mesh_lib.EXPERT: "expert parallelism"}
+_LATER_AXES = {mesh_lib.EXPERT: "expert parallelism"}
 
 
 def _check_train_mesh(mesh):
     for axis, what in _LATER_AXES.items():
         if mesh.shape[axis] > 1:
             raise ValueError(
-                f"the train step takes the data, fsdp and tensor axes; "
+                f"the train step takes the data, fsdp, tensor, sequence "
+                f"and pipeline axes; "
                 f"{axis}={mesh.shape[axis]} needs {what}, which the port "
                 f"does not have yet")
 

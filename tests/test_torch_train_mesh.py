@@ -459,9 +459,26 @@ def test_shard_batch_pieces_equal_jax():
 
 @pytest.mark.parametrize("axis", ["sequence", "pipeline", "expert"])
 def test_train_step_refuses_the_later_axes(axis):
+    """``expert`` waits for expert parallelism; on ``sequence`` (the
+    ring) and ``pipeline`` (two stages) one step of the transformer runs
+    and its replicated copies stay byte-equal."""
     _, tmesh = _meshes(data=2, **{axis: 2})
-    with pytest.raises(ValueError, match=f"{axis}=2 needs"):
-        t_train.make_train_step(lambda *a: None, _opts()[1], mesh=tmesh)
+    if axis == "expert":
+        with pytest.raises(ValueError, match=f"{axis}=2 needs"):
+            t_train.make_train_step(lambda *a: None, _opts()[1],
+                                    mesh=tmesh)
+        return
+    cfg = dataclasses.replace(
+        _ckpt_cfg(), **({"attention": "ring"} if axis == "sequence"
+                        else {"pipeline_stages": 2}))
+    opt = _opts()[1]
+    state = t_train.init_state(functools.partial(tt.init_params, cfg), opt,
+                               mesh=tmesh, logical_axes=tt.logical_axes(cfg))
+    step = t_train.make_train_step(t_train.plain_loss(tt.loss_fn, cfg), opt,
+                                   mesh=tmesh)
+    state, metrics = step(state, _lm_batch(4, 16, 64))
+    assert state.step == 1 and np.isfinite(float(metrics["loss"]))
+    _assert_copies_equal(state)
 
 
 def test_refusals_name_what_does_not_fit():
@@ -572,8 +589,7 @@ def test_checkpoint_round_trip_keeps_the_placement(tmp_path):
 
 def test_checkpoint_restores_onto_another_mesh_and_one_device(tmp_path):
     """``TestCrossMeshRestore``: saved on data=4, tensor=2, restored onto
-    fsdp=2, sequence=2, data=2 (placement only: the step refuses
-    ``sequence``) and onto one device."""
+    fsdp=2, sequence=2, data=2 and onto one device."""
     _, mesh_a = _meshes(data=4, tensor=2)
     _, state_a = _ckpt_state(mesh_a)
     ckpt = t_ckpt.Checkpointer(tmp_path / "xmesh", async_save=False)

@@ -153,11 +153,18 @@ def test_init_params_layout_and_seed():
         assert torch.equal(a[k], b[k]) and a[k].dtype == torch.float32
 
 
-@pytest.mark.parametrize("kw", [dict(pipeline_stages=2, n_layers=2),
-                                dict(attention="ring")])
-def test_config_refuses_unported_features(kw):
-    with pytest.raises(NotImplementedError):
+@pytest.mark.parametrize("kw,match", [
+    (dict(pipeline_stages=2, n_layers=3), "not divisible"),
+    (dict(pipeline_stages=2, scan_layers=False), "scan_layers")])
+def test_config_refuses_unported_features(kw, match):
+    """JAX's two pipeline refusals (``transformer.py:90-98``), with its
+    messages: stages that do not divide the layers, and stages without
+    the stacked layout."""
+    with pytest.raises(ValueError, match=match) as want:
+        jt.Config(**kw)
+    with pytest.raises(ValueError, match=match) as got:
         tt.Config(**kw)
+    assert str(got.value) == str(want.value)
 
 
 @pytest.mark.parametrize("role", ["target", "draft"])
