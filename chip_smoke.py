@@ -213,6 +213,20 @@ if any phase fails:
    randomised the loss and every running statistic within 1e-5 of the
    unsharded step's; at the seed's init the gradient norm within 1e-5
    and the params by ``test_torch_train.py``'s rule over all elements;
+   the ring and pipeline phases; moe_mesh — the MoE flagship (bf16) on
+   ``data=2, expert=2`` over four positions, 2 warm + 3 timed steps on
+   ``moe_train``'s 8 x 1024 batch: K6 128, K7 64 and K3–K5 16 a step
+   (each expert shard's K6/K7 for each piece), copies byte-equal, step
+   1 within 1e-3 of ``moe_train``'s; moe_mesh_conformance — fp32, 2
+   layers on ``data=2, expert=2, tensor=2``: dropless in 2 GPipe stages
+   and the capacity dispatch against one device replaying the mesh's
+   top-k choices, loss 1e-6, leaves 1e-5; process_mesh — two gloo
+   processes on ``cuda:0``, ``data=2`` across them, the flagship's
+   ``train`` cell: the ranks byte-equal after every step, step 1 within
+   1e-3 of ``train``'s, the gradient all_reduce's share of the step;
+   slice_worker — ``python -m kubeflow_tpu_torch.cmd slice-worker`` as a
+   gang of 2: a fault at step 3 (exit 17), the gang restarted, resumed
+   from step 2 and equal to an uninterrupted gang's within 1e-6;
 23. sweep — ``run_mnist_sweep`` of 8 trials in 2 shape buckets, 30
    steps, equal within 1e-5 to 8 calls of ``run_mnist_trial``; wall
    seconds of both;
@@ -268,6 +282,7 @@ import dataclasses
 import functools
 import itertools
 import json
+import os
 import re
 import statistics
 import sys
@@ -4134,11 +4149,12 @@ def _mesh_training(name, init_fn, logical_axes, loss, mesh, batch,
 
     tel = telemetry.TrainTelemetry(name, flops_per_step=flops_per_step,
                                    peak=telemetry.mesh_peak_flops(mesh))
-    marks, losses = [], []
+    marks, losses, auxs = [], [], []
 
     def on_step(n, metrics):
         marks.append(time.perf_counter())
         losses.append(metrics["loss"])
+        auxs.append(metrics.get("moe_aux"))
 
     _zero(kernel_fns)
     torch.cuda.reset_peak_memory_stats()
@@ -4167,6 +4183,8 @@ def _mesh_training(name, init_fn, logical_axes, loss, mesh, batch,
            "params_finite": finite, "launches": launches,
            "launches_per_step": {k: v / steps
                                  for k, v in launches.items()}}
+    if auxs[0] is not None:
+        row["moe_aux"] = [float(x) for x in auxs]
     row["seconds"] = time.perf_counter() - t_phase
     if row["copies_unequal"]:
         raise AssertionError(f"{name}: replicated copies differ: "
@@ -4221,14 +4239,101 @@ def phase_train_mesh_conformance(kernel_fns):
                             kernel_fns, cfg.n_layers * mesh.size)
 
 
+class RouterTape:
+    """Each MoE layer's top-k choices over one forward, in global row
+    order: ``transformer._router``'s calls are taken in call order, call
+    ``i`` routing layer ``i mod n_layers`` (one device, a mesh's pieces in
+    turn, GPipe's microbatches: each walks the layers in order and the
+    rows in order). With ``replay`` (another tape) every call keeps its
+    own probabilities but takes the recorded choices, its gates
+    renormalised over them. Top-k routing is discontinuous: a token
+    whose k-th and (k+1)-th probabilities lie within fp32 rounding of
+    each other may choose differently under another summation order
+    (one token of 4096 in each fp32 MoE conformance case on an H100,
+    2.1e-7 and 4.0e-7 apart), so a gradient comparison between two
+    routes of the same model needs the same choices on both. Needs
+    ``remat=False`` (a recomputed forward would route again)."""
+
+    def __init__(self, config, replay=None):
+        self.n_layers, self.replay = config.n_layers, replay
+        self.calls = [[] for _ in range(config.n_layers)]
+        self._count = 0
+
+    def __enter__(self):
+        from kubeflow_tpu_torch.compute.models import transformer
+        self._plain = plain = transformer._router
+
+        def routed(h, lp, config):
+            import torch
+            probs, gate_vals, idx = plain(h, lp, config)
+            layer = self._count % self.n_layers
+            self._count += 1
+            if self.replay is not None:
+                start = sum(i.shape[0] for i, _ in self.calls[layer])
+                idx = self.replay.choices(layer)[start:start + h.shape[0]].to(
+                    idx.device)
+                gate_vals = torch.gather(probs, -1, idx)
+                gate_vals = gate_vals / gate_vals.sum(
+                    -1, keepdim=True).clamp_min(1e-9)
+            self.calls[layer].append((idx.detach(), probs.detach()))
+            return probs, gate_vals, idx
+
+        transformer._router = routed
+        return self
+
+    def __exit__(self, *exc):
+        from kubeflow_tpu_torch.compute.models import transformer
+        transformer._router = self._plain
+
+    def choices(self, layer):
+        import torch
+        return torch.cat([i.to(self.calls[layer][0][0].device)
+                          for i, _ in self.calls[layer]])
+
+    def flips(self, other):
+        """Tokens whose set of k choices differs from ``other``'s, and
+        the smallest gap between the k-th and (k+1)-th probability at
+        them (on ``other``'s side)."""
+        import torch
+        n, gaps = 0, []
+        for layer in range(self.n_layers):
+            a = torch.sort(self.choices(layer), -1).values
+            b = torch.sort(other.choices(layer), -1).values.to(a.device)
+            differ = (a != b).any(-1)
+            n += int(differ.sum())
+            probs = torch.cat([p.to(a.device) for _, p in
+                               other.calls[layer]])
+            top = torch.sort(probs, -1, descending=True).values
+            k = a.shape[-1]
+            if differ.any() and k < top.shape[-1]:
+                gaps.append(float((top[..., k - 1] - top[..., k])[
+                    differ].min()))
+        return n, (min(gaps) if gaps else None)
+
+
+class _NoTape:
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        pass
+
+
+def _tape(cfg, replay=None):
+    return RouterTape(cfg, replay) if cfg.moe_experts else _NoTape()
+
+
 def mesh_conformance(name, cfg, plain_cfg, mesh, kernel_fns, per_call,
-                     rows=4, seed=21):
+                     rows=4, seed=21, tol_loss=1e-5, tol_leaf=1e-3):
     """The transformer ``cfg`` on ``mesh`` against the port's unsharded
     step under ``plain_cfg`` on the same fp32 weights and a ``rows`` x
-    1024 batch: loss within 1e-5 relative, each leaf's gradient within
-    1e-3 of its max |g|, the params after one update (rate lr: warmup
-    0) by ``tests/test_torch_train.py``'s rule, the copies byte-equal;
-    K3–K5 launch ``per_call`` times each in the mesh's gradient."""
+    1024 batch: loss within ``tol_loss`` relative, each leaf's gradient
+    within ``tol_leaf`` of its max |g|, the params after one update
+    (rate lr: warmup 0) by ``tests/test_torch_train.py``'s rule, the
+    copies byte-equal; K3–K5 launch ``per_call`` times each in the
+    mesh's gradient. An MoE's unsharded side replays the mesh's top-k
+    choices (:class:`RouterTape`); the tokens a free one-device run
+    routes otherwise are reported with their top-k gaps."""
     import torch
     from kubeflow_tpu_torch.compute import data, train
     from kubeflow_tpu_torch.compute.models import transformer
@@ -4247,23 +4352,37 @@ def mesh_conformance(name, cfg, plain_cfg, mesh, kernel_fns, per_call,
             lambda g, device: train.tree_map(torch.clone, params), opt,
             **where)
 
-    m_opt, ms = fresh(mesh=mesh, logical_axes=transformer.logical_axes(cfg))
+    m_opt, ms = fresh(mesh=mesh, logical_axes=transformer.logical_axes(
+        dataclasses.replace(cfg, scan_layers=True)))
     card = mesh.devices[0]
     u_opt, us = fresh(device=card)
     placed = data.shard_batch(host, mesh)
     batch = data.to_device(host, card)
     _zero(kernel_fns)
-    m_loss, m_g = mesh_grads(ms, loss, placed)
+    with _tape(cfg) as m_tape:
+        m_loss, m_g = mesh_grads(ms, loss, placed)
     torch.cuda.synchronize()
-    launches = {n: kernel_fns[n].launches for n in BERT_KERNELS}
+    launches = {n: kernel_fns[n].launches for n in BERT_KERNELS
+                + (MOE_KERNELS[:2] if cfg.moe_experts else ())}
+    routing = None
+    if cfg.moe_experts:       # a free one-device forward: its own choices
+        with _tape(cfg) as free:
+            with torch.no_grad():
+                plain_loss(us.params, us.extra, batch)
+        flipped, gap = m_tape.flips(free)
+        routing = {"free_run_tokens_routed_otherwise": flipped,
+                   "their_min_top_k_gap": gap, "replayed": True}
     u_leaves = train.tree_leaves(us.params)
-    u_value, _ = plain_loss(us.params, us.extra, batch)
+    with _tape(cfg, replay=m_tape if cfg.moe_experts else None):
+        u_value, _ = plain_loss(us.params, us.extra, batch)
     u_g = torch.autograd.grad(u_value, u_leaves)
     u_loss = float(u_value.detach())
     errs = _leaf_errors(m_g, u_g)
     loss_rel = abs(m_loss - u_loss) / abs(u_loss)
-    ms, mm = train.make_train_step(loss, m_opt, mesh=mesh)(ms, placed)
-    us, um = train.make_train_step(plain_loss, u_opt)(us, batch)
+    with _tape(cfg) as m_tape:
+        ms, mm = train.make_train_step(loss, m_opt, mesh=mesh)(ms, placed)
+    with _tape(cfg, replay=m_tape if cfg.moe_experts else None):
+        us, um = train.make_train_step(plain_loss, u_opt)(us, batch)
     worst, share, ok = params_rule(
         train.tree_leaves(train.gather_params(ms, card)),
         [t.detach() for t in train.tree_leaves(us.params)], lr, 1)
@@ -4274,16 +4393,20 @@ def mesh_conformance(name, cfg, plain_cfg, mesh, kernel_fns, per_call,
               "microbatches": cfg.microbatches,
               "mesh": {a: n for a, n in mesh.shape.items() if n > 1},
               "loss": [m_loss, u_loss], "loss_rel": loss_rel,
-              "tol_loss": 1e-5, "leaf_rel_max": max(errs),
-              "tol_leaf": 1e-3,
+              "tol_loss": tol_loss, "leaf_rel_max": max(errs),
+              "tol_leaf": tol_leaf,
               "grad_norm": [float(mm["grad_norm"]), float(um["grad_norm"])],
               "params_max_abs": worst, "params_share_over_1e-6": share,
               "params_rule": {"max_abs": 2 * lr, "share": 1e-3},
               "copies_unequal": unequal_copies(ms)[:8],
               "launches": launches,
               "seconds": time.perf_counter() - t_phase}
+    if cfg.moe_experts:
+        report.update(moe_dropless=cfg.moe_dropless, moe_top_k=cfg.moe_top_k,
+                      moe_aux=[float(mm["moe_aux"]), float(um["moe_aux"])],
+                      routing=routing)
     emit(report)
-    if loss_rel > 1e-5 or max(errs) > 1e-3:
+    if loss_rel > tol_loss or max(errs) > tol_leaf:
         raise AssertionError(f"{name}: the mesh leaves the unsharded step: "
                              f"loss {loss_rel}, leaves {errs}")
     if not ok or report["copies_unequal"]:
@@ -4820,6 +4943,388 @@ def _1f1b_fp32(mesh):
             "leaf_rel_max": max(errs), "tol_leaf": 1e-3}
 
 
+MOE_MESH_STEPS = MOE_WARM + MOE_TIMED
+#: a bf16 step-1 number's relative gap from the one-device step's on the
+#: same weights and batch (pieces and shards sum in another order)
+STEP1_REL = 1e-3
+
+
+def phase_moe_mesh(kernel_fns, moe_row):
+    """The MoE flagship (``moe_config``: bf16, 8 experts top-2, dropless
+    on K6/K7, flash) trained on ``data=2, expert=2`` over four positions
+    of the card: each expert shard holds 4 experts, each data piece 4 x
+    1024 of ``moe_train``'s 8 x 1024 batch and weights; 2 warm + 3 timed
+    steps. The loss falls, step 1's loss and ``moe_aux`` are
+    ``moe_train``'s within ``STEP1_REL`` (whether to the bit is printed),
+    the copies stay byte-equal; K6 launches 4 a layer on every (piece,
+    expert shard) holding rows — 2 x 2 x 4 x 8 = 128 a step —, K7 64, and
+    K3–K5 once a layer a piece, 16. Step ms, tokens/s and peak memory
+    (one card runs the shards in turn: not a speed result)."""
+    from kubeflow_tpu_torch.compute import data, mesh as mesh_lib, train
+    from kubeflow_tpu_torch.compute.models import transformer
+    cfg = moe_config()
+    mesh = mesh_lib.make_mesh(data=2, expert=2, devices=[CARD] * 4)
+    B, S = MOE_BATCH
+    batch = next(data.synthetic_lm(B, S, cfg.vocab_size, seed=7))
+    _, row = _mesh_training(
+        "moe_mesh", functools.partial(transformer.init_params, cfg),
+        # the port stacks the layers whatever scan_layers says
+        transformer.logical_axes(dataclasses.replace(cfg, scan_layers=True)),
+        train.plain_loss(transformer.loss_fn, cfg), mesh, batch,
+        transformer.flops_per_token(cfg) * B * S, kernel_fns, lr=1e-3,
+        steps=MOE_MESH_STEPS)
+    timed = row["step_ms_each"][-MOE_TIMED:]
+    pieces, shards = 2, 2
+    want = {"grouped_matmul": pieces * shards * 4 * cfg.n_layers,
+            "grouped_matmul_dw": pieces * shards * 2 * cfg.n_layers,
+            "flash_fwd": pieces * cfg.n_layers,
+            "flash_bwd_dq": pieces * cfg.n_layers,
+            "flash_bwd_dkv": pieces * cfg.n_layers}
+    row.update(dtype="bfloat16", batch=B, seq=S, layers=cfg.n_layers,
+               experts=cfg.moe_experts, experts_per_shard=cfg.moe_experts
+               // shards, top_k=cfg.moe_top_k,
+               params=transformer.param_count(cfg),
+               step_ms=statistics.mean(timed), step_ms_timed=timed,
+               tokens_per_s=B * S / (statistics.mean(timed) / 1e3),
+               moe_train_step_ms=moe_row["step_ms"],
+               moe_train_peak_memory_bytes=moe_row["peak_memory_bytes"],
+               moe_train_step1=[moe_row["losses"][0], moe_row["moe_aux"][0]],
+               step1_loss_rel=_rel(row["losses"][0], moe_row["losses"][0]),
+               step1_aux_rel=_rel(row["moe_aux"][0], moe_row["moe_aux"][0]),
+               step1_bit_equal=(row["losses"][0] == moe_row["losses"][0]
+                                and row["moe_aux"][0]
+                                == moe_row["moe_aux"][0]),
+               tol_step1_rel=STEP1_REL, launches_want_per_step=want)
+    emit(row)
+    if not row["losses"][-1] < row["losses"][0]:
+        raise AssertionError(f"moe_mesh loss did not fall: {row['losses']}")
+    if max(row["step1_loss_rel"], row["step1_aux_rel"]) > STEP1_REL:
+        raise AssertionError(f"moe_mesh step 1 ({row['losses'][0]}, "
+                             f"{row['moe_aux'][0]}) vs moe_train "
+                             f"{row['moe_train_step1']}")
+    for name, n in want.items():
+        check_mesh_launches(row["launches"], (name,), n, MOE_MESH_STEPS,
+                            "moe_mesh")
+    return row
+
+
+def phase_moe_mesh_conformance(kernel_fns):
+    """fp32 (TF32 off), MoE flagship widths, 2 layers, 4 x 1024, on
+    ``data=2, expert=2, tensor=2`` over eight positions of the card
+    against one device (K6/K7 on both sides; :func:`mesh_conformance`,
+    loss within 1e-6 relative, leaves within 1e-5 of their max |g|):
+    dropless top-2 in 2 GPipe stages of 2 microbatches (both stages at
+    pipeline coordinate 0 of this mesh; the aux grouped by the global
+    microbatches), and the capacity dispatch (top-2) without stages."""
+    from kubeflow_tpu_torch.compute import mesh as mesh_lib
+    mesh = mesh_lib.make_mesh(data=2, expert=2, tensor=2,
+                              devices=[CARD] * 8)
+    staged = moe_config("float32", n_layers=2, scan_layers=True,
+                        pipeline_stages=2, pipeline_microbatches=2)
+    capacity = moe_config("float32", n_layers=2, moe_dropless=False)
+    attending = mesh.size // mesh.shape["expert"]   # pieces × tensor
+    return [mesh_conformance(
+        f"moe_mesh_conformance_{tag}", cfg, cfg, mesh, kernel_fns,
+        attending * cfg.n_layers * (cfg.microbatches
+                                    if cfg.pipeline_stages > 1 else 1),
+        seed=25, tol_loss=1e-6, tol_leaf=1e-5)
+        for tag, cfg in (("dropless_gpipe", staged),
+                         ("capacity", capacity))]
+
+
+PROCESS_STEPS = 3
+PROCESS_TIMEOUT_S = 420
+
+
+def _params_digest(state):
+    """Two int64 sums of every param piece's bits (plain and weighted by
+    position), order-free and exact: equal on two processes whose
+    params are byte-equal."""
+    import torch
+    from kubeflow_tpu_torch.compute import sharding, train
+    out = []
+    for t in sharding.pieces_of(train.tree_leaves(state.params)):
+        bits = t.detach().reshape(-1).view(torch.int32).long()
+        w = torch.arange(bits.numel(), device=bits.device) % 7919 + 1
+        out += [bits.sum(), (bits * w).sum()]
+    return torch.stack(out).cpu()
+
+
+def process_mesh_rank(rank, port, out):
+    """One rank of :func:`phase_process_mesh` (``python3 chip_smoke.py
+    --process-mesh-rank RANK PORT OUT``): the flagship on its part of a
+    ``data=2`` mesh across two gloo processes on ``cuda:0``, its 8 rows of
+    the 16 x 1024 batch, ``PROCESS_STEPS`` steps; after each, its
+    params' digest against the other rank's (``all_reduce`` MAX and
+    MIN). Writes its row to ``out``."""
+    import torch
+    import torch.distributed as dist
+    from kubeflow_tpu_torch.compute import data, mesh as mesh_lib, train
+    from kubeflow_tpu_torch.compute.models import transformer
+    from kubeflow_tpu_torch.compute.ops import flash_attention as flash_ops
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=2, rank=rank)
+    cfg = flagship_config(remat=False)
+    mesh = mesh_lib.make_mesh(mesh_lib.MeshSpec(data=-1), devices=[CARD],
+                              group=dist.group.WORLD)
+    B, S = TRAIN_BATCH
+    host = next(data.synthetic_lm(B, S, cfg.vocab_size, seed=4))
+    mine = {k: v[rank * B // 2:(rank + 1) * B // 2] for k, v in host.items()}
+    opt = train.make_optimizer(learning_rate=1e-3, warmup_steps=1,
+                               total_steps=100)
+    state = train.init_state(functools.partial(transformer.init_params, cfg),
+                             opt, mesh=mesh,
+                             logical_axes=transformer.logical_axes(cfg),
+                             generator=torch.Generator().manual_seed(0))
+    step = train.make_train_step(train.plain_loss(transformer.loss_fn, cfg),
+                                 opt, mesh)
+    reduce_s = []
+    plain_all_reduce = train._all_reduce
+
+    def timed_all_reduce(tensors, group):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        plain_all_reduce(tensors, group)
+        torch.cuda.synchronize()
+        reduce_s.append(time.perf_counter() - t0)
+
+    train._all_reduce = timed_all_reduce
+    kernel_fns = {"flash_fwd": flash_ops.flash_attention,
+                  "flash_bwd_dq": flash_ops.flash_attention_bwd_dq,
+                  "flash_bwd_dkv": flash_ops.flash_attention_bwd_dkv}
+    _zero(kernel_fns)
+    torch.cuda.reset_peak_memory_stats()
+    losses, step_s, equal = [], [], []
+    for _ in range(PROCESS_STEPS):
+        dist.barrier()
+        t0 = time.perf_counter()
+        state, metrics = step(state, mine)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        losses.append(float(metrics["loss"]))
+        digest = _params_digest(state)
+        hi, lo = digest.clone(), digest.clone()
+        dist.all_reduce(hi, op=dist.ReduceOp.MAX)
+        dist.all_reduce(lo, op=dist.ReduceOp.MIN)
+        equal.append(bool(torch.equal(hi, lo)))
+    grad_bytes = sum(t.numel() * 4 for t in train.tree_leaves(state.params)
+                     for t in t.pieces[:1])
+    row = {"rank": rank, "backend": dist.get_backend(),
+           "losses": losses, "step_ms_each": [1e3 * x for x in step_s],
+           "all_reduce_ms_each": [1e3 * x for x in reduce_s],
+           "grad_bytes": grad_bytes, "params_equal_each_step": equal,
+           "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+           "launches": _launches(kernel_fns)}
+    with open(out, "w") as f:
+        json.dump(row, f)
+    dist.destroy_process_group()
+
+
+REPO = os.path.dirname(os.path.abspath(__file__))
+
+
+def _scratch(prefix):
+    """A fresh directory under the git-ignored ``build/``."""
+    import tempfile
+    os.makedirs(f"{REPO}/build", exist_ok=True)
+    return tempfile.mkdtemp(prefix=prefix, dir=f"{REPO}/build")
+
+
+def _tail(path, n=3000):
+    with open(path) as f:
+        return f.read()[-n:]
+
+
+def _free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _run_all(procs, timeout):
+    """Wait for every process, each within ``timeout`` s → return codes;
+    kills them all on the way out (a hung rank fails the phase)."""
+    try:
+        return [p.wait(timeout=timeout) for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+            p.wait()
+
+
+def phase_process_mesh(train_row):
+    """Two processes on ``cuda:0`` joined over gloo, ``data=2`` across
+    them: the flagship (bf16, ``remat=False``) of the ``train`` phase,
+    each rank feeding 8 x 1024 of its 16 x 1024 batch, 3 steps
+    (:func:`process_mesh_rank`). The ranks' params are byte-equal after
+    every step, step 1's loss is ``train``'s within ``STEP1_REL``, each
+    rank launches K3–K5 12 a step. Step ms and the gradient
+    ``all_reduce``'s share of it (fp32 gradients through the host: gloo;
+    two ranks on one card, so not a speed result)."""
+    import subprocess
+    t_phase = time.perf_counter()
+    port = _free_port()
+    outdir = _scratch("process-mesh-")
+    outs = [f"{outdir}/rank{r}.json" for r in range(2)]
+    procs = []
+    for r in range(2):
+        with open(f"{outdir}/rank{r}.log", "w") as log:
+            procs.append(subprocess.Popen(
+                [sys.executable, __file__, "--process-mesh-rank", str(r),
+                 str(port), outs[r]], stdout=log, stderr=subprocess.STDOUT,
+                cwd=REPO))
+    codes = _run_all(procs, PROCESS_TIMEOUT_S)
+    if codes != [0, 0]:
+        logs = [_tail(f"{outdir}/rank{r}.log") for r in (0, 1)]
+        raise AssertionError(f"process_mesh ranks exited {codes}: {logs}")
+    ranks = []
+    for o in outs:
+        with open(o) as f:
+            ranks.append(json.load(f))
+    steps = [statistics.mean(r["step_ms_each"][1:]) for r in ranks]
+    reduces = [statistics.mean(r["all_reduce_ms_each"][1:]) for r in ranks]
+    row = {"phase": "process_mesh", "dtype": "bfloat16",
+           "processes": 2, "backend": ranks[0]["backend"],
+           "mesh": {"data": 2}, "device": CARD,
+           "batch": TRAIN_BATCH[0], "batch_per_rank": TRAIN_BATCH[0] // 2,
+           "seq": TRAIN_BATCH[1], "steps": PROCESS_STEPS,
+           "ranks": ranks, "step_ms": statistics.mean(steps),
+           "all_reduce_ms": statistics.mean(reduces),
+           "all_reduce_share": statistics.mean(
+               a / b for a, b in zip(reduces, steps)),
+           "grad_bytes_per_rank": ranks[0]["grad_bytes"],
+           "train_step_ms": train_row["step_ms"],
+           "train_step1_loss": train_row["losses"][0],
+           "step1_loss_rel": _rel(ranks[0]["losses"][0],
+                                  train_row["losses"][0]),
+           "tol_step1_loss_rel": STEP1_REL,
+           "seconds": time.perf_counter() - t_phase}
+    emit(row)
+    if not all(all(r["params_equal_each_step"]) for r in ranks):
+        raise AssertionError("process_mesh: the ranks' params differ")
+    if ranks[0]["losses"] != ranks[1]["losses"]:
+        raise AssertionError(f"process_mesh: the ranks report other "
+                             f"losses: {[r['losses'] for r in ranks]}")
+    if row["step1_loss_rel"] > STEP1_REL:
+        raise AssertionError(f"process_mesh step 1 {ranks[0]['losses'][0]} "
+                             f"vs train {train_row['losses'][0]}")
+    for r in ranks:
+        check_mesh_launches(r["launches"], BERT_KERNELS, 12, PROCESS_STEPS,
+                            f"process_mesh rank {r['rank']}")
+    return row
+
+
+GANG_STEPS, GANG_FAULT_AT = 5, 3
+GANG_TIMEOUT_S = 240
+
+
+def _gang(ckpt, log, fault=False):
+    """Two ``python -m kubeflow_tpu_torch.cmd slice-worker`` processes of
+    one gang on the card (``SLICE_WORKER_DEVICE`` unset: one card, two
+    ranks → gloo, both on ``cuda:0``) → the processes."""
+    import subprocess
+    port = _free_port()
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith(("TPU_WORKER_", "SLICE_WORKER_FAULT_"))}
+    env.update(TPU_WORKER_HOSTNAMES="127.0.0.1,127.0.0.1",
+               JAX_COORDINATOR_ADDRESS=f"127.0.0.1:{port}")
+    if fault:
+        env.update(SLICE_WORKER_FAULT_AT_STEP=str(GANG_FAULT_AT),
+                   SLICE_WORKER_FAULT_WORKER="1")
+    procs = []
+    for w in range(2):
+        with open(f"{log}.w{w}.err", "w") as err:
+            procs.append(subprocess.Popen(
+                [sys.executable, "-m", "kubeflow_tpu_torch.cmd",
+                 "slice-worker", "--ckpt-dir", ckpt, "--steps",
+                 str(GANG_STEPS), "--ckpt-every", "2",
+                 "--log", f"{log}.w{w}.jsonl"],
+                env={**env, "TPU_WORKER_ID": str(w)},
+                stdout=subprocess.DEVNULL, stderr=err, cwd=REPO))
+    return procs
+
+
+def _gang_events(log, w):
+    with open(f"{log}.w{w}.jsonl") as f:
+        return [json.loads(line) for line in f if line.strip()]
+
+
+def _last_checkpoint(ckpt):
+    import torch
+    from kubeflow_tpu_torch.compute import train
+    step = max(int(n) for n in os.listdir(ckpt) if n.isdigit())
+    saved = torch.load(os.path.join(ckpt, str(step), "state.pt"),
+                       weights_only=True)
+    return step, [t for t in train.tree_leaves(
+        [saved["params"], saved["opt_state"]]) if hasattr(t, "shape")]
+
+
+def phase_slice_worker():
+    """The ``slice-worker`` entry as a gang of 2 on ``cuda:0``: a run
+    with ``SLICE_WORKER_FAULT_AT_STEP=3`` on worker 1 (exit 17 and its
+    ``fault-injected`` line; worker 0, waiting in the step's
+    ``all_reduce``, is killed, as the TpuSlice controller restarts the
+    whole gang), then the gang again: it resumes (``resumed`` true) from
+    step 2, the last durable one, and finishes at 5; its last checkpoint
+    equals an uninterrupted gang's (run beside the faulty one) within
+    1e-6. Every process has a timeout; a hung rank fails the phase."""
+    t_phase = time.perf_counter()
+    root = _scratch("slice-worker-")
+    clean = _gang(f"{root}/clean", f"{root}/clean")
+    faulty = _gang(f"{root}/ckpt", f"{root}/run1", fault=True)
+    try:
+        fault_code = faulty[1].wait(timeout=GANG_TIMEOUT_S)
+    finally:
+        for p in faulty:       # the gang restart: every worker goes
+            p.kill()
+            p.wait()
+    restarted = _gang(f"{root}/ckpt", f"{root}/run2", fault=True)
+    codes = _run_all(restarted, GANG_TIMEOUT_S)
+    clean_codes = _run_all(clean, GANG_TIMEOUT_S)
+    if codes != [0, 0] or clean_codes != [0, 0]:
+        errs = [_tail(f"{root}/{tag}.w{w}.err") for tag in ("run2", "clean")
+                for w in (0, 1)]
+        raise AssertionError(f"slice_worker gang exits {codes}, clean "
+                             f"{clean_codes}: {errs}")
+    run1 = [_gang_events(f"{root}/run1", w) for w in range(2)]
+    run2 = [_gang_events(f"{root}/run2", w) for w in range(2)]
+    step, got = _last_checkpoint(f"{root}/ckpt")
+    clean_step, want = _last_checkpoint(f"{root}/clean")
+    worst = max(float((a.float() - b.float()).abs().max())
+                for a, b in zip(got, want))
+    joined = run2[0][0]
+    row = {"phase": "slice_worker", "processes": 2,
+           "backend": joined.get("backend"), "device": joined.get("device"),
+           "mesh": joined.get("mesh"), "fault_exit": fault_code,
+           "fault_line": run1[1][-1],
+           "resumed": [ev[0]["resumed"] for ev in run2],
+           "start_step": [ev[0]["start_step"] for ev in run2],
+           "done": [ev[-1] for ev in run2],
+           "losses": [e["loss"] for e in run2[0] if e["event"] == "step"],
+           "last_step": [step, clean_step],
+           "checkpoint_max_abs_vs_clean": worst, "tol": 1e-6,
+           "seconds": time.perf_counter() - t_phase}
+    emit(row)
+    if fault_code != 17 or run1[1][-1]["event"] != "fault-injected":
+        raise AssertionError(f"slice_worker fault: exit {fault_code}, "
+                             f"last line {run1[1][-1]}")
+    if row["resumed"] != [True, True] or row["start_step"] != [2, 2]:
+        raise AssertionError(f"slice_worker restart did not resume from "
+                             f"step 2: {row['resumed']}, "
+                             f"{row['start_step']}")
+    if [d["event"] for d in row["done"]] != ["done", "done"] \
+            or step != clean_step != GANG_STEPS:
+        raise AssertionError(f"slice_worker did not finish: {row['done']}, "
+                             f"steps {step}, {clean_step}")
+    if worst > 1e-6:
+        raise AssertionError(f"slice_worker restarted checkpoint leaves the "
+                             f"uninterrupted one by {worst}")
+    return row
+
+
 SWEEP_TRIALS = [{"lr": lr, "hidden": hidden}
                 for hidden in (64, 128) for lr in (1e-2, 3e-3, 1e-3, 3e-4)]
 
@@ -4892,6 +5397,9 @@ def main():
     from kubeflow_tpu_torch.compute.ops import fused_block as block_ops
     from kubeflow_tpu_torch.compute.ops import grouped_matmul as gmm_ops
     from kubeflow_tpu_torch.compute.ops import paged_attention as paged_ops
+    if sys.argv[1:2] == ["--process-mesh-rank"]:   # a rank of process_mesh
+        process_mesh_rank(int(sys.argv[2]), sys.argv[3], sys.argv[4])
+        return
     t_start = time.perf_counter()
     info = phase_device()
     ptxas = phase_build()
@@ -4967,6 +5475,12 @@ def main():
     torch.cuda.empty_cache()
     paths["pipeline_1f1b"] = phase_pipeline_1f1b(kernel_fns)
     torch.cuda.empty_cache()
+    paths["moe_mesh"] = phase_moe_mesh(kernel_fns, paths["moe_train"])
+    torch.cuda.empty_cache()
+    phase_moe_mesh_conformance(kernel_fns)
+    torch.cuda.empty_cache()
+    phase_process_mesh(paths["train"])
+    phase_slice_worker()
     phase_sweep()
     meta = {
         "paged_decode": (

@@ -18,6 +18,12 @@ fewer cards exits non-zero naming the count. ``GEN_ROW_SHARD`` shards
 the row projections too (it needs the mesh), and ``GEN_CALIBRATE``
 measures the collective share before serving.
 
+``slice-worker`` is one worker of a training gang
+(``compute/slice_worker.py``): it joins the gang from the
+``TPU_WORKER_*`` env, trains the JAX entry's small transformer with the
+gang's gradients summed, checkpoints and resumes. ``SLICE_WORKER_DEVICE``
+names its device (``cpu``); unset, it takes a card.
+
 Knobs the port does not serve yet refuse by name, with a non-zero exit
 (``SystemExit``) that names the work that brings them; see
 ``REFUSED``.
@@ -224,7 +230,13 @@ def model_server(argv=()):
     _block(server.stop)
 
 
-COMPONENTS = {"model-server": model_server}
+def slice_worker(argv=()):
+    """One worker of a training gang (``compute/slice_worker.py``)."""
+    from ..compute import slice_worker as sw
+    raise SystemExit(sw.main(list(argv)))
+
+
+COMPONENTS = {"model-server": model_server, "slice-worker": slice_worker}
 
 
 def main(argv):

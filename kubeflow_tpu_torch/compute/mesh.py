@@ -19,18 +19,27 @@ shards, the counterpart of JAX's forced host-device mesh, and
 means every CUDA card, and raises on a host without CUDA (there is no
 silent fallback to the CPU; ``device.resolve``).
 
-``device_slice_groups``, ``make_multislice_mesh``, ``multislice_layout``,
-``distributed_env`` and ``initialize_distributed`` (multi-slice and
-multi-process meshes) come with the port's slice worker.
+A mesh may span processes (``make_mesh(group=)``, the slice worker's
+gang): only its ``data`` axis crosses them, each process builds the mesh
+over its own positions (its slice of ``data``, every other axis whole)
+and :func:`global_sum` adds a statistic over the gang. ``distributed_env``
+and ``initialize_distributed`` (:300-332) join the gang from the env the
+control plane injects; ``device_slice_groups``, ``make_multislice_mesh``
+and ``multislice_layout`` (:206-272) are JAX's pure layout, a process
+standing for a slice.
 """
 
 import dataclasses
 import itertools
+import logging
 import math
+import os
 
 import torch
 
 from . import device as device_lib
+
+log = logging.getLogger(__name__)
 
 DATA = "data"
 PIPELINE = "pipeline"
@@ -76,15 +85,32 @@ class Mesh:
     """A grid of devices over :data:`AXIS_ORDER`: ``devices`` in
     row-major order (the innermost axis, ``tensor``, fastest) and
     ``shape`` the size of each axis, size-1 axes kept, as JAX keeps
-    them."""
+    them.
 
-    def __init__(self, devices, sizes):
+    On a gang of processes (``group``, a ``torch.distributed`` process
+    group) the mesh is this process's part of the gang's: ``shape`` its
+    own positions, process ``process_index`` of ``process_count``
+    holding the gang's ``data`` coordinates ``[index·d, (index+1)·d)``
+    (process-major, ``data`` outermost); :attr:`global_shape` is the
+    gang's."""
+
+    def __init__(self, devices, sizes, group=None, process_index=0,
+                 process_count=1):
         self.devices = tuple(devices)
         self.shape = {a: int(sizes[a]) for a in AXIS_ORDER}
         if math.prod(self.shape.values()) != len(self.devices):
             raise ValueError(f"mesh {self.shape} needs "
                              f"{math.prod(self.shape.values())} devices, "
                              f"have {len(self.devices)}")
+        self.group = group
+        self.process_index = int(process_index)
+        self.process_count = int(process_count)
+
+    @property
+    def global_shape(self):
+        """The gang's axis sizes (``shape`` with ``data`` times the
+        processes)."""
+        return {**self.shape, DATA: self.shape[DATA] * self.process_count}
 
     @property
     def size(self):
@@ -127,13 +153,56 @@ def _devices(devices):
     return [device_lib.resolve(d) for d in devices]
 
 
-def make_mesh(spec=None, devices=None, **axis_sizes):
+def make_mesh(spec=None, devices=None, group=None, **axis_sizes):
     """A :class:`Mesh` from a ``MeshSpec`` (or axis sizes as kwargs) over
-    ``devices`` (default: every CUDA card)."""
+    ``devices`` (default: every CUDA card).
+
+    With ``group`` (a process group, ``torch.distributed.group.WORLD``
+    for the whole gang) ``devices`` are this process's positions and
+    the spec is resolved over every process's (their count times the
+    gang's size, as JAX resolves it over ``jax.devices()``); the mesh
+    returned is this process's part. Only ``data`` may cross processes:
+    a spec whose ``data`` does not divide over them raises
+    ``ValueError`` naming the axes that would."""
     if spec is None:
         spec = MeshSpec(**axis_sizes)
     devices = _devices(devices)
-    return Mesh(devices, spec.resolved(len(devices)))
+    if group is None:
+        return Mesh(devices, spec.resolved(len(devices)))
+    import torch.distributed as dist
+    world, rank = dist.get_world_size(group), dist.get_rank(group)
+    sizes = spec.resolved(len(devices) * world)
+    if sizes[DATA] % world:
+        inner = {a: n for a, n in sizes.items() if a != DATA and n > 1}
+        raise ValueError(
+            f"only the data axis may span processes: data={sizes[DATA]} "
+            f"does not divide over {world} processes of {len(devices)} "
+            f"positions, which would put {inner} across them")
+    return Mesh(devices, {**sizes, DATA: sizes[DATA] // world},
+                group=group, process_index=rank, process_count=world)
+
+
+def check_one_process(mesh, what):
+    """Raise ``ValueError`` naming ``what`` when ``mesh`` spans more than
+    one process: its mesh forward sums nothing over a gang."""
+    if mesh.process_count > 1:
+        raise ValueError(f"{what} trains on one process's mesh; this mesh "
+                         f"spans {mesh.process_count} processes (the "
+                         f"transformer's loss alone is summed over a gang)")
+
+
+def global_sum(t, mesh):
+    """``t`` summed over the processes of ``mesh``'s gang (itself on a
+    one-process mesh). Every process gets the same total; under autograd
+    its gradient reaches this process's own ``t`` alone, so each
+    process's objective is its share of the gang's and the shares'
+    gradients sum to the gang's gradient."""
+    if mesh.process_count == 1:
+        return t
+    import torch.distributed as dist
+    total = t.detach().clone()
+    dist.all_reduce(total, group=mesh.group)
+    return total + (t - t.detach()) if t.requires_grad else total
 
 
 def topology_chips(topology):
@@ -173,3 +242,128 @@ def mesh_for_generation(tensor=1, devices=None):
             f"{len(devices)}")
     devices = sorted(devices, key=lambda d: d.index or 0)
     return make_mesh(MeshSpec(tensor=tensor), devices=devices[:tensor])
+
+
+# --------------------------------------------------- multi-slice layout
+
+def device_slice_groups(devices=None):
+    """Group devices (default: every CUDA card) by slice
+    (``slice_index``; devices without one, a ``torch.device`` among
+    them, form one group), ordered by slice index, each by ``id`` within
+    (JAX ``device_slice_groups``, :206). The groups must be
+    equal-sized: multislice meshes are rectangular. In the port a slice
+    is a process of the gang."""
+    if devices is None:
+        devices = _devices(None)
+    groups = {}
+    for d in devices:
+        groups.setdefault(getattr(d, "slice_index", 0), []).append(d)
+    sizes = {len(g) for g in groups.values()}
+    if len(sizes) > 1:
+        raise ValueError(
+            f"unequal slice sizes {sorted(sizes)}: multislice meshes "
+            f"must be rectangular (got "
+            f"{ {k: len(v) for k, v in groups.items()} })")
+    return [sorted(groups[k], key=lambda d: getattr(d, "id", 0))
+            for k in sorted(groups)]
+
+
+def make_multislice_mesh(fsdp=1, sequence=1, tensor=1, expert=1,
+                         devices=None):
+    """A mesh whose ``data`` spans slices and whose model axes stay
+    inside one (JAX ``make_multislice_mesh``, :230); one slice is a
+    plain mesh."""
+    groups = device_slice_groups(_devices(devices))
+    ordered, spec = multislice_layout(groups, fsdp=fsdp, sequence=sequence,
+                                      tensor=tensor, expert=expert)
+    return make_mesh(spec, devices=ordered)
+
+
+def multislice_layout(groups, fsdp=1, sequence=1, tensor=1, expert=1):
+    """The pure layout of :func:`make_multislice_mesh` (JAX
+    ``multislice_layout``, :247) → ``(ordered devices, MeshSpec)`` with
+    ``data`` = slices × (per slice // the inner axes)."""
+    for name, size in (("fsdp", fsdp), ("sequence", sequence),
+                       ("tensor", tensor), ("expert", expert)):
+        if size < 1:
+            raise ValueError(
+                f"{name}={size}: multislice inner axes must be >= 1 "
+                f"(the -1 wildcard lives on data, which is computed)")
+    per_slice = len(groups[0])
+    inner = fsdp * sequence * tensor * expert
+    if per_slice % inner:
+        raise ValueError(
+            f"slice of {per_slice} chips not divisible by inner axes "
+            f"fsdp×sequence×tensor×expert = {inner}")
+    data = len(groups) * (per_slice // inner)
+    ordered = [d for g in groups for d in g]
+    return ordered, MeshSpec(data=data, fsdp=fsdp, sequence=sequence,
+                             tensor=tensor, expert=expert)
+
+
+# ------------------------------------------------------ the gang
+
+def distributed_env():
+    """The worker env the control plane injects (JAX
+    ``distributed_env``, :300): ``(coordinator, num_processes,
+    process_id)``, or None outside a multi-worker slice. The names are
+    the platform's (``TPU_WORKER_ID``, ``TPU_WORKER_HOSTNAMES``,
+    ``JAX_COORDINATOR_ADDRESS``); the coordinator defaults to the first
+    host's port 8476."""
+    worker_id = os.environ.get("TPU_WORKER_ID")
+    hostnames = os.environ.get("TPU_WORKER_HOSTNAMES", "")
+    coordinator = os.environ.get("JAX_COORDINATOR_ADDRESS")
+    if worker_id is None or not hostnames:
+        return None
+    hosts = [h.strip() for h in hostnames.split(",") if h.strip()]
+    if coordinator is None:
+        coordinator = f"{hosts[0]}:8476"
+    return coordinator, len(hosts), int(worker_id)
+
+
+def process_device(device=None, rank=0, world=1):
+    """This process's device in a gang of ``world``: ``device`` when
+    named (every process of the gang names the same one, so they share
+    it), else a card: ``cuda:<rank>`` when there are at least as many
+    cards as processes, else the cards in turn (raises without CUDA)."""
+    if device is not None:
+        return device_lib.resolve(device)
+    device_lib.resolve(None)
+    return torch.device("cuda", rank % torch.cuda.device_count())
+
+
+def gang_backend(device=None, world=1):
+    """The collective backend of a gang whose processes take
+    ``process_device(device, ...)``: ``nccl`` when each process has a
+    card of its own (``device`` unnamed and at least ``world`` cards),
+    ``gloo`` on the CPU or where processes share a card (NCCL refuses
+    two ranks on one card; gloo reduces a CUDA tensor through host
+    copies)."""
+    if device is None and torch.cuda.is_available() \
+            and torch.cuda.device_count() >= world:
+        return "nccl"
+    return "gloo"
+
+
+def initialize_distributed(device=None):
+    """Join the gang from :func:`distributed_env` (JAX
+    ``initialize_distributed``, :316): ``torch.distributed.
+    init_process_group(backend, init_method="tcp://<coordinator>",
+    world_size, rank)``, the backend by :func:`gang_backend` for
+    ``device`` (as :func:`process_device` takes it), logged. Without
+    the env it does nothing and returns False; a backend this build of
+    PyTorch lacks raises ``RuntimeError``."""
+    env = distributed_env()
+    if env is None:
+        return False
+    import torch.distributed as dist
+    coordinator, world, rank = env
+    backend = gang_backend(device, world)
+    if not dist.is_backend_available(backend):
+        raise RuntimeError(f"the {backend} backend is not available in "
+                           f"this build of PyTorch")
+    log.info("joining a gang of %d at %s as rank %d over %s", world,
+             coordinator, rank, backend)
+    dist.init_process_group(backend, init_method=f"tcp://{coordinator}",
+                            world_size=world, rank=rank)
+    return True

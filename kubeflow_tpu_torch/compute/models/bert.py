@@ -370,6 +370,7 @@ def _check_mesh(config, mesh):
 def _mesh_loss(params, batch, config, mesh):
     """:func:`loss_fn` on a mesh → the global batch's ``(loss,
     metrics)`` on the first position's device."""
+    mesh_lib.check_one_process(mesh, "BERT")
     _check_mesh(config, mesh)
     sharding.check_layout(params, logical_axes(config), "BERT")
     dt = config.compute_dtype

@@ -108,6 +108,7 @@ def loss_fn(params, batch, config):
 
 def _mesh_loss(params, batch, config, mesh):
     tp = mesh.shape[mesh_lib.TENSOR]
+    mesh_lib.check_one_process(mesh, "the MLP")
     for name, value in (("hidden", config.hidden),
                         ("n_classes", config.n_classes)):
         if value % tp:

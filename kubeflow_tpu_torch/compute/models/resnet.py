@@ -382,6 +382,7 @@ def _mesh_loss(params, stats, batch, config, train, mesh):
     together on its lead position, with that position's copies of the
     params and statistics; then each position's statistics moved by the
     global moments."""
+    mesh_lib.check_one_process(mesh, "ResNet")
     sharding.check_layout(params, _replicated(params), "ResNet params")
     sharding.check_layout(stats, _replicated(stats), "ResNet statistics")
     leads = mesh.along(0, (mesh_lib.DATA, mesh_lib.FSDP))

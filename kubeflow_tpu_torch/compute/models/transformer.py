@@ -13,8 +13,8 @@ whose leaves carry a leading layer dim — so weights cross between the
 two packages through numpy unchanged (``compute/params.py``).
 ``lax.scan`` over the stacked layers becomes a Python loop.
 
-On a training mesh (:func:`loss_fn` given ``sharding.Sharded`` params,
-a dense model) each batch piece runs on its positions through
+On a training mesh (:func:`loss_fn` given ``sharding.Sharded`` params)
+each batch piece runs on its positions through
 :func:`layer_core`'s sharded form: a position's weights gathered over
 ``fsdp``, its heads of wq/wk/wv and columns of w_gate/w_up, its
 attention over its local heads (K3, and K4 + K5 in the backward, per
@@ -28,8 +28,13 @@ sequence into chunks at their global RoPE positions; the heads of one
 and flash attention. With ``pipeline_stages > 1`` the ``pipeline`` axis
 holds the stages (``compute/pipeline.py``'s GPipe schedule); without,
 it is a replica the piece runs on once, at pipeline coordinate 0. The
-loss and metrics are the global batch's: each chunk's sums and mask
-count, summed over the chunks and the pieces, then divided.
+``expert`` axis cuts a mixture of experts' weights: each expert shard
+computes its experts' share of the MLP (:meth:`_TrainShards.moe`), a
+dense model runs replicated over it. The loss and metrics are the
+global batch's: each chunk's sums and mask count, summed over the
+chunks, the pieces and a gang's processes, then divided; the MoE aux
+loss is formed from per-row statistics over the global batch
+(:func:`_global_aux`), as JAX's is.
 
 Numerics mirrored on purpose (the token-identity contract rests on
 them): RoPE rotates interleaved (even, odd) pairs and restacks them
@@ -366,32 +371,67 @@ def _moe_aux(probs, expert_idx, e):
     return e * (first.mean(dim=(0, 1)) * probs.mean(dim=(0, 1))).sum()
 
 
-def _switch_moe(h, lp, config):
-    """Top-k MoE with capacity dispatch (``_switch_moe`` :249-296): each
-    of the k choices is a dispatch slot, positions within an expert's
-    capacity ``int(k·s/e·capacity_factor)`` are taken in (s, k) order per
-    batch row, slots over capacity are dropped; one-hot einsums route
-    and combine. No kernel. → ``(out [b, s, d], aux)``."""
-    dt = config.compute_dtype
-    b, s, d = h.shape
+def _row_stats(probs, expert_idx, e):
+    """The aux loss's statistics of each batch row → fp32 ``[b, 2, e]``:
+    the first-choice count of each expert and the routing probabilities
+    summed over the row's tokens (the second under autograd). The mesh
+    forward sums them over pieces, chunks and processes before it forms
+    :func:`_moe_aux`'s global means."""
+    first = F.one_hot(expert_idx[..., 0], e).float().sum(dim=1)
+    return torch.stack([first, probs.sum(dim=1)], dim=1)
+
+
+def _dispatch(expert_idx, config):
+    """The capacity dispatch one-hot ``[b, s, k, e, c]`` in the compute
+    dtype (``_switch_moe`` :271-282): each of the k choices is a slot,
+    positions within an expert's capacity ``int(k·s/e·capacity_factor)``
+    taken in (s, k) order per batch row, slots over capacity dropped."""
+    b, s, k = expert_idx.shape
     e = config.moe_experts
-    k = min(config.moe_top_k, e)
+    dt = config.compute_dtype
     capacity = max(1, int(k * s / e * config.moe_capacity_factor))
-    probs, gate_vals, expert_idx = _router(h, lp, config)
     assign = F.one_hot(expert_idx, e).float()                # [b,s,k,e]
     flat = assign.reshape(b, s * k, e)
     pos = (torch.cumsum(flat, dim=1) * flat - 1.0).reshape(b, s, k, e)
     within = (pos >= 0) & (pos < capacity)
-    dispatch = (F.one_hot(pos.clamp(0, capacity - 1).long(), capacity)
-                .to(dt) * within.to(dt)[..., None])           # [b,s,k,e,c]
-    xin = torch.einsum("bskec,bsd->ebcd", dispatch, h)
-    gate_h = torch.einsum("ebcd,edf->ebcf", xin, lp["we_gate"])
-    up = torch.einsum("ebcd,edf->ebcf", xin, lp["we_up"])
-    out_e = torch.einsum("ebcf,efd->ebcd", F.silu(gate_h) * up,
-                         lp["we_down"])
+    return (F.one_hot(pos.clamp(0, capacity - 1).long(), capacity)
+            .to(dt) * within.to(dt)[..., None])
+
+
+def _switch_experts(h, dispatch, gate_vals, shards, config):
+    """The capacity dispatch's expert work and combine → ``[b, s, d]``.
+    ``shards``: per expert shard (in order, each holding ``e / len``
+    consecutive experts), its ``(device, layer params)`` per tensor
+    shard; each shard routes its experts' slice of ``dispatch`` on its
+    device, and the partials are summed in order on ``h``'s device (one
+    shard: the whole einsums on one device)."""
+    dt = config.compute_dtype
+    el = config.moe_experts // len(shards)
     combine = dispatch * gate_vals.to(dt)[..., None, None]
-    out = torch.einsum("bskec,ebcd->bsd", combine, out_e)
-    return out, _moe_aux(probs, expert_idx, e)
+    parts = []
+    for c, group in enumerate(shards):
+        mine = slice(c * el, (c + 1) * el)
+        for dev, lp in group:
+            disp = dispatch[..., mine, :].to(dev)
+            xin = torch.einsum("bskec,bsd->ebcd", disp, h.to(dev))
+            gate_h = torch.einsum("ebcd,edf->ebcf", xin, lp["we_gate"])
+            up = torch.einsum("ebcd,edf->ebcf", xin, lp["we_up"])
+            out_e = torch.einsum("ebcf,efd->ebcd", F.silu(gate_h) * up,
+                                 lp["we_down"])
+            parts.append(torch.einsum("bskec,ebcd->bsd",
+                                      combine[..., mine, :].to(dev),
+                                      out_e).to(h.device))
+    return functools.reduce(torch.add, parts)
+
+
+def _switch_moe(h, lp, config):
+    """Top-k MoE with capacity dispatch (``_switch_moe`` :249-296) on one
+    device: :func:`_dispatch`, one-hot einsums route and combine. No
+    kernel. → ``(out [b, s, d], aux)``."""
+    probs, gate_vals, expert_idx = _router(h, lp, config)
+    out = _switch_experts(h, _dispatch(expert_idx, config), gate_vals,
+                          [[(h.device, lp)]], config)
+    return out, _moe_aux(probs, expert_idx, config.moe_experts)
 
 
 def _ragged_dot(x, w, counts):
@@ -401,68 +441,114 @@ def _ragged_dot(x, w, counts):
                       for i, xs in enumerate(torch.split(x, counts))])
 
 
-def _ragged_engine(wg, wu, wd, hf, idx, gates, k):
-    """The plain dropless engine (``_ragged_core`` :352-377, no expert
-    parallelism): a stable sort by expert, the fused gate|up product and
+def _ragged_engine(wg, wu, wd, hf, key, tok, gates):
+    """The plain dropless engine (``_ragged_core`` :352-377): assignment
+    ``r`` is token ``tok[r]`` to expert ``key[r]`` with gate
+    ``gates[r]``; a stable sort by expert, the fused gate|up product and
     the down product per expert over its contiguous rows, the gate
-    scaling and a scatter-add combine. Reads the counts on the host."""
+    scaling and a scatter-add combine into ``[tokens, d]``. Reads the
+    counts on the host."""
     f = wg.shape[-1]
-    key = idx.reshape(-1)
     order = torch.argsort(key, stable=True)
     counts = torch.bincount(key, minlength=wg.shape[0]).tolist()
-    tok = order // k
+    tok = tok[order]
     gu = _ragged_dot(hf[tok], torch.cat([wg, wu], dim=-1), counts)
     rows = _ragged_dot(F.silu(gu[:, :f]) * gu[:, f:], wd, counts)
-    rows = rows * gates.reshape(-1)[order][:, None]
+    rows = rows * gates[order][:, None]
     return torch.zeros_like(hf).index_add(0, tok, rows)
 
 
-def _gmm_engine(wg, wu, wd, hf, idx, gates, k, block_m):
-    """The grouped-matmul engine (``gmm_inline`` :392-420): rows laid out
-    by :func:`padded_group_layout`, one int scatter for the dest→source
-    map (padding rows point at a trailing zero row), a gather into
-    ``x_pad``, the fused gate|up grouped matmul, SiLU·up, the down
-    grouped matmul (K6 each; K6 + K7 in the backward), then the rows
-    back in source order, where a token's k choices are adjacent: the
-    combine is a reshape-sum."""
-    e, _, f = wg.shape
-    flat = idx.reshape(-1)
-    n_rows = flat.shape[0]
-    pos, be, fst, lst, m_pad = gmm_lib.padded_group_layout(flat, e, block_m)
-    inv = torch.full((m_pad,), n_rows // k, dtype=torch.long,
+def _gmm_rows(wg, wu, wd, hf, key, tok, block_m):
+    """The grouped-matmul engine's rows (``gmm_inline`` :392-420):
+    assignments laid out by :func:`padded_group_layout` over their
+    experts ``key``, one int scatter for the dest→source map (padding
+    rows point at a trailing zero row), a gather of the tokens ``tok``
+    into ``x_pad``, the fused gate|up grouped matmul, SiLU·up, the down
+    grouped matmul (K6 each; K6 + K7 in the backward) → each
+    assignment's output row, in the given order."""
+    f = wg.shape[-1]
+    pos, be, fst, lst, m_pad = gmm_lib.padded_group_layout(key, wg.shape[0],
+                                                           block_m)
+    inv = torch.full((m_pad,), hf.shape[0], dtype=torch.long,
                      device=hf.device)
-    inv[pos.long()] = torch.arange(n_rows, device=hf.device) // k
+    inv[pos.long()] = tok
     hf_aug = torch.cat([hf, hf.new_zeros((1, hf.shape[1]))])
     x_pad = hf_aug[inv]
     gu = gmm_lib.gmm(x_pad, torch.cat([wg, wu], dim=-1), be, fst, lst,
                      block_m)
     act = F.silu(gu[:, :f]) * gu[:, f:]
     rows_pad = gmm_lib.gmm(act, wd, be, fst, lst, block_m)
-    rows = rows_pad[pos.long()] * gates.reshape(-1)[:, None]
+    return rows_pad[pos.long()]
+
+
+def _expert_rows(lp, hf, flat, gates, k, config, sel=None, first=0):
+    """One expert shard's dropless work on its device → its partial
+    ``[tokens, d]``: the assignments ``sel`` (indices into the flattened
+    ``[tokens·k]`` choices ``flat``, all when None) to its experts, which
+    start at global id ``first``. The grouped-matmul engine writes each
+    assignment's row back in source order, where a token's k choices are
+    adjacent, and combines by a reshape-sum (the rows of other shards'
+    assignments exact zeros); the plain engine scatter-adds."""
+    dev = lp["we_gate"].device
+    hf = hf.to(dev)
+    n_rows = flat.shape[0]
+    if sel is None:
+        key, tok, g = flat, torch.arange(n_rows, device=dev) // k, gates
+    else:
+        key = flat[sel] - first
+        tok, g = sel // k, gates[sel]
+    key, tok, g = key.to(dev), tok.to(dev), g.to(dev)
+    weights = (lp["we_gate"], lp["we_up"], lp["we_down"])
+    if config.moe_gmm is False:
+        return _ragged_engine(*weights, hf, key, tok, g)
+    rows = _gmm_rows(*weights, hf, key, tok, config.moe_gmm_block_m) \
+        * g[:, None]
+    if sel is not None:
+        rows = rows.new_zeros((n_rows, rows.shape[1])).index_copy(
+            0, sel.to(dev), rows)
     return rows.reshape(n_rows // k, k, -1).sum(dim=1)
+
+
+def _dropless_experts(h, gate_vals, expert_idx, shards, config):
+    """Dropless expert work and combine → ``[b, s, d]``. ``shards`` as
+    :func:`_switch_experts`'. With one expert shard every assignment is
+    computed there; over several (``_dropless_moe``'s ``manual``,
+    :379-390), each computes only the assignments routed to its experts
+    (JAX hands the others to a zero-weight dummy group; here they are
+    left out, as they add exact zeros), a shard with none launches
+    nothing, and the partials are summed in order on ``h``'s device
+    (JAX's psum over ``expert``)."""
+    dt = config.compute_dtype
+    b, s, d = h.shape
+    k = expert_idx.shape[-1]
+    hf = h.reshape(b * s, d)
+    flat = expert_idx.reshape(-1)
+    gates = gate_vals.reshape(-1).to(dt)
+    el = config.moe_experts // len(shards)
+    if len(shards) == 1:
+        sels = [None]
+    else:
+        owner = flat // el
+        order = torch.argsort(owner, stable=True)
+        sels = torch.split(order, torch.bincount(
+            owner, minlength=len(shards)).tolist())
+    parts = [_expert_rows(lp, hf, flat, gates, k, config, sel, c * el)
+             .to(h.device)
+             for c, (sel, group) in enumerate(zip(sels, shards))
+             if sel is None or sel.numel()
+             for _, lp in group]
+    return functools.reduce(torch.add, parts).reshape(b, s, d)
 
 
 def _dropless_moe(h, lp, config):
     """Dropless MoE (``_dropless_moe`` :323-493) on one device: every
     (token, choice) assignment is computed, no capacity buffers. The
     grouped-matmul engine for ``moe_gmm`` True or "auto", the plain
-    ragged engine for False; expert parallelism waits for the
-    multi-device slice. → ``(out [b, s, d], aux)``."""
-    dt = config.compute_dtype
-    b, s, d = h.shape
-    e = config.moe_experts
-    k = min(config.moe_top_k, e)
+    ragged engine for False. → ``(out [b, s, d], aux)``."""
     probs, gate_vals, expert_idx = _router(h, lp, config)
-    hf = h.reshape(b * s, d)
-    idx = expert_idx.reshape(b * s, k)
-    gates = gate_vals.reshape(b * s, k).to(dt)
-    weights = (lp["we_gate"], lp["we_up"], lp["we_down"])
-    if config.moe_gmm is False:
-        out = _ragged_engine(*weights, hf, idx, gates, k)
-    else:
-        out = _gmm_engine(*weights, hf, idx, gates, k,
-                          config.moe_gmm_block_m)
-    return out.reshape(b, s, d), _moe_aux(probs, expert_idx, e)
+    out = _dropless_experts(h, gate_vals, expert_idx, [[(h.device, lp)]],
+                            config)
+    return out, _moe_aux(probs, expert_idx, config.moe_experts)
 
 
 # ---------------------------------------------------------------- layers
@@ -518,7 +604,9 @@ def layer_core(x, lp, attend, config, shards=None):
     gets every shard's projected ``(q, k, v)`` over its local heads at
     once (a ring needs the other shards' K/V; :func:`each_shard` makes
     one from a per-shard read). The unsharded layer is the one-shard
-    case."""
+    case. A mixture of experts hands the MLP to ``moe(x) → (x, aux)``
+    (the training mesh's expert parallelism), its aux the per-row
+    statistics of :func:`_row_stats`."""
     whole = shards is None
     if whole:
         shards = _Whole(lp)
@@ -536,6 +624,9 @@ def layer_core(x, lp, attend, config, shards=None):
         outs = attend(heads)
     outs = [o.reshape(*o.shape[:2], -1) for o in outs]
     x = shards.project(x, outs, "wo")
+    if config.moe_experts and not whole:
+        x, aux = shards.moe(x)
+        return x, None, aux
     hs = shards.norm(x, "mlp_norm")
     if whole:
         down, aux = _mlp(hs[0], lp, config)
@@ -585,8 +676,9 @@ def backbone(params, tokens, config):
 
     layers = [layer_params(p, i) for i in range(config.n_layers)]
     if config.pipeline_stages > 1:
-        x, aux = pipeline_lib.pipelined_layers(layer, [layers], x,
-                                               config.microbatches)
+        x, auxs = pipeline_lib.pipelined_layers(layer, [layers], x,
+                                                config.microbatches)
+        aux = pipeline_lib.aux_mean(auxs, x.device)
     else:
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for lp in layers:
@@ -684,20 +776,16 @@ def loss_fn(params, batch, config):
 
 def _check_mesh(config, mesh):
     """The dims the mesh forward cuts must divide (ValueError names the
-    field), and a mixture of experts waits for its expert-parallel
-    slice on any mesh of more than one position, pipelined or not."""
-    if config.moe_experts and mesh.size > 1:
-        raise ValueError(
-            f"moe_experts={config.moe_experts} on a mesh of {mesh.size} "
-            f"positions: the MoE's aux loss is a product of global-batch "
-            f"means, which comes with the port's expert parallelism")
+    field and the axis)."""
     tp, fsdp = mesh.shape[mesh_lib.TENSOR], mesh.shape[mesh_lib.FSDP]
+    ep = mesh.shape[mesh_lib.EXPERT]
     for name, value, axis, n in (
             ("n_heads", config.n_heads, "tensor", tp),
             ("kv_heads", config.kv_heads, "tensor", tp),
             ("ff_dim", config.ff_dim, "tensor", tp),
             ("vocab_size", config.vocab_size, "tensor", tp),
-            ("d_model", config.d_model, "fsdp", fsdp)):
+            ("d_model", config.d_model, "fsdp", fsdp),
+            ("moe_experts", config.moe_experts, "expert", ep)):
         if value % n:
             raise ValueError(f"{name}={value} does not divide over the "
                              f"mesh's {axis} axis of {n}")
@@ -714,11 +802,23 @@ class _TrainShards:
     normed input sent to the chunk's shards; the row projections are
     each shard's partial product, summed in shard order on the lead;
     the attention rotates q and k to their global positions and runs
-    each head group over the chunks (:func:`attention.over_chunks`)."""
+    each head group over the chunks (:func:`attention.over_chunks`).
 
-    def __init__(self, layers, devices, ropes, n_chunks, config):
+    A mixture of experts (:meth:`moe`): ``experts[j]`` holds chunk
+    ``j``'s expert shards, per ``expert`` coordinate ``c`` its ``tensor``
+    shards' ``(device, params)`` at positions ``(c, j, t)`` (shard ``c``
+    holds experts ``[c·E/ep, (c+1)·E/ep)``, gathered over ``fsdp``). The
+    router runs in fp32 on each chunk's lead; dropless expert work is
+    token-local, so chunk ``j``'s runs at its own positions; the
+    capacity dispatch numbers a row's slots over its whole sequence, so
+    its chunks are joined on the piece's lead, the expert work runs at
+    sequence coordinate 0, and the result is cut back into chunks."""
+
+    def __init__(self, layers, devices, ropes, n_chunks, config,
+                 experts=None):
         self.layers, self.devices, self.ropes = layers, devices, ropes
         self.n_chunks, self.config = n_chunks, config
+        self.experts = experts
 
     def _groups(self, x):
         tp = len(self.layers) // len(x)
@@ -746,20 +846,50 @@ class _TrainShards:
             roped, self.n_chunks, lambda q, k, v: _attention(q, k, v, c),
             ring)
 
+    def moe(self, x):
+        """The expert-parallel MoE MLP → ``(x + out, per-row statistics
+        [b, 2, e] summed over the chunks, on chunk 0's lead)``."""
+        c = self.config
+        leads = [self.layers[g[0]] for g in self._groups(x)]
+        hs = [_rmsnorm(xj, lp["mlp_norm"]) for xj, lp in zip(x, leads)]
+        if c.moe_dropless:
+            outs, stats = [], []
+            for j, (h, lp) in enumerate(zip(hs, leads)):
+                probs, gate_vals, idx = _router(h, lp, c)
+                outs.append(_dropless_experts(h, gate_vals, idx,
+                                              self.experts[j], c))
+                stats.append(_row_stats(probs, idx, c.moe_experts))
+        else:
+            h = torch.cat([h.to(x[0].device) for h in hs], dim=1)
+            probs, gate_vals, idx = _router(h, leads[0], c)
+            out = _switch_experts(h, _dispatch(idx, c), gate_vals,
+                                  self.experts[0], c)
+            outs = [o.to(xj.device) for o, xj in zip(
+                torch.split(out, [xj.shape[1] for xj in x], dim=1), x)]
+            stats = [_row_stats(probs, idx, c.moe_experts)]
+        stat = functools.reduce(torch.add, (t.to(x[0].device)
+                                            for t in stats))
+        return [xj + o for xj, o in zip(x, outs)], stat
+
 
 def _piece_loss(params, batch, config, mesh, lead):
     """The loss sums of the batch piece whose lead position is ``lead``
     (:func:`_loss_terms`, summed over its sequence chunks), on the last
-    stage's lead device."""
+    stage's lead device → ``(terms, row_aux)``: ``row_aux`` None for a
+    dense MLP, else each layer's per-row aux statistics ``[b, 2, e]``
+    (:func:`_row_stats`) in layer order."""
     dt = config.compute_dtype
     base = mesh.coords(lead)
     n_seq, tp = mesh.shape[mesh_lib.SEQUENCE], mesh.shape[mesh_lib.TENSOR]
+    ep = mesh.shape[mesh_lib.EXPERT]
     staged = config.pipeline_stages > 1
     n_stages = mesh.shape[mesh_lib.PIPELINE] if staged else 1
+    moe = bool(config.moe_experts)
 
-    def at(stage, j, t=0):
+    def at(stage, j, t=0, c=0):
         return mesh.position({**base, mesh_lib.PIPELINE: stage,
-                              mesh_lib.SEQUENCE: j, mesh_lib.TENSOR: t})
+                              mesh_lib.SEQUENCE: j, mesh_lib.TENSOR: t,
+                              mesh_lib.EXPERT: c})
 
     seq = batch["tokens"].shape[1]
     if seq % n_seq:
@@ -770,6 +900,9 @@ def _piece_loss(params, batch, config, mesh, lead):
     def cast(t):
         return t.to(dt)
 
+    def keep(t):        # the router stays fp32 (``cast_params``)
+        return t
+
     def local(name, pos, j):
         return batch[name].pieces[pos][:, j * chunk:(j + 1) * chunk]
 
@@ -778,35 +911,55 @@ def _piece_loss(params, batch, config, mesh, lead):
         shards (``L / stages`` layers of the stacked dim)."""
         shards = [at(s, j, t) for j in range(n_seq) for t in range(tp)]
         devices = [mesh.devices[q] for q in shards]
-        stacks = [{k: v.gather_at(q, (mesh_lib.FSDP,), cast)
-                   for k, v in params["layers"].items()} for q in shards]
+        stacks = [{k: v.gather_at(q, (mesh_lib.FSDP,),
+                                  keep if k == "router" else cast)
+                   for k, v in params["layers"].items()
+                   if not k.startswith("we_")} for q in shards]
         ropes = [rope_tables(config, (i // tp) * chunk + torch.arange(
             chunk, device=d)) for i, d in enumerate(devices)]
-        return [_TrainShards([layer_params({"layers": st}, i)
-                              for st in stacks], devices, ropes, n_seq,
-                             config)
-                for i in range(config.n_layers // n_stages)]
+        experts = None
+        if moe:
+            experts = [[[(q, {k: params["layers"][k].gather_at(
+                q, (mesh_lib.FSDP,), cast)
+                for k in ("we_gate", "we_up", "we_down")})
+                for q in (at(s, j, t, c) for t in range(tp))]
+                for c in range(ep)] for j in range(n_seq)]
+
+        def hooks(i):
+            ex = None if experts is None else [
+                [[(mesh.devices[q], {k: v[i] for k, v in st.items()})
+                  for q, st in group] for group in chunk_shards]
+                for chunk_shards in experts]
+            return _TrainShards([layer_params({"layers": st}, i)
+                                 for st in stacks], devices, ropes, n_seq,
+                                config, ex)
+
+        return [hooks(i) for i in range(config.n_layers // n_stages)]
 
     remat = config.remat and torch.is_grad_enabled()
 
     def layer(hooks, x):
         def run(*x):
-            return tuple(layer_core(list(x), None, hooks.attend, config,
-                                    hooks)[0])
-        return list(checkpoint(run, *x, use_reentrant=False) if remat
-                    else run(*x)), None
+            y, _, aux = layer_core(list(x), None, hooks.attend, config, hooks)
+            return tuple(y) + ((aux,) if moe else ())
+        out = (checkpoint(run, *x, use_reentrant=False) if remat
+               else run(*x))
+        return (list(out[:-1]), out[-1]) if moe else (list(out), None)
 
     x = [params["embed"].gather_at(at(0, j), cast=cast)[
         local("tokens", at(0, j), j).long()] for j in range(n_seq)]
     if staged:
-        x, _ = pipeline_lib.pipelined_layers(
+        x, auxs = pipeline_lib.pipelined_layers(
             layer, [stage_layers(s) for s in range(n_stages)], x,
             config.microbatches,
             hop=lambda s, y: [t.to(mesh.devices[at(s, j)])
                               for j, t in enumerate(y)])
+        row_aux = [torch.cat(a, dim=0) for a in auxs] if moe else None
     else:
+        row_aux = []
         for hooks in stage_layers(0):
-            x, _ = layer(hooks, x)
+            x, a = layer(hooks, x)
+            row_aux.append(a)
     last = n_stages - 1
     terms = []
     for j, xj in enumerate(x):
@@ -818,15 +971,45 @@ def _piece_loss(params, batch, config, mesh, lead):
         terms.append(_loss_terms(xj, params["head"].gather_at(pos, cast=cast),
                                  targets, mask, config))
     dev = mesh.devices[at(last, 0)]
-    return {k: functools.reduce(torch.add, (t[k].to(dev) for t in terms))
-            for k in terms[0]}
+    return ({k: functools.reduce(torch.add, (t[k].to(dev) for t in terms))
+             for k in terms[0]}, row_aux if moe else None)
+
+
+def _global_aux(row_auxs, config, mesh, seq):
+    """The MoE aux loss from the pieces' per-row statistics (``row_auxs``:
+    per piece, in global row order, each layer's ``[b, 2, e]``) as JAX
+    computes it over the global batch: the rows grouped as JAX groups
+    them — the whole global batch, or with ``pipeline_stages > 1`` its
+    microbatch ``i``, the global rows ``[i·B/M, (i+1)·B/M)``
+    (``pipeline.py:83-84``) — their counts and probabilities summed over
+    pieces and processes, and ``e · Σ_e mean(first choice == e) ·
+    mean(probs_e)`` averaged over layers × groups. A mean of per-piece
+    aux values would not be it: the aux is a product of means."""
+    e = config.moe_experts
+    dev = mesh.devices[0]
+    b = row_auxs[0][0].shape[0]
+    n_groups = config.microbatches if config.pipeline_stages > 1 else 1
+    rows = b * len(row_auxs) * mesh.process_count
+    per_group = rows // n_groups
+    base = mesh.process_index * b * len(row_auxs)
+    stats = torch.zeros((config.n_layers, n_groups, 2, e),
+                        dtype=torch.float32, device=dev)
+    for p, layers in enumerate(row_auxs):
+        group = (base + p * b + torch.arange(b, device=dev)) // per_group
+        stats = stats.index_add(1, group, torch.stack(
+            [a.to(dev) for a in layers]))
+    frac = mesh_lib.global_sum(stats, mesh) / (per_group * seq)
+    return (e * (frac[:, :, 0] * frac[:, :, 1]).sum(dim=-1)).mean()
 
 
 def _mesh_loss(params, batch, config, mesh):
     """:func:`loss_fn` on a mesh → the global batch's ``(loss,
-    metrics)`` on the first position's device. One position is the
-    model on one device (its MoE included)."""
-    if mesh.size == 1:
+    metrics)`` on the first position's device. One position of one
+    process is the model on one device (its MoE included). On a gang of
+    processes the mask count, the metrics' sums and the MoE statistics
+    are summed over the gang (:func:`mesh.global_sum`): every process
+    reports the gang's loss, and its gradient is its own share of it."""
+    if mesh.size == 1 and mesh.process_count == 1:
         return loss_fn(sharding.local(params, 0),
                        sharding.local(batch, 0), config)
     _check_mesh(config, mesh)
@@ -837,9 +1020,14 @@ def _mesh_loss(params, batch, config, mesh):
     dev = mesh.devices[0]
     pieces = [_piece_loss(params, batch, config, mesh, lead)
               for lead in mesh.along(0, (mesh_lib.DATA, mesh_lib.FSDP))]
-    terms = {k: functools.reduce(torch.add, (t[k].to(dev) for t in pieces))
-             for k in pieces[0]}
-    return _finish(terms, None, config)
+    terms = {k: mesh_lib.global_sum(functools.reduce(
+        torch.add, (t[k].to(dev) for t, _ in pieces)), mesh)
+        for k in pieces[0][0]}
+    aux = None
+    if config.moe_experts:
+        aux = _global_aux([a for _, a in pieces], config, mesh,
+                          batch["tokens"].shape[1])
+    return _finish(terms, aux, config)
 
 
 def flops_per_token(config):

@@ -55,10 +55,10 @@ def pipelined_layers(layer_fn, stages, x, n_microbatches, hop=None):
     B divisible by ``n_microbatches``; ``hop(s, y)`` moves a stage's
     output onto stage ``s``'s devices (default: left where it is).
 
-    Microbatch ``i`` is rows ``[i·mb, (i+1)·mb)``. → ``(y, aux)``: the
-    last stage's outputs joined in microbatch order, and the mean of the
-    per-layer aux values over layers × microbatches (fp32 0-d; 0 without
-    any)."""
+    Microbatch ``i`` is rows ``[i·mb, (i+1)·mb)``. → ``(y, auxs)``: the
+    last stage's outputs joined in microbatch order, and each layer's
+    aux values (in layer order), each a list over the microbatches in
+    order (:func:`aux_mean` is JAX's reduction of them)."""
     m = n_microbatches
     batch = _first(x).shape[0]
     if batch % m:
@@ -68,19 +68,16 @@ def pipelined_layers(layer_fn, stages, x, n_microbatches, hop=None):
     micro = [_each(lambda t, i=i: t[i * mb:(i + 1) * mb], x)
              for i in range(m)]
     n_stages = len(stages)
-    n_layers = sum(len(st) for st in stages)
-    inbox, outs, aux_sums = {}, [None] * m, []
+    inbox, outs = {}, [None] * m
+    auxs = [[[None] * m for _ in st] for st in stages]
     for t in range(m + n_stages - 1):
         for s in range(n_stages):
             i = t - s
             if not 0 <= i < m:
                 continue              # a warm-up or drain bubble
             y = micro[i] if s == 0 else inbox.pop((s, i))
-            auxs = []
-            for lp in stages[s]:
-                y, aux = layer_fn(lp, y)
-                auxs.append(aux)
-            aux_sums.append(_stage_aux(auxs))
+            for li, lp in enumerate(stages[s]):
+                y, auxs[s][li][i] = layer_fn(lp, y)
             if s == n_stages - 1:
                 outs[i] = y
             else:
@@ -89,11 +86,22 @@ def pipelined_layers(layer_fn, stages, x, n_microbatches, hop=None):
         y = [torch.cat(parts, dim=0) for parts in zip(*outs)]
     else:
         y = torch.cat(outs, dim=0)
-    aux = torch.zeros((), dtype=torch.float32, device=_first(y).device)
-    for a in aux_sums:
+    return y, [layer for st in auxs for layer in st]
+
+
+def aux_mean(auxs, device):
+    """:func:`pipelined_layers`' aux values (0-d, or None for a layer
+    without one) → their mean over layers × microbatches, fp32 0-d on
+    ``device``: each microbatch's sum over the layers added in
+    microbatch order, as a stage's ticks add them in JAX, divided by
+    ``L·M`` (``pipeline.py:119-129``; 0 without any)."""
+    n_layers, m = len(auxs), len(auxs[0])
+    total = torch.zeros((), dtype=torch.float32, device=device)
+    for i in range(m):
+        a = _stage_aux([layer[i] for layer in auxs])
         if a is not None:
-            aux = aux + a.to(aux.device)
-    return y, aux / (n_layers * m)
+            total = total + a.to(device)
+    return total / (n_layers * m)
 
 
 # ------------------------------------------------------------- 1F1B

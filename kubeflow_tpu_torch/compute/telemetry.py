@@ -11,7 +11,8 @@ names into the port's own registry (``kubeflow_tpu_torch/obs``):
   start to the end of the first step (imports, kernel builds, the first
   step's allocations).
 - ``train_goodput_seconds_total{gang,state}`` — the per-gang goodput
-  ledger (``obs/goodput.py``).
+  ledger (``obs/goodput.py``): start-up as ``compile`` or ``restart``,
+  steps as ``compute``, synchronous saves as ``checkpoint``.
 
 A step's wall time is only a device time if the loop waits for the
 card before ``step()``; an unsynchronised eager loop books enqueue time.
@@ -153,6 +154,13 @@ class TrainTelemetry:
                              + (1 - self._ema) * per)
         record_goodput(self.gang, "compute", float(total_seconds))
         self._set_mfu()
+
+    def checkpoint(self, seconds):
+        """Wall time spent in a (synchronous) checkpoint save: booked as
+        goodput ``checkpoint``; the step mark restarts so the save does
+        not count in the next step's time."""
+        self._mark = time.time()
+        record_goodput(self.gang, "checkpoint", float(seconds))
 
     def live_mfu(self):
         return MFU_GAUGE.value(self.model)

@@ -24,8 +24,11 @@ copy that sum, clips by the norm of the logical elements (each counted
 once) and updates every copy with the same arithmetic: replicated
 copies stay byte-equal. A copy the forward does not read (a
 replicated pipeline's, with no stages) takes the sum of the others, as
-JAX's psum hands it. ``expert`` > 1 is refused (expert parallelism is a
-later slice).
+JAX's psum hands it. A mesh over a gang of processes (``make_mesh(
+group=)``) adds one step: each unique piece's gradient is summed over
+the processes (``all_reduce``, a few flat buffers), so every process
+applies the same bytes and its replicas stay byte-equal with the
+others'.
 
 Mixed precision: fp32 master weights (``state.params``), the compute
 dtype cast inside the model's graph, fp32 gradients summed over
@@ -48,7 +51,6 @@ import torch
 
 from . import data as data_lib
 from . import device as device_lib
-from . import mesh as mesh_lib
 from . import sharding as sharding_lib
 
 
@@ -295,10 +297,9 @@ def make_train_step(loss_fn, optimizer, mesh=None, accum_steps=1):
     With ``mesh`` the state is ``init_state(mesh=)``'s and the batch
     either placed already (``data.shard_batch``, ``fit(mesh=)``) or host
     arrays, which the step cuts by ``data.BATCH_SPEC`` (microbatch by
-    microbatch under ``accum_steps``). Raises ``ValueError`` for a mesh
-    with ``expert`` larger than 1."""
-    if mesh is not None:
-        _check_train_mesh(mesh)
+    microbatch under ``accum_steps``). On a gang of processes each
+    feeds its own rows, and the gradients are summed over the gang
+    after the copies' sum."""
 
     def run(state, batch):
         leaves = tree_leaves(state.params)
@@ -326,7 +327,7 @@ def make_train_step(loss_fn, optimizer, mesh=None, accum_steps=1):
                        for k in history[0]}
         unique = None
         if mesh is not None:
-            grads, unique = _sum_copies(leaves, grads)
+            grads, unique = _sum_copies(leaves, grads, mesh)
         metrics = {k: v.detach() if torch.is_tensor(v) else v
                    for k, v in metrics.items()}
         metrics["grad_norm"] = optimizer.update(pieces, grads,
@@ -337,20 +338,6 @@ def make_train_step(loss_fn, optimizer, mesh=None, accum_steps=1):
                           extra=_detached(new_extra)), metrics
 
     return run
-
-
-#: the axes the train step refuses above size 1, and what they need
-_LATER_AXES = {mesh_lib.EXPERT: "expert parallelism"}
-
-
-def _check_train_mesh(mesh):
-    for axis, what in _LATER_AXES.items():
-        if mesh.shape[axis] > 1:
-            raise ValueError(
-                f"the train step takes the data, fsdp, tensor, sequence "
-                f"and pipeline axes; "
-                f"{axis}={mesh.shape[axis]} needs {what}, which the port "
-                f"does not have yet")
 
 
 def _on_mesh(batch, mesh, spec=data_lib.BATCH_SPEC):
@@ -382,27 +369,64 @@ def _detached(tree):
                     tree)
 
 
-def _sum_copies(leaves, grads):
+def _sum_copies(leaves, grads, mesh=None):
     """Every piece's gradient (``grads``: the pieces' in
     ``pieces_of(leaves)`` order) → ``(each copy's gradient, one per
     piece)``: the copies' gradients summed in position order on the
-    first copy's device, that sum handed to every copy (the psum over
+    first copy's device, on a gang of processes that sum summed over
+    them (:func:`_all_reduce`), and handed to every copy (the psum over
     the axes a leaf is replicated on)."""
-    out, unique = [], []
+    totals = []
     start = 0
     for leaf in leaves:
         mine = grads[start:start + len(leaf.pieces)]
         start += len(leaf.pieces)
-        summed = [None] * len(mine)
         for group in leaf.sharding.copies:
             dev = mine[group[0]].device
-            total = functools.reduce(torch.add,
-                                     (mine[q].to(dev) for q in group))
-            unique.append(total)
+            totals.append((group, functools.reduce(
+                torch.add, (mine[q].to(dev) for q in group))))
+    unique = [t for _, t in totals]
+    if mesh is not None and mesh.process_count > 1:
+        _all_reduce(unique, mesh.group)
+    out, k = [], 0
+    for leaf in leaves:
+        summed = [None] * len(leaf.pieces)
+        for _ in leaf.sharding.copies:
+            group, total = totals[k]
+            k += 1
             for q in group:
-                summed[q] = total.to(mine[q].device)
+                summed[q] = total.to(leaf.pieces[q].device)
         out.extend(summed)
     return out, unique
+
+
+#: the most bytes one all_reduce of :func:`_all_reduce` carries
+BUCKET_BYTES = 256 << 20
+
+
+def _all_reduce(tensors, group):
+    """Sum ``tensors`` over the processes of ``group`` in place: the
+    tensors of one device and dtype flattened into buckets of up to
+    :data:`BUCKET_BYTES`, one ``all_reduce`` each."""
+    import torch.distributed as dist
+    by_kind = {}
+    for t in tensors:
+        by_kind.setdefault((t.device, t.dtype), []).append(t)
+    for same in by_kind.values():
+        bucket, size = [], 0
+        for t in same + [None]:
+            if t is not None and (not bucket or size + t.numel()
+                                  * t.element_size() <= BUCKET_BYTES):
+                bucket.append(t)
+                size += t.numel() * t.element_size()
+                continue
+            flat = torch.cat([b.reshape(-1) for b in bucket])
+            dist.all_reduce(flat, group=group)
+            for b, part in zip(bucket, torch.split(
+                    flat, [b.numel() for b in bucket])):
+                b.copy_(part.view_as(b))
+            bucket, size = ([t], t.numel() * t.element_size()) \
+                if t is not None else ([], 0)
 
 
 def fit(state, step_fn, batches, mesh=None, steps=None, spec=None,

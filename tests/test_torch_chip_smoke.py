@@ -462,3 +462,66 @@ def test_mesh_grads_are_the_logical_gradients():
     assert max(chip_smoke._leaf_errors(grads, want)) <= 1e-6
     assert chip_smoke._leaf_errors([torch.ones(3)], [torch.full((3,), 2.)]
                                    ) == [0.5]
+
+
+def _tiny_moe(**kw):
+    from kubeflow_tpu_torch.compute.models import transformer
+    return transformer.Config(**{**dict(
+        vocab_size=64, d_model=32, n_layers=2, n_heads=2, max_seq=16,
+        dtype="float32", attention="dense", remat=False, moe_experts=4,
+        moe_top_k=2, moe_dropless=True), **kw})
+
+
+@pytest.mark.parametrize("kw", [{}, dict(pipeline_stages=2),
+                                dict(moe_dropless=False)],
+                         ids=["dropless", "gpipe", "capacity"])
+def test_router_tape_records_and_replays_the_choices(kw):
+    """The tape reads each layer's choices in global row order from a
+    2-piece mesh and from one device alike; replaying them on one device
+    gives its own loss, and replaying other choices gives another."""
+    import numpy as np
+    import torch
+
+    from kubeflow_tpu_torch.compute import data, mesh, train
+    from kubeflow_tpu_torch.compute.models import transformer
+    cfg = _tiny_moe(**kw)
+    params = transformer.init_params(cfg, torch.Generator().manual_seed(0),
+                                     device="cpu")
+    host = {"tokens": np.random.default_rng(1).integers(
+        0, 64, (4, 16), dtype=np.int32)}
+    host["targets"] = np.roll(host["tokens"], -1, axis=1)
+    m = mesh.make_mesh(data=2, expert=2, devices=["cpu"] * 4)
+    state = train.init_state(
+        lambda g, device: train.tree_map(torch.clone, params),
+        train.make_optimizer(), mesh=m,
+        logical_axes=transformer.logical_axes(cfg))
+    with chip_smoke.RouterTape(cfg) as on_mesh:
+        transformer.loss_fn(state.params, data.shard_batch(host, m), cfg)
+    batch = data.to_device(host, "cpu")
+    with chip_smoke.RouterTape(cfg) as alone:
+        want = transformer.loss_fn(params, batch, cfg)[0]
+    assert on_mesh.flips(alone) == (0, None)
+    for layer in range(cfg.n_layers):
+        assert on_mesh.choices(layer).shape == (4, 16, 2)
+    with chip_smoke.RouterTape(cfg, replay=on_mesh):
+        again = transformer.loss_fn(params, batch, cfg)[0]
+    assert float(again) == float(want)
+    idx, probs = on_mesh.calls[1][0]        # layer 1's first piece
+    on_mesh.calls[1][0] = ((idx + 1) % 4, probs)
+    with chip_smoke.RouterTape(cfg, replay=on_mesh):
+        other = transformer.loss_fn(params, batch, cfg)[0]
+    assert float(other) != float(want)
+    n, gap = on_mesh.flips(alone)
+    assert n == idx.shape[0] * idx.shape[1] and gap is not None
+    assert transformer._router is not None and not isinstance(
+        transformer._router, chip_smoke.RouterTape)
+
+
+def test_params_digest_sees_one_bit():
+    import torch
+    _, _, _, state = _mesh_mlp_state()
+    before = chip_smoke._params_digest(state)
+    assert torch.equal(before, chip_smoke._params_digest(state))
+    with torch.no_grad():
+        state.params["layers"][0]["w"].pieces[0].view(torch.int32)[0, 0] += 1
+    assert not torch.equal(before, chip_smoke._params_digest(state))

@@ -1,6 +1,7 @@
 """The port stands alone: no module of ``kubeflow_tpu_torch/``, not
 ``chip_smoke.py`` and not the port's scripts under ``hack/`` (the
-kernel A/B timings, the serving profile, the mesh-axes phases) imports
+kernel A/B timings, the serving profile, the mesh-axes and the
+expert/gang phases) imports
 JAX, its ecosystem (``ml_dtypes`` included: the KV-bundle codec reads
 bf16 without it) or the JAX package, and none imports ``triton`` at
 module level (the CPU test host has none; a kernel module imports it
@@ -17,7 +18,8 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 FILES = sorted((ROOT / "kubeflow_tpu_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py"] + sorted((ROOT / "hack").glob("*_ab.py")) + [
     ROOT / "hack" / "port_decode_profile.py",
-    ROOT / "hack" / "mesh_axes_smoke.py"]
+    ROOT / "hack" / "mesh_axes_smoke.py",
+    ROOT / "hack" / "expert_gang_smoke.py"]
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "ml_dtypes", "kubeflow_tpu")
 
 
@@ -58,6 +60,8 @@ def test_no_jax_and_no_module_level_triton(path):
     "kubeflow_tpu_torch/compute/mesh.py",
     "kubeflow_tpu_torch/compute/sharding.py",
     "kubeflow_tpu_torch/compute/pipeline.py",
+    "kubeflow_tpu_torch/compute/slice_worker.py",
+    "kubeflow_tpu_torch/dryrun.py",
     "kubeflow_tpu_torch/qos/__init__.py", "kubeflow_tpu_torch/qos/buckets.py"])
 def test_the_scan_reaches_the_serving_plane(rel):
     assert ROOT / rel in FILES

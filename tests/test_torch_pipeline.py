@@ -212,19 +212,24 @@ def test_pipeline_refusals(case):
 @pytest.mark.parametrize("dropless", [False, True],
                          ids=["capacity", "dropless"])
 def test_moe_in_a_pipeline_waits_for_expert_parallelism(dropless):
-    """JAX's two MoE-in-pipeline tests: the port refuses an MoE on a
-    pipeline mesh by name, as on any mesh of more than one position,
-    until its expert parallelism."""
-    _, tcfg = _cfgs(moe_experts=2, pipeline_stages=2,
-                    pipeline_microbatches=2, moe_dropless=dropless,
-                    moe_top_k=2 if dropless else 1)
-    _, tmesh = _meshes(pipeline=2)
-    opt = t_train.make_optimizer()
-    state = t_train.init_state(functools.partial(tt.init_params, tcfg), opt,
-                               mesh=tmesh, logical_axes=tt.logical_axes(tcfg))
-    with pytest.raises(ValueError, match="moe_experts=2 on a mesh of 2 "
-                                         "positions.*expert parallelism"):
-        tt.loss_fn(state.params, t_data.shard_batch(_batch(4), tmesh), tcfg)
+    """JAX's two MoE-in-pipeline configs on ``pipeline=2`` (the expert
+    parallelism has come): 2 stages × 2 microbatches of an MoE give the
+    loss and gradients of the one-device one-stage GPipe over the same
+    microbatches, whose aux groups the same global rows."""
+    jcfg, tcfg = _cfgs(moe_experts=2, pipeline_stages=2,
+                       pipeline_microbatches=2, moe_dropless=dropless,
+                       moe_top_k=2 if dropless else 1)
+    params = _np(jt.init_params(jcfg, jax.random.PRNGKey(1)))
+    batch = _batch(4)
+    loss, grads = port_loss_and_grads(tcfg, params, batch, dict(pipeline=2))
+    tparams = params_from_jax(params, device="cpu")
+    leaves = t_train.tree_leaves(tparams)
+    for t in leaves:
+        t.requires_grad_(True)
+    one, metrics = tt.loss_fn(tparams, t_data.to_device(batch, "cpu"), tcfg)
+    assert "moe_aux" in metrics
+    assert_loss_and_grads((loss, grads), (float(one.detach()), [
+        g.numpy() for g in t_train._grads(one, leaves)]))
 
 
 # ---------------------------------------------------------------- 1F1B

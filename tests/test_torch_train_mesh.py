@@ -459,18 +459,16 @@ def test_shard_batch_pieces_equal_jax():
 
 @pytest.mark.parametrize("axis", ["sequence", "pipeline", "expert"])
 def test_train_step_refuses_the_later_axes(axis):
-    """``expert`` waits for expert parallelism; on ``sequence`` (the
-    ring) and ``pipeline`` (two stages) one step of the transformer runs
-    and its replicated copies stay byte-equal."""
+    """The train step takes every axis now: on ``sequence`` (the ring),
+    ``pipeline`` (two stages) and ``expert`` (a dropless MoE of 4
+    experts, 2 a shard) one step of the transformer runs and its
+    replicated copies stay byte-equal."""
     _, tmesh = _meshes(data=2, **{axis: 2})
-    if axis == "expert":
-        with pytest.raises(ValueError, match=f"{axis}=2 needs"):
-            t_train.make_train_step(lambda *a: None, _opts()[1],
-                                    mesh=tmesh)
-        return
     cfg = dataclasses.replace(
         _ckpt_cfg(), **({"attention": "ring"} if axis == "sequence"
-                        else {"pipeline_stages": 2}))
+                        else {"pipeline_stages": 2} if axis == "pipeline"
+                        else {"moe_experts": 4, "moe_top_k": 2,
+                              "moe_dropless": True}))
     opt = _opts()[1]
     state = t_train.init_state(functools.partial(tt.init_params, cfg), opt,
                                mesh=tmesh, logical_axes=tt.logical_axes(cfg))
@@ -479,6 +477,9 @@ def test_train_step_refuses_the_later_axes(axis):
     state, metrics = step(state, _lm_batch(4, 16, 64))
     assert state.step == 1 and np.isfinite(float(metrics["loss"]))
     _assert_copies_equal(state)
+    if axis == "expert":
+        assert np.isfinite(float(metrics["moe_aux"]))
+        assert state.params["layers"]["we_gate"].pieces[0].shape[1] == 2
 
 
 def test_refusals_name_what_does_not_fit():
@@ -487,14 +488,19 @@ def test_refusals_name_what_does_not_fit():
     cfg = tt.Config(vocab_size=64, d_model=32, n_layers=1, n_heads=2,
                     max_seq=16, dtype="float32", attention="dense",
                     moe_experts=2, d_ff=32)
-    # MoE on a mesh of more than one position: placement is fine, the
-    # step refuses
+    # MoE on a mesh of more than one position trains (its experts
+    # replicated here: the mesh has no expert axis); experts that do not
+    # divide over an expert axis are refused by name
     state = t_train.init_state(functools.partial(tt.init_params, cfg), opt,
                                mesh=tmesh, logical_axes=tt.logical_axes(cfg))
     step = t_train.make_train_step(t_train.plain_loss(tt.loss_fn, cfg), opt,
                                    mesh=tmesh)
-    with pytest.raises(ValueError, match="moe_experts=2 on a mesh of 8"):
-        step(state, _lm_batch(4, 16, 64))
+    state, metrics = step(state, _lm_batch(4, 16, 64))
+    assert np.isfinite(float(metrics["moe_aux"]))
+    _assert_copies_equal(state)
+    with pytest.raises(ValueError, match="moe_experts=2 does not divide "
+                                         "over the mesh's expert axis of 4"):
+        tt._check_mesh(cfg, _meshes(expert=4)[1])
     # a dim that does not divide: placement names the leaf
     odd = dataclasses.replace(cfg, moe_experts=0, n_heads=1)
     with pytest.raises(ValueError, match="layers/wq: dim 2 of size 1"):
