@@ -117,7 +117,28 @@ if any phase fails:
    right, tokens equal the same hop in process), an int8 bundle on the
    bf16 pool 400 naming ``dtype`` (counted on ``/metrics``), ``:attach`` on
    the prefill-role server 400 naming ``role``;
-13. mesh — the engine's tensor mesh on the one card:
+13. predict — ResNet-50 (bf16, 1000 classes, ``init_params`` from a
+   seed as ``bench.py`` serves it) served over ``:predict`` by the port's
+   ``ModelServer`` on 127.0.0.1 as ``resnet50`` and ``resnet50-int8``
+   (``bench.py:268-287``'s predict functions, residency-managed), and in
+   fp32: 8 keep-alive clients x 4 ``application/x-tensor`` requests of
+   one 224 x 224 x 3 image, 4 JSON ``instances`` and 4 b64 requests, one
+   ``:predictStream`` of 32 lines; every row within 2e-2 of the
+   in-process predict of its image (fp32: 1e-4 of ``resnet.apply``),
+   fewer device calls than requests and a mean
+   ``serving_batch_occupancy_requests`` above 1, the int8 model at most
+   0.3x the bf16 model's bytes (its argmax agreement printed); images/s
+   and latency p50/p99 per format, ``X-Inference-Time-Ms`` p50, one
+   batch of 8 profiled (device ms, idle share); predict_residency — two
+   managed ResNet-50s under a budget of 1.5 models: a predict on one
+   evicts the other, ``torch.cuda.memory_allocated`` falling by at least
+   0.9x its bytes, and the next predict reloads it; a canary at weight
+   0.5 splits ``X-Served-Version`` as its seeded rng dictates, then
+   promote and rollback; predict_cmd — three ``model-server`` replicas
+   without ``MODEL_GENERATE`` on the card (the stock MLP,
+   ``MODEL_DEVICE_MS=5`` under 8 clients beside its 200 rows/s,
+   ``MODEL_MODULE``), each ended by SIGTERM with 0;
+14. mesh — the engine's tensor mesh on the one card:
    ``mesh_for_generation(tensor=2, devices=[cuda:0, cuda:0])``, two
    shards of the bf16 flagship (4 q and 1 KV head each, half of every
    pool block), the engine phase's 12 requests on one locked schedule
@@ -134,7 +155,7 @@ if any phase fails:
    it; decode-step ms, ``measure_collective_share()`` and
    ``collective_bytes_per_step()`` printed as two shards on one card,
    which makes no speed claim;
-14. train — the flagship at full width and depth (bf16, ``remat=False``)
+15. train — the flagship at full width and depth (bf16, ``remat=False``)
    trained by the port's ``compute.train``: ``init_state`` →
    ``make_train_step(plain_loss(transformer.loss_fn))`` → ``fit`` over
    one repeated ``synthetic_lm`` batch of 16 x 1024 tokens, 2 warm
@@ -144,7 +165,7 @@ if any phase fails:
    every step launch K3, K4 and K5 exactly 12 times each; then one step
    profiled through the port's ``profiler`` (device ms by kernel
    group, the device's idle share);
-15. train conformance — fp32, TF32 off, flagship width, 2 layers, batch
+16. train conformance — fp32, TF32 off, flagship width, 2 layers, batch
    2 x 1024: the loss and every gradient leaf through K3/K4/K5 against
    ``attention="dense"`` (plain PyTorch autograd) on the card, loss
    within 1e-5 relative, each leaf's max |Δg| within 1e-3 of that
@@ -152,22 +173,22 @@ if any phase fails:
    against ``remat=False``: gradients within 1e-5 of each leaf's max
    |g| (the embedding's scatter-add sums in another order each run),
    24 K3 launches against 12, 12 of K4 and K5 in both;
-16. moe_apply — the MoE flagship (``moe_config``: vocab 32000, d_model
+17. moe_apply — the MoE flagship (``moe_config``: vocab 32000, d_model
    1024, 8 layers, 8 heads MHA, ff 2816, 8 experts top-2, dropless on
    the grouped matmul, bf16, random weights from a seed):
    ``transformer.apply`` on 1 x 1024 tokens, finite logits, exactly 16
    K6 and 8 K3 launches;
-17. moe_train — the same model trained (``remat=False``, one repeated
+18. moe_train — the same model trained (``remat=False``, one repeated
    8 x 1024 batch, 2 warm + 3 timed steps): step ms, tokens/s, MFU by
    JAX's ``flops_per_token`` (which counts the dense MLP once), peak
    memory, losses, ``moe_aux`` and the padded-row share; the loss falls
    and every step launches K6 32, K7 16 and K3/K4/K5 8 times each; then
    one step profiled (``moe_train_profile``);
-18. moe_conformance — fp32, TF32 off, MoE width, 2 layers, batch 2 x
+19. moe_conformance — fp32, TF32 off, MoE width, 2 layers, batch 2 x
    1024: the loss and every gradient leaf through K6/K7 against the
    plain ragged engine (``moe_gmm=False``), loss within 1e-5 relative,
    each leaf within 1e-3 of its max |g|, ``apply`` logits within 1e-3;
-19. resnet_eval — ResNet-50 (bf16, random weights and randomised BN from
+20. resnet_eval — ResNet-50 (bf16, random weights and randomised BN from
    a seed) at batch 256, 224 px in eval mode: every identity block's
    input through both ``resnet._block`` and K8
    (``fused_bottleneck_eval``), agreeing within 3e-2 of the block
@@ -176,20 +197,20 @@ if any phase fails:
    (exactly 12 launches, finite logits within 5e-2 of the unfused
    forward's, statistics untouched) and samples/s of the unfused and the
    K8 forward;
-20. resnet_train — ResNet-50 trained (bf16, ``init_state(extra=stats)``
+21. resnet_train — ResNet-50 trained (bf16, ``init_state(extra=stats)``
    → ``make_train_step(stateful_loss(resnet.loss_fn))`` → ``fit`` over
    one repeated 256 x 224 x 224 x 3 batch, 2 warm + 3 timed steps): step
    ms, samples/s, MFU by ``flops_per_sample``, peak memory; the loss
    falls and the running means move; then one step profiled
    (``resnet_train_profile``);
-21. bert_train — bert-base (bf16, ``remat=False``, per-layer weights) on
+22. bert_train — bert-base (bf16, ``remat=False``, per-layer weights) on
    one repeated 16 x 512 ``mlm_batch``, 2 warm + 3 timed steps: step ms,
    tokens/s, MFU; the loss falls and every step launches K3, K4 and K5
    12 times each; then one step profiled; and bert_conformance — fp32, 2
    layers, 2 x 512: loss and every gradient leaf through K3-K5 (no
    causal mask, head_dim 64) against ``attention="dense"``, 1e-5 / 1e-3
    of each leaf's max |g|;
-22. train_mesh — the flagship (bf16, ``remat=False``) trained on a
+23. train_mesh — the flagship (bf16, ``remat=False``) trained on a
    ``data=2, tensor=2`` mesh over four positions of the one card
    (``init_state(mesh=)`` → ``make_train_step(mesh=)`` → ``fit(mesh=)``,
    3 steps on one 16 x 1024 batch; 4 q and 1 KV head a tensor shard):
@@ -227,10 +248,10 @@ if any phase fails:
    slice_worker — ``python -m kubeflow_tpu_torch.cmd slice-worker`` as a
    gang of 2: a fault at step 3 (exit 17), the gang restarted, resumed
    from step 2 and equal to an uninterrupted gang's within 1e-6;
-23. sweep — ``run_mnist_sweep`` of 8 trials in 2 shape buckets, 30
+24. sweep — ``run_mnist_sweep`` of 8 trials in 2 shape buckets, 30
    steps, equal within 1e-5 to 8 calls of ``run_mnist_trial``; wall
    seconds of both;
-24. the ``kernels`` line — every ported kernel with its launches on each
+25. the ``kernels`` line — every ported kernel with its launches on each
    path (counts zeroed just before a path, read just after), its max
    |Δ| and its times.
 
@@ -2957,6 +2978,570 @@ def phase_disagg_wire(params, kernel_fns):
     return row
 
 
+# ------------------------------------------------------------ unary predict
+
+PREDICT_CLIENTS = 8          # keep-alive clients of the x-tensor traffic
+PREDICT_PER_CLIENT = 4       # requests each, one 224 x 224 x 3 image each
+PREDICT_SEQUENTIAL = 4       # JSON and b64 requests, one after another
+PREDICT_STREAM_LINES = 32
+PREDICT_FP32_ROWS = 4
+PREDICT_BUDGET = 1.5         # predict_residency's budget, in models
+PREDICT_MEMORY_SHARE = 0.9   # of a model's bytes an eviction must free
+PREDICT_CANARY_SEED = 0
+PREDICT_CANARY_REQUESTS = 16
+PREDICT_INT8_SHARE = 0.3     # int8 resident bytes of the bf16 model's, most
+PREDICT_DEVICE_MS = 5        # predict_cmd's MODEL_DEVICE_MS
+PREDICT_CMD_REQUESTS = 10    # per client of the fake device, 8 clients
+#: knobs predict_cmd's replicas get besides the phase's own (none: the
+#: card; a CPU rehearsal names ``GEN_DEVICE=cpu`` here)
+PREDICT_CMD_ENV = {}
+#: the module predict_cmd's MODEL_MODULE replica imports: its model
+#: refuses an input that is not on the card
+PREDICT_MODULE = '''
+def register(server):
+    def tripled(x):
+        if x.device.type != "cuda":
+            raise RuntimeError(f"input on {x.device}, not the card")
+        return x * 3.0
+    server.register("tripled", tripled, version=3)
+'''
+
+
+def resnet_predict(cfg):
+    """``bench.py:268-287``'s two predict functions over a ``(params,
+    stats)`` tree: eval logits in the config's compute dtype, softmax,
+    fp32 out; the int8 variant widens ``quantize_tree``'s codes to bf16
+    at the call (``dequantize_tree``), its classifier weight then to
+    fp32, as JAX's head promotes it."""
+    import torch
+    from kubeflow_tpu_torch.compute import quantize
+    from kubeflow_tpu_torch.compute.models import resnet
+
+    def predict(tree, x):
+        params, stats = tree
+        logits, _ = resnet.apply(params, stats, x, cfg, train=False)
+        return torch.softmax(logits, dim=-1).float()
+
+    def predict_int8(tree, x):
+        qparams, stats = tree
+        params = quantize.dequantize_tree(qparams, dtype=torch.bfloat16)
+        params["fc"] = {k: v.float() for k, v in params["fc"].items()}
+        return predict((params, stats), x)
+
+    return predict, predict_int8
+
+
+def predict_images(n, seed=20):
+    return np.random.default_rng(seed).standard_normal(
+        (n, 224, 224, 3)).astype(np.float32)
+
+
+def _x_tensor(x):
+    return x.tobytes(), {"Content-Type": "application/x-tensor",
+                         "X-Tensor-Dtype": str(x.dtype),
+                         "X-Tensor-Shape": ",".join(map(str, x.shape))}
+
+
+def _b64_body(x):
+    import base64
+    return json.dumps({"tensor": {
+        "dtype": str(x.dtype), "shape": list(x.shape),
+        "b64": base64.b64encode(x.tobytes()).decode()}}).encode()
+
+
+def _predict_post(conn, path, body, headers=None):
+    """One request on a kept-alive connection → ``{"status", "head",
+    "body", "ms"}`` (the client's wall ms, the body read)."""
+    t0 = time.perf_counter()
+    conn.request("POST", path, body,
+                 headers or {"Content-Type": "application/json"})
+    resp = conn.getresponse()
+    data = resp.read()
+    return {"status": resp.status, "body": data,
+            "head": {k.lower(): v for k, v in resp.getheaders()},
+            "ms": 1e3 * (time.perf_counter() - t0)}
+
+
+def _predict_rows(r, classes):
+    """A 200 answer → its rows ``[n, classes]`` in any of the formats."""
+    if r["status"] != 200:
+        raise AssertionError(f"predict answered {r['status']}: "
+                             f"{r['body'][:300]!r}")
+    ctype = r["head"].get("content-type")
+    if ctype == "application/x-tensor":
+        if r["head"].get("x-tensor-dtype") != "float32":
+            raise AssertionError(f"X-Tensor-Dtype {r['head']}")
+        shape = [int(d) for d in r["head"]["x-tensor-shape"].split(",")]
+        return np.frombuffer(r["body"], "<f4").reshape(shape)
+    if ctype != "application/json":
+        raise AssertionError(f"Content-Type {ctype!r}")
+    payload = json.loads(r["body"])
+    if "tensor" in payload:
+        import base64
+        t = payload["tensor"]
+        return np.frombuffer(base64.b64decode(t["b64"]), "<f4").reshape(
+            t["shape"])
+    return np.asarray(payload["predictions"], np.float32).reshape(
+        -1, classes)
+
+
+def _parallel(fns):
+    """Run each callable on a thread of its own → their results; the
+    first error raised in any is raised here."""
+    import threading
+    out, errors = [None] * len(fns), []
+
+    def run(i):
+        try:
+            out[i] = fns[i]()
+        except Exception as e:  # noqa: BLE001 — re-raised below
+            errors.append(e)
+
+    threads = [threading.Thread(target=run, args=(i,))
+               for i in range(len(fns))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    if errors:
+        raise errors[0]
+    return out
+
+
+def occupancy_delta(before, after):
+    """Two reads of one ``serving_batch_occupancy_requests`` series →
+    ``(dispatches, requests, mean requests a dispatch)`` between them."""
+    before = before or {"sum": 0.0, "count": 0}
+    calls = after["count"] - before["count"]
+    reqs = after["sum"] - before["sum"]
+    return calls, reqs, reqs / calls if calls else 0.0
+
+
+def check_coalesced(device_calls, requests, occupancy_mean):
+    """Concurrent requests must share device calls: fewer calls than
+    requests, and more than one request a dispatch on average."""
+    if not device_calls < requests or not occupancy_mean > 1.0:
+        raise AssertionError(
+            f"{requests} concurrent requests took {device_calls} device "
+            f"calls, mean occupancy {occupancy_mean}: nothing coalesced")
+
+
+def check_memory_drop(before, after, model_bytes,
+                      share=PREDICT_MEMORY_SHARE):
+    """An eviction must free the model's device memory: allocated bytes
+    fall by at least ``share`` of its bytes."""
+    if before - after < share * model_bytes:
+        raise AssertionError(
+            f"the eviction freed {before - after} bytes of "
+            f"{model_bytes}, less than {share} of them")
+
+
+def canary_split(seed, weight, n, stable, canary):
+    """The versions ``n`` requests get from a server whose
+    ``_canary_rng`` is ``random.Random(seed)``: the canary where a draw
+    falls below ``weight`` (``ModelServer._route``)."""
+    import random
+    rng = random.Random(seed)
+    return [canary if rng.random() < weight else stable for _ in range(n)]
+
+
+def _latency(ms):
+    return {"p50_ms": _pctl(ms, 0.5), "p99_ms": _pctl(ms, 0.99),
+            "n": len(ms)}
+
+
+def phase_predict(kernel_fns):
+    """ResNet-50 (bf16, 1000 classes, ``init_params`` from a seed, as
+    ``bench.py:266`` serves it) behind the port's ``ModelServer`` on
+    127.0.0.1, registered as
+    ``resnet50`` and ``resnet50-int8`` (weight-only int8, widened at the
+    call; both residency-managed, preloaded) with ``bench.py:268-287``'s
+    predict functions, and an fp32 ResNet-50 (TF32 off) on the same
+    weights. Counts zeroed just before the traffic and read after: 8
+    keep-alive clients send 4 ``application/x-tensor`` requests each of
+    one 224 x 224 x 3 float32 image, then 4 JSON ``instances`` and 4 b64
+    requests one after another, one ``:predictStream`` of 32 b64 lines,
+    8 images to the int8 model and 4 to the fp32 one. Every answer is
+    200 in its format; every served row is within 2e-2 of the in-process
+    predict of the same image (bf16), the fp32 rows within 1e-4 of
+    ``resnet.apply`` unpadded; the x-tensor requests coalesce (fewer
+    device calls than requests, mean occupancy above 1); the int8 model
+    holds at most 0.3x the bf16 model's bytes, its argmax agreement is
+    printed. Images/s and latency p50/p99 per format, the
+    ``X-Inference-Time-Ms`` p50 and one batch of 8 profiled."""
+    import dataclasses
+    import http.client
+    import torch
+    from kubeflow_tpu_torch.compute import profiler, quantize, serving
+    from kubeflow_tpu_torch.compute.models import resnet
+    cfg = resnet.Config(depth=50, n_classes=1000, dtype="bfloat16")
+    classes = cfg.n_classes
+    predict, predict_int8 = resnet_predict(cfg)
+    f32_predict, _ = resnet_predict(dataclasses.replace(cfg,
+                                                        dtype="float32"))
+    host = resnet.init_params(cfg, torch.Generator().manual_seed(20),
+                              device="cpu")
+    server = serving.ModelServer()
+    model = server.register_loadable("resnet50", predict, host,
+                                     preload=True)
+    qmodel = server.register_loadable(
+        "resnet50-int8", predict_int8,
+        (quantize.quantize_tree(host[0]), host[1]), preload=True)
+    dev_tree = model._dev_params
+    server.register("resnet50-fp32", lambda x: f32_predict(dev_tree, x))
+    port = server.start(port=0, host="127.0.0.1")
+    imgs = predict_images(PREDICT_CLIENTS)
+    try:
+        # the in-process answer of every image (bucket 8), and every
+        # bucket the traffic lands on launched once before it
+        ref = model._run(imgs)
+        for n in (1, PREDICT_STREAM_LINES):
+            model._run(np.repeat(imgs[:1], n, 0))
+        torch.cuda.synchronize()
+        path = "/v1/models/resnet50:predict"
+        occ0 = serving._BATCH_OCCUPANCY.samples().get(
+            ("resnet50", "stable"))
+        calls0 = model.device_calls
+        _zero(kernel_fns)
+
+        def client(i):
+            conn = http.client.HTTPConnection("127.0.0.1", port,
+                                              timeout=300)
+            try:
+                return [_predict_post(conn, path, *_x_tensor(imgs[i:i + 1]))
+                        for _ in range(PREDICT_PER_CLIENT)]
+            finally:
+                conn.close()
+
+        t0 = time.perf_counter()
+        binary = _parallel([lambda i=i: client(i)
+                            for i in range(PREDICT_CLIENTS)])
+        binary_s = time.perf_counter() - t0
+        calls = model.device_calls - calls0
+        dispatches, coalesced, occ_mean = occupancy_delta(
+            occ0, serving._BATCH_OCCUPANCY.samples()[
+                ("resnet50", "stable")])
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=300)
+        try:
+            json_r = [_predict_post(conn, path, json.dumps(
+                {"instances": imgs[:1].tolist()}).encode())
+                for _ in range(PREDICT_SEQUENTIAL)]
+            b64_r = [_predict_post(conn, path, _b64_body(imgs[:1]))
+                     for _ in range(PREDICT_SEQUENTIAL)]
+            lines = [imgs[i % PREDICT_CLIENTS][None]
+                     for i in range(PREDICT_STREAM_LINES)]
+            stream = _predict_post(
+                conn, "/v1/models/resnet50:predictStream",
+                b"\n".join(_b64_body(x) for x in lines) + b"\n",
+                {"Content-Type": "application/x-ndjson"})
+            int8_r = _predict_post(conn, "/v1/models/resnet50-int8:predict",
+                                   *_x_tensor(imgs))
+            x32 = imgs[:PREDICT_FP32_ROWS]
+            f32_r = _predict_post(conn, "/v1/models/resnet50-fp32:predict",
+                                  *_x_tensor(x32))
+        finally:
+            conn.close()
+        launches = _launches(kernel_fns)
+        with torch.inference_mode():
+            f32_ref = f32_predict(dev_tree, torch.from_numpy(x32).cuda()) \
+                .cpu().numpy()
+        # one batch of 8, profiled: upload, forward, fetch
+        with profiler.trace("build/profile") as cap:
+            w0 = time.perf_counter()
+            model._run(imgs)
+            wall_ms = 1e3 * (time.perf_counter() - w0)
+        prof = profiler.device_summary(cap.profile, wall_ms)
+        listing = json.loads(_http(port, "GET", "/v1/models")[2])
+    finally:
+        server.stop()
+    errs = {}
+    for i, rs in enumerate(binary):
+        for r in rs:
+            head = r["head"]
+            if head.get("x-tensor-shape") != f"1,{classes}" \
+                    or head.get("x-served-version") != "1" \
+                    or "x-inference-time-ms" not in head:
+                raise AssertionError(f"x-tensor answer headers: {head}")
+            errs.setdefault("binary", []).append(float(np.abs(
+                _predict_rows(r, classes)[0] - ref[i]).max()))
+    for fmt, rs in (("json", json_r), ("b64", b64_r)):
+        for r in rs:
+            errs.setdefault(fmt, []).append(float(np.abs(
+                _predict_rows(r, classes)[0] - ref[0]).max()))
+    if stream["status"] != 200 or stream["head"].get("content-type") \
+            != "application/x-ndjson":
+        raise AssertionError(f":predictStream {stream['status']} "
+                             f"{stream['head']}")
+    frames = [json.loads(ln) for ln in stream["body"].splitlines() if ln]
+    if len(frames) != PREDICT_STREAM_LINES:
+        raise AssertionError(f":predictStream gave {len(frames)} frames")
+    for i, f in enumerate(frames):
+        if "tensor" not in f:
+            raise AssertionError(f"stream frame {i}: {str(f)[:200]}")
+        errs.setdefault("stream", []).append(float(np.abs(_predict_rows(
+            {"status": 200, "head": {"content-type": "application/json"},
+             "body": json.dumps(f).encode()}, classes)[0]
+            - ref[i % PREDICT_CLIENTS]).max()))
+    int8_rows = _predict_rows(int8_r, classes)
+    f32_rows = _predict_rows(f32_r, classes)
+    ratio = qmodel.resident_bytes / model.resident_bytes
+    x_ms = [float(r["head"]["x-inference-time-ms"])
+            for rs in binary for r in rs]
+    row = {"phase": "predict", "model": "resnet50", "dtype": "bfloat16",
+           "image": [224, 224, 3], "clients": PREDICT_CLIENTS,
+           "per_client": PREDICT_PER_CLIENT,
+           "requests": PREDICT_CLIENTS * PREDICT_PER_CLIENT,
+           "device_calls": calls, "occupancy_dispatches": dispatches,
+           "occupancy_requests": coalesced, "occupancy_mean": occ_mean,
+           "images_per_s": {
+               "binary": PREDICT_CLIENTS * PREDICT_PER_CLIENT / binary_s,
+               "json": 1e3 * len(json_r) / sum(r["ms"] for r in json_r),
+               "b64": 1e3 * len(b64_r) / sum(r["ms"] for r in b64_r),
+               "stream": 1e3 * PREDICT_STREAM_LINES / stream["ms"]},
+           "latency": {"binary": _latency([r["ms"] for rs in binary
+                                           for r in rs]),
+                       "json": _latency([r["ms"] for r in json_r]),
+                       "b64": _latency([r["ms"] for r in b64_r]),
+                       "stream_ms": stream["ms"]},
+           "inference_time_ms_p50": _pctl(x_ms, 0.5),
+           "max_abs_err": {k: max(v) for k, v in errs.items()},
+           "fp32_max_abs_err": float(np.abs(f32_rows - f32_ref).max()),
+           "int8_resident_bytes": qmodel.resident_bytes,
+           "bf16_resident_bytes": model.resident_bytes,
+           "int8_bytes_share": ratio,
+           "int8_argmax_agreement": float(
+               (int8_rows.argmax(-1) == ref.argmax(-1)).mean()),
+           "int8_max_abs_diff": float(np.abs(int8_rows - ref).max()),
+           "resident_bytes": listing["resident_bytes"],
+           "launches": launches}
+    emit(row)
+    emit({"phase": "predict_profile", "trace": cap.path, "rows": 8, **prof})
+    for fmt, e in errs.items():
+        if max(e) > TOL["bfloat16"] or not np.isfinite(e).all():
+            raise AssertionError(f"{fmt} rows {max(e)} off the in-process "
+                                 f"predict (tolerance {TOL['bfloat16']})")
+    if not row["fp32_max_abs_err"] <= TOL["float32"]:
+        raise AssertionError(f"fp32 rows {row['fp32_max_abs_err']} off "
+                             f"resnet.apply (tolerance {TOL['float32']})")
+    if not np.allclose(np.concatenate([ref, f32_rows, int8_rows])
+                       .sum(-1), 1.0, atol=1e-3):
+        raise AssertionError("predicted rows do not sum to 1")
+    check_coalesced(calls, PREDICT_CLIENTS * PREDICT_PER_CLIENT, occ_mean)
+    if ratio > PREDICT_INT8_SHARE:
+        raise AssertionError(f"resnet50-int8 holds {ratio} of the bf16 "
+                             f"model's bytes (at most {PREDICT_INT8_SHARE})")
+    return row
+
+
+def phase_predict_residency():
+    """Two managed ResNet-50s (bf16, weights from two seeds, host trees
+    on the CPU) under ``budget_bytes`` = 1.5 models: a predict on ``a``
+    loads it, one on ``b`` evicts ``a`` — ``torch.cuda.memory_allocated``
+    falls by at least 0.9x ``a``'s bytes across the unload —, and the
+    next on ``a`` reloads it (loads 2). Then, the budget raised to three
+    models, a canary of ``a`` (``b``'s weights, version 2) at weight 0.5
+    with ``_canary_rng`` seeded: ``X-Served-Version`` of 16 requests is
+    the split the seed dictates; ``promote_canary`` serves version 2
+    alone; a version-3 canary at weight 1 serves 3 alone and
+    ``rollback_canary`` returns every request to 2, the canary's memory
+    freed."""
+    import http.client
+    import random
+    import torch
+    from kubeflow_tpu_torch.compute import serving
+    from kubeflow_tpu_torch.compute.models import resnet
+    cfg = resnet.Config(depth=50, n_classes=1000, dtype="bfloat16")
+    predict, _ = resnet_predict(cfg)
+    host_a, host_b = (resnet.init_params(
+        cfg, torch.Generator().manual_seed(seed), device="cpu")
+        for seed in (22, 23))
+    one = serving.tree_bytes(host_a)
+    server = serving.ModelServer(budget_bytes=int(PREDICT_BUDGET * one))
+    server._canary_rng = random.Random(PREDICT_CANARY_SEED)
+    a = server.register_loadable("a", predict, host_a)
+    b = server.register_loadable("b", predict, host_b)
+    port = server.start(port=0, host="127.0.0.1")
+    drops = []
+    unload = a.unload
+
+    def measured_unload():
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        unload()
+        drops.append((before, torch.cuda.memory_allocated()))
+
+    a.unload = measured_unload
+    body, headers = _x_tensor(predict_images(1, seed=24))
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=300)
+
+    def served(name):
+        r = _predict_post(conn, f"/v1/models/{name}:predict", body, headers)
+        _predict_rows(r, cfg.n_classes)
+        return r["head"]["x-served-version"]
+
+    try:
+        t0 = time.perf_counter()
+        served("a")
+        first_ms = 1e3 * (time.perf_counter() - t0)
+        served("b")                     # evicts a
+        listing_b = json.loads(_http(port, "GET", "/v1/models")[2])
+        t0 = time.perf_counter()
+        served("a")                     # reloads a, evicts b
+        reload_ms = 1e3 * (time.perf_counter() - t0)
+        a.unload = unload
+        listing_a = json.loads(_http(port, "GET", "/v1/models")[2])
+        server.budget_bytes = int(3 * one)
+        server.register_canary("a", predict, host_b, version=2, weight=0.5)
+        split = [served("a") for _ in range(PREDICT_CANARY_REQUESTS)]
+        want = canary_split(PREDICT_CANARY_SEED, 0.5,
+                            PREDICT_CANARY_REQUESTS, "1", "2")
+        server.promote_canary("a")
+        promoted = [served("a") for _ in range(4)]
+        server.register_canary("a", predict, host_a, version=3, weight=1.0)
+        canary3 = [served("a") for _ in range(4)]
+        torch.cuda.synchronize()
+        before_rollback = torch.cuda.memory_allocated()
+        server.rollback_canary("a")
+        after_rollback = torch.cuda.memory_allocated()
+        rolled = [served("a") for _ in range(4)]
+        listing_end = json.loads(_http(port, "GET", "/v1/models")[2])
+    finally:
+        conn.close()
+        server.stop()
+    row = {"phase": "predict_residency", "model_bytes": one,
+           "budget_bytes": int(PREDICT_BUDGET * one),
+           "evictions_measured": len(drops),
+           "eviction_freed_bytes": [x - y for x, y in drops],
+           "a_loads": a.loads, "a_evictions": a.evictions,
+           "b_evictions": b.evictions,
+           "states_after_b": {m["name"]: m["state"]
+                              for m in listing_b["models"]},
+           "states_after_a": {m["name"]: m["state"]
+                              for m in listing_a["models"]},
+           "first_predict_ms": first_ms, "reload_predict_ms": reload_ms,
+           "canary_split": "".join(split), "canary_want": "".join(want),
+           "promoted": promoted, "canary3": canary3, "rolled_back": rolled,
+           "rollback_freed_bytes": before_rollback - after_rollback,
+           "resident_bytes_end": listing_end["resident_bytes"]}
+    emit(row)
+    if not drops:
+        raise AssertionError("a predict on b did not evict a")
+    check_memory_drop(*drops[0], one)
+    check_memory_drop(before_rollback, after_rollback, one)
+    if a.loads != 2 or row["states_after_b"] != {"a": "EVICTED",
+                                                 "b": "RESIDENT"} \
+            or row["states_after_a"] != {"a": "RESIDENT", "b": "EVICTED"}:
+        raise AssertionError(f"residency: loads {a.loads}, "
+                             f"{row['states_after_b']}, "
+                             f"{row['states_after_a']}")
+    if split != want or set(split) != {"1", "2"}:
+        raise AssertionError(f"canary split {split}, the seed says {want}")
+    if set(promoted) != {"2"} or set(canary3) != {"3"} \
+            or set(rolled) != {"2"}:
+        raise AssertionError(f"promote {promoted}, canary {canary3}, "
+                             f"rollback {rolled}")
+    return row
+
+
+def phase_predict_cmd():
+    """``python -m kubeflow_tpu_torch.cmd model-server`` without
+    ``MODEL_GENERATE`` and without ``GEN_DEVICE`` (the card), three
+    replicas started together: the stock MLP (``/healthz``,
+    ``/v1/models/default``, a JSON predict whose 16-class rows sum to
+    1); ``MODEL_DEVICE_MS=5``, 8 keep-alive clients of 10 one-row
+    requests, the rows/s printed beside 1000/5; ``MODEL_MODULE`` naming
+    a module this phase writes under ``build/`` on ``PYTHONPATH``, whose
+    model refuses an input that is not on the card. SIGTERM ends each
+    with exit 0 within 30 s."""
+    import http.client
+    import pathlib
+    import signal
+    root = pathlib.Path(__file__).resolve().parent
+    moddir = _scratch("predict_module_")
+    with open(f"{moddir}/predict_module.py", "w") as f:
+        f.write(PREDICT_MODULE)
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith(("GEN_", "MODEL_")) and k not in (
+               "QOS_TENANTS", "SERVING_TRANSPORT")}
+    env.update(PORT="0", HOST="127.0.0.1", OBS_EXPORT_DIR="",
+               PYTHONPATH=str(root), **PREDICT_CMD_ENV)
+    replicas = {
+        "mlp": _Replica(env, root),
+        "sleeper": _Replica({**env, "MODEL_DEVICE_MS":
+                             str(PREDICT_DEVICE_MS)}, root),
+        "module": _Replica({**env, "MODEL_MODULE": "predict_module",
+                            "PYTHONPATH": f"{root}{os.pathsep}{moddir}"},
+                           root)}
+    try:
+        ports = {k: r.port() for k, r in replicas.items()}
+        startup = {k: time.perf_counter() - r.t0
+                   for k, r in replicas.items()}
+        status, _, body = _http(ports["mlp"], "GET", "/healthz")
+        if (status, json.loads(body)) != (200, {"status": "ok"}):
+            raise AssertionError(f"/healthz: {status} {body}")
+        info = json.loads(_http(ports["mlp"], "GET",
+                                "/v1/models/default")[2])
+        x = np.random.default_rng(25).standard_normal((4, 64)).astype(
+            np.float32)
+        mlp = _http(ports["mlp"], "POST", "/v1/models/default:predict",
+                    {"instances": x.tolist()})
+        mlp_rows = np.asarray(json.loads(mlp[2])["predictions"])
+        mod = _http(ports["module"], "POST", "/v1/models/tripled:predict",
+                    {"instances": x.tolist()})
+        one_row = _x_tensor(x[:1])
+
+        def client():
+            conn = http.client.HTTPConnection("127.0.0.1", ports["sleeper"],
+                                              timeout=120)
+            try:
+                return [_predict_post(conn, "/v1/models/default:predict",
+                                      *one_row)
+                        for _ in range(PREDICT_CMD_REQUESTS)]
+            finally:
+                conn.close()
+
+        t0 = time.perf_counter()
+        sleeper = _parallel([client] * PREDICT_CLIENTS)
+        sleeper_s = time.perf_counter() - t0
+        codes, t_term = {}, time.perf_counter()
+        for r in replicas.values():
+            r.proc.send_signal(signal.SIGTERM)
+        for k, r in replicas.items():
+            codes[k] = r.proc.wait(timeout=30)
+        term_s = time.perf_counter() - t_term
+    finally:
+        for r in replicas.values():
+            r.stop()
+    rows = PREDICT_CLIENTS * PREDICT_CMD_REQUESTS
+    row = {"phase": "predict_cmd", "startup_s": startup,
+           "mlp_status": mlp[0], "mlp_shape": list(mlp_rows.shape),
+           "mlp_row_sums_max_err": float(np.abs(mlp_rows.sum(-1) - 1).max()),
+           "mlp_residency": info.get("residency"),
+           "module_status": mod[0],
+           "module_version": mod[1].get("x-served-version"),
+           "sleeper_rows": rows, "sleeper_s": sleeper_s,
+           "sleeper_rows_per_s": rows / sleeper_s,
+           "sleeper_capacity_rows_per_s": 1000 / PREDICT_DEVICE_MS,
+           "sigterm_exit": codes, "sigterm_s": term_s}
+    emit(row)
+    if mlp[0] != 200 or mlp_rows.shape != (4, 16) \
+            or row["mlp_row_sums_max_err"] > 1e-5:
+        raise AssertionError(f"stock MLP: {mlp[0]} {mlp_rows.shape} "
+                             f"{row['mlp_row_sums_max_err']}")
+    if mod[0] != 200 or row["module_version"] != "3" or not np.allclose(
+            json.loads(mod[2])["predictions"], x * 3.0, rtol=1e-6):
+        raise AssertionError(f"MODEL_MODULE: {mod[0]} {mod[2][:300]!r}")
+    for r in (r for rs in sleeper for r in rs):
+        if r["status"] != 200 or not np.allclose(
+                np.frombuffer(r["body"], "<f4"), x[0] * 2.0):
+            raise AssertionError(f"MODEL_DEVICE_MS: {r['status']} "
+                                 f"{r['body'][:200]!r}")
+    if set(codes.values()) != {0}:
+        raise AssertionError(f"SIGTERM exit codes {codes}: " + str(
+            {k: r.log[-10:] for k, r in replicas.items()}))
+    return row
+
+
 TRAIN_BATCH = (16, 1024)
 TRAIN_WARM, TRAIN_TIMED = 2, 5
 MESH_TP = 2
@@ -5390,13 +5975,29 @@ class Int8Launches:
         self.fn.launches_i8 = n
 
 
-def main():
-    import torch
-    from kubeflow_tpu_torch.compute.models import transformer
+def counted_kernels():
+    """Every kernel's wrapper by name → the object whose ``.launches``
+    counts its launches (the int8 reads through ``Int8Launches``)."""
     from kubeflow_tpu_torch.compute.ops import flash_attention as flash_ops
     from kubeflow_tpu_torch.compute.ops import fused_block as block_ops
     from kubeflow_tpu_torch.compute.ops import grouped_matmul as gmm_ops
     from kubeflow_tpu_torch.compute.ops import paged_attention as paged_ops
+    return {"paged_decode": paged_ops.paged_decode_attention,
+            "paged_chunk": paged_ops.paged_chunk_attention,
+            "paged_decode_i8": Int8Launches(
+                paged_ops.paged_decode_attention),
+            "paged_chunk_i8": Int8Launches(paged_ops.paged_chunk_attention),
+            "flash_fwd": flash_ops.flash_attention,
+            "flash_bwd_dq": flash_ops.flash_attention_bwd_dq,
+            "flash_bwd_dkv": flash_ops.flash_attention_bwd_dkv,
+            "grouped_matmul": gmm_ops.grouped_matmul,
+            "grouped_matmul_dw": gmm_ops.grouped_matmul_dw,
+            "fused_block": block_ops.fused_bottleneck_eval}
+
+
+def main():
+    import torch
+    from kubeflow_tpu_torch.compute.models import transformer
     if sys.argv[1:2] == ["--process-mesh-rank"]:   # a rank of process_mesh
         process_mesh_rank(int(sys.argv[2]), sys.argv[3], sys.argv[4])
         return
@@ -5410,18 +6011,7 @@ def main():
     rows = phase_kernels(ptxas)
     params = transformer.init_params(
         flagship_config(), torch.Generator().manual_seed(0), device="cuda")
-    kernel_fns = {"paged_decode": paged_ops.paged_decode_attention,
-                  "paged_chunk": paged_ops.paged_chunk_attention,
-                  "paged_decode_i8": Int8Launches(
-                      paged_ops.paged_decode_attention),
-                  "paged_chunk_i8": Int8Launches(
-                      paged_ops.paged_chunk_attention),
-                  "flash_fwd": flash_ops.flash_attention,
-                  "flash_bwd_dq": flash_ops.flash_attention_bwd_dq,
-                  "flash_bwd_dkv": flash_ops.flash_attention_bwd_dkv,
-                  "grouped_matmul": gmm_ops.grouped_matmul,
-                  "grouped_matmul_dw": gmm_ops.grouped_matmul_dw,
-                  "fused_block": block_ops.fused_bottleneck_eval}
+    kernel_fns = counted_kernels()
     paths = {"engine": phase_engine(params, kernel_fns)}
     paths["engine_i8"] = phase_engine_i8(params, kernel_fns, paths["engine"])
     paths["prefix"] = phase_prefix(params, kernel_fns)
@@ -5437,6 +6027,9 @@ def main():
     paths["disagg"] = phase_disagg(params, kernel_fns)
     paths["disagg_i8"] = phase_disagg_i8(params, kernel_fns, paths["disagg"])
     paths["disagg_wire"] = phase_disagg_wire(params, kernel_fns)
+    paths["predict"] = phase_predict(kernel_fns)
+    phase_predict_residency()
+    phase_predict_cmd()
     paths["mesh"] = phase_mesh(params, kernel_fns)
     del params, target, draft
     torch.cuda.empty_cache()

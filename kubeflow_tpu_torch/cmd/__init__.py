@@ -1,22 +1,35 @@
 """Process entry points of the port —
 ``python -m kubeflow_tpu_torch.cmd <component>``.
 
-``model-server`` is the generation branch (``MODEL_GENERATE=1``) of the
-JAX package's ``model-server``: a stock TransformerLM from a seed behind
-``POST /v1/models/<name>:generate`` on the port's ``ModelServer``,
-sized by the same ``GEN_*`` knobs. It runs on the card; ``GEN_DEVICE=cpu``
-asks for the CPU by name, and with neither a CUDA card nor that knob it
-exits through ``device.resolve``'s error (there is no silent fallback).
-It prints ``PORT <n>`` once serving and blocks until SIGTERM/SIGINT,
-then stops the server. ``GEN_ROLE`` (``prefill`` | ``decode`` | ``both``)
-gives the engine its disaggregation role: a prefill replica answers
-``:prefill`` with page bundles, a decode replica takes them on
-``:attach``. ``GEN_MESH`` (``tensor=N`` or a bare N; it wins over
-``GEN_TP``) or ``GEN_TP`` > 1 shards the engine over a tensor mesh: the
-first N cards, or N CPU shards under ``GEN_DEVICE=cpu``; a host with
-fewer cards exits non-zero naming the count. ``GEN_ROW_SHARD`` shards
-the row projections too (it needs the mesh), and ``GEN_CALIBRATE``
-measures the collective share before serving.
+``model-server`` is one replica of the JAX package's ``model-server``
+on the port's ``ModelServer``, serving ``MODEL_NAME`` (default
+``default``) in one of its branches:
+
+- ``MODEL_GENERATE=1``: a stock TransformerLM from a seed behind
+  ``POST /v1/models/<name>:generate``, sized by the same ``GEN_*`` knobs.
+  ``GEN_ROLE`` (``prefill`` | ``decode`` | ``both``) gives the engine its
+  disaggregation role: a prefill replica answers ``:prefill`` with page
+  bundles, a decode replica takes them on ``:attach``. ``GEN_MESH``
+  (``tensor=N`` or a bare N; it wins over ``GEN_TP``) or ``GEN_TP`` > 1
+  shards the engine over a tensor mesh: the first N cards, or N CPU
+  shards under ``GEN_DEVICE=cpu``; a host with fewer cards exits
+  non-zero naming the count. ``GEN_ROW_SHARD`` shards the row
+  projections too (it needs the mesh), and ``GEN_CALIBRATE`` measures
+  the collective share before serving.
+- otherwise the unary ``:predict``/``:predictStream`` plane:
+  ``MODEL_MODULE`` names a module whose ``register(server)`` installs
+  the replica's models; else ``MODEL_DEVICE_MS`` > 0 serves a fake
+  device, pure numpy, each row costing that many ms on the batcher's
+  thread (a replica's capacity is exactly 1000/``MODEL_DEVICE_MS``
+  rows/s); else the stock MLP (``MODEL_IN_DIM`` 64, ``MODEL_HIDDEN``
+  128, ``MODEL_CLASSES`` 16, softmax) with weights drawn from
+  :data:`SEED`.
+
+``GEN_DEVICE`` is the replica's device knob in every branch: unset it
+is the card, and a CUDA-less host exits through ``device.resolve``'s
+error (there is no silent fallback); ``cpu`` asks for the CPU by name.
+The server prints ``PORT <n>`` once serving and blocks until
+SIGTERM/SIGINT, then stops.
 
 ``slice-worker`` is one worker of a training gang
 (``compute/slice_worker.py``): it joins the gang from the
@@ -77,14 +90,6 @@ def _gen_role():
 
 def _refuse_unported():
     """Raise ``SystemExit`` naming the first knob the port refuses."""
-    if not _flag("MODEL_GENERATE"):
-        unary = [k for k in ("MODEL_MODULE", "MODEL_DEVICE_MS")
-                 if os.environ.get(k, "").strip()]
-        raise SystemExit(
-            f"MODEL_GENERATE is not set: the port's model-server serves "
-            f"only the generation branch (MODEL_GENERATE=1); the unary "
-            f"branches ({', '.join(unary) or 'the stock MLP'}) come with "
-            f"the port's unary-predict slice")
     for knob, refused, work in REFUSED:
         if refused():
             raise SystemExit(
@@ -210,17 +215,74 @@ def build_engine(name="default"):
     return engine
 
 
+def _sleeper_model(name, device_ms, device):
+    """The fake device of ``MODEL_DEVICE_MS``: each dispatched ROW costs
+    ``device_ms``, serialized on the batcher's thread, so one replica's
+    capacity is exactly 1000/``device_ms`` rows/s (replica scaling
+    measurable without the host's compute in the way). Pure numpy."""
+    import time
+
+    import numpy as np
+
+    from ..compute import serving
+
+    class _SleeperModel(serving.ServedModel):
+        def dispatch(self, x):
+            self.last_used = time.monotonic()
+            self.device_calls += 1
+            x = np.asarray(x)
+            time.sleep(device_ms * x.shape[0] / 1000.0)
+            return x * 2.0, x.shape[0]
+
+    return _SleeperModel(name, lambda x: x, device=device)
+
+
+def build_unary_server(name="default"):
+    """The unary branches → an unstarted ``ModelServer`` whose models
+    run on ``GEN_DEVICE`` (unset: the card; resolved first, so a
+    CUDA-less host raises before anything is built)."""
+    import importlib
+
+    import torch
+
+    from ..compute import device as device_lib
+    from ..compute import serving
+    from ..compute.models import mlp
+
+    dev = device_lib.resolve(os.environ.get("GEN_DEVICE") or None)
+    server = serving.ModelServer(device=dev)
+    module = os.environ.get("MODEL_MODULE", "")
+    device_ms = float(os.environ.get("MODEL_DEVICE_MS", "0") or 0)
+    if module:
+        importlib.import_module(module).register(server)
+    elif device_ms > 0:
+        server._models[name] = _sleeper_model(name, device_ms, dev)
+    else:
+        cfg = mlp.Config(
+            in_dim=int(os.environ.get("MODEL_IN_DIM", "64")),
+            hidden=int(os.environ.get("MODEL_HIDDEN", "128")),
+            n_classes=int(os.environ.get("MODEL_CLASSES", "16")))
+        params = mlp.init_params(
+            cfg, torch.Generator().manual_seed(SEED), device=dev)
+        server.register(name, lambda x: torch.softmax(
+            mlp.apply(params, x, cfg), dim=-1))
+    return server
+
+
 def model_server(argv=()):
-    """One generation replica: the port's ``ModelServer`` on the
-    threaded transport serving ``MODEL_NAME`` (default ``default``) on
-    ``HOST:PORT`` (default ``0.0.0.0:8500``; ``PORT=0`` picks a free
-    port)."""
+    """One replica: the port's ``ModelServer`` on the threaded transport
+    serving ``MODEL_NAME`` (default ``default``) on ``HOST:PORT``
+    (default ``0.0.0.0:8500``; ``PORT=0`` picks a free port) — a
+    generation engine under ``MODEL_GENERATE``, else the unary plane."""
     _refuse_unported()
     from ..compute import serving
 
     name = os.environ.get("MODEL_NAME", "default")
-    server = serving.ModelServer()
-    server.register_generator(name, build_engine(name))
+    if _flag("MODEL_GENERATE"):
+        server = serving.ModelServer()
+        server.register_generator(name, build_engine(name))
+    else:
+        server = build_unary_server(name)
     port = server.start(
         port=int(os.environ.get("PORT", "8500")),
         host=os.environ.get("HOST", "0.0.0.0"))

@@ -11,7 +11,8 @@ over ``(data, fsdp)`` in that order, each piece copied to every
 position with those coordinates (replicated over the other axes). A
 batch that does not divide is refused (JAX pads). The synthetic
 sources stay numpy, from a seed, so the port and the JAX package read
-the same batches.
+the same batches; ``mnist`` (JAX :155) reads a local idx tree, or falls
+back to the synthetic source (nothing is downloaded).
 """
 
 import queue
@@ -173,3 +174,29 @@ def synthetic_images(batch_size, image_size, n_classes, seed=0,
                                   dtype=np.int32),
         }
         i += 1
+
+
+def mnist(path=None, split="train"):
+    """MNIST from an idx file tree under ``path`` (gzipped
+    ``train-``/``t10k-images-idx3-ubyte.gz`` and ``-labels-idx1-ubyte.gz``),
+    batches of 128: images ``[B, 28, 28, 1]`` float32 in [0, 1], labels
+    int32. Nothing is downloaded: without the tree, the synthetic
+    source's batches of the same shapes."""
+    import gzip
+    import os
+
+    if path is None or not os.path.isdir(path):
+        yield from synthetic_images(128, 28, 10, channels=1)
+        return
+    prefix = "train" if split == "train" else "t10k"
+    with gzip.open(os.path.join(
+            path, f"{prefix}-images-idx3-ubyte.gz")) as f:
+        images = np.frombuffer(f.read(), np.uint8, offset=16)
+        images = images.reshape(-1, 28, 28, 1).astype(np.float32) / 255.0
+    with gzip.open(os.path.join(
+            path, f"{prefix}-labels-idx1-ubyte.gz")) as f:
+        labels = np.frombuffer(f.read(), np.uint8, offset=8).astype(
+            np.int32)
+    for start in range(0, len(images), 128):
+        sl = slice(start, start + 128)
+        yield {"image": images[sl], "label": labels[sl]}

@@ -1,7 +1,11 @@
 """``chip_smoke.py``'s build report: the kernels' names read from the
 symbols ``nvcc -Xptxas -v`` prints on the card, and their registers and
-spills. CPU only: the log is a fixed string in ptxas's format."""
+spills. CPU only: the log is a fixed string in ptxas's format. Also the
+pure checks of the phases (among them the unary predict phases':
+occupancy and coalescing, the eviction's memory drop, the canary split
+and the answer formats)."""
 
+import numpy as np
 import pytest
 
 import chip_smoke
@@ -525,3 +529,75 @@ def test_params_digest_sees_one_bit():
     with torch.no_grad():
         state.params["layers"][0]["w"].pieces[0].view(torch.int32)[0, 0] += 1
     assert not torch.equal(before, chip_smoke._params_digest(state))
+
+
+@pytest.mark.parametrize("before,after,want", [
+    (None, {"sum": 32.0, "count": 8}, (8, 32.0, 4.0)),
+    ({"sum": 10.0, "count": 10}, {"sum": 42.0, "count": 18},
+     (8, 32.0, 4.0)),
+    ({"sum": 5.0, "count": 5}, {"sum": 5.0, "count": 5}, (0, 0.0, 0.0))])
+def test_occupancy_delta_reads_the_dispatches_between_two_reads(
+        before, after, want):
+    assert chip_smoke.occupancy_delta(before, after) == want
+
+
+@pytest.mark.parametrize("calls,requests,mean,ok", [
+    (8, 32, 4.0, True), (32, 32, 1.0, False), (31, 32, 1.0, False),
+    (8, 32, 1.0, False), (33, 32, 2.0, False)])
+def test_check_coalesced_needs_fewer_calls_and_occupancy_above_one(
+        calls, requests, mean, ok):
+    if ok:
+        chip_smoke.check_coalesced(calls, requests, mean)
+    else:
+        with pytest.raises(AssertionError, match="nothing coalesced"):
+            chip_smoke.check_coalesced(calls, requests, mean)
+
+
+@pytest.mark.parametrize("before,after,ok", [
+    (1000, 100, True), (1000, 101, False), (1000, 0, True),
+    (500, 500, False)])
+def test_check_memory_drop_needs_nine_tenths_of_the_model(before, after,
+                                                          ok):
+    if ok:
+        chip_smoke.check_memory_drop(before, after, 1000)
+    else:
+        with pytest.raises(AssertionError, match="eviction freed"):
+            chip_smoke.check_memory_drop(before, after, 1000)
+
+
+def test_canary_split_is_the_servers_route_under_the_same_seed():
+    import random
+
+    from kubeflow_tpu_torch.compute import serving
+
+    server = serving.ModelServer(device="cpu")
+    server._canary_rng = random.Random(5)
+    server._canaries["m"] = {"model": "canary", "weight": 0.3}
+    got = [server._route("m", "stable") for _ in range(40)]
+    assert got == chip_smoke.canary_split(5, 0.3, 40, "stable", "canary")
+    assert set(got) == {"stable", "canary"}
+    assert chip_smoke.canary_split(5, 0.0, 8, "1", "2") == ["1"] * 8
+    assert chip_smoke.canary_split(5, 1.0, 8, "1", "2") == ["2"] * 8
+
+
+def test_predict_rows_reads_every_answer_format():
+    import base64
+    import json
+
+    x = np.arange(6, dtype=np.float32).reshape(2, 3)
+    x_tensor = {"content-type": "application/x-tensor",
+                "x-tensor-dtype": "float32", "x-tensor-shape": "2,3"}
+    json_ct = {"content-type": "application/json"}
+    b64 = base64.b64encode(x.tobytes()).decode()
+    answers = [
+        (x_tensor, x.tobytes()),
+        (json_ct, json.dumps({"predictions": x.tolist()}).encode()),
+        (json_ct, json.dumps({"tensor": {"dtype": "float32",
+                                         "shape": [2, 3],
+                                         "b64": b64}}).encode())]
+    for head, body in answers:
+        got = chip_smoke._predict_rows(
+            {"status": 200, "head": head, "body": body}, 3)
+        np.testing.assert_array_equal(got, x)
+    with pytest.raises(AssertionError, match="answered 503"):
+        chip_smoke._predict_rows({"status": 503, "head": {}, "body": b""}, 3)

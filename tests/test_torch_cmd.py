@@ -4,6 +4,11 @@ ledger) streams one request token-identically to the greedy oracles on
 the weights the entry builds (its ``SEED``), names each tenant's
 ledger class in ``X-QoS-Class`` and books its tokens under
 ``serving_qos_tokens_total``, and SIGTERM ends it with 0. In process:
+each unary branch (the stock MLP from ``SEED``, ``MODEL_MODULE``,
+``MODEL_DEVICE_MS``) serves ``:predict`` on ``GEN_DEVICE=cpu`` and
+raises by name without it on a CUDA-less host; a stock-MLP subprocess
+answers ``/healthz``, ``/v1/models/default`` and a predict whose rows
+sum to 1, and SIGTERM ends it with 0;
 every knob the port does not serve yet refuses by name,
 ``QOS_TENANTS``, ``GEN_PREEMPTION``, ``GEN_ROLE`` and the mesh knobs
 (``GEN_MESH``, ``GEN_TP``, ``GEN_ROW_SHARD``, ``GEN_CALIBRATE``) reach the
@@ -262,16 +267,107 @@ def test_an_invalid_gen_role_exits_by_name(knobs, value):
     assert value in str(err.value)
 
 
+MODULE = """
+import torch
+
+
+def register(server):
+    server.register("tripled", lambda x: x * 3.0, version=7)
+"""
+
+
+def _unary_predict(port, name, rows):
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+    conn.request("POST", f"/v1/models/{name}:predict",
+                 json.dumps({"instances": rows}).encode(),
+                 {"Content-Type": "application/json"})
+    resp = conn.getresponse()
+    body = json.loads(resp.read())
+    conn.close()
+    assert resp.status == 200, body
+    return resp.getheader("X-Served-Version"), np.asarray(
+        body["predictions"])
+
+
+def _stock_mlp(x):
+    from kubeflow_tpu_torch.compute.models import mlp
+    cfg = mlp.Config(in_dim=64, hidden=128, n_classes=16)
+    params = mlp.init_params(cfg, torch.Generator().manual_seed(cmd.SEED),
+                             device="cpu")
+    return torch.softmax(mlp.apply(params, torch.tensor(x), cfg),
+                         dim=-1).numpy()
+
+
 @pytest.mark.parametrize("knob,value", [
     ("MODEL_GENERATE", None), ("MODEL_GENERATE", "0"),
-    ("MODEL_MODULE", "my.models"), ("MODEL_DEVICE_MS", "5")])
-def test_the_unary_branches_refuse_by_name(knobs, knob, value):
+    ("MODEL_MODULE", "served_by_module"), ("MODEL_DEVICE_MS", "5")])
+def test_each_unary_branch_serves(knobs, tmp_path, knob, value):
     knobs.delenv("MODEL_GENERATE")
     if value is not None:
         knobs.setenv(knob, value)
-    with pytest.raises(SystemExit, match=knob) as err:
+    (tmp_path / "served_by_module.py").write_text(MODULE)
+    knobs.syspath_prepend(str(tmp_path))
+    cmd._refuse_unported()
+    server = cmd.build_unary_server("default")
+    port = server.start(port=0, host="127.0.0.1")
+    try:
+        x = np.random.default_rng(0).standard_normal((3, 64)).astype(
+            np.float32)
+        if knob == "MODEL_MODULE":
+            version, got = _unary_predict(port, "tripled", x.tolist())
+            assert version == "7"
+            np.testing.assert_allclose(got, x * 3.0, rtol=1e-6)
+            return
+        version, got = _unary_predict(port, "default", x.tolist())
+        assert version == "1"
+        if knob == "MODEL_DEVICE_MS":
+            np.testing.assert_allclose(got, x * 2.0, rtol=1e-6)
+            assert server.models()["default"].device_calls == 1
+        else:
+            assert got.shape == (3, 16)
+            np.testing.assert_allclose(got, _stock_mlp(x), atol=1e-6)
+    finally:
+        server.stop()
+
+
+@pytest.mark.parametrize("knob,value", [
+    ("MODEL_GENERATE", None), ("MODEL_MODULE", "served_by_module"),
+    ("MODEL_DEVICE_MS", "5")])
+def test_a_unary_branch_without_gen_device_raises_on_a_cuda_less_host(
+        knobs, knob, value):
+    if torch.cuda.is_available():
+        pytest.skip("this host has CUDA: GEN_DEVICE unset is the card")
+    knobs.delenv("MODEL_GENERATE")
+    knobs.delenv("GEN_DEVICE")
+    if value is not None:
+        knobs.setenv(knob, value)
+    with pytest.raises(RuntimeError, match="no silent fallback"):
         cmd.model_server()
-    assert "MODEL_GENERATE" in str(err.value)
+
+
+def test_a_stock_mlp_replica_serves_and_stops_on_sigterm():
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "kubeflow_tpu_torch.cmd", "model-server"],
+        env=_env(MODEL_GENERATE=""),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        cwd=ROOT)
+    try:
+        line = proc.stdout.readline()
+        assert line.startswith("PORT "), (line, proc.stderr.read())
+        port = int(line.split()[1])
+        assert json.loads(_get(port, "/healthz")[1]) == {"status": "ok"}
+        status = json.loads(_get(port, "/v1/models/default")[1])
+        assert status["residency"]["managed"] is False
+        assert "generator" not in status
+        x = np.random.default_rng(1).standard_normal((2, 64)).astype(
+            np.float32)
+        _, got = _unary_predict(port, "default", x.tolist())
+        np.testing.assert_allclose(got.sum(-1), 1.0, atol=1e-6)
+        np.testing.assert_allclose(got, _stock_mlp(x), atol=1e-6)
+        proc.send_signal(signal.SIGTERM)
+        assert proc.wait(30) == 0
+    finally:
+        _stopped(proc)
 
 
 @pytest.mark.parametrize("value", ["0", "1"])

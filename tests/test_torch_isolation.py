@@ -1,7 +1,7 @@
 """The port stands alone: no module of ``kubeflow_tpu_torch/``, not
 ``chip_smoke.py`` and not the port's scripts under ``hack/`` (the
-kernel A/B timings, the serving profile, the mesh-axes and the
-expert/gang phases) imports
+kernel A/B timings, the serving profile, the mesh-axes, the
+expert/gang and the unary predict phases) imports
 JAX, its ecosystem (``ml_dtypes`` included: the KV-bundle codec reads
 bf16 without it) or the JAX package, and none imports ``triton`` at
 module level (the CPU test host has none; a kernel module imports it
@@ -19,7 +19,8 @@ FILES = sorted((ROOT / "kubeflow_tpu_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py"] + sorted((ROOT / "hack").glob("*_ab.py")) + [
     ROOT / "hack" / "port_decode_profile.py",
     ROOT / "hack" / "mesh_axes_smoke.py",
-    ROOT / "hack" / "expert_gang_smoke.py"]
+    ROOT / "hack" / "expert_gang_smoke.py",
+    ROOT / "hack" / "predict_smoke.py"]
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "ml_dtypes", "kubeflow_tpu")
 
 

@@ -315,11 +315,22 @@ def _families(port, prefix):
             if ln.startswith("# TYPE ") and ln.split()[2].startswith(prefix)}
 
 
+#: the unary plane's families (JAX ``serving.py:61-113``)
+UNARY_FAMILIES = {
+    "serving_request_duration_seconds", "serving_batch_queue_wait_seconds",
+    "serving_batch_size_rows", "serving_drain_timeout_total",
+    "serving_decode_seconds", "serving_wire_format_total",
+    "serving_batch_occupancy_requests", "serving_requests_total",
+    "serving_deadline_exceeded_total"}
+
+
 def test_metrics_hold_every_generate_family_of_jax(served):
     _stream(served["port"][2], {"tokens": [9, 8], "max_tokens": 2})
     want = _families(served["jax"][2], "serving_generate_")
     assert len(want) > 20
     assert want <= _families(served["port"][2], "serving_generate_")
+    assert UNARY_FAMILIES <= _families(served["jax"][2], "serving_")
+    assert UNARY_FAMILIES <= _families(served["port"][2], "serving_")
     text = _get(served["port"][2], "/metrics")[1].decode()
     assert re.search(r'^serving_generate_tokens_total\{model="lm"\} '
                      r'[1-9]', text, re.M)
@@ -362,15 +373,17 @@ def test_a_disconnect_cancels_the_slot(served):
                for e in engine.timeline_view())
 
 
-@pytest.mark.parametrize("verb,words", [("predict", "unary-predict"),
-                                        ("predictStream", "unary-predict")])
-def test_unported_verbs_answer_501_by_name(served, verb, words):
-    conn, resp = _post(served["port"][2], {"tokens": [1]},
-                       path=f"/v1/models/lm:{verb}")
-    assert resp.status == 501
-    error = json.loads(resp.read())["error"]
-    assert f":{verb}" in error and words in error
-    conn.close()
+@pytest.mark.parametrize("verb", ["predict", "predictStream"])
+def test_unary_verbs_on_a_generator_only_name_answer_404_alike(served,
+                                                              verb):
+    got = {}
+    for side in SIDES:
+        conn, resp = _post(served[side][2], {"instances": [[1.0]]},
+                           path=f"/v1/models/lm:{verb}")
+        got[side] = (resp.status, resp.read())
+        conn.close()
+    assert got["port"] == got["jax"] == (404,
+                                         b'{"error": "model not found"}')
 
 
 def test_the_async_transport_is_refused_by_name():
