@@ -1712,17 +1712,23 @@ def _wire_numbers(results, wall):
                 r["first_frame_s"] for r in results)}
 
 
-def _wire_run(eng, reqs, kernel_fns):
-    """Serve ``eng`` on the port's ``ModelServer`` (127.0.0.1, port 0),
-    warm it over HTTP, zero the launch counts, let ``len(reqs)`` clients
-    stream ``reqs`` together, read the counts; right after, the same
-    engine serves the same ``reqs`` in-process through ``submit``. The
-    server (and with it the engine) stops at the end → dict."""
+#: the serving transports every wire phase runs over, in this order
+#: (``hack/transport_smoke.py --reverse`` flips it)
+TRANSPORTS = ("threaded", "async")
+
+
+def _wire_run(eng, reqs, kernel_fns, transport="threaded"):
+    """Serve ``eng`` on the port's ``ModelServer`` (127.0.0.1, port 0,
+    ``transport``), warm it over HTTP, zero the launch counts, let
+    ``len(reqs)`` clients stream ``reqs`` together, read the counts;
+    right after, the same engine serves the same ``reqs`` in-process
+    through ``submit``. The server (and with it the engine) stops at the
+    end → dict."""
     from kubeflow_tpu_torch.compute import serving
     server = serving.ModelServer()
     server.register_generator(WIRE_MODEL, eng)
     try:
-        port = server.start(port=0, host="127.0.0.1")
+        port = server.start(port=0, host="127.0.0.1", transport=transport)
         warm = _wire_stream(port, [1, 2, 3], 2, WIRE_MODEL)
         if warm["status"] != 200:
             raise AssertionError(f"warm-up stream: {warm}")
@@ -1753,63 +1759,102 @@ def _first_mismatches(got, want):
             for a, b in zip(got, want)]
 
 
-def phase_wire(params, kernel_fns):
-    """The flagship streamed over HTTP: the bf16 engine (8 slots, the
-    paged backend, the prefix cache on) behind the port's
-    ``ModelServer``; 12 keep-alive clients POST ``requests(12)`` to
-    ``:generate`` together. Every stream is checked (``_check_wire``), K1
-    and K3 must launch, and the streamed tokens must equal what the same
-    engine gives the same requests in-process right after. That run
-    meets the prefix cache the wire run filled, so its first tokens come
-    from K2 over cached pages instead of K3: where bf16 rounding makes
-    the two differ, the same comparison runs in fp32 at full width,
-    where they must agree."""
-    import torch
-    from kubeflow_tpu_torch.compute import generate as gen_lib
-    kw = dict(max_slots=8, block_size=16, max_context=1024)
-    cfg = flagship_config()
-    reqs = requests(12, cfg.vocab_size)
-    run = _wire_run(gen_lib.GenerationEngine(params, cfg, name="wire", **kw),
-                    reqs, kernel_fns)
-    torch.cuda.empty_cache()
-    streamed = _check_wire(run["results"], cfg.vocab_size)
-    _check_served(reqs, run["outs"], cfg.vocab_size)
-    inproc = [o for o, _ in run["outs"]]
-    n_in = sum(len(o) for o in inproc)
-    d = run["d_wire"]
-    identity = {"bfloat16": {
-        "equal": streamed == inproc,
-        "first_mismatch": _first_mismatches(streamed, inproc),
-        "inproc_prefix_hits": run["d_in"]["prefix_hits"]}}
-    if streamed != inproc:
-        run32 = _wire_run(gen_lib.GenerationEngine(
-            params, flagship_config("float32"), name="wire-fp32", **kw),
-            reqs, {})
-        torch.cuda.empty_cache()
-        s32 = _check_wire(run32["results"], cfg.vocab_size)
-        in32 = [o for o, _ in run32["outs"]]
-        identity["float32"] = {
-            "equal": s32 == in32,
-            "first_mismatch": _first_mismatches(s32, in32),
-            "inproc_prefix_hits": run32["d_in"]["prefix_hits"]}
-    row = {"phase": "wire", "dtype": "bfloat16", "requests": len(reqs),
-           "slots": 8, "clients": len(reqs), "transport": "threaded",
+WIRE_RATIO_KEYS = ("tokens_per_s", "ttft_p50_ms", "itg_p50_ms",
+                   "decode_step_ms", "client_first_frame_p50_ms")
+
+
+def transport_ratios(rows, keys):
+    """The async row's numbers over the threaded row's, measured in one
+    call → ``{"order": the transports in run order, metric: async /
+    threaded}``; a key is a path of nested keys (``"images_per_s.binary"``)."""
+    def get(row, key):
+        for k in key.split("."):
+            row = row[k]
+        return row
+
+    out = {"order": list(rows)}
+    out.update({k: get(rows["async"], k) / get(rows["threaded"], k)
+                for k in keys if get(rows["threaded"], k)})
+    return out
+
+
+def wire_row(transport, run, identity):
+    """One ``wire`` row: the transport, the streams' numbers beside the
+    in-process run's, the decode step on each side, the identity verdict
+    and the launches."""
+    d, d_in = run["d_wire"], run["d_in"]
+    row = {"phase": "wire", "dtype": "bfloat16",
+           "requests": len(run["results"]), "slots": 8,
+           "clients": len(run["results"]), "transport": transport,
            **_wire_numbers(run["results"], run["wall"]),
            "decode_steps": d["decode_steps"],
            "decode_step_ms": 1e3 * d["decode_seconds_total"]
                              / d["decode_steps"],
            "prefills": d["prefills"],
-           "inproc_tokens_per_s": n_in / run["wall_in"],
-           "inproc_decode_steps": run["d_in"]["decode_steps"],
-           "inproc_decode_step_ms": 1e3 * run["d_in"]["decode_seconds_total"]
-                                    / run["d_in"]["decode_steps"],
+           "inproc_tokens_per_s": sum(len(o) for o, _ in run["outs"])
+                                  / run["wall_in"],
+           "inproc_decode_steps": d_in["decode_steps"],
+           "inproc_decode_step_ms": 1e3 * d_in["decode_seconds_total"]
+                                    / d_in["decode_steps"],
            "identity": identity, "launches": run["launches"]}
-    emit(row)
-    _require(run["launches"], ("paged_decode", "flash_fwd"), "wire")
-    if not identity.get("float32", identity["bfloat16"])["equal"]:
-        raise AssertionError(f"streamed tokens differ from the same "
-                             f"engine's in-process tokens: {identity}")
     return row
+
+
+def phase_wire(params, kernel_fns):
+    """The flagship streamed over HTTP, once over each transport
+    (``TRANSPORTS``): a fresh bf16 engine (8 slots, the paged backend,
+    the prefix cache on) behind the port's ``ModelServer``; 12 keep-alive
+    clients POST ``requests(12)`` to ``:generate`` together. Every stream
+    is checked (``_check_wire``), K1 and K3 must launch, and the streamed
+    tokens must equal what the same engine gives the same requests
+    in-process right after. That run meets the prefix cache the wire run
+    filled, so its first tokens come from K2 over cached pages instead of
+    K3: where bf16 rounding makes the two differ, the same comparison
+    runs in fp32 at full width over the same transport, where they must
+    agree. A ``wire_transports`` row then gives the async numbers over the
+    threaded ones. → {transport: row}"""
+    import torch
+    from kubeflow_tpu_torch.compute import generate as gen_lib
+    kw = dict(max_slots=8, block_size=16, max_context=1024)
+    cfg = flagship_config()
+    reqs = requests(12, cfg.vocab_size)
+    rows = {}
+    for transport in TRANSPORTS:
+        tag = "" if transport == "threaded" else f"-{transport}"
+        run = _wire_run(gen_lib.GenerationEngine(
+            params, cfg, name=f"wire{tag}", **kw), reqs, kernel_fns,
+            transport)
+        torch.cuda.empty_cache()
+        streamed = _check_wire(run["results"], cfg.vocab_size)
+        _check_served(reqs, run["outs"], cfg.vocab_size)
+        inproc = [o for o, _ in run["outs"]]
+        identity = {"bfloat16": {
+            "equal": streamed == inproc,
+            "first_mismatch": _first_mismatches(streamed, inproc),
+            "inproc_prefix_hits": run["d_in"]["prefix_hits"]}}
+        if streamed != inproc:
+            run32 = _wire_run(gen_lib.GenerationEngine(
+                params, flagship_config("float32"),
+                name=f"wire-fp32{tag}", **kw), reqs, {}, transport)
+            torch.cuda.empty_cache()
+            s32 = _check_wire(run32["results"], cfg.vocab_size)
+            in32 = [o for o, _ in run32["outs"]]
+            identity["float32"] = {
+                "equal": s32 == in32,
+                "first_mismatch": _first_mismatches(s32, in32),
+                "inproc_prefix_hits": run32["d_in"]["prefix_hits"]}
+        row = wire_row(transport, run, identity)
+        emit(row)
+        _require(run["launches"], ("paged_decode", "flash_fwd"),
+                 f"wire ({transport})")
+        if not identity.get("float32", identity["bfloat16"])["equal"]:
+            raise AssertionError(
+                f"tokens streamed over the {transport} transport differ "
+                f"from the same engine's in-process tokens: {identity}")
+        rows[transport] = row
+    emit({"phase": "wire_transports", "async_over_threaded":
+          transport_ratios(rows, WIRE_RATIO_KEYS)})
+    return rows
 
 
 #: the two tenants of the QoS phases and of ``wire_cmd``'s ledger (no
@@ -1829,6 +1874,9 @@ WIRE_CMD_ENV = {"MODEL_GENERATE": "1", "PORT": "0", "HOST": "127.0.0.1",
                 "OBS_EXPORT_DIR": ""}
 #: the tenant of each of ``wire_cmd``'s 4 streams
 WIRE_CMD_TENANTS = ("crawler", "acme", "crawler", "acme")
+#: the transport of ``wire_cmd``'s first replica, as the ModelDeployment
+#: controller renders every replica; the decode-role one stays threaded
+WIRE_CMD_TRANSPORT = "async"
 WIRE_CMD_DEVICE = "cuda:0"
 
 
@@ -1907,9 +1955,17 @@ class _Replica:
             self.proc.wait(timeout=30)
 
 
+def check_transport_log(log, transport):
+    """A replica's startup log must name the transport it serves on."""
+    if not any(f"({transport} transport)" in ln for ln in log):
+        raise AssertionError(f"the replica's log does not name the "
+                             f"{transport} transport: {log[-10:]}")
+
+
 def phase_wire_cmd():
     """``python -m kubeflow_tpu_torch.cmd model-server`` as a subprocess
-    under ``WIRE_CMD_ENV``: read ``PORT n``; ``/healthz`` answers ok,
+    under ``WIRE_CMD_ENV`` and ``SERVING_TRANSPORT=async`` (its log names
+    the transport): read ``PORT n``; ``/healthz`` answers ok,
     ``/v1/models/default`` names ``cuda:0``; one first request, timed
     alone (the replica's first launches); 4 requests (one a
     700-token prompt) stream together, two as tenant ``crawler`` and two
@@ -1931,7 +1987,8 @@ def phase_wire_cmd():
                "MODEL_MODULE", "MODEL_DEVICE_MS", "QOS_TENANTS",
                "SERVING_TRANSPORT", "MODEL_NAME")}
     env.update(WIRE_CMD_ENV, PYTHONPATH=str(root))
-    replica = _Replica(env, root)
+    replica = _Replica({**env, "SERVING_TRANSPORT": WIRE_CMD_TRANSPORT},
+                       root)
     decoder = _Replica({**env, "GEN_ROLE": "decode"}, root)
     proc, log = replica.proc, replica.log
     try:
@@ -1981,6 +2038,8 @@ def phase_wire_cmd():
         code = proc.wait(timeout=30)
         dcode = decoder.proc.wait(timeout=30)
         row = {"phase": "wire_cmd", "dtype": WIRE_CMD_ENV["GEN_DTYPE"],
+               "transport": WIRE_CMD_TRANSPORT,
+               "decode_transport": "threaded",
                "heads": int(WIRE_CMD_ENV["GEN_HEADS"]),
                "kv_heads": int(WIRE_CMD_ENV["GEN_HEADS"]),
                "prefill_chunk": int(WIRE_CMD_ENV["GEN_PREFILL_CHUNK"]),
@@ -2032,6 +2091,8 @@ def phase_wire_cmd():
     if code != 0 or dcode != 0:
         raise AssertionError(f"SIGTERM exit codes {code}, {dcode}: "
                              f"{log[-20:]} {decoder.log[-20:]}")
+    check_transport_log(log, WIRE_CMD_TRANSPORT)
+    check_transport_log(decoder.log, "threaded")
     h = row["hop"]
     if h["decode_role"] != "decode" or h["decode_prefills"] \
             or h["decode_migration"]["imports"] != 1 \
@@ -2896,7 +2957,10 @@ def phase_disagg_wire(params, kernel_fns):
     engines right after, an int8 bundle on the bf16 pool answering 400
     naming ``dtype`` (its rejection counted on ``/metrics``), and
     ``:attach`` on the prefill-role server answering 400 naming
-    ``role``."""
+    ``role``. Then both servers listen on the async transport too and
+    the same hop runs over it: the same tokens and
+    ``X-KV-Bytes-Migrated`` as the threaded hop, K3 on the export and K1
+    on the decode (its own row, ``transport`` async)."""
     import torch
     from kubeflow_tpu_torch.compute import generate as gen_lib
     from kubeflow_tpu_torch.compute import serving
@@ -2943,12 +3007,33 @@ def phase_disagg_wire(params, kernel_fns):
             ports["prefill"], f"/v1/models/{WIRE_MODEL}:attach", body,
             {"Content-Type": "application/x-tensor",
              **{h: head[h.lower()] for h in BUNDLE_HEADERS}})
+        # the same servers and engines, a second listener each
+        aports = {k: s.start(port=0, host="127.0.0.1", transport="async")
+                  for k, s in servers.items()}
+        check_hop(disagg_hop(aports["prefill"], aports["decode"],
+                             [1, 2, 3], 2, WIRE_MODEL), 2, cfg.vocab_size)
+        _zero(kernel_fns)
+        ahop = disagg_hop(aports["prefill"], aports["decode"], prompt,
+                          budget, WIRE_MODEL)
+        alaunches = _launches(kernel_fns)
+        astreamed = check_hop(ahop, budget, cfg.vocab_size)
     finally:
         for s in servers.values():
             s.stop()
         i8.close()
     torch.cuda.empty_cache()
+    arow = {"phase": "disagg_wire", "dtype": "bfloat16",
+            "transport": "async", "prompt": len(prompt),
+            "max_tokens": budget, "bundle_bytes": ahop["bundle_bytes"],
+            "kv_bytes_migrated": int(ahop["attach_head"][
+                "x-kv-bytes-migrated"]),
+            "ttft_ms": 1e3 * ahop["frames"][-1]["ttft_s"],
+            "streamed_equal_threaded": astreamed == streamed,
+            "first_mismatch": _first_mismatches([astreamed],
+                                                [streamed])[0],
+            "launches": alaunches}
     row = {"phase": "disagg_wire", "dtype": "bfloat16",
+           "transport": "threaded",
            "prompt": len(prompt), "max_tokens": budget,
            "bundle_bytes": hop["bundle_bytes"],
            "kv_bytes_migrated": int(hop["attach_head"]["x-kv-bytes-migrated"]),
@@ -2960,6 +3045,7 @@ def phase_disagg_wire(params, kernel_fns):
            "wrong_role": [wrong_role[0], wrong_role[2].decode()[:200]],
            "launches": launches}
     emit(row)
+    emit(arow)
     _require(launches, ("flash_fwd", "paged_decode"), "disagg_wire")
     if launches["flash_fwd"] != cfg.n_layers:
         raise AssertionError(f"the hop launched K3 {launches['flash_fwd']} "
@@ -2975,7 +3061,18 @@ def phase_disagg_wire(params, kernel_fns):
     if wrong_role[0] != 400 or b"role" not in wrong_role[2]:
         raise AssertionError(f":attach on the prefill-role server: "
                              f"{wrong_role[0]} {wrong_role[2][:200]}")
-    return row
+    _require(alaunches, ("flash_fwd", "paged_decode"), "disagg_wire (async)")
+    if alaunches["flash_fwd"] != cfg.n_layers:
+        raise AssertionError(f"the async hop launched K3 "
+                             f"{alaunches['flash_fwd']} times, want "
+                             f"{cfg.n_layers} (the export)")
+    if astreamed != streamed \
+            or arow["kv_bytes_migrated"] != row["kv_bytes_migrated"]:
+        raise AssertionError(
+            f"the async hop streamed {astreamed} with "
+            f"{arow['kv_bytes_migrated']} bytes migrated, the threaded "
+            f"hop {streamed} with {row['kv_bytes_migrated']}")
+    return {"threaded": row, "async": arow}
 
 
 # ------------------------------------------------------------ unary predict
@@ -3150,6 +3247,110 @@ def _latency(ms):
             "n": len(ms)}
 
 
+PREDICT_RATIO_KEYS = ("images_per_s.binary", "images_per_s.json",
+                      "images_per_s.b64", "latency.binary.p50_ms",
+                      "latency.binary.p99_ms", "inference_time_ms_p50",
+                      "occupancy_mean")
+#: what the async transport answers a ``:predictStream`` (JAX's words)
+PREDICT_STREAM_501 = (b'{"error": "predictStream requires the threaded '
+                      b'transport (SERVING_TRANSPORT=threaded)"}')
+
+
+def _predict_traffic(port, imgs, model):
+    """The unary traffic over one listener: 8 keep-alive clients send 4
+    ``application/x-tensor`` requests each of one image together, then 4
+    JSON ``instances`` and 4 b64 requests one after another on one
+    connection → dict of the answers, the wall seconds of the x-tensor
+    traffic and the model's device calls and occupancy over it."""
+    import http.client
+    from kubeflow_tpu_torch.compute import serving
+    path = "/v1/models/resnet50:predict"
+    occ0 = serving._BATCH_OCCUPANCY.samples().get(("resnet50", "stable"))
+    calls0 = model.device_calls
+
+    def client(i):
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=300)
+        try:
+            return [_predict_post(conn, path, *_x_tensor(imgs[i:i + 1]))
+                    for _ in range(PREDICT_PER_CLIENT)]
+        finally:
+            conn.close()
+
+    t0 = time.perf_counter()
+    binary = _parallel([lambda i=i: client(i)
+                        for i in range(PREDICT_CLIENTS)])
+    binary_s = time.perf_counter() - t0
+    calls = model.device_calls - calls0
+    dispatches, coalesced, occ_mean = occupancy_delta(
+        occ0, serving._BATCH_OCCUPANCY.samples()[("resnet50", "stable")])
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=300)
+    try:
+        json_r = [_predict_post(conn, path, json.dumps(
+            {"instances": imgs[:1].tolist()}).encode())
+            for _ in range(PREDICT_SEQUENTIAL)]
+        b64_r = [_predict_post(conn, path, _b64_body(imgs[:1]))
+                 for _ in range(PREDICT_SEQUENTIAL)]
+    finally:
+        conn.close()
+    return {"binary": binary, "binary_s": binary_s, "calls": calls,
+            "dispatches": dispatches, "coalesced": coalesced,
+            "occ_mean": occ_mean, "json": json_r, "b64": b64_r}
+
+
+def _predict_errors(run, ref, classes):
+    """Each format's answers against the in-process rows → {format:
+    [max |Δ| a request]}; an x-tensor answer must carry its shape, the
+    served version and ``X-Inference-Time-Ms``."""
+    errs = {}
+    for i, rs in enumerate(run["binary"]):
+        for r in rs:
+            head = r["head"]
+            if head.get("x-tensor-shape") != f"1,{classes}" \
+                    or head.get("x-served-version") != "1" \
+                    or "x-inference-time-ms" not in head:
+                raise AssertionError(f"x-tensor answer headers: {head}")
+            errs.setdefault("binary", []).append(float(np.abs(
+                _predict_rows(r, classes)[0] - ref[i]).max()))
+    for fmt in ("json", "b64"):
+        for r in run[fmt]:
+            errs.setdefault(fmt, []).append(float(np.abs(
+                _predict_rows(r, classes)[0] - ref[0]).max()))
+    return errs
+
+
+def _predict_numbers(run):
+    """Images/s and latency p50/p99 per format, the
+    ``X-Inference-Time-Ms`` p50 and the coalescing of one run."""
+    n = PREDICT_CLIENTS * PREDICT_PER_CLIENT
+    x_ms = [float(r["head"]["x-inference-time-ms"])
+            for rs in run["binary"] for r in rs]
+    return {"requests": n, "device_calls": run["calls"],
+            "occupancy_dispatches": run["dispatches"],
+            "occupancy_requests": run["coalesced"],
+            "occupancy_mean": run["occ_mean"],
+            "images_per_s": {
+                "binary": n / run["binary_s"],
+                "json": 1e3 * len(run["json"]) / sum(
+                    r["ms"] for r in run["json"]),
+                "b64": 1e3 * len(run["b64"]) / sum(
+                    r["ms"] for r in run["b64"])},
+            "latency": {fmt: _latency([r["ms"] for r in (
+                [r for rs in run["binary"] for r in rs]
+                if fmt == "binary" else run[fmt])])
+                for fmt in ("binary", "json", "b64")},
+            "inference_time_ms_p50": _pctl(x_ms, 0.5)}
+
+
+def check_predict_errors(errs, transport):
+    """Every format's rows over ``transport`` within bf16's tolerance of
+    the in-process predict, and finite."""
+    for fmt, e in errs.items():
+        if max(e) > TOL["bfloat16"] or not np.isfinite(e).all():
+            raise AssertionError(
+                f"{fmt} rows over the {transport} transport {max(e)} off "
+                f"the in-process predict (tolerance {TOL['bfloat16']})")
+
+
 def phase_predict(kernel_fns):
     """ResNet-50 (bf16, 1000 classes, ``init_params`` from a seed, as
     ``bench.py:266`` serves it) behind the port's ``ModelServer`` on
@@ -3157,18 +3358,24 @@ def phase_predict(kernel_fns):
     ``resnet50`` and ``resnet50-int8`` (weight-only int8, widened at the
     call; both residency-managed, preloaded) with ``bench.py:268-287``'s
     predict functions, and an fp32 ResNet-50 (TF32 off) on the same
-    weights. Counts zeroed just before the traffic and read after: 8
-    keep-alive clients send 4 ``application/x-tensor`` requests each of
+    weights. The server listens on both transports (``TRANSPORTS``); the
+    x-tensor traffic's concurrency runs once in process through the
+    batcher, then the same traffic runs over each transport
+    (``_predict_traffic``), counts zeroed just before it and read after:
+    8 keep-alive clients send 4 ``application/x-tensor`` requests each of
     one 224 x 224 x 3 float32 image, then 4 JSON ``instances`` and 4 b64
-    requests one after another, one ``:predictStream`` of 32 b64 lines,
-    8 images to the int8 model and 4 to the fp32 one. Every answer is
-    200 in its format; every served row is within 2e-2 of the in-process
-    predict of the same image (bf16), the fp32 rows within 1e-4 of
-    ``resnet.apply`` unpadded; the x-tensor requests coalesce (fewer
-    device calls than requests, mean occupancy above 1); the int8 model
-    holds at most 0.3x the bf16 model's bytes, its argmax agreement is
-    printed. Images/s and latency p50/p99 per format, the
-    ``X-Inference-Time-Ms`` p50 and one batch of 8 profiled."""
+    requests one after another. Over the threaded transport then one ``:predictStream`` of
+    32 b64 lines, 8 images to the int8 model and 4 to the fp32 one; over
+    the async one ``:predictStream`` answers 501 with JAX's words. Every
+    answer is 200 in its format; every served row is within 2e-2 of the
+    in-process predict of the same image (bf16), the fp32 rows within
+    1e-4 of ``resnet.apply`` unpadded; the x-tensor requests coalesce on
+    each transport (fewer device calls than requests, mean occupancy
+    above 1); the int8 model holds at most 0.3x the bf16 model's bytes,
+    its argmax agreement is printed. Images/s and latency p50/p99 per
+    format, the ``X-Inference-Time-Ms`` p50 and occupancy per transport
+    (one row each, then their ratios), and one batch of 8 profiled. →
+    {transport: row}"""
     import dataclasses
     import http.client
     import torch
@@ -3189,8 +3396,10 @@ def phase_predict(kernel_fns):
         (quantize.quantize_tree(host[0]), host[1]), preload=True)
     dev_tree = model._dev_params
     server.register("resnet50-fp32", lambda x: f32_predict(dev_tree, x))
-    port = server.start(port=0, host="127.0.0.1")
+    ports = {t: server.start(port=0, host="127.0.0.1", transport=t)
+             for t in TRANSPORTS}
     imgs = predict_images(PREDICT_CLIENTS)
+    runs, launches = {}, {}
     try:
         # the in-process answer of every image (bucket 8), and every
         # bucket the traffic lands on launched once before it
@@ -3198,50 +3407,40 @@ def phase_predict(kernel_fns):
         for n in (1, PREDICT_STREAM_LINES):
             model._run(np.repeat(imgs[:1], n, 0))
         torch.cuda.synchronize()
-        path = "/v1/models/resnet50:predict"
-        occ0 = serving._BATCH_OCCUPANCY.samples().get(
-            ("resnet50", "stable"))
-        calls0 = model.device_calls
-        _zero(kernel_fns)
-
-        def client(i):
-            conn = http.client.HTTPConnection("127.0.0.1", port,
+        # the first concurrent pass through the batcher reads ~1.7x fewer
+        # images/s than the next, whichever transport carries it: one
+        # pass in process first, so each transport is measured warm
+        _parallel([lambda i=i: [model.predict_raw(imgs[i:i + 1])
+                                for _ in range(PREDICT_PER_CLIENT)]
+                   for i in range(PREDICT_CLIENTS)])
+        x32 = imgs[:PREDICT_FP32_ROWS]
+        for t in TRANSPORTS:
+            _zero(kernel_fns)
+            runs[t] = _predict_traffic(ports[t], imgs, model)
+            conn = http.client.HTTPConnection("127.0.0.1", ports[t],
                                               timeout=300)
             try:
-                return [_predict_post(conn, path, *_x_tensor(imgs[i:i + 1]))
-                        for _ in range(PREDICT_PER_CLIENT)]
+                if t == "async":
+                    async_stream = _predict_post(
+                        conn, "/v1/models/resnet50:predictStream",
+                        _b64_body(imgs[:1]) + b"\n",
+                        {"Content-Type": "application/x-ndjson"})
+                else:
+                    lines = [imgs[i % PREDICT_CLIENTS][None]
+                             for i in range(PREDICT_STREAM_LINES)]
+                    stream = _predict_post(
+                        conn, "/v1/models/resnet50:predictStream",
+                        b"\n".join(_b64_body(x) for x in lines) + b"\n",
+                        {"Content-Type": "application/x-ndjson"})
+                    int8_r = _predict_post(
+                        conn, "/v1/models/resnet50-int8:predict",
+                        *_x_tensor(imgs))
+                    f32_r = _predict_post(
+                        conn, "/v1/models/resnet50-fp32:predict",
+                        *_x_tensor(x32))
             finally:
                 conn.close()
-
-        t0 = time.perf_counter()
-        binary = _parallel([lambda i=i: client(i)
-                            for i in range(PREDICT_CLIENTS)])
-        binary_s = time.perf_counter() - t0
-        calls = model.device_calls - calls0
-        dispatches, coalesced, occ_mean = occupancy_delta(
-            occ0, serving._BATCH_OCCUPANCY.samples()[
-                ("resnet50", "stable")])
-        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=300)
-        try:
-            json_r = [_predict_post(conn, path, json.dumps(
-                {"instances": imgs[:1].tolist()}).encode())
-                for _ in range(PREDICT_SEQUENTIAL)]
-            b64_r = [_predict_post(conn, path, _b64_body(imgs[:1]))
-                     for _ in range(PREDICT_SEQUENTIAL)]
-            lines = [imgs[i % PREDICT_CLIENTS][None]
-                     for i in range(PREDICT_STREAM_LINES)]
-            stream = _predict_post(
-                conn, "/v1/models/resnet50:predictStream",
-                b"\n".join(_b64_body(x) for x in lines) + b"\n",
-                {"Content-Type": "application/x-ndjson"})
-            int8_r = _predict_post(conn, "/v1/models/resnet50-int8:predict",
-                                   *_x_tensor(imgs))
-            x32 = imgs[:PREDICT_FP32_ROWS]
-            f32_r = _predict_post(conn, "/v1/models/resnet50-fp32:predict",
-                                  *_x_tensor(x32))
-        finally:
-            conn.close()
-        launches = _launches(kernel_fns)
+            launches[t] = _launches(kernel_fns)
         with torch.inference_mode():
             f32_ref = f32_predict(dev_tree, torch.from_numpy(x32).cuda()) \
                 .cpu().numpy()
@@ -3251,23 +3450,11 @@ def phase_predict(kernel_fns):
             model._run(imgs)
             wall_ms = 1e3 * (time.perf_counter() - w0)
         prof = profiler.device_summary(cap.profile, wall_ms)
-        listing = json.loads(_http(port, "GET", "/v1/models")[2])
+        listing = json.loads(_http(ports["threaded"], "GET",
+                                   "/v1/models")[2])
     finally:
         server.stop()
-    errs = {}
-    for i, rs in enumerate(binary):
-        for r in rs:
-            head = r["head"]
-            if head.get("x-tensor-shape") != f"1,{classes}" \
-                    or head.get("x-served-version") != "1" \
-                    or "x-inference-time-ms" not in head:
-                raise AssertionError(f"x-tensor answer headers: {head}")
-            errs.setdefault("binary", []).append(float(np.abs(
-                _predict_rows(r, classes)[0] - ref[i]).max()))
-    for fmt, rs in (("json", json_r), ("b64", b64_r)):
-        for r in rs:
-            errs.setdefault(fmt, []).append(float(np.abs(
-                _predict_rows(r, classes)[0] - ref[0]).max()))
+    errs = {t: _predict_errors(runs[t], ref, classes) for t in TRANSPORTS}
     if stream["status"] != 200 or stream["head"].get("content-type") \
             != "application/x-ndjson":
         raise AssertionError(f":predictStream {stream['status']} "
@@ -3278,59 +3465,65 @@ def phase_predict(kernel_fns):
     for i, f in enumerate(frames):
         if "tensor" not in f:
             raise AssertionError(f"stream frame {i}: {str(f)[:200]}")
-        errs.setdefault("stream", []).append(float(np.abs(_predict_rows(
-            {"status": 200, "head": {"content-type": "application/json"},
-             "body": json.dumps(f).encode()}, classes)[0]
+        errs["threaded"].setdefault("stream", []).append(float(np.abs(
+            _predict_rows({"status": 200, "head": {
+                "content-type": "application/json"},
+                "body": json.dumps(f).encode()}, classes)[0]
             - ref[i % PREDICT_CLIENTS]).max()))
     int8_rows = _predict_rows(int8_r, classes)
     f32_rows = _predict_rows(f32_r, classes)
     ratio = qmodel.resident_bytes / model.resident_bytes
-    x_ms = [float(r["head"]["x-inference-time-ms"])
-            for rs in binary for r in rs]
-    row = {"phase": "predict", "model": "resnet50", "dtype": "bfloat16",
-           "image": [224, 224, 3], "clients": PREDICT_CLIENTS,
-           "per_client": PREDICT_PER_CLIENT,
-           "requests": PREDICT_CLIENTS * PREDICT_PER_CLIENT,
-           "device_calls": calls, "occupancy_dispatches": dispatches,
-           "occupancy_requests": coalesced, "occupancy_mean": occ_mean,
-           "images_per_s": {
-               "binary": PREDICT_CLIENTS * PREDICT_PER_CLIENT / binary_s,
-               "json": 1e3 * len(json_r) / sum(r["ms"] for r in json_r),
-               "b64": 1e3 * len(b64_r) / sum(r["ms"] for r in b64_r),
-               "stream": 1e3 * PREDICT_STREAM_LINES / stream["ms"]},
-           "latency": {"binary": _latency([r["ms"] for rs in binary
-                                           for r in rs]),
-                       "json": _latency([r["ms"] for r in json_r]),
-                       "b64": _latency([r["ms"] for r in b64_r]),
-                       "stream_ms": stream["ms"]},
-           "inference_time_ms_p50": _pctl(x_ms, 0.5),
-           "max_abs_err": {k: max(v) for k, v in errs.items()},
-           "fp32_max_abs_err": float(np.abs(f32_rows - f32_ref).max()),
-           "int8_resident_bytes": qmodel.resident_bytes,
-           "bf16_resident_bytes": model.resident_bytes,
-           "int8_bytes_share": ratio,
-           "int8_argmax_agreement": float(
-               (int8_rows.argmax(-1) == ref.argmax(-1)).mean()),
-           "int8_max_abs_diff": float(np.abs(int8_rows - ref).max()),
-           "resident_bytes": listing["resident_bytes"],
-           "launches": launches}
-    emit(row)
+    rows = {}
+    for t in TRANSPORTS:
+        numbers = _predict_numbers(runs[t])
+        row = {"phase": "predict", "model": "resnet50", "dtype": "bfloat16",
+               "transport": t, "image": [224, 224, 3],
+               "clients": PREDICT_CLIENTS, "per_client": PREDICT_PER_CLIENT,
+               **numbers,
+               "max_abs_err": {k: max(v) for k, v in errs[t].items()},
+               "launches": launches[t]}
+        if t == "threaded":
+            row["images_per_s"]["stream"] = \
+                1e3 * PREDICT_STREAM_LINES / stream["ms"]
+            row["latency"]["stream_ms"] = stream["ms"]
+            row.update({
+                "fp32_max_abs_err": float(np.abs(f32_rows - f32_ref).max()),
+                "int8_resident_bytes": qmodel.resident_bytes,
+                "bf16_resident_bytes": model.resident_bytes,
+                "int8_bytes_share": ratio,
+                "int8_argmax_agreement": float(
+                    (int8_rows.argmax(-1) == ref.argmax(-1)).mean()),
+                "int8_max_abs_diff": float(np.abs(int8_rows - ref).max()),
+                "resident_bytes": listing["resident_bytes"]})
+        else:
+            row["predict_stream"] = [async_stream["status"],
+                                     async_stream["body"].decode()[:200]]
+        emit(row)
+        rows[t] = row
+    emit({"phase": "predict_transports", "async_over_threaded":
+          transport_ratios(rows, PREDICT_RATIO_KEYS)})
     emit({"phase": "predict_profile", "trace": cap.path, "rows": 8, **prof})
-    for fmt, e in errs.items():
-        if max(e) > TOL["bfloat16"] or not np.isfinite(e).all():
-            raise AssertionError(f"{fmt} rows {max(e)} off the in-process "
-                                 f"predict (tolerance {TOL['bfloat16']})")
-    if not row["fp32_max_abs_err"] <= TOL["float32"]:
-        raise AssertionError(f"fp32 rows {row['fp32_max_abs_err']} off "
-                             f"resnet.apply (tolerance {TOL['float32']})")
+    for t in TRANSPORTS:
+        check_predict_errors(errs[t], t)
+        check_coalesced(runs[t]["calls"],
+                        PREDICT_CLIENTS * PREDICT_PER_CLIENT,
+                        runs[t]["occ_mean"])
+    f32_err = rows["threaded"]["fp32_max_abs_err"]
+    if not f32_err <= TOL["float32"]:
+        raise AssertionError(f"fp32 rows {f32_err} off resnet.apply "
+                             f"(tolerance {TOL['float32']})")
     if not np.allclose(np.concatenate([ref, f32_rows, int8_rows])
                        .sum(-1), 1.0, atol=1e-3):
         raise AssertionError("predicted rows do not sum to 1")
-    check_coalesced(calls, PREDICT_CLIENTS * PREDICT_PER_CLIENT, occ_mean)
     if ratio > PREDICT_INT8_SHARE:
         raise AssertionError(f"resnet50-int8 holds {ratio} of the bf16 "
                              f"model's bytes (at most {PREDICT_INT8_SHARE})")
-    return row
+    if (async_stream["status"], async_stream["body"]) \
+            != (501, PREDICT_STREAM_501):
+        raise AssertionError(f":predictStream over async answered "
+                             f"{async_stream['status']} "
+                             f"{async_stream['body'][:200]!r}")
+    return rows
 
 
 def phase_predict_residency():
@@ -3451,8 +3644,12 @@ def phase_predict_cmd():
     1); ``MODEL_DEVICE_MS=5``, 8 keep-alive clients of 10 one-row
     requests, the rows/s printed beside 1000/5; ``MODEL_MODULE`` naming
     a module this phase writes under ``build/`` on ``PYTHONPATH``, whose
-    model refuses an input that is not on the card. SIGTERM ends each
-    with exit 0 within 30 s."""
+    model refuses an input that is not on the card. The MLP replica and a
+    second ``MODEL_DEVICE_MS=5`` one run ``SERVING_TRANSPORT=async`` (as
+    the ModelDeployment controller renders a replica), the others the
+    threaded default; each log names its transport, and the fake device's
+    rows/s are printed for both. SIGTERM ends each with exit 0 within 30
+    s."""
     import http.client
     import pathlib
     import signal
@@ -3465,13 +3662,16 @@ def phase_predict_cmd():
                "QOS_TENANTS", "SERVING_TRANSPORT")}
     env.update(PORT="0", HOST="127.0.0.1", OBS_EXPORT_DIR="",
                PYTHONPATH=str(root), **PREDICT_CMD_ENV)
-    replicas = {
-        "mlp": _Replica(env, root),
-        "sleeper": _Replica({**env, "MODEL_DEVICE_MS":
-                             str(PREDICT_DEVICE_MS)}, root),
-        "module": _Replica({**env, "MODEL_MODULE": "predict_module",
-                            "PYTHONPATH": f"{root}{os.pathsep}{moddir}"},
-                           root)}
+    transports = {"mlp": "async", "sleeper": "threaded",
+                  "sleeper_async": "async", "module": "threaded"}
+    sleeper_env = {"MODEL_DEVICE_MS": str(PREDICT_DEVICE_MS)}
+    extra = {"mlp": {}, "sleeper": sleeper_env,
+             "sleeper_async": sleeper_env,
+             "module": {"MODEL_MODULE": "predict_module",
+                        "PYTHONPATH": f"{root}{os.pathsep}{moddir}"}}
+    replicas = {k: _Replica({**env, **extra[k],
+                             "SERVING_TRANSPORT": transports[k]}, root)
+                for k in transports}
     try:
         ports = {k: r.port() for k, r in replicas.items()}
         startup = {k: time.perf_counter() - r.t0
@@ -3490,8 +3690,8 @@ def phase_predict_cmd():
                     {"instances": x.tolist()})
         one_row = _x_tensor(x[:1])
 
-        def client():
-            conn = http.client.HTTPConnection("127.0.0.1", ports["sleeper"],
+        def client(port):
+            conn = http.client.HTTPConnection("127.0.0.1", port,
                                               timeout=120)
             try:
                 return [_predict_post(conn, "/v1/models/default:predict",
@@ -3500,9 +3700,12 @@ def phase_predict_cmd():
             finally:
                 conn.close()
 
-        t0 = time.perf_counter()
-        sleeper = _parallel([client] * PREDICT_CLIENTS)
-        sleeper_s = time.perf_counter() - t0
+        sleepers, sleeper_s = {}, {}
+        for k in ("sleeper", "sleeper_async"):
+            t0 = time.perf_counter()
+            sleepers[k] = _parallel([lambda p=ports[k]: client(p)]
+                                    * PREDICT_CLIENTS)
+            sleeper_s[k] = time.perf_counter() - t0
         codes, t_term = {}, time.perf_counter()
         for r in replicas.values():
             r.proc.send_signal(signal.SIGTERM)
@@ -3513,14 +3716,17 @@ def phase_predict_cmd():
         for r in replicas.values():
             r.stop()
     rows = PREDICT_CLIENTS * PREDICT_CMD_REQUESTS
-    row = {"phase": "predict_cmd", "startup_s": startup,
+    row = {"phase": "predict_cmd", "transport": transports,
+           "startup_s": startup,
            "mlp_status": mlp[0], "mlp_shape": list(mlp_rows.shape),
            "mlp_row_sums_max_err": float(np.abs(mlp_rows.sum(-1) - 1).max()),
            "mlp_residency": info.get("residency"),
            "module_status": mod[0],
            "module_version": mod[1].get("x-served-version"),
-           "sleeper_rows": rows, "sleeper_s": sleeper_s,
-           "sleeper_rows_per_s": rows / sleeper_s,
+           "sleeper_rows": rows, "sleeper_s": sleeper_s["sleeper"],
+           "sleeper_rows_per_s": rows / sleeper_s["sleeper"],
+           "sleeper_async_s": sleeper_s["sleeper_async"],
+           "sleeper_async_rows_per_s": rows / sleeper_s["sleeper_async"],
            "sleeper_capacity_rows_per_s": 1000 / PREDICT_DEVICE_MS,
            "sigterm_exit": codes, "sigterm_s": term_s}
     emit(row)
@@ -3531,7 +3737,7 @@ def phase_predict_cmd():
     if mod[0] != 200 or row["module_version"] != "3" or not np.allclose(
             json.loads(mod[2])["predictions"], x * 3.0, rtol=1e-6):
         raise AssertionError(f"MODEL_MODULE: {mod[0]} {mod[2][:300]!r}")
-    for r in (r for rs in sleeper for r in rs):
+    for r in (r for k in sleepers for rs in sleepers[k] for r in rs):
         if r["status"] != 200 or not np.allclose(
                 np.frombuffer(r["body"], "<f4"), x[0] * 2.0):
             raise AssertionError(f"MODEL_DEVICE_MS: {r['status']} "
@@ -3539,6 +3745,8 @@ def phase_predict_cmd():
     if set(codes.values()) != {0}:
         raise AssertionError(f"SIGTERM exit codes {codes}: " + str(
             {k: r.log[-10:] for k, r in replicas.items()}))
+    for k, r in replicas.items():
+        check_transport_log(r.log, transports[k])
     return row
 
 
@@ -6020,14 +6228,19 @@ def main():
     paths["speculative"] = phase_spec(target, draft, dcfg, kernel_fns)
     phase_conformance(params)
     phase_identity(params, target, draft, dcfg)
-    paths["wire"] = phase_wire(params, kernel_fns)
+    wire = phase_wire(params, kernel_fns)
+    paths["wire"], paths["wire_async"] = wire["threaded"], wire["async"]
     phase_wire_cmd()
     paths["qos"] = phase_qos(params, kernel_fns)
     paths["qos_i8"] = phase_qos_i8(params, kernel_fns, paths["qos"])
     paths["disagg"] = phase_disagg(params, kernel_fns)
     paths["disagg_i8"] = phase_disagg_i8(params, kernel_fns, paths["disagg"])
-    paths["disagg_wire"] = phase_disagg_wire(params, kernel_fns)
-    paths["predict"] = phase_predict(kernel_fns)
+    hops = phase_disagg_wire(params, kernel_fns)
+    paths["disagg_wire"] = hops["threaded"]
+    paths["disagg_wire_async"] = hops["async"]
+    predict = phase_predict(kernel_fns)
+    paths["predict"], paths["predict_async"] = (predict["threaded"],
+                                                predict["async"])
     phase_predict_residency()
     phase_predict_cmd()
     paths["mesh"] = phase_mesh(params, kernel_fns)

@@ -28,7 +28,10 @@ on the port's ``ModelServer``, serving ``MODEL_NAME`` (default
 ``GEN_DEVICE`` is the replica's device knob in every branch: unset it
 is the card, and a CUDA-less host exits through ``device.resolve``'s
 error (there is no silent fallback); ``cpu`` asks for the CPU by name.
-The server prints ``PORT <n>`` once serving and blocks until
+``SERVING_TRANSPORT`` picks the wire engine of either branch:
+``threaded`` (the default) or ``async`` (one event loop; what the
+ModelDeployment controller renders for every replica). The server logs
+its transport, prints ``PORT <n>`` once serving and blocks until
 SIGTERM/SIGINT, then stops.
 
 ``slice-worker`` is one worker of a training gang
@@ -36,10 +39,6 @@ SIGTERM/SIGINT, then stops.
 ``TPU_WORKER_*`` env, trains the JAX entry's small transformer with the
 gang's gradients summed, checkpoints and resumes. ``SLICE_WORKER_DEVICE``
 names its device (``cpu``); unset, it takes a card.
-
-Knobs the port does not serve yet refuse by name, with a non-zero exit
-(``SystemExit``) that names the work that brings them; see
-``REFUSED``.
 """
 
 import logging
@@ -66,14 +65,6 @@ def _tp():
                or 1)
 
 
-#: (knob, is it set to what the port refuses?, the work that brings it)
-REFUSED = (
-    ("SERVING_TRANSPORT", lambda: (os.environ.get("SERVING_TRANSPORT")
-                                   or "").strip().lower() == "async",
-     "the async transport (the port's async-transport slice)"),
-)
-
-
 #: the disaggregation roles ``GEN_ROLE`` may name
 ROLES = ("prefill", "decode", "both")
 
@@ -86,15 +77,6 @@ def _gen_role():
         raise SystemExit(f"GEN_ROLE={role!r} is not a role: "
                          f"{' | '.join(ROLES)}")
     return role
-
-
-def _refuse_unported():
-    """Raise ``SystemExit`` naming the first knob the port refuses."""
-    for knob, refused, work in REFUSED:
-        if refused():
-            raise SystemExit(
-                f"{knob}={os.environ.get(knob)!r} is not served by the "
-                f"port: {work} is not ported yet")
 
 
 def _block(*cleanup):
@@ -270,11 +252,11 @@ def build_unary_server(name="default"):
 
 
 def model_server(argv=()):
-    """One replica: the port's ``ModelServer`` on the threaded transport
-    serving ``MODEL_NAME`` (default ``default``) on ``HOST:PORT``
-    (default ``0.0.0.0:8500``; ``PORT=0`` picks a free port) — a
-    generation engine under ``MODEL_GENERATE``, else the unary plane."""
-    _refuse_unported()
+    """One replica: the port's ``ModelServer`` on the
+    ``SERVING_TRANSPORT`` transport (default threaded) serving
+    ``MODEL_NAME`` (default ``default``) on ``HOST:PORT`` (default
+    ``0.0.0.0:8500``; ``PORT=0`` picks a free port) — a generation
+    engine under ``MODEL_GENERATE``, else the unary plane."""
     from ..compute import serving
 
     name = os.environ.get("MODEL_NAME", "default")

@@ -48,12 +48,14 @@ headers, bodies, NDJSON frames and error taxonomy.
 - ``GET /healthz``, ``/metrics``, ``/debug/traces``, ``/debug/latency``,
   ``/v1/models`` (budget, residency, canaries, engines) and
   ``/v1/models/<name>``; ``POST /admin/drain``.
-- The threaded transport only (``ThreadingHTTPServer``, one handler
-  thread per connection, HTTP/1.1 keep-alive); the async transport is
-  refused by name (``ValueError``). A ``:generate`` handler moves plain
-  Python ints through a ``queue.Queue``: every engine device call stays
-  on the engine's own thread, as every batched predict stays on its
-  batcher's.
+- Two transports, one wire contract: ``"threaded"``
+  (``ThreadingHTTPServer``, one handler thread per connection, HTTP/1.1
+  keep-alive; a ``:generate`` handler moves plain Python ints through a
+  ``queue.Queue``) and ``"async"`` (``serving_async.AsyncTransport``: one
+  ``selectors`` loop for every connection, zero-copy x-tensor reads,
+  engine callbacks handed to the loop through a deque; ``:predictStream``
+  answers 501 there). On both, every engine device call stays on the
+  engine's own thread, as every batched predict stays on its batcher's.
 
 Where PyTorch differs from ``jax.jit``, the port keeps JAX's answers: a
 predict callable runs eagerly under ``torch.inference_mode()`` on the
@@ -149,12 +151,6 @@ TENSOR_DTYPES = {"float32", "float16", "int32", "int8", "uint8"}
 
 #: pad request batches up to one of these
 BATCH_BUCKETS = (1, 8, 16, 32, 64, 256)
-
-#: what the port does not serve yet, and the work that brings it
-ASYNC_TRANSPORT_MISSING = (
-    "the async serving transport is not ported yet (threaded only); "
-    "it comes with the port's async-transport slice")
-
 
 def bucket_for(n):
     """Smallest padded bucket that fits ``n`` rows (``n`` itself past
@@ -1073,6 +1069,7 @@ class ModelServer:
         self._generators = {}     # name -> GenerationEngine
         self._httpd = None
         self._thread = None
+        self._transport = None    # serving_async.AsyncTransport
         self._exporter = None
         self.transport = None
         self.draining = False     # begin_drain() flips healthz so the
@@ -2018,40 +2015,60 @@ class ModelServer:
 
     def start(self, port=8500, host="0.0.0.0", transport=None):
         """Serve on ``host:port`` (0 = any free port) → the bound port.
-        ``transport``: ``"threaded"`` (the default; ``SERVING_TRANSPORT``
-        may name it) — ``"async"`` raises ``ValueError``."""
+        ``transport`` picks the wire engine: ``"threaded"`` (one handler
+        thread per connection) or ``"async"`` (``serving_async``: one
+        ``selectors`` event loop, non-blocking accept/read/write,
+        keep-alive multiplexing, zero-copy ``application/x-tensor``
+        reads). The default comes from ``SERVING_TRANSPORT``, else
+        threaded. Both speak the same wire contract."""
         transport = (transport or os.environ.get("SERVING_TRANSPORT")
                      or "threaded").strip().lower()
         if transport == "async":
-            raise ValueError(ASYNC_TRANSPORT_MISSING)
-        if transport != "threaded":
+            from . import serving_async
+            self._transport = serving_async.AsyncTransport(
+                self, host=host, port=port)
+            actual = self._transport.start()
+        elif transport == "threaded":
+            self._httpd = ThreadingHTTPServer((host, port),
+                                              self._handler())
+            self._httpd.daemon_threads = True
+            self._thread = threading.Thread(
+                target=self._httpd.serve_forever, daemon=True,
+                name="model-server")
+            self._thread.start()
+            actual = self._httpd.server_address[1]
+        else:
             raise ValueError(f"unknown serving transport "
                              f"{transport!r} (threaded | async)")
-        self._httpd = ThreadingHTTPServer((host, port), self._handler())
-        self._httpd.daemon_threads = True
-        self._thread = threading.Thread(
-            target=self._httpd.serve_forever, daemon=True,
-            name="model-server")
-        self._thread.start()
         self.transport = transport
-        # fleet telemetry: no-op when no shard directory resolves
-        from ..obs import export as obs_export
-        self._exporter = obs_export.start_exporter()
-        return self._httpd.server_address[1]
+        # fleet telemetry: no-op when no shard directory resolves; one
+        # exporter a server, however many transports it listens on
+        if self._exporter is None:
+            from ..obs import export as obs_export
+            self._exporter = obs_export.start_exporter()
+        return actual
 
     def begin_drain(self):
         """Soft drain: healthz flips to ``draining``, every engine
         evicts its slots gracefully (open streams get a ``draining``
-        frame) and further ``:generate`` submits get a clean 503."""
+        frame) and further ``:generate`` submits get a clean 503. The
+        async transport then reaps its idle keep-alive connections and
+        closes every further response's; health probes keep answering."""
         self.draining = True
         for engine in self.generators().values():
             engine.begin_drain()
+        if self._transport is not None:
+            self._transport.drain()
 
     def stop(self):
         if self._httpd is not None:
             self._httpd.shutdown()
             self._httpd.server_close()
             self._httpd = None
+        # the loop and its executor threads end before the models close
+        if self._transport is not None:
+            self._transport.stop()
+            self._transport = None
         if self._exporter is not None:
             self._exporter.stop()
             self._exporter = None

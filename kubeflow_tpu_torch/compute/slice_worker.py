@@ -185,7 +185,14 @@ def main(argv=None):
                 tele.checkpoint(time.perf_counter() - t_ck)
                 log(event="step", step=int(state.step), loss=loss)
 
-            if int(state.step) not in ckpt.all_steps():
+            # the last step's save is the gang's decision: every worker
+            # reads the listing before worker 0 may write that step, or
+            # a worker that reads after the write skips the save's
+            # barrier and leaves worker 0 waiting in it
+            final = int(state.step) not in ckpt.all_steps()
+            if joined:
+                dist.barrier()
+            if final:
                 save(force=True)
             ckpt.close()
         log(event="done", step=int(state.step))

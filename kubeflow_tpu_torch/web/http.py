@@ -1,7 +1,8 @@
-"""Request-body framing for the port's model server — its own copy of
-``HTTPError``, the ``HTTP_MAX_BODY_BYTES`` limit and
-``framed_body_length`` from ``kubeflow_tpu/web/http.py``, so the two
-servers answer a badly framed request with the same status and words.
+"""Request framing for the port's model server — its own copy of
+``HTTPError``, ``parse_request_head``, the ``HTTP_MAX_BODY_BYTES`` limit
+and ``framed_body_length`` from ``kubeflow_tpu/web/http.py``, so the two
+servers answer a badly framed request with the same status and words,
+on either transport.
 """
 
 import os
@@ -12,6 +13,30 @@ class HTTPError(Exception):
         super().__init__(message)
         self.status = status
         self.message = message
+
+
+def parse_request_head(head):
+    """One HTTP/1.x request head (request line + header lines, WITHOUT
+    the terminating blank line) → ``(method, target, headers)`` with
+    header names lowercased. Malformed → ValueError. The async
+    transport parses every request head through it."""
+    try:
+        text = head.decode("latin-1")
+    except (UnicodeDecodeError, AttributeError):
+        raise ValueError("undecodable request head")
+    lines = text.split("\r\n")
+    parts = lines[0].split(" ")
+    if len(parts) != 3 or not parts[2].startswith("HTTP/"):
+        raise ValueError(f"malformed request line {lines[0]!r}")
+    headers = {}
+    for ln in lines[1:]:
+        if not ln:
+            continue
+        name, sep, value = ln.partition(":")
+        if not sep or not name or name != name.strip() or " " in name:
+            raise ValueError(f"malformed header line {ln!r}")
+        headers[name.lower()] = value.strip()
+    return parts[0].upper(), parts[1], headers
 
 
 def max_body_bytes():

@@ -601,3 +601,134 @@ def test_predict_rows_reads_every_answer_format():
         np.testing.assert_array_equal(got, x)
     with pytest.raises(AssertionError, match="answered 503"):
         chip_smoke._predict_rows({"status": 503, "head": {}, "body": b""}, 3)
+
+
+# ---------------------------------------------- the two serving transports
+
+def _wire_run(step_s, tokens_per_stream=2):
+    """A ``_wire_run`` result of 2 streams whose decode steps took
+    ``step_s`` each."""
+    done = {"done": True, "reason": "length",
+            "tokens": list(range(tokens_per_stream)), "ttft_s": 0.01,
+            "itg_p50_s": step_s, "itg_max_s": 2 * step_s}
+    results = [{"frames": [done], "first_frame_s": 0.02}] * 2
+    stats = {"decode_steps": 10, "decode_seconds_total": 10 * step_s,
+             "prefills": 2}
+    return {"results": results, "wall": 1.0, "launches": {"flash_fwd": 2},
+            "outs": [([1, 2], "length")] * 2, "wall_in": 0.5,
+            "d_wire": stats, "d_in": dict(stats, decode_seconds_total=0.05)}
+
+
+@pytest.mark.parametrize("order", [("threaded", "async"),
+                                   ("async", "threaded")])
+def test_wire_rows_name_their_transport_and_the_async_ratios(order):
+    steps = {"threaded": 0.015, "async": 0.010}
+    rows = {t: chip_smoke.wire_row(t, _wire_run(steps[t]), {})
+            for t in order}
+    assert [r["transport"] for r in rows.values()] == list(order)
+    row = rows["async"]
+    assert row["decode_step_ms"] == pytest.approx(10.0)
+    assert row["inproc_decode_step_ms"] == pytest.approx(5.0)
+    assert row["inproc_tokens_per_s"] == pytest.approx(8.0)
+    ratios = chip_smoke.transport_ratios(rows, chip_smoke.WIRE_RATIO_KEYS)
+    assert ratios["order"] == list(order)
+    assert ratios["decode_step_ms"] == pytest.approx(10.0 / 15.0)
+    assert ratios["itg_p50_ms"] == pytest.approx(10.0 / 15.0)
+    assert ratios["tokens_per_s"] == pytest.approx(1.0)
+    nested = chip_smoke.transport_ratios(
+        {"threaded": {"latency": {"binary": {"p50_ms": 4.0}}},
+         "async": {"latency": {"binary": {"p50_ms": 3.0}}}},
+        ("latency.binary.p50_ms",))
+    assert nested == {"order": ["threaded", "async"],
+                      "latency.binary.p50_ms": 0.75}
+
+
+@pytest.mark.parametrize("launches,missing", [
+    ({"paged_decode": 0, "flash_fwd": 0}, "['paged_decode', 'flash_fwd']"),
+    ({"paged_decode": 3, "flash_fwd": 0}, "['flash_fwd']"),
+    ({"paged_decode": 0, "flash_fwd": 12}, "['paged_decode']"),
+    ({"paged_decode": 3, "flash_fwd": 12}, None)],
+    ids=["neither", "no-k3", "no-k1", "both"])
+def test_require_refuses_an_async_wire_run_without_k1_and_k3(launches,
+                                                            missing):
+    names = ("paged_decode", "flash_fwd")
+    if missing is None:
+        chip_smoke._require(launches, names, "wire (async)")
+        return
+    with pytest.raises(AssertionError) as err:
+        chip_smoke._require(launches, names, "wire (async)")
+    assert str(err.value) == (f"kernels never launched on the wire (async) "
+                              f"path: {missing}")
+
+
+@pytest.mark.parametrize("transport,ok", [("async", True),
+                                          ("threaded", False)])
+def test_check_transport_log_reads_the_startup_line(transport, ok):
+    log = ["2026-01-01 00:00:00 root INFO model-server serving on :4312 "
+           "(async transport)", "PORT 4312"]
+    if ok:
+        chip_smoke.check_transport_log(log, transport)
+    else:
+        with pytest.raises(AssertionError, match="threaded transport"):
+            chip_smoke.check_transport_log(log, transport)
+
+
+def _predict_answer(rows, ms, infer_ms="3.5"):
+    return {"status": 200, "ms": ms, "body": rows.tobytes(),
+            "head": {"content-type": "application/x-tensor",
+                     "x-tensor-dtype": "float32",
+                     "x-tensor-shape": f"1,{rows.shape[-1]}",
+                     "x-served-version": "1",
+                     "x-inference-time-ms": infer_ms}}
+
+
+def test_predict_numbers_and_errors_of_one_transport(monkeypatch):
+    monkeypatch.setattr(chip_smoke, "PREDICT_CLIENTS", 2)
+    monkeypatch.setattr(chip_smoke, "PREDICT_PER_CLIENT", 2)
+    ref = np.float32([[0.25, 0.75], [0.5, 0.5]])
+    off = ref + np.float32([[0.0, 1e-3], [0.0, 0.0]])
+    json_ok = {"status": 200, "ms": 100.0, "body": b'{"predictions": '
+               b'[[0.25, 0.75]]}', "head": {"content-type":
+                                             "application/json"}}
+    run = {"binary": [[_predict_answer(off[:1], 10.0),
+                       _predict_answer(off[:1], 30.0)],
+                      [_predict_answer(ref[1:], 20.0, "4.5"),
+                       _predict_answer(ref[1:], 40.0, "5.5")]],
+           "binary_s": 0.5, "calls": 2, "dispatches": 2, "coalesced": 4.0,
+           "occ_mean": 2.0, "json": [json_ok] * 2, "b64": [json_ok] * 2}
+    errs = chip_smoke._predict_errors(run, ref, 2)
+    assert max(errs["binary"]) == pytest.approx(1e-3, rel=1e-4)   # fp32
+    assert errs["json"] == errs["b64"] == [0.0, 0.0]
+    chip_smoke.check_predict_errors(errs, "async")
+    with pytest.raises(AssertionError, match="binary rows over the async"):
+        chip_smoke.check_predict_errors({"binary": [0.5]}, "async")
+    numbers = chip_smoke._predict_numbers(run)
+    assert numbers["images_per_s"] == {"binary": 8.0, "json": 10.0,
+                                       "b64": 10.0}
+    assert numbers["latency"]["binary"]["n"] == 4
+    assert numbers["inference_time_ms_p50"] == pytest.approx(
+        chip_smoke._pctl([3.5, 3.5, 4.5, 5.5], 0.5))
+    assert numbers["occupancy_mean"] == 2.0
+    run["binary"][0][0]["head"]["x-served-version"] = "2"
+    with pytest.raises(AssertionError, match="x-tensor answer headers"):
+        chip_smoke._predict_errors(run, ref, 2)
+
+
+def test_the_predict_stream_refusal_is_the_async_transports_answer():
+    import http.client
+
+    from kubeflow_tpu_torch.compute import serving
+
+    server = serving.ModelServer(device="cpu")
+    server.register("m", lambda x: x)
+    port = server.start(port=0, host="127.0.0.1", transport="async")
+    try:
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=30)
+        conn.request("POST", "/v1/models/m:predictStream", b"{}\n",
+                     {"Content-Type": "application/x-ndjson"})
+        resp = conn.getresponse()
+        assert (resp.status, resp.read()) == (
+            501, chip_smoke.PREDICT_STREAM_501)
+        conn.close()
+    finally:
+        server.stop()

@@ -8,8 +8,9 @@ each unary branch (the stock MLP from ``SEED``, ``MODEL_MODULE``,
 ``MODEL_DEVICE_MS``) serves ``:predict`` on ``GEN_DEVICE=cpu`` and
 raises by name without it on a CUDA-less host; a stock-MLP subprocess
 answers ``/healthz``, ``/v1/models/default`` and a predict whose rows
-sum to 1, and SIGTERM ends it with 0;
-every knob the port does not serve yet refuses by name,
+sum to 1, and SIGTERM ends it with 0; ``SERVING_TRANSPORT=async``
+starts either branch on the event loop (the decode-role subprocess
+below runs on it, names it in its log and exits 0 on SIGTERM);
 ``QOS_TENANTS``, ``GEN_PREEMPTION``, ``GEN_ROLE`` and the mesh knobs
 (``GEN_MESH``, ``GEN_TP``, ``GEN_ROW_SHARD``, ``GEN_CALIBRATE``) reach the
 engine as in the JAX entry, and without ``GEN_DEVICE`` a CUDA-less host
@@ -100,7 +101,8 @@ def server():
 
 @pytest.fixture(scope="module")
 def decode_server():
-    proc, port = _serve(GEN_ROLE="decode")
+    """The decode-role replica, on the async transport."""
+    proc, port = _serve(GEN_ROLE="decode", SERVING_TRANSPORT="async")
     try:
         yield proc, port
     finally:
@@ -211,6 +213,15 @@ def test_a_prefill_bundle_attaches_on_a_decode_role_server(server,
         "prefills"] == 0
 
 
+def test_the_async_decode_replica_names_its_transport_and_exits_zero(
+        decode_server):
+    proc, port = decode_server
+    assert json.loads(_get(port, "/healthz")[1]) == {"status": "ok"}
+    proc.send_signal(signal.SIGTERM)
+    assert proc.wait(30) == 0
+    assert "(async transport)" in proc.stderr.read()
+
+
 def test_sigterm_exits_zero(server):
     proc, port = server
     _get(port, "/healthz")
@@ -239,18 +250,49 @@ def knobs(monkeypatch):
     return monkeypatch
 
 
-@pytest.mark.parametrize("knob,value", [("SERVING_TRANSPORT", "async")])
-def test_unported_knobs_refuse_by_name(knobs, knob, value):
-    knobs.setenv(knob, value)
-    with pytest.raises(SystemExit, match=knob):
-        cmd.model_server()
+@pytest.mark.parametrize("generate", [True, False],
+                         ids=["generate", "unary"])
+def test_serving_transport_async_builds_an_async_replica(knobs, generate):
+    """``SERVING_TRANSPORT=async``, as the ModelDeployment controller
+    renders it: either branch's replica starts on the event loop and
+    answers."""
+    from kubeflow_tpu_torch.compute import serving
+    knobs.setenv("SERVING_TRANSPORT", "async")
+    if generate:
+        server = serving.ModelServer()
+        server.register_generator("default", cmd.build_engine("default"))
+    else:
+        knobs.delenv("MODEL_GENERATE")
+        server = cmd.build_unary_server("default")
+    port = server.start(port=0, host="127.0.0.1")
+    try:
+        assert server.transport == "async"
+        assert json.loads(_get(port, "/healthz")[1]) == {"status": "ok"}
+        if generate:
+            conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+            conn.request("POST", "/v1/models/default:generate",
+                         json.dumps({"tokens": [1, 2, 3],
+                                     "max_tokens": 4}).encode(),
+                         {"Content-Type": "application/json"})
+            frames = [json.loads(ln) for ln in
+                      conn.getresponse().read().splitlines() if ln]
+            conn.close()
+            cfg, params = _stock_weights()
+            assert frames[-1]["tokens"] == t_gen.reference_greedy_decode(
+                params, cfg, [1, 2, 3], 4)
+        else:
+            x = np.random.default_rng(2).standard_normal((2, 64)).astype(
+                np.float32)
+            _, got = _unary_predict(port, "default", x.tolist())
+            np.testing.assert_allclose(got, _stock_mlp(x), atol=1e-6)
+    finally:
+        server.stop()
 
 
 @pytest.mark.parametrize("role", ["prefill", "decode", "both", None])
 def test_gen_role_reaches_the_engine(knobs, role):
     if role is not None:
         knobs.setenv("GEN_ROLE", role)
-    cmd._refuse_unported()
     eng = cmd.build_engine(f"role-{role}")
     try:
         assert eng.role == (role or "both")
@@ -307,7 +349,6 @@ def test_each_unary_branch_serves(knobs, tmp_path, knob, value):
         knobs.setenv(knob, value)
     (tmp_path / "served_by_module.py").write_text(MODULE)
     knobs.syspath_prepend(str(tmp_path))
-    cmd._refuse_unported()
     server = cmd.build_unary_server("default")
     port = server.start(port=0, host="127.0.0.1")
     try:
@@ -389,7 +430,6 @@ def test_gen_preemption_is_read_and_accepted(knobs, value):
     ids=["interactive", "batch", "unlisted", "unset"])
 def test_qos_tenants_gives_the_engine_its_ledger(knobs, spec, tenant, cls):
     knobs.setenv("QOS_TENANTS", spec)
-    cmd._refuse_unported()
     eng = cmd.build_engine("ledger")
     try:
         assert (eng._qos is None) == (not spec)
@@ -416,7 +456,6 @@ def test_gen_device_unset_raises_the_no_fallback_error(knobs):
 def test_gen_mesh_and_gen_tp_shard_the_engine(knobs, env, tp):
     for k, v in env.items():
         knobs.setenv(k, v)
-    cmd._refuse_unported()
     eng = cmd.build_engine(f"mesh-{tp}")
     try:
         assert eng.tp == tp and (eng.mesh is None) == (tp == 1)
@@ -433,7 +472,6 @@ def test_gen_row_shard_and_gen_calibrate_reach_the_engine(knobs):
     knobs.setenv("GEN_TP", "2")
     knobs.setenv("GEN_ROW_SHARD", "1")
     knobs.setenv("GEN_CALIBRATE", "yes")
-    cmd._refuse_unported()
     eng = cmd.build_engine("rowcal")
     try:
         assert eng.row_shard and eng.tp == 2

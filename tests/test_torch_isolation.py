@@ -1,7 +1,7 @@
 """The port stands alone: no module of ``kubeflow_tpu_torch/``, not
 ``chip_smoke.py`` and not the port's scripts under ``hack/`` (the
 kernel A/B timings, the serving profile, the mesh-axes, the
-expert/gang and the unary predict phases) imports
+expert/gang, the unary predict and the two-transport phases) imports
 JAX, its ecosystem (``ml_dtypes`` included: the KV-bundle codec reads
 bf16 without it) or the JAX package, and none imports ``triton`` at
 module level (the CPU test host has none; a kernel module imports it
@@ -20,7 +20,8 @@ FILES = sorted((ROOT / "kubeflow_tpu_torch").rglob("*.py")) + [
     ROOT / "hack" / "port_decode_profile.py",
     ROOT / "hack" / "mesh_axes_smoke.py",
     ROOT / "hack" / "expert_gang_smoke.py",
-    ROOT / "hack" / "predict_smoke.py"]
+    ROOT / "hack" / "predict_smoke.py",
+    ROOT / "hack" / "transport_smoke.py"]
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "ml_dtypes", "kubeflow_tpu")
 
 
@@ -58,6 +59,7 @@ def test_no_jax_and_no_module_level_triton(path):
     "kubeflow_tpu_torch/web/__init__.py", "kubeflow_tpu_torch/web/http.py",
     "kubeflow_tpu_torch/obs/tracing.py", "kubeflow_tpu_torch/obs/export.py",
     "kubeflow_tpu_torch/compute/serving.py",
+    "kubeflow_tpu_torch/compute/serving_async.py",
     "kubeflow_tpu_torch/compute/mesh.py",
     "kubeflow_tpu_torch/compute/sharding.py",
     "kubeflow_tpu_torch/compute/pipeline.py",

@@ -2,7 +2,9 @@
 sockets, and its batcher on its own.
 
 One JAX ``ModelServer`` and one port ``ModelServer`` (``device="cpu"``)
-serve the same models on the threaded transport, port 0:
+serve the same models on the same transport, port 0 (the suite runs over
+the threaded and the async transport; ``:predictStream`` only over the
+threaded one, the async loop answers it 501):
 
 - ``x2`` (``x * 2.0``): JSON ``instances`` (float and int bodies: the
   port casts float64/int64 to float32/int32 as JAX's x64-off ``jit``
@@ -136,14 +138,14 @@ def _port_server():
     return server
 
 
-@pytest.fixture(scope="module")
-def served():
-    """→ {side: (server, port)}"""
+@pytest.fixture(scope="module", params=["threaded", "async"])
+def served(request):
+    """→ {side: (server, port)}, both sides on the same transport"""
     out = {}
     for side, make in (("jax", _jax_server), ("port", _port_server)):
         server = make()
         out[side] = (server, server.start(port=0, host="127.0.0.1",
-                                          transport="threaded"))
+                                          transport=request.param))
     yield out
     for server, _ in out.values():
         server.stop()
@@ -329,6 +331,7 @@ def _stream_body():
                       else ln.encode() for ln in lines) + b"\n"
 
 
+@pytest.mark.parametrize("served", ["threaded"], indirect=True)
 @pytest.mark.parametrize("tail", [b"", b'{"instances": [[1.0, 2.0]]}',
                                   b'{"instan'],
                          ids=["newline", "unterminated", "truncated"])

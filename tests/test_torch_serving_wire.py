@@ -5,9 +5,10 @@ One JAX ``ModelServer`` with its engine and one port ``ModelServer``
 with the port's engine (``device="cpu"``: the kernels' plain versions),
 on the same fp32 weights carried across through numpy (the 2-layer
 config of ``tests/test_serving_generate.py`` with GQA 4:2, one slot,
-block 8), both on the threaded transport on port 0, get the same
-requests. Streamed tokens must be identical to each other and to the
-JAX cache-free oracle; status codes, error text, header names, the
+block 8), both on the same transport on port 0 (the wire suite runs
+over the threaded and the async transport), get the same requests.
+Streamed tokens must be identical to each other and to the JAX
+cache-free oracle; status codes, error text, header names, the
 mesh/prefix/QoS header values and the done frame's keys must match. A
 stream preempted by an interactive tenant sends the same ``suspended``/
 ``resumed`` frames and the same done-frame ``qos`` view on both, with
@@ -17,6 +18,11 @@ framing, and a bundle from either server ``:attach``es on either, with
 the oracle's tokens, ``X-KV-Bytes-Migrated`` and the same frames; a
 bundle the pool cannot take (a prefill-role engine, an int8 bundle on a
 float pool) or a malformed one answers the same 400.
+
+A request's trace enters the ring after its response's last byte (the
+threaded handler's ``finally``, the async loop's ``finish_cb``), so a
+test that reads ``/debug/traces`` right after a response polls for it
+(``_trace``).
 """
 
 import dataclasses
@@ -69,30 +75,33 @@ def _engines(jparams, tparams):
                                            **kw)}
 
 
-def _start(engines):
-    """→ {side: (server, engine, port)}"""
+TRANSPORTS = ("threaded", "async")
+
+
+def _start(engines, transport="threaded"):
+    """→ {side: (server, engine, port)}, both sides on ``transport``"""
     out = {}
     for side, lib in (("jax", j_serving), ("port", t_serving)):
         server = lib.ModelServer()
         server.register_generator("lm", engines[side])
         out[side] = (server, engines[side],
                      server.start(port=0, host="127.0.0.1",
-                                  transport="threaded"))
+                                  transport=transport))
     return out
 
 
-@pytest.fixture(scope="module")
-def served(jparams, tparams):
-    pair = _start(_engines(jparams, tparams))
+@pytest.fixture(scope="module", params=TRANSPORTS)
+def served(jparams, tparams, request):
+    pair = _start(_engines(jparams, tparams), request.param)
     yield pair
     for server, _, _ in pair.values():
         server.stop()
 
 
-@pytest.fixture
-def fresh(jparams, tparams):
+@pytest.fixture(params=TRANSPORTS)
+def fresh(jparams, tparams, request):
     """A pair of servers for a test that drains them."""
-    pair = _start(_engines(jparams, tparams))
+    pair = _start(_engines(jparams, tparams), request.param)
     yield pair
     for server, _, _ in pair.values():
         server.stop()
@@ -112,6 +121,22 @@ def _get(port, path):
     body = resp.read()
     conn.close()
     return resp.status, body
+
+
+def _trace(port, trace_id, timeout=10.0):
+    """The spans of trace ``trace_id`` from ``/debug/traces``, polled
+    until the request's root span is in the ring (it enters after the
+    response's last byte)."""
+    deadline = time.monotonic() + timeout
+    while True:
+        traces = json.loads(_get(
+            port, f"/debug/traces?trace_id={trace_id}")[1])["traces"]
+        if any(s["name"].startswith("http ") for t in traces
+               for s in t["spans"]) or time.monotonic() > deadline:
+            break
+        time.sleep(0.02)
+    assert traces, f"no trace {trace_id} in the ring after {timeout} s"
+    return traces[0]["spans"]
 
 
 def _frames(resp):
@@ -344,9 +369,7 @@ def test_request_trace_is_kept_and_continues_the_callers(served):
         served["port"][2], {"tokens": [3, 3], "max_tokens": 2},
         {"traceparent": f"00-{tid}-{'cd' * 8}-01"})
     assert status == 200 and head["traceparent"].split("-")[1] == tid
-    traces = json.loads(_get(served["port"][2],
-                             f"/debug/traces?trace_id={tid}")[1])["traces"]
-    names = {s["name"] for s in traces[0]["spans"]}
+    names = {s["name"] for s in _trace(served["port"][2], tid)}
     assert {"http POST /v1/models/lm:generate", "generate.queue_wait",
             "generate.prefill", "generate.decode"} <= names
     latency = json.loads(_get(served["port"][2],
@@ -386,10 +409,16 @@ def test_unary_verbs_on_a_generator_only_name_answer_404_alike(served,
                                          b'{"error": "model not found"}')
 
 
-def test_the_async_transport_is_refused_by_name():
-    with pytest.raises(ValueError, match="async-transport slice"):
-        t_serving.ModelServer().start(port=0, host="127.0.0.1",
-                                      transport="async")
+@pytest.mark.parametrize("transport", ["quic", "asyncio", "threads"])
+def test_an_unknown_transport_is_refused_alike(transport):
+    errors = {}
+    for side, lib in (("jax", j_serving), ("port", t_serving)):
+        with pytest.raises(ValueError) as err:
+            lib.ModelServer().start(port=0, host="127.0.0.1",
+                                    transport=transport)
+        errors[side] = str(err.value)
+    assert errors["port"] == errors["jax"] == (
+        f"unknown serving transport {transport!r} (threaded | async)")
 
 
 def test_the_router_relays_the_ports_stream_as_it_goes(served, jparams):
@@ -423,7 +452,9 @@ def test_the_router_relays_the_ports_stream_as_it_goes(served, jparams):
     assert frames[-1]["done"] and frames[-1]["tokens"] == ref
 
 
-def test_a_speculative_stream_matches_jax_frame_for_frame(jparams, tparams):
+@pytest.mark.parametrize("transport", TRANSPORTS)
+def test_a_speculative_stream_matches_jax_frame_for_frame(jparams, tparams,
+                                                        transport):
     """draft == target, k = 3: every verify round accepts all, so both
     engines emit the same bursts; one frame a token, contiguous indices,
     the same ``X-Spec-Acceptance`` and done-frame ``spec`` view."""
@@ -434,7 +465,7 @@ def test_a_speculative_stream_matches_jax_frame_for_frame(jparams, tparams):
                                       draft_config=CFG, **kw),
         "port": t_gen.GenerationEngine(tparams, TCFG, draft_params=tparams,
                                        draft_config=TCFG, device="cpu",
-                                       **kw)})
+                                       **kw)}, transport)
     got = {}
     try:
         for side in SIDES:
@@ -470,7 +501,8 @@ def _read_frames(resp, n_tokens):
     return frames
 
 
-def test_a_preempted_stream_is_framed_as_jaxs(jparams, tparams):
+@pytest.mark.parametrize("transport", TRANSPORTS)
+def test_a_preempted_stream_is_framed_as_jaxs(jparams, tparams, transport):
     """One slot, each side's engine with its own ledger built from the
     same spec: a ``crawler`` (batch) stream is preempted mid-stream by an
     ``acme`` (interactive) request and resumes. Both servers send the
@@ -483,7 +515,8 @@ def test_a_preempted_stream_is_framed_as_jaxs(jparams, tparams):
         "jax": j_gen.GenerationEngine(jparams, CFG,
                                       qos=j_qos.TokenLedger(spec), **kw),
         "port": t_gen.GenerationEngine(tparams, TCFG, device="cpu",
-                                       qos=t_qos.TokenLedger(spec), **kw)})
+                                       qos=t_qos.TokenLedger(spec), **kw)},
+        transport)
     _slowed(pair, 0.02)
     got = {}
     try:
@@ -539,9 +572,10 @@ def test_a_preempted_stream_is_framed_as_jaxs(jparams, tparams):
 BUNDLE_HEADERS = ("X-KV-Meta-Bytes", "X-Tensor-Dtype", "X-Tensor-Shape")
 
 
-def _prefill(port, body, name="lm"):
+def _prefill(port, body, name="lm", headers=None):
     """``:prefill`` → (status, {lowercased header: value}, body bytes)"""
-    conn, resp = _post(port, body, path=f"/v1/models/{name}:prefill")
+    conn, resp = _post(port, body, headers,
+                       path=f"/v1/models/{name}:prefill")
     head = {k.lower(): v for k, v in resp.getheaders()}
     data = resp.read()
     conn.close()
@@ -567,10 +601,12 @@ def _framing(head):
 
 def test_prefill_answers_jaxs_framing(served, jparams):
     prompt = [7, 1, 7, 2, 7, 3, 7, 4, 7, 5, 7]
+    tid = "9a" * 16
     got = {}
     for side in SIDES:
-        status, head, body = _prefill(served[side][2],
-                                      {"tokens": prompt, "max_tokens": 5})
+        status, head, body = _prefill(
+            served[side][2], {"tokens": prompt, "max_tokens": 5},
+            headers={"traceparent": f"00-{tid}-{'34' * 8}-01"})
         assert status == 200, (side, body)
         assert head["content-type"] == "application/x-tensor"
         assert int(head["content-length"]) == len(body)
@@ -587,10 +623,8 @@ def test_prefill_answers_jaxs_framing(served, jparams):
         assert tm[key] == jm[key], key
     assert tm["first_token"] == j_gen.reference_greedy_decode(
         jparams, CFG, prompt, 1)[0]
-    traces = json.loads(_get(served["port"][2],
-                             "/debug/traces?format=json")[1])["traces"]
-    spans = {sp["name"]: sp for t in traces for sp in t["spans"]
-             if t["spans"][0]["name"].endswith(":prefill")}
+    spans = {sp["name"]: sp for sp in _trace(served["port"][2], tid)}
+    assert spans["http POST /v1/models/lm:prefill"]
     assert spans["encode"]["attrs"]["format"] == "binary"
     assert spans["decode"]["attrs"]["format"] == "json"
 
@@ -636,9 +670,7 @@ def test_attach_records_its_read_and_binary_decode(served):
     tid = "ef" * 16
     framing = {**_framing(head), "traceparent": f"00-{tid}-{'12' * 8}-01"}
     assert _attach(served["port"][2], framing, body)[0] == 200
-    traces = json.loads(_get(served["port"][2],
-                             f"/debug/traces?trace_id={tid}")[1])["traces"]
-    spans = {sp["name"]: sp for sp in traces[0]["spans"]}
+    spans = {sp["name"]: sp for sp in _trace(served["port"][2], tid)}
     assert spans["decode"]["attrs"]["format"] == "binary"
     assert "http.read" in spans
 
