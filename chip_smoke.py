@@ -234,7 +234,11 @@ if any phase fails:
    randomised the loss and every running statistic within 1e-5 of the
    unsharded step's; at the seed's init the gradient norm within 1e-5
    and the params by ``test_torch_train.py``'s rule over all elements;
-   the ring and pipeline phases; moe_mesh — the MoE flagship (bf16) on
+   the ring and pipeline phases (``pipeline_1f1b`` on ``pipeline=2``
+   and on ``data=2 x pipeline=2``: K3 384, K4/K5 192, the loss within
+   1e-2 of the pipeline-only 1F1B's and GPipe's; fp32 at 2 layers on
+   three meshes, ``tensor=2`` among them, against plain autograd);
+   moe_mesh — the MoE flagship (bf16) on
    ``data=2, expert=2`` over four positions, 2 warm + 3 timed steps on
    ``moe_train``'s 8 x 1024 batch: K6 128, K7 64 and K3–K5 16 a step
    (each expert shard's K6/K7 for each piece), copies byte-equal, step
@@ -242,9 +246,18 @@ if any phase fails:
    layers on ``data=2, expert=2, tensor=2``: dropless in 2 GPipe stages
    and the capacity dispatch against one device replaying the mesh's
    top-k choices, loss 1e-6, leaves 1e-5; process_mesh — two gloo
-   processes on ``cuda:0``, ``data=2`` across them, the flagship's
-   ``train`` cell: the ranks byte-equal after every step, step 1 within
-   1e-3 of ``train``'s, the gradient all_reduce's share of the step;
+   processes on ``cuda:0``, ``data=2`` across them, in one subprocess
+   pair: the flagship's ``train`` cell, bert-base's ``bert_train`` and
+   ResNet-50's ``resnet_train`` (sync BN over the gang), half the
+   batch a rank, ``PROCESS_STEPS`` (4) steps each: the ranks
+   byte-equal after every step (ResNet's running statistics too),
+   every step's loss within 1e-3 of the one-process phase's same step,
+   K3–K5 12 a step a rank for the flagship and BERT, the gradient
+   all_reduce's share of the step and, in the last step alone, the
+   small collectives'; then fp32
+   ResNet-50 on 8 images, 4 a rank, one step: loss, running statistics
+   and gradient norm within 1e-5 of one process's ``data=2`` mesh and
+   the params by ``test_torch_train.py``'s rule;
    slice_worker — ``python -m kubeflow_tpu_torch.cmd slice-worker`` as a
    gang of 2: a fault at step 3 (exit 17), the gang restarted, resumed
    from step 2 and equal to an uninterrupted gang's within 1e-6;
@@ -5275,7 +5288,7 @@ def phase_resnet_mesh(kernel_fns, resnet_row):
     within 1e-5 and the params after the update by
     ``tests/test_torch_train.py``'s rule over all elements."""
     import torch
-    from kubeflow_tpu_torch.compute import data, mesh as mesh_lib, sharding
+    from kubeflow_tpu_torch.compute import data, mesh as mesh_lib
     from kubeflow_tpu_torch.compute import train
     from kubeflow_tpu_torch.compute.models import resnet
     cfg = resnet.Config(depth=50, n_classes=1000, dtype="bfloat16")
@@ -5297,59 +5310,10 @@ def phase_resnet_mesh(kernel_fns, resnet_row):
     del state
     torch.cuda.empty_cache()
     t_check = time.perf_counter()
-    cfg32 = dataclasses.replace(cfg, dtype="float32")
     host = next(data.synthetic_images(8, RESNET_IMAGE, cfg.n_classes,
                                       seed=16))
-    loss = train.stateful_loss(resnet.loss_fn, cfg32)
-    lr = 1e-3
-    sides = (("mesh", dict(mesh=mesh, logical_axes=p_axes),
-              data.shard_batch(host, mesh)),
-             ("unsharded", dict(device=card), data.to_device(host, card)))
-
-    def stepped(weights):
-        """Each side's ``(state, metrics)`` after one step at rate lr
-        from ``weights``."""
-        out = []
-        for _, where, batch in sides:
-            opt = train.make_optimizer(learning_rate=lr, warmup_steps=0,
-                                       total_steps=100)
-            st = train.init_state(
-                lambda g, device: train.tree_map(torch.clone, weights[0]),
-                opt, extra=train.tree_map(torch.clone, weights[1]), **where)
-            out.append(train.make_train_step(
-                loss, opt, mesh=where.get("mesh"))(st, batch))
-        return out
-
-    # the forward with every BN randomised (each block's branch live): the
-    # loss and every running statistic are the global batch's
-    (ms, mm), (us, um) = stepped(resnet_weights(cfg32, seed=15))
-    m_loss, u_loss = float(mm["loss"]), float(um["loss"])
-    errs = _leaf_errors(
-        train.tree_leaves(sharding.gather_tree(ms.extra, card)),
-        train.tree_leaves(sharding.gather_tree(us.extra, card)))
-    del ms, us
-    # the update at the seed's init: with every BN randomised each fp32
-    # gradient, on one device or the mesh, lies a fifth of a leaf's max
-    # |g| off the float64 one. At init the grad norm and the update's
-    # signs compare, a leaf's fp32 gradient does not: on one device the
-    # third stage's lie 9 % of their max |g| off the float64 gradient,
-    # the mesh's 4e-4 (hack/resnet_mesh_grads.py)
-    (gms, gm), (gus, gu) = stepped(resnet.init_params(
-        cfg32, torch.Generator().manual_seed(15), device=card))
-    m_norm, u_norm = float(gm["grad_norm"]), float(gu["grad_norm"])
-    worst, share, ok = params_rule(
-        train.tree_leaves(train.gather_params(gms, card)),
-        [t.detach() for t in train.tree_leaves(gus.params)], lr, 1,
-        whole_model=True)
-    del gms, gus
-    report = {"depth": 50, "images": 8, "loss": [m_loss, u_loss],
-              "loss_rel": abs(m_loss - u_loss) / abs(u_loss),
-              "stats_rel_max": max(errs), "tol": 1e-5,
-              "init_grad_norm": [m_norm, u_norm],
-              "init_grad_norm_rel": abs(m_norm - u_norm) / abs(u_norm),
-              "params_max_abs": worst, "params_share_over_1e-6": share,
-              "params_rule": {"max_abs": 2 * lr, "share": 1e-3,
-                              "over": "all elements"}}
+    report = resnet_fp32_report(_resnet_fp32_sides(host, 1e-3, mesh),
+                                _resnet_fp32_sides(host, 1e-3), 1e-3)
     row.update(dtype="bfloat16", batch=RESNET_BATCH, image=RESNET_IMAGE,
                depth=cfg.depth, running_mean_moved_max=moved,
                resnet_train_step_ms=resnet_row["step_ms"],
@@ -5358,9 +5322,7 @@ def phase_resnet_mesh(kernel_fns, resnet_row):
     emit(row)
     if not moved > 0:
         raise AssertionError("resnet_mesh: the running means did not move")
-    if (report["loss_rel"] > 1e-5 or report["stats_rel_max"] > 1e-5
-            or report["init_grad_norm_rel"] > 1e-5 or not ok):
-        raise AssertionError(f"resnet_mesh fp32 sync BN: {report}")
+    check_resnet_fp32(report, "resnet_mesh fp32 sync BN")
     return row
 
 
@@ -5623,10 +5585,16 @@ def phase_pipeline_1f1b(kernel_fns):
     and ``autograd.grad``, no update): the loss within
     ``BF16_LOSS_REL`` of GPipe's, peak memory below GPipe's, K3 2 x 12
     x 8 = 192 (the forward and the recompute), K4/K5 96 (each schedule
-    called twice, the second call's numbers kept). Then fp32 at 2
-    layers (one a stage), 4 x 1024 in 4 microbatches: the loss within
-    1e-5 relative and each leaf's gradient within 1e-3 of its max |g| of
-    plain autograd through the same three functions."""
+    called twice, the second call's numbers kept). Then both on
+    ``data=2 x pipeline=2`` (each microbatch cut in two over ``data``):
+    the 1F1B loss within ``BF16_LOSS_REL`` of the pipeline-only 1F1B's
+    and of GPipe's on that mesh, K3 2 x 12 x 8 x 2 = 384, K4/K5 192,
+    live inputs <= 3. Then fp32 at 2 layers (one a stage): 4 x 1024 in 4
+    microbatches on ``pipeline=2``, 8 x 1024 in 4 on ``data=2 x
+    pipeline=2`` and on ``data=2 x pipeline=2 x tensor=2`` (the weights
+    placed over ``tensor``, gathered at each stage's lead): the loss
+    within 1e-5 relative and each leaf's gradient within 1e-3 of its max
+    |g| of plain autograd through the same three functions."""
     import torch
     from kubeflow_tpu_torch.compute import (data, mesh as mesh_lib,
                                             pipeline, sharding, train)
@@ -5637,10 +5605,9 @@ def phase_pipeline_1f1b(kernel_fns):
     mesh = mesh_lib.make_mesh(pipeline=2, devices=[CARD] * 2)
     B, S = TRAIN_BATCH
     host = next(data.synthetic_lm(B, S, cfg.vocab_size, seed=4))
-    params = sharding.place_tree(
-        transformer.init_params(cfg, torch.Generator().manual_seed(0),
-                                device="cpu"),
-        mesh, transformer.logical_axes(cfg))
+    weights = transformer.init_params(cfg, torch.Generator().manual_seed(0),
+                                      device="cpu")
+    params = sharding.place_tree(weights, mesh, transformer.logical_axes(cfg))
     pieces = sharding.pieces_of(train.tree_leaves(params))
     for t in pieces:
         t.requires_grad_(True)
@@ -5676,7 +5643,44 @@ def phase_pipeline_1f1b(kernel_fns):
     launches = runs["1f1b"]["launches"]
     del params, pieces
     torch.cuda.empty_cache()
-    fp32 = _1f1b_fp32(mesh)
+    data_mesh = mesh_lib.make_mesh(data=2, pipeline=2, devices=[CARD] * 4)
+    params = sharding.place_tree(weights, data_mesh,
+                                 transformer.logical_axes(cfg))
+    del weights
+    pieces = sharding.pieces_of(train.tree_leaves(params))
+    for t in pieces:
+        t.requires_grad_(True)
+    on_data = {}
+    for name in ("gpipe", "1f1b"):
+        _zero(kernel_fns)
+        t0 = time.perf_counter()
+        if name == "gpipe":
+            loss, _ = transformer.loss_fn(
+                params, data.shard_batch(host, data_mesh), cfg)
+            grads = train._grads(loss, pieces)
+        else:
+            loss, grads = pipeline.train_1f1b(
+                *flagship_1f1b_fns(cfg), _1f1b_params(params),
+                torch.from_numpy(host["tokens"]),
+                torch.from_numpy(host["targets"]), F1B_MICRO, data_mesh)
+        torch.cuda.synchronize()
+        on_data[name] = {"loss": float(loss.detach()),
+                         "ms": 1e3 * (time.perf_counter() - t0),
+                         "launches": _launches(kernel_fns)}
+        del loss, grads
+    on_data["1f1b"]["live_inputs"] = pipeline.train_1f1b.live_inputs
+    data_row = {"mesh": {"data": 2, "pipeline": 2}, **on_data,
+                "launches": on_data["1f1b"]["launches"],
+                "loss_rel_vs_pipeline_1f1b": _rel(on_data["1f1b"]["loss"],
+                                                  runs["1f1b"]["loss"]),
+                "loss_rel_vs_gpipe": _rel(on_data["1f1b"]["loss"],
+                                          on_data["gpipe"]["loss"])}
+    del params, pieces
+    torch.cuda.empty_cache()
+    fp32 = [_1f1b_fp32(mesh, 4),
+            _1f1b_fp32(data_mesh, 8),
+            _1f1b_fp32(mesh_lib.make_mesh(data=2, pipeline=2, tensor=2,
+                                          devices=[CARD] * 8), 8)]
     row = {"phase": "pipeline_1f1b", "dtype": "bfloat16", "batch": B,
            "seq": S, "layers": cfg.n_layers, "stages": 2,
            "microbatches": F1B_MICRO, **runs,
@@ -5684,7 +5688,7 @@ def phase_pipeline_1f1b(kernel_fns):
            "tol_loss_rel": BF16_LOSS_REL,
            "peak_vs_gpipe": (runs["1f1b"]["peak_memory_bytes"]
                              / runs["gpipe"]["peak_memory_bytes"]),
-           "launches": launches, "fp32": fp32,
+           "launches": launches, "data": data_row, "fp32": fp32,
            "seconds": time.perf_counter() - t_phase}
     emit(row)
     if row["loss_rel"] > BF16_LOSS_REL:
@@ -5700,26 +5704,56 @@ def phase_pipeline_1f1b(kernel_fns):
     if runs["1f1b"]["live_inputs"] > 3:
         raise AssertionError(f"1F1B held {runs['1f1b']['live_inputs']} "
                              f"stage inputs, more than 2P - 1 = 3")
-    if fp32["loss_rel"] > 1e-5 or fp32["leaf_rel_max"] > 1e-3:
-        raise AssertionError(f"pipeline_1f1b fp32: {fp32}")
+    check_1f1b_data(data_row, cfg.n_layers, F1B_MICRO)
+    for f in fp32:
+        if f["loss_rel"] > 1e-5 or f["leaf_rel_max"] > 1e-3:
+            raise AssertionError(f"pipeline_1f1b fp32: {f}")
     return row
 
 
-def _1f1b_fp32(mesh):
-    """fp32, flagship width, 2 layers: ``train_1f1b`` against plain
-    autograd through the same functions on the whole batch."""
+def check_1f1b_data(row, layers, micro):
+    """``pipeline_1f1b``'s ``data=2 x pipeline=2`` run: the loss within
+    ``BF16_LOSS_REL`` of the pipeline-only 1F1B's and of GPipe's on
+    that mesh, K3 ``2 x layers x micro x 2`` (the forward and the
+    recompute of both cuts), K4/K5 ``layers x micro x 2``, at most 3
+    stage inputs live."""
+    for key in ("loss_rel_vs_pipeline_1f1b", "loss_rel_vs_gpipe"):
+        if row[key] > BF16_LOSS_REL:
+            raise AssertionError(f"pipeline_1f1b on data x pipeline: {key} "
+                                 f"{row[key]}")
+    check_mesh_launches(row["launches"], ("flash_fwd",),
+                        2 * layers * micro * 2, 1, "pipeline_1f1b data")
+    check_mesh_launches(row["launches"], ("flash_bwd_dq", "flash_bwd_dkv"),
+                        layers * micro * 2, 1, "pipeline_1f1b data")
+    if row["1f1b"]["live_inputs"] > 3:
+        raise AssertionError(f"1F1B on data x pipeline held "
+                             f"{row['1f1b']['live_inputs']} stage inputs, "
+                             f"more than 2P - 1 = 3")
+
+
+def _1f1b_fp32(mesh, rows):
+    """fp32, flagship width, 2 layers, ``rows`` x 1024 in 4
+    microbatches: ``train_1f1b`` on ``mesh`` (the weights placed by the
+    model's logical axes) against plain autograd through the same
+    functions on the whole batch."""
     import torch
-    from kubeflow_tpu_torch.compute import data, pipeline, train
+    from kubeflow_tpu_torch.compute import data, pipeline, sharding, train
     from kubeflow_tpu_torch.compute.models import transformer
     cfg = flagship_config("float32", n_layers=2, remat=False)
-    host = next(data.synthetic_lm(4, 1024, cfg.vocab_size, seed=24))
+    host = next(data.synthetic_lm(rows, 1024, cfg.vocab_size, seed=24))
     tokens, targets = (torch.from_numpy(host[k]).to(CARD)
                        for k in ("tokens", "targets"))
-    params = _1f1b_params(transformer.init_params(
-        cfg, torch.Generator().manual_seed(3), device=CARD))
+    weights = transformer.init_params(
+        cfg, torch.Generator().manual_seed(3), device="cpu")
+    staged = dataclasses.replace(cfg, pipeline_stages=2,
+                                 pipeline_microbatches=4)
+    placed = _1f1b_params(sharding.place_tree(
+        weights, mesh, transformer.logical_axes(staged)))
+    params = _1f1b_params(train.tree_map(lambda t: t.to(CARD), weights))
     embed_fn, layer_fn, loss_fn = flagship_1f1b_fns(cfg)
-    loss, grads = pipeline.train_1f1b(embed_fn, layer_fn, loss_fn, params,
+    loss, grads = pipeline.train_1f1b(embed_fn, layer_fn, loss_fn, placed,
                                       tokens, targets, 4, mesh)
+    grads = sharding.gather_tree(grads, CARD)
     leaves = train.tree_leaves(params)
     for t in leaves:
         t.requires_grad_(True)
@@ -5729,7 +5763,9 @@ def _1f1b_fp32(mesh):
     want = loss_fn(params["head"], x, targets)
     want_g = torch.autograd.grad(want, leaves)
     errs = _leaf_errors(train.tree_leaves(grads), want_g)
-    return {"layers": 2, "batch": [4, 1024], "microbatches": 4,
+    return {"mesh": {a: n for a, n in mesh.shape.items() if n > 1},
+            "layers": 2, "batch": [rows, 1024],
+            "microbatches": 4,
             "loss": [float(loss), float(want.detach())],
             "loss_rel": _rel(float(loss), float(want.detach())),
             "tol_loss": 1e-5,
@@ -5738,7 +5774,8 @@ def _1f1b_fp32(mesh):
 
 MOE_MESH_STEPS = MOE_WARM + MOE_TIMED
 #: a bf16 step-1 number's relative gap from the one-device step's on the
-#: same weights and batch (pieces and shards sum in another order)
+#: same weights and batch (pieces and shards sum in another order); a
+#: gang's losses are held to it at every step
 STEP1_REL = 1e-3
 
 
@@ -5825,54 +5862,95 @@ def phase_moe_mesh_conformance(kernel_fns):
                          ("capacity", capacity))]
 
 
-PROCESS_STEPS = 3
-PROCESS_TIMEOUT_S = 420
+PROCESS_STEPS = 4
+PROCESS_TIMEOUT_S = 600
+#: a collective of fewer elements is a statistic's (a loss term's sums,
+#: ResNet's ``[2, C]`` BN moments and their gradients), not a gradient
+#: bucket's
+SMALL_COLLECTIVE = 1 << 16
+#: the models a ``process_mesh`` rank trains, in order
+PROCESS_MODELS = ("flagship", "bert", "resnet")
 
 
 def _params_digest(state):
-    """Two int64 sums of every param piece's bits (plain and weighted by
-    position), order-free and exact: equal on two processes whose
-    params are byte-equal."""
+    """Two int64 sums of every param and model-state piece's bits (plain
+    and weighted by position), order-free and exact: equal on two
+    processes whose params and running statistics are byte-equal."""
     import torch
     from kubeflow_tpu_torch.compute import sharding, train
     out = []
-    for t in sharding.pieces_of(train.tree_leaves(state.params)):
+    for t in sharding.pieces_of(train.tree_leaves(state.params)
+                                + train.tree_leaves(state.extra)):
         bits = t.detach().reshape(-1).view(torch.int32).long()
         w = torch.arange(bits.numel(), device=bits.device) % 7919 + 1
         out += [bits.sum(), (bits * w).sum()]
     return torch.stack(out).cpu()
 
 
-def process_mesh_rank(rank, port, out):
-    """One rank of :func:`phase_process_mesh` (``python3 chip_smoke.py
-    --process-mesh-rank RANK PORT OUT``): the flagship on its part of a
-    ``data=2`` mesh across two gloo processes on ``cuda:0``, its 8 rows of
-    the 16 x 1024 batch, ``PROCESS_STEPS`` steps; after each, its
-    params' digest against the other rank's (``all_reduce`` MAX and
-    MIN). Writes its row to ``out``."""
+def _gang_equal(state):
+    """Whether this rank's params and model state are byte-equal to the
+    other rank's (the digest ``all_reduce``d MAX and MIN)."""
     import torch
     import torch.distributed as dist
-    from kubeflow_tpu_torch.compute import data, mesh as mesh_lib, train
-    from kubeflow_tpu_torch.compute.models import transformer
-    from kubeflow_tpu_torch.compute.ops import flash_attention as flash_ops
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
-                            world_size=2, rank=rank)
-    cfg = flagship_config(remat=False)
-    mesh = mesh_lib.make_mesh(mesh_lib.MeshSpec(data=-1), devices=[CARD],
-                              group=dist.group.WORLD)
-    B, S = TRAIN_BATCH
-    host = next(data.synthetic_lm(B, S, cfg.vocab_size, seed=4))
-    mine = {k: v[rank * B // 2:(rank + 1) * B // 2] for k, v in host.items()}
-    opt = train.make_optimizer(learning_rate=1e-3, warmup_steps=1,
+    digest = _params_digest(state)
+    hi, lo = digest.clone(), digest.clone()
+    dist.all_reduce(hi, op=dist.ReduceOp.MAX)
+    dist.all_reduce(lo, op=dist.ReduceOp.MIN)
+    return bool(torch.equal(hi, lo))
+
+
+def _rank_case(name, rank):
+    """What rank ``rank`` trains for ``name`` → ``(init_fn, logical
+    axes, loss, its half of the one-device phase's batch, lr, extra)``:
+    the weights, batch and rate of the ``train``, ``bert_train`` or
+    ``resnet_train`` phase."""
+    import torch
+    from kubeflow_tpu_torch.compute import data, train
+    from kubeflow_tpu_torch.compute.models import bert, resnet, transformer
+    extra = None
+    if name == "flagship":
+        cfg = flagship_config(remat=False)
+        host = next(data.synthetic_lm(*TRAIN_BATCH, cfg.vocab_size, seed=4))
+        case = (functools.partial(transformer.init_params, cfg),
+                transformer.logical_axes(cfg),
+                train.plain_loss(transformer.loss_fn, cfg), host, 1e-3)
+    elif name == "bert":
+        cfg = bert.Config(remat=False, scan_layers=False)
+        host = bert.mlm_batch(np.random.default_rng(13), BERT_BATCH, cfg)
+        case = (functools.partial(bert.init_params, cfg),
+                bert.logical_axes(cfg), train.plain_loss(bert.loss_fn, cfg),
+                host, 1e-4)
+    else:
+        cfg = resnet.Config(depth=50, n_classes=1000, dtype="bfloat16")
+        params, extra = resnet.init_params(
+            cfg, torch.Generator().manual_seed(0), device="cpu")
+        host = next(data.synthetic_images(RESNET_BATCH, RESNET_IMAGE,
+                                          cfg.n_classes, seed=12))
+        case = (lambda g, device: params, resnet.logical_axes(cfg)[0],
+                train.stateful_loss(resnet.loss_fn, cfg), host, 1e-3)
+    init_fn, axes, loss, host, lr = case
+    half = len(next(iter(host.values()))) // 2
+    mine = {k: v[rank * half:(rank + 1) * half] for k, v in host.items()}
+    return init_fn, axes, loss, mine, lr, extra
+
+
+def _rank_train(name, rank, mesh, kernel_fns):
+    """``PROCESS_STEPS`` steps of ``name`` on this rank's part of the
+    gang's mesh; after each, whether the ranks are byte-equal → the
+    rank's row for ``name``. Every step times its gradient
+    ``all_reduce`` (a sync before and after); the last step alone also
+    times each small collective (a sync around each), so the steps
+    before it keep their own time."""
+    import torch
+    import torch.distributed as dist
+    from kubeflow_tpu_torch.compute import train
+    init_fn, axes, loss, mine, lr, extra = _rank_case(name, rank)
+    opt = train.make_optimizer(learning_rate=lr, warmup_steps=1,
                                total_steps=100)
-    state = train.init_state(functools.partial(transformer.init_params, cfg),
-                             opt, mesh=mesh,
-                             logical_axes=transformer.logical_axes(cfg),
-                             generator=torch.Generator().manual_seed(0))
-    step = train.make_train_step(train.plain_loss(transformer.loss_fn, cfg),
-                                 opt, mesh)
+    state = train.init_state(init_fn, opt, mesh=mesh, logical_axes=axes,
+                             generator=torch.Generator().manual_seed(0),
+                             extra=extra)
+    step = train.make_train_step(loss, opt, mesh)
     reduce_s = []
     plain_all_reduce = train._all_reduce
 
@@ -5883,35 +5961,194 @@ def process_mesh_rank(rank, port, out):
         torch.cuda.synchronize()
         reduce_s.append(time.perf_counter() - t0)
 
+    small = [None]      # the last step's small collectives: [seconds, count]
+    plain_collective = dist.all_reduce
+
+    def timed_collective(tensor, *args, **kwargs):
+        if tensor.numel() >= SMALL_COLLECTIVE or small[-1] is None:
+            return plain_collective(tensor, *args, **kwargs)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = plain_collective(tensor, *args, **kwargs)
+        torch.cuda.synchronize()
+        small[-1][0] += time.perf_counter() - t0
+        small[-1][1] += 1
+        return out
+
     train._all_reduce = timed_all_reduce
-    kernel_fns = {"flash_fwd": flash_ops.flash_attention,
-                  "flash_bwd_dq": flash_ops.flash_attention_bwd_dq,
-                  "flash_bwd_dkv": flash_ops.flash_attention_bwd_dkv}
+    dist.all_reduce = timed_collective
     _zero(kernel_fns)
     torch.cuda.reset_peak_memory_stats()
     losses, step_s, equal = [], [], []
-    for _ in range(PROCESS_STEPS):
-        dist.barrier()
-        t0 = time.perf_counter()
-        state, metrics = step(state, mine)
-        torch.cuda.synchronize()
-        step_s.append(time.perf_counter() - t0)
-        losses.append(float(metrics["loss"]))
-        digest = _params_digest(state)
-        hi, lo = digest.clone(), digest.clone()
-        dist.all_reduce(hi, op=dist.ReduceOp.MAX)
-        dist.all_reduce(lo, op=dist.ReduceOp.MIN)
-        equal.append(bool(torch.equal(hi, lo)))
+    try:
+        for i in range(PROCESS_STEPS):
+            dist.barrier()
+            if i == PROCESS_STEPS - 1:
+                small.append([0.0, 0])
+            t0 = time.perf_counter()
+            state, metrics = step(state, mine)
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+            losses.append(float(metrics["loss"]))
+            small.append(None)          # the digest's are not the step's
+            equal.append(_gang_equal(state))
+    finally:
+        train._all_reduce = plain_all_reduce
+        dist.all_reduce = plain_collective
     grad_bytes = sum(t.numel() * 4 for t in train.tree_leaves(state.params)
                      for t in t.pieces[:1])
-    row = {"rank": rank, "backend": dist.get_backend(),
-           "losses": losses, "step_ms_each": [1e3 * x for x in step_s],
+    row = {"model": name, "rank": rank, "batch_per_rank":
+           len(next(iter(mine.values()))), "losses": losses,
+           "step_ms_each": [1e3 * x for x in step_s],
            "all_reduce_ms_each": [1e3 * x for x in reduce_s],
+           "small_collective_ms": 1e3 * small[-2][0],
+           "small_collectives_a_step": small[-2][1],
            "grad_bytes": grad_bytes, "params_equal_each_step": equal,
            "peak_memory_bytes": torch.cuda.max_memory_allocated(),
            "launches": _launches(kernel_fns)}
+    del state, step
+    torch.cuda.empty_cache()
+    return row
+
+
+def _resnet_fp32_sides(batch, lr, mesh=None):
+    """ResNet-50 fp32 fed ``batch`` (host arrays) on ``mesh``, or
+    unsharded on the card when None: one step at rate ``lr`` (warmup 0)
+    from the seed-15 weights with every BN quantity randomised (each
+    block's branch live) and one from the seed-15 init → ``(loss,
+    running statistics, pre-clip grad norm, params after the update)``,
+    the last three as host leaves. The gradient is read at the init:
+    with every BN randomised each fp32 gradient, on one device or a
+    mesh, lies a fifth of a leaf's max |g| off the float64 one; at init
+    the grad norm and the update's signs compare, a leaf's fp32 gradient
+    does not (on one device the third stage's lie 9 % of their max |g|
+    off the float64 gradient, a mesh's 4e-4: hack/resnet_mesh_grads.py).
+    """
+    import torch
+    from kubeflow_tpu_torch.compute import data, sharding, train
+    from kubeflow_tpu_torch.compute.models import resnet
+    cfg = resnet.Config(depth=50, n_classes=1000, dtype="float32")
+    loss = train.stateful_loss(resnet.loss_fn, cfg)
+    if mesh is None:
+        where, batch = dict(device=CARD), data.to_device(batch, CARD)
+    else:
+        where = dict(mesh=mesh, logical_axes=resnet.logical_axes(cfg)[0])
+        batch = data.shard_batch(batch, mesh)
+
+    def stepped(weights):
+        opt = train.make_optimizer(learning_rate=lr, warmup_steps=0,
+                                   total_steps=100)
+        st = train.init_state(
+            lambda g, device: train.tree_map(torch.clone, weights[0]), opt,
+            extra=train.tree_map(torch.clone, weights[1]), **where)
+        return train.make_train_step(loss, opt, mesh=mesh)(st, batch)
+
+    st, m = stepped(resnet_weights(cfg, seed=15, device="cpu"))
+    out = [float(m["loss"]),
+           train.tree_leaves(sharding.gather_tree(st.extra, "cpu"))]
+    del st
+    st, m = stepped(resnet.init_params(
+        cfg, torch.Generator().manual_seed(15), device="cpu"))
+    out += [float(m["grad_norm"]),
+            train.tree_leaves(train.gather_params(st, "cpu"))]
+    del st
+    torch.cuda.empty_cache()
+    return out
+
+
+def resnet_fp32_report(got, want, lr):
+    """Two :func:`_resnet_fp32_sides` results → the fp32 sync-BN report:
+    ``got``'s loss, running statistics (each of its leaf's max |value|)
+    and pre-clip gradient norm relative to ``want``'s, and the params
+    after the update by :func:`params_rule` over all elements."""
+    (g_loss, g_stats, g_norm, g_params), (w_loss, w_stats, w_norm,
+                                          w_params) = got, want
+    worst, share, ok = params_rule(g_params, w_params, lr, 1,
+                                   whole_model=True)
+    return {"depth": 50, "images": 8, "loss": [g_loss, w_loss],
+            "loss_rel": abs(g_loss - w_loss) / abs(w_loss),
+            "stats_rel_max": max(_leaf_errors(g_stats, w_stats)),
+            "tol": 1e-5, "init_grad_norm": [g_norm, w_norm],
+            "init_grad_norm_rel": abs(g_norm - w_norm) / abs(w_norm),
+            "params_max_abs": worst, "params_share_over_1e-6": share,
+            "params_rule_ok": ok,
+            "params_rule": {"max_abs": 2 * lr, "share": 1e-3,
+                            "over": "all elements"}}
+
+
+def check_resnet_fp32(report, what):
+    """A :func:`resnet_fp32_report` (and, for a gang, the ranks'
+    byte-equality): loss, running statistics and pre-clip gradient norm
+    within its ``tol`` relative, the params by ``params_rule``."""
+    if (not report.get("ranks_equal", True)
+            or report["loss_rel"] > report["tol"]
+            or report["stats_rel_max"] > report["tol"]
+            or report["init_grad_norm_rel"] > report["tol"]
+            or not report["params_rule_ok"]):
+        raise AssertionError(f"{what}: {report}")
+
+
+def _rank_resnet_fp32(rank, mesh):
+    """The fp32 sync-BN check across the gang: ResNet-50 on 8 images, 4
+    a rank, :func:`_resnet_fp32_sides` at rate 1e-3; the ranks'
+    byte-equality by digest; rank 0 then takes the same steps on a
+    one-process ``data=2`` mesh over the whole batch and holds the gang
+    to it, as ``resnet_mesh`` holds its mesh → the report (rank 0's) or
+    None."""
+    import torch
+    import torch.distributed as dist
+    from kubeflow_tpu_torch.compute import data, mesh as mesh_lib
+    t0 = time.perf_counter()
+    host = next(data.synthetic_images(8, RESNET_IMAGE, 1000, seed=16))
+    mine = {k: v[rank * 4:(rank + 1) * 4] for k, v in host.items()}
+    gang = _resnet_fp32_sides(mine, 1e-3, mesh)
+    g_loss, g_stats, g_norm, g_params = gang
+    digest = torch.stack([
+        torch.cat([t.reshape(-1) for t in g_stats + g_params]).view(
+            torch.int32).long().sum(),
+        torch.tensor(g_loss).view(torch.int32).long(),
+        torch.tensor(g_norm, dtype=torch.float32).view(torch.int32).long()])
+    hi, lo = digest.clone(), digest.clone()
+    dist.all_reduce(hi, op=dist.ReduceOp.MAX)
+    dist.all_reduce(lo, op=dist.ReduceOp.MIN)
+    ranks_equal = bool(torch.equal(hi, lo))
+    if rank:
+        return None
+    one = mesh_lib.make_mesh(data=2, devices=[CARD] * 2)
+    report = resnet_fp32_report(gang, _resnet_fp32_sides(host, 1e-3, one),
+                                1e-3)
+    return {**report, "images_per_rank": 4, "ranks_equal": ranks_equal,
+            "seconds": time.perf_counter() - t0}
+
+
+def process_mesh_rank(rank, port, out):
+    """One rank of :func:`phase_process_mesh` (``python3 chip_smoke.py
+    --process-mesh-rank RANK PORT OUT``): on its part of a ``data=2``
+    mesh across two gloo processes on ``cuda:0``, the flagship (its 8
+    rows of the 16 x 1024 batch), bert-base (8 of 16 x 512) and
+    ResNet-50 (128 of 256 x 224²), ``PROCESS_STEPS`` steps each, the
+    params' (and statistics') digest against the other rank's after
+    each (``all_reduce`` MAX and MIN); then the fp32 ResNet gang check
+    (:func:`_rank_resnet_fp32`). Writes its rows to ``out``."""
+    import torch
+    import torch.distributed as dist
+    from kubeflow_tpu_torch.compute import mesh as mesh_lib
+    from kubeflow_tpu_torch.compute.ops import flash_attention as flash_ops
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=2, rank=rank)
+    mesh = mesh_lib.make_mesh(mesh_lib.MeshSpec(data=-1), devices=[CARD],
+                              group=dist.group.WORLD)
+    kernel_fns = {"flash_fwd": flash_ops.flash_attention,
+                  "flash_bwd_dq": flash_ops.flash_attention_bwd_dq,
+                  "flash_bwd_dkv": flash_ops.flash_attention_bwd_dkv}
+    rows = {"rank": rank, "backend": dist.get_backend()}
+    for name in PROCESS_MODELS:
+        rows[name] = _rank_train(name, rank, mesh, kernel_fns)
+    rows["resnet_fp32"] = _rank_resnet_fp32(rank, mesh)
     with open(out, "w") as f:
-        json.dump(row, f)
+        json.dump(rows, f)
     dist.destroy_process_group()
 
 
@@ -5948,15 +6185,74 @@ def _run_all(procs, timeout):
             p.wait()
 
 
-def phase_process_mesh(train_row):
+def _gang_row(name, ranks, one_row):
+    """``process_mesh``'s row for model ``name`` from the ranks' rows,
+    beside the one-process phase's row ``one_row``: the step and its
+    gradient ``all_reduce`` as the mean of the steps between the first
+    and the last, the small collectives' share of the last step, and
+    each step's loss relative to the one-process phase's same step."""
+    mine = [r[name] for r in ranks]
+    steps = [statistics.mean(r["step_ms_each"][1:-1]) for r in mine]
+    reduces = [statistics.mean(r["all_reduce_ms_each"][1:-1])
+               for r in mine]
+    return {"model": name, "batch_per_rank": mine[0]["batch_per_rank"],
+            "ranks": mine, "step_ms": statistics.mean(steps),
+            "all_reduce_ms": statistics.mean(reduces),
+            "all_reduce_share": statistics.mean(
+                a / b for a, b in zip(reduces, steps)),
+            "small_collectives_a_step": mine[0]["small_collectives_a_step"],
+            "small_collective_ms": statistics.mean(
+                r["small_collective_ms"] for r in mine),
+            "small_collective_share": statistics.mean(
+                r["small_collective_ms"] / r["step_ms_each"][-1]
+                for r in mine),
+            "grad_bytes_per_rank": mine[0]["grad_bytes"],
+            "one_process_step_ms": one_row["step_ms"],
+            "one_process_losses": one_row["losses"][:PROCESS_STEPS],
+            "loss_rel_each": [_rel(a, b) for a, b in zip(
+                mine[0]["losses"], one_row["losses"][:PROCESS_STEPS])]}
+
+
+def check_gang(row, kernels=(), per_step=0):
+    """The checks of one model's ``process_mesh`` row: the ranks
+    byte-equal after every step, equal losses, each of the
+    ``PROCESS_STEPS`` losses within ``STEP1_REL`` of the one-process
+    phase's same step (the same batch, rate and warmup: a gradient
+    wrong alike on both ranks moves steps 2 on), each of ``kernels``
+    launched ``per_step`` times a step on each rank."""
+    name, ranks = row["model"], row["ranks"]
+    if not all(all(r["params_equal_each_step"]) for r in ranks):
+        raise AssertionError(f"process_mesh {name}: the ranks' params "
+                             f"differ")
+    if ranks[0]["losses"] != ranks[1]["losses"]:
+        raise AssertionError(f"process_mesh {name}: the ranks report other "
+                             f"losses: {[r['losses'] for r in ranks]}")
+    rels = row["loss_rel_each"]
+    if len(rels) != PROCESS_STEPS or max(rels) > STEP1_REL:
+        raise AssertionError(f"process_mesh {name} losses "
+                             f"{ranks[0]['losses']} vs one process "
+                             f"{row['one_process_losses']}")
+    for r in ranks:
+        check_mesh_launches(r["launches"], kernels, per_step, PROCESS_STEPS,
+                            f"process_mesh {name} rank {r['rank']}")
+
+
+def phase_process_mesh(one_rows, kernel_names):
     """Two processes on ``cuda:0`` joined over gloo, ``data=2`` across
-    them: the flagship (bf16, ``remat=False``) of the ``train`` phase,
-    each rank feeding 8 x 1024 of its 16 x 1024 batch, 3 steps
-    (:func:`process_mesh_rank`). The ranks' params are byte-equal after
-    every step, step 1's loss is ``train``'s within ``STEP1_REL``, each
-    rank launches K3–K5 12 a step. Step ms and the gradient
-    ``all_reduce``'s share of it (fp32 gradients through the host: gloo;
-    two ranks on one card, so not a speed result)."""
+    them (:func:`process_mesh_rank`, one subprocess pair): the flagship
+    (bf16, ``remat=False``) of ``train``, bert-base of ``bert_train`` and
+    ResNet-50 of ``resnet_train``, each rank feeding half of that
+    phase's batch, ``PROCESS_STEPS`` steps each. Per model: the ranks'
+    params (and running statistics) byte-equal after every step, equal
+    losses, each step's within ``STEP1_REL`` of the one-process phase's
+    (``one_rows`` by model), the flagship and BERT launching K3–K5 12 a
+    step on each rank; step ms and the gradient ``all_reduce``'s share
+    of it (fp32
+    gradients through the host: gloo; two ranks on one card, so not a
+    speed result). Then ResNet-50 fp32 across the ranks against the
+    one-process ``data=2`` mesh (:func:`check_resnet_fp32`). →
+    the row, its ``launches`` both ranks' (every kernel of
+    ``kernel_names``)."""
     import subprocess
     t_phase = time.perf_counter()
     port = _free_port()
@@ -5977,36 +6273,22 @@ def phase_process_mesh(train_row):
     for o in outs:
         with open(o) as f:
             ranks.append(json.load(f))
-    steps = [statistics.mean(r["step_ms_each"][1:]) for r in ranks]
-    reduces = [statistics.mean(r["all_reduce_ms_each"][1:]) for r in ranks]
-    row = {"phase": "process_mesh", "dtype": "bfloat16",
-           "processes": 2, "backend": ranks[0]["backend"],
-           "mesh": {"data": 2}, "device": CARD,
-           "batch": TRAIN_BATCH[0], "batch_per_rank": TRAIN_BATCH[0] // 2,
-           "seq": TRAIN_BATCH[1], "steps": PROCESS_STEPS,
-           "ranks": ranks, "step_ms": statistics.mean(steps),
-           "all_reduce_ms": statistics.mean(reduces),
-           "all_reduce_share": statistics.mean(
-               a / b for a, b in zip(reduces, steps)),
-           "grad_bytes_per_rank": ranks[0]["grad_bytes"],
-           "train_step_ms": train_row["step_ms"],
-           "train_step1_loss": train_row["losses"][0],
-           "step1_loss_rel": _rel(ranks[0]["losses"][0],
-                                  train_row["losses"][0]),
-           "tol_step1_loss_rel": STEP1_REL,
+    models = {name: _gang_row(name, ranks, one_rows[name])
+              for name in PROCESS_MODELS}
+    launches = {k: sum(r[name]["launches"].get(k, 0) for r in ranks
+                       for name in PROCESS_MODELS) for k in kernel_names}
+    row = {"phase": "process_mesh", "processes": 2,
+           "backend": ranks[0]["backend"], "mesh": {"data": 2},
+           "device": CARD, "steps": PROCESS_STEPS,
+           "dtype": "bfloat16", "models": models,
+           "resnet_fp32": ranks[0]["resnet_fp32"],
+           "tol_loss_rel": STEP1_REL, "launches": launches,
            "seconds": time.perf_counter() - t_phase}
     emit(row)
-    if not all(all(r["params_equal_each_step"]) for r in ranks):
-        raise AssertionError("process_mesh: the ranks' params differ")
-    if ranks[0]["losses"] != ranks[1]["losses"]:
-        raise AssertionError(f"process_mesh: the ranks report other "
-                             f"losses: {[r['losses'] for r in ranks]}")
-    if row["step1_loss_rel"] > STEP1_REL:
-        raise AssertionError(f"process_mesh step 1 {ranks[0]['losses'][0]} "
-                             f"vs train {train_row['losses'][0]}")
-    for r in ranks:
-        check_mesh_launches(r["launches"], BERT_KERNELS, 12, PROCESS_STEPS,
-                            f"process_mesh rank {r['rank']}")
+    check_gang(models["flagship"], BERT_KERNELS, 12)
+    check_gang(models["bert"], BERT_KERNELS, 12)
+    check_gang(models["resnet"])
+    check_resnet_fp32(row["resnet_fp32"], "process_mesh fp32 ResNet gang")
     return row
 
 
@@ -6280,12 +6562,15 @@ def main():
     phase_pipeline_conformance(kernel_fns)
     torch.cuda.empty_cache()
     paths["pipeline_1f1b"] = phase_pipeline_1f1b(kernel_fns)
+    paths["pipeline_1f1b_data"] = paths["pipeline_1f1b"]["data"]
     torch.cuda.empty_cache()
     paths["moe_mesh"] = phase_moe_mesh(kernel_fns, paths["moe_train"])
     torch.cuda.empty_cache()
     phase_moe_mesh_conformance(kernel_fns)
     torch.cuda.empty_cache()
-    phase_process_mesh(paths["train"])
+    paths["process_mesh"] = phase_process_mesh(
+        {"flagship": paths["train"], "bert": paths["bert_train"],
+         "resnet": paths["resnet_train"]}, list(kernel_fns))
     phase_slice_worker()
     phase_sweep()
     meta = {

@@ -1,12 +1,14 @@
-"""The expert-mesh and multi-process phases of ``chip_smoke.py`` alone,
-with the same-run baselines they are read beside:
+"""The expert-mesh, 1F1B and multi-process phases of ``chip_smoke.py``
+alone, with the same-run baselines they are read beside:
 
     python3 hack/expert_gang_smoke.py
 
-device, build, ``train`` (the dense flagship's one-device steps) and
+device, build, ``train``, ``bert_train`` and ``resnet_train`` (the
+one-device steps ``process_mesh`` reads beside its gang) and
 ``moe_apply``/``moe_train`` (the MoE flagship's), then ``moe_mesh``,
-``moe_mesh_conformance``, ``process_mesh`` and ``slice_worker``, each
-printing its JSON row; a ``total`` row with the four phases' seconds,
+``moe_mesh_conformance``, ``pipeline_1f1b`` (on ``pipeline=2`` and on
+``data=2 x pipeline=2``), ``process_mesh`` and ``slice_worker``, each
+printing its JSON row; a ``total`` row with the five phases' seconds,
 then the card's name and power limit. Needs one CUDA card.
 """
 
@@ -31,7 +33,11 @@ def main():
                   "flash_bwd_dkv": flash_ops.flash_attention_bwd_dkv,
                   "grouped_matmul": gmm_ops.grouped_matmul,
                   "grouped_matmul_dw": gmm_ops.grouped_matmul_dw}
-    train_row = cs.phase_train(kernel_fns)
+    one_rows = {"flagship": cs.phase_train(kernel_fns)}
+    torch.cuda.empty_cache()
+    one_rows["bert"] = cs.phase_bert_train(kernel_fns)
+    torch.cuda.empty_cache()
+    one_rows["resnet"] = cs.phase_resnet_train(kernel_fns)
     torch.cuda.empty_cache()
     _, moe_row = cs.phase_moe(kernel_fns)
     torch.cuda.empty_cache()
@@ -40,7 +46,9 @@ def main():
     torch.cuda.empty_cache()
     cs.phase_moe_mesh_conformance(kernel_fns)
     torch.cuda.empty_cache()
-    cs.phase_process_mesh(train_row)
+    cs.phase_pipeline_1f1b(kernel_fns)
+    torch.cuda.empty_cache()
+    cs.phase_process_mesh(one_rows, list(kernel_fns))
     cs.phase_slice_worker()
     cs.emit({"phase": "total", "new_phases_s": time.perf_counter() - t1,
              "seconds": time.perf_counter() - t0})

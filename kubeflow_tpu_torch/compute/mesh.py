@@ -22,7 +22,10 @@ silent fallback to the CPU; ``device.resolve``).
 A mesh may span processes (``make_mesh(group=)``, the slice worker's
 gang): only its ``data`` axis crosses them, each process builds the mesh
 over its own positions (its slice of ``data``, every other axis whole)
-and :func:`global_sum` adds a statistic over the gang. ``distributed_env``
+and :func:`global_sum` adds a loss term over the gang: every model's
+mesh loss sums its loss and metric terms over the processes with it,
+and ResNet's batch norm sums its moments with :func:`global_sum_synced`
+(sync BN over the gang, whose backward sums too). ``distributed_env``
 and ``initialize_distributed`` (:300-332) join the gang from the env the
 control plane injects; ``device_slice_groups``, ``make_multislice_mesh``
 and ``multislice_layout`` (:206-272) are JAX's pure layout, a process
@@ -182,15 +185,6 @@ def make_mesh(spec=None, devices=None, group=None, **axis_sizes):
                 group=group, process_index=rank, process_count=world)
 
 
-def check_one_process(mesh, what):
-    """Raise ``ValueError`` naming ``what`` when ``mesh`` spans more than
-    one process: its mesh forward sums nothing over a gang."""
-    if mesh.process_count > 1:
-        raise ValueError(f"{what} trains on one process's mesh; this mesh "
-                         f"spans {mesh.process_count} processes (the "
-                         f"transformer's loss alone is summed over a gang)")
-
-
 def global_sum(t, mesh):
     """``t`` summed over the processes of ``mesh``'s gang (itself on a
     one-process mesh). Every process gets the same total; under autograd
@@ -203,6 +197,40 @@ def global_sum(t, mesh):
     total = t.detach().clone()
     dist.all_reduce(total, group=mesh.group)
     return total + (t - t.detach()) if t.requires_grad else total
+
+
+class _SyncedSum(torch.autograd.Function):
+    """The psum and its transpose: ``all_reduce`` forward and backward."""
+
+    @staticmethod
+    def forward(ctx, t, group):
+        ctx.group = group
+        import torch.distributed as dist
+        total = t.clone()
+        dist.all_reduce(total, group=group)
+        return total
+
+    @staticmethod
+    def backward(ctx, grad):
+        import torch.distributed as dist
+        total = grad.contiguous().clone()
+        dist.all_reduce(total, group=ctx.group)
+        return total, None
+
+
+def global_sum_synced(t, mesh):
+    """``t`` summed over the processes of ``mesh``'s gang (itself on a
+    one-process mesh), whose gradient is summed over them too: JAX's
+    ``psum`` under a global ``jit``. Each process's input then gets
+    the gradient of every process's objective through the total, the
+    cross terms that :func:`global_sum` leaves out. That is right for a
+    statistic that every process's outputs depend on (batch norm's
+    moments), where :func:`global_sum` is right for a loss term. Every
+    process must build the same graph, so that the backward's
+    collectives come in the same order on each."""
+    if mesh.process_count == 1:
+        return t
+    return _SyncedSum.apply(t, mesh.group)
 
 
 def topology_chips(topology):

@@ -344,7 +344,10 @@ def loss_fn(params, batch, config):
     The loss is the masked nll sum over the masked-token count. Params
     placed on a mesh (``train.init_state(mesh=)``) and a batch from
     ``data.shard_batch`` run the mesh forward: the loss is then the
-    global batch's, whatever each piece's count."""
+    global batch's, whatever each piece's count. On a mesh across
+    processes the nll, count and accuracy sums are the gang's
+    (``mesh.global_sum``): every process reports the gang's loss, and
+    its gradient is its own share of the gang's."""
     mesh = sharding.mesh_of(params)
     if mesh is not None:
         return _mesh_loss(params, batch, config, mesh)
@@ -369,8 +372,7 @@ def _check_mesh(config, mesh):
 
 def _mesh_loss(params, batch, config, mesh):
     """:func:`loss_fn` on a mesh → the global batch's ``(loss,
-    metrics)`` on the first position's device."""
-    mesh_lib.check_one_process(mesh, "BERT")
+    metrics)`` on the first position's device, its sums the gang's."""
     _check_mesh(config, mesh)
     sharding.check_layout(params, logical_axes(config), "BERT")
     dt = config.compute_dtype
@@ -410,9 +412,9 @@ def _mesh_loss(params, batch, config, mesh):
             [x.to(mesh.devices[lead]) for x in xs], dim=1)
         terms.append(_loss_terms(copies[0], x, local, config))
     dev = mesh.devices[0]
-    return _finish({k: functools.reduce(torch.add,
-                                        (t[k].to(dev) for t in terms))
-                    for k in terms[0]})
+    return _finish({k: mesh_lib.global_sum(functools.reduce(
+        torch.add, (t[k].to(dev) for t in terms)), mesh)
+        for k in terms[0]})
 
 
 def param_count(config):

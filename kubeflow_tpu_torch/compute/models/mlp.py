@@ -7,8 +7,9 @@ On a training mesh (:func:`loss_fn` given ``sharding.Sharded`` params)
 every layer is column-sharded over ``tensor``: each position of a batch
 piece computes its columns (``w`` gathered over ``fsdp``), and the
 columns are joined on the piece's lead position before the next layer.
-The loss and accuracy are the global batch's: summed over the pieces,
-divided by the rows.
+The loss and accuracy are the global batch's: summed over the pieces
+(and, on a mesh across processes, over the gang), divided by the
+gang's rows.
 """
 
 import dataclasses
@@ -94,7 +95,10 @@ def _nll(logits, labels):
 
 def loss_fn(params, batch, config):
     """Mean cross entropy and accuracy; on a mesh (params placed by
-    ``train.init_state(mesh=)``) those of the global batch."""
+    ``train.init_state(mesh=)``) those of the global batch. On a mesh
+    across processes the sums are the gang's (``mesh.global_sum``):
+    every process reports the gang's loss and accuracy, and its
+    gradient is its own share of the gang's."""
     mesh = sharding.mesh_of(params)
     if mesh is not None:
         return _mesh_loss(params, batch, config, mesh)
@@ -108,7 +112,6 @@ def loss_fn(params, batch, config):
 
 def _mesh_loss(params, batch, config, mesh):
     tp = mesh.shape[mesh_lib.TENSOR]
-    mesh_lib.check_one_process(mesh, "the MLP")
     for name, value in (("hidden", config.hidden),
                         ("n_classes", config.n_classes)):
         if value % tp:
@@ -127,6 +130,9 @@ def _mesh_loss(params, batch, config, mesh):
         nll_sum.append(_nll(logits, labels).sum().to(dev))
         correct.append((logits.argmax(-1) == labels).float().sum().to(dev))
         rows += labels.shape[0]
-    loss = functools.reduce(torch.add, nll_sum) / rows
-    acc = functools.reduce(torch.add, correct) / rows
+    rows *= mesh.process_count
+    loss = mesh_lib.global_sum(functools.reduce(torch.add, nll_sum),
+                               mesh) / rows
+    acc = mesh_lib.global_sum(functools.reduce(torch.add, correct),
+                              mesh) / rows
     return loss, {"loss": loss, "accuracy": acc}

@@ -30,7 +30,12 @@ the global mean and variance back to every piece, differentiably. On a
 training mesh (:func:`loss_fn` given ``sharding.Sharded`` params and
 statistics; every leaf replicated, JAX's :func:`logical_axes`) each
 position's copy of the running statistics moves by those global values,
-so the copies stay equal.
+so the copies stay equal. On a mesh across processes (``make_mesh(
+group=)``) the two sums are summed over the gang as well, in one
+collective whose backward sums the moments' gradients over the gang
+(``mesh.global_sum_synced``; ``torch.nn.SyncBatchNorm`` does the same):
+every process's output depends on every process's rows, so each
+process's gradient needs the others' terms through the moments.
 """
 
 import dataclasses
@@ -208,7 +213,7 @@ def logical_axes(config):
     return _replicated(params), _replicated(stats)
 
 
-def _bn_pieces(xs, bps, bss, config, train):
+def _bn_pieces(xs, bps, bss, config, train, gang=None):
     """Batch norm as the JAX package computes it, over a batch in pieces
     (``xs``; one piece is one device's batch) → ``(ys, moments)``:
     one-pass fp32 statistics (E[x], E[x²], the variance clamped at 0)
@@ -217,7 +222,10 @@ def _bn_pieces(xs, bps, bss, config, train):
     multiply-add ``x*scale'+bias'`` in x's dtype, each piece with its
     params ``bps`` (in eval: its running statistics ``bss``). Gradients
     flow through the batch statistics. ``moments`` is ``{"mean",
-    "var"}`` of the global batch (train) or None."""
+    "var"}`` of the global batch (train) or None. ``gang`` (a mesh
+    across processes, or None) sums the two ``[C]`` sums over its
+    processes in one stacked ``[2, C]`` collective whose backward sums
+    too, and counts the gang's elements."""
     if train:
         dev = xs[0].device
         xfs = [x.float() for x in xs]
@@ -226,8 +234,12 @@ def _bn_pieces(xs, bps, bss, config, train):
         def total(parts):
             return functools.reduce(torch.add, (t.to(dev) for t in parts))
 
-        m1 = total([xf.sum(dim=(0, 1, 2)) for xf in xfs]) / n
-        m2 = total([(xf * xf).sum(dim=(0, 1, 2)) for xf in xfs]) / n
+        s1 = total([xf.sum(dim=(0, 1, 2)) for xf in xfs])
+        s2 = total([(xf * xf).sum(dim=(0, 1, 2)) for xf in xfs])
+        if gang is not None and gang.process_count > 1:
+            s1, s2 = mesh_lib.global_sum_synced(torch.stack([s1, s2]), gang)
+            n *= gang.process_count
+        m1, m2 = s1 / n, s2 / n
         moments = {"mean": m1, "var": torch.clamp_min(m2 - m1 * m1, 0.0)}
         stats = [moments] * len(xs)
     else:
@@ -264,9 +276,10 @@ def _moved(stats, moments, config):
     return move(stats, moments)
 
 
-def _blocks(xs, bps, bss, config, stride, train):
+def _blocks(xs, bps, bss, config, stride, train, gang=None):
     """One block over a batch in pieces (each piece's params ``bps``,
-    statistics ``bss``) → ``(ys, the block's moments)``."""
+    statistics ``bss``; ``gang`` as :func:`_bn_pieces` takes it) →
+    ``(ys, the block's moments)``."""
     dt = config.compute_dtype
     bottleneck = config.depth in BOTTLENECK
     moments = {}
@@ -277,7 +290,7 @@ def _blocks(xs, bps, bss, config, stride, train):
         hs = [_conv(h, bp[f"conv{i}"], s, dt) for h, bp in zip(hs, bps)]
         hs, moments[f"bn{i}"] = _bn_pieces(hs, [bp[f"bn{i}"] for bp in bps],
                                     [bs[f"bn{i}"] for bs in bss], config,
-                                    train)
+                                    train, gang)
         if i < n_convs - 1:
             hs = [torch.relu(h) for h in hs]
     residuals = xs
@@ -286,7 +299,7 @@ def _blocks(xs, bps, bss, config, stride, train):
                      for x, bp in zip(xs, bps)]
         residuals, moments["proj_bn"] = _bn_pieces(
             residuals, [bp["proj_bn"] for bp in bps],
-            [bs["proj_bn"] for bs in bss], config, train)
+            [bs["proj_bn"] for bs in bss], config, train, gang)
     return ([torch.relu(h + r.to(h.dtype)) for h, r in zip(hs, residuals)],
             moments)
 
@@ -305,15 +318,16 @@ def block_stride(stage, block):
     return 2 if (stage > 0 and block == 0) else 1
 
 
-def _trunks_in(params, stats, xs, config, train):
+def _trunks_in(params, stats, xs, config, train, gang=None):
     """Stem conv → BN → relu → 3×3/2 max pool (SAME: −inf padding, the
-    odd pixel high) over a batch in pieces → ``(hs, the stem's
-    moments)``."""
+    odd pixel high) over a batch in pieces (``gang`` as
+    :func:`_bn_pieces` takes it) → ``(hs, the stem's moments)``."""
     dt = config.compute_dtype
     hs = [_stem(x, p["stem"]["conv"], config, dt)
           for x, p in zip(xs, params)]
     hs, moments = _bn_pieces(hs, [p["stem"]["bn"] for p in params],
-                      [st["stem"]["bn"] for st in stats], config, train)
+                      [st["stem"]["bn"] for st in stats], config, train,
+                      gang)
     out = []
     for h in hs:
         h = torch.relu(h)
@@ -338,18 +352,18 @@ def _head(params, h):
     return h @ params["fc"]["w"] + params["fc"]["b"]
 
 
-def _forward(params, stats, xs, config, train):
+def _forward(params, stats, xs, config, train, gang=None):
     """The network over a batch in pieces (each piece's params and
-    statistics) → ``(logits per piece, the batch's moments)`` (moments
-    None in eval)."""
-    hs, stem = _trunks_in(params, stats, xs, config, train)
+    statistics; ``gang`` as :func:`_bn_pieces` takes it) → ``(logits
+    per piece, the batch's moments)`` (moments None in eval)."""
+    hs, stem = _trunks_in(params, stats, xs, config, train, gang)
     moments = {"stem": {"bn": stem}, "stages": []}
     for stage, blocks in enumerate(params[0]["stages"]):
         per_block = []
         for b in range(len(blocks)):
             hs, m = _blocks(hs, [p["stages"][stage][b] for p in params],
                             [st["stages"][stage][b] for st in stats],
-                            config, block_stride(stage, b), train)
+                            config, block_stride(stage, b), train, gang)
             per_block.append(m)
         moments["stages"].append(per_block)
     return ([_head(p, h) for p, h in zip(params, hs)],
@@ -365,7 +379,12 @@ def apply(params, stats, x, config, train=True):
 def loss_fn(params, stats, batch, config, train=True):
     """Mean cross entropy and accuracy → ``(loss, (metrics,
     new_stats))``; on a mesh (params and statistics placed by
-    ``train.init_state(mesh=)``) those of the global batch, sync BN."""
+    ``train.init_state(mesh=)``) those of the global batch, sync BN. On
+    a mesh across processes the BN moments and the loss and accuracy
+    sums are the gang's: every process reports the gang's loss, its
+    statistics move by the gang's moments (so they stay byte-equal),
+    and its gradient is its own share of the gang's, the cross terms
+    through the moments included."""
     mesh = sharding.mesh_of(params)
     if mesh is not None:
         return _mesh_loss(params, stats, batch, config, train, mesh)
@@ -381,15 +400,14 @@ def _mesh_loss(params, stats, batch, config, train, mesh):
     """:func:`loss_fn` on a mesh: every batch piece through each layer
     together on its lead position, with that position's copies of the
     params and statistics; then each position's statistics moved by the
-    global moments."""
-    mesh_lib.check_one_process(mesh, "ResNet")
+    global moments (on a gang of processes, the gang's)."""
     sharding.check_layout(params, _replicated(params), "ResNet params")
     sharding.check_layout(stats, _replicated(stats), "ResNet statistics")
     leads = mesh.along(0, (mesh_lib.DATA, mesh_lib.FSDP))
     logits, moments = _forward(
         [sharding.local(params, q) for q in leads],
         [sharding.local(stats, q) for q in leads],
-        [batch["image"].pieces[q] for q in leads], config, train)
+        [batch["image"].pieces[q] for q in leads], config, train, mesh)
     dev = mesh.devices[0]
     nll, correct, rows = [], [], 0
     for q, lg in zip(leads, logits):
@@ -398,8 +416,10 @@ def _mesh_loss(params, stats, batch, config, train, mesh):
             1, labels[:, None])[:, 0]).sum().to(dev))
         correct.append((lg.argmax(-1) == labels).float().sum().to(dev))
         rows += labels.shape[0]
-    loss = functools.reduce(torch.add, nll) / rows
-    acc = functools.reduce(torch.add, correct) / rows
+    rows *= mesh.process_count
+    loss = mesh_lib.global_sum(functools.reduce(torch.add, nll), mesh) / rows
+    acc = mesh_lib.global_sum(functools.reduce(torch.add, correct),
+                              mesh) / rows
     new_stats = stats
     if moments is not None:
         new_stats = sharding.from_local(

@@ -17,6 +17,8 @@ at tick ``t``), moves a stage's output to the next stage's devices with
 the same order, without the wasted work.
 """
 
+import functools
+
 import torch
 
 from . import mesh as mesh_lib
@@ -142,14 +144,16 @@ def train_1f1b(embed_fn, layer_fn, loss_fn, params, tokens, targets,
 
     ``params``: ``{"embed", "layers", "head"}`` trees; ``layers`` leaves
     carry the leading layer dim. Plain tensors are placed on ``mesh``
-    (its only axis larger than 1 is ``pipeline``) and the grads come
-    back as logical tensors on each leaf's device; ``Sharded`` leaves
-    (``layers`` cut over ``pipeline``) get grads in their own layout,
-    every copy of ``embed`` and ``head`` holding the whole gradient (the
-    psum). ``embed_fn(ep, tokens_mb) → x0``; ``layer_fn(lp, x) → (y,
-    aux)`` (aux None or a 0-d tensor); ``loss_fn(hp, y, targets_mb) →``
-    the microbatch's mean loss. ``aux_weight`` adds ``aux_weight ·
-    mean(aux)`` over layers × microbatches to the objective.
+    (``layers`` cut over ``pipeline``, the rest replicated) and the
+    grads come back as logical tensors on each leaf's device;
+    ``Sharded`` leaves (``layers`` cut over ``pipeline`` on dim 0, any
+    dim cut over the other axes) get grads in their own layout: each
+    piece the slice of the gradient that it holds, every copy the whole
+    sum (the psum). ``embed_fn(ep, tokens_mb) → x0``; ``layer_fn(lp, x)
+    → (y, aux)`` (aux None or a 0-d tensor); ``loss_fn(hp, y,
+    targets_mb) →`` the microbatch's mean loss. ``aux_weight`` adds
+    ``aux_weight · mean(aux)`` over layers × microbatches to the
+    objective.
 
     The schedule is JAX's: stage ``s`` forwards microbatch ``t - s`` at
     tick ``t`` under ``no_grad``, keeping its input in a ring of ``2P``
@@ -160,72 +164,120 @@ def train_1f1b(embed_fn, layer_fn, loss_fn, params, tokens, targets,
     forward ends and seeds the cotangent at once: ``1/M`` for the loss,
     ``aux_weight / (L·M)`` for the aux. So at most ``2P - 1`` stage
     inputs are live per stage whatever M is; the most any stage held in
-    this call is left on ``train_1f1b.live_inputs``. Embed grads land at
-    stage 0, head grads at the last stage."""
+    this call is left on ``train_1f1b.live_inputs``.
+
+    The other axes of ``mesh`` (JAX's are XLA's, outside the manual
+    ``pipeline`` axis) compute the same numbers:
+
+    - ``data``: microbatch ``f`` is still the global rows ``[f·mb,
+      (f+1)·mb)``; data coordinate ``d`` takes its contiguous cut of
+      ``mb/D`` rows (an ``mb`` that does not divide is refused) and runs
+      the stage chain on the positions ``(d, s)`` (each with its own
+      ring of saved inputs: ``live_inputs`` is counted per ``(d, s)``).
+      The last stage joins the ``D`` cuts' outputs on ``(0, P-1)``,
+      applies ``loss_fn`` once to the whole microbatch and cuts the
+      cotangent back, so any ``loss_fn`` is JAX's. ``embed_fn`` and
+      ``layer_fn`` must be row-local (a row's output depends on that row
+      alone; every layer in the repo is). A layer's aux for a
+      microbatch is the mean of its cuts' values: JAX's for an aux that
+      is a mean over rows, not for a non-linear one. The MoE's
+      load-balancing aux (``models/transformer.py`` ``_moe_aux``, a
+      product of two fractions of the microbatch's rows) is one, so an
+      MoE ``layer_fn`` with ``aux_weight`` > 0 matches JAX only at
+      ``data`` = 1.
+    - ``fsdp``, ``tensor``, ``sequence``, ``expert``: each stage's
+      ``layers`` leaves are gathered whole on each ``(d, s)`` position
+      (coordinate 0 on those axes), ``embed`` on each ``(d, 0)`` and
+      ``head`` on ``(0, P-1)``, once a call; ``layer_fn`` sees logical
+      tensors and runs whole there. Exact, not XLA's intra-stage
+      partitioning.
+
+    Embed grads land at stage 0, head grads at the last stage; each is
+    summed over ``d`` in coordinate order, as the layer grads are. A
+    mesh across processes is refused: the gang would have to exchange
+    rows for microbatch ``f`` to keep JAX's global grouping."""
     m = n_microbatches
     tokens, targets = torch.as_tensor(tokens), torch.as_tensor(targets)
     if tokens.shape[0] % m:
         raise ValueError(f"batch {tokens.shape[0]} not divisible by "
                          f"n_microbatches={m}")
-    others = {a: n for a, n in mesh.shape.items()
-              if a != mesh_lib.PIPELINE and n > 1}
-    if others:
-        raise ValueError(f"train_1f1b runs over the "
-                         f"'{mesh_lib.PIPELINE}' axis alone; the mesh "
-                         f"also has {others}")
-    p = mesh.shape[mesh_lib.PIPELINE]
-    devs = list(mesh.devices)
-    placed = _placed(params, mesh)
-
-    def alias(x, s):
-        return x.pieces[s].detach().requires_grad_()
-
-    local = [tree_map(lambda x, s=s: alias(x, s), placed["layers"])
-             for s in range(p)]
-    eparams = tree_map(lambda x: alias(x, 0), placed["embed"])
-    hparams = tree_map(lambda x: alias(x, p - 1), placed["head"])
-    n_local = tree_leaves(local[0])[0].shape[0]
-    n_layers = n_local * p
+    if mesh.process_count > 1:
+        raise ValueError(f"train_1f1b runs on one process's mesh; its "
+                         f"'{mesh_lib.DATA}' axis spans "
+                         f"{mesh.process_count} processes")
+    p, n_data = mesh.shape[mesh_lib.PIPELINE], mesh.shape[mesh_lib.DATA]
     mb = tokens.shape[0] // m
-    toks = [tokens[i * mb:(i + 1) * mb].to(devs[0]) for i in range(m)]
-    tgts = [targets[i * mb:(i + 1) * mb].to(devs[-1]) for i in range(m)]
+    if mb % n_data:
+        raise ValueError(f"a microbatch of {mb} rows does not divide over "
+                         f"the mesh's '{mesh_lib.DATA}' axis of {n_data}")
+    cut = mb // n_data
+    lead = [[mesh.position({mesh_lib.DATA: d, mesh_lib.PIPELINE: s})
+             for s in range(p)] for d in range(n_data)]
+    devs = [[mesh.devices[q] for q in row] for row in lead]
+    placed = _placed(params, mesh)
+    inner = tuple(a for a in mesh_lib.AXIS_ORDER if a != mesh_lib.PIPELINE)
 
-    def stage_fwd(s, xin):
+    def alias(x, q, axes=mesh_lib.AXIS_ORDER):
+        return x.gather_at(q, axes).detach().requires_grad_()
+
+    local = [[tree_map(lambda x, q=q: alias(x, q, inner), placed["layers"])
+              for q in row] for row in lead]
+    eparams = [tree_map(lambda x, q=row[0]: alias(x, q), placed["embed"])
+               for row in lead]
+    hdev = devs[0][p - 1]
+    hparams = tree_map(lambda x: alias(x, lead[0][p - 1]), placed["head"])
+    n_local = tree_leaves(local[0][0])[0].shape[0]
+    n_layers = n_local * p
+    toks = [[tokens[i * mb + d * cut:i * mb + (d + 1) * cut].to(devs[d][0])
+             for i in range(m)] for d in range(n_data)]
+    tgts = [targets[i * mb:(i + 1) * mb].to(hdev) for i in range(m)]
+
+    def stage_fwd(d, s, xin):
         y, auxs = xin, []
         for i in range(n_local):
-            y, aux = layer_fn(tree_map(lambda t: t[i], local[s]), y)
+            y, aux = layer_fn(tree_map(lambda t: t[i], local[d][s]), y)
             auxs.append(aux)
         return y, _stage_aux(auxs)
 
     def zeros(t):
         return torch.zeros(t.shape, dtype=torch.float32, device=t.device)
 
-    l_leaves = [tree_leaves(lp) for lp in local]
-    e_leaves, h_leaves = tree_leaves(eparams), tree_leaves(hparams)
-    g_l = [[zeros(t) for t in ls] for ls in l_leaves]
-    g_e, g_h = [zeros(t) for t in e_leaves], [zeros(t) for t in h_leaves]
-    loss_sum = [torch.zeros((), dtype=torch.float32, device=d) for d in devs]
-    aux_cot = aux_weight / (n_layers * m)
+    l_leaves = [[tree_leaves(lp) for lp in row] for row in local]
+    e_leaves = [tree_leaves(ep) for ep in eparams]
+    h_leaves = tree_leaves(hparams)
+    g_l = [[[zeros(t) for t in ls] for ls in row] for row in l_leaves]
+    g_e = [[zeros(t) for t in ls] for ls in e_leaves]
+    g_h = [zeros(t) for t in h_leaves]
+    loss_sum = [torch.zeros((), dtype=torch.float32, device=d)
+                for d in devs[0]]
+    aux_cot = aux_weight / (n_layers * m * n_data)
     ring = 2 * p
-    saved = [{} for _ in range(p)]
+    saved = [[{} for _ in range(p)] for _ in range(n_data)]
     live = 0
-    recv_f, recv_b = [None] * p, [None] * p
+    recv_f, recv_b = {}, {}
     for t in range(m + 2 * (p - 1)):
-        send_f, send_b = [None] * p, [None] * p
+        send_f, send_b = {}, {}
         for s in range(p):
             last = s == p - 1
-            cot = None
+            cots = None
             f = t - s                 # forward half: microbatch f
             if 0 <= f < m:
-                with torch.no_grad():
-                    xin = embed_fn(eparams, toks[f]) if s == 0 else recv_f[s]
-                    saved[s][f % ring] = xin
-                    live = max(live, len(saved[s]))
-                    y, aux_f = stage_fwd(s, xin)
-                if aux_f is not None:
+                ys, auxs = [], []
+                for d in range(n_data):
+                    with torch.no_grad():
+                        xin = (embed_fn(eparams[d], toks[d][f]) if s == 0
+                               else recv_f.pop((d, s)))
+                        saved[d][s][f % ring] = xin
+                        live = max(live, len(saved[d][s]))
+                        y, aux_f = stage_fwd(d, s, xin)
+                    ys.append(y)
+                    auxs.append(aux_f)
+                if auxs[0] is not None:   # the cuts' mean
+                    aux_f = sum(a.to(devs[0][s]) for a in auxs) / n_data
                     loss_sum[s] += aux_weight * aux_f / (n_layers * m)
                 if last:              # the loss and its cotangent, now
-                    yy = y.detach().requires_grad_()
+                    yy = (ys[0] if n_data == 1 else torch.cat(
+                        [y.to(hdev) for y in ys])).detach().requires_grad_()
                     with torch.enable_grad():
                         loss_f = loss_fn(hparams, yy, tgts[f])
                     *dh, cot = torch.autograd.grad(
@@ -233,50 +285,75 @@ def train_1f1b(embed_fn, layer_fn, loss_fn, params, tokens, targets,
                         torch.full_like(loss_f, 1.0 / m), allow_unused=True)
                     _add(g_h, dh)
                     loss_sum[s] += loss_f.detach().float() / m
+                    cots = [c.to(devs[d][s])
+                            for d, c in enumerate(cot.split(cut))]
                 else:
-                    send_f[s + 1] = y
+                    for d, y in enumerate(ys):
+                        send_f[(d, s + 1)] = y
             b = t - 2 * (p - 1) + s   # backward half: microbatch b
-            if 0 <= b < m:
-                x_req = saved[s].pop(b % ring).detach().requires_grad_()
-                if not last:
-                    cot = recv_b[s]
+            if not 0 <= b < m:
+                continue
+            for d in range(n_data):
+                x_req = saved[d][s].pop(b % ring).detach().requires_grad_()
+                cot = cots[d] if last else recv_b.pop((d, s))
                 with torch.enable_grad():
-                    yb, aux_b = stage_fwd(s, x_req)
-                outs, cots = [yb], [cot.to(yb.dtype)]
+                    yb, aux_b = stage_fwd(d, s, x_req)
+                outs, grads_in = [yb], [cot.to(yb.dtype)]
                 if aux_b is not None and aux_b.requires_grad:
                     outs.append(aux_b)
-                    cots.append(torch.full_like(aux_b, aux_cot))
+                    grads_in.append(torch.full_like(aux_b, aux_cot))
                 *dl, dxin = torch.autograd.grad(
-                    outs, l_leaves[s] + [x_req], cots, allow_unused=True)
-                _add(g_l[s], dl)
+                    outs, l_leaves[d][s] + [x_req], grads_in,
+                    allow_unused=True)
+                _add(g_l[d][s], dl)
                 if s == 0:
                     with torch.enable_grad():
-                        x0 = embed_fn(eparams, toks[b])
-                    _add(g_e, torch.autograd.grad(x0, e_leaves, dxin,
-                                                  allow_unused=True))
+                        x0 = embed_fn(eparams[d], toks[d][b])
+                    _add(g_e[d], torch.autograd.grad(
+                        x0, e_leaves[d], dxin, allow_unused=True))
                 else:
-                    send_b[s - 1] = dxin
-        recv_f = [None if y is None else y.to(devs[s])
-                  for s, y in enumerate(send_f)]
-        recv_b = [None if g is None else g.to(devs[s])
-                  for s, g in enumerate(send_b)]
+                    send_b[(d, s - 1)] = dxin
+        recv_f = {k: y.to(devs[k[0]][k[1]]) for k, y in send_f.items()}
+        recv_b = {k: g.to(devs[k[0]][k[1]]) for k, g in send_b.items()}
     train_1f1b.live_inputs = live
-    loss = sum(x.to(devs[0]) for x in loss_sum)
+    loss = sum(x.to(devs[0][0]) for x in loss_sum)
 
-    def rebuild(tree, pieces):
-        """``tree``'s leaves with ``pieces(i)`` for the i-th leaf in
-        ``tree_leaves`` order, in the leaf's layout."""
+    def over_data(parts):
+        """Per-``d`` gradients summed in coordinate order on ``d``=0's
+        device."""
+        dev = parts[0].device
+        return functools.reduce(torch.add, (g.to(dev) for g in parts))
+
+    stage_g = [[over_data([g_l[d][s][i] for d in range(n_data)])
+                for i in range(len(g_l[0][s]))] for s in range(p)]
+    embed_g = [over_data([g_e[d][i] for d in range(n_data)])
+               for i in range(len(g_e[0]))]
+
+    def rebuild(tree, whole):
+        """``tree``'s leaves, each position's piece cut from ``whole(i,
+        coords)`` (the i-th leaf's gradient the position's stage holds,
+        and the offset of its dim 0 there)."""
         index = {id(leaf): i for i, leaf in enumerate(tree_leaves(tree))}
-        return tree_map(lambda leaf: sharding.Sharded(
-            pieces(index[id(leaf)]), leaf.sharding, leaf.shape), tree)
 
+        def pieces(leaf):
+            out = []
+            for q, dev in enumerate(mesh.devices):
+                g, offset = whole(index[id(leaf)], mesh.coords(q))
+                for dim, (start, n) in enumerate(
+                        leaf.sharding.bounds(leaf.shape, q)):
+                    g = g.narrow(dim, start - (offset if dim == 0 else 0),
+                                 n)
+                out.append(g.to(dev))
+            return sharding.Sharded(out, leaf.sharding, leaf.shape)
+
+        return tree_map(pieces, tree)
+
+    pipe = mesh_lib.PIPELINE
     grads = {
-        "embed": rebuild(placed["embed"],
-                         lambda i: [g_e[i].to(d) for d in devs]),
-        "layers": rebuild(placed["layers"],
-                          lambda i: [g_l[s][i] for s in range(p)]),
-        "head": rebuild(placed["head"],
-                        lambda i: [g_h[i].to(d) for d in devs])}
+        "embed": rebuild(placed["embed"], lambda i, c: (embed_g[i], 0)),
+        "layers": rebuild(placed["layers"], lambda i, c: (
+            stage_g[c[pipe]][i], c[pipe] * n_local)),
+        "head": rebuild(placed["head"], lambda i, c: (g_h[i], 0))}
     if placed is not params:
         grads = tree_map(lambda g, x: g.gather(x.device), grads, params)
     return loss, grads

@@ -7,7 +7,8 @@ Port of ``__graft_entry__.dryrun_multichip`` (:60) with its
 resume on it, then the expert pass (a dropless MoE on ``data × expert
 × tensor``), the sequence pass (ring attention on ``data × sequence``
 when the main mesh has none), the multislice pass (two slices with
-``data`` across them), the pipeline pass and a 1F1B step. Each pass
+``data`` across them), the pipeline pass and a 1F1B step (both on
+``data × pipeline``). Each pass
 takes one step on ``[device] * n``: ``device`` names the CPU or a card,
 None takes the card (raising on a host without CUDA). Run: ``python -c
 "from kubeflow_tpu_torch.dryrun import dryrun_multichip as d;
@@ -169,7 +170,7 @@ def dryrun_multichip(n_devices, device=None):
             pipeline_stages=pp, pipeline_microbatches=pp)
         pp_loss = one_step(pp_cfg, pp_mesh, max(2 * pp, n_devices // pp * pp),
                            10, 9)[3]
-        f1b_loss = _one_1f1b(torch, pipe_lib, mesh_lib, pp, dev)
+        f1b_loss = _one_1f1b(torch, pipe_lib, pp_mesh, dev)
 
     line = (f"dryrun_multichip({n_devices}) on {dev}: mesh data={data} "
             f"fsdp={fsdp} sequence={sequence} tensor={tensor} "
@@ -188,16 +189,19 @@ def dryrun_multichip(n_devices, device=None):
     return line
 
 
-def _one_1f1b(torch, pipe_lib, mesh_lib, pp, dev):
-    """A 1F1B step of a toy stack over a ``pipeline`` mesh → its loss,
-    the loss and gradients required finite."""
+def _one_1f1b(torch, pipe_lib, mesh, dev):
+    """A 1F1B step of a toy stack over ``mesh`` (the GPipe pass's
+    ``data × pipeline``, as JAX runs it under ``jax.set_mesh``), 4
+    microbatches of one row a data coordinate → its loss, the loss and
+    gradients required finite."""
     g = torch.Generator().manual_seed(11)
     params = {"embed": {"emb": 0.3 * torch.randn((64, 16), generator=g)},
               "layers": {"w": 0.3 * torch.randn((2, 16, 16), generator=g)},
               "head": {"out": 0.3 * torch.randn((16, 64), generator=g)}}
     params = {k: {n: t.to(dev) for n, t in v.items()}
               for k, v in params.items()}
-    tok = torch.randint(0, 64, (8, 16), generator=g)
+    tok = torch.randint(0, 64, (4 * mesh.shape["data"], 16),
+                        generator=g)
 
     def embed(ep, t):
         return ep["emb"][t]
@@ -210,7 +214,6 @@ def _one_1f1b(torch, pipe_lib, mesh_lib, pp, dev):
         lab = torch.gather(logits, -1, tgt[..., None])[..., 0]
         return (torch.logsumexp(logits, -1) - lab).mean()
 
-    mesh = mesh_lib.make_mesh(pipeline=pp, devices=[dev] * pp)
     loss, grads = pipe_lib.train_1f1b(embed, layer, loss_fn, params, tok,
                                       torch.roll(tok, -1, 1), 4, mesh)
     from .compute.train import tree_leaves

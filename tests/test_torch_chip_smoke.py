@@ -732,3 +732,109 @@ def test_the_predict_stream_refusal_is_the_async_transports_answer():
         conn.close()
     finally:
         server.stop()
+
+
+def _gang_ranks(**change):
+    """Two ranks' ``process_mesh`` rows for one model (rank 1 with
+    ``change``)."""
+    base = {"model": "bert", "batch_per_rank": 8,
+            "losses": [2.0, 2.0, 1.5, 1.2],
+            "step_ms_each": [50.0, 10.0, 30.0, 40.0],
+            "all_reduce_ms_each": [5.0, 1.0, 3.0, 4.0],
+            "small_collective_ms": 2.0,
+            "small_collectives_a_step": 106, "grad_bytes": 64,
+            "params_equal_each_step": [True] * 4,
+            "launches": dict.fromkeys(chip_smoke.BERT_KERNELS,
+                                      12 * chip_smoke.PROCESS_STEPS)}
+    return [{"bert": {**base, "rank": 0}},
+            {"bert": {**base, "rank": 1, **change}}]
+
+
+_ONE_LOSSES = [2.001, 2.001, 1.5, 1.2, 1.0]
+
+
+def test_gang_row_reads_both_ranks_beside_one_process():
+    """Step ms and the all_reduce from the steps between the first and
+    the last, the small collectives' share of the last step, each
+    step's loss beside the one-process row's same step."""
+    row = chip_smoke._gang_row("bert", _gang_ranks(),
+                               {"step_ms": 15.0, "losses": _ONE_LOSSES})
+    assert row["step_ms"] == 20.0 and row["all_reduce_ms"] == 2.0
+    assert row["all_reduce_share"] == 0.1
+    assert row["small_collective_ms"] == 2.0
+    assert row["small_collective_share"] == 0.05
+    assert row["loss_rel_each"] == pytest.approx(
+        [1e-3 / 2.001, 1e-3 / 2.001, 0.0, 0.0])
+    chip_smoke.check_gang(row, chip_smoke.BERT_KERNELS, 12)
+
+
+@pytest.mark.parametrize("change,one_losses", [
+    (dict(params_equal_each_step=[True, False, True, True]), _ONE_LOSSES),
+    (dict(losses=[2.0, 2.0, 1.6, 1.2]), _ONE_LOSSES),
+    ({}, [2.1] + _ONE_LOSSES[1:]),
+    ({}, _ONE_LOSSES[:3] + [1.21]),
+    ({}, _ONE_LOSSES[:3]),
+    (dict(launches=dict.fromkeys(chip_smoke.BERT_KERNELS, 35)),
+     _ONE_LOSSES)],
+    ids=["bytes", "losses", "step1", "later", "short", "launches"])
+def test_check_gang_refuses(change, one_losses):
+    row = chip_smoke._gang_row("bert", _gang_ranks(**change),
+                               {"step_ms": 15.0, "losses": one_losses})
+    with pytest.raises(AssertionError, match="process_mesh bert"):
+        chip_smoke.check_gang(row, chip_smoke.BERT_KERNELS, 12)
+
+
+_FP32_GANG = {"ranks_equal": True, "loss_rel": 0.0, "stats_rel_max": 2e-6,
+              "init_grad_norm_rel": 0.0, "params_rule_ok": True,
+              "tol": 1e-5}
+
+
+@pytest.mark.parametrize("change", [
+    {}, dict(ranks_equal=False), dict(stats_rel_max=2e-5),
+    dict(init_grad_norm_rel=0.2), dict(params_rule_ok=False)])
+def test_check_resnet_gang_fp32(change):
+    report = {**_FP32_GANG, **change}
+    if not change:
+        chip_smoke.check_resnet_fp32(report, "fp32 ResNet gang")
+        return
+    with pytest.raises(AssertionError, match="fp32 ResNet gang"):
+        chip_smoke.check_resnet_fp32(report, "fp32 ResNet gang")
+
+
+def test_resnet_fp32_report_reads_two_sides():
+    """The report's relative gaps and the params rule over all elements;
+    a mesh's report (no ranks) passes ``check_resnet_fp32`` alone."""
+    import torch
+    leaf = torch.ones(4)
+    want = (2.0, [leaf], 4.0, [leaf])
+    got = (2.0 + 2e-6, [leaf + 2.0 ** -20], 4.0, [leaf + 1e-7])
+    report = chip_smoke.resnet_fp32_report(got, want, 1e-3)
+    assert report["loss_rel"] == pytest.approx(1e-6)
+    assert report["stats_rel_max"] == 2.0 ** -20
+    assert report["init_grad_norm_rel"] == 0.0 and report["params_rule_ok"]
+    chip_smoke.check_resnet_fp32(report, "resnet_mesh")
+    bad = chip_smoke.resnet_fp32_report(got, (2.0, [leaf], 4.0,
+                                              [leaf + 1.0]), 1e-3)
+    with pytest.raises(AssertionError, match="resnet_mesh"):
+        chip_smoke.check_resnet_fp32(bad, "resnet_mesh")
+
+
+def _1f1b_data_row(k3=384, k45=192, live=3, rel=1e-3):
+    return {"launches": {"flash_fwd": k3, "flash_bwd_dq": k45,
+                         "flash_bwd_dkv": k45},
+            "1f1b": {"live_inputs": live},
+            "loss_rel_vs_pipeline_1f1b": rel, "loss_rel_vs_gpipe": 0.0}
+
+
+@pytest.mark.parametrize("kw,ok", [
+    ({}, True), (dict(k3=192), False), (dict(k45=96), False),
+    (dict(live=4), False), (dict(rel=2e-2), False)])
+def test_check_1f1b_data_counts_both_cuts(kw, ok):
+    """12 layers x 8 microbatches, each cut in two: K3 2 x 12 x 8 x 2
+    (forward and recompute), K4/K5 12 x 8 x 2, at most 2P - 1 inputs."""
+    row = _1f1b_data_row(**kw)
+    if ok:
+        chip_smoke.check_1f1b_data(row, 12, 8)
+        return
+    with pytest.raises(AssertionError, match="data"):
+        chip_smoke.check_1f1b_data(row, 12, 8)

@@ -33,6 +33,7 @@ from kubeflow_tpu.compute import train as j_train
 from kubeflow_tpu.compute.models import transformer as jt
 from kubeflow_tpu_torch.compute import checkpoint as t_ckpt
 from kubeflow_tpu_torch.compute import data as t_data
+from kubeflow_tpu_torch.compute import mesh as t_mesh
 from kubeflow_tpu_torch.compute import pipeline as t_pipeline
 from kubeflow_tpu_torch.compute import sharding as t_sharding
 from kubeflow_tpu_torch.compute import train as t_train
@@ -335,9 +336,64 @@ def test_1f1b_grads_keep_a_placed_layout():
     with pytest.raises(ValueError, match="batch 8 not divisible by "
                                          "n_microbatches=3"):
         t_pipeline.train_1f1b(*_t_fns(False), plain, tok, tgt, 3, tmesh)
-    with pytest.raises(ValueError, match="pipeline' axis alone"):
-        t_pipeline.train_1f1b(*_t_fns(False), plain, tok, tgt, 4,
+    # the named refusals: a mesh across processes, an uneven data cut
+    gang = t_mesh.Mesh(["cpu"] * 2, {**tmesh.shape}, process_count=2)
+    with pytest.raises(ValueError, match="'data' axis spans 2 processes"):
+        t_pipeline.train_1f1b(*_t_fns(False), plain, tok, tgt, 4, gang)
+    with pytest.raises(ValueError, match="a microbatch of 1 rows does not "
+                                         "divide over the mesh's 'data' "
+                                         "axis of 2"):
+        t_pipeline.train_1f1b(*_t_fns(False), plain, tok, tgt, 8,
                               _meshes(pipeline=2, data=2)[1])
+
+
+@pytest.mark.parametrize("axes,micro,rows,aux", [
+    (dict(data=2, pipeline=2), 4, 8, 0.0),
+    (dict(data=2, pipeline=2), 4, 8, 0.3),
+    (dict(data=2, pipeline=2, tensor=2), 4, 8, 0.3)],
+    ids=["data2x4", "data_aux", "data_tensor"])
+def test_1f1b_beside_other_axes_matches_jax(axes, micro, rows, aux):
+    """``train_1f1b`` on ``data × pipeline`` (each microbatch cut over
+    ``data``, the loss on the joined microbatch, the aux the cuts' mean)
+    and with the toy ``w`` placed over ``tensor`` too (gathered whole at
+    each stage's lead, its gradient cut back into that layout) against
+    JAX's ``jax.jit(train_1f1b)`` on the same mesh, whose other axes
+    XLA partitions: loss rtol 1e-5, gradients rtol 1e-4 / atol 1e-6."""
+    params = _toy_params()
+    tok, tgt = _toy_data(rows)
+    jmesh, tmesh = _meshes(**axes)
+    layout = ("pipeline", None, "tensor") if "tensor" in axes else \
+        ("pipeline",)
+    jparams = jax.tree.map(jnp.asarray, params)
+    jparams["layers"]["w"] = jax.device_put(
+        jparams["layers"]["w"],
+        jax.sharding.NamedSharding(jmesh, jax.sharding.PartitionSpec(
+            *layout)))
+    with jax.set_mesh(jmesh):
+        jloss, jgrads = jax.jit(lambda p: j_pipeline.train_1f1b(
+            *_j_fns(aux > 0), p, tok, tgt, n_microbatches=micro,
+            aux_weight=aux))(jparams)
+    plain = t_train.tree_map(torch.from_numpy, params)
+    placed = {"embed": t_sharding.place_tree(plain["embed"], tmesh),
+              "layers": {"w": t_sharding.place(plain["layers"]["w"], layout,
+                                               tmesh)},
+              "head": t_sharding.place_tree(plain["head"], tmesh)}
+    loss, grads = t_pipeline.train_1f1b(
+        *_t_fns(aux > 0), placed, torch.from_numpy(tok),
+        torch.from_numpy(tgt), micro, tmesh, aux_weight=aux)
+    np.testing.assert_allclose(float(loss), float(jloss), rtol=1e-5)
+    w = grads["layers"]["w"]
+    assert w.spec == layout
+    assert w.pieces[0].shape == ((2, D, D // 2) if "tensor" in axes
+                                 else (2, D, D))
+    for leaf in t_train.tree_leaves(grads):
+        for group in leaf.sharding.copies:
+            for q in group[1:]:
+                assert torch.equal(leaf.pieces[q], leaf.pieces[group[0]])
+    for g, want in zip(t_train.tree_leaves(t_sharding.gather_tree(grads)),
+                       jax.tree.leaves(_np(jgrads))):
+        np.testing.assert_allclose(g.numpy(), want, rtol=1e-4, atol=1e-6)
+    assert t_pipeline.train_1f1b.live_inputs <= 2 * 2 - 1
 
 
 class _Box:
