@@ -5540,12 +5540,14 @@ def phase_pipeline_conformance(kernel_fns):
         mesh, kernel_fns, cfg.n_layers * 2 * 2 * cfg.microbatches, seed=23)
 
 
-def flagship_1f1b_fns(cfg):
+def flagship_1f1b_fns(cfg, row_aux=True):
     """The transformer as ``train_1f1b``'s three functions over fp32
     masters cast to ``cfg``'s dtype at use: ``embed_fn(ep, tokens)``,
-    ``layer_fn(lp, x)`` (one layer, RoPE at positions ``arange(S)``)
-    and ``loss_fn(hp, y, targets)`` (final norm, head, the mean of nll +
-    z-loss over the microbatch)."""
+    ``layer_fn(lp, x)`` (one layer, RoPE at positions ``arange(S)``; an
+    MoE layer's aux in row form with ``row_aux``, the whole
+    microbatch's, else a 0-d value that ``train_1f1b`` averages over the
+    cuts) and ``loss_fn(hp, y, targets)`` (final norm, head, the mean of
+    nll + z-loss over the microbatch)."""
     import torch
     from kubeflow_tpu_torch.compute.models import transformer
     dt = cfg.compute_dtype
@@ -5557,7 +5559,8 @@ def flagship_1f1b_fns(cfg):
         rope = transformer.rope_tables(
             cfg, torch.arange(x.shape[1], device=x.device))
         return transformer._layer(transformer.flat_layer(
-            {k: v.to(dt) for k, v in lp.items()}), x, rope, cfg)
+            {k: v.to(dt) for k, v in lp.items()}), x, rope, cfg,
+            row_aux=row_aux)
 
     def loss_fn(hp, y, targets):
         x = transformer._rmsnorm(y, hp["final_norm"].to(dt))
@@ -5731,11 +5734,18 @@ def check_1f1b_data(row, layers, micro):
                              f"more than 2P - 1 = 3")
 
 
+def _gang_rows(rows, mesh):
+    """The slice of a global batch of ``rows`` that this process of
+    ``mesh``'s gang feeds (all of it on one process)."""
+    n = rows // mesh.process_count
+    return slice(mesh.process_index * n, (mesh.process_index + 1) * n)
+
+
 def _1f1b_fp32(mesh, rows):
     """fp32, flagship width, 2 layers, ``rows`` x 1024 in 4
     microbatches: ``train_1f1b`` on ``mesh`` (the weights placed by the
-    model's logical axes) against plain autograd through the same
-    functions on the whole batch."""
+    model's logical axes; a gang's process feeding its rows) against
+    plain autograd through the same functions on the whole batch."""
     import torch
     from kubeflow_tpu_torch.compute import data, pipeline, sharding, train
     from kubeflow_tpu_torch.compute.models import transformer
@@ -5743,6 +5753,7 @@ def _1f1b_fp32(mesh, rows):
     host = next(data.synthetic_lm(rows, 1024, cfg.vocab_size, seed=24))
     tokens, targets = (torch.from_numpy(host[k]).to(CARD)
                        for k in ("tokens", "targets"))
+    mine = _gang_rows(rows, mesh)
     weights = transformer.init_params(
         cfg, torch.Generator().manual_seed(3), device="cpu")
     staged = dataclasses.replace(cfg, pipeline_stages=2,
@@ -5752,7 +5763,7 @@ def _1f1b_fp32(mesh, rows):
     params = _1f1b_params(train.tree_map(lambda t: t.to(CARD), weights))
     embed_fn, layer_fn, loss_fn = flagship_1f1b_fns(cfg)
     loss, grads = pipeline.train_1f1b(embed_fn, layer_fn, loss_fn, placed,
-                                      tokens, targets, 4, mesh)
+                                      tokens[mine], targets[mine], 4, mesh)
     grads = sharding.gather_tree(grads, CARD)
     leaves = train.tree_leaves(params)
     for t in leaves:
@@ -5764,12 +5775,100 @@ def _1f1b_fp32(mesh, rows):
     want_g = torch.autograd.grad(want, leaves)
     errs = _leaf_errors(train.tree_leaves(grads), want_g)
     return {"mesh": {a: n for a, n in mesh.shape.items() if n > 1},
+            "processes": mesh.process_count,
             "layers": 2, "batch": [rows, 1024],
             "microbatches": 4,
             "loss": [float(loss), float(want.detach())],
             "loss_rel": _rel(float(loss), float(want.detach())),
             "tol_loss": 1e-5,
             "leaf_rel_max": max(errs), "tol_leaf": 1e-3}
+
+
+#: the MoE aux check: fp32, 2 layers, rows x 1024 in microbatches, the
+#: aux at the MoE loss's weight (JAX ``loss_fn``'s 0.01)
+MOE_1F1B_BATCH, MOE_1F1B_MICRO, MOE_AUX_WEIGHT = (4, 1024), 2, 0.01
+
+
+def _1f1b_moe(mesh, row_aux=True):
+    """The MoE flagship (dropless on K6/K7) in fp32 at 2 layers through
+    ``train_1f1b`` on ``mesh``, ``MOE_1F1B_BATCH`` (seed 26; a gang's
+    process feeding its rows) in ``MOE_1F1B_MICRO`` microbatches with
+    ``aux_weight`` ``MOE_AUX_WEIGHT``, the layers' aux in row form (or,
+    without ``row_aux``, 0-d values averaged over the cuts) → ``(loss,
+    gradient leaves gathered on the card)``."""
+    import torch
+    from kubeflow_tpu_torch.compute import data, pipeline, sharding, train
+    from kubeflow_tpu_torch.compute.models import transformer
+    cfg = moe_config("float32", n_layers=2)
+    host = next(data.synthetic_lm(*MOE_1F1B_BATCH, cfg.vocab_size, seed=26))
+    mine = _gang_rows(MOE_1F1B_BATCH[0], mesh)
+    weights = transformer.init_params(
+        cfg, torch.Generator().manual_seed(5), device="cpu")
+    staged = dataclasses.replace(cfg, scan_layers=True, pipeline_stages=2,
+                                 pipeline_microbatches=MOE_1F1B_MICRO)
+    placed = _1f1b_params(sharding.place_tree(
+        weights, mesh, transformer.logical_axes(staged)))
+    loss, grads = pipeline.train_1f1b(
+        *flagship_1f1b_fns(cfg, row_aux), placed,
+        torch.from_numpy(host["tokens"][mine]),
+        torch.from_numpy(host["targets"][mine]), MOE_1F1B_MICRO, mesh,
+        aux_weight=MOE_AUX_WEIGHT)
+    return float(loss), train.tree_leaves(sharding.gather_tree(grads, CARD))
+
+
+def moe_aux_report(got, want):
+    """Two :func:`_1f1b_moe` results → the loss relative to ``want``'s
+    and the worst leaf's max |Δg| over its max |g|."""
+    return {"loss": [got[0], want[0]], "loss_rel": _rel(got[0], want[0]),
+            "leaf_rel_max": max(_leaf_errors(got[1], want[1])),
+            "tol_loss": 1e-5, "tol_leaf": 1e-3}
+
+
+def check_moe_aux(report, what):
+    """A :func:`moe_aux_report` within its tolerances."""
+    if (report["loss_rel"] > report["tol_loss"]
+            or report["leaf_rel_max"] > report["tol_leaf"]):
+        raise AssertionError(f"{what}: {report}")
+
+
+def phase_pipeline_1f1b_moe(kernel_fns):
+    """The MoE aux through 1F1B on a cut microbatch: :func:`_1f1b_moe`
+    on ``data=2 x pipeline=2`` (each microbatch cut in two, the layers'
+    load-balancing aux in row form) against the same on ``pipeline=2``
+    (no cut): the loss within 1e-5 relative and each leaf within 1e-3
+    of its max |g|. Counts zeroed just before the ``data=2`` run and
+    read just after: K3 ``2 x L x M x 2`` (forward and recompute), K4
+    and K5 ``L x M x 2``, K6 ``6 x L x M x 2`` (gate|up and down in the
+    forward, the recompute and the dx), K7 ``2 x L x M x 2``. Beside it,
+    for the record, the loss when each layer's aux is the mean of the
+    cuts' values (the rule before the row form)."""
+    from kubeflow_tpu_torch.compute import mesh as mesh_lib
+    t_phase = time.perf_counter()
+    data_mesh = mesh_lib.make_mesh(data=2, pipeline=2, devices=[CARD] * 4)
+    whole = _1f1b_moe(mesh_lib.make_mesh(pipeline=2, devices=[CARD] * 2))
+    _zero(kernel_fns)
+    cut = _1f1b_moe(data_mesh)
+    launches = _launches(kernel_fns)
+    mean_of_cuts = _1f1b_moe(data_mesh, row_aux=False)
+    row = {"phase": "pipeline_1f1b_moe", "dtype": "float32", "layers": 2,
+           "experts": 8, "batch": list(MOE_1F1B_BATCH),
+           "microbatches": MOE_1F1B_MICRO, "aux_weight": MOE_AUX_WEIGHT,
+           "mesh": {"data": 2, "pipeline": 2},
+           **moe_aux_report(cut, whole),
+           "mean_of_cuts": moe_aux_report(mean_of_cuts, whole),
+           "launches": launches, "seconds": time.perf_counter() - t_phase}
+    emit(row)
+    check_moe_aux(row, "pipeline_1f1b_moe")
+    n = 2 * MOE_1F1B_MICRO * 2          # layers x microbatches x cuts
+    check_mesh_launches(launches, ("flash_fwd",), 2 * n, 1,
+                        "pipeline_1f1b_moe")
+    check_mesh_launches(launches, ("flash_bwd_dq", "flash_bwd_dkv"), n, 1,
+                        "pipeline_1f1b_moe")
+    check_mesh_launches(launches, ("grouped_matmul",), 6 * n, 1,
+                        "pipeline_1f1b_moe")
+    check_mesh_launches(launches, ("grouped_matmul_dw",), 2 * n, 1,
+                        "pipeline_1f1b_moe")
+    return row
 
 
 MOE_MESH_STEPS = MOE_WARM + MOE_TIMED
@@ -5872,27 +5971,31 @@ SMALL_COLLECTIVE = 1 << 16
 PROCESS_MODELS = ("flagship", "bert", "resnet")
 
 
-def _params_digest(state):
-    """Two int64 sums of every param and model-state piece's bits (plain
-    and weighted by position), order-free and exact: equal on two
-    processes whose params and running statistics are byte-equal."""
+def _digest(tensors):
+    """Two int64 sums of every fp32 tensor's bits (plain and weighted by
+    position), order-free and exact: equal on two processes whose
+    tensors are byte-equal."""
     import torch
-    from kubeflow_tpu_torch.compute import sharding, train
     out = []
-    for t in sharding.pieces_of(train.tree_leaves(state.params)
-                                + train.tree_leaves(state.extra)):
+    for t in tensors:
         bits = t.detach().reshape(-1).view(torch.int32).long()
         w = torch.arange(bits.numel(), device=bits.device) % 7919 + 1
         out += [bits.sum(), (bits * w).sum()]
     return torch.stack(out).cpu()
 
 
-def _gang_equal(state):
-    """Whether this rank's params and model state are byte-equal to the
-    other rank's (the digest ``all_reduce``d MAX and MIN)."""
+def _params_digest(state):
+    """:func:`_digest` of every param and model-state piece."""
+    from kubeflow_tpu_torch.compute import sharding, train
+    return _digest(sharding.pieces_of(train.tree_leaves(state.params)
+                                      + train.tree_leaves(state.extra)))
+
+
+def _gang_equal(digest):
+    """Whether this rank's ``digest`` equals the other rank's (the digest
+    ``all_reduce``d MAX and MIN)."""
     import torch
     import torch.distributed as dist
-    digest = _params_digest(state)
     hi, lo = digest.clone(), digest.clone()
     dist.all_reduce(hi, op=dist.ReduceOp.MAX)
     dist.all_reduce(lo, op=dist.ReduceOp.MIN)
@@ -5991,7 +6094,7 @@ def _rank_train(name, rank, mesh, kernel_fns):
             step_s.append(time.perf_counter() - t0)
             losses.append(float(metrics["loss"]))
             small.append(None)          # the digest's are not the step's
-            equal.append(_gang_equal(state))
+            equal.append(_gang_equal(_params_digest(state)))
     finally:
         train._all_reduce = plain_all_reduce
         dist.all_reduce = plain_collective
@@ -6292,6 +6395,229 @@ def phase_process_mesh(one_rows, kernel_names):
     return row
 
 
+F1B_GANG_CALLS = 3
+
+
+def _rank_1f1b_bf16(rank, mesh, kernel_fns):
+    """``pipeline_1f1b``'s bf16 workload (the flagship's 12 layers, 16 x
+    1024 from seed 4 in ``F1B_MICRO`` microbatches, seed-0 weights) on
+    this rank's part of the gang's ``data=2 x pipeline=2``, fed its own
+    8 rows, ``F1B_GANG_CALLS`` times: the first meets cold shapes; the
+    counts are zeroed just before the second and read just after, which
+    is timed as it runs; the third syncs around each of the gang's joins
+    and sums and times it (``pipeline._gang_cat`` of the token ids: the
+    exchange; of the last stage's outputs: a join; the gradient
+    ``train._all_reduce``) → the rank's row: loss, gradient digest equal
+    to the other rank's, ms, the collectives' ms, live inputs,
+    launches."""
+    import torch
+    import torch.distributed as dist
+    from kubeflow_tpu_torch.compute import data, pipeline, sharding, train
+    from kubeflow_tpu_torch.compute.models import transformer
+    cfg = flagship_config(remat=False, pipeline_stages=2,
+                          pipeline_microbatches=F1B_MICRO)
+    B, S = TRAIN_BATCH
+    host = next(data.synthetic_lm(B, S, cfg.vocab_size, seed=4))
+    mine = {k: torch.from_numpy(v[_gang_rows(B, mesh)])
+            for k, v in host.items()}
+    params = _1f1b_params(sharding.place_tree(
+        transformer.init_params(cfg, torch.Generator().manual_seed(0),
+                                device="cpu"),
+        mesh, transformer.logical_axes(cfg)))
+    plain_reduce, plain_cat = train._all_reduce, pipeline._gang_cat
+    spans = {}          # the third call's: kind → [seconds, count]
+
+    def synced(kind, fn, *args):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*args)
+        torch.cuda.synchronize()
+        span = spans.setdefault(kind, [0.0, 0])
+        span[0] += time.perf_counter() - t0
+        span[1] += 1
+        return out
+
+    def timed_reduce(*args):
+        return synced("grad_all_reduce", plain_reduce, *args)
+
+    def timed_cat(mine, *args):
+        kind = "join" if mine[0].is_floating_point() else "exchange"
+        return synced(kind, plain_cat, mine, *args)
+
+    ms, row = [], {}
+    for call in range(F1B_GANG_CALLS):
+        if call == 1:
+            _zero(kernel_fns)
+        if call == F1B_GANG_CALLS - 1:
+            train._all_reduce, pipeline._gang_cat = timed_reduce, timed_cat
+        dist.barrier()
+        t0 = time.perf_counter()
+        try:
+            loss, grads = pipeline.train_1f1b(
+                *flagship_1f1b_fns(cfg), params, mine["tokens"],
+                mine["targets"], F1B_MICRO, mesh)
+            torch.cuda.synchronize()
+        finally:
+            train._all_reduce, pipeline._gang_cat = plain_reduce, plain_cat
+        ms.append(1e3 * (time.perf_counter() - t0))
+        if call == 1:
+            row = {"loss": float(loss.detach()),
+                   "live_inputs": pipeline.train_1f1b.live_inputs,
+                   "launches": _launches(kernel_fns),
+                   "grads_equal": _gang_equal(_digest(
+                       sharding.pieces_of(train.tree_leaves(grads))))}
+        del loss, grads
+    return {**row, "rank": rank, "batch_per_rank": B // 2,
+            "ms_each": ms, "ms": ms[1],
+            "collectives": {k: {"ms": 1e3 * v[0], "count": v[1],
+                                "share": 1e3 * v[0] / ms[-1]}
+                            for k, v in spans.items()}}
+
+
+def _rank_1f1b_moe(rank, mesh):
+    """The MoE aux check across the gang: :func:`_1f1b_moe` on this
+    rank's part of ``data=2 x pipeline=2``; rank 0 then runs it on one
+    process's ``pipeline=2`` (no cut) and holds the gang to it → the
+    report (rank 0's) or None."""
+    from kubeflow_tpu_torch.compute import mesh as mesh_lib
+    gang = _1f1b_moe(mesh)
+    if rank:
+        return None
+    whole = _1f1b_moe(mesh_lib.make_mesh(pipeline=2, devices=[CARD] * 2))
+    return moe_aux_report(gang, whole)
+
+
+def pipeline_1f1b_gang_rank(rank, port, out):
+    """One rank of :func:`phase_pipeline_1f1b_gang` (``python3
+    chip_smoke.py --pipeline-1f1b-gang-rank RANK PORT OUT``): on its part
+    of a ``data=2 x pipeline=2`` mesh across two gloo processes on
+    ``cuda:0`` (``data=1 x pipeline=2`` each), the bf16 flagship
+    (:func:`_rank_1f1b_bf16`), the fp32 side at 2 layers against plain
+    autograd on the whole batch (:func:`_1f1b_fp32`, 4 rows a rank) and
+    the MoE aux check (:func:`_rank_1f1b_moe`). Writes its row to
+    ``out``."""
+    import torch
+    import torch.distributed as dist
+    from kubeflow_tpu_torch.compute import mesh as mesh_lib
+    from kubeflow_tpu_torch.compute.ops import flash_attention as flash_ops
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=2, rank=rank)
+    mesh = mesh_lib.make_mesh(mesh_lib.MeshSpec(data=-1, pipeline=2),
+                              devices=[CARD] * 2, group=dist.group.WORLD)
+    kernel_fns = {"flash_fwd": flash_ops.flash_attention,
+                  "flash_bwd_dq": flash_ops.flash_attention_bwd_dq,
+                  "flash_bwd_dkv": flash_ops.flash_attention_bwd_dkv}
+    row = {"backend": dist.get_backend(),
+           **_rank_1f1b_bf16(rank, mesh, kernel_fns)}
+    torch.cuda.empty_cache()
+    row["fp32"] = _1f1b_fp32(mesh, 8)
+    torch.cuda.empty_cache()
+    row["moe"] = _rank_1f1b_moe(rank, mesh)
+    with open(out, "w") as f:
+        json.dump(row, f)
+    dist.destroy_process_group()
+
+
+def gang_1f1b_row(ranks, one_row, kernel_names):
+    """``pipeline_1f1b_gang``'s row from its two ranks' rows, beside
+    ``pipeline_1f1b``'s one-process ``data=2 x pipeline=2`` row
+    ``one_row``: the ranks' losses, whether their gradients are
+    byte-equal, the loss relative to one process's, ms and its ratio,
+    each collective's mean share of the synced call, live inputs, the
+    fp32 side and MoE check (rank 0's reports) and ``launches`` summed
+    over the ranks for every kernel of ``kernel_names``."""
+    ms = statistics.mean(r["ms"] for r in ranks)
+    kinds = sorted({k for r in ranks for k in r["collectives"]})
+    return {"phase": "pipeline_1f1b_gang", "processes": 2,
+            "backend": ranks[0]["backend"],
+            "mesh": {"data": 2, "pipeline": 2, "data_per_rank": 1},
+            "dtype": "bfloat16", "batch": 2 * ranks[0]["batch_per_rank"],
+            "batch_per_rank": ranks[0]["batch_per_rank"],
+            "losses": [r["loss"] for r in ranks],
+            "ranks_equal": all(r["grads_equal"] for r in ranks),
+            "one_process_loss": one_row["1f1b"]["loss"],
+            "loss_rel": _rel(ranks[0]["loss"], one_row["1f1b"]["loss"]),
+            "tol_loss_rel": BF16_LOSS_REL, "ms": ms,
+            "one_process_ms": one_row["1f1b"]["ms"],
+            "vs_one_process": ms / one_row["1f1b"]["ms"],
+            "collectives": {k: {
+                "ms": statistics.mean(r["collectives"].get(k, {}).get(
+                    "ms", 0.0) for r in ranks),
+                "count": ranks[0]["collectives"].get(k, {}).get("count", 0),
+                "share": statistics.mean(r["collectives"].get(k, {}).get(
+                    "share", 0.0) for r in ranks)} for k in kinds},
+            "live_inputs": max(r["live_inputs"] for r in ranks),
+            "launches_each": [r["launches"] for r in ranks],
+            "launches": {k: sum(r["launches"].get(k, 0) for r in ranks)
+                         for k in kernel_names},
+            "fp32": ranks[0]["fp32"], "moe": ranks[0]["moe"]}
+
+
+def check_1f1b_gang(row, layers, micro):
+    """``pipeline_1f1b_gang``'s checks: the ranks' losses equal and their
+    gradients byte-equal, the loss within ``BF16_LOSS_REL`` of one
+    process's ``data=2 x pipeline=2``, on each rank K3 ``2 x layers x
+    micro`` and K4/K5 ``layers x micro``, at most 3 stage inputs live,
+    the fp32 side and the MoE check within their tolerances."""
+    if not row["ranks_equal"] or len(set(row["losses"])) != 1:
+        raise AssertionError(f"pipeline_1f1b_gang: the ranks differ: "
+                             f"losses {row['losses']}, gradients equal "
+                             f"{row['ranks_equal']}")
+    if row["loss_rel"] > row["tol_loss_rel"]:
+        raise AssertionError(f"pipeline_1f1b_gang loss {row['losses'][0]} "
+                             f"vs one process {row['one_process_loss']}")
+    for r, launches in enumerate(row["launches_each"]):
+        check_mesh_launches(launches, ("flash_fwd",), 2 * layers * micro, 1,
+                            f"pipeline_1f1b_gang rank {r}")
+        check_mesh_launches(launches, ("flash_bwd_dq", "flash_bwd_dkv"),
+                            layers * micro, 1, f"pipeline_1f1b_gang rank {r}")
+    if row["live_inputs"] > 3:
+        raise AssertionError(f"pipeline_1f1b_gang held {row['live_inputs']} "
+                             f"stage inputs, more than 2P - 1 = 3")
+    f = row["fp32"]
+    if f["loss_rel"] > f["tol_loss"] or f["leaf_rel_max"] > f["tol_leaf"]:
+        raise AssertionError(f"pipeline_1f1b_gang fp32: {f}")
+    check_moe_aux(row["moe"], "pipeline_1f1b_gang MoE aux")
+
+
+def phase_pipeline_1f1b_gang(one_row, kernel_names):
+    """``train_1f1b`` on a gang: two processes on ``cuda:0`` joined over
+    gloo, ``data=1 x pipeline=2`` each, the gang's ``data`` 2
+    (:func:`pipeline_1f1b_gang_rank`, one subprocess pair), held by
+    :func:`check_1f1b_gang` to ``pipeline_1f1b``'s one-process ``data=2
+    x pipeline=2`` row ``one_row``. Two ranks on one card through host
+    gloo: the ms is not a speed result. → the row."""
+    import subprocess
+    t_phase = time.perf_counter()
+    port = _free_port()
+    outdir = _scratch("pipeline-1f1b-gang-")
+    outs = [f"{outdir}/rank{r}.json" for r in range(2)]
+    procs = []
+    for r in range(2):
+        with open(f"{outdir}/rank{r}.log", "w") as log:
+            procs.append(subprocess.Popen(
+                [sys.executable, __file__, "--pipeline-1f1b-gang-rank",
+                 str(r), str(port), outs[r]], stdout=log,
+                stderr=subprocess.STDOUT, cwd=REPO))
+    codes = _run_all(procs, PROCESS_TIMEOUT_S)
+    if codes != [0, 0]:
+        logs = [_tail(f"{outdir}/rank{r}.log") for r in (0, 1)]
+        raise AssertionError(f"pipeline_1f1b_gang ranks exited {codes}: "
+                             f"{logs}")
+    ranks = []
+    for o in outs:
+        with open(o) as f:
+            ranks.append(json.load(f))
+    row = {**gang_1f1b_row(ranks, one_row, kernel_names), "layers": 12,
+           "seq": TRAIN_BATCH[1], "microbatches": F1B_MICRO,
+           "seconds": time.perf_counter() - t_phase}
+    emit(row)
+    check_1f1b_gang(row, 12, F1B_MICRO)
+    return row
+
+
 GANG_STEPS, GANG_FAULT_AT = 5, 3
 GANG_TIMEOUT_S = 240
 
@@ -6491,6 +6817,9 @@ def main():
     if sys.argv[1:2] == ["--process-mesh-rank"]:   # a rank of process_mesh
         process_mesh_rank(int(sys.argv[2]), sys.argv[3], sys.argv[4])
         return
+    if sys.argv[1:2] == ["--pipeline-1f1b-gang-rank"]:
+        pipeline_1f1b_gang_rank(int(sys.argv[2]), sys.argv[3], sys.argv[4])
+        return
     t_start = time.perf_counter()
     info = phase_device()
     ptxas = phase_build()
@@ -6563,6 +6892,11 @@ def main():
     torch.cuda.empty_cache()
     paths["pipeline_1f1b"] = phase_pipeline_1f1b(kernel_fns)
     paths["pipeline_1f1b_data"] = paths["pipeline_1f1b"]["data"]
+    torch.cuda.empty_cache()
+    paths["pipeline_1f1b_moe"] = phase_pipeline_1f1b_moe(kernel_fns)
+    torch.cuda.empty_cache()
+    paths["pipeline_1f1b_gang"] = phase_pipeline_1f1b_gang(
+        paths["pipeline_1f1b_data"], list(kernel_fns))
     torch.cuda.empty_cache()
     paths["moe_mesh"] = phase_moe_mesh(kernel_fns, paths["moe_train"])
     torch.cuda.empty_cache()

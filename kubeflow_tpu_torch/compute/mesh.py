@@ -25,7 +25,12 @@ over its own positions (its slice of ``data``, every other axis whole)
 and :func:`global_sum` adds a loss term over the gang: every model's
 mesh loss sums its loss and metric terms over the processes with it,
 and ResNet's batch norm sums its moments with :func:`global_sum_synced`
-(sync BN over the gang, whose backward sums too). ``distributed_env``
+(sync BN over the gang, whose backward sums too). ``pipeline.train_1f1b``
+runs on such a mesh too: the gang joins the global batch and each
+microbatch's last-stage outputs (JAX's global microbatches), every
+process applies the loss to the whole microbatch, the aux statistics
+and the layer gradients are summed over the gang, and each process gets
+the global loss and gradients back. ``distributed_env``
 and ``initialize_distributed`` (:300-332) join the gang from the env the
 control plane injects; ``device_slice_groups``, ``make_multislice_mesh``
 and ``multislice_layout`` (:206-272) are JAX's pure layout, a process

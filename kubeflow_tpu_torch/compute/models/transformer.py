@@ -381,6 +381,27 @@ def _row_stats(probs, expert_idx, e):
     return torch.stack([first, probs.sum(dim=1)], dim=1)
 
 
+def _moe_row_aux(probs, expert_idx, e):
+    """:func:`_moe_aux` in ``pipeline.train_1f1b``'s row form: the
+    statistics of :func:`_row_stats` summed over the rows (``[2, e]``)
+    and ``finish(total, rows) = e · Σ (total[0]/n)(total[1]/n)``, ``n``
+    the rows' tokens, so a microbatch cut over ``data`` gets the whole
+    microbatch's aux (a product of two means is not the mean of the
+    cuts' products)."""
+    seq = probs.shape[1]
+
+    def finish(total, rows):
+        frac = total / (rows * seq)
+        return e * (frac[0] * frac[1]).sum()
+
+    return pipeline_lib.RowAux(_row_stats(probs, expert_idx, e).sum(0),
+                               finish)
+
+
+def _aux(probs, expert_idx, e, row_aux):
+    return (_moe_row_aux if row_aux else _moe_aux)(probs, expert_idx, e)
+
+
 def _dispatch(expert_idx, config):
     """The capacity dispatch one-hot ``[b, s, k, e, c]`` in the compute
     dtype (``_switch_moe`` :271-282): each of the k choices is a slot,
@@ -424,14 +445,15 @@ def _switch_experts(h, dispatch, gate_vals, shards, config):
     return functools.reduce(torch.add, parts)
 
 
-def _switch_moe(h, lp, config):
+def _switch_moe(h, lp, config, row_aux=False):
     """Top-k MoE with capacity dispatch (``_switch_moe`` :249-296) on one
     device: :func:`_dispatch`, one-hot einsums route and combine. No
-    kernel. → ``(out [b, s, d], aux)``."""
+    kernel. → ``(out [b, s, d], aux)``, aux in row form with
+    ``row_aux``."""
     probs, gate_vals, expert_idx = _router(h, lp, config)
     out = _switch_experts(h, _dispatch(expert_idx, config), gate_vals,
                           [[(h.device, lp)]], config)
-    return out, _moe_aux(probs, expert_idx, config.moe_experts)
+    return out, _aux(probs, expert_idx, config.moe_experts, row_aux)
 
 
 def _ragged_dot(x, w, counts):
@@ -540,15 +562,16 @@ def _dropless_experts(h, gate_vals, expert_idx, shards, config):
     return functools.reduce(torch.add, parts).reshape(b, s, d)
 
 
-def _dropless_moe(h, lp, config):
+def _dropless_moe(h, lp, config, row_aux=False):
     """Dropless MoE (``_dropless_moe`` :323-493) on one device: every
     (token, choice) assignment is computed, no capacity buffers. The
     grouped-matmul engine for ``moe_gmm`` True or "auto", the plain
-    ragged engine for False. → ``(out [b, s, d], aux)``."""
+    ragged engine for False. → ``(out [b, s, d], aux)``, aux in row form
+    with ``row_aux``."""
     probs, gate_vals, expert_idx = _router(h, lp, config)
     out = _dropless_experts(h, gate_vals, expert_idx, [[(h.device, lp)]],
                             config)
-    return out, _moe_aux(probs, expert_idx, config.moe_experts)
+    return out, _aux(probs, expert_idx, config.moe_experts, row_aux)
 
 
 # ---------------------------------------------------------------- layers
@@ -561,13 +584,14 @@ def _swiglu(h, lp):
     return F.silu(gate) * up
 
 
-def _mlp(h, lp, config):
+def _mlp(h, lp, config, row_aux=False):
     """The layer's MLP → ``(down [B, S, D], aux)``: MoE (dropless or
-    capacity) with its aux loss, or the dense SwiGLU with aux None."""
+    capacity) with its aux loss (in row form with ``row_aux``), or the
+    dense SwiGLU with aux None."""
     if config.moe_experts and config.moe_dropless:
-        return _dropless_moe(h, lp, config)
+        return _dropless_moe(h, lp, config, row_aux)
     if config.moe_experts:
-        return _switch_moe(h, lp, config)
+        return _switch_moe(h, lp, config, row_aux)
     return torch.matmul(_swiglu(h, lp), lp["w_down"]), None
 
 
@@ -586,10 +610,12 @@ class _Whole:
         return x + torch.matmul(pieces[0], self.lp[name])
 
 
-def layer_core(x, lp, attend, config, shards=None):
+def layer_core(x, lp, attend, config, shards=None, row_aux=False):
     """The transformer layer with attention abstracted — ``attend(q, k,
     v) → (o, extra)`` gets the projected (pre-RoPE) heads → ``(x, extra,
-    aux)``, aux the MoE load-balancing loss (None for a dense MLP).
+    aux)``, aux the MoE load-balancing loss (None for a dense MLP; with
+    ``row_aux`` the unsharded layer gives it in ``pipeline.train_1f1b``'s
+    row form, :func:`_moe_row_aux`).
     Shared by :func:`apply` and the generation engine's prefill, decode,
     verify and draft, sharded or not, so the cached and sharded paths
     cannot drift from the model.
@@ -629,7 +655,7 @@ def layer_core(x, lp, attend, config, shards=None):
         return x, None, aux
     hs = shards.norm(x, "mlp_norm")
     if whole:
-        down, aux = _mlp(hs[0], lp, config)
+        down, aux = _mlp(hs[0], lp, config, row_aux)
         return x + down, extra, aux
     acts = [_swiglu(h, sp) for sp, h in zip(shards.layers, hs)]
     return shards.project(x, acts, "w_down"), None, None
@@ -641,14 +667,17 @@ def each_shard(attend):
     return lambda heads: [attend(i, *h) for i, h in enumerate(heads)]
 
 
-def _layer(lp, x, rope, config):
+def _layer(lp, x, rope, config, row_aux=False):
+    """One layer on one device → ``(x, aux)``; ``row_aux`` gives an MoE
+    layer's aux in row form, as ``pipeline.train_1f1b`` on a ``data``
+    axis needs it."""
     cos, sin = rope
 
     def attend(q, k, v):
         return _attention(apply_rope(q, cos, sin), apply_rope(k, cos, sin),
                           v, config), None
 
-    x, _, aux = layer_core(x, lp, attend, config)
+    x, _, aux = layer_core(x, lp, attend, config, row_aux=row_aux)
     return x, aux
 
 

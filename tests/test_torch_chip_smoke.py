@@ -838,3 +838,86 @@ def test_check_1f1b_data_counts_both_cuts(kw, ok):
         return
     with pytest.raises(AssertionError, match="data"):
         chip_smoke.check_1f1b_data(row, 12, 8)
+
+
+_F1B_FP32 = {"loss_rel": 2e-7, "leaf_rel_max": 4e-6, "tol_loss": 1e-5,
+             "tol_leaf": 1e-3}
+
+
+def _1f1b_gang_ranks(rank0=(), rank1=()):
+    """Two ranks' rows of ``pipeline_1f1b_gang`` (the flagship's 12
+    layers in 8 microbatches), each changed by its ``rank*`` items."""
+    base = {"backend": "gloo", "loss": 5.0, "grads_equal": True,
+            "live_inputs": 3, "batch_per_rank": 8, "ms": 3000.0,
+            "ms_each": [6000.0, 3000.0, 3600.0],
+            "launches": {"flash_fwd": 192, "flash_bwd_dq": 96,
+                         "flash_bwd_dkv": 96},
+            "collectives": {"join": {"ms": 360.0, "count": 8, "share": 0.1},
+                            "grad_all_reduce": {"ms": 1800.0, "count": 1,
+                                                "share": 0.5}},
+            "fp32": dict(_F1B_FP32), "moe": dict(_F1B_FP32)}
+    return [{**base, "rank": 0, **dict(rank0)},
+            {**base, "rank": 1, "fp32": None, "moe": None, **dict(rank1)}]
+
+
+def test_gang_1f1b_row_reads_both_ranks_beside_one_process():
+    """The ranks' losses beside the one-process ``data=2 x pipeline=2``
+    loss, ms and each collective's share as the ranks' means, launches
+    summed over the ranks (every kernel named), rank 0's fp32 and MoE
+    reports; the row passes ``check_1f1b_gang``."""
+    ranks = _1f1b_gang_ranks(rank1={"ms": 3200.0, "collectives": {
+        "join": {"ms": 400.0, "count": 8, "share": 0.2}}})
+    row = chip_smoke.gang_1f1b_row(
+        ranks, {"1f1b": {"loss": 5.0 * (1 + 1e-3), "ms": 1550.0}},
+        ["flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "grouped_matmul"])
+    assert row["losses"] == [5.0, 5.0] and row["ranks_equal"]
+    assert row["loss_rel"] == pytest.approx(1e-3 / (1 + 1e-3))
+    assert row["ms"] == 3100.0 and row["vs_one_process"] == 2.0
+    assert row["collectives"]["join"] == {
+        "ms": 380.0, "count": 8, "share": pytest.approx(0.15)}
+    assert row["collectives"]["grad_all_reduce"]["share"] == 0.25
+    assert row["launches"] == {"flash_fwd": 384, "flash_bwd_dq": 192,
+                               "flash_bwd_dkv": 192, "grouped_matmul": 0}
+    assert row["fp32"] == _F1B_FP32 and row["live_inputs"] == 3
+    chip_smoke.check_1f1b_gang(row, 12, 8)
+
+
+@pytest.mark.parametrize("rank0,rank1,one_loss", [
+    ((), dict(grads_equal=False), 5.0),
+    ((), dict(loss=5.0001), 5.0),
+    ((), (), 5.2),
+    ((), dict(launches={"flash_fwd": 191, "flash_bwd_dq": 96,
+                        "flash_bwd_dkv": 96}), 5.0),
+    ((), dict(launches={"flash_fwd": 192, "flash_bwd_dq": 96,
+                        "flash_bwd_dkv": 192}), 5.0),
+    ((), dict(live_inputs=4), 5.0),
+    (dict(fp32={**_F1B_FP32, "loss_rel": 2e-5}), (), 5.0),
+    (dict(fp32={**_F1B_FP32, "leaf_rel_max": 2e-3}), (), 5.0),
+    (dict(moe={**_F1B_FP32, "loss_rel": 2e-5}), (), 5.0),
+    (dict(moe={**_F1B_FP32, "leaf_rel_max": 2e-3}), (), 5.0)],
+    ids=["grads", "losses", "one_process", "k3", "k45", "live",
+         "fp32_loss", "fp32_leaf", "moe_loss", "moe_leaf"])
+def test_check_1f1b_gang_refuses(rank0, rank1, one_loss):
+    row = chip_smoke.gang_1f1b_row(
+        _1f1b_gang_ranks(rank0, rank1), {"1f1b": {"loss": one_loss,
+                                                  "ms": 1500.0}},
+        ["flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"])
+    with pytest.raises(AssertionError, match="pipeline_1f1b_gang"):
+        chip_smoke.check_1f1b_gang(row, 12, 8)
+
+
+def test_moe_aux_report_reads_two_sides():
+    """The loss's relative gap and the worst leaf's max |Δg| over its
+    max |g|; ``check_moe_aux`` holds them to 1e-5 and 1e-3."""
+    import torch
+    want = (2.0, [torch.ones(3), torch.full((2,), 4.0)])
+    close = (2.0 * (1 + 5e-6), [torch.ones(3), torch.tensor([4.0, 4.002])])
+    report = chip_smoke.moe_aux_report(close, want)
+    assert report["loss_rel"] == pytest.approx(5e-6)
+    assert report["leaf_rel_max"] == pytest.approx(5e-4, rel=1e-3)
+    chip_smoke.check_moe_aux(report, "MoE aux")
+    for got in ((2.0 * (1 + 2e-5), want[1]),
+                (2.0, [torch.ones(3), torch.tensor([4.0, 4.01])])):
+        with pytest.raises(AssertionError, match="MoE aux"):
+            chip_smoke.check_moe_aux(chip_smoke.moe_aux_report(got, want),
+                                     "MoE aux")

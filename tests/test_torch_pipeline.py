@@ -39,6 +39,9 @@ from kubeflow_tpu_torch.compute import sharding as t_sharding
 from kubeflow_tpu_torch.compute import train as t_train
 from kubeflow_tpu_torch.compute.models import transformer as tt
 from kubeflow_tpu_torch.compute.params import params_from_jax
+from test_torch_pipeline_gang import D, L, S, V
+from test_torch_pipeline_gang import toy_data as _toy_data
+from test_torch_pipeline_gang import toy_fns as _t_fns
 from test_torch_ring import (assert_loss_and_grads, jax_loss_and_grads,
                              port_loss_and_grads)
 from test_torch_train_mesh import (_assert_copies_equal, _lm_batches,
@@ -235,8 +238,6 @@ def test_moe_in_a_pipeline_waits_for_expert_parallelism(dropless):
 
 # ---------------------------------------------------------------- 1F1B
 
-D, V, L, S = 16, 32, 4, 8
-
 
 def _toy_params(seed=0):
     ks = jax.random.split(jax.random.PRNGKey(seed), 3)
@@ -246,41 +247,25 @@ def _toy_params(seed=0):
         "head": {"out": jax.random.normal(ks[2], (D, V)) * 0.3}})
 
 
-def _toy_data(batch, seed=3):
-    tok = np.random.default_rng(seed).integers(0, V, (batch, S),
-                                               dtype=np.int32)
-    return tok, np.roll(tok, -1, axis=1)
-
-
-def _j_fns(with_aux):
+def _j_fns(aux=None):
+    """JAX's twin of ``toy_fns(aux)``: the aux ``mean(x²)`` for
+    ``"square"``, ``mean(x)²`` over the whole microbatch for ``"row"``."""
     def embed(ep, tok):
         return ep["emb"][tok]
 
     def layer(lp, x):
         y = x + jnp.tanh(x @ lp["w"])
-        return y, (jnp.mean(x ** 2) if with_aux else jnp.float32(0.0))
+        if aux == "square":
+            return y, jnp.mean(x ** 2)
+        if aux == "row":
+            return y, jnp.mean(x) ** 2
+        return y, jnp.float32(0.0)
 
     def loss(hp, y, tgt):
         logits = y @ hp["out"]
         logz = jax.nn.logsumexp(logits, axis=-1)
         lab = jnp.take_along_axis(logits, tgt[..., None], -1)[..., 0]
         return jnp.mean(logz - lab)
-
-    return embed, layer, loss
-
-
-def _t_fns(with_aux):
-    def embed(ep, tok):
-        return ep["emb"][tok.long()]
-
-    def layer(lp, x):
-        y = x + torch.tanh(x @ lp["w"])
-        return y, (x.square().mean() if with_aux else None)
-
-    def loss(hp, y, tgt):
-        logits = y @ hp["out"]
-        lab = torch.gather(logits, -1, tgt.long()[..., None])[..., 0]
-        return (torch.logsumexp(logits, dim=-1) - lab).mean()
 
     return embed, layer, loss
 
@@ -297,10 +282,12 @@ def test_1f1b_matches_jax(stages, micro, rows, aux):
     jmesh, tmesh = _meshes(pipeline=stages)
     with jax.set_mesh(jmesh):
         jloss, jgrads = jax.jit(lambda p: j_pipeline.train_1f1b(
-            *_j_fns(aux > 0), p, tok, tgt, n_microbatches=micro,
+            *_j_fns("square" if aux else None), p, tok, tgt,
+            n_microbatches=micro,
             aux_weight=aux))(jax.tree.map(jnp.asarray, params))
     loss, grads = t_pipeline.train_1f1b(
-        *_t_fns(aux > 0), t_train.tree_map(torch.from_numpy, params),
+        *_t_fns("square" if aux else None),
+        t_train.tree_map(torch.from_numpy, params),
         torch.from_numpy(tok), torch.from_numpy(tgt), micro, tmesh,
         aux_weight=aux)
     np.testing.assert_allclose(float(loss), float(jloss), rtol=1e-5)
@@ -321,9 +308,9 @@ def test_1f1b_grads_keep_a_placed_layout():
     logical = {"embed": {"emb": None}, "layers": {"w": ("stage",)},
                "head": {"out": None}}
     placed = t_sharding.place_tree(plain, tmesh, logical)
-    loss_p, grads_p = t_pipeline.train_1f1b(*_t_fns(False), placed, tok,
+    loss_p, grads_p = t_pipeline.train_1f1b(*_t_fns(), placed, tok,
                                             tgt, 4, tmesh)
-    loss, grads = t_pipeline.train_1f1b(*_t_fns(False), plain, tok, tgt, 4,
+    loss, grads = t_pipeline.train_1f1b(*_t_fns(), plain, tok, tgt, 4,
                                         tmesh)
     assert torch.equal(loss_p, loss)
     w = grads_p["layers"]["w"]
@@ -335,30 +322,41 @@ def test_1f1b_grads_keep_a_placed_layout():
         assert torch.equal(a, b)
     with pytest.raises(ValueError, match="batch 8 not divisible by "
                                          "n_microbatches=3"):
-        t_pipeline.train_1f1b(*_t_fns(False), plain, tok, tgt, 3, tmesh)
-    # the named refusals: a mesh across processes, an uneven data cut
+        t_pipeline.train_1f1b(*_t_fns(), plain, tok, tgt, 3, tmesh)
+    # the named refusals: an uneven cut over a gang's data axis (8 rows
+    # a process, 16 in all, 1 a microbatch), and over one process's
     gang = t_mesh.Mesh(["cpu"] * 2, {**tmesh.shape}, process_count=2)
-    with pytest.raises(ValueError, match="'data' axis spans 2 processes"):
-        t_pipeline.train_1f1b(*_t_fns(False), plain, tok, tgt, 4, gang)
+    with pytest.raises(ValueError, match="a microbatch of 1 rows does not "
+                                         "divide over the mesh's 'data' "
+                                         r"axis of 2 \(1 on each of 2 "
+                                         r"processes\)"):
+        t_pipeline.train_1f1b(*_t_fns(), plain, tok, tgt, 16, gang)
     with pytest.raises(ValueError, match="a microbatch of 1 rows does not "
                                          "divide over the mesh's 'data' "
                                          "axis of 2"):
-        t_pipeline.train_1f1b(*_t_fns(False), plain, tok, tgt, 8,
+        t_pipeline.train_1f1b(*_t_fns(), plain, tok, tgt, 8,
                               _meshes(pipeline=2, data=2)[1])
 
 
 @pytest.mark.parametrize("axes,micro,rows,aux", [
-    (dict(data=2, pipeline=2), 4, 8, 0.0),
-    (dict(data=2, pipeline=2), 4, 8, 0.3),
-    (dict(data=2, pipeline=2, tensor=2), 4, 8, 0.3)],
-    ids=["data2x4", "data_aux", "data_tensor"])
+    (dict(data=2, pipeline=2), 4, 8, None),
+    (dict(data=2, pipeline=2), 4, 8, "square"),
+    (dict(data=2, pipeline=2, tensor=2), 4, 8, "square"),
+    (dict(data=2, pipeline=2), 4, 8, "row")],
+    ids=["data2x4", "data_aux", "data_tensor", "data_row_aux"])
 def test_1f1b_beside_other_axes_matches_jax(axes, micro, rows, aux):
     """``train_1f1b`` on ``data × pipeline`` (each microbatch cut over
-    ``data``, the loss on the joined microbatch, the aux the cuts' mean)
-    and with the toy ``w`` placed over ``tensor`` too (gathered whole at
-    each stage's lead, its gradient cut back into that layout) against
-    JAX's ``jax.jit(train_1f1b)`` on the same mesh, whose other axes
-    XLA partitions: loss rtol 1e-5, gradients rtol 1e-4 / atol 1e-6."""
+    ``data``, the loss on the joined microbatch; the plain aux
+    ``mean(x²)`` the cuts' mean, the non-linear ``(mean x)²`` in row
+    form, ``aux_weight`` 0.3) and with the toy ``w`` placed over
+    ``tensor`` too (gathered whole at each stage's lead, its gradient
+    cut back into that layout) against JAX's ``jax.jit(train_1f1b)`` on
+    the same mesh, whose other axes XLA partitions: loss rtol 1e-5,
+    gradients rtol 1e-4 / atol 1e-6. With ``(mean x)²`` as a plain aux
+    (each cut's ``finish`` of its own ``stats``: the mean of the cuts'
+    squares, the rule before the row form) the loss lies more than 1e-5
+    off JAX's (7.0e-5 relative, and the embedding gradient 1.5e-3 of its
+    max |g|): the case tells the two apart."""
     params = _toy_params()
     tok, tgt = _toy_data(rows)
     jmesh, tmesh = _meshes(**axes)
@@ -371,16 +369,16 @@ def test_1f1b_beside_other_axes_matches_jax(axes, micro, rows, aux):
             *layout)))
     with jax.set_mesh(jmesh):
         jloss, jgrads = jax.jit(lambda p: j_pipeline.train_1f1b(
-            *_j_fns(aux > 0), p, tok, tgt, n_microbatches=micro,
-            aux_weight=aux))(jparams)
+            *_j_fns(aux), p, tok, tgt, n_microbatches=micro,
+            aux_weight=0.3 if aux else 0.0))(jparams)
     plain = t_train.tree_map(torch.from_numpy, params)
     placed = {"embed": t_sharding.place_tree(plain["embed"], tmesh),
               "layers": {"w": t_sharding.place(plain["layers"]["w"], layout,
                                                tmesh)},
               "head": t_sharding.place_tree(plain["head"], tmesh)}
     loss, grads = t_pipeline.train_1f1b(
-        *_t_fns(aux > 0), placed, torch.from_numpy(tok),
-        torch.from_numpy(tgt), micro, tmesh, aux_weight=aux)
+        *_t_fns(aux), placed, torch.from_numpy(tok),
+        torch.from_numpy(tgt), micro, tmesh, aux_weight=0.3 if aux else 0.0)
     np.testing.assert_allclose(float(loss), float(jloss), rtol=1e-5)
     w = grads["layers"]["w"]
     assert w.spec == layout
@@ -394,6 +392,95 @@ def test_1f1b_beside_other_axes_matches_jax(axes, micro, rows, aux):
                        jax.tree.leaves(_np(jgrads))):
         np.testing.assert_allclose(g.numpy(), want, rtol=1e-4, atol=1e-6)
     assert t_pipeline.train_1f1b.live_inputs <= 2 * 2 - 1
+    if aux == "row":
+        embed, layer, loss_fn = _t_fns(aux)
+
+        def plain(lp, x):
+            y, row = layer(lp, x)
+            return y, row.finish(row.stats, x.shape[0])
+
+        cut_mean, _ = t_pipeline.train_1f1b(
+            embed, plain, loss_fn, placed, torch.from_numpy(tok),
+            torch.from_numpy(tgt), micro, tmesh, aux_weight=0.3)
+        assert abs(float(cut_mean) - float(jloss)) > 1e-5 * abs(float(jloss))
+
+
+def _lm_fns(cfg, row_aux=True):
+    """The port's transformer as ``train_1f1b``'s functions (one layer
+    each ``layer_fn``, the MoE aux in row form with ``row_aux``; the
+    head a plain cross-entropy mean) and JAX's twin."""
+    def embed(ep, tok):
+        return ep["embed"][tok.long()]
+
+    def layer(lp, x):
+        rope = tt.rope_tables(cfg[1], torch.arange(x.shape[1]))
+        return tt._layer(tt.flat_layer(lp), x, rope, cfg[1],
+                         row_aux=row_aux)
+
+    def loss(hp, y, tgt):
+        logits = tt._logits(tt._rmsnorm(y, hp["final_norm"]), hp["head"])
+        lab = torch.gather(logits, -1, tgt.long()[..., None])[..., 0]
+        return (torch.logsumexp(logits, dim=-1) - lab).mean()
+
+    def j_embed(ep, tok):
+        return ep["embed"][tok]
+
+    def j_layer(lp, x):
+        rope = jt.rope_tables(cfg[0], jnp.arange(x.shape[1]))
+        return jt._layer(lp, x, rope, cfg[0])
+
+    def j_loss(hp, y, tgt):
+        logits = jt._logits(jt._rmsnorm(y, hp["final_norm"]), hp["head"])
+        lab = jnp.take_along_axis(logits, tgt[..., None], -1)[..., 0]
+        return jnp.mean(jax.nn.logsumexp(logits, axis=-1) - lab)
+
+    return (embed, layer, loss), (j_embed, j_layer, j_loss)
+
+
+def test_1f1b_moe_aux_over_data_matches():
+    """A 2-layer MoE (2 experts, top-1, dropless on the plain ragged
+    engine) through ``train_1f1b`` with ``aux_weight`` 0.3, 8 rows in 4
+    microbatches. On ``data=2 × pipeline=2`` each layer gives its
+    load-balancing aux in row form (``_moe_row_aux``), so a microbatch
+    cut in two gets the whole microbatch's aux: loss rtol 1e-5 and
+    gradients rtol 1e-4 / atol 1e-6 against the port's ``pipeline=2``
+    1F1B, where no microbatch is cut, and against JAX's MoE layer
+    through ``jax.jit(train_1f1b)`` on ``data=2 × pipeline=2``. The
+    plain aux there (the mean of the cuts' values) lies more than 1e-5
+    off: the case tells the two apart."""
+    cfg = _cfgs(n_layers=2, moe_experts=2, moe_top_k=1, moe_dropless=True,
+                moe_gmm=False)
+    params = jax.tree.map(np.array, jt.init_params(cfg[0],
+                                                   jax.random.PRNGKey(4)))
+    tree = {"embed": {"embed": params["embed"]}, "layers": params["layers"],
+            "head": {"final_norm": params["final_norm"],
+                     "head": params["head"]}}
+    tok = np.random.default_rng(8).integers(0, 64, (8, 16), dtype=np.int32)
+    tgt = np.roll(tok, -1, axis=1)
+    fns, j_fns = _lm_fns(cfg)
+    jmesh, data_mesh = _meshes(data=2, pipeline=2)
+    with jax.set_mesh(jmesh):
+        jloss, jgrads = jax.jit(lambda p: j_pipeline.train_1f1b(
+            *j_fns, p, tok, tgt, n_microbatches=4, aux_weight=0.3))(
+                jax.tree.map(jnp.asarray, tree))
+    want = (float(jloss), jax.tree.leaves(_np(jgrads)))
+
+    def port(fns, mesh):
+        loss, grads = t_pipeline.train_1f1b(
+            *fns, t_train.tree_map(torch.from_numpy, tree),
+            torch.from_numpy(tok), torch.from_numpy(tgt), 4, mesh,
+            aux_weight=0.3)
+        return float(loss), [g.numpy() for g in t_train.tree_leaves(grads)]
+
+    on_data = port(fns, data_mesh)
+    pipe_only = port(fns, _meshes(pipeline=2)[1])
+    for ref in (pipe_only, want):
+        np.testing.assert_allclose(on_data[0], ref[0], rtol=1e-5)
+        assert len(on_data[1]) == len(ref[1]) == 13
+        for g, w in zip(on_data[1], ref[1]):
+            np.testing.assert_allclose(g, w, rtol=1e-4, atol=1e-6)
+    plain = port(_lm_fns(cfg, row_aux=False)[0], data_mesh)
+    assert abs(plain[0] - want[0]) > 1e-5 * abs(want[0])
 
 
 class _Box:
@@ -440,7 +527,7 @@ class _Saved:
 def _gpipe(params, tok, tgt, micro):
     """GPipe over 2 stages of the toy model under autograd → (loss,
     peak saved bytes)."""
-    embed, layer, loss_fn = _t_fns(False)
+    embed, layer, loss_fn = _t_fns()
     p = t_train.tree_map(lambda a: torch.from_numpy(a).requires_grad_(),
                          params)
     stages = [[{"w": p["layers"]["w"][i]} for i in range(s * 2, s * 2 + 2)]
@@ -471,7 +558,7 @@ def test_1f1b_live_inputs_stay_within_the_depth():
         with torch.autograd.graph.saved_tensors_hooks(saved.pack,
                                                       saved.unpack):
             loss, _ = t_pipeline.train_1f1b(
-                *_t_fns(False), t_train.tree_map(torch.from_numpy, params),
+                *_t_fns(), t_train.tree_map(torch.from_numpy, params),
                 tok, tgt, micro, tmesh)
         live = t_pipeline.train_1f1b.live_inputs
         g_loss, g_peak = _gpipe(params, tok, tgt, micro)
