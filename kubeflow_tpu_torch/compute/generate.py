@@ -99,6 +99,22 @@ drops the trie, since pages may hold partial writes.
 Threading: one engine thread owns every device call (all kernel
 launches happen there, on its current stream) and all slot state;
 ``submit``/``cancel``/``begin_drain`` are thread-safe.
+
+Where the engine thread's time goes: ``stats`` books every loop
+iteration in parts that together cover the thread's wall time —
+``admit_seconds_total`` (the sweeps, admission and chunk bookkeeping,
+less the prefill and import calls), ``prefill_seconds_total``,
+``import_seconds_total``, the plain decode step as
+``decode_prepare_seconds_total`` (the host's tables) →
+``decode_launch_seconds_total`` (every launch through the argmax) →
+``decode_sync_seconds_total`` (the wait for the tokens; the two make
+``decode_seconds_total``) → ``decode_emit_seconds_total`` (the per-row
+emission), and ``idle_wait_seconds_total`` (nothing to do) — beside
+``iterations``, ``admissions`` and ``queue_wait_seconds_total``. The
+same phases go into ``trace``, a flight-recorder ring (``engine.admit``,
+``engine.prefill``, ``engine.import``, ``engine.decode.prepare``,
+``.launch``, ``.sync``, ``.emit``, ``engine.wait``) on the wall clock the
+profiler stamps device events on, served at ``/debug/traces?engine=``.
 """
 
 import collections
@@ -113,6 +129,7 @@ import numpy as np
 import torch
 
 from ..obs import metrics as obs_metrics
+from ..obs import tracing
 from ..qos import buckets as qos_lib
 from . import attention as attn_lib
 from . import device as device_lib
@@ -353,6 +370,8 @@ _GEN_ROLE = obs_metrics.REGISTRY.gauge(
 _TIMELINE_EVENTS = int(os.environ.get("GEN_TIMELINE_EVENTS", "256"))
 #: raw TTFT / inter-token-gap samples kept for token_latency_stats
 _LATENCY_SAMPLES = 4096
+#: engine-iteration spans kept in the flight-recorder ring (``trace``)
+_ITERATION_SPANS = 16384
 
 ATTN_BACKENDS = ("gather", "paged", "paged-kernel")
 
@@ -841,9 +860,21 @@ class GenerationEngine:
                       "spec_accepted": 0, "preemptions": 0, "resumes": 0,
                       "resume_prefill_tokens": 0, "qos_deferrals": 0,
                       "kv_exports": 0, "kv_imports": 0,
-                      "kv_bytes_migrated": 0, "kv_import_rejections": 0}
+                      "kv_bytes_migrated": 0, "kv_import_rejections": 0,
+                      # the engine thread's wall time, by phase (module
+                      # docstring)
+                      "iterations": 0, "admit_seconds_total": 0.0,
+                      "import_seconds_total": 0.0,
+                      "decode_prepare_seconds_total": 0.0,
+                      "decode_launch_seconds_total": 0.0,
+                      "decode_sync_seconds_total": 0.0,
+                      "decode_emit_seconds_total": 0.0,
+                      "idle_wait_seconds_total": 0.0,
+                      "admissions": 0, "queue_wait_seconds_total": 0.0}
         self.thread = threading.Thread(target=self._loop, daemon=True,
                                        name=f"generate-{name}")
+        self.trace = tracing.TraceBuffer(_ITERATION_SPANS,
+                                         thread=self.thread.name)
         self.thread.start()
 
     @staticmethod
@@ -1512,14 +1543,17 @@ class GenerationEngine:
     # ---------------------------------------------------- engine loop
 
     def _loop(self):
+        stats = self.stats
         with torch.no_grad():
             while True:
                 with self._cond:
-                    while (not self._stop and not self._draining
-                           and not self._queue
-                           and not any(s is not None
-                                       for s in self._slots)):
-                        self._cond.wait()
+                    if self._idle_locked():
+                        t0, t0w = time.perf_counter(), time.time()
+                        while self._idle_locked():
+                            self._cond.wait()
+                        stats["idle_wait_seconds_total"] += \
+                            time.perf_counter() - t0
+                        self.trace.record("engine.wait", t0w, time.time())
                     stop, draining = self._stop, self._draining
                 try:
                     if draining:
@@ -1533,10 +1567,19 @@ class GenerationEngine:
                     # JAX's order (generate.py:1859-1872): the sweeps
                     # bracket admission, so an expired deadline waits
                     # for at most one prefill chunk and one step
+                    stats["iterations"] += 1
+                    t0, t0w = time.perf_counter(), time.time()
+                    calls = stats["prefill_seconds_total"] \
+                        + stats["import_seconds_total"]
                     self._sweep_queued()
                     self._admit()
                     self._sweep_active()
                     self._advance_prefills()
+                    stats["admit_seconds_total"] += (
+                        time.perf_counter() - t0
+                        - stats["prefill_seconds_total"]
+                        - stats["import_seconds_total"] + calls)
+                    self.trace.record("engine.admit", t0w, time.time())
                     if any(s is not None and not s.prefilling
                            for s in self._slots):
                         if self._spec_on:
@@ -1548,6 +1591,12 @@ class GenerationEngine:
                                   "crashed; failing in-flight work",
                                   self.name)
                     self._fail_everything(e)
+
+    def _idle_locked(self):
+        """Nothing to do: no stop, no drain, no queue, every slot free
+        (lock held)."""
+        return (not self._stop and not self._draining and not self._queue
+                and not any(s is not None for s in self._slots))
 
     def _drain_now(self):
         with self._cond:
@@ -1789,6 +1838,8 @@ class GenerationEngine:
         handle.admitted_w = t0w
         wait_s = t0 - handle.enqueued
         _QUEUE_WAIT_SECONDS.labels(self.name, "admitted").observe(wait_s)
+        self.stats["admissions"] += 1
+        self.stats["queue_wait_seconds_total"] += wait_s
         if handle.rt is not None:
             handle.rt.phase("generate.queue_wait", handle.enqueued_w, t0w)
         self._record_event("admitted", handle, slot=slot_idx,
@@ -2063,6 +2114,8 @@ class GenerationEngine:
             self._finish(handle, "error", e)
             return
         elapsed = time.perf_counter() - t0
+        self.trace.record("engine.prefill", t0w, time.time(),
+                          {"prompt": prompt_len, "rows": padded})
         handle.prefill_seconds = elapsed
         if dbg is not None:
             handle.logits.append(dbg)
@@ -2215,7 +2268,7 @@ class GenerationEngine:
         with self._cond:
             blocks = [self._alloc_block_locked() for _ in range(n_import)]
             self._inflight = list(blocks)
-        self._book_admission(handle, slot_idx, imported=True)
+        t0, t0w = self._book_admission(handle, slot_idx, imported=True)
         try:
             idx = torch.tensor(blocks, dtype=torch.long, device=self.device)
             # import_bundle refuses every mesh: the pool is one shard's
@@ -2236,6 +2289,9 @@ class GenerationEngine:
                           "engine %s", n_import, self.name)
             self._finish(handle, "error", e)
             return
+        self.stats["import_seconds_total"] += time.perf_counter() - t0
+        self.trace.record("engine.import", t0w, time.time(),
+                          {"blocks": n_import})
         first = int(meta["first_token"])
         handle.prefix_tokens_skipped = int(
             meta.get("prefix_tokens_skipped") or 0)
@@ -2332,6 +2388,8 @@ class GenerationEngine:
             self._evict(idx, "error", e)
             return
         elapsed = time.perf_counter() - t0
+        self.trace.record("engine.prefill", t0w, time.time(),
+                          {"prompt": prompt_len, "rows": padded})
         slot.pf_chunks += 1
         self._book_prefill_call(handle, elapsed)
         if handle.rt is not None:
@@ -2385,6 +2443,10 @@ class GenerationEngine:
     # ------------------------------------------------------ decode step
 
     def _decode_once(self):
+        """One plain decode step, booked in four parts (the module
+        docstring): prepare → launch → sync → emit. The test knob
+        ``_step_sleep`` stands for device time, so it falls in sync."""
+        tp, tpw = time.perf_counter(), time.time()
         # prefilling slots hold a slot and blocks but have no decode
         # state yet: they ride as inactive rows (generate.py:2913-2916)
         active = [(i, s) for i, s in enumerate(self._slots)
@@ -2407,11 +2469,24 @@ class GenerationEngine:
             lengths[i] = pos
             tokens[i] = slot.last_token
             writes[:, n] = (i, slot.blocks[block_idx], pos % bs)
-        t0 = time.perf_counter()
-        nxt, dbg = self._decode_step(tables, lengths, tokens, writes)
+        t0, t0w = time.perf_counter(), time.time()
+        nxt, logits = self._decode_step(tables, lengths, tokens, writes)
+        # every launch of the step is queued: what follows waits for
+        # the device
+        tl, tlw = time.perf_counter(), time.time()
+        nxt = nxt.cpu().numpy()
+        dbg = logits.cpu().numpy() if self.debug_logits else None
         if self._step_sleep:
             time.sleep(self._step_sleep)
-        elapsed = time.perf_counter() - t0
+        t1, t1w = time.perf_counter(), time.time()
+        elapsed = t1 - t0
+        stats = self.stats
+        stats["decode_prepare_seconds_total"] += t0 - tp
+        stats["decode_launch_seconds_total"] += tl - t0
+        stats["decode_sync_seconds_total"] += t1 - tl
+        self.trace.record("engine.decode.prepare", tpw, t0w)
+        self.trace.record("engine.decode.launch", t0w, tlw)
+        self.trace.record("engine.decode.sync", tlw, t1w)
         _DECODE_STEP_SECONDS.labels(self.name).observe(elapsed)
         _SLOT_OCCUPANCY.labels(self.name).observe(len(active))
         self.stats["decode_steps"] += 1
@@ -2435,6 +2510,9 @@ class GenerationEngine:
                 self._evict(i, "eos")
             elif len(handle.out_tokens) >= handle.max_tokens:
                 self._evict(i, "length")
+        stats["decode_emit_seconds_total"] += time.perf_counter() - t1
+        self.trace.record("engine.decode.emit", t1w, time.time(),
+                          {"rows": len(active)})
 
     # ------------------------------------------------ speculative step
 
@@ -2957,8 +3035,8 @@ class GenerationEngine:
             split_heads=self.config.kv_heads)
 
     def _decode_step(self, tables, lengths, tokens, writes):
-        """One token for every slot → (next tokens [S] numpy, fp32
-        logits [S, V] numpy or None). Writes the input token's K/V,
+        """One token for every slot → (next tokens [S], fp32 logits
+        [S, V]), on the device and queued, not waited for. Writes the input token's K/V,
         THEN reads ``length + 1`` positions (its own included).
         Inactive rows read nothing (length 0) and their outputs are
         discarded."""
@@ -2992,9 +3070,7 @@ class GenerationEngine:
                 xs, None, transformer.each_shard(attend), c,
                 self._mesh_layers[layer])
         logits = self._head_logits({d: x[:, 0] for d, x in xs.items()})
-        nxt = torch.argmax(logits, dim=-1).cpu().numpy()
-        dbg = logits.cpu().numpy() if self.debug_logits else None
-        return nxt, dbg
+        return torch.argmax(logits, dim=-1), logits
 
     def _draft_prefill_step(self, prompt, slot_idx):
         """Fill the draft's dense cache row of ``slot_idx`` from the

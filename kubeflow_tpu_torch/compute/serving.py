@@ -48,6 +48,15 @@ headers, bodies, NDJSON frames and error taxonomy.
 - ``GET /healthz``, ``/metrics``, ``/debug/traces``, ``/debug/latency``,
   ``/v1/models`` (budget, residency, canaries, engines) and
   ``/v1/models/<name>``; ``POST /admin/drain``.
+  ``/debug/traces?engine=<name>`` serves that engine's flight recorder
+  (its iteration spans: ``engine.admit``, ``engine.prefill``,
+  ``engine.decode.*``, ``engine.wait``) and, on the async transport, the
+  loop's ``http.loop`` passes — ``&format=chrome`` as Chrome trace
+  events on the wall clock, to open in Perfetto beside a
+  ``torch.profiler`` capture of the same stretch. ``/metrics``'
+  ``serving_async_loop_busy_seconds_total`` counts the async loop's wall
+  time outside ``select()``: its rate is the share of each second the
+  loop thread holds the interpreter beside the engine's thread.
 - Two transports, one wire contract: ``"threaded"``
   (``ThreadingHTTPServer``, one handler thread per connection, HTTP/1.1
   keep-alive; a ``:generate`` handler moves plain Python ints through a
@@ -1118,6 +1127,18 @@ class ModelServer:
     def generators(self):
         return dict(self._generators)
 
+    def recorders(self, name):
+        """The flight recorders of engine ``name`` (None if no such
+        engine): its iteration ring and, on the async transport, the
+        loop's ``http.loop`` ring."""
+        engine = self._generators.get(name)
+        if engine is None:
+            return None
+        rings = [engine.trace]
+        if self._transport is not None:
+            rings.append(self._transport.trace)
+        return rings
+
     def register_loadable(self, name, make_fn, params, version=1,
                           preload=False, **model_kwargs):
         """Register a residency-managed model: ``make_fn(params, x)`` is
@@ -1356,10 +1377,18 @@ class ModelServer:
                     (), obs_metrics.TEXT_CONTENT_TYPE)
         if parts == ["debug", "traces"]:
             tid = query.get("trace_id") or None
+            rings = [tracing.TRACES]
+            if query.get("engine") is not None:
+                rings = self.recorders(query["engine"])
+                if rings is None:
+                    return 404, {"error": "model not found"}, (), json_ct
             if query.get("format") == "chrome":
-                return (200, tracing.TRACES.chrome_trace(tid), (),
-                        json_ct)
-            return (200, {"traces": tracing.TRACES.traces(tid)}, (),
+                events = [e for r in rings
+                          for e in r.chrome_trace(tid)["traceEvents"]]
+                return (200, {"traceEvents": events,
+                              "displayTimeUnit": "ms"}, (), json_ct)
+            return (200, {"traces": [t for r in rings
+                                     for t in r.traces(tid)]}, (),
                     json_ct)
         if parts == ["debug", "latency"]:
             return (200, tracing.latency_summary(

@@ -70,9 +70,16 @@ _WRITE_STALL = obs_metrics.REGISTRY.histogram(
     "socket — the transport's wait on the client's receive window",
     ("transport",),
     buckets=(1e-5, 1e-4, 1e-3, 0.01, 0.05, 0.1, 0.5, 1.0, 5.0, 30.0))
+_LOOP_BUSY = obs_metrics.REGISTRY.counter(
+    "serving_async_loop_busy_seconds_total",
+    "Wall time the async transport's loop thread spent outside select() "
+    "— its share of a second is the loop's hold on the interpreter, "
+    "beside the generation engine's thread")
 
 #: request heads larger than this are a client defect (431)
 MAX_HEAD_BYTES = 32 * 1024
+#: loop passes kept in the flight-recorder ring (``trace``)
+_LOOP_SPANS = 16384
 
 
 class _Conn:
@@ -143,6 +150,11 @@ class AsyncTransport:
             for i in range(2)]
         self.thread = threading.Thread(target=self._loop, daemon=True,
                                        name="serving-async-loop")
+        # the loop's own time: wall seconds outside select(), and one
+        # ``http.loop`` span a pass that did work
+        self._busy = _LOOP_BUSY.labels()
+        self.trace = tracing.TraceBuffer(_LOOP_SPANS,
+                                         thread=self.thread.name)
 
     def start(self):
         self.sel.register(self.lsock, selectors.EVENT_READ, "listen")
@@ -186,7 +198,10 @@ class AsyncTransport:
     def _loop(self):
         try:
             while not self._stop:
-                for key, mask in self.sel.select(timeout=0.25):
+                events = self.sel.select(timeout=0.25)
+                t0, t0w = time.perf_counter(), time.time()
+                worked = bool(events or self._completions)
+                for key, mask in events:
                     if key.data == "listen":
                         self._accept()
                     elif key.data == "wake":
@@ -238,6 +253,10 @@ class AsyncTransport:
                 if self._draining:
                     self._apply_drain()
                 self._reap_idle()
+                self._busy.inc(time.perf_counter() - t0)
+                if worked:
+                    self.trace.record("http.loop", t0w, time.time(),
+                                      {"events": len(events)})
         finally:
             for conn in list(self._conns):
                 self._close(conn)

@@ -12,7 +12,12 @@ package), booking into the port's ``obs/metrics.py`` knobs.
   groups by trace id for the ``/debug/traces`` JSON view;
   ``chrome_trace()`` emits Chrome trace-event format, openable in
   Perfetto — the platform timeline beside the device timeline of
-  ``compute/profiler.py``.
+  ``compute/profiler.py``. A ``TraceBuffer`` given a ``thread`` is
+  also a flight recorder: ``record()`` books a span as a plain tuple
+  (the generation engine's iteration phases, the async transport's loop
+  passes), stamped with ``time.time()`` as every span here is — the
+  wall clock the profiler stamps device events on, so the spans line up
+  with kernels.
 - ``RequestTrace``: per-request latency anatomy with head sampling and
   an always-keep-slow tail policy. Phases (``http.read``, ``decode``,
   ``generate.queue_wait``, ``generate.prefill``, ``generate.decode``,
@@ -130,23 +135,70 @@ class Span:
 
 
 class TraceBuffer:
-    """Bounded ring buffer of completed spans (oldest evicted first)."""
+    """Bounded ring buffer of completed spans (oldest evicted first).
 
-    def __init__(self, capacity=4096):
+    A flight recorder (``thread`` given: the one thread whose spans
+    it keeps, an engine's or a transport loop's) books with
+    :meth:`record` only, never :meth:`add`: a plain
+    ``(name, start, end, attrs)`` tuple,
+    wall-clock seconds, so recording costs a clock read and an append.
+    Its ``Span`` objects exist only when a reader asks (:meth:`spans`),
+    each the child of the latest-starting span that encloses it, on one
+    trace id derived from ``thread``, on that thread's lane."""
+
+    def __init__(self, capacity=4096, thread=None):
         self._spans = deque(maxlen=capacity)
         self._lock = threading.Lock()
+        self.thread = thread
+        self.trace_id = derive_trace_id("recorder", thread) \
+            if thread is not None else None
 
     def add(self, span):
         with self._lock:
             self._spans.append(span)
 
+    def record(self, name, start, end, attrs=None):
+        """Book one completed span of the recorder's thread."""
+        with self._lock:
+            self._spans.append((name, start, end, attrs))
+
+    def records(self, since=None, until=None):
+        """The recorded tuples, oldest first; with ``since``/``until``
+        (wall seconds) only those that overlap ``[since, until]``."""
+        with self._lock:
+            snapshot = list(self._spans)
+        return [r for r in snapshot
+                if (since is None or r[2] >= since)
+                and (until is None or r[1] <= until)]
+
     def clear(self):
         with self._lock:
             self._spans.clear()
 
+    def _materialize(self, recs):
+        """Recorded tuples → ``Span``s, each parented by the innermost
+        span that encloses it."""
+        out, stack = [], []
+        for name, start, end, attrs in sorted(
+                recs, key=lambda r: (r[1], -r[2])):
+            while stack and stack[-1].end < end:
+                stack.pop()
+            s = Span(name, self.trace_id,
+                     stack[-1].span_id if stack else None,
+                     dict(attrs) if attrs else {}, start=start,
+                     span_id=derive_span_id(self.trace_id, name,
+                                            repr(start)))
+            s.end = end
+            s.thread = self.thread
+            stack.append(s)
+            out.append(s)
+        return out
+
     def spans(self, trace_id=None):
         with self._lock:
             snapshot = list(self._spans)
+        if self.thread is not None:
+            snapshot = self._materialize(snapshot)
         if trace_id is not None:
             snapshot = [s for s in snapshot if s.trace_id == trace_id]
         return snapshot

@@ -1,10 +1,10 @@
 """The port stands alone: no module of ``kubeflow_tpu_torch/``, not
 ``chip_smoke.py`` and not the port's scripts under ``hack/`` (the
 kernel A/B timings, the serving profile, the mesh-axes, the
-expert/gang, the 1F1B and its CPU rehearsal, the unary predict and the
-two-transport phases) imports JAX, its ecosystem (``ml_dtypes``
-included: the KV-bundle codec reads bf16 without it) or the JAX
-package, and none imports ``triton`` at module level (the CPU test host
+expert/gang, the 1F1B and its CPU rehearsal, the unary predict, the
+two-transport phases and the engine-iteration trace) imports JAX, its
+ecosystem (``ml_dtypes`` included: the KV-bundle codec reads bf16
+without it) or the JAX package, and none imports ``triton`` at module level (the CPU test host
 has none; a kernel module imports it inside the function that
 launches)."""
 
@@ -24,7 +24,8 @@ FILES = sorted((ROOT / "kubeflow_tpu_torch").rglob("*.py")) + [
     ROOT / "hack" / "pipeline_gang_smoke.py",
     ROOT / "hack" / "pipeline_gang_cpu.py",
     ROOT / "hack" / "predict_smoke.py",
-    ROOT / "hack" / "transport_smoke.py"]
+    ROOT / "hack" / "transport_smoke.py",
+    ROOT / "hack" / "engine_iteration_trace.py"]
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "ml_dtypes", "kubeflow_tpu")
 
 
