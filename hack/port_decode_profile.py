@@ -10,8 +10,9 @@ speculative phase; ``--kv-dtype int8``: on an int8 KV pool, read by
 K1-i8 and K2-i8) and drives its device steps directly from this
 thread:
 
-- the decode step with all 8 slots active at ``--context`` cached
-  positions each;
+- the plain decode step, eagerly (its launches, not the engine's graph
+  replay), with all 8 slots active at ``--context`` cached positions
+  each;
 - the prefill step of one 300-token prompt;
 - one 256-token prefill chunk behind 768 cached positions (the chunk
   read, K2, with a scalar prefix);
@@ -106,11 +107,14 @@ def main(argv=None):
         tables[:, :per_slot] = blocks
         lengths = np.full((S,), ctx, np.int32)
         tokens = rng.integers(0, cfg.vocab_size, S).astype(np.int64)
-        writes = np.stack([np.arange(S), blocks[:, ctx // bs],
-                           np.full(S, ctx % bs)]).astype(np.int64)
+        step_in = eng._blank_step(np.empty_like(eng._step_np))
+        s_tables, s_lengths, s_tokens, phys, off, live = \
+            eng._step_views(step_in)
+        s_tables[:], s_lengths[:], s_tokens[:] = tables, lengths, tokens
+        phys[:], off[:], live[:] = blocks[:, ctx // bs], ctx % bs, 1
+        step_in = eng._put(step_in)
         with torch.no_grad():
-            decode = profile(lambda: eng._decode_step(
-                tables, lengths, tokens, writes), args.steps)
+            decode = profile(lambda: eng._decode_step(step_in), args.steps)
             prompt = np.zeros((300,), np.int64)
             prompt[:] = rng.integers(0, cfg.vocab_size, 300)
             fresh = list(range(-(-300 // bs)))

@@ -40,6 +40,19 @@ the header and done-frame views, the ``serving_generate_*``,
   ``spec_k`` tokens per slot, verifies them all in one target forward
   whose pool read is K2 with per-slot prefix lengths, and emits the
   accepted prefix plus the target's own next token.
+- **The plain decode step has one fixed shape**: every one of the
+  ``max_slots`` rows writes a K/V row and reads ``(length + 1) ·
+  active`` positions; a row that is not decoding (a free slot, a slot
+  still prefilling) writes into the pool's *sink block*, one block past
+  the ``num_blocks`` the allocator hands out, which no table names. Its
+  host input is one packed int32 buffer (``_step_views``), pinned on a
+  card and copied over in one transfer. Where every shard sits on one
+  CUDA device the step is captured once as a CUDA graph (after one
+  eager run on a side stream, into a private memory pool) and every
+  later step replays it (``_decode_launch``); the capture is keyed on
+  the storage of the weights and the pool, and a reload captures
+  again. On the CPU, and across distinct devices, the same step runs
+  eagerly.
 - **Continuous batching**: finished sequences leave mid-batch and
   queued prompts take their slots; one engine-loop iteration is sweep
   the queue (deadlines, cancels) → admit → sweep the slots → advance one
@@ -106,14 +119,18 @@ iteration in parts that together cover the thread's wall time —
 less the prefill and import calls), ``prefill_seconds_total``,
 ``import_seconds_total``, the plain decode step as
 ``decode_prepare_seconds_total`` (the host's tables) →
-``decode_launch_seconds_total`` (every launch through the argmax) →
+``decode_launch_seconds_total`` (every launch through the argmax; on
+one card the input's copy and the graph's replay, or the capture) →
 ``decode_sync_seconds_total`` (the wait for the tokens; the two make
 ``decode_seconds_total``) → ``decode_emit_seconds_total`` (the per-row
 emission), and ``idle_wait_seconds_total`` (nothing to do) — beside
-``iterations``, ``admissions`` and ``queue_wait_seconds_total``. The
+``iterations``, ``admissions`` and ``queue_wait_seconds_total``, and
+the decode graph's ``decode_graph_replays``, ``decode_graph_captures``
+and ``decode_graph_capture_seconds_total`` (inside the launches). The
 same phases go into ``trace``, a flight-recorder ring (``engine.admit``,
 ``engine.prefill``, ``engine.import``, ``engine.decode.prepare``,
-``.launch``, ``.sync``, ``.emit``, ``engine.wait``) on the wall clock the
+``.launch`` with ``.capture`` inside it, ``.sync``, ``.emit``,
+``engine.wait``) on the wall clock the
 profiler stamps device events on, served at ``/debug/traces?engine=``.
 """
 
@@ -372,6 +389,14 @@ _TIMELINE_EVENTS = int(os.environ.get("GEN_TIMELINE_EVENTS", "256"))
 _LATENCY_SAMPLES = 4096
 #: engine-iteration spans kept in the flight-recorder ring (``trace``)
 _ITERATION_SPANS = 16384
+#: the launch counters of the kernels a plain decode step runs (K1,
+#: K1-i8): a replay adds the launches its capture counted
+_LAUNCH_COUNTERS = ((paged_ops.paged_decode_attention, "launches"),
+                    (paged_ops.paged_decode_attention, "launches_i8"))
+#: one captured plain decode step: what it bakes in (``key``), its static
+#: input and outputs, and the launches a replay adds to each counter
+_DecodeGraph = collections.namedtuple(
+    "_DecodeGraph", "key graph inputs outputs launches")
 
 ATTN_BACKENDS = ("gather", "paged", "paged-kernel")
 
@@ -545,16 +570,18 @@ class _Shard:
     there is no mesh): its device, its params (its column pieces, and
     the replicated leaves it shares with every shard on its device), the
     per-layer views of them, the fp32 LM head where this shard computes
-    logits (None elsewhere), and its slice of the pool."""
+    logits (None elsewhere), and its slice of the pool: ``pool`` with
+    the sink block at its end, ``cache`` the views of its
+    ``num_blocks`` usable blocks."""
 
-    __slots__ = ("device", "params", "layers", "head", "cache")
+    __slots__ = ("device", "params", "layers", "head", "pool", "cache")
 
     def __init__(self, device, params, layers, head):
         self.device = device
         self.params = params
         self.layers = layers
         self.head = head
-        self.cache = None
+        self.pool = self.cache = None
 
 
 class _MeshLayer:
@@ -776,18 +803,21 @@ class GenerationEngine:
                 "prefix_cache=False, no draft model and monolithic "
                 "prefill (a mesh IS allowed — it is how the sharded "
                 "paths are graded under the tolerance tier)")
-        self._shards = self._load_shards(params)
-        # the distinct devices in shard order, and the first shard on
-        # each: replicated work runs once per device, on that shard's
-        # copies of the replicated leaves
-        self._devices = list(dict.fromkeys(sh.device for sh in self._shards))
-        self._lead = {}
-        for sh in self._shards:
-            self._lead.setdefault(sh.device, sh)
-        self.params = self._shards[0].params
-        self._mesh_layers = [_MeshLayer(self, i)
-                             for i in range(self.config.n_layers)]
+        self._shards = []
+        self._load_weights(params)
         self._make_cache()
+        # the plain decode step's packed host input (_step_views) and its
+        # tokens, pinned on a card: one non-blocking copy in, one out
+        S, pin = self.max_slots, self.device.type == "cuda"
+        self._step_in = torch.zeros(S * self.blocks_per_slot + 5 * S,
+                                    dtype=torch.int32, pin_memory=pin)
+        self._step_np = self._step_in.numpy()
+        self._next_in = torch.zeros(S, dtype=torch.int64, pin_memory=pin)
+        self._next_np = self._next_in.numpy()
+        # every shard on one card: the step is one CUDA graph replay
+        self._graphable = (len(self._devices) == 1
+                           and self.device.type == "cuda")
+        self._graph = None
         self._elide_collectives = False     # measure_collective_share
         self.draft_config = draft_config if self._spec_on else None
         if self._spec_on:
@@ -870,7 +900,10 @@ class GenerationEngine:
                       "decode_sync_seconds_total": 0.0,
                       "decode_emit_seconds_total": 0.0,
                       "idle_wait_seconds_total": 0.0,
-                      "admissions": 0, "queue_wait_seconds_total": 0.0}
+                      "admissions": 0, "queue_wait_seconds_total": 0.0,
+                      # the plain decode step's CUDA graph
+                      "decode_graph_replays": 0, "decode_graph_captures": 0,
+                      "decode_graph_capture_seconds_total": 0.0}
         self.thread = threading.Thread(target=self._loop, daemon=True,
                                        name=f"generate-{name}")
         self.trace = tracing.TraceBuffer(_ITERATION_SPANS,
@@ -915,6 +948,26 @@ class GenerationEngine:
             axes["layers"] = dict(axes["layers"], wo=None, w_down=None)
         return axes
 
+    def _load_weights(self, params):
+        """The target's weights onto the shards (``_load_shards``) and
+        what the steps read of them; each shard keeps its pool. A reload
+        gives the weights new storage, so the next plain decode step
+        captures its graph again (``_graph_key``)."""
+        pools = [(sh.pool, sh.cache) for sh in self._shards]
+        self._shards = self._load_shards(params)
+        for sh, (pool, cache) in zip(self._shards, pools):
+            sh.pool, sh.cache = pool, cache
+        # the distinct devices in shard order, and the first shard on
+        # each: replicated work runs once per device, on that shard's
+        # copies of the replicated leaves
+        self._devices = list(dict.fromkeys(sh.device for sh in self._shards))
+        self._lead = {}
+        for sh in self._shards:
+            self._lead.setdefault(sh.device, sh)
+        self.params = self._shards[0].params
+        self._mesh_layers = [_MeshLayer(self, i)
+                             for i in range(self.config.n_layers)]
+
     def _load_shards(self, params):
         """The target's params → one :class:`_Shard` per mesh position
         (``_shard_params``, ``generate.py:1043``), or one holding the
@@ -941,14 +994,17 @@ class GenerationEngine:
         int8: ``(k, v, k_scale, v_scale)`` with int8 zeros and fp32 ones
         ``[..., kv_heads / tp, 1]`` (``generate.py:1008-1012``). The pool
         is head-partitioned (``_cache_specs``, :989): shard i holds heads
-        ``[i kv/tp, (i+1) kv/tp)`` of every block, scales included."""
+        ``[i kv/tp, (i+1) kv/tp)`` of every block, scales included. Each
+        tensor holds one block more, the sink (block ``num_blocks``) that
+        the plain decode step's idle rows write; ``cache`` views the
+        blocks without it, as JAX's pool is shaped."""
         c = self.config
-        shape = (c.n_layers, self.num_blocks, self.block_size,
+        shape = (c.n_layers, self.num_blocks + 1, self.block_size,
                  c.kv_heads // self.tp, c.head_dim)
         for sh in self._shards:
             dev = sh.device
             if self.kv_dtype == "int8":
-                sh.cache = (
+                sh.pool = (
                     torch.zeros(shape, dtype=torch.int8, device=dev),
                     torch.zeros(shape, dtype=torch.int8, device=dev),
                     torch.ones(shape[:-1] + (1,), dtype=torch.float32,
@@ -956,9 +1012,10 @@ class GenerationEngine:
                     torch.ones(shape[:-1] + (1,), dtype=torch.float32,
                                device=dev))
             else:
-                sh.cache = tuple(
+                sh.pool = tuple(
                     torch.zeros(shape, dtype=c.compute_dtype, device=dev)
                     for _ in range(2))
+            sh.cache = tuple(p[:, :self.num_blocks] for p in sh.pool)
 
     @property
     def _cache(self):
@@ -1269,9 +1326,7 @@ class GenerationEngine:
         if self.mesh is None:
             _SHARD_COLLECTIVE_SHARE.labels(self.name).set(0.0)
             return 0.0
-        S, bps = self.max_slots, self.blocks_per_slot
-        idle = (np.zeros((S, bps), np.int32), np.zeros((S,), np.int32),
-                np.zeros((S,), np.int64), np.zeros((3, 0), np.int64))
+        idle = self._put(self._blank_step(np.empty_like(self._step_np)))
 
         def sync():
             for d in self._devices:
@@ -1280,12 +1335,12 @@ class GenerationEngine:
 
         def timed():
             with torch.no_grad():
-                self._decode_step(*idle)
+                self._decode_step(idle)
                 sync()
                 best = float("inf")
                 for _ in range(iters):
                     t0 = time.perf_counter()
-                    self._decode_step(*idle)
+                    self._decode_step(idle)
                     sync()
                     best = min(best, time.perf_counter() - t0)
             return best
@@ -2451,13 +2506,10 @@ class GenerationEngine:
         # state yet: they ride as inactive rows (generate.py:2913-2916)
         active = [(i, s) for i, s in enumerate(self._slots)
                   if s is not None and not s.prefilling]
-        S, bps, bs = self.max_slots, self.blocks_per_slot, \
-            self.block_size
-        tables = np.zeros((S, bps), np.int32)
-        lengths = np.zeros((S,), np.int32)
-        tokens = np.zeros((S,), np.int64)
-        writes = np.zeros((3, len(active)), np.int64)  # row, block, off
-        for n, (i, slot) in enumerate(active):
+        S, bs = self.max_slots, self.block_size
+        tables, lengths, tokens, phys, off, live = self._step_views(
+            self._blank_step(self._step_np))
+        for i, slot in active:
             pos = slot.length
             block_idx = pos // bs
             if block_idx >= len(slot.blocks):
@@ -2468,13 +2520,13 @@ class GenerationEngine:
             tables[i, :len(slot.blocks)] = slot.blocks
             lengths[i] = pos
             tokens[i] = slot.last_token
-            writes[:, n] = (i, slot.blocks[block_idx], pos % bs)
+            phys[i], off[i], live[i] = slot.blocks[block_idx], pos % bs, 1
         t0, t0w = time.perf_counter(), time.time()
-        nxt, logits = self._decode_step(tables, lengths, tokens, writes)
-        # every launch of the step is queued: what follows waits for
-        # the device
+        nxt, logits = self._decode_launch()
+        # the step is queued: what follows waits for the device
         tl, tlw = time.perf_counter(), time.time()
-        nxt = nxt.cpu().numpy()
+        self._next_in.copy_(nxt)
+        nxt = self._next_np
         dbg = logits.cpu().numpy() if self.debug_logits else None
         if self._step_sleep:
             time.sleep(self._step_sleep)
@@ -2981,11 +3033,12 @@ class GenerationEngine:
         """Decode and verify write, in place: K/V rows ``[n, kv, D]`` (the
         shard's local heads) into their pages of ``shard``'s pool at
         ``(phys, off)``, quantized when the pool is int8
-        (``generate.py:3517-3524``). The callers pass only the rows to
-        write — JAX drops its inactive and clamped rows' out-of-bounds
-        sentinel writes (``mode="drop"``), which torch indexing would
-        not."""
-        for pool, t in zip(self._shards[shard].cache,
+        (``generate.py:3517-3524``). JAX drops its inactive and clamped
+        rows' out-of-bounds sentinel writes (``mode="drop"``), which
+        torch indexing would not: the verify passes only the rows to
+        write, and the plain decode step sends its idle rows to the sink
+        block."""
+        for pool, t in zip(self._shards[shard].pool,
                            self._pool_rows(k, v)):
             pool[layer].index_put_((phys, off), t)
 
@@ -3034,37 +3087,117 @@ class GenerationEngine:
             block_size=self.block_size, n_rep=n_rep,
             split_heads=self.config.kv_heads)
 
-    def _decode_step(self, tables, lengths, tokens, writes):
-        """One token for every slot → (next tokens [S], fp32 logits
-        [S, V]), on the device and queued, not waited for. Writes the input token's K/V,
-        THEN reads ``length + 1`` positions (its own included).
-        Inactive rows read nothing (length 0) and their outputs are
-        discarded."""
+    def _step_views(self, buf):
+        """The plain decode step's packed input ``buf`` (int32 ``[S·bps +
+        5·S]``, numpy or torch) → its views: ``tables [S, bps]``, then
+        ``lengths``, ``tokens``, the write's block and offset, and the
+        active mask, each ``[S]``."""
+        S, n = self.max_slots, self.max_slots * self.blocks_per_slot
+        return (buf[:n].reshape(S, self.blocks_per_slot),
+                *buf[n:].reshape(5, S))
+
+    def _blank_step(self, buf):
+        """``buf`` (numpy) with every row idle: it reads nothing and
+        writes the sink block → ``buf``."""
+        buf[:] = 0
+        self._step_views(buf)[3][:] = self.num_blocks
+        return buf
+
+    def _graph_key(self):
+        """What a captured step bakes in: the storage of the weights it
+        reads (the stacked leaves, whose views the layers read; both are
+        made together by ``_load_weights``) and of the pool."""
+        return tuple(t.data_ptr() for sh in self._shards for t in (
+            *sh.params["layers"].values(), sh.params["embed"],
+            sh.params["final_norm"],
+            *(() if sh.head is None else (sh.head,)), *sh.pool))
+
+    def _decode_launch(self):
+        """Queue the plain decode step over ``_step_in`` → (next tokens
+        [S], fp32 logits [S, V]) on the first device. On one card: one
+        copy of the input and one replay of the captured step (captured
+        first where there is none over these weights and this pool);
+        elsewhere the step's launches, eagerly."""
+        if not self._graphable:
+            return self._decode_step(self._on_devices(
+                lambda d: self._step_in.to(d, non_blocking=True)))
+        g = self._graph
+        if g is None or g.key != self._graph_key():
+            return self._capture()
+        g.inputs.copy_(self._step_in, non_blocking=True)
+        g.graph.replay()
+        self.stats["decode_graph_replays"] += 1
+        for fn, attr, n in g.launches:
+            setattr(fn, attr, getattr(fn, attr) + n)
+        return g.outputs
+
+    def _capture(self):
+        """This step, run eagerly on a side stream (its tokens are the
+        step's), then captured as a CUDA graph into a private memory pool
+        over a static copy of its input → the eager run's (next tokens,
+        logits). Nothing runs while capturing, so the launch counters
+        are put back to where the eager run left them, and each replay
+        adds what the capture counted."""
+        t0, t0w = time.perf_counter(), time.time()
+        dev = self.device
+        self._graph = None              # the old graph's pool goes first
+        inputs = self._step_in.to(dev, non_blocking=True)
+        main, side = torch.cuda.current_stream(dev), torch.cuda.Stream(dev)
+        side.wait_stream(main)
+        with torch.cuda.stream(side):
+            outputs = self._decode_step({dev: inputs})
+        main.wait_stream(side)
+        before = [getattr(fn, attr) for fn, attr in _LAUNCH_COUNTERS]
+        graph = torch.cuda.CUDAGraph()
+        # thread-local: the transport's threads may touch the card too
+        with torch.cuda.device(dev), torch.cuda.graph(
+                graph, stream=torch.cuda.Stream(dev),
+                capture_error_mode="thread_local"):
+            static = self._decode_step({dev: inputs})
+        launches = []
+        for (fn, attr), n in zip(_LAUNCH_COUNTERS, before):
+            if getattr(fn, attr) != n:
+                launches.append((fn, attr, getattr(fn, attr) - n))
+                setattr(fn, attr, n)
+        self._graph = _DecodeGraph(self._graph_key(), graph, inputs,
+                                   static, tuple(launches))
+        self.stats["decode_graph_captures"] += 1
+        self.stats["decode_graph_capture_seconds_total"] += \
+            time.perf_counter() - t0
+        self.trace.record("engine.decode.capture", t0w, time.time())
+        return outputs
+
+    def _decode_step(self, ins):
+        """One token for every slot over the packed step input ``ins``
+        (``{device: int32 tensor}``, :meth:`_step_views`) → (next tokens
+        [S], fp32 logits [S, V]) on the first device, queued, not waited
+        for. Every row writes its input token's K/V (an idle row into the
+        sink block), THEN reads ``(length + 1) · active`` positions (its
+        own included): idle rows read nothing and their outputs are
+        discarded. Fixed shapes, and no host memory touched: this is
+        what the decode graph captures."""
         c = self.config
         n_rep = c.n_heads // c.kv_heads
-        tables_t = self._put(tables)
 
         def inputs(dev):
-            lengths_t = torch.from_numpy(lengths).to(dev)
-            rows, phys, off = torch.from_numpy(writes).to(dev)
-            read_lengths = torch.zeros_like(lengths_t)
-            read_lengths[rows] = lengths_t[rows] + 1
+            tables, lengths, tokens, phys, off, live = self._step_views(
+                ins[dev])
             rope_rows = self._rope_rows_fn(
-                *transformer.rope_tables(c, lengths_t), c.compute_dtype)
-            return rows, phys, off, read_lengths, rope_rows
+                *transformer.rope_tables(c, lengths), c.compute_dtype)
+            return tables, tokens, phys, off, (lengths + 1) * live, \
+                rope_rows
 
         ins = self._on_devices(inputs)
-        xs = self._embed({d: t[:, None]
-                          for d, t in self._put(tokens).items()})
+        xs = self._embed({d: v[1][:, None] for d, v in ins.items()})
         for layer in range(c.n_layers):
             def attend(i, q, k, v):
-                dev = self._shards[i].device
-                rows, phys, off, read_lengths, rope_rows = ins[dev]
+                tables, _, phys, off, read_lengths, rope_rows = \
+                    ins[self._shards[i].device]
                 q, k = rope_rows(q), rope_rows(k)
-                self._write_kv(layer, phys, off, k[rows, 0], v[rows, 0], i)
+                self._write_kv(layer, phys, off, k[:, 0], v[:, 0], i)
                 return self._attn_decode_read(
-                    q, self._layer_pages(layer, i), tables_t[dev],
-                    read_lengths, n_rep)
+                    q, self._layer_pages(layer, i), tables, read_lengths,
+                    n_rep)
 
             xs, _, _ = transformer.layer_core(
                 xs, None, transformer.each_shard(attend), c,

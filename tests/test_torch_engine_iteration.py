@@ -328,6 +328,30 @@ def test_benchmark_entries_of_the_readers():
         assert m["layer"] == entries["decode_step_ms.serve"]["layer"]
 
 
+def test_decode_graph_pct_reader():
+    """``decode_graph_pct.serve``: the replays' growth over the decode
+    steps' across the window less the traced stretch, in %; nothing
+    where no step ran, or where the engine books no replays."""
+    read = harness.reader("decode_graph_pct.serve")
+
+    def mark(steps, replays):
+        return {"decode_steps": steps, "decode_graph_replays": replays}
+    # untraced 0 → 1 and 2 → 3 (the stretch 1 → 2 left out)
+    marks = [mark(1, 0), mark(41, 40), mark(71, 50), mark(131, 110)]
+    assert read(_Run(marks), {}) == pytest.approx(100.0)
+    marks[-1] = mark(131, 80)
+    assert read(_Run(marks), {}) == pytest.approx(70.0)
+    assert read(_Run([mark(5, 4)] * 4), {}) is None
+    bare = [{"decode_steps": m["decode_steps"]} for m in marks]
+    assert read(_Run(bare), {}) is None
+    m = {e["name"]: e for e in harness.load_benchmark()["per_layer"]}
+    entry = m["decode_graph_pct.serve"]
+    assert (entry["unit"], entry["better"], entry["source"], entry["moves"],
+            entry["workloads"], entry["layer"]) == (
+        "%", "higher", "program_counter", "gen_tokens_per_s",
+        ["mistral-7b.docqa"], m["decode_step_ms.serve"]["layer"])
+
+
 def test_label_at_names_a_gap_by_program_spans():
     """A gap's midpoint (monotonic) is named by the engine's innermost
     span on the wall clock, with the loop beside it; without a covering

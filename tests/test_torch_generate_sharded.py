@@ -357,18 +357,15 @@ def test_sharded_decode_writes_each_shard_in_place(sharded):
     shard's buffers survive a decode step, and an idle step (nothing
     written) leaves the block partition as it was."""
     sharded.generate([1, 2], max_tokens=2)
-    S, bps = sharded.max_slots, sharded.blocks_per_slot
 
     def ptrs():
         return [c.data_ptr() for sh in sharded._shards for c in sh.cache]
 
     view0, p0 = sharded.blocks_view(), ptrs()
     before = [c.clone() for sh in sharded._shards for c in sh.cache]
+    idle = sharded._blank_step(np.empty_like(sharded._step_np))
     with torch.no_grad():
-        sharded._decode_step(np.zeros((S, bps), np.int32),
-                             np.zeros((S,), np.int32),
-                             np.zeros((S,), np.int64),
-                             np.zeros((3, 0), np.int64))
+        sharded._decode_step(sharded._put(idle))
     assert ptrs() == p0
     assert sharded.blocks_view() == view0
     after = [c for sh in sharded._shards for c in sh.cache]
