@@ -47,6 +47,7 @@ import torch
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 
+import ab_entry  # noqa: E402
 import chip_smoke  # noqa: E402
 from kubeflow_tpu_torch.compute.ops import _build  # noqa: E402
 from kubeflow_tpu_torch.compute.ops import flash_attention as flash_ops  # noqa: E402
@@ -81,15 +82,13 @@ def build(label, tree):
                                                "spill_loads")}}),
               flush=True)
     cdll = ctypes.CDLL(str(lib))
-    fns = {"split": split, "float": cdll.kubeflow_paged_decode,
-           "int8": cdll.kubeflow_paged_decode_i8}
     extra = 1 if split else 0   # the workspace pointer, the split count
-    fns["float"].argtypes = [ctypes.c_void_p] * (6 + extra) + [
-        ctypes.c_int] * (7 + extra) + [ctypes.c_void_p]
-    fns["int8"].argtypes = [ctypes.c_void_p] * (8 + extra) + [
-        ctypes.c_int] * (7 + extra) + [ctypes.c_void_p]
-    fns["float"].restype = fns["int8"].restype = ctypes.c_int
-    return fns
+    return {"split": split, **{
+        kind: ab_entry.entry(cdll, name, [ctypes.c_void_p] * (n + extra)
+                             + [ctypes.c_int] * (7 + extra)
+                             + [ctypes.c_void_p])
+        for kind, name, n in (("float", "kubeflow_paged_decode", 6),
+                              ("int8", "kubeflow_paged_decode_i8", 8))}}
 
 
 def kernel_us(call, flush, n=10):

@@ -32,6 +32,7 @@ import torch
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 
+import ab_entry  # noqa: E402
 import chip_smoke  # noqa: E402
 from kubeflow_tpu_torch.compute.ops import _build  # noqa: E402
 from kubeflow_tpu_torch.compute.ops import flash_attention as ops  # noqa: E402
@@ -69,11 +70,10 @@ def build(label, tree):
                                       "registers", "spill_stores",
                                       "spill_loads")}}), flush=True)
         if kind == "fwd":
-            fn = ctypes.CDLL(str(lib)).kubeflow_flash_fwd
-            fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [
-                ctypes.c_void_p]
-            fn.restype = ctypes.c_int
-            fns[kind] = fn
+            fns[kind] = ab_entry.entry(
+                ctypes.CDLL(str(lib)), "kubeflow_flash_fwd",
+                [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8
+                + [ctypes.c_void_p])
             continue
         for name, n_ptr in (("dq", 7), ("dkv", 8)):
             fn = getattr(ctypes.CDLL(str(lib)), f"kubeflow_flash_bwd_{name}")

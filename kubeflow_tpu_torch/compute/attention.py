@@ -38,16 +38,19 @@ def _logits(q, k):
 
 
 def dense_attention(q, k, v, causal=True, scale=None, q_offset=0,
-                    k_offset=0):
+                    k_offset=0, window=0):
     """Reference attention; fp32 softmax. Offsets give global positions
-    so blockwise callers can reuse the same masking logic."""
+    so blockwise callers can reuse the same masking logic. ``window``
+    (causal only): each query reads its last ``window`` keys."""
     q = _scale(q, scale)
     logits = _logits(q, k)
     if causal:
         q_pos = q_offset + torch.arange(q.shape[1], device=q.device)
         k_pos = k_offset + torch.arange(k.shape[1], device=q.device)
-        logits = torch.where(q_pos[:, None] >= k_pos[None, :], logits,
-                             NEG_INF)
+        mask = q_pos[:, None] >= k_pos[None, :]
+        if window:
+            mask = mask & (k_pos[None, :] > q_pos[:, None] - window)
+        logits = torch.where(mask, logits, NEG_INF)
     probs = torch.softmax(logits, dim=-1).to(v.dtype)
     return torch.einsum("bhqk,bkhd->bqhd", probs, v)
 
@@ -134,7 +137,8 @@ def _stream_finish(o, l, dtype):
 
 
 def paged_decode_attention(q, pages, tables, lengths, *, block_size,
-                           n_rep=1, scale=None, dequant=_dequant_block):
+                           n_rep=1, scale=None, dequant=_dequant_block,
+                           window=0):
     """Single-position attention computed directly over the paged KV
     pool, one block-table column at a time, without materializing the
     gathered ``[S, T, heads, head_dim]`` context.
@@ -147,30 +151,37 @@ def paged_decode_attention(q, pages, tables, lengths, *, block_size,
     ``tables`` ``[S, bps]`` maps logical block j of slot i to its
     physical page; ``lengths`` ``[S]`` counts valid positions. The loop
     runs ``ceil(max(lengths) / block_size)`` steps; shallower rows ride
-    along as masked zero-mass folds."""
+    along as masked zero-mass folds. With a key ``window`` each row
+    reads its last ``window`` positions, and the loop starts at the
+    block of the lowest row's first."""
     q = _scale(q, scale)
     bs = int(block_size)
     bps = tables.shape[1]
     S, _, H, D = q.shape
     n_max = min(bps, -(-int(lengths.max()) // bs)) if S else 0
+    lo = lengths - window      # each row's first position, with a window
+    j0 = max(0, int(lo.min()) // bs) if S and window else 0
     o = torch.zeros((S, 1, H, D), dtype=torch.float32, device=q.device)
     m = torch.full((S, H, 1), NEG_INF, dtype=torch.float32,
                    device=q.device)
     l = torch.zeros((S, H, 1), dtype=torch.float32, device=q.device)
     offs = torch.arange(bs, device=q.device)
-    for j in range(n_max):
+    for j in range(j0, n_max):
         ids = tables[:, j].long()
         k, v = dequant(tuple(p[ids] for p in pages), q.dtype)
         k = repeat_kv(k, n_rep)
         v = repeat_kv(v, n_rep)
-        valid = (j * bs + offs[None, :] < lengths[:, None])[:, None, :]
-        o, m, l = _stream_fold((o, m, l), k, v, valid, q)
+        pos = j * bs + offs[None, :]
+        valid = pos < lengths[:, None]
+        if window:
+            valid = valid & (pos >= lo[:, None])
+        o, m, l = _stream_fold((o, m, l), k, v, valid[:, None, :], q)
     return _stream_finish(o, l, q.dtype)
 
 
 def paged_chunk_attention(q, pages, tables, prefix_len, k_chunk, v_chunk,
                           *, block_size, n_rep=1, scale=None,
-                          dequant=_dequant_block):
+                          dequant=_dequant_block, window=0):
     """Chunk-after-cached-prefix attention computed directly over the
     paged pool (``attention.py:252-310``), the block-streamed twin of
     :func:`chunk_attention`.
@@ -181,28 +192,40 @@ def paged_chunk_attention(q, pages, tables, prefix_len, k_chunk, v_chunk,
     ``[B]`` tensor; ``k_chunk``/``v_chunk`` ``[B, S, kv_heads, D]`` are
     the chunk's own (not repeated) K/V. The prefix streams one block
     per step for ``ceil(max(prefix_len) / block_size)`` steps, then the
-    chunk folds in last under the causal within-chunk mask."""
+    chunk folds in last under the causal within-chunk mask. With a key
+    ``window`` the row at position ``p`` reads keys ``[p - window + 1,
+    p]`` only, and the prefix loop starts at the block of the lowest
+    first key."""
     q = _scale(q, scale)
     bs = int(block_size)
     bps = tables.shape[1]
     B, S, H, D = q.shape
     plen = torch.as_tensor(prefix_len, device=q.device).expand(B)
     n_max = min(bps, -(-int(plen.max()) // bs)) if B else 0
+    rows = torch.arange(S, device=q.device)[:, None]
+    # with a window, each row's first key as a global position [B, S, 1]
+    lo = plen[:, None, None] + rows[None] - (window - 1)
+    j0 = max(0, int(lo.min()) // bs) if B and S and window else 0
     o = torch.zeros((B, S, H, D), dtype=torch.float32, device=q.device)
     m = torch.full((B, H, S), NEG_INF, dtype=torch.float32,
                    device=q.device)
     l = torch.zeros((B, H, S), dtype=torch.float32, device=q.device)
     offs = torch.arange(bs, device=q.device)
-    for j in range(n_max):
+    for j in range(j0, n_max):
         ids = tables[:, j].long()
         k, v = dequant(tuple(p[ids] for p in pages), q.dtype)
         k = repeat_kv(k, n_rep)
         v = repeat_kv(v, n_rep)
-        valid = (j * bs + offs[None, :] < plen[:, None])[:, None, :]
+        pos = j * bs + offs[None, None, :]
+        valid = pos < plen[:, None, None]
+        if window:
+            valid = valid & (pos >= lo)
         o, m, l = _stream_fold((o, m, l), k, v, valid.expand(B, S, bs), q)
-    rows = torch.arange(S, device=q.device)[:, None]
     cols = torch.arange(S, device=q.device)[None, :]
-    valid = (cols <= rows)[None].expand(B, S, S)
+    valid = (cols <= rows)[None]
+    if window:
+        valid = valid & (plen[:, None, None] + cols[None] >= lo)
+    valid = valid.expand(B, S, S)
     o, m, l = _stream_fold((o, m, l), repeat_kv(k_chunk, n_rep),
                            repeat_kv(v_chunk, n_rep), valid, q)
     return _stream_finish(o, l, q.dtype)

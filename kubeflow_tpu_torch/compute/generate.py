@@ -32,7 +32,12 @@ the header and done-frame views, the ``serving_generate_*``,
   chunk of a chunked prefill (``prefill_chunk``), reads the cached
   prefix through the K2 kernel (``ops/paged_attention.py``). Each
   writes its K/V into fresh pages; the last real row gives the first
-  token.
+  token. ``stats`` count the calls' work: ``prefill_tokens_total``
+  (prompt positions computed) and ``prefill_attn_pairs_total`` (the
+  causal query-key pairs they attend, no window), and of the K2 calls
+  alone ``prefill_cached_tokens_total``,
+  ``prefill_cached_prefix_total`` (the cached positions read) and
+  ``prefill_cached_attn_pairs_total``.
 - **Decode**: one step advances every decoding slot by one token —
   write the new token's K/V into its page, then read the pool through
   the K1 kernel over ``length + 1`` positions. With a draft model
@@ -53,6 +58,22 @@ the header and done-frame views, the ``serving_generate_*``,
   the storage of the weights and the pool, and a reload captures
   again. On the CPU, and across distinct devices, the same step runs
   eagerly.
+- **Mixed models** (``transformer.PortConfig``: the AFMoE family, and
+  dropless mixtures of experts): on one card, as every one-shard
+  engine, the layers run through ``transformer.layer_core``'s
+  unsharded form (the family's parts in it), a sliding layer's window
+  reaching K3, K2 and K1 (each walk starts at the window), a global
+  layer without RoPE where the model says so, and the experts on the
+  grouped matmul (K6) inside the decode step's graph. Every layer's
+  pages stay in the one shared pool. Each expert call is counted in
+  ``stats`` (``moe_calls``, ``moe_assignments_total``,
+  ``moe_padded_rows_total``, ``moe_active_experts_total``, and the
+  decode step's share of them as ``moe_decode_calls``,
+  ``moe_decode_assignments_total``,
+  ``moe_decode_active_experts_total``); the active experts are tallied
+  on the card and ride the step's token copy (a prefill's, its first
+  token's), so no sync is added. Capacity
+  dispatch (which drops tokens), a mesh and a draft are refused.
 - **Continuous batching**: finished sequences leave mid-batch and
   queued prompts take their slots; one engine-loop iteration is sweep
   the queue (deadlines, cancels) → admit → sweep the slots → advance one
@@ -596,7 +617,8 @@ class _MeshLayer:
 
     def norm(self, xs, name):
         e = self.engine
-        hs = {d: transformer._rmsnorm(x, e._lead[d].layers[self.layer][name])
+        hs = {d: transformer._rmsnorm(x, e._lead[d].layers[self.layer][name],
+                                      e.config.norm_eps)
               for d, x in xs.items()}
         return [hs[sh.device] for sh in e._shards]
 
@@ -675,10 +697,18 @@ class GenerationEngine:
                  prefill_chunk=None, kv_dtype=None, qos=None,
                  preemption=True, role="both", mesh=None, row_shard=False,
                  device=None):
-        if config.moe_experts:
+        if config.moe_experts and not config.moe_dropless:
             raise ValueError(
-                "GenerationEngine supports dense TransformerLM configs "
-                "(no MoE, no pipeline parallelism)")
+                "GenerationEngine serves dropless MoE only: a capacity "
+                "dispatch drops tokens, which is another model")
+        if (config.extended or config.moe_experts) and (
+                mesh is not None or draft_params is not None
+                or attn_backend == "gather"):
+            raise ValueError(
+                "a mixture of experts or the AFMoE fields "
+                f"({', '.join(config.extended) or 'moe_experts'}) are "
+                "served unsharded, with no draft, through the paged "
+                "reads")
         if admission not in ("continuous", "drain"):
             raise ValueError(
                 f"admission must be 'continuous' or 'drain', got "
@@ -812,7 +842,12 @@ class GenerationEngine:
         self._step_in = torch.zeros(S * self.blocks_per_slot + 5 * S,
                                     dtype=torch.int32, pin_memory=pin)
         self._step_np = self._step_in.numpy()
-        self._next_in = torch.zeros(S, dtype=torch.int64, pin_memory=pin)
+        # (an expert model adds the step's active-expert tally after the
+        # tokens: it rides the tokens' copy)
+        self._moe = bool(config.moe_experts)
+        self._next_in = torch.zeros(S + self._moe, dtype=torch.int64,
+                                    pin_memory=pin)
+        self._step_tally = (0, 0, 0)
         self._next_np = self._next_in.numpy()
         # every shard on one card: the step is one CUDA graph replay
         self._graphable = (len(self._devices) == 1
@@ -903,7 +938,21 @@ class GenerationEngine:
                       "admissions": 0, "queue_wait_seconds_total": 0.0,
                       # the plain decode step's CUDA graph
                       "decode_graph_replays": 0, "decode_graph_captures": 0,
-                      "decode_graph_capture_seconds_total": 0.0}
+                      "decode_graph_capture_seconds_total": 0.0,
+                      # the prefill calls' work (module docstring)
+                      "prefill_tokens_total": 0,
+                      "prefill_attn_pairs_total": 0,
+                      "prefill_cached_tokens_total": 0,
+                      "prefill_cached_prefix_total": 0,
+                      "prefill_cached_attn_pairs_total": 0}
+        if self._moe:
+            # per expert layer call, prefill and decode (module docstring)
+            self.stats.update(moe_calls=0, moe_assignments_total=0,
+                              moe_padded_rows_total=0,
+                              moe_active_experts_total=0,
+                              moe_decode_calls=0,
+                              moe_decode_assignments_total=0,
+                              moe_decode_active_experts_total=0)
         self.thread = threading.Thread(target=self._loop, daemon=True,
                                        name=f"generate-{name}")
         self.trace = tracing.TraceBuffer(_ITERATION_SPANS,
@@ -929,6 +978,14 @@ class GenerationEngine:
         fp32 model."""
         p = transformer.cast_params(self._stacked(params),
                                     config.compute_dtype, self.device)
+        layers = p["layers"]
+        if "we_gate" in layers:
+            # the experts' gate|up joined once, as the grouped matmul
+            # reads it (the AFMoE layout holds it so already)
+            layers = dict(layers)
+            layers["we_gu"] = torch.cat(
+                [layers.pop("we_gate"), layers.pop("we_up")], dim=-1)
+            p = {**p, "layers": layers}
         return (p, p["head"].float(),
                 [transformer.layer_params(p, i)
                  for i in range(config.n_layers)])
@@ -2527,6 +2584,8 @@ class GenerationEngine:
         tl, tlw = time.perf_counter(), time.time()
         self._next_in.copy_(nxt)
         nxt = self._next_np
+        if self._moe:
+            self._book_moe(*self._step_tally, nxt[S], decode=True)
         dbg = logits.cpu().numpy() if self.debug_logits else None
         if self._step_sleep:
             time.sleep(self._step_sleep)
@@ -2868,7 +2927,8 @@ class GenerationEngine:
         elsewhere, and the partials are psummed — one non-zero
         contributor per row, so the sum is exact."""
         if not self.row_shard:
-            return {d: self._lead[d].params["embed"][t]
+            return {d: transformer.embed(self._lead[d].params["embed"], t,
+                                         self.config)
                     for d, t in toks.items()}
         vs = self.config.vocab_size // self.tp
         parts = []
@@ -2900,16 +2960,72 @@ class GenerationEngine:
         is replicated by default, so the logits are computed once; under
         ``row_shard`` each shard computes its vocab slice and the slices
         are gathered (a concatenation of single-chip products)."""
+        eps = self.config.norm_eps
         if self.row_shard:
             normed = {d: transformer._rmsnorm(
-                x, self._lead[d].params["final_norm"])
+                x, self._lead[d].params["final_norm"], eps)
                 for d, x in xs.items()}
             return self._gathered(
                 [transformer._logits(normed[sh.device], sh.head)
                  for sh in self._shards], self.device)
         sh = self._shards[0]
-        x = transformer._rmsnorm(xs[sh.device], sh.params["final_norm"])
+        x = transformer._rmsnorm(xs[sh.device], sh.params["final_norm"], eps)
         return transformer._logits(x, sh.head)
+
+    def _layer(self, xs, layer, attend, tally=None):
+        """Layer ``layer`` over the residual stream ``{device: x}``
+        through ``attend(i, q, k, v) → o`` (shard ``i``'s read):
+        ``transformer.layer_core``'s unsharded form on one shard, each
+        expert call's ``MoeTally`` appended to ``tally``; its sharded
+        form over the mesh's hooks on several."""
+        c = self.config
+        if len(self._shards) > 1:
+            return transformer.layer_core(
+                xs, None, transformer.each_shard(attend), c,
+                self._mesh_layers[layer])[0]
+        (d, x), = xs.items()
+        x, _, _ = transformer.layer_core(
+            x, self._shards[0].layers[layer],
+            lambda q, k, v: (attend(0, q, k, v), None), c, tally=tally)
+        return {d: x}
+
+    def _tallied(self, tally, value):
+        """``value`` (a device tensor of int64 tokens, 0-d or ``[n]``)
+        with the expert calls' active-expert tally after it, as one
+        ``[n + 1]`` tensor, and the calls' host counts → ``(tensor,
+        calls, rows, padded rows)``; ``value`` itself without experts."""
+        if tally is None:
+            return value, 0, 0, 0
+        active = torch.stack([t.active for t in tally]).sum().to(
+            torch.int64)
+        return (torch.cat([value.reshape(-1), active[None]]), len(tally),
+                sum(t.rows for t in tally), sum(t.padded for t in tally))
+
+    def _book_moe(self, calls, rows, padded, active, decode=False):
+        st = self.stats
+        active = int(active)
+        st["moe_calls"] += calls
+        st["moe_assignments_total"] += rows
+        st["moe_padded_rows_total"] += padded
+        st["moe_active_experts_total"] += active
+        if decode:
+            st["moe_decode_calls"] += calls
+            st["moe_decode_assignments_total"] += rows
+            st["moe_decode_active_experts_total"] += active
+
+    def _book_prefill(self, tokens, offset=0, cached=False):
+        """A prefill call's work: ``tokens`` prompt positions computed
+        after ``offset`` cached ones, each attending the prefix and its
+        own call causally (no window); ``cached`` for the chunk read
+        after a prefix (K2 on the card)."""
+        st = self.stats
+        pairs = tokens * offset + tokens * (tokens + 1) // 2
+        st["prefill_tokens_total"] += tokens
+        st["prefill_attn_pairs_total"] += pairs
+        if cached:
+            st["prefill_cached_tokens_total"] += tokens
+            st["prefill_cached_prefix_total"] += offset
+            st["prefill_cached_attn_pairs_total"] += pairs
 
     def _write_pages(self, layer, block_ids, k, v, shard=0):
         """Prefill cache fill, in place: ``k``/``v`` ``[P, kv, D]`` (the
@@ -2955,23 +3071,37 @@ class GenerationEngine:
         rope = self._on_devices(lambda d: transformer.rope_tables(
             c, torch.arange(tokens.shape[0], device=d)))
         xs = self._embed({d: t[None] for d, t in self._put(tokens).items()})
+        tally = [] if self._moe else None
         for layer in range(c.n_layers):
+            window, turn = c.layer_window(layer), c.layer_rope(layer)
+
             def attend(i, q, k, v):
                 dev = self._shards[i].device
-                q = transformer.apply_rope(q, *rope[dev])
-                k = transformer.apply_rope(k, *rope[dev])
-                o, _ = flash_ops.flash_attention(q, k, v, causal=True)
+                if turn:
+                    q = transformer.apply_rope(q, *rope[dev])
+                    k = transformer.apply_rope(k, *rope[dev])
+                o, _ = flash_ops.flash_attention(q, k, v, causal=True,
+                                                 window=window)
                 self._write_pages(layer, ids[dev], k[0], v[0], i)
                 return o
 
-            xs, _, _ = transformer.layer_core(
-                xs, None, transformer.each_shard(attend), c,
-                self._mesh_layers[layer])
+            xs = self._layer(xs, layer, attend, tally)
         logits = self._head_logits(
             {d: x[:, true_len - 1] for d, x in xs.items()})[0]
-        first = int(torch.argmax(logits))
+        first = self._prefill_token(torch.argmax(logits), tally)
+        self._book_prefill(true_len)
         dbg = logits.cpu().numpy() if self.debug_logits else None
         return first, dbg
+
+    def _prefill_token(self, argmax, tally):
+        """A prefill's first token off the device (an expert model's
+        tally in the same copy, booked)."""
+        out, *counts = self._tallied(tally, argmax)
+        if tally is None:
+            return int(out)
+        out = out.cpu()
+        self._book_moe(*counts, out[-1])
+        return int(out[0])
 
     def _prefill_cached_step(self, tokens, true_len, offset, prefix_blocks,
                              block_ids):
@@ -2992,22 +3122,27 @@ class GenerationEngine:
         rope = self._on_devices(lambda d: transformer.rope_tables(
             c, offset + torch.arange(tokens.shape[0], device=d)))
         xs = self._embed({d: t[None] for d, t in self._put(tokens).items()})
+        tally = [] if self._moe else None
         for layer in range(c.n_layers):
+            window, turn = c.layer_window(layer), c.layer_rope(layer)
+
             def attend(i, q, k, v):
                 dev = self._shards[i].device
-                q = transformer.apply_rope(q, *rope[dev])
-                k = transformer.apply_rope(k, *rope[dev])
+                if turn:
+                    q = transformer.apply_rope(q, *rope[dev])
+                    k = transformer.apply_rope(k, *rope[dev])
                 o = self._attn_chunk_read(q, self._layer_pages(layer, i),
-                                          tables[dev], offset, k, v, n_rep)
+                                          tables[dev], offset, k, v, n_rep,
+                                          window)
                 self._write_pages(layer, ids[dev], k[0], v[0], i)
                 return o
 
-            xs, _, _ = transformer.layer_core(
-                xs, None, transformer.each_shard(attend), c,
-                self._mesh_layers[layer])
+            xs = self._layer(xs, layer, attend, tally)
         logits = self._head_logits(
             {d: x[:, true_len - 1] for d, x in xs.items()})[0]
-        return int(torch.argmax(logits))
+        first = self._prefill_token(torch.argmax(logits), tally)
+        self._book_prefill(true_len, offset, cached=True)
+        return first
 
     @staticmethod
     def _rope_rows_fn(cos, sin, dtype):
@@ -3056,8 +3191,9 @@ class GenerationEngine:
                   quantize_lib.kv_dequantize(kv[1], kv[3], dt))
         return tuple(p.reshape(S, T, *p.shape[3:]) for p in kv)
 
-    def _attn_decode_read(self, q, pages, tables, lengths, n_rep):
-        """Backend dispatch for the decode read (``generate.py:3429``)."""
+    def _attn_decode_read(self, q, pages, tables, lengths, n_rep, window=0):
+        """Backend dispatch for the decode read (``generate.py:3429``);
+        ``window`` the layer's key window (paged reads only)."""
         if self.attn_backend == "gather":
             k_all, v_all = self._gather_kv(pages, tables)
             return attn_lib.decode_attention(
@@ -3068,9 +3204,10 @@ class GenerationEngine:
         # engine's do
         return paged_ops.paged_decode_attention(
             q, pages, tables, lengths, block_size=self.block_size,
-            n_rep=n_rep, split_heads=self.config.kv_heads)
+            n_rep=n_rep, split_heads=self.config.kv_heads, window=window)
 
-    def _attn_chunk_read(self, q, pages, tables, prefix_len, k, v, n_rep):
+    def _attn_chunk_read(self, q, pages, tables, prefix_len, k, v, n_rep,
+                         window=0):
         """Backend dispatch for the multi-token chunk-after-prefix reads
         (``generate.py:3452``): the partial prefill's scalar offset and
         the verify's per-slot depths. ``gather`` materializes the prefix
@@ -3085,7 +3222,7 @@ class GenerationEngine:
         return paged_ops.paged_chunk_attention(
             q, pages, tables, prefix_len, k, v,
             block_size=self.block_size, n_rep=n_rep,
-            split_heads=self.config.kv_heads)
+            split_heads=self.config.kv_heads, window=window)
 
     def _step_views(self, buf):
         """The plain decode step's packed input ``buf`` (int32 ``[S·bps +
@@ -3108,7 +3245,8 @@ class GenerationEngine:
         reads (the stacked leaves, whose views the layers read; both are
         made together by ``_load_weights``) and of the pool."""
         return tuple(t.data_ptr() for sh in self._shards for t in (
-            *sh.params["layers"].values(), sh.params["embed"],
+            *(leaf for g in sh.params.values() if isinstance(g, dict)
+              for leaf in g.values()), sh.params["embed"],
             sh.params["final_norm"],
             *(() if sh.head is None else (sh.head,)), *sh.pool))
 
@@ -3175,7 +3313,9 @@ class GenerationEngine:
         sink block), THEN reads ``(length + 1) · active`` positions (its
         own included): idle rows read nothing and their outputs are
         discarded. Fixed shapes, and no host memory touched: this is
-        what the decode graph captures."""
+        what the decode graph captures. An expert model's tokens carry
+        the step's active-expert tally as an ``[S + 1]``-th entry; its
+        host counts, the same every step, are kept in ``_step_tally``."""
         c = self.config
         n_rep = c.n_heads // c.kv_heads
 
@@ -3189,21 +3329,26 @@ class GenerationEngine:
 
         ins = self._on_devices(inputs)
         xs = self._embed({d: v[1][:, None] for d, v in ins.items()})
+        tally = [] if self._moe else None
         for layer in range(c.n_layers):
+            window, turn = c.layer_window(layer), c.layer_rope(layer)
+
             def attend(i, q, k, v):
                 tables, _, phys, off, read_lengths, rope_rows = \
                     ins[self._shards[i].device]
-                q, k = rope_rows(q), rope_rows(k)
+                if turn:
+                    q, k = rope_rows(q), rope_rows(k)
                 self._write_kv(layer, phys, off, k[:, 0], v[:, 0], i)
                 return self._attn_decode_read(
                     q, self._layer_pages(layer, i), tables, read_lengths,
-                    n_rep)
+                    n_rep, window)
 
-            xs, _, _ = transformer.layer_core(
-                xs, None, transformer.each_shard(attend), c,
-                self._mesh_layers[layer])
+            xs = self._layer(xs, layer, attend, tally)
         logits = self._head_logits({d: x[:, 0] for d, x in xs.items()})
-        return torch.argmax(logits, dim=-1), logits
+        nxt, *counts = self._tallied(tally, torch.argmax(logits, dim=-1))
+        if tally is not None:
+            self._step_tally = tuple(counts)
+        return nxt, logits
 
     def _draft_prefill_step(self, prompt, slot_idx):
         """Fill the draft's dense cache row of ``slot_idx`` from the
@@ -3326,9 +3471,7 @@ class GenerationEngine:
                     q, self._layer_pages(layer, i), tables_t[dev],
                     lengths_t, k, v, n_rep)
 
-            xs, _, _ = transformer.layer_core(
-                xs, None, transformer.each_shard(attend), c,
-                self._mesh_layers[layer])
+            xs = self._layer(xs, layer, attend)
         logits = self._head_logits(xs)
         return torch.argmax(logits, dim=-1).cpu().numpy()
 

@@ -36,6 +36,18 @@ chunks, the pieces and a gang's processes, then divided; the MoE aux
 loss is formed from per-row statistics over the global batch
 (:func:`_global_aux`), as JAX's is.
 
+:class:`PortConfig` adds what JAX's ``Config`` lacks, for the AFMoE
+family (Arcee's Trinity; :data:`FAMILIES`): a head size, the norm
+epsilon, windowed and global attention layers (the window reaching the
+K1/K2/K3 reads), global layers without RoPE, leading dense layers,
+sigmoid routing with a selection-only bias and a route scale, a shared
+expert, the attention output gate, QK-norm, a norm after each sublayer
+and the embedding scaled by √d_model. Such a model's experts live in
+the AFMoE layout: ``layers`` (attention and norms, every layer),
+``dense_mlp`` and ``moe_mlp`` (the experts' gate|up fused as
+``we_gu``, as the grouped matmul reads it); it runs unsharded, served
+or through :func:`apply`, and training refuses it.
+
 Numerics mirrored on purpose (the token-identity contract rests on
 them): RoPE rotates interleaved (even, odd) pairs and restacks them
 (not ``rotate_half``); RMSNorm takes its variance in fp32, casts the
@@ -86,7 +98,11 @@ class Config:
     the TPU), False the plain ragged engine (a product per expert),
     which is the reference the card holds the kernels' path against.
     On the card ``moe_gmm_block_m`` must be a multiple of 64 (the
-    kernels' row tile)."""
+    kernels' row tile).
+
+    :class:`PortConfig` adds the fields JAX's ``Config`` lacks; a
+    ``Config`` reads them at their defaults (class attributes, set
+    below :class:`PortConfig`)."""
     vocab_size: int = 32000
     d_model: int = 512
     n_layers: int = 4
@@ -109,7 +125,6 @@ class Config:
     moe_gmm_block_m: int = 128
     pipeline_stages: int = 0
     pipeline_microbatches: int = 0
-
     def __post_init__(self):
         if self.moe_gmm not in (True, False, "auto"):
             raise ValueError(
@@ -149,7 +164,45 @@ class Config:
 
     @property
     def head_dim(self):
-        return self.d_model // self.n_heads
+        return self.d_head or self.d_model // self.n_heads
+
+    @property
+    def expert_ff(self):
+        return self.moe_d_ff or self.ff_dim
+
+    @property
+    def features(self):
+        """The parts of :attr:`family`'s layer beyond JAX's
+        (:data:`FAMILIES`)."""
+        return FAMILIES[self.family]
+
+    @property
+    def extended(self):
+        """The fields set beyond the JAX ``Config`` that change what the
+        model computes (``d_head`` and ``norm_eps`` aside, which every
+        path takes)."""
+        return tuple(f.name for f in _PORT_FIELDS
+                     if f.name not in ("d_head", "norm_eps")
+                     and getattr(self, f.name) != f.default)
+
+    @property
+    def afmoe_layout(self):
+        """The parameter layout of :func:`_layer_shapes`' AFMoE form: an
+        AFMoE mixture of experts."""
+        return bool(self.moe_experts) and self.family == "afmoe"
+
+    def layer_window(self, i):
+        """Layer ``i``'s key window (0: full causal attention)."""
+        if not self.sliding_window or (
+                self.global_every and (i + 1) % self.global_every == 0):
+            return 0
+        return self.sliding_window
+
+    def layer_rope(self, i):
+        """Whether layer ``i`` turns q and k by RoPE (a global layer of
+        a ``nope_global`` family does not)."""
+        return "nope_global" not in self.features or not (
+            self.global_every and (i + 1) % self.global_every == 0)
 
     @property
     def ff_dim(self):
@@ -162,19 +215,136 @@ class Config:
         return _DTYPES[self.dtype]
 
 
+#: each model family's parts beyond the JAX layer (``PortConfig.family``)
+#: — AFMoE (Arcee's Trinity, ``modeling_afmoe.py``): experts chosen by
+#: ``σ(logits) + router_bias`` and weighted by ``σ(logits)`` alone,
+#: renormalised (``sigmoid_router``); the attention output times ``σ(h
+#: W_gate)`` before ``wo`` (``attn_gate``); an RMSNorm on each q and k
+#: head before RoPE (``qk_norm``); a norm after attention and after the
+#: MLP too (``sandwich_norm``); the embedding times ``√d_model``
+#: (``embed_scale``); no RoPE on the global layers (``nope_global``)
+FAMILIES = {"": frozenset(),
+            "afmoe": frozenset({"sigmoid_router", "attn_gate", "qk_norm",
+                                "sandwich_norm", "embed_scale",
+                                "nope_global"})}
+
+
+@dataclasses.dataclass(frozen=True)
+class PortConfig(Config):
+    """:class:`Config` with the fields JAX's ``Config`` lacks; at its
+    defaults it computes what a :class:`Config` computes.
+
+    ``d_head`` (0: ``d_model // n_heads``); ``norm_eps`` of every
+    RMSNorm; ``sliding_window`` (0: none), with layer ``i`` global
+    (full causal) where ``global_every`` divides ``i + 1`` and windowed
+    elsewhere; ``family`` (:data:`FAMILIES`: ``""``, or ``"afmoe"``);
+    an AFMoE mixture of experts' ``moe_route_scale`` on the routing
+    weights, ``moe_d_ff`` the experts' width (0: ``ff_dim``),
+    ``moe_shared`` shared experts (one SwiGLU of ``moe_shared ·
+    moe_d_ff`` added to every token's routed sum) and
+    ``moe_dense_layers`` leading dense layers. Such a model runs
+    unsharded through :func:`apply` and the generation engine; training
+    does not take these fields and raises (:func:`train_unsupported`)."""
+    d_head: int = 0
+    norm_eps: float = 1e-6
+    sliding_window: int = 0
+    global_every: int = 0
+    family: str = ""
+    moe_route_scale: float = 1.0
+    moe_d_ff: int = 0
+    moe_shared: int = 0
+    moe_dense_layers: int = 0
+
+    def __post_init__(self):
+        super().__post_init__()
+        if self.family not in FAMILIES:
+            raise ValueError(f"family={self.family!r}: one of "
+                             f"{sorted(FAMILIES)}")
+        if self.sliding_window < 0 or self.global_every < 0:
+            raise ValueError("sliding_window and global_every must be >= 0")
+        if not 0 <= self.moe_dense_layers <= self.n_layers:
+            raise ValueError(f"moe_dense_layers={self.moe_dense_layers} "
+                             f"outside [0, n_layers={self.n_layers}]")
+        moe = [f for f in self.extended if f.startswith("moe_")]
+        if moe and not self.afmoe_layout:
+            raise ValueError(f"{', '.join(moe)} belong to an AFMoE mixture "
+                             f"of experts (family='afmoe', moe_experts)")
+        if self.afmoe_layout and not self.moe_dropless:
+            raise ValueError("the AFMoE family takes dropless experts only "
+                             "(moe_dropless=True)")
+        if self.extended and self.pipeline_stages > 1:
+            raise ValueError(f"{', '.join(self.extended)} do not run in a "
+                             f"pipeline")
+
+
+#: PortConfig's own fields; a Config reads each at its default
+_PORT_FIELDS = dataclasses.fields(PortConfig)[len(dataclasses.fields(Config)):]
+for _f in _PORT_FIELDS:
+    setattr(Config, _f.name, _f.default)
+
+
+def train_unsupported(config):
+    """Raise where training would meet a field it does not take."""
+    if config.extended:
+        raise ValueError(
+            f"training does not take {', '.join(config.extended)}: the "
+            f"PortConfig fields are served (apply, the generation "
+            f"engine), not trained")
+
+
 # ---------------------------------------------------------------- params
 
+def _attn_shapes(c):
+    """The attention and norm leaves of one layer."""
+    h, kv, d, hd = c.n_heads, c.kv_heads, c.d_model, c.head_dim
+    shapes = {"attn_norm": (d,), "wq": (d, h, hd), "wk": (d, kv, hd),
+              "wv": (d, kv, hd), "wo": (h, hd, d), "mlp_norm": (d,)}
+    if "qk_norm" in c.features:
+        shapes.update(q_norm=(hd,), k_norm=(hd,))
+    if "attn_gate" in c.features:
+        shapes["w_attn_gate"] = (d, h, hd)
+    if "sandwich_norm" in c.features:
+        shapes.update(post_attn_norm=(d,), post_mlp_norm=(d,))
+    return shapes
+
+
+def _dense_mlp_shapes(c):
+    d, f = c.d_model, c.ff_dim
+    return {"w_gate": (d, f), "w_up": (d, f), "w_down": (f, d)}
+
+
+def _moe_mlp_shapes(c):
+    """One AFMoE expert layer's leaves: the router (and its selection
+    bias), the experts' gate|up fused ``[E, d, 2f]`` as the grouped
+    matmul reads it, their down ``[E, f, d]``, and the shared experts'
+    SwiGLU, gate|up fused likewise."""
+    d, f, e = c.d_model, c.expert_ff, c.moe_experts
+    shapes = {"router": (d, e), "we_gu": (e, d, 2 * f), "we_down": (e, f, d)}
+    if "sigmoid_router" in c.features:
+        shapes["router_bias"] = (e,)
+    if c.moe_shared:
+        fs = c.moe_shared * f
+        shapes.update(ws_gu=(d, 2 * fs), ws_down=(fs, d))
+    return shapes
+
+
+def _groups(c):
+    """The AFMoE layout's stacked groups → ``(name, layers, shapes)``:
+    ``layers`` (attention and norms, every layer), ``dense_mlp`` (the
+    leading dense layers' SwiGLU) and ``moe_mlp`` (the expert layers')."""
+    nd = c.moe_dense_layers
+    return [("layers", c.n_layers, _attn_shapes(c)),
+            ("dense_mlp", nd, _dense_mlp_shapes(c) if nd else {}),
+            ("moe_mlp", c.n_layers - nd, _moe_mlp_shapes(c))]
+
+
 def _layer_shapes(c):
-    h, kv, d, f, hd = (c.n_heads, c.kv_heads, c.d_model, c.ff_dim,
-                       c.head_dim)
-    shapes = {
-        "attn_norm": (d,),
-        "wq": (d, h, hd),
-        "wk": (d, kv, hd),
-        "wv": (d, kv, hd),
-        "wo": (h, hd, d),
-        "mlp_norm": (d,),
-    }
+    """One layer's leaves in the stacked ``layers`` (the JAX layout; in
+    the AFMoE layout the attention's and the norms' only)."""
+    d, f = c.d_model, c.ff_dim
+    shapes = _attn_shapes(c)
+    if c.afmoe_layout:
+        return shapes
     if c.moe_experts:
         e = c.moe_experts
         shapes.update({"router": (d, e), "we_gate": (e, d, f),
@@ -188,6 +358,15 @@ def _layer_shapes(c):
 #: element), which ``sharding.spec_for`` maps to mesh axes
 _LAYER_AXES = {
     "attn_norm": (None,),
+    "q_norm": (None,),
+    "k_norm": (None,),
+    "post_attn_norm": (None,),
+    "post_mlp_norm": (None,),
+    "w_attn_gate": ("embed", "heads", None),
+    "router_bias": (None,),
+    "we_gu": ("expert", "embed", "mlp"),
+    "ws_gu": ("embed", "mlp"),
+    "ws_down": ("mlp", "embed"),
     "wq": ("embed", "heads", None),
     "wk": ("embed", "heads", None),
     "wv": ("embed", "heads", None),
@@ -204,14 +383,28 @@ _LAYER_AXES = {
 
 
 def _shapes(c):
-    """Every leaf → ``(shape, logical axes)`` (JAX ``_shapes``, :152)."""
-    return {
+    """Every leaf → ``(shape, logical axes)`` (JAX ``_shapes``, :152);
+    the AFMoE layout's groups beside ``layers``."""
+    out = {
         "embed": ((c.vocab_size, c.d_model), ("vocab", "embed")),
         "final_norm": ((c.d_model,), (None,)),
         "head": ((c.d_model, c.vocab_size), ("embed", "vocab")),
         "layers": {k: (s, _LAYER_AXES[k])
                    for k, s in _layer_shapes(c).items()},
     }
+    if c.afmoe_layout:
+        for name, n, shapes in _groups(c)[1:]:
+            if n:
+                out[name] = {k: (s, _LAYER_AXES[k])
+                             for k, s in shapes.items()}
+    return out
+
+
+def _group_sizes(c):
+    """Each stacked group's layer count."""
+    if not c.afmoe_layout:
+        return {"layers": c.n_layers}
+    return {name: n for name, n, _ in _groups(c) if n}
 
 
 def logical_axes(config):
@@ -222,7 +415,9 @@ def logical_axes(config):
     per-layer list."""
     tree = {}
     for name, v in _shapes(config).items():
-        if name == "layers":
+        if name in ("dense_mlp", "moe_mlp"):
+            tree[name] = {k: ("layers",) + ax for k, (_, ax) in v.items()}
+        elif name == "layers":
             lead = "stage" if config.pipeline_stages > 1 else "layers"
             prefix = (lead,) if config.scan_layers else ()
             tree["layers"] = {k: prefix + ax for k, (_, ax) in v.items()}
@@ -256,16 +451,27 @@ def init_params(config, generator=None, *, device=None):
         "final_norm": torch.ones((c.d_model,), dtype=torch.float32),
         "head": normal((c.d_model, c.vocab_size), c.d_model ** -0.5),
     }
-    layers = {}
-    for name, shape in _layer_shapes(c).items():
-        full = (c.n_layers,) + shape
-        if len(shape) == 1:
-            layers[name] = torch.ones(full, dtype=torch.float32)
-        else:
-            # expert weights [E, in, out]: fan-in is the middle dim (:197)
-            fan_in = shape[1] if name.startswith("we_") else shape[0]
-            layers[name] = normal(full, fan_in ** -0.5)
-    params["layers"] = layers
+    sizes = _group_sizes(c)
+    for group, v in _shapes(c).items():
+        if not isinstance(v, dict):
+            continue
+        leaves = {}
+        for name, (shape, _) in v.items():
+            full = (sizes[group],) + shape
+            if name == "router_bias":
+                leaves[name] = normal(full, 1e-3)
+            elif len(shape) == 1:
+                leaves[name] = torch.ones(full, dtype=torch.float32)
+            else:
+                # expert weights [E, in, out]: fan-in is the middle dim
+                # (:197); the AFMoE layout draws wo [h, hd, d] at its
+                # input width h·hd (JAX's scheme takes h)
+                fan_in = (shape[1] if name.startswith("we_") else
+                          shape[0] * shape[1] if name == "wo"
+                          and len(shape) == 3 and c.afmoe_layout
+                          else shape[0])
+                leaves[name] = normal(full, fan_in ** -0.5)
+        params[group] = leaves
     return {k: ({n: t.to(dev) for n, t in v.items()}
                 if isinstance(v, dict) else v.to(dev))
             for k, v in params.items()}
@@ -274,28 +480,39 @@ def init_params(config, generator=None, *, device=None):
 def cast_params(params, dtype, device=None):
     """fp32 masters → compute dtype, once. JAX casts at every use
     (``.astype(dt)``); casting once at load gives the same values. The
-    MoE ``router`` stays fp32: JAX widens the master for the routing
-    logits (``_router``, :305-307), never rounding it."""
+    MoE ``router`` (and its bias) stays fp32: JAX widens the master for
+    the routing logits (``_router``, :305-307), never rounding it."""
     def cast(t, to=dtype):
         return t.to(device=device or t.device, dtype=to)
-    return {k: ({n: cast(t, torch.float32 if n == "router" else dtype)
+    return {k: ({n: cast(t, torch.float32 if n in _FP32_LEAVES else dtype)
                  for n, t in v.items()}
                 if isinstance(v, dict) else cast(v))
             for k, v in params.items()}
 
 
+_FP32_LEAVES = ("router", "router_bias")
+
+
 def layer_params(params, i):
     """Layer ``i``'s weights as views of the stacked tensors, the
-    projections flattened to 2-D for ``torch.matmul``."""
-    return flat_layer({k: v[i] for k, v in params["layers"].items()})
+    projections flattened to 2-D for ``torch.matmul``; in the AFMoE
+    layout its MLP's leaves come from ``dense_mlp`` or ``moe_mlp``."""
+    lp = {k: v[i] for k, v in params["layers"].items()}
+    if "moe_mlp" in params:
+        nd = params["dense_mlp"]["w_gate"].shape[0] \
+            if "dense_mlp" in params else 0
+        group, j = (("dense_mlp", i) if i < nd else ("moe_mlp", i - nd))
+        lp.update({k: v[j] for k, v in params[group].items()})
+    return flat_layer(lp)
 
 
 def flat_layer(lp):
     """One layer's weights with the projections flattened to 2-D."""
     lp = dict(lp)
     d = lp["wq"].shape[0]
-    for name in ("wq", "wk", "wv"):
-        lp[name] = lp[name].reshape(d, -1)
+    for name in ("wq", "wk", "wv", "w_attn_gate"):
+        if name in lp:
+            lp[name] = lp[name].reshape(d, -1)
     lp["wo"] = lp["wo"].reshape(-1, d)
     return lp
 
@@ -326,18 +543,21 @@ def apply_rope(x, cos, sin):
     return out.reshape(x.shape)
 
 
-def _attention(q, k, v, config):
+def _attention(q, k, v, config, window=0):
     """q [B, S, H, D]; k, v [B, S, kv_heads, D] (not repeated: the flash
     kernel reads kv head ``h // n_rep`` itself). ``"ring"`` on one
-    device is the ring of one position."""
+    device is the ring of one position. ``window``: the key window (0 =
+    full causal)."""
     if config.attention == "flash":
-        return flash_attention(q, k, v, causal=True)[0]
+        return flash_attention(q, k, v, causal=True, window=window)[0]
     if config.attention == "ring":
+        if window:
+            raise ValueError("ring attention takes no key window")
         return _ring([q], [k], [v], config)[0]
     n_rep = config.n_heads // config.kv_heads
     return attn_lib.dense_attention(
         q, attn_lib.repeat_kv(k, n_rep), attn_lib.repeat_kv(v, n_rep),
-        causal=True)
+        causal=True, window=window)
 
 
 def _ring(qs, ks, vs, config):
@@ -358,10 +578,26 @@ def _router(h, lp, config):
     e], gate_vals [b, s, k], expert_idx [b, s, k])``."""
     k = min(config.moe_top_k, config.moe_experts)
     logits = torch.einsum("bsd,de->bse", h.float(), lp["router"].float())
+    if "sigmoid_router" in config.features:
+        return _sigmoid_router(logits, lp, config, k)
     probs = torch.softmax(logits, dim=-1)
     gate_vals, expert_idx = torch.topk(probs, k, dim=-1)
     gate_vals = gate_vals / gate_vals.sum(-1, keepdim=True).clamp_min(1e-9)
     return probs, gate_vals, expert_idx
+
+
+def _sigmoid_router(logits, lp, config, k):
+    """AFMoE's routing (Arcee's ``modeling_afmoe.py``): fp32 scores
+    ``σ(logits)``; the top k chosen by the scores plus the per-expert
+    ``router_bias`` (selection only), weighted by their scores alone,
+    renormalised to sum to one and scaled by ``moe_route_scale``."""
+    scores = torch.sigmoid(logits)
+    choice = scores + lp["router_bias"].float() if "router_bias" in lp \
+        else scores
+    expert_idx = torch.topk(choice, k, dim=-1).indices
+    gate_vals = torch.gather(scores, -1, expert_idx)
+    gate_vals = gate_vals / (gate_vals.sum(-1, keepdim=True) + 1e-20)
+    return scores, gate_vals * config.moe_route_scale, expert_idx
 
 
 def _moe_aux(probs, expert_idx, e):
@@ -463,47 +699,74 @@ def _ragged_dot(x, w, counts):
                       for i, xs in enumerate(torch.split(x, counts))])
 
 
-def _ragged_engine(wg, wu, wd, hf, key, tok, gates):
+def _ragged_engine(wgu, wd, hf, key, tok, gates):
     """The plain dropless engine (``_ragged_core`` :352-377): assignment
     ``r`` is token ``tok[r]`` to expert ``key[r]`` with gate
-    ``gates[r]``; a stable sort by expert, the fused gate|up product and
-    the down product per expert over its contiguous rows, the gate
-    scaling and a scatter-add combine into ``[tokens, d]``. Reads the
-    counts on the host."""
-    f = wg.shape[-1]
+    ``gates[r]``; a stable sort by expert, the fused gate|up product
+    (``wgu`` ``[E, d, 2f]``) and the down product per expert over its
+    contiguous rows, the gate scaling and a scatter-add combine into
+    ``[tokens, d]``. Reads the counts on the host."""
+    f = wgu.shape[-1] // 2
     order = torch.argsort(key, stable=True)
-    counts = torch.bincount(key, minlength=wg.shape[0]).tolist()
+    counts = torch.bincount(key, minlength=wgu.shape[0]).tolist()
     tok = tok[order]
-    gu = _ragged_dot(hf[tok], torch.cat([wg, wu], dim=-1), counts)
+    gu = _ragged_dot(hf[tok], wgu, counts)
     rows = _ragged_dot(F.silu(gu[:, :f]) * gu[:, f:], wd, counts)
     rows = rows * gates[order][:, None]
     return torch.zeros_like(hf).index_add(0, tok, rows)
 
 
-def _gmm_rows(wg, wu, wd, hf, key, tok, block_m):
+def _gmm_rows(wgu, wd, hf, key, tok, block_m, tally=None):
     """The grouped-matmul engine's rows (``gmm_inline`` :392-420):
     assignments laid out by :func:`padded_group_layout` over their
     experts ``key``, one int scatter for the dest→source map (padding
     rows point at a trailing zero row), a gather of the tokens ``tok``
-    into ``x_pad``, the fused gate|up grouped matmul, SiLU·up, the down
-    grouped matmul (K6 each; K6 + K7 in the backward) → each
-    assignment's output row, in the given order."""
-    f = wg.shape[-1]
-    pos, be, fst, lst, m_pad = gmm_lib.padded_group_layout(key, wg.shape[0],
+    into ``x_pad``, the fused gate|up grouped matmul (``wgu`` ``[E, d,
+    2f]``), SiLU·up, the down grouped matmul (K6 each; K6 + K7 in the
+    backward) → each assignment's output row, in the given order.
+    ``tally`` (a list) gets the call's :class:`MoeTally`."""
+    f = wgu.shape[-1] // 2
+    n_exp = wgu.shape[0]
+    pos, be, fst, lst, m_pad = gmm_lib.padded_group_layout(key, n_exp,
                                                            block_m)
+    if tally is not None:
+        tally.append(MoeTally(key.shape[0], m_pad, torch.zeros(
+            (n_exp,), dtype=torch.int32, device=key.device).scatter_(
+                0, key.long(), 1).sum()))
     inv = torch.full((m_pad,), hf.shape[0], dtype=torch.long,
                      device=hf.device)
     inv[pos.long()] = tok
     hf_aug = torch.cat([hf, hf.new_zeros((1, hf.shape[1]))])
     x_pad = hf_aug[inv]
-    gu = gmm_lib.gmm(x_pad, torch.cat([wg, wu], dim=-1), be, fst, lst,
-                     block_m)
+    gu = gmm_lib.gmm(x_pad, wgu, be, fst, lst, block_m)
     act = F.silu(gu[:, :f]) * gu[:, f:]
     rows_pad = gmm_lib.gmm(act, wd, be, fst, lst, block_m)
     return rows_pad[pos.long()]
 
 
-def _expert_rows(lp, hf, flat, gates, k, config, sel=None, first=0):
+class MoeTally:
+    """One expert layer call's counts: ``rows`` the token-expert rows
+    computed, ``padded`` the grouped matmul's padded rows (``m_pad``),
+    ``active`` a device scalar, the experts with at least one row (read
+    by whoever copies it off the device)."""
+
+    __slots__ = ("rows", "padded", "active")
+
+    def __init__(self, rows, padded, active):
+        self.rows, self.padded, self.active = rows, padded, active
+
+
+def _expert_weights(lp):
+    """``(gate|up [E, d, 2f], down [E, f, d])``: the AFMoE layout's
+    fused leaf, or the JAX layout's two joined for this call."""
+    wgu = lp.get("we_gu")
+    if wgu is None:
+        wgu = torch.cat([lp["we_gate"], lp["we_up"]], dim=-1)
+    return wgu, lp["we_down"]
+
+
+def _expert_rows(lp, hf, flat, gates, k, config, sel=None, first=0,
+                 tally=None):
     """One expert shard's dropless work on its device → its partial
     ``[tokens, d]``: the assignments ``sel`` (indices into the flattened
     ``[tokens·k]`` choices ``flat``, all when None) to its experts, which
@@ -511,7 +774,7 @@ def _expert_rows(lp, hf, flat, gates, k, config, sel=None, first=0):
     assignment's row back in source order, where a token's k choices are
     adjacent, and combines by a reshape-sum (the rows of other shards'
     assignments exact zeros); the plain engine scatter-adds."""
-    dev = lp["we_gate"].device
+    dev = lp["we_down"].device
     hf = hf.to(dev)
     n_rows = flat.shape[0]
     if sel is None:
@@ -520,18 +783,19 @@ def _expert_rows(lp, hf, flat, gates, k, config, sel=None, first=0):
         key = flat[sel] - first
         tok, g = sel // k, gates[sel]
     key, tok, g = key.to(dev), tok.to(dev), g.to(dev)
-    weights = (lp["we_gate"], lp["we_up"], lp["we_down"])
+    weights = _expert_weights(lp)
     if config.moe_gmm is False:
         return _ragged_engine(*weights, hf, key, tok, g)
-    rows = _gmm_rows(*weights, hf, key, tok, config.moe_gmm_block_m) \
-        * g[:, None]
+    rows = _gmm_rows(*weights, hf, key, tok, config.moe_gmm_block_m,
+                     tally) * g[:, None]
     if sel is not None:
         rows = rows.new_zeros((n_rows, rows.shape[1])).index_copy(
             0, sel.to(dev), rows)
     return rows.reshape(n_rows // k, k, -1).sum(dim=1)
 
 
-def _dropless_experts(h, gate_vals, expert_idx, shards, config):
+def _dropless_experts(h, gate_vals, expert_idx, shards, config,
+                      tally=None):
     """Dropless expert work and combine → ``[b, s, d]``. ``shards`` as
     :func:`_switch_experts`'. With one expert shard every assignment is
     computed there; over several (``_dropless_moe``'s ``manual``,
@@ -554,23 +818,31 @@ def _dropless_experts(h, gate_vals, expert_idx, shards, config):
         order = torch.argsort(owner, stable=True)
         sels = torch.split(order, torch.bincount(
             owner, minlength=len(shards)).tolist())
-    parts = [_expert_rows(lp, hf, flat, gates, k, config, sel, c * el)
-             .to(h.device)
+    parts = [_expert_rows(lp, hf, flat, gates, k, config, sel, c * el,
+                          tally).to(h.device)
              for c, (sel, group) in enumerate(zip(sels, shards))
              if sel is None or sel.numel()
              for _, lp in group]
     return functools.reduce(torch.add, parts).reshape(b, s, d)
 
 
-def _dropless_moe(h, lp, config, row_aux=False):
+def _dropless_moe(h, lp, config, row_aux=False, tally=None):
     """Dropless MoE (``_dropless_moe`` :323-493) on one device: every
     (token, choice) assignment is computed, no capacity buffers. The
     grouped-matmul engine for ``moe_gmm`` True or "auto", the plain
-    ragged engine for False. → ``(out [b, s, d], aux)``, aux in row form
-    with ``row_aux``."""
+    ragged engine for False; the shared experts' SwiGLU added where the
+    layer has one. → ``(out [b, s, d], aux)``, aux in row form with
+    ``row_aux`` (None with the sigmoid router, which no loss reads)."""
     probs, gate_vals, expert_idx = _router(h, lp, config)
     out = _dropless_experts(h, gate_vals, expert_idx, [[(h.device, lp)]],
-                            config)
+                            config, tally)
+    if "ws_gu" in lp:
+        gu = torch.matmul(h, lp["ws_gu"])
+        fs = gu.shape[-1] // 2
+        out = out + torch.matmul(F.silu(gu[..., :fs]) * gu[..., fs:],
+                                 lp["ws_down"])
+    if "sigmoid_router" in config.features:
+        return out, None
     return out, _aux(probs, expert_idx, config.moe_experts, row_aux)
 
 
@@ -584,81 +856,105 @@ def _swiglu(h, lp):
     return F.silu(gate) * up
 
 
-def _mlp(h, lp, config, row_aux=False):
+def _mlp(h, lp, config, row_aux=False, tally=None):
     """The layer's MLP → ``(down [B, S, D], aux)``: MoE (dropless or
     capacity) with its aux loss (in row form with ``row_aux``), or the
-    dense SwiGLU with aux None."""
-    if config.moe_experts and config.moe_dropless:
-        return _dropless_moe(h, lp, config, row_aux)
+    dense SwiGLU with aux None (a leading dense layer of the AFMoE
+    layout holds ``w_gate``)."""
+    if not config.moe_experts or "w_gate" in lp:
+        return torch.matmul(_swiglu(h, lp), lp["w_down"]), None
+    if config.moe_dropless:
+        return _dropless_moe(h, lp, config, row_aux, tally)
     if config.moe_experts:
         return _switch_moe(h, lp, config, row_aux)
     return torch.matmul(_swiglu(h, lp), lp["w_down"]), None
 
 
-class _Whole:
-    """The unsharded layer as the one shard of itself: the hooks of
-    :func:`layer_core`'s sharded form over one parameter dict."""
-
-    def __init__(self, lp):
-        self.lp = lp
-        self.layers = [lp]
-
-    def norm(self, x, name):
-        return [_rmsnorm(x, self.lp[name])]
-
-    def project(self, x, pieces, name):
-        return x + torch.matmul(pieces[0], self.lp[name])
-
-
-def layer_core(x, lp, attend, config, shards=None, row_aux=False):
+def layer_core(x, lp, attend, config, shards=None, row_aux=False,
+               tally=None):
     """The transformer layer with attention abstracted — ``attend(q, k,
     v) → (o, extra)`` gets the projected (pre-RoPE) heads → ``(x, extra,
-    aux)``, aux the MoE load-balancing loss (None for a dense MLP; with
-    ``row_aux`` the unsharded layer gives it in ``pipeline.train_1f1b``'s
-    row form, :func:`_moe_row_aux`).
+    aux)``, aux the MoE load-balancing loss (None for a dense MLP or the
+    sigmoid router; with ``row_aux`` the unsharded layer gives it in
+    ``pipeline.train_1f1b``'s row form, :func:`_moe_row_aux`).
     Shared by :func:`apply` and the generation engine's prefill, decode,
     verify and draft, sharded or not, so the cached and sharded paths
     cannot drift from the model.
 
+    Unsharded (``shards`` None): ``h = norm(x)``; q, k, v; an RMSNorm on
+    each q and k head (``qk_norm``); ``attend``; the output times ``σ(h
+    W_gate)`` (``attn_gate``); ``x + wo(·)``, the product normed first
+    with ``sandwich_norm`` (``post_attn_norm``); then ``x +
+    mlp(mlp_norm(x))``, likewise (``post_mlp_norm``). The family's parts
+    (:attr:`Config.features`) are Arcee's ``modeling_afmoe.py``'s; with
+    none this is JAX's layer. ``tally`` (a list) gets each expert call's
+    :class:`MoeTally`.
+
     The sharded form (the engine's tensor mesh, the training mesh; a
-    dense MLP): ``shards`` holds ``layers``, each shard's layer params
-    with its column slices of wq/wk/wv and w_gate/w_up; ``norm(x,
-    name)``, each shard's normed input; and ``project(x, pieces,
-    name)``, the residual plus the shards' head or hidden slices brought
-    back to full width through ``wo``/``w_down``. ``x`` is whatever
-    those hooks take, ``lp`` is unused, and ``attend(heads) → outs``
-    gets every shard's projected ``(q, k, v)`` over its local heads at
-    once (a ring needs the other shards' K/V; :func:`each_shard` makes
-    one from a per-shard read). The unsharded layer is the one-shard
-    case. A mixture of experts hands the MLP to ``moe(x) → (x, aux)``
-    (the training mesh's expert parallelism), its aux the per-row
-    statistics of :func:`_row_stats`."""
-    whole = shards is None
-    if whole:
-        shards = _Whole(lp)
+    dense MLP, no family's parts): ``shards`` holds ``layers``, each
+    shard's layer params with its column slices of wq/wk/wv and
+    w_gate/w_up; ``norm(x, name)``, each shard's normed input; and
+    ``project(x, pieces, name)``, the residual plus the shards' head or
+    hidden slices brought back to full width through ``wo``/``w_down``.
+    ``x`` is whatever those hooks take, ``lp`` is unused, and
+    ``attend(heads) → outs`` gets every shard's projected ``(q, k, v)``
+    over its local heads at once (a ring needs the other shards' K/V;
+    :func:`each_shard` makes one from a per-shard read). A mixture of
+    experts hands the MLP to ``moe(x) → (x, aux)`` (the training mesh's
+    expert parallelism), its aux the per-row statistics of
+    :func:`_row_stats`."""
+    if shards is None:
+        return _whole_layer(x, lp, attend, config, row_aux, tally)
+    if config.extended:
+        raise ValueError(f"{', '.join(config.extended)} run unsharded only")
     hd = config.head_dim
     heads = []
     for sp, h in zip(shards.layers, shards.norm(x, "attn_norm")):
         B, S, _ = h.shape
         heads.append(tuple(torch.matmul(h, sp[w]).view(B, S, -1, hd)
                            for w in ("wq", "wk", "wv")))
-    extra = None
-    if whole:
-        o, extra = attend(*heads[0])
-        outs = [o]
-    else:
-        outs = attend(heads)
-    outs = [o.reshape(*o.shape[:2], -1) for o in outs]
+    outs = [o.reshape(*o.shape[:2], -1) for o in attend(heads)]
     x = shards.project(x, outs, "wo")
-    if config.moe_experts and not whole:
+    if config.moe_experts:
         x, aux = shards.moe(x)
         return x, None, aux
-    hs = shards.norm(x, "mlp_norm")
-    if whole:
-        down, aux = _mlp(hs[0], lp, config, row_aux)
-        return x + down, extra, aux
-    acts = [_swiglu(h, sp) for sp, h in zip(shards.layers, hs)]
+    acts = [_swiglu(h, sp)
+            for sp, h in zip(shards.layers, shards.norm(x, "mlp_norm"))]
     return shards.project(x, acts, "w_down"), None, None
+
+
+def _whole_layer(x, lp, attend, config, row_aux, tally):
+    """:func:`layer_core`'s unsharded form."""
+    parts, eps = config.features, config.norm_eps
+    h = _rmsnorm(x, lp["attn_norm"], eps)
+    B, S, _ = h.shape
+    q, k, v = (torch.matmul(h, lp[w]).view(B, S, -1, config.head_dim)
+               for w in ("wq", "wk", "wv"))
+    if "qk_norm" in parts:
+        q = _rmsnorm(q, lp["q_norm"], eps)
+        k = _rmsnorm(k, lp["k_norm"], eps)
+    o, extra = attend(q, k, v)
+    o = o.reshape(B, S, -1)
+    if "attn_gate" in parts:
+        o = o * torch.sigmoid(torch.matmul(h, lp["w_attn_gate"]))
+    a = torch.matmul(o, lp["wo"])
+    if "sandwich_norm" in parts:
+        a = _rmsnorm(a, lp["post_attn_norm"], eps)
+    x = x + a
+    down, aux = _mlp(_rmsnorm(x, lp["mlp_norm"], eps), lp, config, row_aux,
+                     tally)
+    if "sandwich_norm" in parts:
+        down = _rmsnorm(down, lp["post_mlp_norm"], eps)
+    return x + down, extra, aux
+
+
+def embed(table, tokens, config):
+    """The residual stream's start: the rows of ``table`` (compute
+    dtype), times ``√d_model`` where the family has ``embed_scale``."""
+    x = table[tokens]
+    if "embed_scale" in config.features:
+        return x * math.sqrt(config.d_model)
+    return x
 
 
 def each_shard(attend):
@@ -667,15 +963,17 @@ def each_shard(attend):
     return lambda heads: [attend(i, *h) for i, h in enumerate(heads)]
 
 
-def _layer(lp, x, rope, config, row_aux=False):
+def _layer(lp, x, rope, config, row_aux=False, window=0, turn=True):
     """One layer on one device → ``(x, aux)``; ``row_aux`` gives an MoE
     layer's aux in row form, as ``pipeline.train_1f1b`` on a ``data``
-    axis needs it."""
+    axis needs it. ``window``: the layer's key window; ``turn``: whether
+    it applies RoPE."""
     cos, sin = rope
 
     def attend(q, k, v):
-        return _attention(apply_rope(q, cos, sin), apply_rope(k, cos, sin),
-                          v, config), None
+        if turn:
+            q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
+        return _attention(q, k, v, config, window), None
 
     x, _, aux = layer_core(x, lp, attend, config, row_aux=row_aux)
     return x, aux
@@ -692,16 +990,17 @@ def backbone(params, tokens, config):
     microbatches (:547-562; aux then the mean over layers ×
     microbatches)."""
     p = cast_params(params, config.compute_dtype)
-    x = p["embed"][tokens.long()]
+    x = embed(p["embed"], tokens.long(), config)
     positions = torch.arange(tokens.shape[1], device=x.device)
     rope = rope_tables(config, positions)
     remat = config.remat and torch.is_grad_enabled()
 
-    def layer(lp, x):
+    def layer(lp, x, i=0):
+        how = (config.layer_window(i), config.layer_rope(i))
         if remat:
-            return checkpoint(_layer, lp, x, rope, config,
+            return checkpoint(_layer, lp, x, rope, config, False, *how,
                               use_reentrant=False)
-        return _layer(lp, x, rope, config)
+        return _layer(lp, x, rope, config, False, *how)
 
     layers = [layer_params(p, i) for i in range(config.n_layers)]
     if config.pipeline_stages > 1:
@@ -710,11 +1009,11 @@ def backbone(params, tokens, config):
         aux = pipeline_lib.aux_mean(auxs, x.device)
     else:
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
-        for lp in layers:
-            x, a = layer(lp, x)
+        for i, lp in enumerate(layers):
+            x, a = layer(lp, x, i)
             if a is not None:
                 aux = aux + a / config.n_layers
-    return _rmsnorm(x, p["final_norm"]), aux
+    return _rmsnorm(x, p["final_norm"], config.norm_eps), aux
 
 
 def _logits(x, head):
@@ -790,6 +1089,7 @@ def loss_fn(params, batch, config):
     0-d tensors: reading one waits for the device. Params placed on a
     mesh (``train.init_state(mesh=)``) and a batch from
     ``data.shard_batch`` run the mesh forward (:func:`_mesh_loss`)."""
+    train_unsupported(config)
     mesh = sharding.mesh_of(params)
     if mesh is not None:
         return _mesh_loss(params, batch, config, mesh)
@@ -856,7 +1156,8 @@ class _TrainShards:
     def norm(self, x, name):
         out = []
         for xj, group in zip(x, self._groups(x)):
-            h = _rmsnorm(xj, self.layers[group[0]][name])
+            h = _rmsnorm(xj, self.layers[group[0]][name],
+                         self.config.norm_eps)
             out.extend(h.to(self.devices[i]) for i in group)
         return out
 
@@ -880,7 +1181,8 @@ class _TrainShards:
         [b, 2, e] summed over the chunks, on chunk 0's lead)``."""
         c = self.config
         leads = [self.layers[g[0]] for g in self._groups(x)]
-        hs = [_rmsnorm(xj, lp["mlp_norm"]) for xj, lp in zip(x, leads)]
+        hs = [_rmsnorm(xj, lp["mlp_norm"], c.norm_eps)
+              for xj, lp in zip(x, leads)]
         if c.moe_dropless:
             outs, stats = [], []
             for j, (h, lp) in enumerate(zip(hs, leads)):
@@ -996,7 +1298,8 @@ def _piece_loss(params, batch, config, mesh, lead):
         targets = local("targets", pos, j).long()
         mask = _mask({"mask": local("mask", pos, j)} if "mask" in batch
                      else {}, targets)
-        xj = _rmsnorm(xj, params["final_norm"].gather_at(pos, cast=cast))
+        xj = _rmsnorm(xj, params["final_norm"].gather_at(pos, cast=cast),
+                      config.norm_eps)
         terms.append(_loss_terms(xj, params["head"].gather_at(pos, cast=cast),
                                  targets, mask, config))
     dev = mesh.devices[at(last, 0)]
@@ -1079,6 +1382,7 @@ def flops_per_token(config):
 def param_count(config):
     """Number of parameters (``transformer.py:638``)."""
     c = config
+    sizes = _group_sizes(c)
     return (2 * c.vocab_size * c.d_model + c.d_model     # embed, head, norm
-            + c.n_layers * sum(math.prod(s)
-                               for s in _layer_shapes(c).values()))
+            + sum(sizes[g] * sum(math.prod(s) for s, _ in v.values())
+                  for g, v in _shapes(c).items() if isinstance(v, dict)))

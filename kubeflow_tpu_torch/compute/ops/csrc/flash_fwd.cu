@@ -25,6 +25,14 @@
 // over the tensor cores' 989 TFLOP/s (bf16). Short prompts (S = 8) are
 // bytes- and launch-bound.
 //
+// A key window (window > 0, causal only; the sliding layers of a model
+// that mixes windowed and global attention): query row q reads keys
+// [q - window + 1, q]. A query tile's key walk starts at the tile holding
+// its first row's first key, the tiles below it are never loaded, and
+// the edge tiles mask the keys below each row's window (the diagonal is
+// always inside, so every row keeps a key); window 0 is the causal or
+// full walk, unchanged.
+//
 // Two designs, chosen by dtype:
 // bf16 (flash_fwd_tc_kernel) — the FlashAttention-2 form on the tensor
 //   cores (mma.sync m16n8k16, bf16 operands, fp32 accumulators; helpers
@@ -74,7 +82,8 @@ flash_fwd_kernel(const T* __restrict__ q,   // [B, S, H, D], pre-scaled
                  const T* __restrict__ v,   // [B, Sk, kv_heads, D]
                  T* __restrict__ out,       // [B, S, H, D]
                  float* __restrict__ lse,   // [B, H, S]
-                 int S, int Sk, int H, int kv_heads, int causal) {
+                 int S, int Sk, int H, int kv_heads, int causal,
+                 int window) {
   constexpr int kVec = vec_width<T>();
   constexpr int kRowUnits = D / kVec;                  // 16-byte words a row
   constexpr int kLoads = kBk * kRowUnits / kThreads;   // per thread, per tile
@@ -141,8 +150,11 @@ flash_fwd_kernel(const T* __restrict__ q,   // [B, S, H, D], pre-scaled
 
   // causal: keys past the tile's last row are masked for every row
   const int k_end = causal ? min(Sk, q0 + kBq) : Sk;
-  load_tile(0);
-  for (int k0 = 0; k0 < k_end; k0 += kBk) {
+  // window: keys below the tile's first row's window are masked for
+  // every row of the tile
+  const int k_begin = window > 0 ? max(q0 - window + 1, 0) / kBk * kBk : 0;
+  load_tile(k_begin);
+  for (int k0 = k_begin; k0 < k_end; k0 += kBk) {
     __syncthreads();   // q_s is loaded; the last tile's readers are done
 #pragma unroll
     for (int j = 0; j < kLoads; ++j) {
@@ -187,7 +199,8 @@ flash_fwd_kernel(const T* __restrict__ q,   // [B, S, H, D], pre-scaled
 #pragma unroll
       for (int j = 0; j < kCols; ++j) {
         const int kpos = k0 + tx + 8 * j;
-        valid[j] = kpos < Sk && (!causal || kpos <= qpos);
+        valid[j] = kpos < Sk && (!causal || kpos <= qpos) &&
+                   (window == 0 || kpos > qpos - window);
         if (!valid[j]) sc[r][j] = kNegInf;
         mx = fmaxf(mx, sc[r][j]);
       }
@@ -268,7 +281,8 @@ flash_fwd_tc_kernel(const bf16* __restrict__ q,   // [B, S, H, D], pre-scaled
                     const bf16* __restrict__ v,   // [B, Sk, kv_heads, D]
                     bf16* __restrict__ out,       // [B, S, H, D]
                     float* __restrict__ lse,      // [B, H, S]
-                    int B, int S, int Sk, int H, int kv_heads, int causal) {
+                    int B, int S, int Sk, int H, int kv_heads, int causal,
+                    int window) {
   constexpr int kStride = tc_stride<D>();
   constexpr int kChunks = D / 8;     // 16-byte chunks a row
   constexpr int kKs = D / 16;        // k-slices of q.K^T
@@ -324,12 +338,14 @@ flash_fwd_tc_kernel(const bf16* __restrict__ q,   // [B, S, H, D], pre-scaled
       cp_async16(v_dst + dst, v + off, s < Sk);
     }
   };
-  load_kv(0, 0);
-  cp_async_commit();   // group 0: the q tile and the first K/V tile
-
-  // causal: keys past the tile's last row are masked for every row
+  // causal: keys past the tile's last row are masked for every row;
+  // window: keys below the tile's first row's window likewise
   const int k_end = causal ? min(Sk, q0 + kTcBq) : Sk;
   const int n_kt = (k_end + kTcBk - 1) / kTcBk;
+  const int kt_lo = window > 0 ? max(q0 - window + 1, 0) / kTcBk : 0;
+  load_kv(kt_lo * kTcBk, 0);
+  cp_async_commit();   // group 0: the q tile and the first K/V tile
+
   const int row0 = q0 + warp * 16 + g;   // this lane's rows: row0, row0 + 8
 
   // ldmatrix row addresses of this lane (see mma.cuh): A from q rows,
@@ -350,8 +366,8 @@ flash_fwd_tc_kernel(const bf16* __restrict__ q,   // [B, S, H, D], pre-scaled
   float m[2] = {kNegInf, kNegInf};
   float l[2] = {0.f, 0.f};   // this lane's partial sums; the quad's at the end
 
-  for (int kt = 0; kt < n_kt; ++kt) {
-    const int stage = kt % 2;
+  for (int kt = kt_lo; kt < n_kt; ++kt) {
+    const int stage = (kt - kt_lo) % 2;
     // one barrier a tile: tile kt has landed for every thread, and every
     // warp is done with tile kt - 1, whose buffer the next load reuses
     cp_async_wait<0>();
@@ -360,7 +376,7 @@ flash_fwd_tc_kernel(const bf16* __restrict__ q,   // [B, S, H, D], pre-scaled
       load_kv((kt + 1) * kTcBk, stage ^ 1);
       cp_async_commit();
     }
-    if (kt == 0) {
+    if (kt == kt_lo) {
 #pragma unroll
       for (int ks = 0; ks < kKs; ++ks)
         ldmatrix_x4(qf[ks], q_addr + ks * 16 * sizeof(bf16));
@@ -389,7 +405,8 @@ flash_fwd_tc_kernel(const bf16* __restrict__ q,   // [B, S, H, D], pre-scaled
     // entries), then the online softmax of rows row0 (i = 0, 1) and
     // row0 + 8 (i = 2, 3)
     const int k0 = kt * kTcBk;
-    const bool masked = k0 + kTcBk > Sk || (causal && k0 + kTcBk - 1 > q0);
+    const bool masked = k0 + kTcBk > Sk || (causal && k0 + kTcBk - 1 > q0) ||
+                        (window > 0 && k0 < q0 + kTcBq - window);
     if (masked) {
 #pragma unroll
       for (int j = 0; j < kNb; ++j)
@@ -397,7 +414,9 @@ flash_fwd_tc_kernel(const bf16* __restrict__ q,   // [B, S, H, D], pre-scaled
         for (int i = 0; i < 4; ++i) {
           const int kpos = k0 + j * 8 + 2 * t + (i % 2);
           const int qpos = row0 + (i / 2) * 8;
-          if (kpos >= Sk || (causal && kpos > qpos)) sc[j][i] = kNegInf;
+          if (kpos >= Sk || (causal && kpos > qpos) ||
+              (window > 0 && kpos <= qpos - window))
+            sc[j][i] = kNegInf;
         }
     }
     float mx[2] = {m[0], m[1]};
@@ -474,7 +493,7 @@ flash_fwd_tc_kernel(const bf16* __restrict__ q,   // [B, S, H, D], pre-scaled
 template <int D>
 int launch_tc(const void* q, const void* k, const void* v, void* out,
               void* lse, int B, int S, int Sk, int H, int kv_heads,
-              int causal, cudaStream_t stream) {
+              int causal, int window, cudaStream_t stream) {
   const size_t smem = tc_smem_bytes<D>();
   static bool attribute_set = false;   // once per instantiation
   if (!attribute_set) {
@@ -488,7 +507,7 @@ int launch_tc(const void* q, const void* k, const void* v, void* out,
   flash_fwd_tc_kernel<D><<<blocks, kTcThreads, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<bf16*>(out),
-      static_cast<float*>(lse), B, S, Sk, H, kv_heads, causal);
+      static_cast<float*>(lse), B, S, Sk, H, kv_heads, causal, window);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -496,7 +515,7 @@ int launch_tc(const void* q, const void* k, const void* v, void* out,
 
 template <typename T, int D>
 int launch(const void* q, const void* k, const void* v, void* out, void* lse,
-           int B, int S, int Sk, int H, int kv_heads, int causal,
+           int B, int S, int Sk, int H, int kv_heads, int causal, int window,
            cudaStream_t stream) {
   const size_t smem = smem_floats<D>() * sizeof(float);
   static bool attribute_set = false;   // once per instantiation
@@ -511,31 +530,32 @@ int launch(const void* q, const void* k, const void* v, void* out, void* lse,
   flash_fwd_kernel<T, D><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(out), static_cast<float*>(lse),
-      S, Sk, H, kv_heads, causal);
+      S, Sk, H, kv_heads, causal, window);
   return static_cast<int>(cudaGetLastError());
 }
 
 // fp32 on the CUDA cores, bf16 on the tensor cores
 int dispatch_dim(int head_dim, int dtype, const void* q, const void* k,
                  const void* v, void* out, void* lse, int B, int S, int Sk,
-                 int H, int kv_heads, int causal, cudaStream_t s) {
+                 int H, int kv_heads, int causal, int window,
+                 cudaStream_t s) {
   const bool tc = dtype == 1;
   switch (head_dim) {
     case 32:
       return tc ? launch_tc<32>(q, k, v, out, lse, B, S, Sk, H, kv_heads,
-                                causal, s)
+                                causal, window, s)
                 : launch<float, 32>(q, k, v, out, lse, B, S, Sk, H, kv_heads,
-                                    causal, s);
+                                    causal, window, s);
     case 64:
       return tc ? launch_tc<64>(q, k, v, out, lse, B, S, Sk, H, kv_heads,
-                                causal, s)
+                                causal, window, s)
                 : launch<float, 64>(q, k, v, out, lse, B, S, Sk, H, kv_heads,
-                                    causal, s);
+                                    causal, window, s);
     case 128:
       return tc ? launch_tc<128>(q, k, v, out, lse, B, S, Sk, H, kv_heads,
-                                 causal, s)
+                                 causal, window, s)
                 : launch<float, 128>(q, k, v, out, lse, B, S, Sk, H,
-                                     kv_heads, causal, s);
+                                     kv_heads, causal, window, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -544,18 +564,21 @@ int dispatch_dim(int head_dim, int dtype, const void* q, const void* k,
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. Pointers must be 16-byte aligned.
-// Returns a cudaError_t (0 = launched).
-extern "C" int kubeflow_flash_fwd(const void* q, const void* k, const void* v,
-                                  void* out, void* lse, int batch, int seq_q,
-                                  int seq_k, int heads, int kv_heads,
-                                  int head_dim, int causal, int dtype,
-                                  void* stream) {
+// window: the key window (0 = none; causal only). Returns a cudaError_t
+// (0 = launched).
+extern "C" int kubeflow_flash_fwd_window(const void* q, const void* k,
+                                         const void* v, void* out, void* lse,
+                                         int batch, int seq_q, int seq_k,
+                                         int heads, int kv_heads, int head_dim,
+                                         int causal, int window, int dtype,
+                                         void* stream) {
   if (batch < 0 || seq_q < 0 || seq_k < 1 || heads < 1 || kv_heads < 1 ||
-      heads % kv_heads != 0 || (causal && seq_q != seq_k))
+      heads % kv_heads != 0 || (causal && seq_q != seq_k) || window < 0 ||
+      (window > 0 && !causal))
     return static_cast<int>(cudaErrorInvalidValue);
   if (batch == 0 || seq_q == 0) return 0;
   if (dtype != 0 && dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
   return dispatch_dim(head_dim, dtype, q, k, v, out, lse, batch, seq_q, seq_k,
-                      heads, kv_heads, causal,
+                      heads, kv_heads, causal, window,
                       static_cast<cudaStream_t>(stream));
 }

@@ -3,10 +3,10 @@
 // Replaces the Pallas TPU kernel
 //   kubeflow_tpu/compute/ops/paged_attention.py::_chunk_kernel
 // (called through paged_chunk_attention, same file), both its float
-// pages and its int8_pages branch (:236-240): kubeflow_paged_chunk takes
-// pages in q's dtype, kubeflow_paged_chunk_i8 (K2-i8) int8 pages with one
-// fp32 scale per (position, kv head). Wrapper, plain PyTorch version and
-// launch counters: ../paged_attention.py.
+// pages and its int8_pages branch (:236-240): kubeflow_paged_chunk_window
+// takes pages in q's dtype, kubeflow_paged_chunk_i8_window (K2-i8) int8
+// pages with one fp32 scale per (position, kv head). Wrapper, plain
+// PyTorch version and launch counters: ../paged_attention.py.
 //
 // What it computes: for every batch row b, chunk position s and query
 // head h (kv head h / n_rep), over the key sequence
@@ -22,6 +22,14 @@
 // rounds p). Masked keys carry -1e30 and an explicit zero p, so a fold
 // that is masked for a row adds no mass; a row that saw no key divides
 // by 1. A zero prefix reads no page, whatever the table holds.
+//
+// A key window (window > 0, the sliding layers of a model that mixes
+// windowed and global attention): the row at global position p = plen + s
+// reads keys [p - window + 1, p] only (the virtual key index is the
+// global position). A row tile's key walk starts at the tile holding its
+// first row's first key, the tiles below it are never loaded, and the
+// edge tiles mask the keys below each row's window; window 0 is the whole
+// walk, unchanged.
 //
 // Bound on this card, at the serving path's shapes: bytes for the verify
 // (8 slots x 5 rows: ~40 FLOPs per K/V byte) and for short chunks;
@@ -115,7 +123,8 @@ paged_chunk_kernel(const T* __restrict__ q,        // [B, S, H, D], pre-scaled
                    const T* __restrict__ k_chunk,  // [B, S, kv_heads, D]
                    const T* __restrict__ v_chunk,  // [B, S, kv_heads, D]
                    T* __restrict__ out,            // [B, S, H, D]
-                   int S, int kv_heads, int n_rep, int bs, int bps) {
+                   int S, int kv_heads, int n_rep, int bs, int bps,
+                   int window) {
   constexpr bool kInt8 = std::is_same<P, int8_t>::value;
   constexpr int kVec = vec_width<T>();
   constexpr int kUnitCols = vec_width<P>();            // columns a unit
@@ -215,8 +224,12 @@ paged_chunk_kernel(const T* __restrict__ q,        // [B, S, H, D], pre-scaled
     for (int j = 0; j < D / 8; ++j) o[r][j] = 0.f;
   }
 
-  load_tile(0);
-  for (int k0 = 0; k0 < n_keys; k0 += kBk) {
+  // window: keys below the tile's first row's window are masked for
+  // every row of the tile
+  const int k_begin =
+      window > 0 ? max(plen + s0 - window + 1, 0) / kBk * kBk : 0;
+  load_tile(k_begin);
+  for (int k0 = k_begin; k0 < n_keys; k0 += kBk) {
     __syncthreads();   // q_s is loaded; the last tile's readers are done
 #pragma unroll
     for (int j = 0; j < kLoads; ++j) {
@@ -280,7 +293,8 @@ paged_chunk_kernel(const T* __restrict__ q,        // [B, S, H, D], pre-scaled
 #pragma unroll
       for (int j = 0; j < kCols; ++j) {
         const int t = k0 + tx + 8 * j;
-        valid[j] = t < plen || (t < n_keys && t - plen <= qpos[r]);
+        valid[j] = (t < plen || (t < n_keys && t - plen <= qpos[r])) &&
+                   (window == 0 || t > plen + qpos[r] - window);
         if (!valid[j]) sc[r][j] = kNegInf;
         mx = fmaxf(mx, sc[r][j]);
       }
@@ -367,7 +381,7 @@ paged_chunk_tc_kernel(const bf16* __restrict__ q,       // [B, S, H, D], pre-sca
                       bf16* __restrict__ out,           // [B, S, H, D]
                       float* __restrict__ ws,
                       int B, int S, int kv_heads, int n_rep, int bs, int bps,
-                      int splits) {
+                      int splits, int window) {
   constexpr bool kInt8 = std::is_same<P, int8_t>::value;
   constexpr int kStride = D + 8;     // bf16 elements a shared row
   constexpr int kChunks = D / 8;     // 16-byte chunks a bf16 row
@@ -405,11 +419,14 @@ paged_chunk_tc_kernel(const bf16* __restrict__ q,       // [B, S, H, D], pre-sca
   const int plen = min(max(plens[b], 0), bps * bs);
   const int* table = tables + static_cast<size_t>(b) * bps;
   // the virtual key sequence: plen prefix positions, then the chunk's
-  // columns up to this tile's last position; this split's key tiles
+  // columns up to this tile's last position; with a window, from the
+  // key tile of the tile's first row's first key; this split's key tiles
   const int n_keys = plen + min(S, s0 + per_tile);
   const int n_kt = (n_keys + kTcBk - 1) / kTcBk;
-  const int kt0 = split * n_kt / splits;
-  const int kt1 = (split + 1) * n_kt / splits;
+  const int kt_lo =
+      window > 0 ? max(plen + s0 - window + 1, 0) / kTcBk : 0;
+  const int kt0 = kt_lo + split * (n_kt - kt_lo) / splits;
+  const int kt1 = kt_lo + (split + 1) * (n_kt - kt_lo) / splits;
 
   // row f of the tile is position s0 + f / n_rep, head kvh*n_rep + f % n_rep
   for (int c = tid; c < kTcBr * kChunks; c += kTcThreads) {
@@ -562,18 +579,20 @@ paged_chunk_tc_kernel(const bf16* __restrict__ q,       // [B, S, H, D], pre-sca
       }
     }
 
-    // mask (a tile wholly inside the prefix has none), then the online
-    // softmax of rows g (i = 0, 1) and g + 8 (i = 2, 3)
+    // mask (a tile wholly inside the prefix and the windows has none),
+    // then the online softmax of rows g (i = 0, 1) and g + 8 (i = 2, 3)
     const int k0 = kt * kTcBk;
-    const bool masked = k0 + kTcBk > plen;
+    const bool masked = k0 + kTcBk > plen ||
+                        (window > 0 && k0 < plen + s0 + per_tile - window);
     if (masked) {
 #pragma unroll
       for (int j = 0; j < kNb; ++j)
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
           const int key = k0 + j * 8 + 2 * t + (i % 2);
-          const bool valid = key < plen || (key < n_keys &&
-                                            key - plen <= qpos[i / 2]);
+          const bool valid =
+              (key < plen || (key < n_keys && key - plen <= qpos[i / 2])) &&
+              (window == 0 || key > plen + qpos[i / 2] - window);
           if (!valid) sc[j][i] = kNegInf;
         }
     }
@@ -700,7 +719,7 @@ paged_chunk_combine_kernel(const float* __restrict__ ws,
 struct Args {
   const void *q, *k, *v, *ks, *vs, *tables, *plens, *kch, *vch;
   void *out, *ws;
-  int B, S, kv_heads, n_rep, bs, bps, splits;
+  int B, S, kv_heads, n_rep, bs, bps, splits, window;
 };
 
 template <typename Kernel>
@@ -729,7 +748,7 @@ int launch(const Args& a, cudaStream_t stream) {
       static_cast<const float*>(a.vs), static_cast<const int*>(a.tables),
       static_cast<const int*>(a.plens), static_cast<const float*>(a.kch),
       static_cast<const float*>(a.vch), static_cast<float*>(a.out), a.S,
-      a.kv_heads, a.n_rep, a.bs, a.bps);
+      a.kv_heads, a.n_rep, a.bs, a.bps, a.window);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -749,7 +768,7 @@ int launch_tc(const Args& a, cudaStream_t stream) {
       static_cast<const int*>(a.plens), static_cast<const bf16*>(a.kch),
       static_cast<const bf16*>(a.vch), static_cast<bf16*>(a.out),
       static_cast<float*>(a.ws), a.B, a.S, a.kv_heads, a.n_rep, a.bs, a.bps,
-      a.splits);
+      a.splits, a.window);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || a.splits == 1) return static_cast<int>(err);
   const int n_rows = a.B * a.kv_heads * a.S * a.n_rep;
@@ -788,7 +807,8 @@ int run(bool int8, const Args& a, int head_dim, int dtype, void* stream) {
   if (a.n_rep < 1 || a.n_rep > kMaxRep || a.kv_heads < 1 || a.bs < 1 ||
       a.bps < 1 || a.B < 0 || a.S < 0 || a.B > 65535 ||
       a.kv_heads > 65535 || a.splits < 1 ||
-      (a.splits > 1 && a.ws == nullptr) || (dtype != 0 && dtype != 1))
+      (a.splits > 1 && a.ws == nullptr) || (dtype != 0 && dtype != 1) ||
+      a.window < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   if (a.B == 0 || a.S == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -804,32 +824,32 @@ int run(bool int8, const Args& a, int head_dim, int dtype, void* stream) {
 // key walk's splits (1 for float32); ws: the workspace of the splits'
 // partials, fp32 [splits x rows x (head_dim + 2)] with rows = batch x
 // kv_heads x seq x n_rep (null for one split); nothing in it needs to be
-// zeroed. Returns a cudaError_t (0 = launched).
-extern "C" int kubeflow_paged_chunk(const void* q, const void* k_pages,
-                                    const void* v_pages, const void* tables,
-                                    const void* plens, const void* k_chunk,
-                                    const void* v_chunk, void* out, void* ws,
-                                    int batch, int seq, int kv_heads,
-                                    int n_rep, int head_dim, int block_size,
-                                    int bps, int splits, int dtype,
-                                    void* stream) {
+// zeroed. window: the key window (0 = none). Returns a cudaError_t (0 =
+// launched).
+extern "C" int kubeflow_paged_chunk_window(
+    const void* q, const void* k_pages, const void* v_pages,
+    const void* tables, const void* plens, const void* k_chunk,
+    const void* v_chunk, void* out, void* ws, int batch, int seq,
+    int kv_heads, int n_rep, int head_dim, int block_size, int bps,
+    int splits, int window, int dtype, void* stream) {
   const Args a{q, k_pages, v_pages, nullptr, nullptr, tables, plens,
                k_chunk, v_chunk, out, ws, batch, seq, kv_heads, n_rep,
-               block_size, bps, splits};
+               block_size, bps, splits, window};
   return run(false, a, head_dim, dtype, stream);
 }
 
 // K2-i8: int8 prefix pages [N, bs, kv_heads, D] with fp32 scales
 // [N, bs, kv_heads, 1]; the chunk's K/V in q's dtype; otherwise as
-// kubeflow_paged_chunk.
-extern "C" int kubeflow_paged_chunk_i8(
+// kubeflow_paged_chunk_window.
+extern "C" int kubeflow_paged_chunk_i8_window(
     const void* q, const void* k_pages, const void* v_pages,
     const void* k_scales, const void* v_scales, const void* tables,
     const void* plens, const void* k_chunk, const void* v_chunk, void* out,
     void* ws, int batch, int seq, int kv_heads, int n_rep, int head_dim,
-    int block_size, int bps, int splits, int dtype, void* stream) {
+    int block_size, int bps, int splits, int window, int dtype,
+    void* stream) {
   const Args a{q, k_pages, v_pages, k_scales, v_scales, tables, plens,
                k_chunk, v_chunk, out, ws, batch, seq, kv_heads, n_rep,
-               block_size, bps, splits};
+               block_size, bps, splits, window};
   return run(true, a, head_dim, dtype, stream);
 }

@@ -3,10 +3,10 @@
 // Replaces the Pallas TPU kernel
 //   kubeflow_tpu/compute/ops/paged_attention.py::_decode_kernel
 // (called through paged_decode_attention, same file), both its float
-// pages and its int8_pages branch (:75-81): kubeflow_paged_decode takes
-// pages in q's dtype, kubeflow_paged_decode_i8 (K1-i8) int8 pages with
-// one fp32 scale per (position, kv head). Wrapper, plain PyTorch version
-// and launch counters: ../paged_attention.py.
+// pages and its int8_pages branch (:75-81): kubeflow_paged_decode_window
+// takes pages in q's dtype, kubeflow_paged_decode_i8_window (K1-i8) int8
+// pages with one fp32 scale per (position, kv head). Wrapper, plain
+// PyTorch version and launch counters: ../paged_attention.py.
 //
 // What it computes: for every slot i and query head h,
 //   out[i, h] = softmax(q[i, h] . K[i, :len_i, h / n_rep]^T) V[i, :len_i, h / n_rep]
@@ -65,6 +65,14 @@
 //   overlaps the walk's tail. One split writes the output directly. Both dtypes and
 //   both page types take the split; in fp32 it changes only the order of
 //   the sums;
+// - a key window (window > 0, the sliding layers of a model that mixes
+//   windowed and global attention): the row at position length - 1
+//   reads positions [length - window, length) only. A split's span
+//   starts at the window's first tile (the tiles below it are neither
+//   looked up nor read), and the positions of that edge tile below the
+//   window are not read and score -1e30 with p = 0. The window is known
+//   only with the slot's length, so the first lookups then wait for the
+//   length's read; window 0 is the whole walk, unchanged;
 // - int8 pages (one kernel template, the page type a parameter): a
 //   16-byte copy carries 16 int8 codes, so a D-128 row is 8 copies where
 //   bf16 takes 16; each position's two fp32 scales come with 4-byte
@@ -155,7 +163,8 @@ paged_decode_kernel(const T* __restrict__ q,        // [S, H, D], pre-scaled
                     const int* __restrict__ lengths,// [S]
                     T* __restrict__ out,            // [S, H, D]
                     float* __restrict__ ws,         // splits' partials
-                    int kv_heads, int n_rep, int bs, int bps, int splits) {
+                    int kv_heads, int n_rep, int bs, int bps, int splits,
+                    int window) {
   using L = Smem<T, P, D>;
   using KT = typename L::KT;
   constexpr bool kInt8 = L::kInt8;
@@ -201,22 +210,30 @@ paged_decode_kernel(const T* __restrict__ q,        // [S, H, D], pre-scaled
   const int t1 = static_cast<int>(static_cast<long long>(split + 1) *
                                   n_tiles / splits);
   const int* table = tables + static_cast<size_t>(slot) * bps;
+  int ts = t0;   // the span's first tile read: t0, or the window's first
   // ring position tid → its pool row, for the tile `first + tid / kTile`
   // of the span. The table row is readable up to bps whatever the
-  // length, so the first lookups go out beside the length's read; only
-  // the copies wait for the length (an entry past it may name no page)
+  // length, so without a window the first lookups go out beside the
+  // length's read; only the copies wait for the length (an entry past
+  // it may name no page)
   auto lookup = [&](int first, int n_stage) {
     const int i = first + tid / kTile;
-    const int pos = (t0 + i) * kTile + tid % kTile;
-    if (tid < n_stage * kTile && t0 + i < t1 && pos < n_pos)
+    const int pos = (ts + i) * kTile + tid % kTile;
+    if (tid < n_stage * kTile && ts + i < t1 && pos < n_pos)
       row_s[(i % kStages) * kTile + tid % kTile] = static_cast<int>(
           (static_cast<unsigned>(table[pos / bs]) * bs + pos % bs) *
               kv_heads + kvh);   // unsigned: an entry past the length may
                                  // hold anything
   };
-  lookup(0, kStages);
+  if (window == 0) lookup(0, kStages);
   const int length = min(max(lengths[slot], 0), n_pos);
-  const int n_live = max(min(t1, (length + kTile - 1) / kTile) - t0, 0);
+  // the first position read: the window's, or 0
+  const int lo = window > 0 ? max(length - window, 0) : 0;
+  if (window > 0) {
+    ts = max(t0, lo / kTile);
+    lookup(0, kStages);
+  }
+  const int n_live = max(min(t1, (length + kTile - 1) / kTile) - ts, 0);
   const size_t n_rows = static_cast<size_t>(gridDim.z) * H;
   const size_t row0 = static_cast<size_t>(slot) * H +
                       static_cast<size_t>(kvh) * n_rep;   // the group's first
@@ -246,7 +263,7 @@ paged_decode_kernel(const T* __restrict__ q,        // [S, H, D], pre-scaled
   // zero-filled, so p.V may run over them with p = 0
   auto issue = [&](int i) {
     const int st = i % kStages;
-    const int base = (t0 + i) * kTile;
+    const int base = (ts + i) * kTile;
     P* kst = k_s + static_cast<size_t>(st) * kTile * kKStride;
     P* vst = v_s + static_cast<size_t>(st) * kTile * D;
 #pragma unroll
@@ -255,7 +272,7 @@ paged_decode_kernel(const T* __restrict__ q,        // [S, H, D], pre-scaled
       if (!kEven && u >= kUnits) continue;
       const int t = u / kRowUnits;
       const int c = (u % kRowUnits) * kVec;
-      const bool live = base + t < length;
+      const bool live = base + t < length && base + t >= lo;
       const size_t at =
           live ? static_cast<size_t>(row_s[st * kTile + t]) * D + c : 0;
       cp_async16(smem_u32(kst + t * kKStride + c), k_pages + at, live);
@@ -263,7 +280,7 @@ paged_decode_kernel(const T* __restrict__ q,        // [S, H, D], pre-scaled
     }
     if constexpr (kInt8) {
       if (tid < kTile) {
-        const bool live = base + tid < length;
+        const bool live = base + tid < length && base + tid >= lo;
         const size_t row =
             live ? static_cast<size_t>(row_s[st * kTile + tid]) : 0;
         float* sc = sc_s + st * 2 * kTile;
@@ -295,7 +312,8 @@ paged_decode_kernel(const T* __restrict__ q,        // [S, H, D], pre-scaled
 
   for (int i = 0; i < n_live; ++i) {
     const int st = i % kStages;
-    const int n_tok = min(kTile, length - (t0 + i) * kTile);
+    const int base = (ts + i) * kTile;
+    const int n_tok = min(kTile, length - base);
     const P* kst = k_s + static_cast<size_t>(st) * kTile * kKStride;
     const P* vst = v_s + static_cast<size_t>(st) * kTile * D;
     const float* sc = sc_s + st * 2 * kTile;
@@ -345,7 +363,7 @@ paged_decode_kernel(const T* __restrict__ q,        // [S, H, D], pre-scaled
           s3 += qv.w * kx[x + 3];
         }
       }
-      const bool valid = lane < n_tok;
+      const bool valid = lane < n_tok && base + lane >= lo;
       const float s = valid ? (s0 + s1) + (s2 + s3) : kNegInf;
       float mx = s;
 #pragma unroll
@@ -437,7 +455,7 @@ paged_decode_combine_kernel(const float* __restrict__ ws,
 struct Args {
   const void *q, *k, *v, *ks, *vs, *tables, *lengths;
   void *out, *ws;
-  int slots, kv_heads, n_rep, bs, bps, splits;
+  int slots, kv_heads, n_rep, bs, bps, splits, window;
 };
 
 template <typename T, typename P, int D>
@@ -460,7 +478,7 @@ int launch(const Args& a, cudaStream_t stream) {
           static_cast<const float*>(a.vs), static_cast<const int*>(a.tables),
           static_cast<const int*>(a.lengths), static_cast<T*>(a.out),
           static_cast<float*>(a.ws), a.kv_heads, a.n_rep, a.bs, a.bps,
-          a.splits);
+          a.splits, a.window);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || a.splits == 1) return static_cast<int>(err);
   // the combine, launched as a programmatic dependent of the walk: its
@@ -500,7 +518,7 @@ int dispatch_dim(int head_dim, const Args& a, cudaStream_t stream) {
 int run(bool int8, const Args& a, int head_dim, int dtype, void* stream) {
   if (a.n_rep < 1 || a.n_rep > kMaxRep || a.kv_heads < 1 || a.bs < 1 ||
       a.bps < 1 || a.slots < 0 || a.slots > 65535 || a.kv_heads > 65535 ||
-      a.splits < 1 || (a.splits > 1 && a.ws == nullptr))
+      a.splits < 1 || (a.splits > 1 && a.ws == nullptr) || a.window < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   if (a.slots == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -519,27 +537,27 @@ int run(bool int8, const Args& a, int head_dim, int dtype, void* stream) {
 // must be 16-byte aligned. splits: the key walk's splits; ws: the
 // workspace of their partials, fp32 [splits x rows x (head_dim + 2)]
 // with rows = slots x kv_heads x n_rep (null for one split); nothing in
-// it needs to be zeroed. Returns a cudaError_t (0 = launched).
-extern "C" int kubeflow_paged_decode(const void* q, const void* k_pages,
-                                     const void* v_pages, const void* tables,
-                                     const void* lengths, void* out, void* ws,
-                                     int slots, int kv_heads, int n_rep,
-                                     int head_dim, int block_size, int bps,
-                                     int splits, int dtype, void* stream) {
+// it needs to be zeroed. window: the key window (0 = none). Returns a
+// cudaError_t (0 = launched).
+extern "C" int kubeflow_paged_decode_window(
+    const void* q, const void* k_pages, const void* v_pages,
+    const void* tables, const void* lengths, void* out, void* ws, int slots,
+    int kv_heads, int n_rep, int head_dim, int block_size, int bps,
+    int splits, int window, int dtype, void* stream) {
   const Args a{q, k_pages, v_pages, nullptr, nullptr, tables, lengths, out,
-               ws, slots, kv_heads, n_rep, block_size, bps, splits};
+               ws, slots, kv_heads, n_rep, block_size, bps, splits, window};
   return run(false, a, head_dim, dtype, stream);
 }
 
 // K1-i8: int8 k/v pages [N, bs, kv_heads, D] with fp32 scales
-// [N, bs, kv_heads, 1]; otherwise as kubeflow_paged_decode.
-extern "C" int kubeflow_paged_decode_i8(
+// [N, bs, kv_heads, 1]; otherwise as kubeflow_paged_decode_window.
+extern "C" int kubeflow_paged_decode_i8_window(
     const void* q, const void* k_pages, const void* v_pages,
     const void* k_scales, const void* v_scales, const void* tables,
     const void* lengths, void* out, void* ws, int slots, int kv_heads,
-    int n_rep, int head_dim, int block_size, int bps, int splits, int dtype,
-    void* stream) {
+    int n_rep, int head_dim, int block_size, int bps, int splits, int window,
+    int dtype, void* stream) {
   const Args a{q, k_pages, v_pages, k_scales, v_scales, tables, lengths, out,
-               ws, slots, kv_heads, n_rep, block_size, bps, splits};
+               ws, slots, kv_heads, n_rep, block_size, bps, splits, window};
   return run(true, a, head_dim, dtype, stream);
 }

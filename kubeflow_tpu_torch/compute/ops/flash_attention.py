@@ -17,6 +17,11 @@ tensor it launches or raises, never falls back. Each kernel counts its
 launches on its wrapper: ``flash_attention.launches`` (K3),
 ``flash_attention_bwd_dq.launches`` (K4) and
 ``flash_attention_bwd_dkv.launches`` (K5).
+
+The forward takes a key ``window`` (causal only; 0, the default, for
+none): query row ``q`` then reads keys ``[q - window + 1, q]``, and K3's
+walk starts at the window's first tile. The backward kernels take no
+window, so the backward of a windowed forward raises.
 """
 
 import ctypes
@@ -41,13 +46,16 @@ def _prescale(q, scale):
     return (q.float() * _resolve_scale(q, scale)).to(q.dtype)
 
 
-def _causal_mask(q, k):
+def _causal_mask(q, k, window=0):
     q_pos = torch.arange(q.shape[1], device=q.device)
     k_pos = torch.arange(k.shape[1], device=q.device)
-    return q_pos[:, None] >= k_pos[None, :]
+    mask = q_pos[:, None] >= k_pos[None, :]
+    if window:
+        mask = mask & (k_pos[None, :] > q_pos[:, None] - window)
+    return mask
 
 
-def flash_attention_reference(q, k, v, causal=True, scale=None):
+def flash_attention_reference(q, k, v, causal=True, scale=None, window=0):
     """Plain version of K3, on any device. q ``[B, S, H, D]``; k, v
     ``[B, Sk, kv_heads, D]`` with ``kv_heads`` dividing ``H`` →
     ``(out [B, S, H, D] in q's dtype, lse [B, H, S] fp32)``.
@@ -55,7 +63,8 @@ def flash_attention_reference(q, k, v, causal=True, scale=None):
     Numerics of the TPU kernel in one pass: fp32 scores from
     input-dtype operands, fp32 softmax statistics, ``p`` rounded to the
     input dtype for the value product while ``l`` sums the unrounded
-    ``p``."""
+    ``p``. ``window`` (causal only): each row reads its last ``window``
+    keys."""
     dt = q.dtype
     n_rep = q.shape[2] // k.shape[2]
     qs = _prescale(q, scale)
@@ -63,7 +72,7 @@ def flash_attention_reference(q, k, v, causal=True, scale=None):
     v = repeat_kv(v, n_rep)
     s = torch.einsum("bqhd,bkhd->bhqk", qs.float(), k.float())
     if causal:
-        s = torch.where(_causal_mask(q, k), s, NEG_INF)
+        s = torch.where(_causal_mask(q, k, window), s, NEG_INF)
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m)
     l = p.sum(dim=-1, keepdim=True)
@@ -130,8 +139,8 @@ def _library(name):
         return lib
     lib = _build.load(name)
     if name == "flash_fwd":
-        fn = lib.kubeflow_flash_fwd
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [
+        fn = lib.kubeflow_flash_fwd_window
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9 + [
             ctypes.c_void_p]
         fn.restype = ctypes.c_int
     else:
@@ -188,9 +197,12 @@ def _check_stats(q, *stats):
                              f"{tuple(t.shape)} {t.dtype} on {t.device}")
 
 
-def _forward(q, k, v, causal, scale):
+def _forward(q, k, v, causal, scale, window=0):
+    if window < 0 or (window and not causal):
+        raise ValueError(f"window={window}: a key window needs causal "
+                         f"attention and must be >= 0")
     if q.device.type == "cpu":
-        return flash_attention_reference(q, k, v, causal, scale)
+        return flash_attention_reference(q, k, v, causal, scale, window)
     _check(q, k, v, causal)
     B, S, H, D = q.shape
     Sk, kv_heads = k.shape[1], k.shape[2]
@@ -202,10 +214,10 @@ def _forward(q, k, v, causal, scale):
     lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
     # the launch goes to the runtime's current device: make it q's
     with torch.cuda.device(q.device):
-        err = _library("flash_fwd").kubeflow_flash_fwd(
+        err = _library("flash_fwd").kubeflow_flash_fwd_window(
             qs.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             lse.data_ptr(), B, S, Sk, H, kv_heads, D, int(bool(causal)),
-            _DTYPE_CODES[q.dtype],
+            int(window), _DTYPE_CODES[q.dtype],
             torch.cuda.current_stream(q.device).cuda_stream)
     if err:
         raise RuntimeError(f"flash_fwd kernel launch failed: CUDA error "
@@ -288,28 +300,33 @@ class _FlashAttention(torch.autograd.Function):
     ``flash_attention.py:274-361``. Saves q (raw), k, v, out and lse."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, scale):
-        out, lse = _forward(q, k, v, causal, scale)
+    def forward(ctx, q, k, v, causal, scale, window):
+        out, lse = _forward(q, k, v, causal, scale, window)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.causal = causal
         ctx.scale = scale
+        ctx.window = window
         ctx.mark_non_differentiable(lse)
         return out, lse
 
     @staticmethod
     def backward(ctx, dout, _dlse):
+        if ctx.window:
+            raise NotImplementedError(
+                "the flash backward (K4, K5) takes no key window")
         q, k, v, out, lse = ctx.saved_tensors
         dq, dk, dv = flash_attention_bwd(q, k, v, out, lse,
                                          dout.contiguous(), ctx.causal,
                                          ctx.scale)
-        return dq, dk, dv, None, None
+        return dq, dk, dv, None, None, None
 
 
-def flash_attention(q, k, v, causal=True, scale=None):
+def flash_attention(q, k, v, causal=True, scale=None, window=0):
     """Tiled attention → ``(out, lse)``; shapes as
     :func:`flash_attention_reference`. Causal needs ``Sq == Sk``.
-    Differentiable in q, k and v where autograd records (K4/K5)."""
-    return _FlashAttention.apply(q, k, v, causal, scale)
+    Differentiable in q, k and v where autograd records (K4/K5), with no
+    ``window``."""
+    return _FlashAttention.apply(q, k, v, causal, scale, int(window))
 
 
 flash_attention.launches = 0

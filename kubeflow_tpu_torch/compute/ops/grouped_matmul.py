@@ -77,8 +77,10 @@ def padded_group_layout(key, n_groups, block_m):
         0, n_groups - 1).to(torch.int32)
     first = torch.zeros((n_tiles,), dtype=torch.int32, device=dev)
     last = torch.zeros((n_tiles,), dtype=torch.int32, device=dev)
-    first[starts // block_m] = 1
-    last[(ends - 1) // block_m] = 1
+    # index_fill_: a scalar fill, no host tensor (the decode step is
+    # captured as a CUDA graph)
+    first.index_fill_(0, starts // block_m, 1)
+    last.index_fill_(0, (ends - 1) // block_m, 1)
     return pos, block_expert, first, last, int(m_pad)
 
 

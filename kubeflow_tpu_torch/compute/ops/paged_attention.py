@@ -29,6 +29,11 @@ own K/V stay in q's dtype. Launches are counted per entry point:
 ``paged_decode_attention.launches`` / ``.launches_i8`` and
 ``paged_chunk_attention.launches`` / ``.launches_i8``.
 
+Both take a key ``window`` (0, the default, for none): a query at
+position ``p`` then reads keys ``[p - window + 1, p]`` only, and each
+kernel's key walk starts at the window's first block or tile (the
+sliding layers of a model that mixes windowed and global attention).
+
 Each wrapper launches its kernel for CUDA tensors and takes its plain
 version only for CPU tensors; on a CUDA tensor it launches or raises,
 never falls back.
@@ -62,7 +67,7 @@ def _dequant_kernel(pages, dtype):
 
 
 def paged_decode_reference(q, pages, tables, lengths, *, block_size,
-                           n_rep=1, scale=None):
+                           n_rep=1, scale=None, window=0):
     """Plain version of the kernel, on any device: q ``[S, 1, H, D]``,
     ``pages`` one layer's ``(k, v)`` pool slice ``[N, bs, kv, D]`` or its
     int8 quadruple, ``tables`` ``[S, bps]``, ``lengths`` ``[S]`` →
@@ -70,19 +75,22 @@ def paged_decode_reference(q, pages, tables, lengths, *, block_size,
     fp32 and rounded once, int8 pages widened as :func:`_dequant_kernel`
     does, then the masked fp32 online softmax over the table's blocks
     (``attention.paged_decode_attention``'s fold, whose per-page math is
-    the TPU kernel's)."""
+    the TPU kernel's), over the last ``window`` positions where one is
+    given."""
     return attn_lib.paged_decode_attention(
         _prescale(q, scale), pages, tables, lengths,
         block_size=block_size, n_rep=n_rep, scale=1.0,
-        dequant=_dequant_kernel)
+        dequant=_dequant_kernel, window=window)
 
 
 # per entry point: (source, C symbol, pointer args, int args)
 _SIGNATURES = {
-    "paged_decode": ("paged_decode", "kubeflow_paged_decode", 7, 8),
-    "paged_decode_i8": ("paged_decode", "kubeflow_paged_decode_i8", 9, 8),
-    "paged_chunk": ("paged_chunk", "kubeflow_paged_chunk", 9, 9),
-    "paged_chunk_i8": ("paged_chunk", "kubeflow_paged_chunk_i8", 11, 9)}
+    "paged_decode": ("paged_decode", "kubeflow_paged_decode_window", 7, 9),
+    "paged_decode_i8": ("paged_decode", "kubeflow_paged_decode_i8_window",
+                        9, 9),
+    "paged_chunk": ("paged_chunk", "kubeflow_paged_chunk_window", 9, 10),
+    "paged_chunk_i8": ("paged_chunk", "kubeflow_paged_chunk_i8_window", 11,
+                       10)}
 #: K2's query-row tile and key tile (``csrc/paged_chunk.cu``)
 CHUNK_ROW_TILE = 64
 CHUNK_KEY_TILE = 64
@@ -154,8 +162,14 @@ def _check_pool(q, pages, block_size, n_rep):
     return tuple(pages), kv_heads
 
 
+def _check_window(window):
+    if int(window) < 0:
+        raise ValueError(f"window must be >= 0, got {window}")
+    return int(window)
+
+
 def paged_decode_attention(q, pages, tables, lengths, *, block_size,
-                           n_rep=1, scale=None, split_heads=None):
+                           n_rep=1, scale=None, split_heads=None, window=0):
     """Decode read over the paged pool; shapes as
     :func:`paged_decode_reference`. Launches on the caller's current
     CUDA stream and does not synchronise. The table entries a slot's
@@ -166,11 +180,13 @@ def paged_decode_attention(q, pages, tables, lengths, *, block_size,
     (:func:`decode_splits`) is evaluated at, default the pool's own: a
     head-partitioned shard of the engine passes the model's whole count,
     so each head's walk splits — and its partials merge — as in the
-    unsharded engine, and its output is that engine's bit for bit."""
+    unsharded engine, and its output is that engine's bit for bit.
+    ``window``: the key window (0 = none)."""
+    window = _check_window(window)
     if q.device.type == "cpu":
         return paged_decode_reference(q, pages, tables, lengths,
                                       block_size=block_size, n_rep=n_rep,
-                                      scale=scale)
+                                      scale=scale, window=window)
     pages, kv_heads = _check_pool(q, pages, block_size, n_rep)
     S, one, H, D = q.shape
     if one != 1:
@@ -201,7 +217,7 @@ def paged_decode_attention(q, pages, tables, lengths, *, block_size,
     with torch.cuda.device(q.device):
         err = _entry(name)(
             *ptrs, None if ws is None else ws.data_ptr(), S, kv_heads,
-            n_rep, D, bs, bps, splits, _DTYPE_CODES[q.dtype],
+            n_rep, D, bs, bps, splits, window, _DTYPE_CODES[q.dtype],
             torch.cuda.current_stream(q.device).cuda_stream)
     if err:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
@@ -250,7 +266,7 @@ def _sm_count(index):
 
 
 def paged_chunk_reference(q, pages, tables, prefix_len, k_chunk, v_chunk,
-                          *, block_size, n_rep=1, scale=None):
+                          *, block_size, n_rep=1, scale=None, window=0):
     """Plain version of K2, on any device: q ``[B, S, H, D]``, ``pages``
     one layer's ``(k, v)`` pool slice ``[N, bs, kv, D]`` or its int8
     quadruple, ``tables`` ``[B, bps]``, ``prefix_len`` an int or
@@ -259,16 +275,17 @@ def paged_chunk_reference(q, pages, tables, prefix_len, k_chunk, v_chunk,
     fp32 and rounded once (``paged_attention.py:284``), int8 prefix
     pages widened as :func:`_dequant_kernel` does, then
     ``attention.paged_chunk_attention`` (masked fp32 online softmax, p
-    kept in fp32 for p·V, the ``l == 0 → 1`` guard)."""
+    kept in fp32 for p·V, the ``l == 0 → 1`` guard), over each row's
+    last ``window`` positions where one is given."""
     return attn_lib.paged_chunk_attention(
         _prescale(q, scale), pages, tables, prefix_len, k_chunk, v_chunk,
         block_size=block_size, n_rep=n_rep, scale=1.0,
-        dequant=_dequant_kernel)
+        dequant=_dequant_kernel, window=window)
 
 
 def paged_chunk_attention(q, pages, tables, prefix_len, k_chunk, v_chunk,
                           *, block_size, n_rep=1, scale=None,
-                          split_heads=None):
+                          split_heads=None, window=0):
     """Chunk-after-prefix read over the paged pool; shapes as
     :func:`paged_chunk_reference`. A scalar ``prefix_len`` is broadcast
     to ``[B]`` (``paged_attention.py:288``). Launches on the caller's
@@ -276,11 +293,13 @@ def paged_chunk_attention(q, pages, tables, prefix_len, k_chunk, v_chunk,
     read, the first ``ceil(prefix_len[b] / block_size)`` table entries
     of every row must be block ids below ``N``. ``split_heads``: as for
     :func:`paged_decode_attention`, the KV-head count
-    :func:`chunk_splits` is evaluated at."""
+    :func:`chunk_splits` is evaluated at. ``window``: the key window (0
+    = none)."""
+    window = _check_window(window)
     if q.device.type == "cpu":
         return paged_chunk_reference(q, pages, tables, prefix_len, k_chunk,
                                      v_chunk, block_size=block_size,
-                                     n_rep=n_rep, scale=scale)
+                                     n_rep=n_rep, scale=scale, window=window)
     pages, kv_heads = _check_pool(q, pages, block_size, n_rep)
     B, S, H, D = q.shape
     if k_chunk.shape != (B, S, kv_heads, D) \
@@ -322,7 +341,7 @@ def paged_chunk_attention(q, pages, tables, prefix_len, k_chunk, v_chunk,
     with torch.cuda.device(q.device):
         err = _entry(name)(
             *ptrs, None if ws is None else ws.data_ptr(), B, S, kv_heads,
-            n_rep, D, bs, bps, splits, _DTYPE_CODES[q.dtype],
+            n_rep, D, bs, bps, splits, window, _DTYPE_CODES[q.dtype],
             torch.cuda.current_stream(q.device).cuda_stream)
     if err:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")

@@ -2,7 +2,9 @@
 ``chip_smoke.py`` and not the port's scripts under ``hack/`` (the
 kernel A/B timings, the serving profile, the mesh-axes, the
 expert/gang, the 1F1B and its CPU rehearsal, the unary predict, the
-two-transport phases and the engine-iteration trace) imports JAX, its
+two-transport phases, the engine-iteration trace, the served-cell
+probe and the A/B tools' entry helper) nor the benchmark's AFMoE and
+prefix-hit files imports JAX, its
 ecosystem (``ml_dtypes`` included: the KV-bundle codec reads bf16
 without it) or the JAX package, and none imports ``triton`` at module level (the CPU test host
 has none; a kernel module imports it inside the function that
@@ -25,7 +27,21 @@ FILES = sorted((ROOT / "kubeflow_tpu_torch").rglob("*.py")) + [
     ROOT / "hack" / "pipeline_gang_cpu.py",
     ROOT / "hack" / "predict_smoke.py",
     ROOT / "hack" / "transport_smoke.py",
-    ROOT / "hack" / "engine_iteration_trace.py"]
+    ROOT / "hack" / "engine_iteration_trace.py",
+    ROOT / "hack" / "serve_cell_probe.py",
+    ROOT / "hack" / "ab_entry.py"] + [
+    # the benchmark's AFMoE and prefix-hit pieces: the reference, the
+    # runner, the weights, the arithmetic and the readers
+    ROOT / "portbench" / rel for rel in (
+        "reference/afmoe.py", "runners/serve_afmoe.py",
+        "inputs/afmoe_weights.py", "roofline/afmoe.py",
+        "roofline/prefill_work.py",
+        "metrics/mfu_pct.afmoe.serve.py", "metrics/gmm_roofline.serve.py",
+        "metrics/paged_decode_window_roofline.py",
+        "metrics/flash_fwd_window_roofline.py",
+        "metrics/moe_pad_pct.serve.py",
+        "metrics/paged_chunk_roofline.serve.py",
+        "metrics/mfu_pct.computed.serve.py")]
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "ml_dtypes", "kubeflow_tpu")
 
 

@@ -169,12 +169,14 @@ def test_config_refuses_unported_features(kw, match):
 
 @pytest.mark.parametrize("role", ["target", "draft"])
 def test_engine_refuses_moe_configs(role):
-    """MoE is trained and applied, not served: the engine refuses an MoE
-    target or draft, as JAX's does (``generate.py:653-656``,
-    ``:705-708``)."""
+    """The engine refuses an MoE target whose dispatch has a capacity
+    (dropped tokens are another model) and an MoE draft, as JAX's does
+    (``generate.py:653-656``, ``:705-708``); a dropless MoE target is
+    served (``tests/test_torch_afmoe.py``)."""
     from kubeflow_tpu_torch.compute.generate import GenerationEngine
     dense = _tcfg(_jcfg())
-    moe = _tcfg(_jcfg(), moe_experts=4, moe_top_k=2, moe_dropless=True)
+    moe = _tcfg(_jcfg(), moe_experts=4, moe_top_k=2,
+                moe_dropless=role == "draft")
     params = tt.init_params(dense, torch.Generator().manual_seed(0),
                             device="cpu")
     if role == "target":
